@@ -1,0 +1,124 @@
+"""Engine interface types (PyTorch port's copy of
+``adversarial_spec_tpu/engine/types.py``).
+
+The engine interface is *batched by design*: one ``chat`` call takes N
+requests and may execute them as N rows of a single sharded decode. This is
+the TPU-native replacement for the reference's thread-per-model fan-out
+(scripts/models.py:681-722) — concurrency moves from Python threads into the
+batch dimension of one XLA program (SURVEY §2.3).
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import Callable, Protocol, runtime_checkable
+
+from adversarial_spec_tpu_torch.debate.usage import Usage
+
+# Streaming consumer at the engine seam (docs/streaming.md): called
+# with (request index within the chat batch, the full response text
+# decoded SO FAR — each call a superset of the last, so a marker split
+# across token boundaries is always eventually visible in one string).
+# Return False to cancel that request mid-decode; the engine resolves
+# it with the partial text (byte-identical to the blocking path up to
+# the cancellation point) and ``Completion.cancelled`` set. Engines
+# whose ``chat`` lacks the ``consumer`` parameter simply serve the
+# blocking path (debate/core.py inspects before passing one).
+StreamConsumer = Callable[[int, str], bool]
+
+
+@dataclass(frozen=True)
+class SamplingParams:
+    """Decode-time sampling configuration (one set per chat call)."""
+
+    max_new_tokens: int = 1024
+    temperature: float = 0.7
+    top_p: float = 1.0
+    top_k: int = 0
+    greedy: bool = False
+    seed: int | None = None
+    # Best-effort wall-clock budget for one chat call; engines stop decoding
+    # (returning what they have) when exceeded. 0 = unlimited.
+    timeout_s: float = 0.0
+    # Per-REQUEST watchdog deadline in seconds, measured from submission
+    # to the serving engine (0 = disabled). Where ``timeout_s`` bounds
+    # the whole call and expires EVERY resident row at once, this bounds
+    # one hung/slow request: the ContinuousBatcher evicts an
+    # over-deadline slot as ``FaultKind.TIMEOUT`` through the shared
+    # release surgery — partial text delivered to its stream consumer,
+    # co-residents unaffected — and the debate layer answers with a
+    # single breaker-aware hedged re-admission on a tightened budget
+    # (docs/resilience.md "Durability and recovery").
+    request_deadline_s: float = 0.0
+
+
+@dataclass(frozen=True)
+class ChatRequest:
+    """One opponent's prompt: model id + system/user messages."""
+
+    model: str
+    system: str
+    user: str
+    # Opaque metadata echoed back on the completion (e.g. persona label).
+    tag: str = ""
+    # Causal-trace ids (obs/trace.py): the debate round that issued this
+    # request and this request's own span. Minted by the debate layer,
+    # carried by value down the serving stack so every flight-recorder
+    # event an engine emits resolves back to one round + opponent.
+    trace_id: str = ""
+    span_id: str = ""
+    # Fleet placement key (fleet/hashring.py): one stable id per
+    # DEBATE (not per round — the point is that every round of the
+    # same debate consistent-hashes onto the replica already holding
+    # its prefix KV). Stamped by the debate layer; "" falls back to
+    # hashing the model id (no cross-round affinity, still sticky
+    # within a batch).
+    affinity_key: str = ""
+
+
+@dataclass
+class Completion:
+    """One model's completion; ``error`` set instead of raising so a batch
+    can partially fail (parity: reference captures errors into
+    ModelResponse.error, scripts/models.py:553-555, 676-678)."""
+
+    text: str = ""
+    error: str | None = None
+    # Transient errors are retried by the caller; permanent ones are not.
+    transient: bool = False
+    # Set when a streaming consumer cancelled this request mid-decode
+    # (early convergence): ``text`` holds the partial transcript up to
+    # the cancellation point — a CLEAN result, not an error (the
+    # consumer read everything it needed).
+    cancelled: bool = False
+    usage: Usage = field(default_factory=Usage)
+
+    @property
+    def ok(self) -> bool:
+        return self.error is None
+
+
+@runtime_checkable
+class Engine(Protocol):
+    """Minimal engine surface the debate core depends on."""
+
+    def chat(
+        self,
+        requests: list[ChatRequest],
+        params: SamplingParams,
+        consumer: StreamConsumer | None = None,
+    ) -> list[Completion]:
+        """Complete every request; must return len(requests) completions.
+
+        ``consumer`` (optional capability — callers probe for the
+        parameter via ``streaming.consumer_supported`` before passing
+        one) streams each request's decoded-text-so-far to the host and
+        lets it cancel mid-decode; with ``None`` the call is the
+        original blocking path, byte-identical to pre-streaming."""
+        ...
+
+    def validate(self, model: str) -> str | None:
+        """Return None if ``model`` is servable, else an actionable error
+        message (parity: credential preflight, reference
+        scripts/providers.py:418-486)."""
+        ...

@@ -1,0 +1,246 @@
+"""Model-family configuration.
+
+One generic decoder-only transformer (models/transformer.py) covers every
+opponent family the debate targets — Llama-3, Mistral, Gemma-2, Qwen-2 —
+via config flags, instead of one module per family. The families differ
+only in: GQA ratio, activation, RoPE theta, norm placement (Gemma-2's
+sandwich norms), attention/final logit softcapping (Gemma-2), sliding-window
+attention (Mistral, alternating layers in Gemma-2), QKV bias (Qwen-2),
+embedding scaling and tied embeddings (Gemma-2).
+
+Replaces (reference): the per-provider model zoo behind litellm
+(scripts/providers.py:18-43) — here a model is a shape, not an API endpoint.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, replace
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """Architecture hyperparameters for one decoder-only transformer."""
+
+    vocab_size: int = 32000
+    dim: int = 512
+    n_layers: int = 4
+    n_heads: int = 8
+    n_kv_heads: int = 8
+    head_dim: int = 64
+    ffn_dim: int = 1376
+    rope_theta: float = 500000.0
+    rms_eps: float = 1e-5
+    activation: str = "silu"  # silu | gelu
+    tied_embeddings: bool = False
+    # Gemma-2 extras.
+    scale_embeddings: bool = False  # multiply embeddings by sqrt(dim)
+    post_norms: bool = False  # post-attention/post-ffn sandwich norms
+    logit_softcap: float = 0.0  # final-logit soft capping (30.0 in gemma-2)
+    attn_softcap: float = 0.0  # attention-logit soft capping (50.0)
+    # Sliding-window attention: 0 = global everywhere. When
+    # ``sliding_window_pattern`` is 2 (gemma-2), odd layers are global and
+    # even layers use the window; pattern 1 (mistral) windows every layer.
+    sliding_window: int = 0
+    sliding_window_pattern: int = 1
+    qkv_bias: bool = False  # qwen-2
+    # Llama-3.1/3.2 rope scaling (HF rope_type="llama3"): 0 = unscaled.
+    rope_scaling_factor: float = 0.0
+    rope_low_freq_factor: float = 1.0
+    rope_high_freq_factor: float = 4.0
+    rope_original_max: int = 8192
+    max_seq_len: int = 8192
+    norm_scale_plus_one: bool = False  # gemma RMSNorm uses (1 + weight)
+    # Gemma-2 "query_pre_attn_scalar": attention scale is 1/sqrt(this)
+    # instead of 1/sqrt(head_dim). 0 = use head_dim (all other families;
+    # gemma-2-9b's value equals its head_dim, 27b's does NOT: 4608/32=144).
+    query_pre_attn_scalar: float = 0.0
+
+    @property
+    def q_per_kv(self) -> int:
+        return self.n_heads // self.n_kv_heads
+
+    @property
+    def rope_scaling(self) -> tuple[float, float, float, float] | None:
+        """(factor, low, high, original_max) for ops/rope.py, or None."""
+        if not self.rope_scaling_factor:
+            return None
+        return (
+            self.rope_scaling_factor,
+            self.rope_low_freq_factor,
+            self.rope_high_freq_factor,
+            float(self.rope_original_max),
+        )
+
+    @property
+    def attn_scale(self) -> float:
+        import math
+
+        return 1.0 / math.sqrt(self.query_pre_attn_scalar or self.head_dim)
+
+
+def _llama(dim, n_layers, n_heads, n_kv_heads, ffn_dim, vocab=128256, **kw):
+    return ModelConfig(
+        vocab_size=vocab,
+        dim=dim,
+        n_layers=n_layers,
+        n_heads=n_heads,
+        n_kv_heads=n_kv_heads,
+        head_dim=dim // n_heads,
+        ffn_dim=ffn_dim,
+        rope_theta=500000.0,
+        **kw,
+    )
+
+
+# Named (family, size) → config. "tiny" sizes are for tests/CI: real family
+# semantics, toy widths (lane-aligned: dim multiple of 128 where possible).
+CONFIGS: dict[tuple[str, str], ModelConfig] = {
+    # Llama-3 family (HF meta-llama/Meta-Llama-3-8B etc.). 1b/3b are
+    # Llama-3.2 (tied embeddings, rope scaling factor 32, 128k context);
+    # 8b/70b are base Llama-3 (unscaled rope, 8k).
+    ("llama", "tiny"): _llama(256, 2, 4, 2, 512, vocab=512),
+    ("llama", "1b"): _llama(
+        2048, 16, 32, 8, 8192,
+        tied_embeddings=True, rope_scaling_factor=32.0,
+        max_seq_len=131072,
+    ),
+    ("llama", "3b"): _llama(
+        3072, 28, 24, 8, 8192,
+        tied_embeddings=True, rope_scaling_factor=32.0,
+        max_seq_len=131072,
+    ),
+    ("llama", "8b"): _llama(4096, 32, 32, 8, 14336),
+    ("llama", "70b"): _llama(8192, 80, 64, 8, 28672),
+    # Mistral-7B. The named "7b" is v0.3 (rope theta 1e6, NO sliding
+    # window) — v0.1's theta-1e4 + window-4096 combination is a different
+    # checkpoint generation and must not be mixed with v0.3 fields (no
+    # real checkpoint has both). "tiny" keeps a window so the windowed
+    # code path stays covered by the mistral family tests.
+    ("mistral", "tiny"): ModelConfig(
+        vocab_size=512,
+        dim=256,
+        n_layers=2,
+        n_heads=4,
+        n_kv_heads=2,
+        head_dim=64,
+        ffn_dim=512,
+        rope_theta=10000.0,
+        sliding_window=128,
+    ),
+    ("mistral", "7b"): ModelConfig(
+        vocab_size=32768,  # v0.3 extended vocabulary (v0.2 was 32000)
+        dim=4096,
+        n_layers=32,
+        n_heads=32,
+        n_kv_heads=8,
+        head_dim=128,
+        ffn_dim=14336,
+        rope_theta=1000000.0,
+        max_seq_len=32768,
+    ),
+    # Gemma-2: sandwich norms, softcaps, tied+scaled embeddings, gelu,
+    # alternating sliding window.
+    ("gemma2", "tiny"): ModelConfig(
+        vocab_size=512,
+        dim=256,
+        n_layers=2,
+        n_heads=4,
+        n_kv_heads=2,
+        head_dim=64,
+        ffn_dim=512,
+        rope_theta=10000.0,
+        activation="gelu",
+        tied_embeddings=True,
+        scale_embeddings=True,
+        post_norms=True,
+        logit_softcap=30.0,
+        attn_softcap=50.0,
+        sliding_window=128,
+        sliding_window_pattern=2,
+        norm_scale_plus_one=True,
+    ),
+    ("gemma2", "9b"): ModelConfig(
+        vocab_size=256000,
+        dim=3584,
+        n_layers=42,
+        n_heads=16,
+        n_kv_heads=8,
+        head_dim=256,
+        ffn_dim=14336,
+        rope_theta=10000.0,
+        activation="gelu",
+        tied_embeddings=True,
+        scale_embeddings=True,
+        post_norms=True,
+        logit_softcap=30.0,
+        attn_softcap=50.0,
+        sliding_window=4096,
+        sliding_window_pattern=2,
+        norm_scale_plus_one=True,
+    ),
+    # Qwen-2: QKV bias, tied embeddings on small sizes.
+    ("qwen2", "tiny"): ModelConfig(
+        vocab_size=512,
+        dim=256,
+        n_layers=2,
+        n_heads=4,
+        n_kv_heads=2,
+        head_dim=64,
+        ffn_dim=512,
+        rope_theta=1000000.0,
+        qkv_bias=True,
+    ),
+    ("qwen2", "7b"): ModelConfig(
+        vocab_size=152064,
+        dim=3584,
+        n_layers=28,
+        n_heads=28,
+        n_kv_heads=4,
+        head_dim=128,
+        ffn_dim=18944,
+        rope_theta=1000000.0,
+        qkv_bias=True,
+    ),
+    ("qwen2", "72b"): ModelConfig(
+        vocab_size=152064,
+        dim=8192,
+        n_layers=80,
+        n_heads=64,
+        n_kv_heads=8,
+        head_dim=128,
+        ffn_dim=29568,
+        rope_theta=1000000.0,
+        qkv_bias=True,
+    ),
+    ("gemma2", "27b"): ModelConfig(
+        vocab_size=256000,
+        dim=4608,
+        n_layers=46,
+        n_heads=32,
+        n_kv_heads=16,
+        head_dim=128,
+        ffn_dim=36864,
+        rope_theta=10000.0,
+        activation="gelu",
+        tied_embeddings=True,
+        scale_embeddings=True,
+        post_norms=True,
+        logit_softcap=30.0,
+        attn_softcap=50.0,
+        sliding_window=4096,
+        sliding_window_pattern=2,
+        norm_scale_plus_one=True,
+        query_pre_attn_scalar=144.0,  # dim / n_heads, NOT head_dim
+    ),
+}
+
+
+def get_config(family: str, size: str, max_seq_len: int = 0) -> ModelConfig:
+    key = (family, size)
+    if key not in CONFIGS:
+        known = ", ".join(f"{f}/{s}" for f, s in sorted(CONFIGS))
+        raise KeyError(f"no config for {family}/{size}; known: {known}")
+    cfg = CONFIGS[key]
+    if max_seq_len:
+        cfg = replace(cfg, max_seq_len=max_seq_len)
+    return cfg

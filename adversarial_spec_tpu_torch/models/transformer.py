@@ -1,0 +1,382 @@
+"""Generic decoder-only transformer in PyTorch — plain functions on tensors.
+
+Counterpart of ``adversarial_spec_tpu/models/transformer.py``. Parameters
+keep the reference's names and matmul-friendly ``[in, out]`` layout, but
+the layer-stacked pytree walked by ``lax.scan`` becomes a list of per-layer
+dicts walked by a Python loop:
+
+    {"embed": [V, D], "layers": [{"attn_norm", "wq", ...}, ...],
+     "final_norm": [D], "lm_head": [D, V] | "lm_head_t": [D, V] (tied)}
+
+The KV cache keeps the reference's heads-major ``[L, B, Hkv, T, D]``
+layout (one tensor each for K and V): a layer's slice ``cache["k"][l]`` is
+a view the decode-attention kernels read through its strides, with no
+copy. Unlike the reference, ``forward`` updates the cache IN PLACE (the
+reference returns a new functional cache; the port saves the copy).
+
+Attention routes like the reference's kernel path: S=1 steps through
+``decode_attention`` (B1), short spans (1 < S <= 16, the speculative
+verify) through ``decode_attention_mq`` (B2) — each a CUDA kernel on the
+GPU, its plain version on the CPU — and prefill chunks through the plain
+masked ``attention`` (plain XLA in the reference too).
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Any
+
+import torch
+import torch.nn.functional as F
+
+from adversarial_spec_tpu_torch.models.config import ModelConfig
+from adversarial_spec_tpu_torch.ops.decode_attention import (
+    decode_attention,
+    decode_attention_mq,
+)
+from adversarial_spec_tpu_torch.ops.rope import apply_rope, rope_angles
+
+Params = dict[str, Any]
+Cache = dict[str, torch.Tensor]
+
+# Longest query span routed through the multi-query kernel (reference:
+# models/transformer.py pallas_mq gate).
+MQ_MAX_SPAN = 16
+
+
+def init_params(
+    cfg: ModelConfig,
+    *,
+    device: torch.device,
+    dtype: torch.dtype = torch.bfloat16,
+    seed: int = 0,
+    transposed_head: bool = True,
+) -> Params:
+    """Random init with truncated-normal fan-in scaling, made directly on
+    ``device`` from a seeded generator (synthetic checkpoints and tests).
+
+    The draw is not the reference's (torch and jax generators differ);
+    tests that compare the two packages bridge the reference's weights
+    with ``engine/loader.py:params_from_jax`` instead.
+    """
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def dense(shape, fan_in):
+        w = torch.empty(shape, dtype=torch.float32, device=device)
+        torch.nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=gen)
+        return (w / math.sqrt(fan_in)).to(dtype)
+
+    D, Fd = cfg.dim, cfg.ffn_dim
+    QD = cfg.n_heads * cfg.head_dim
+    KD = cfg.n_kv_heads * cfg.head_dim
+    norm_init = torch.zeros if cfg.norm_scale_plus_one else torch.ones
+    layers = []
+    for _ in range(cfg.n_layers):
+        lp = {
+            "attn_norm": norm_init(D, dtype=dtype, device=device),
+            "wq": dense((D, QD), D),
+            "wk": dense((D, KD), D),
+            "wv": dense((D, KD), D),
+            "wo": dense((QD, D), QD),
+            "ffn_norm": norm_init(D, dtype=dtype, device=device),
+            "w_gate": dense((D, Fd), D),
+            "w_up": dense((D, Fd), D),
+            "w_down": dense((Fd, D), Fd),
+        }
+        if cfg.qkv_bias:
+            lp["bq"] = torch.zeros(QD, dtype=dtype, device=device)
+            lp["bk"] = torch.zeros(KD, dtype=dtype, device=device)
+            lp["bv"] = torch.zeros(KD, dtype=dtype, device=device)
+        if cfg.post_norms:
+            lp["post_attn_norm"] = norm_init(D, dtype=dtype, device=device)
+            lp["post_ffn_norm"] = norm_init(D, dtype=dtype, device=device)
+        layers.append(lp)
+    params: Params = {
+        "embed": dense((cfg.vocab_size, D), D),
+        "layers": layers,
+        "final_norm": norm_init(D, dtype=dtype, device=device),
+    }
+    if not cfg.tied_embeddings:
+        params["lm_head"] = dense((D, cfg.vocab_size), D)
+    elif transposed_head:
+        # [D, V] copy of the tied table: the head matmul then streams a
+        # row-major weight like every other projection.
+        params["lm_head_t"] = params["embed"].t().contiguous()
+    return params
+
+
+def init_cache(
+    cfg: ModelConfig,
+    batch: int,
+    max_seq: int,
+    *,
+    device: torch.device,
+    dtype: torch.dtype = torch.bfloat16,
+) -> Cache:
+    """Zeroed dense cache ``{"k", "v"}: [L, B, Hkv, max_seq, D]``."""
+    shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+    return {
+        "k": torch.zeros(shape, dtype=dtype, device=device),
+        "v": torch.zeros(shape, dtype=dtype, device=device),
+    }
+
+
+def rms_norm(
+    x: torch.Tensor, weight: torch.Tensor, eps: float, plus_one: bool
+) -> torch.Tensor:
+    xf = x.to(torch.float32)
+    norm = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    scale = weight.to(torch.float32)
+    if plus_one:
+        scale = scale + 1.0
+    return (norm * scale).to(x.dtype)
+
+
+def _softcap(x: torch.Tensor, cap: float) -> torch.Tensor:
+    return torch.tanh(x / cap) * cap
+
+
+def _activation(x: torch.Tensor, kind: str) -> torch.Tensor:
+    if kind == "gelu":
+        return F.gelu(x, approximate="tanh")
+    return F.silu(x)
+
+
+def attention(
+    q: torch.Tensor,  # [B, S, Hq, D]
+    k: torch.Tensor,  # [B, Hkv, T, D] heads-major (cache layout)
+    v: torch.Tensor,  # [B, Hkv, T, D]
+    mask: torch.Tensor,  # [B, S, T] bool — True = attend
+    attn_softcap: float = 0.0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Masked GQA attention, f32 softmax. Returns [B, S, Hq, D].
+
+    Fully masked rows (left-pad query slots) give EXACT zeros, and the
+    probabilities are cast to v's dtype before the PV product — both as
+    the reference does (``scaled_dot_product_attention`` would give NaN
+    for those rows, so it is not used here).
+    """
+    B, S, Hq, D = q.shape
+    Hkv, T = k.shape[1], k.shape[2]
+    g = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    # [B, Hkv, g*S, D] query rows; logits f32 as the reference's
+    # preferred_element_type=f32 (inputs exact in f32, f32 accumulation).
+    qg = q.reshape(B, S, Hkv, g, D).permute(0, 2, 3, 1, 4)
+    qg = qg.reshape(B, Hkv, g * S, D)
+    logits = torch.matmul(
+        qg.to(torch.float32), k.to(torch.float32).transpose(-1, -2)
+    )
+    logits = logits.reshape(B, Hkv, g, S, T) * scale
+    if attn_softcap > 0.0:
+        logits = _softcap(logits, attn_softcap)
+    logits = logits.masked_fill(~mask[:, None, None, :, :], float("-inf"))
+    m = logits.amax(dim=-1, keepdim=True)
+    m = torch.where(torch.isfinite(m), m, 0.0)
+    p = torch.exp(logits - m)
+    probs = p / torch.clamp(p.sum(dim=-1, keepdim=True), min=1e-30)
+    out = torch.matmul(probs.to(v.dtype).reshape(B, Hkv, g * S, T), v)
+    out = out.reshape(B, Hkv, g, S, D).permute(0, 3, 1, 2, 4)
+    return out.reshape(B, S, Hq, D)
+
+
+def _project_qkv(lp, cfg: ModelConfig, h, B: int, S: int, cos, sin):
+    """QKV projection + bias + head reshape + RoPE."""
+    q = h @ lp["wq"]
+    k = h @ lp["wk"]
+    v = h @ lp["wv"]
+    if cfg.qkv_bias:
+        q = q + lp["bq"]
+        k = k + lp["bk"]
+        v = v + lp["bv"]
+    q = q.reshape(B, S, cfg.n_heads, cfg.head_dim)
+    k = k.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    v = v.reshape(B, S, cfg.n_kv_heads, cfg.head_dim)
+    return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
+
+
+def _attn_out_and_ffn(x, attn_out, lp, cfg: ModelConfig, B: int, S: int):
+    """Output projection, residuals and the FFN block."""
+    out = attn_out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ lp["wo"]
+    if cfg.post_norms:
+        out = rms_norm(
+            out, lp["post_attn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one
+        )
+    x = x + out
+    h = rms_norm(x, lp["ffn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one)
+    ff = _activation(h @ lp["w_gate"], cfg.activation) * (h @ lp["w_up"])
+    ff = ff @ lp["w_down"]
+    if cfg.post_norms:
+        ff = rms_norm(
+            ff, lp["post_ffn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one
+        )
+    return x + ff
+
+
+def _layer_window_start(cfg: ModelConfig, layer_id: int, base_start, q_pos):
+    """Per-layer valid-window start: a sliding window tightens it (on the
+    windowed layers only, for alternating-pattern families)."""
+    if cfg.sliding_window <= 0:
+        return base_start
+    if cfg.sliding_window_pattern > 1 and layer_id % cfg.sliding_window_pattern:
+        return base_start
+    return torch.maximum(base_start, q_pos - cfg.sliding_window + 1)
+
+
+def _write_kv(buf: torch.Tensor, val: torch.Tensor, cache_index) -> None:
+    """Store a chunk's K or V ``val [B, S, Hkv, D]`` into a layer's cache
+    slice ``buf [B, Hkv, T, D]`` in place.
+
+    Start slots clamp to ``[0, T - S]`` exactly as the reference's
+    ``dynamic_update_slice`` does: a span that would run past the end of
+    the buffer lands shifted back so it fits (rows at their budget in the
+    speculative verify rely on this). A vector ``cache_index`` ([B])
+    writes each row at its own slot: an advanced-index scatter.
+    """
+    S, T = val.shape[1], buf.shape[2]
+    if isinstance(cache_index, int):
+        i = min(max(cache_index, 0), T - S)
+        buf[:, :, i : i + S] = val.transpose(1, 2).to(buf.dtype)
+        return
+    start = torch.clamp(cache_index, 0, T - S)
+    slots = start[:, None] + torch.arange(S, device=buf.device)  # [B, S]
+    rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    # Advanced indices at dims 0 and 2 put (B, S) first: [B, S, Hkv, D].
+    buf[rows, :, slots] = val.to(buf.dtype)
+
+
+def forward(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, S] int
+    positions: torch.Tensor,  # [B, S] rope positions
+    cache: Cache,  # updated in place
+    cache_index,  # int, or [B] int tensor: slot of this chunk's first token
+    kv_valid: torch.Tensor,  # [B, T] bool: slots holding real tokens
+    *,
+    use_kernels: bool = True,
+    lm_head_last_only: bool = False,
+) -> torch.Tensor:
+    """One forward pass over a chunk (prefill: S=chunk, decode: S=1, the
+    speculative verify: S=γ+1). Returns logits [B, S|1, vocab] (f32).
+
+    ``use_kernels`` routes short spans through the decode-attention
+    wrappers (the reference's ``use_pallas_decode``); False keeps every
+    chunk on the plain masked ``attention``.
+    """
+    B, S = tokens.shape
+    T = cache["k"].shape[3]
+    dev = tokens.device
+    vector_index = isinstance(cache_index, torch.Tensor)
+    if not vector_index:
+        cache_index = int(cache_index)
+    kernel_b1 = use_kernels and S == 1
+    kernel_b2 = use_kernels and 1 < S <= MQ_MAX_SPAN
+
+    x = params["embed"][tokens.long()]
+    if cfg.scale_embeddings:
+        x = (x.to(torch.float32) * math.sqrt(cfg.dim)).to(x.dtype)
+    cos, sin = rope_angles(
+        positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling
+    )
+
+    ci = (
+        cache_index.reshape(-1, 1)
+        if vector_index
+        else torch.full((1, 1), cache_index, device=dev)
+    )  # [1|B, 1]
+    q_pos = ci + torch.arange(S, device=dev)  # [1|B, S] slot of each query
+    if kernel_b1 or kernel_b2:
+        # Per-row window [start, end) for the kernels; the sliding-window
+        # start tightening happens per layer.
+        start = torch.argmax(kv_valid.to(torch.int32), dim=1).to(torch.int32)
+        q_pos = q_pos.expand(B, S).to(torch.int32)
+        ends = (q_pos + 1).contiguous()
+    else:
+        slot_ids = torch.arange(T, device=dev)[None, None, :]
+        causal = slot_ids <= q_pos[:, :, None]
+        base_mask = kv_valid[:, None, :] & causal  # [B, S, T]
+        window_mask = base_mask
+        if cfg.sliding_window > 0:
+            window_mask = base_mask & (
+                slot_ids > q_pos[:, :, None] - cfg.sliding_window
+            )
+
+    for layer_id, lp in enumerate(params["layers"]):
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one)
+        q, k, v = _project_qkv(lp, cfg, h, B, S, cos, sin)
+        k_l, v_l = cache["k"][layer_id], cache["v"][layer_id]
+        _write_kv(k_l, k, cache_index)
+        _write_kv(v_l, v, cache_index)
+        if kernel_b1:
+            lo = _layer_window_start(cfg, layer_id, start, q_pos[:, 0])
+            bounds = torch.stack([lo, ends[:, 0]], dim=1)
+            out = decode_attention(
+                q[:, 0],
+                k_l,
+                v_l,
+                bounds,
+                attn_softcap=cfg.attn_softcap,
+                scale=cfg.attn_scale,
+            )[:, None]
+        elif kernel_b2:
+            starts = _layer_window_start(cfg, layer_id, start[:, None], q_pos)
+            out = decode_attention_mq(
+                q,
+                k_l,
+                v_l,
+                starts.to(torch.int32).contiguous(),
+                ends,
+                attn_softcap=cfg.attn_softcap,
+                scale=cfg.attn_scale,
+            )
+        else:
+            windowed = cfg.sliding_window > 0 and not (
+                cfg.sliding_window_pattern > 1
+                and layer_id % cfg.sliding_window_pattern
+            )
+            out = attention(
+                q,
+                k_l,
+                v_l,
+                window_mask if windowed else base_mask,
+                attn_softcap=cfg.attn_softcap,
+                scale=cfg.attn_scale,
+            )
+        x = _attn_out_and_ffn(x, out, lp, cfg, B, S)
+    return _lm_head_logits(params, cfg, x, lm_head_last_only)
+
+
+def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """``x @ w`` with an f32 result (the reference's
+    ``preferred_element_type=f32``): half-precision inputs on the GPU keep
+    their f32 accumulator instead of rounding the logits to bf16."""
+    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
+        lead = x.shape[:-1]
+        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
+        return y.reshape(*lead, w.shape[-1])
+    return x.to(torch.float32) @ w.to(torch.float32)
+
+
+def _lm_head_logits(params: Params, cfg: ModelConfig, x, lm_head_last_only):
+    x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.norm_scale_plus_one)
+    if lm_head_last_only:
+        # Prompt chunks only need the final position's logits.
+        x = x[:, -1:]
+    if cfg.tied_embeddings:
+        if "lm_head_t" in params:
+            logits = _matmul_f32(x, params["lm_head_t"])
+        else:
+            logits = _matmul_f32(x, params["embed"].t())
+    else:
+        logits = _matmul_f32(x, params["lm_head"])
+    if cfg.logit_softcap > 0.0:
+        logits = _softcap(logits, cfg.logit_softcap)
+    return logits
+
+
+def count_params(params: Params) -> int:
+    n = sum(t.numel() for k, t in params.items() if k != "layers")
+    return n + sum(t.numel() for lp in params["layers"] for t in lp.values())

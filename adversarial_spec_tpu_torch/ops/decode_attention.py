@@ -1,0 +1,257 @@
+"""Decode attention over a dense heads-major KV cache: CUDA kernel + plain.
+
+Counterpart of ``adversarial_spec_tpu/ops/pallas_decode.py``:
+
+- ``decode_attention`` (B1): one query token per row, every S=1 decode
+  step. Replaces the Pallas ``_decode_attn_kernel``.
+- ``decode_attention_mq`` (B2): a short span of S query positions per row
+  (the speculative verify), each position with its own ``[start, end)``
+  window. Replaces the Pallas ``_mq_attn_kernel``.
+
+Each wrapper launches the hand-written Hopper kernel
+(``csrc/decode_attention.cu``, built by ``ops/_build.py``) for CUDA
+tensors and counts the launch in ``launches``; for CPU tensors it runs the
+plain PyTorch version beside it (``*_plain``), which the tests and the
+chip smoke also use as the reference. A CUDA tensor never takes the plain
+version: the wrapper launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from adversarial_spec_tpu_torch.ops import _build
+from adversarial_spec_tpu_torch.ops.flash_common import flash_update
+
+SOURCE = "decode_attention.cu"
+SUPPORTED_HEAD_DIMS = (64, 128, 256)
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+# Cache block the plain versions fold per online-softmax update.
+_PLAIN_BLOCK = 512
+
+# Kernel launches per wrapper (the chip smoke zeroes and reads these to
+# show the main path really went through the kernels). Plain runs on CPU
+# tensors never count.
+launches = {"decode_attention": 0, "decode_attention_mq": 0}
+
+_P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    if not getattr(lib, "_advspec_bound", False):
+        lib.advspec_decode_attention.argtypes = (
+            [_P, _L, _L]
+            + [_P, _L, _L, _L] * 2
+            + [_P, _L]
+            + [_P, _L, _L]
+            + [_I] * 6
+            + [_F, _F, _P]
+        )
+        lib.advspec_decode_attention.restype = _I
+        lib.advspec_decode_attention_mq.argtypes = (
+            [_P, _L, _L, _L]
+            + [_P, _L, _L, _L] * 2
+            + [_P, _L, _L] * 2
+            + [_P, _L, _L, _L]
+            + [_I] * 7
+            + [_F, _F, _P]
+        )
+        lib.advspec_decode_attention_mq.restype = _I
+        lib._advspec_bound = True
+    return lib
+
+
+# -- plain PyTorch versions ---------------------------------------------------
+
+
+def decode_attention_mq_plain(
+    q: torch.Tensor,  # [B, S, Hq, D]
+    k_cache: torch.Tensor,  # [B, Hkv, T, D]
+    v_cache: torch.Tensor,  # [B, Hkv, T, D]
+    starts: torch.Tensor,  # [B, S] or [B, 1] int
+    ends: torch.Tensor,  # [B, S] or [B, 1] int
+    attn_softcap: float = 0.0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain B2: f32 online softmax over cache blocks, per-row windows;
+    rows with an empty window give exact zeros. Returns [B, S, Hq, D]."""
+    B, S, Hq, D = q.shape
+    Hkv, T = k_cache.shape[1], k_cache.shape[2]
+    g = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    # [B, Hkv, S*g, D]: row r = query (r // g), group lane (r % g).
+    qg = q.reshape(B, S, Hkv, g, D).permute(0, 2, 1, 3, 4)
+    qg = qg.reshape(B, Hkv, S * g, D).to(torch.float32) * scale
+    rows = lambda x: (  # noqa: E731
+        x.expand(B, S).repeat_interleave(g, dim=1).reshape(B, 1, S * g, 1)
+    )
+    lo, hi = rows(starts), rows(ends)
+    m = torch.full((B, Hkv, S * g, 1), float("-inf"), device=q.device)
+    l = torch.zeros((B, Hkv, S * g, 1), device=q.device)
+    acc = torch.zeros((B, Hkv, S * g, D), device=q.device)
+    for t0 in range(0, T, _PLAIN_BLOCK):
+        m, l, acc = flash_update(
+            qg,
+            k_cache[:, :, t0 : t0 + _PLAIN_BLOCK].to(torch.float32),
+            v_cache[:, :, t0 : t0 + _PLAIN_BLOCK].to(torch.float32),
+            t0,
+            lo,
+            hi,
+            m,
+            l,
+            acc,
+            attn_softcap=attn_softcap,
+        )
+    out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    out = out.reshape(B, Hkv, S, g, D).permute(0, 2, 1, 3, 4)
+    return out.reshape(B, S, Hq, D)
+
+
+def decode_attention_plain(
+    q: torch.Tensor,  # [B, Hq, D]
+    k_cache: torch.Tensor,
+    v_cache: torch.Tensor,
+    bounds: torch.Tensor,  # [B, 2] (start, end)
+    attn_softcap: float = 0.0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain B1 (the S=1 case of the plain B2). Returns [B, Hq, D]."""
+    return decode_attention_mq_plain(
+        q[:, None],
+        k_cache,
+        v_cache,
+        bounds[:, 0:1],
+        bounds[:, 1:2],
+        attn_softcap=attn_softcap,
+        scale=scale,
+    )[:, 0]
+
+
+# -- kernel wrappers ----------------------------------------------------------
+
+
+def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *ints) -> int:
+    """Validate what the kernel takes; returns the dtype code."""
+    dev = q.device
+    for t in (k, v, *ints):
+        if t.device != dev:
+            raise ValueError(
+                f"decode attention operands on {t.device} and {dev}"
+            )
+    if q.dtype not in _DTYPE_CODE:
+        raise TypeError(
+            f"decode attention kernel takes float32 or bfloat16, got {q.dtype}"
+        )
+    if k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(
+            f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}"
+        )
+    D = q.shape[-1]
+    if D not in SUPPORTED_HEAD_DIMS:
+        raise ValueError(
+            f"head_dim {D} unsupported; kernel takes {SUPPORTED_HEAD_DIMS}"
+        )
+    if k.shape != v.shape or k.shape[-1] != D or k.dim() != 4:
+        raise ValueError(f"bad cache shapes {tuple(k.shape)}, {tuple(v.shape)}")
+    if q.shape[-2] % k.shape[1] != 0:
+        raise ValueError(f"{q.shape[-2]} query heads over {k.shape[1]} KV heads")
+    for t in (q, k, v):
+        if t.stride(-1) != 1:
+            raise ValueError("head_dim axis must be contiguous")
+    for t in ints:
+        if t.dtype != torch.int32:
+            raise TypeError(f"bounds must be int32, got {t.dtype}")
+    return _DTYPE_CODE[q.dtype]
+
+
+def _raise_on(rc: int, name: str) -> None:
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
+
+
+def decode_attention(
+    q: torch.Tensor,  # [B, Hq, D] one query token per row
+    k_cache: torch.Tensor,  # [B, Hkv, T, D] heads-major
+    v_cache: torch.Tensor,  # [B, Hkv, T, D]
+    bounds: torch.Tensor,  # [B, 2] int32 (start, end) valid-slot window
+    attn_softcap: float = 0.0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """B1: fused decode attention. Returns [B, Hq, D] in q.dtype."""
+    if not q.is_cuda:
+        return decode_attention_plain(
+            q, k_cache, v_cache, bounds, attn_softcap=attn_softcap, scale=scale
+        )
+    code = _check(q, k_cache, v_cache, bounds)
+    B, Hq, D = q.shape
+    Hkv, T = k_cache.shape[1], k_cache.shape[2]
+    if bounds.shape != (B, 2):
+        raise ValueError(f"bounds shape {tuple(bounds.shape)} != ({B}, 2)")
+    bounds = bounds.contiguous()
+    out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
+    kc, vc = k_cache, v_cache
+    rc = _lib().advspec_decode_attention(
+        q.data_ptr(), q.stride(0), q.stride(1),
+        kc.data_ptr(), kc.stride(0), kc.stride(1), kc.stride(2),
+        vc.data_ptr(), vc.stride(0), vc.stride(1), vc.stride(2),
+        bounds.data_ptr(), bounds.stride(0),
+        out.data_ptr(), out.stride(0), out.stride(1),
+        B, Hq, Hkv, T, D, code,
+        float(scale if scale is not None else 1.0 / math.sqrt(D)),
+        float(attn_softcap),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(rc, "decode_attention")
+    launches["decode_attention"] += 1
+    return out
+
+
+def decode_attention_mq(
+    q: torch.Tensor,  # [B, S, Hq, D] a short query span
+    k_cache: torch.Tensor,  # [B, Hkv, T, D]
+    v_cache: torch.Tensor,  # [B, Hkv, T, D]
+    starts: torch.Tensor,  # [B, S] or [B, 1] int32 first valid slot
+    ends: torch.Tensor,  # [B, S] or [B, 1] int32 one past the last
+    attn_softcap: float = 0.0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """B2: multi-query fused decode attention. Returns [B, S, Hq, D]."""
+    if not q.is_cuda:
+        return decode_attention_mq_plain(
+            q, k_cache, v_cache, starts, ends,
+            attn_softcap=attn_softcap, scale=scale,
+        )
+    code = _check(q, k_cache, v_cache, starts, ends)
+    B, S, Hq, D = q.shape
+    Hkv, T = k_cache.shape[1], k_cache.shape[2]
+    strides = []
+    for name, t in (("starts", starts), ("ends", ends)):
+        if t.dim() != 2 or t.shape[0] != B or t.shape[1] not in (1, S):
+            raise ValueError(f"{name} shape {tuple(t.shape)} vs B={B}, S={S}")
+        strides.append((t.stride(0), t.stride(1) if t.shape[1] == S else 0))
+    out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
+    kc, vc = k_cache, v_cache
+    rc = _lib().advspec_decode_attention_mq(
+        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+        kc.data_ptr(), kc.stride(0), kc.stride(1), kc.stride(2),
+        vc.data_ptr(), vc.stride(0), vc.stride(1), vc.stride(2),
+        starts.data_ptr(), *strides[0],
+        ends.data_ptr(), *strides[1],
+        out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
+        B, S, Hq, Hkv, T, D, code,
+        float(scale if scale is not None else 1.0 / math.sqrt(D)),
+        float(attn_softcap),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(rc, "decode_attention_mq")
+    launches["decode_attention_mq"] += 1
+    return out

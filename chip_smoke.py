@@ -1,0 +1,509 @@
+#!/usr/bin/env python3
+"""Smoke run of the PyTorch/CUDA port on one NVIDIA GPU.
+
+    python3 chip_smoke.py            # every phase (needs one CUDA card)
+    python3 chip_smoke.py --quick    # device, build and kernel phases only
+    python3 chip_smoke.py --profile  # also profile one more chat call
+
+Phases, each printing one JSON line; any failure exits non-zero:
+
+1. device  — the card's name, and its name and power limit as nvidia-smi
+   reports them (that line is printed raw as well);
+2. build   — compiles every CUDA source of the port with nvcc (in
+   parallel), from this checkout, into build/kernels;
+3. kernels — each decode-attention kernel at the main path's shapes
+   (Llama-3-8B: B=4, Hq=32, Hkv=8, D=128, bf16, T=4224; S=9 for the
+   verify) against its plain PyTorch version on the card, with left-pad
+   windows, an empty window, a softcap case and f32 cases; times the
+   kernel, the plain version and scaled_dot_product_attention (a timing
+   yardstick only — the port never calls it) beside the least time the
+   card could take;
+4. slice   — GpuEngine.chat on tpu://random-8b (Llama-3-8B at full width,
+   bf16, random weights from seed 0) for four opponent requests, greedy,
+   128 new tokens, speculation on; launch counters are zeroed just before
+   and read just after, and both kernels must have launched; with
+   ``--profile``, one more chat call runs under torch.profiler (device
+   time by kernel, idle share);
+5. agree   — a tiny f32 model decoded greedily on the card (kernels) and
+   on the CPU (plain versions) must give identical tokens.
+
+Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
+Results also go to chiprun_out/chip_smoke.json.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import subprocess
+import sys
+import time
+
+HERE = os.path.dirname(os.path.abspath(__file__))
+PKG = "adversarial_spec_tpu_torch"
+HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
+PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per second
+B, HQ, HKV, D, S_SPAN = 4, 32, 8, 128, 9
+T_CACHE = 4096 + 128  # the slice's 4096-token bucket + 128 new tokens
+N_ROTATE = 4  # distinct caches the timing loops cycle through
+BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)  # one bf16 rounding of the output
+F32_TOL = dict(rtol=5e-5, atol=5e-5)  # summation order over 4224 slots
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg: str) -> int:
+    print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
+    return 1
+
+
+def cuda_ms(fn, iters: int, torch) -> float:
+    """Mean milliseconds per call ``fn(i)`` from CUDA events, after one
+    warm-up; ``i`` lets the caller rotate inputs so the L2 is cold."""
+    fn(0)
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for i in range(iters):
+        fn(i)
+    stop.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(stop) / iters
+
+
+def spec_document(n_bytes: int, seed: int) -> str:
+    """A spec-style markdown document of about ``n_bytes`` bytes."""
+    topics = [
+        "authentication", "rate limiting", "audit logging", "billing",
+        "search indexing", "data retention", "webhooks", "notifications",
+    ]
+    parts = [f"# Product Spec {seed}: {topics[seed % len(topics)].title()}\n"]
+    i = 0
+    while sum(len(p) for p in parts) < n_bytes:
+        t = topics[(seed + i) % len(topics)]
+        parts.append(
+            f"\n## {i + 1}. {t.title()}\n"
+            f"- The service MUST expose {t} through a versioned API "
+            f"(v{1 + i % 3}) with p99 latency under {50 + 10 * i} ms.\n"
+            f"- Failures in {t} are retried with exponential backoff, at "
+            f"most {3 + i % 4} attempts, and surfaced to the operator.\n"
+            f"- Acceptance: an integration test covers {t} under load.\n"
+        )
+        i += 1
+    return "".join(parts)[:n_bytes]
+
+
+def window_bytes(starts, ends, T, per_slot):
+    """Bytes of K/V a call must read: each row's union of windows."""
+    total = 0
+    for lo_row, hi_row in zip(starts, ends):
+        spans = [(max(lo, 0), min(hi, T)) for lo, hi in zip(lo_row, hi_row)]
+        spans = [(lo, hi) for lo, hi in spans if lo < hi]
+        if spans:
+            total += (max(h for _, h in spans) - min(lo for lo, _ in spans))
+    return total * per_slot
+
+
+def phase_kernels(torch, da) -> tuple[dict, list]:
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(0)
+    results, checks = {}, []
+
+    def cache(dtype):
+        # A layer's slice of an [L, B, Hkv, T, D] cache, as the model reads.
+        shape = (2, B, HKV, T_CACHE, D)
+        k = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        v = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        return k[1], v[1]
+
+    def qdraw(shape, dtype):
+        return torch.randn(shape, generator=gen, device=dev).to(dtype)
+
+    # B1 windows: left pads, a full row, a single slot, an empty window.
+    b1_bounds = [[0, T_CACHE], [700, T_CACHE], [1500, 3001], [2000, 2000]]
+    b1_single = [[0, T_CACHE], [700, T_CACHE], [3000, 3001], [1200, T_CACHE]]
+    # B2: rows desynchronized (own cache index), per-query causal ends.
+    ci = [4100, 4150, 4000, 4214]
+    pads = [0, 700, 1500, 2300]
+    ends = [[c + j + 1 for j in range(S_SPAN)] for c in ci]
+    starts = [[p] * S_SPAN for p in pads]
+    starts_empty = [row[:] for row in starts]
+    starts_empty[3] = [ends[3][j] for j in range(S_SPAN)]  # empty windows
+
+    def check(name, got, want, tol, extra=None):
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        if extra is not None:
+            extra(got)
+        checks.append({"case": name, "max_abs_err": err, "tol": tol})
+        return err
+
+    def zeros_row(row):
+        def f(out):
+            sel = out[row]
+            if not bool((sel == 0).all()):
+                raise AssertionError("empty window did not give exact zeros")
+        return f
+
+    kw_b1, kw_b2 = {}, {}
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        tn = str(dtype).split(".")[1]
+        k, v = cache(dtype)
+        q1 = qdraw((B, HQ, D), dtype)
+        q2 = qdraw((B, S_SPAN, HQ, D), dtype)
+        for label, bnd in (("windows", b1_bounds), ("single", b1_single)):
+            bounds = torch.tensor(bnd, dtype=torch.int32, device=dev)
+            for cap in (0.0, 50.0):
+                got = da.decode_attention(q1, k, v, bounds, attn_softcap=cap)
+                want = da.decode_attention_plain(q1, k, v, bounds, attn_softcap=cap)
+                err = check(
+                    f"B1 {tn} {label} softcap={cap}", got, want, tol,
+                    zeros_row(3) if label == "windows" else None,
+                )
+                if label == "single":
+                    # One valid slot: the output is v at that slot.
+                    torch.testing.assert_close(
+                        got[2].float(),
+                        v[2, :, 3000].repeat_interleave(HQ // HKV, 0).float(),
+                        rtol=0, atol=0,
+                    )
+                if dtype == torch.bfloat16 and label == "windows" and cap == 0.0:
+                    kw_b1 = dict(q=q1, k=k, v=v, bounds=bounds, err=err, bnd=bnd)
+        e_t = torch.tensor(ends, dtype=torch.int32, device=dev)
+        for label, st in (("per-query", starts), ("empty", starts_empty)):
+            s_t = torch.tensor(st, dtype=torch.int32, device=dev)
+            for cap in (0.0, 50.0):
+                got = da.decode_attention_mq(q2, k, v, s_t, e_t, attn_softcap=cap)
+                want = da.decode_attention_mq_plain(q2, k, v, s_t, e_t, attn_softcap=cap)
+                err = check(
+                    f"B2 {tn} {label} softcap={cap}", got, want, tol,
+                    zeros_row(3) if label == "empty" else None,
+                )
+                if dtype == torch.bfloat16 and label == "per-query" and cap == 0.0:
+                    kw_b2 = dict(q=q2, k=k, v=v, starts=s_t, ends=e_t, err=err, st=st)
+        # [B, 1] broadcast starts (global layers share one start per row).
+        s1 = torch.tensor([[p] for p in pads], dtype=torch.int32, device=dev)
+        got = da.decode_attention_mq(q2, k, v, s1, e_t)
+        want = da.decode_attention_mq_plain(q2, k, v, s1, e_t)
+        check(f"B2 {tn} broadcast-starts", got, want, tol)
+    torch.cuda.synchronize()
+
+    # ---- timing at the main path's shapes (bf16) ----
+    # Calls rotate over N_ROTATE caches (4 x 69 MB > the 50 MB L2), so each
+    # finds its cache cold, as each layer's decode step does.
+    elem = 2
+    rot = [(kw_b1["k"], kw_b1["v"])] + [
+        cache(torch.bfloat16) for _ in range(N_ROTATE - 1)
+    ]
+    kv = lambda i: rot[i % N_ROTATE]  # noqa: E731
+    a = kw_b1
+    q, bounds = a["q"], a["bounds"]
+    b1_bytes = window_bytes(
+        [[lo] for lo, _ in a["bnd"]], [[hi] for _, hi in a["bnd"]],
+        T_CACHE, 2 * HKV * D * elem,
+    ) + 2 * q.numel() * elem + bounds.numel() * 4
+    b1_valid = sum(max(hi - lo, 0) for lo, hi in a["bnd"])
+    b1_ops = 4 * HQ * D * b1_valid  # QK and PV, 2 ops per multiply-add
+    mask1 = torch.zeros((B, 1, 1, T_CACHE), dtype=torch.bool, device=dev)
+    for r, (lo, hi) in enumerate(a["bnd"]):
+        mask1[r, :, :, lo:hi] = True
+
+    def sdpa(qq, kk, vv, mask):
+        try:
+            return F.scaled_dot_product_attention(
+                qq, kk, vv, attn_mask=mask, enable_gqa=True
+            )
+        except TypeError:  # older torch: no enable_gqa
+            g = HQ // HKV
+            return F.scaled_dot_product_attention(
+                qq, kk.repeat_interleave(g, 1), vv.repeat_interleave(g, 1),
+                attn_mask=mask,
+            )
+
+    results["decode_attention"] = {
+        "ms": cuda_ms(lambda i: da.decode_attention(q, *kv(i), bounds), 50, torch),
+        "plain_ms": cuda_ms(
+            lambda i: da.decode_attention_plain(q, *kv(i), bounds), 8, torch
+        ),
+        "library_ms": cuda_ms(
+            lambda i: sdpa(q[:, :, None], *kv(i), mask1), 20, torch
+        ),
+        "bytes": b1_bytes,
+        "ops": b1_ops,
+        "max_abs_err": a["err"],
+    }
+    a = kw_b2
+    q, s_t, e_t = a["q"], a["starts"], a["ends"]
+    b2_bytes = window_bytes(a["st"], ends, T_CACHE, 2 * HKV * D * elem) + (
+        2 * q.numel() * elem + 2 * s_t.numel() * 4
+    )
+    b2_valid = sum(
+        max(e - s, 0) for srow, erow in zip(a["st"], ends) for s, e in zip(srow, erow)
+    )
+    b2_ops = 4 * HQ * D * b2_valid
+    mask2 = torch.zeros((B, 1, S_SPAN, T_CACHE), dtype=torch.bool, device=dev)
+    for r in range(B):
+        for j in range(S_SPAN):
+            mask2[r, 0, j, a["st"][r][j] : ends[r][j]] = True
+    results["decode_attention_mq"] = {
+        "ms": cuda_ms(
+            lambda i: da.decode_attention_mq(q, *kv(i), s_t, e_t), 50, torch
+        ),
+        "plain_ms": cuda_ms(
+            lambda i: da.decode_attention_mq_plain(q, *kv(i), s_t, e_t), 8, torch
+        ),
+        "library_ms": cuda_ms(
+            lambda i: sdpa(q.transpose(1, 2), *kv(i), mask2), 20, torch
+        ),
+        "bytes": b2_bytes,
+        "ops": b2_ops,
+        "max_abs_err": a["err"],
+    }
+    for r in results.values():
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / PEAK_OPS["bfloat16"] * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return results, checks
+
+
+def profile_chat(torch, engine, reqs, sp) -> dict:
+    """One more chat call under torch.profiler: device busy time by
+    kernel, and the idle share of the call's wall time (the profiler's own
+    host overhead lengthens the wall, so the share is an upper bound).
+    The full table goes to chiprun_out/chip_profile.txt."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    t = time.monotonic()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        engine.chat(reqs, sp)
+        torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    kernels = []
+    for ev in prof.key_averages():
+        if getattr(ev, "device_type", None) != DeviceType.CUDA:
+            continue
+        us = getattr(ev, "self_device_time_total", None)
+        if us is None:
+            us = ev.self_cuda_time_total
+        if us > 0:
+            kernels.append({"name": ev.key[:120], "count": ev.count, "ms": us / 1e3})
+    kernels.sort(key=lambda r: -r["ms"])
+    busy_ms = sum(r["ms"] for r in kernels)
+    for r in kernels:
+        r["share"] = r["ms"] / busy_ms if busy_ms else 0.0
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_profile.txt"), "w") as f:
+        f.write(f"wall_s {wall}\nbusy_ms {busy_ms}\n")
+        for r in kernels:
+            f.write(f"{r['ms']:12.3f} ms {r['count']:7d}x {r['share']:.4f}  {r['name']}\n")
+    return {
+        "phase": "profile",
+        "wall_s": wall,
+        "device_busy_s": busy_ms / 1e3 if kernels else "not measured",
+        "device_idle_share": 1 - busy_ms / 1e3 / wall if kernels else "not measured",
+        "top_kernels": kernels[:12],
+    }
+
+
+def phase_slice(torch, profile: bool = False) -> dict:
+    from adversarial_spec_tpu_torch.engine import spec as spec_mod
+    from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
+    from adversarial_spec_tpu_torch.engine.types import ChatRequest, SamplingParams
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+
+    spec_mod.configure(enabled=True)
+    personas = [
+        "You are a security engineer reviewing a product spec.",
+        "You are an SRE focused on reliability and operability.",
+        "You are a product manager checking scope and acceptance criteria.",
+        "You are a staff engineer looking for design flaws and ambiguity.",
+    ]
+    sizes = [1600, 2300, 2900, 3400]
+    reqs = [
+        ChatRequest(
+            model="tpu://random-8b",
+            system=p,
+            user=spec_document(n, i) + "\n\nCritique this spec.",
+        )
+        for i, (p, n) in enumerate(zip(personas, sizes))
+    ]
+    sp = SamplingParams(max_new_tokens=128, greedy=True, seed=0)
+    engine = GpuEngine()
+    t = time.monotonic()
+    warm = engine.chat([reqs[0]], SamplingParams(max_new_tokens=16, greedy=True))
+    if not warm[0].ok:
+        raise RuntimeError(f"warm-up chat failed: {warm[0].error}")
+    load_s = time.monotonic() - t
+
+    torch.cuda.reset_peak_memory_stats()
+    da.reset_launches()
+    t = time.monotonic()
+    comps = engine.chat(reqs, sp)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    calls = [{"call": "main", "speculative": True, **dict(da.launches)}]
+    launched = dict(da.launches)
+    bad = [c.error for c in comps if not c.ok]
+    if bad:
+        raise RuntimeError(f"chat failed: {bad}")
+    if any(c.usage.output_tokens != 128 for c in comps):
+        raise RuntimeError(
+            f"rows stopped early: {[c.usage.output_tokens for c in comps]}"
+        )
+    if launched["decode_attention"] == 0:
+        # Speculation kept matching to the budget: force plain decode.
+        spec_mod.configure(enabled=False)
+        da.reset_launches()
+        engine.chat(reqs, sp)
+        spec_mod.configure(enabled=True)
+        calls.append({"call": "speculation off", "speculative": False, **dict(da.launches)})
+        launched["decode_attention"] = da.launches["decode_attention"]
+    if min(launched.values()) == 0:
+        raise RuntimeError(f"a kernel of the path never launched: {calls}")
+    prefill_s = sum(c.usage.prefill_time_s for c in comps)
+    decode_s = sum(c.usage.decode_time_s for c in comps)
+    out_tok = sum(c.usage.output_tokens for c in comps)
+    prof = profile_chat(torch, engine, reqs, sp) if profile else None
+    return {
+        "phase": "slice",
+        "model": "tpu://random-8b",
+        "requests": len(reqs),
+        "input_tokens": [c.usage.input_tokens for c in comps],
+        "output_tokens": [c.usage.output_tokens for c in comps],
+        "load_and_warmup_s": load_s,
+        "chat_wall_s": wall,
+        "prefill_s": prefill_s,
+        "decode_s": decode_s,
+        "decode_tokens_per_s": out_tok / decode_s if decode_s > 0 else 0.0,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launch_calls": calls,
+        "launches": launched,
+        **({"profile": prof} if prof else {}),
+    }
+
+
+def phase_agree(torch) -> dict:
+    from adversarial_spec_tpu_torch.engine.generate import generate
+    from adversarial_spec_tpu_torch.engine.loader import materialize_params
+
+    prompts = [[1] + [5 + (i * 7 + j) % 200 for j in range(60 + 25 * i)] for i in range(3)]
+    params, cfg = materialize_params(
+        "random", "llama", "tiny", dtype=torch.float32, device="cuda"
+    )
+    on_cpu = {  # the same weights on the CPU
+        k: [{n: t.cpu() for n, t in lp.items()} for lp in v]
+        if k == "layers" else v.cpu()
+        for k, v in params.items()
+    }
+    out = {
+        dev: generate(
+            p, cfg, prompts, max_new_tokens=48, eos_ids=[2], greedy=True,
+            device=dev,
+        ).tokens
+        for dev, p in (("cuda", params), ("cpu", on_cpu))
+    }
+    same = bool((out["cuda"] == out["cpu"]).all())
+    if not same:
+        raise RuntimeError("tiny f32 greedy tokens differ between card and CPU")
+    return {"phase": "agree", "identical_tokens": same, "shape": list(out["cuda"].shape)}
+
+
+def main(argv: list[str]) -> int:
+    quick = "--quick" in argv
+    profile = "--profile" in argv
+    if not os.path.isdir(os.path.join(HERE, PKG)):
+        return fail(f"{PKG}/ not found beside chip_smoke.py: run from a checkout")
+    try:
+        import torch
+    except ImportError:
+        return fail("PyTorch is not installed")
+    if not torch.cuda.is_available():
+        return fail("torch.cuda.is_available() is false: this needs a CUDA card")
+    sys.path.insert(0, HERE)
+    os.environ.setdefault(
+        "ADVSPEC_KERNEL_BUILD_DIR", os.path.join(HERE, "build", "kernels")
+    )
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from adversarial_spec_tpu_torch.ops import _build
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+
+    kind = torch.cuda.get_device_name(0)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    smi_line = smi[0] if smi else "not measured"
+    emit({
+        "phase": "device", "kind": kind, "count": torch.cuda.device_count(),
+        "nvidia_smi": smi_line, "torch": torch.__version__,
+        "cuda": torch.version.cuda, "python": sys.version.split()[0],
+    })
+
+    t = time.monotonic()
+    libs = _build.build_all()
+    ptxas = [
+        ln.strip() for src in libs for ln in _build.ptxas_report(src).splitlines()
+        if "registers" in ln or "spill" in ln
+    ]
+    emit({"phase": "build", "seconds": time.monotonic() - t,
+          "sources": sorted(libs), "ptxas": ptxas})
+
+    kres, checks = phase_kernels(torch, da)
+    emit({"phase": "kernels", "checks": checks})
+    record = {"device": kind, "nvidia_smi": smi_line, "kernels": kres, "checks": checks}
+
+    launches = {"decode_attention": None, "decode_attention_mq": None}
+    if not quick:
+        sl = phase_slice(torch, profile=profile)
+        emit(sl)
+        launches = sl["launches"]
+        ag = phase_agree(torch)
+        emit(ag)
+        record.update(slice=sl, agree=ag)
+
+    replaces = {
+        "decode_attention": "adversarial_spec_tpu/ops/pallas_decode.py:422",
+        "decode_attention_mq": "adversarial_spec_tpu/ops/pallas_decode.py:249",
+    }
+    line = []
+    for name, r in kres.items():
+        line.append({
+            "name": name,
+            "route": "cuda",
+            "source": f"{PKG}/csrc/decode_attention.cu",
+            "replaces": replaces[name],
+            "launches": launches[name],
+            "max_abs_err": r["max_abs_err"],
+            "max_abs_diff": r["max_abs_err"],
+            "ms": r["ms"],
+            "kernel_ms": r["ms"],
+            "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"],
+            "library_ms": r["library_ms"],
+        })
+    record["kernels_line"] = line
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:
+        json.dump(record, f, indent=1)
+    print(smi_line, flush=True)
+    emit({"kernels": line})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": kind,
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main(sys.argv[1:]))
