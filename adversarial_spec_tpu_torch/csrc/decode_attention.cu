@@ -1,36 +1,60 @@
-// Decode attention over a dense, heads-major KV cache, for Hopper (sm_90a).
+// Decode attention over a dense, heads-major KV cache or a paged KV pool,
+// for Hopper (sm_90a).
 //
-// Replaces the two Pallas TPU kernels of the reference package:
+// Replaces four Pallas TPU kernels of the reference package:
 //   - adversarial_spec_tpu/ops/pallas_decode.py:decode_attention
-//     (_decode_attn_kernel): one query token per row, every S=1 decode step;
+//     (_decode_attn_kernel, B1): one query token per row, every S=1 dense
+//     decode step;
 //   - adversarial_spec_tpu/ops/pallas_decode.py:decode_attention_mq
-//     (_mq_attn_kernel): a short span of S query positions per row (the
-//     speculative verify, S = gamma + 1), each position with its own
-//     [start, end) window, the whole span reading the cache in one pass.
-// S = 1 is the multi-query kernel's degenerate case, so one kernel template
-// serves both, instantiated once per entry; each has its own C entry point
-// (and its own launch counter on the Python side, ops/decode_attention.py).
+//     (_mq_attn_kernel, B2): a short span of S query positions per row
+//     (the speculative verify, S = gamma + 1), each position with its own
+//     [start, end) window, the whole span reading the cache in one pass;
+//   - adversarial_spec_tpu/ops/pallas_paged.py:paged_decode_attention
+//     (_paged_attn_kernel, B3): B1 through a page table over a shared
+//     page pool (the continuous batcher's S=1 decode);
+//   - adversarial_spec_tpu/ops/pallas_paged.py:paged_decode_attention_mq
+//     (_paged_mq_attn_kernel, B4): B2 through a page table (the batcher's
+//     span-native verify).
+// One online-softmax body serves all four. Two template switches pick the
+// entry: kSpan (S > 1 query positions per row, or S = 1 with the span axis
+// compiled out) and kPaged, the tile-address policy: a dense cache tile is
+// `tile` consecutive slots of the row's [Hkv, T, D] slice; a paged tile is
+// exactly one page, found through the row's page-table entry. Each entry
+// has its own C entry point (and its own launch counter on the Python
+// side, ops/decode_attention.py and ops/paged_attention.py), and shows up
+// under its own name in a profile.
 //
-// What bounds it: the bytes of K and V it reads. At the main path's shapes
-// (Llama-3-8B, B=4, Hkv=8, D=128, T=4224, bf16) one layer reads 69 MB of
-// cache and does ~2 flops per byte for S=1 (~18 for S=9), far below the
+// What bounds it: the bytes of K and V it reads. At the main paths' shapes
+// (Llama-3-8B, Hkv=8, D=128, bf16; thousands of cached slots per row) a
+// layer does ~2 flops per K/V byte for S=1 (~18 for S=9), far below the
 // card's ~295 flops/byte balance point, so the floor is bytes / 3.35 TB/s.
 //
 // What the design does about it: every K/V byte is read from device memory
-// exactly once per call — all g*S query rows of a KV head share each staged
+// at most once per call — all g*S query rows of a KV head share each staged
 // tile (the GQA fold), scores/softmax state/accumulator never leave the SM,
-// tiles wholly outside every row's window are never loaded, and loads are
-// 16-byte vectors where alignment allows.
+// tiles wholly outside the union of the rows' windows are never loaded, and
+// loads are 16-byte vectors where alignment allows.
+//
+// Paged pools: physical page 0 is the trash page (inactive rows and
+// rejected drafts write arbitrary K/V there) and negative ids are table
+// padding, so a page whose id is <= 0 is skipped whole — never loaded,
+// never scored — exactly as the Pallas kernels skip it. Inside a loaded
+// tile, slots outside the union of the block's windows are zero-filled
+// rather than loaded, so whatever bytes lie there (stale or poisoned) can
+// never reach the softmax through a 0 * x product.
 //
 // What it does not do yet: one block per (row, KV head) fills only B*Hkv
-// SMs (32 of 132 at the main path's shapes), and tile loads are not
+// SMs (64 of 132 at the batcher's 8 slots), and tile loads are not
 // overlapped with compute. A split-KV (flash-decoding) grid with a combine
 // pass, cp.async/TMA double buffering and tensor-core scores are later work.
 //
-// Layout and contract (checked again by the Python wrapper):
-//   q   [B, S, Hq, D]   (B1 passes S=1 with a zero S stride), D contiguous
-//   k,v [B, Hkv, T, D]  any strides except D contiguous — a layer's slice of
-//                       the [L, B, Hkv, T, D] cache needs no copy
+// Layout and contract (checked again by the Python wrappers):
+//   q   [B, S, Hq, D]   (S=1 entries pass a zero S stride), D contiguous
+//   dense: k,v [B, Hkv, T, D] any strides except D contiguous — a layer's
+//          slice of the [L, B, Hkv, T, D] cache needs no copy
+//   paged: k,v [n_pages, Hkv, page, D] (a layer's view of the
+//          [L, n_pages, Hkv, page, D] pool), table int32 [B, P] (row
+//          stride given, entries contiguous); T = P * page
 //   starts/ends int32 [B, S] (or [B, 1] broadcast via a zero S stride)
 //   out [B, S, Hq, D]   in q's dtype; written, never allocated, here
 // Each query row masks its own [start, end); the ragged tail past T is
@@ -53,10 +77,13 @@ constexpr size_t kMaxSmem = 232448 - 1024;
 struct Args {
   const void* q;
   long long q_sb, q_ss, q_sh;
+  // Dense: k_sb is the batch-row stride. Paged: k_sb is the page stride.
   const void* k;
   long long k_sb, k_sh, k_st;
   const void* v;
   long long v_sb, v_sh, v_st;
+  const int* table;  // paged only: [B, P] physical page ids
+  long long tb_sb;
   const int* starts;
   long long st_sb, st_ss;
   const int* ends;
@@ -118,9 +145,10 @@ size_t smem_bytes(int R, int D, int tile) {
   return floats * 4 + ints * 4 + kv;
 }
 
-// kSpan = false is the S = 1 entry (B1): the span axis is compiled out,
-// and the two entries show up under their own names in a profile.
-template <typename T, bool kSpan>
+// kSpan = false is the S = 1 entry (B1, B3): the span axis is compiled
+// out. kPaged = true reads tiles through the page table (B3, B4); its tile
+// is one page (a.tile == page size).
+template <typename T, bool kSpan, bool kPaged>
 __global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a) {
   const int h = blockIdx.x;  // KV head
   const int b = blockIdx.y;  // batch row
@@ -176,8 +204,8 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a) {
   __syncthreads();
   const int lo = range_s[0], hi = range_s[1];
 
-  const T* kb = static_cast<const T*>(a.k) + b * a.k_sb + h * a.k_sh;
-  const T* vb = static_cast<const T*>(a.v) + b * a.v_sb + h * a.v_sh;
+  const T* kbase = static_cast<const T*>(a.k) + h * a.k_sh;
+  const T* vbase = static_cast<const T*>(a.v) + h * a.v_sh;
   const int W = D * (int)sizeof(T) / 4;  // 4-byte words per K/V row
   const int WS = ks * (int)sizeof(T) / 4;
   uint32_t* kw = reinterpret_cast<uint32_t*>(k_s);
@@ -185,15 +213,28 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a) {
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
 
   for (int t0 = (lo / TT) * TT; t0 < hi; t0 += TT) {
-    // ---- Stage the K/V tile (rows past T are zero-filled, and masked). ----
+    // ---- This tile's base address (slot t0) under the address policy. ----
+    const T* kt;
+    const T* vt;
+    if (kPaged) {
+      // Every thread reads the same entry, so the skip is block-uniform.
+      const int id = a.table[b * a.tb_sb + t0 / TT];
+      if (id <= 0) continue;  // trash page or padding: never loaded
+      kt = kbase + (long long)id * a.k_sb;
+      vt = vbase + (long long)id * a.v_sb;
+    } else {
+      kt = kbase + b * a.k_sb + (long long)t0 * a.k_st;
+      vt = vbase + b * a.v_sb + (long long)t0 * a.v_st;
+    }
+    // ---- Stage the K/V tile (slots outside [lo, hi) are zero-filled). ----
     if (a.vec16) {
       const int W4 = W / 4;
       for (int i = threadIdx.x; i < TT * W4; i += kThreads) {
         const int j = i / W4, c = i % W4, t = t0 + j;
         uint4 kv = make_uint4(0u, 0u, 0u, 0u), vv = kv;
-        if (t < a.T) {
-          kv = *reinterpret_cast<const uint4*>(kb + (long long)t * a.k_st + c * (16 / (int)sizeof(T)));
-          vv = *reinterpret_cast<const uint4*>(vb + (long long)t * a.v_st + c * (16 / (int)sizeof(T)));
+        if (t >= lo && t < hi) {
+          kv = *reinterpret_cast<const uint4*>(kt + (long long)j * a.k_st + c * (16 / (int)sizeof(T)));
+          vv = *reinterpret_cast<const uint4*>(vt + (long long)j * a.v_st + c * (16 / (int)sizeof(T)));
         }
         uint32_t* kr = kw + j * WS + 4 * c;
         uint32_t* vr = vw + j * WS + 4 * c;
@@ -204,9 +245,9 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a) {
       for (int i = threadIdx.x; i < TT * W; i += kThreads) {
         const int j = i / W, c = i % W, t = t0 + j;
         uint32_t kx = 0u, vx = 0u;
-        if (t < a.T) {
-          kx = *reinterpret_cast<const uint32_t*>(kb + (long long)t * a.k_st + c * (4 / (int)sizeof(T)));
-          vx = *reinterpret_cast<const uint32_t*>(vb + (long long)t * a.v_st + c * (4 / (int)sizeof(T)));
+        if (t >= lo && t < hi) {
+          kx = *reinterpret_cast<const uint32_t*>(kt + (long long)j * a.k_st + c * (4 / (int)sizeof(T)));
+          vx = *reinterpret_cast<const uint32_t*>(vt + (long long)j * a.v_st + c * (4 / (int)sizeof(T)));
         }
         kw[j * WS + c] = kx;
         vw[j * WS + c] = vx;
@@ -281,14 +322,19 @@ bool aligned16(const void* p, long long sb, long long sh, long long st) {
          (sh * e) % 16 == 0 && (st * e) % 16 == 0;
 }
 
-template <typename T, bool kSpan>
+template <typename T, bool kSpan, bool kPaged>
 int launch(Args a, cudaStream_t stream) {
   const int R = (a.Hq / a.Hkv) * a.S;
   int tile = 0;
-  for (int c = 128; c >= 16; c /= 2) {
-    if (smem_bytes<T>(R, a.D, c) <= kMaxSmem) {
-      tile = c;
-      break;
+  if (kPaged) {
+    tile = a.tile;  // one page per tile
+    if (smem_bytes<T>(R, a.D, tile) > kMaxSmem) return (int)cudaErrorInvalidConfiguration;
+  } else {
+    for (int c = 128; c >= 16; c /= 2) {
+      if (smem_bytes<T>(R, a.D, c) <= kMaxSmem) {
+        tile = c;
+        break;
+      }
     }
   }
   if (tile == 0) return (int)cudaErrorInvalidConfiguration;
@@ -300,23 +346,24 @@ int launch(Args a, cudaStream_t stream) {
   static size_t opted_in = 48 * 1024;
   if (smem > opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_attn_kernel<T, kSpan>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        decode_attn_kernel<T, kSpan, kPaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     opted_in = smem;
   }
   dim3 grid(a.Hkv, a.B);
-  decode_attn_kernel<T, kSpan><<<grid, kThreads, smem, stream>>>(a);
+  decode_attn_kernel<T, kSpan, kPaged><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool kSpan>
+template <bool kSpan, bool kPaged>
 int dispatch(Args& a, int dtype, void* stream) {
   if (a.D != 64 && a.D != 128 && a.D != 256) return (int)cudaErrorInvalidValue;
   if (a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.B <= 0 || a.S <= 0 || a.T <= 0)
     return (int)cudaErrorInvalidValue;
+  if (kPaged && (a.tile <= 0 || a.T % a.tile != 0)) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch<float, kSpan>(a, s);
-  if (dtype == 1) return launch<__nv_bfloat16, kSpan>(a, s);
+  if (dtype == 0) return launch<float, kSpan, kPaged>(a, s);
+  if (dtype == 1) return launch<__nv_bfloat16, kSpan, kPaged>(a, s);
   return (int)cudaErrorInvalidValue;
 }
 
@@ -341,7 +388,7 @@ extern "C" int advspec_decode_attention(
   a.out = out; a.o_sb = o_sb; a.o_ss = 0; a.o_sh = o_sh;
   a.B = B; a.S = 1; a.Hq = Hq; a.Hkv = Hkv; a.T = T; a.D = D;
   a.scale = scale; a.softcap = softcap;
-  return dispatch<false>(a, dtype, stream);
+  return dispatch<false, false>(a, dtype, stream);
 }
 
 extern "C" int advspec_decode_attention_mq(
@@ -362,5 +409,35 @@ extern "C" int advspec_decode_attention_mq(
   a.out = out; a.o_sb = o_sb; a.o_ss = o_ss; a.o_sh = o_sh;
   a.B = B; a.S = S; a.Hq = Hq; a.Hkv = Hkv; a.T = T; a.D = D;
   a.scale = scale; a.softcap = softcap;
-  return dispatch<true>(a, dtype, stream);
+  return dispatch<true, false>(a, dtype, stream);
+}
+
+// Paged entries (B3: span = 0, S = 1; B4: span = 1). k/v are a layer's
+// [n_pages, Hkv, page, D] pool view: k_sp is the page stride. The table is
+// int32 [B, P] with row stride tb_sb and contiguous entries; T = P * page.
+extern "C" int advspec_paged_decode_attention(
+    int span,
+    const void* q, long long q_sb, long long q_ss, long long q_sh,
+    const void* k, long long k_sp, long long k_sh, long long k_st,
+    const void* v, long long v_sp, long long v_sh, long long v_st,
+    const int* table, long long tb_sb,
+    const int* starts, long long st_sb, long long st_ss,
+    const int* ends, long long en_sb, long long en_ss,
+    void* out, long long o_sb, long long o_ss, long long o_sh,
+    int B, int S, int Hq, int Hkv, int P, int page, int D, int dtype,
+    float scale, float softcap, void* stream) {
+  Args a{};
+  a.q = q; a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
+  a.k = k; a.k_sb = k_sp; a.k_sh = k_sh; a.k_st = k_st;
+  a.v = v; a.v_sb = v_sp; a.v_sh = v_sh; a.v_st = v_st;
+  a.table = table; a.tb_sb = tb_sb;
+  a.starts = starts; a.st_sb = st_sb; a.st_ss = st_ss;
+  a.ends = ends; a.en_sb = en_sb; a.en_ss = en_ss;
+  a.out = out; a.o_sb = o_sb; a.o_ss = o_ss; a.o_sh = o_sh;
+  a.B = B; a.S = S; a.Hq = Hq; a.Hkv = Hkv; a.T = P * page; a.D = D;
+  a.tile = page;
+  a.scale = scale; a.softcap = softcap;
+  if (span) return dispatch<true, true>(a, dtype, stream);
+  if (S != 1) return (int)cudaErrorInvalidValue;
+  return dispatch<false, true>(a, dtype, stream);
 }

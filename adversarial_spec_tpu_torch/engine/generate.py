@@ -108,7 +108,12 @@ def prefill_chunk(
     cache: Cache,  # written in place
     cache_index: int,  # slot of this chunk's first token
 ) -> torch.Tensor:
-    """Run ONE prompt chunk; returns last-position logits [B, vocab]."""
+    """Run ONE prompt chunk; returns last-position logits [B, vocab].
+
+    Every chunk length takes the plain masked ``attention``, as the
+    reference's prompt chunks do — also the short ones the batcher's
+    canonical admissions run (a chunk of S <= 16 would otherwise route
+    to the decode kernels)."""
     Sc = tokens.shape[1]
     T = cache["k"].shape[3]
     dev = tokens.device
@@ -125,6 +130,7 @@ def prefill_chunk(
         cache,
         cache_index,
         kv_valid,
+        use_kernels=False,
         lm_head_last_only=True,
     )
     return logits[:, -1]

@@ -1,0 +1,108 @@
+"""Process-wide config + stats switchboard (the ONE implementation).
+
+Counterpart of ``adversarial_spec_tpu/engine/procconfig.py`` (a copy: the
+port imports nothing of the reference package).
+
+Four subsystems follow the same pattern (born in ``resilience.faults``,
+then re-implemented by hand in ``interleave``, ``spec``,
+``prefix_cache``, and now ``kvtier``): a module-level config dataclass
+the CLI arms once per round, a module-level stats dataclass every engine
+instance records into, and four module functions — ``config()``,
+``configure(...)``, ``reset_stats()``, ``snapshot()``. Before this
+module each of them re-implemented the same three mechanics with subtle
+copy drift risk:
+
+- **configure**: per-field "skip None, else coerce and assign" loops;
+- **reset**: zero every stats field IN PLACE so engines holding a
+  reference keep counting into the same object;
+- **snapshot**: stats fields + derived ratios + selected config fields,
+  the module's ``perf.<name>`` payload.
+
+:class:`StatsBase` carries reset/as_dict (subclasses override
+``snapshot`` to add derived ratios); :class:`ProcState` carries the
+configure/snapshot mechanics with per-field coercers (the knob
+validation — γ's fail-at-the-knob check, the pipeline-depth clamp —
+stays with the owning module, passed in as a callable). The modules
+keep their explicit ``configure(...)`` signatures: discoverability and
+call-site typos still fail loudly.
+
+Imports no jax and no torch: plain host bookkeeping.
+"""
+
+from __future__ import annotations
+
+from dataclasses import fields
+from typing import Callable
+
+
+class StatsBase:
+    """Dataclass mixin for process-wide counters.
+
+    ``reset`` zeroes in place (each field to its type's zero value) so
+    engines holding a reference keep counting into the same object —
+    the invariant every per-round CLI reset relies on.
+    """
+
+    def reset(self) -> None:
+        for f in fields(self):
+            setattr(self, f.name, type(getattr(self, f.name))())
+
+    def as_dict(self) -> dict:
+        return {f.name: getattr(self, f.name) for f in fields(self)}
+
+    def snapshot(self) -> dict:
+        """Override to append derived ratios after the raw fields."""
+        return self.as_dict()
+
+
+class ProcState:
+    """One module's process-wide (config, stats) pair + the shared
+    configure/snapshot mechanics."""
+
+    def __init__(
+        self,
+        config,
+        stats: StatsBase,
+        *,
+        coerce: dict[str, Callable] | None = None,
+        snapshot_fields: tuple[str, ...] | None = None,
+    ):
+        self.config = config
+        self.stats = stats
+        self._coerce = dict(coerce or {})
+        # Config fields appended to snapshot() (the perf payload);
+        # default: every config field, in declaration order.
+        self._snapshot_fields = (
+            tuple(snapshot_fields)
+            if snapshot_fields is not None
+            else tuple(f.name for f in fields(config))
+        )
+
+    def configure(self, **kwargs):
+        """Assign every non-None kwarg through its coercer (default: the
+        current value's type — bool/int/float/str round-trip). Unknown
+        names raise: a typo'd knob must fail loudly, not silently
+        no-op."""
+        for name, value in kwargs.items():
+            if value is None:
+                continue
+            if not hasattr(self.config, name):
+                raise AttributeError(
+                    f"{type(self.config).__name__} has no knob {name!r}"
+                )
+            fn = self._coerce.get(name)
+            if fn is None:
+                fn = type(getattr(self.config, name))
+            setattr(self.config, name, fn(value))
+        return self.config
+
+    def reset_stats(self) -> None:
+        self.stats.reset()
+
+    def snapshot(self) -> dict:
+        """Stats (+ derived ratios) + the chosen config fields — the
+        module's ``perf.<name>`` payload."""
+        out = self.stats.snapshot()
+        for name in self._snapshot_fields:
+            out[name] = getattr(self.config, name)
+        return out

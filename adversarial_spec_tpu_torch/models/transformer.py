@@ -19,6 +19,10 @@ Attention routes like the reference's kernel path: S=1 steps through
 verify) through ``decode_attention_mq`` (B2) — each a CUDA kernel on the
 GPU, its plain version on the CPU — and prefill chunks through the plain
 masked ``attention`` (plain XLA in the reference too).
+
+``forward_paged_decode`` is the continuous batcher's step over the paged
+pool ``[L, n_pages, Hkv, page, D]``: the paged kernels B3 (S=1) and B4
+(the verify span) on the GPU, the reference's gather path on the CPU.
 """
 
 from __future__ import annotations
@@ -33,6 +37,10 @@ from adversarial_spec_tpu_torch.models.config import ModelConfig
 from adversarial_spec_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_mq,
+)
+from adversarial_spec_tpu_torch.ops.paged_attention import (
+    paged_decode_attention,
+    paged_decode_attention_mq,
 )
 from adversarial_spec_tpu_torch.ops.rope import apply_rope, rope_angles
 
@@ -347,6 +355,120 @@ def forward(
             )
         x = _attn_out_and_ffn(x, out, lp, cfg, B, S)
     return _lm_head_logits(params, cfg, x, lm_head_last_only)
+
+
+def forward_paged_decode(
+    params: Params,
+    cfg: ModelConfig,
+    tokens: torch.Tensor,  # [B, S] — decode step (S=1) or verify span (γ+1)
+    positions: torch.Tensor,  # [B, S] rope positions
+    pool: Cache,  # {"k","v": [L, n_pages, Hkv, page, D]}, written in place
+    page_table: torch.Tensor,  # [B, P] int32; <= 0 = unmapped (0 = trash)
+    write_page: torch.Tensor,  # [B(, S)] physical page per token's KV
+    write_off: torch.Tensor,  # [B(, S)] slot within that page
+    bounds: torch.Tensor,  # [B(, S), 2] (start, end) valid-slot window
+    q_pos: torch.Tensor,  # [B] or [B, S]: logical slot per token
+) -> torch.Tensor:
+    """One decode step (or one multi-position verify span) over the PAGED
+    KV pool; returns logits [B, S, vocab] (f32).
+
+    Counterpart of the reference's ``forward_paged_decode``. Token
+    (b, j)'s K/V scatters to ``(write_page[b, j], write_off[b, j])`` of
+    each layer's pool view — in place, where the reference returns a new
+    pool — before attention, so in-span causality comes from the bounds
+    alone: position j's window ends at its own slot. Attention reads
+    through the page table: for a pool on the GPU, S=1 goes to the B3
+    kernel and S>1 to the B4 kernel (``ops/paged_attention.py``); on the
+    CPU it takes the reference's gather path — the page table densified
+    once per row, then the plain masked ``attention`` — which is what
+    the reference runs off the TPU, so the two packages agree there.
+    """
+    B, S = tokens.shape
+    page_size = pool["k"].shape[3]
+    use_kernels = pool["k"].is_cuda
+    write_page = write_page.reshape(B, S)
+    write_off = write_off.reshape(B, S)
+    bounds = bounds.reshape(B, S, 2)
+    if q_pos.dim() <= 1:
+        q_pos = q_pos.reshape(-1, 1).expand(B, S)
+
+    x = params["embed"][tokens.long()]
+    if cfg.scale_embeddings:
+        x = (x.to(torch.float32) * math.sqrt(cfg.dim)).to(x.dtype)
+    cos, sin = rope_angles(
+        positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling
+    )
+    flat_page = write_page.reshape(-1).long()
+    flat_off = write_off.reshape(-1).long()
+    if not use_kernels:
+        # Gather reference path: page table → dense [B, Hkv, T, D] per
+        # layer (the whole span reads it); <= 0 entries are unmapped.
+        safe_table = torch.clamp(page_table, min=0).long()
+        slot = torch.arange(page_table.shape[1] * page_size, device=x.device)
+        mapped = torch.repeat_interleave(page_table > 0, page_size, dim=1)[:, None, :]
+
+    for layer_id, lp in enumerate(params["layers"]):
+        h = rms_norm(x, lp["attn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one)
+        q, k, v = _project_qkv(lp, cfg, h, B, S, cos, sin)
+        k_pages, v_pages = pool["k"][layer_id], pool["v"][layer_id]
+        # Advanced indices at dims 0 and 2, separated by the head slice,
+        # put the flattened (row, span) axis first: update [B·S, Hkv, D].
+        # One scatter per layer; rejected-draft and inactive-row targets
+        # are the trash page, never read.
+        k_pages[flat_page, :, flat_off] = k.reshape(
+            B * S, cfg.n_kv_heads, cfg.head_dim
+        ).to(k_pages.dtype)
+        v_pages[flat_page, :, flat_off] = v.reshape(
+            B * S, cfg.n_kv_heads, cfg.head_dim
+        ).to(v_pages.dtype)
+
+        start = _layer_window_start(cfg, layer_id, bounds[..., 0], q_pos)
+        end = bounds[..., 1]
+        if use_kernels and S == 1:
+            layer_bounds = torch.stack([start[:, 0], end[:, 0]], dim=1)
+            out = paged_decode_attention(
+                q[:, 0],
+                k_pages,
+                v_pages,
+                page_table,
+                layer_bounds.to(torch.int32).contiguous(),
+                attn_softcap=cfg.attn_softcap,
+                scale=cfg.attn_scale,
+            )[:, None]
+        elif use_kernels:
+            out = paged_decode_attention_mq(
+                q,
+                k_pages,
+                v_pages,
+                page_table,
+                start.to(torch.int32).contiguous(),
+                end.to(torch.int32).contiguous(),
+                attn_softcap=cfg.attn_softcap,
+                scale=cfg.attn_scale,
+            )
+        else:
+
+            def to_dense(pages):  # [B, P, Hkv, page, D] → [B, Hkv, T, D]
+                g = pages[safe_table]
+                return g.transpose(1, 2).reshape(
+                    B, cfg.n_kv_heads, -1, pages.shape[-1]
+                )
+
+            mask = (
+                mapped
+                & (slot >= start[..., None])
+                & (slot < end[..., None])
+            )  # [B, S, T]
+            out = attention(
+                q,
+                to_dense(k_pages),
+                to_dense(v_pages),
+                mask,
+                attn_softcap=cfg.attn_softcap,
+                scale=cfg.attn_scale,
+            )
+        x = _attn_out_and_ffn(x, out, lp, cfg, B, S)
+    return _lm_head_logits(params, cfg, x, lm_head_last_only=False)
 
 
 def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:

@@ -1,13 +1,14 @@
 """The plain online-softmax (flash) block update.
 
 Counterpart of ``adversarial_spec_tpu/ops/flash_common.py:flash_update``.
-The plain versions of both decode-attention kernels
-(``ops/decode_attention.py``) fold the cache block by block through this
-one function, so the ``-inf`` handling for fully masked blocks lives in
-exactly one place: a row whose window is empty so far keeps ``m = -inf``,
-its ``alpha`` is forced to 0 and ``m_safe`` pins the exponent, so no NaN
-ever enters ``l`` or ``acc`` and an empty window finalizes to exact zeros.
-The CUDA kernel (``csrc/decode_attention.cu``) runs the same recurrence.
+The plain versions of all four decode-attention kernels
+(``ops/decode_attention.py``, ``ops/paged_attention.py``) fold the cache
+block by block through this one function, so the ``-inf`` handling for
+fully masked blocks lives in exactly one place: a row whose window is
+empty so far keeps ``m = -inf``, its ``alpha`` is forced to 0 and
+``m_safe`` pins the exponent, so no NaN ever enters ``l`` or ``acc`` and
+an empty window finalizes to exact zeros. The CUDA kernel
+(``csrc/decode_attention.cu``) runs the same recurrence.
 """
 
 from __future__ import annotations
@@ -27,13 +28,19 @@ def flash_update(
     acc: torch.Tensor,  # [..., G, D] running weighted values
     *,
     attn_softcap: float,
+    valid: torch.Tensor | None = None,  # [..., 1|G, Tb] bool: slot mapped
 ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """One accumulation over a K/V block; returns (m, l, acc)."""
+    """One accumulation over a K/V block; returns (m, l, acc). ``valid``
+    masks slots out on top of the window (the paged plain versions pass
+    which slots lie in mapped pages)."""
     s = torch.matmul(q, k.transpose(-1, -2))  # [..., G, Tb]
     if attn_softcap > 0.0:
         s = torch.tanh(s / attn_softcap) * attn_softcap
     slot = t0 + torch.arange(k.shape[-2], device=k.device)
-    s = torch.where((slot >= start) & (slot < end), s, float("-inf"))
+    ok = (slot >= start) & (slot < end)
+    if valid is not None:
+        ok = ok & valid
+    s = torch.where(ok, s, float("-inf"))
 
     m_new = torch.maximum(m, s.amax(dim=-1, keepdim=True))
     m_safe = torch.where(torch.isfinite(m_new), m_new, 0.0)

@@ -1,0 +1,253 @@
+"""Decode attention over a PAGED KV pool: CUDA kernels + plain versions.
+
+Counterpart of ``adversarial_spec_tpu/ops/pallas_paged.py``:
+
+- ``paged_decode_attention`` (B3): one query token per row through the
+  row's page table — the continuous batcher's S=1 decode step. Replaces
+  the Pallas ``_paged_attn_kernel``.
+- ``paged_decode_attention_mq`` (B4): a short span of S query positions
+  per row, each under its own ``[start, end)`` window, one pass over the
+  row's pages — the batcher's span-native speculative verify. Replaces
+  the Pallas ``_paged_mq_attn_kernel``.
+
+Page-table sentinel convention (shared with the gather path of
+``models/transformer.py:forward_paged_decode``): physical page 0 is the
+reserved TRASH page and negative ids are padding, so any entry <= 0 is
+unmapped and never contributes.
+
+Each wrapper launches the hand-written Hopper kernel for CUDA tensors —
+the paged tile-address policy of ``csrc/decode_attention.cu`` (one page
+per tile, pages with id <= 0 skipped whole, pages outside the union of
+the rows' windows never loaded) — and counts the launch in ``launches``;
+for CPU tensors it runs the plain PyTorch version beside it (``*_plain``,
+the ``ops/flash_common.py`` update folded over the gathered pages), which
+the tests and the chip smoke also use as the reference. A CUDA tensor
+never takes the plain version: the wrapper launches the kernel or raises.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from adversarial_spec_tpu_torch.ops import _build
+from adversarial_spec_tpu_torch.ops.decode_attention import (
+    SOURCE,
+    _check,
+    _raise_on,
+)
+from adversarial_spec_tpu_torch.ops.flash_common import flash_update
+
+# Slots the plain versions gather per online-softmax update.
+_PLAIN_BLOCK = 512
+
+# Kernel launches per wrapper (the chip smoke zeroes and reads these to
+# show the batcher really went through the kernels). Plain runs on CPU
+# tensors never count.
+launches = {"paged_decode_attention": 0, "paged_decode_attention_mq": 0}
+
+_P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
+
+
+def reset_launches() -> None:
+    for name in launches:
+        launches[name] = 0
+
+
+def _lib() -> ctypes.CDLL:
+    lib = _build.load(SOURCE)
+    if not getattr(lib, "_advspec_paged_bound", False):
+        lib.advspec_paged_decode_attention.argtypes = (
+            [_I]
+            + [_P, _L, _L, _L]  # q
+            + [_P, _L, _L, _L] * 2  # k, v pages
+            + [_P, _L]  # table
+            + [_P, _L, _L] * 2  # starts, ends
+            + [_P, _L, _L, _L]  # out
+            + [_I] * 8
+            + [_F, _F, _P]
+        )
+        lib.advspec_paged_decode_attention.restype = _I
+        lib._advspec_paged_bound = True
+    return lib
+
+
+# -- plain PyTorch versions ---------------------------------------------------
+
+
+def paged_decode_attention_mq_plain(
+    q: torch.Tensor,  # [B, S, Hq, D]
+    k_pages: torch.Tensor,  # [n_pages, Hkv, page, D]
+    v_pages: torch.Tensor,  # [n_pages, Hkv, page, D]
+    page_table: torch.Tensor,  # [B, P] int; <= 0 = unmapped
+    starts: torch.Tensor,  # [B, S] or [B, 1] int
+    ends: torch.Tensor,  # [B, S] or [B, 1] int
+    attn_softcap: float = 0.0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain B4: f32 online softmax over the row's gathered pages, per-row
+    windows; unmapped pages are masked, and their K/V SELECTED to zero
+    (never multiplied in), so a poisoned trash page cannot leak. Rows
+    with an empty window give exact zeros. Returns [B, S, Hq, D]."""
+    B, S, Hq, D = q.shape
+    Hkv, page = k_pages.shape[1], k_pages.shape[2]
+    P = page_table.shape[1]
+    g = Hq // Hkv
+    scale = scale if scale is not None else 1.0 / math.sqrt(D)
+    # [B, Hkv, S*g, D]: row r = query (r // g), group lane (r % g).
+    qg = q.reshape(B, S, Hkv, g, D).permute(0, 2, 1, 3, 4)
+    qg = qg.reshape(B, Hkv, S * g, D).to(torch.float32) * scale
+    rows = lambda x: (  # noqa: E731
+        x.expand(B, S).repeat_interleave(g, dim=1).reshape(B, 1, S * g, 1)
+    )
+    lo, hi = rows(starts), rows(ends)
+    m = torch.full((B, Hkv, S * g, 1), float("-inf"), device=q.device)
+    l = torch.zeros((B, Hkv, S * g, 1), device=q.device)
+    acc = torch.zeros((B, Hkv, S * g, D), device=q.device)
+    per = max(1, _PLAIN_BLOCK // page)
+    for p0 in range(0, P, per):
+        ids = page_table[:, p0 : p0 + per]  # [B, n]
+        n = ids.shape[1]
+        mapped = (ids > 0).repeat_interleave(page, dim=1)  # [B, n*page]
+        safe = torch.clamp(ids, min=0).long()
+
+        def gather(pages):  # → [B, Hkv, n*page, D] f32, unmapped slots = 0
+            x = pages[safe].permute(0, 2, 1, 3, 4).reshape(B, Hkv, n * page, D)
+            return torch.where(mapped[:, None, :, None], x.to(torch.float32), 0.0)
+
+        m, l, acc = flash_update(
+            qg,
+            gather(k_pages),
+            gather(v_pages),
+            p0 * page,
+            lo,
+            hi,
+            m,
+            l,
+            acc,
+            attn_softcap=attn_softcap,
+            valid=mapped[:, None, None, :],
+        )
+    out = (acc / torch.clamp(l, min=1e-30)).to(q.dtype)
+    out = out.reshape(B, Hkv, S, g, D).permute(0, 2, 1, 3, 4)
+    return out.reshape(B, S, Hq, D)
+
+
+def paged_decode_attention_plain(
+    q: torch.Tensor,  # [B, Hq, D]
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,  # [B, P]
+    bounds: torch.Tensor,  # [B, 2] (start, end)
+    attn_softcap: float = 0.0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """Plain B3 (the S=1 case of the plain B4). Returns [B, Hq, D]."""
+    return paged_decode_attention_mq_plain(
+        q[:, None],
+        k_pages,
+        v_pages,
+        page_table,
+        bounds[:, 0:1],
+        bounds[:, 1:2],
+        attn_softcap=attn_softcap,
+        scale=scale,
+    )[:, 0]
+
+
+# -- kernel wrappers ----------------------------------------------------------
+
+
+def _launch(
+    name: str,
+    q: torch.Tensor,  # [B, S, Hq, D]
+    k_pages: torch.Tensor,
+    v_pages: torch.Tensor,
+    page_table: torch.Tensor,
+    starts: torch.Tensor,
+    ends: torch.Tensor,
+    out: torch.Tensor,  # [B, S, Hq, D]
+    span: bool,
+    attn_softcap: float,
+    scale: float | None,
+) -> None:
+    code = _check(q, k_pages, v_pages, page_table, starts, ends)
+    B, S, Hq, D = q.shape
+    Hkv, page = k_pages.shape[1], k_pages.shape[2]
+    if page_table.dim() != 2 or page_table.shape[0] != B:
+        raise ValueError(f"page table shape {tuple(page_table.shape)} vs B={B}")
+    if page_table.stride(1) != 1:
+        raise ValueError("page table entries must be contiguous")
+    strides = []
+    for nm, t in (("starts", starts), ("ends", ends)):
+        if t.dim() != 2 or t.shape[0] != B or t.shape[1] not in (1, S):
+            raise ValueError(f"{nm} shape {tuple(t.shape)} vs B={B}, S={S}")
+        strides.append((t.stride(0), t.stride(1) if t.shape[1] == S else 0))
+    rc = _lib().advspec_paged_decode_attention(
+        int(span),
+        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+        k_pages.data_ptr(), k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+        v_pages.data_ptr(), v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
+        page_table.data_ptr(), page_table.stride(0),
+        starts.data_ptr(), *strides[0],
+        ends.data_ptr(), *strides[1],
+        out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
+        B, S, Hq, Hkv, page_table.shape[1], page, D, code,
+        float(scale if scale is not None else 1.0 / math.sqrt(D)),
+        float(attn_softcap),
+        torch.cuda.current_stream(q.device).cuda_stream,
+    )
+    _raise_on(rc, name)
+    launches[name] += 1
+
+
+def paged_decode_attention(
+    q: torch.Tensor,  # [B, Hq, D] one query token per row
+    k_pages: torch.Tensor,  # [n_pages, Hkv, page, D] heads-major pages
+    v_pages: torch.Tensor,  # [n_pages, Hkv, page, D]
+    page_table: torch.Tensor,  # [B, P] int32; <= 0 = unmapped (0 = trash)
+    bounds: torch.Tensor,  # [B, 2] int32 (start, end) token window
+    attn_softcap: float = 0.0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """B3: fused paged decode attention. Returns [B, Hq, D] in q.dtype."""
+    if not q.is_cuda:
+        return paged_decode_attention_plain(
+            q, k_pages, v_pages, page_table, bounds,
+            attn_softcap=attn_softcap, scale=scale,
+        )
+    B, Hq, D = q.shape
+    if bounds.shape != (B, 2):
+        raise ValueError(f"bounds shape {tuple(bounds.shape)} != ({B}, 2)")
+    out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
+    _launch(
+        "paged_decode_attention", q[:, None], k_pages, v_pages, page_table,
+        bounds[:, 0:1], bounds[:, 1:2], out, False, attn_softcap, scale,
+    )
+    return out[:, 0]
+
+
+def paged_decode_attention_mq(
+    q: torch.Tensor,  # [B, S, Hq, D] a short query span (spec verify)
+    k_pages: torch.Tensor,  # [n_pages, Hkv, page, D]
+    v_pages: torch.Tensor,  # [n_pages, Hkv, page, D]
+    page_table: torch.Tensor,  # [B, P] int32; <= 0 = unmapped
+    starts: torch.Tensor,  # [B, S] or [B, 1] int32 first valid slot
+    ends: torch.Tensor,  # [B, S] or [B, 1] int32 one past the last
+    attn_softcap: float = 0.0,
+    scale: float | None = None,
+) -> torch.Tensor:
+    """B4: multi-position paged decode attention. Returns [B, S, Hq, D]."""
+    if not q.is_cuda:
+        return paged_decode_attention_mq_plain(
+            q, k_pages, v_pages, page_table, starts, ends,
+            attn_softcap=attn_softcap, scale=scale,
+        )
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    _launch(
+        "paged_decode_attention_mq", q, k_pages, v_pages, page_table,
+        starts, ends, out, True, attn_softcap, scale,
+    )
+    return out

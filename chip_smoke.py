@@ -11,21 +11,36 @@ Phases, each printing one JSON line; any failure exits non-zero:
    reports them (that line is printed raw as well);
 2. build   — compiles every CUDA source of the port with nvcc (in
    parallel), from this checkout, into build/kernels;
-3. kernels — each decode-attention kernel at the main path's shapes
-   (Llama-3-8B: B=4, Hq=32, Hkv=8, D=128, bf16, T=4224; S=9 for the
-   verify) against its plain PyTorch version on the card, with left-pad
-   windows, an empty window, a softcap case and f32 cases; times the
-   kernel, the plain version and scaled_dot_product_attention (a timing
-   yardstick only — the port never calls it) beside the least time the
-   card could take;
-4. slice   — GpuEngine.chat on tpu://random-8b (Llama-3-8B at full width,
-   bf16, random weights from seed 0) for four opponent requests, greedy,
-   128 new tokens, speculation on; launch counters are zeroed just before
-   and read just after, and both kernels must have launched; with
-   ``--profile``, one more chat call runs under torch.profiler (device
-   time by kernel, idle share);
-5. agree   — a tiny f32 model decoded greedily on the card (kernels) and
-   on the CPU (plain versions) must give identical tokens.
+3. kernels — each decode-attention kernel at its main path's shapes
+   against its plain PyTorch version on the card, with the tolerance
+   stated, bf16 and f32:
+   - dense B1/B2 (Llama-3-8B: B=4, Hq=32, Hkv=8, D=128, T=4224; S=9 for
+     the verify) with left-pad windows, an empty window and softcap;
+   - paged B3/B4 (the batcher's 8 slots, page 64, a 128-page table =
+     8192/64; S=9) with scattered pages, -1 padding, a trash page inside
+     a window, a NaN-poisoned trash page and unused pages, left pads, an
+     empty row and [B, 1] starts;
+   each timed with CUDA events and a cold L2 beside its plain version,
+   scaled_dot_product_attention over the same windows (a yardstick only —
+   the port never calls it; for B3/B4 the pages are gathered dense
+   beforehand, untimed) and the least time the card could take;
+4. slice   — the dense path: GpuEngine.chat on tpu://random-8b (Llama-3-8B
+   at full width, bf16, random weights from seed 0) for four opponent
+   requests, greedy, 128 new tokens, speculation on; B1/B2 launch counters
+   are zeroed just before and read just after, and both must have
+   launched; with ``--profile``, one more chat call runs under
+   torch.profiler (device time by kernel, idle share);
+5. paged   — the paged path: GpuEngine.chat on a temporary registry entry
+   random-8b with kv="paged" (the continuous batcher): twelve opponent
+   requests through 8 slots, 128 new tokens, greedy; round 1 with
+   speculation on, round 2 the same requests with it off, on the same
+   batcher. B3/B4 counters are zeroed before round 1 and read after
+   round 2; B4 must launch in round 1, B3 in round 2, and round 2 must
+   hit the prefix cache; with ``--profile``, a third round (speculation
+   on, warm cache) runs under torch.profiler;
+6. agree   — tiny f32 models decoded greedily on the card (kernels) and on
+   the CPU (plain versions) give identical tokens: dense generate(), and
+   the paged batcher with speculation on and off.
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Results also go to chiprun_out/chip_smoke.json.
@@ -45,6 +60,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per second
 B, HQ, HKV, D, S_SPAN = 4, 32, 8, 128, 9
 T_CACHE = 4096 + 128  # the slice's 4096-token bucket + 128 new tokens
+NS, PAGE, P_TAB = 8, 64, 128  # batcher slots, page size, 8192 / 64 pages
 N_ROTATE = 4  # distinct caches the timing loops cycle through
 BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)  # one bf16 rounding of the output
 F32_TOL = dict(rtol=5e-5, atol=5e-5)  # summation order over 4224 slots
@@ -273,11 +289,183 @@ def phase_kernels(torch, da) -> tuple[dict, list]:
     return results, checks
 
 
-def profile_chat(torch, engine, reqs, sp) -> dict:
+def paged_layout(rng):
+    """The batcher's shapes for B3/B4: 8 rows, each with its own page
+    list drawn from a shared pool (scattered physical ids, -1 padding),
+    left pads on two rows, a trash (0) entry inside row 3's window, and
+    an empty window on row 7. Returns (table, pads, cur_lens, n_pages)."""
+    cur_lens = [4224, 4100, 3000, 2200, 4224, 1800, 3500, 2600]
+    pads = [0, 0, 700, 0, 1500, 0, 0, 2000]
+    n_row = [-(-(c + S_SPAN) // PAGE) for c in cur_lens]
+    n_used = sum(n_row)
+    ids = list(rng.permutation(n_used) + 1)  # physical page 0 = trash
+    table = [[-1] * P_TAB for _ in range(NS)]
+    for r, n in enumerate(n_row):
+        for p in range(n):
+            table[r][p] = int(ids.pop())
+    table[3][10] = 0  # a trash entry inside the window: never read
+    return table, pads, cur_lens, n_used + 1 + 16  # 16 unused pages
+
+
+def paged_counts(table, starts, ends):
+    """(K/V slots the call must read — each row's union window, mapped
+    pages only — and the (query row, slot) pairs it scores)."""
+    read, scored = 0, 0
+    for r in range(len(table)):
+        mapped = [table[r][t // PAGE] > 0 for t in range(P_TAB * PAGE)]
+        spans = [(max(lo, 0), hi) for lo, hi in zip(starts[r], ends[r]) if lo < hi]
+        if spans:
+            lo = min(a for a, _ in spans)
+            hi = max(b for _, b in spans)
+            read += sum(mapped[lo:hi])
+        scored += sum(sum(mapped[a:b]) for a, b in spans)
+    return read, scored
+
+
+def phase_paged_kernels(torch, pa) -> tuple[dict, list]:
+    import numpy as np
+    import torch.nn.functional as F
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(1)
+    table_l, pads, cur_lens, n_pages = paged_layout(np.random.RandomState(0))
+    used = sorted({p for row in table_l for p in row if p > 0})
+    unused = [p for p in range(n_pages) if p not in set(used)]
+    table = torch.tensor(table_l, dtype=torch.int32, device=dev)
+    b3_bnd = [[pads[r], cur_lens[r]] for r in range(NS)]
+    b3_bnd[7] = [2600, 2600]  # empty window
+    b4_st = [[pads[r]] * S_SPAN for r in range(NS)]
+    b4_en = [[cur_lens[r] + j for j in range(S_SPAN)] for r in range(NS)]
+    b4_st[7] = b4_en[7][:]  # empty windows
+    results, checks = {}, []
+
+    def pool(dtype):
+        # A layer's view of a two-layer [L, n_pages, Hkv, page, D] pool,
+        # NaN in the trash page and in every page no row maps.
+        shape = (2, n_pages, HKV, PAGE, D)
+        k = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        v = torch.randn(shape, generator=gen, device=dev).to(dtype)
+        for x in (k, v):
+            x[1, [0] + unused] = float("nan")
+        return k[1], v[1]
+
+    def check(name, got, want, tol, empty_row=None):
+        if not bool(torch.isfinite(got).all()):
+            raise AssertionError(f"{name}: non-finite output (poison leaked)")
+        err = (got.float() - want.float()).abs().max().item()
+        torch.testing.assert_close(got.float(), want.float(), **tol)
+        if empty_row is not None and not bool((got[empty_row] == 0).all()):
+            raise AssertionError(f"{name}: empty window did not give exact zeros")
+        checks.append({"case": name, "max_abs_err": err, "tol": tol})
+        return err
+
+    kw = {}
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        tn = str(dtype).split(".")[1]
+        k, v = pool(dtype)
+        q1 = torch.randn((NS, HQ, D), generator=gen, device=dev).to(dtype)
+        q2 = torch.randn((NS, S_SPAN, HQ, D), generator=gen, device=dev).to(dtype)
+        bnd = torch.tensor(b3_bnd, dtype=torch.int32, device=dev)
+        st = torch.tensor(b4_st, dtype=torch.int32, device=dev)
+        en = torch.tensor(b4_en, dtype=torch.int32, device=dev)
+        for cap in (0.0, 50.0):
+            got = pa.paged_decode_attention(q1, k, v, table, bnd, attn_softcap=cap)
+            want = pa.paged_decode_attention_plain(q1, k, v, table, bnd, attn_softcap=cap)
+            err = check(f"B3 {tn} softcap={cap}", got, want, tol, empty_row=7)
+            if dtype == torch.bfloat16 and cap == 0.0:
+                kw["b3"] = dict(q=q1, bnd=bnd, err=err)
+            got = pa.paged_decode_attention_mq(q2, k, v, table, st, en, attn_softcap=cap)
+            want = pa.paged_decode_attention_mq_plain(q2, k, v, table, st, en, attn_softcap=cap)
+            err = check(f"B4 {tn} softcap={cap}", got, want, tol, empty_row=7)
+            if dtype == torch.bfloat16 and cap == 0.0:
+                kw["b4"] = dict(q=q2, st=st, en=en, err=err)
+        # [B, 1] starts broadcast over the span (row 7 no longer empty).
+        s1 = st[:, :1].contiguous()
+        got = pa.paged_decode_attention_mq(q2, k, v, table, s1, en)
+        want = pa.paged_decode_attention_mq_plain(q2, k, v, table, s1, en)
+        check(f"B4 {tn} broadcast-starts", got, want, tol)
+        if dtype == torch.bfloat16:
+            kw["pool"] = (k, v)
+    torch.cuda.synchronize()
+
+    # ---- timing at the batcher's shapes (bf16), pools rotating ----
+    rot = [kw["pool"]] + [pool(torch.bfloat16) for _ in range(N_ROTATE - 1)]
+    kv = lambda i: rot[i % N_ROTATE]  # noqa: E731
+    ids = torch.clamp(table, min=0).long()
+
+    def dense(pages):  # untimed gather for the SDPA yardstick
+        x = pages[ids].permute(0, 2, 1, 3, 4).reshape(NS, HKV, P_TAB * PAGE, D)
+        return torch.nan_to_num(x)  # unmapped slots are masked anyway
+
+    rot_dense = [(dense(k), dense(v)) for k, v in rot]
+    kvd = lambda i: rot_dense[i % N_ROTATE]  # noqa: E731
+    mapped = (table > 0).repeat_interleave(PAGE, dim=1)  # [NS, T]
+    slot = torch.arange(P_TAB * PAGE, device=dev)
+
+    def mask(starts, ends):
+        s_t = torch.tensor(starts, device=dev)[..., None]
+        e_t = torch.tensor(ends, device=dev)[..., None]
+        return ((slot >= s_t) & (slot < e_t) & mapped[:, None, :])[:, None]
+
+    def sdpa(qq, kk, vv, m):
+        try:
+            return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=m, enable_gqa=True)
+        except TypeError:  # older torch: no enable_gqa
+            g = HQ // HKV
+            return F.scaled_dot_product_attention(
+                qq, kk.repeat_interleave(g, 1), vv.repeat_interleave(g, 1), attn_mask=m
+            )
+
+    elem = 2
+    per_slot = 2 * HKV * D * elem
+    b3_starts = [[lo] for lo, _ in b3_bnd]
+    b3_ends = [[hi] for _, hi in b3_bnd]
+    m3 = mask(b3_starts, b3_ends)
+    m3[7] = True  # SDPA gives NaN for an all-masked row; the yardstick only
+    q, bnd = kw["b3"]["q"], kw["b3"]["bnd"]
+    read, scored = paged_counts(table_l, b3_starts, b3_ends)
+    results["paged_decode_attention"] = {
+        "ms": cuda_ms(lambda i: pa.paged_decode_attention(q, *kv(i), table, bnd), 50, torch),
+        "plain_ms": cuda_ms(
+            lambda i: pa.paged_decode_attention_plain(q, *kv(i), table, bnd), 8, torch
+        ),
+        "library_ms": cuda_ms(lambda i: sdpa(q[:, :, None], *kvd(i), m3), 20, torch),
+        "bytes": read * per_slot + 2 * q.numel() * elem + table.numel() * 4 + bnd.numel() * 4,
+        "ops": 4 * HQ * D * scored,
+        "max_abs_err": kw["b3"]["err"],
+    }
+    m4 = mask(b4_st, b4_en)
+    m4[7] = True
+    q, st, en = kw["b4"]["q"], kw["b4"]["st"], kw["b4"]["en"]
+    read, scored = paged_counts(table_l, b4_st, b4_en)
+    results["paged_decode_attention_mq"] = {
+        "ms": cuda_ms(
+            lambda i: pa.paged_decode_attention_mq(q, *kv(i), table, st, en), 50, torch
+        ),
+        "plain_ms": cuda_ms(
+            lambda i: pa.paged_decode_attention_mq_plain(q, *kv(i), table, st, en), 8, torch
+        ),
+        "library_ms": cuda_ms(lambda i: sdpa(q.transpose(1, 2), *kvd(i), m4), 20, torch),
+        "bytes": read * per_slot + 2 * q.numel() * elem + table.numel() * 4
+        + 2 * st.numel() * 4,
+        "ops": 4 * HQ * D * scored,
+        "max_abs_err": kw["b4"]["err"],
+    }
+    del rot, rot_dense
+    for r in results.values():
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / PEAK_OPS["bfloat16"] * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    return results, checks
+
+
+def profile_chat(torch, engine, reqs, sp, name="chip_profile.txt") -> dict:
     """One more chat call under torch.profiler: device busy time by
     kernel, and the idle share of the call's wall time (the profiler's own
     host overhead lengthens the wall, so the share is an upper bound).
-    The full table goes to chiprun_out/chip_profile.txt."""
+    The full table goes to chiprun_out/<name>."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -302,7 +490,7 @@ def profile_chat(torch, engine, reqs, sp) -> dict:
         r["share"] = r["ms"] / busy_ms if busy_ms else 0.0
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
-    with open(os.path.join(out_dir, "chip_profile.txt"), "w") as f:
+    with open(os.path.join(out_dir, name), "w") as f:
         f.write(f"wall_s {wall}\nbusy_ms {busy_ms}\n")
         for r in kernels:
             f.write(f"{r['ms']:12.3f} ms {r['count']:7d}x {r['share']:.4f}  {r['name']}\n")
@@ -392,6 +580,131 @@ def phase_slice(torch, profile: bool = False) -> dict:
     }
 
 
+PERSONAS = [
+    "You are a security engineer reviewing a product spec.",
+    "You are an SRE focused on reliability and operability.",
+    "You are a product manager checking scope and acceptance criteria.",
+    "You are a staff engineer looking for design flaws and ambiguity.",
+    "You are a privacy counsel checking data handling.",
+    "You are a QA lead looking for untestable requirements.",
+    "You are a database engineer reviewing storage and migrations.",
+    "You are a frontend engineer checking API ergonomics.",
+    "You are a cost analyst reviewing infrastructure spend.",
+    "You are an accessibility specialist reviewing user flows.",
+    "You are a support lead checking operability for on-call staff.",
+    "You are a compliance auditor checking audit and retention rules.",
+]
+
+
+def phase_paged(torch, profile: bool = False) -> dict:
+    """GpuEngine.chat on a kv="paged" random-8b: round 1 speculation on,
+    round 2 the same requests with it off, on the same batcher. With
+    ``profile``, a third round (speculation on, warm prefix cache) runs
+    under torch.profiler."""
+    import tempfile
+    from pathlib import Path
+
+    from adversarial_spec_tpu_torch.engine import interleave as il
+    from adversarial_spec_tpu_torch.engine import registry
+    from adversarial_spec_tpu_torch.engine import spec as spec_mod
+    from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
+    from adversarial_spec_tpu_torch.engine.types import ChatRequest, SamplingParams
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+
+    reqs = [
+        ChatRequest(
+            model="tpu://random-8b",
+            system=p,
+            user=spec_document(1600 + 160 * i, 10 + i) + "\n\nCritique this spec.",
+        )
+        for i, p in enumerate(PERSONAS)
+    ]
+    sp = SamplingParams(max_new_tokens=128, greedy=True, seed=0)
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    prev_path = registry.REGISTRY_PATH
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        registry.REGISTRY_PATH = Path(tmp) / "registry.json"
+        try:
+            registry.save_registry_entry(
+                registry.ModelSpec(alias="random-8b", family="llama", size="8b", kv="paged")
+            )
+            engine = GpuEngine()
+            t = time.monotonic()
+            warm = engine.chat([reqs[0]], SamplingParams(max_new_tokens=16, greedy=True))
+            if not warm[0].ok:
+                raise RuntimeError(f"warm-up chat failed: {warm[0].error}")
+            load_s = time.monotonic() - t
+            rounds = []
+            da.reset_launches()
+            pa.reset_launches()
+            texts = []
+            for label, on in (("round 1, speculation on", True), ("round 2, speculation off", False)):
+                spec_mod.configure(enabled=on)
+                before = {**da.launches, **pa.launches}
+                il.reset_stats()
+                torch.cuda.reset_peak_memory_stats()
+                t = time.monotonic()
+                comps = engine.chat(reqs, sp)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t
+                bad = [c.error for c in comps if not c.ok]
+                if bad:
+                    raise RuntimeError(f"{label}: chat failed: {bad}")
+                if any(c.usage.output_tokens < 1 for c in comps):
+                    raise RuntimeError(f"{label}: a row emitted nothing")
+                after = {**da.launches, **pa.launches}
+                decode_s = sum(c.usage.decode_time_s for c in comps)
+                out_tok = sum(c.usage.output_tokens for c in comps)
+                texts.append([c.text for c in comps])
+                rounds.append({
+                    "round": label,
+                    "wall_s": wall,
+                    "prefill_s": sum(c.usage.prefill_time_s for c in comps),
+                    "decode_s": decode_s,
+                    "decode_tokens_per_s": out_tok / decode_s if decode_s > 0 else 0.0,
+                    "input_tokens": [c.usage.input_tokens for c in comps],
+                    "output_tokens": [c.usage.output_tokens for c in comps],
+                    "cached_tokens": sum(c.usage.cached_tokens for c in comps),
+                    "launches": {k: after[k] - before[k] for k in after},
+                    "host_syncs": il.stats.sync_points,
+                    "fused_steps": il.stats.fused_steps,
+                    "decode_steps": il.stats.decode_steps,
+                    "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                })
+            launched = dict(pa.launches)
+            prof = None
+            if profile:
+                spec_mod.configure(enabled=True)
+                prof = profile_chat(torch, engine, reqs, sp, "chip_profile_paged.txt")
+            lm = engine._resident
+            pool_bytes = sum(t.numel() * t.element_size() for t in lm.batcher.pool.values())
+            batcher = {"slots": lm.batcher.B, "capacity_tokens": lm.batcher.capacity_tokens,
+                       "pool_bytes": pool_bytes}
+        finally:
+            registry.REGISTRY_PATH = prev_path
+            spec_mod.configure(enabled=True)
+    r1, r2 = rounds
+    if r1["launches"]["paged_decode_attention_mq"] == 0:
+        raise RuntimeError(f"B4 never launched with speculation on: {r1['launches']}")
+    if r2["launches"]["paged_decode_attention"] == 0:
+        raise RuntimeError(f"B3 never launched with speculation off: {r2['launches']}")
+    if r2["cached_tokens"] == 0:
+        raise RuntimeError("round 2 found no prefix-cache hits on the reused batcher")
+    return {
+        "phase": "paged",
+        "model": "tpu://random-8b (kv=paged)",
+        "requests": len(reqs),
+        "load_and_warmup_s": load_s,
+        "batcher": batcher,
+        "rounds": rounds,
+        "rows_same_text_spec_on_off": sum(a == b for a, b in zip(*texts)),
+        "launches": launched,
+        **({"profile": prof} if prof else {}),
+    }
+
+
 def phase_agree(torch) -> dict:
     from adversarial_spec_tpu_torch.engine.generate import generate
     from adversarial_spec_tpu_torch.engine.loader import materialize_params
@@ -415,7 +728,33 @@ def phase_agree(torch) -> dict:
     same = bool((out["cuda"] == out["cpu"]).all())
     if not same:
         raise RuntimeError("tiny f32 greedy tokens differ between card and CPU")
-    return {"phase": "agree", "identical_tokens": same, "shape": list(out["cuda"].shape)}
+    # The paged batcher (B3/B4 on the card, the gather path on the CPU):
+    # 3 requests through 2 slots, prefix cache on, speculation on and off.
+    from adversarial_spec_tpu_torch.engine.scheduler import (
+        ContinuousBatcher,
+        SchedRequest,
+    )
+
+    paged = {}
+    for spec in (True, False):
+        toks = {}
+        for dev, p in (("cuda", params), ("cpu", on_cpu)):
+            b = ContinuousBatcher(
+                p, cfg, max_batch=2, page_size=16, capacity_tokens=2048,
+                max_new_cap=48, eos_ids=[2], speculative=spec,
+            )
+            for i, pr in enumerate(prompts):
+                b.submit(SchedRequest(req_id=i, prompt_ids=pr, max_new_tokens=40))
+            toks[dev] = [r.tokens.tolist() for r in b.run_all()]
+            b.allocator.check_invariants()
+        paged["spec_on" if spec else "spec_off"] = toks["cuda"] == toks["cpu"]
+        if toks["cuda"] != toks["cpu"]:
+            raise RuntimeError(
+                f"tiny f32 paged batcher tokens differ between card and CPU "
+                f"(speculation {'on' if spec else 'off'})"
+            )
+    return {"phase": "agree", "identical_tokens": same, "shape": list(out["cuda"].shape),
+            "paged_identical_tokens": paged}
 
 
 def main(argv: list[str]) -> int:
@@ -437,6 +776,7 @@ def main(argv: list[str]) -> int:
     torch.backends.cudnn.allow_tf32 = False
     from adversarial_spec_tpu_torch.ops import _build
     from adversarial_spec_tpu_torch.ops import decode_attention as da
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -460,21 +800,31 @@ def main(argv: list[str]) -> int:
           "sources": sorted(libs), "ptxas": ptxas})
 
     kres, checks = phase_kernels(torch, da)
+    pres, pchecks = phase_paged_kernels(torch, pa)
+    kres.update(pres)
+    checks += pchecks
     emit({"phase": "kernels", "checks": checks})
     record = {"device": kind, "nvidia_smi": smi_line, "kernels": kres, "checks": checks}
 
-    launches = {"decode_attention": None, "decode_attention_mq": None}
+    launches = {name: None for name in kres}
     if not quick:
         sl = phase_slice(torch, profile=profile)
         emit(sl)
-        launches = sl["launches"]
+        launches.update(sl["launches"])
+        torch.cuda.empty_cache()
+        pg = phase_paged(torch, profile=profile)
+        emit(pg)
+        launches.update(pg["launches"])
+        torch.cuda.empty_cache()
         ag = phase_agree(torch)
         emit(ag)
-        record.update(slice=sl, agree=ag)
+        record.update(slice=sl, paged=pg, agree=ag)
 
     replaces = {
         "decode_attention": "adversarial_spec_tpu/ops/pallas_decode.py:422",
         "decode_attention_mq": "adversarial_spec_tpu/ops/pallas_decode.py:249",
+        "paged_decode_attention": "adversarial_spec_tpu/ops/pallas_paged.py:120",
+        "paged_decode_attention_mq": "adversarial_spec_tpu/ops/pallas_paged.py:271",
     }
     line = []
     for name, r in kres.items():

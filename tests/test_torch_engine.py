@@ -1,10 +1,11 @@
 """The port's GpuEngine against the reference's TpuEngine, on the same
 (bridged) weights.
 
-``tpu://random-tiny`` is registered here in f32 on a one-device mesh (a
-user registry entry, which both packages read from the same file and
-which wins over the built-in): f32 is where the two attention paths agree
-closely enough for greedy text to be byte-identical.
+``tpu://random-tiny`` (dense) and ``tpu://paged-f32`` (``kv="paged"``, the
+continuous batcher) are registered here in f32 on a one-device mesh (user
+registry entries, which both packages read from the same file): f32 is
+where the two attention paths agree closely enough for greedy text to be
+byte-identical.
 """
 
 import jax
@@ -40,7 +41,17 @@ def shared_registry(tmp_path, monkeypatch):
             alias="random-tiny", family="llama", size="tiny",
             dtype="float32", mesh={"dp": 1},
         ),
-        registry.ModelSpec(alias="paged-tiny", kv="paged"),
+        registry.ModelSpec(
+            alias="paged-f32", family="llama", size="tiny",
+            dtype="float32", mesh={"dp": 1}, kv="paged",
+        ),
+        # A paged spec whose context leaves no room for a bucketed prompt
+        # beside the budget: the reference's round-synchronous
+        # generate(paged=True) corner, not ported.
+        registry.ModelSpec(alias="paged-tiny", kv="paged", max_seq_len=130),
+        registry.ModelSpec(alias="paged-int8kv", kv="paged", kv_dtype="int8"),
+        registry.ModelSpec(alias="paged-mesh", kv="paged", mesh={"tp": 2}),
+        registry.ModelSpec(alias="paged-hf", kv="paged", checkpoint="/no/such/dir"),
         registry.ModelSpec(alias="int8-tiny", quant="int8"),
     ):
         registry.save_registry_entry(spec, path)
@@ -85,7 +96,9 @@ def test_chat_text_and_usage_match_reference(shared_registry, speculative, monke
     assert sum(c.usage.device_time_s for c in got) >= total_decode
 
 
-@pytest.mark.parametrize("alias", ["paged-tiny", "int8-tiny"])
+@pytest.mark.parametrize(
+    "alias", ["paged-tiny", "int8-tiny", "paged-int8kv", "paged-mesh", "paged-hf"]
+)
 def test_unported_specs_get_not_yet_ported_error(shared_registry, alias):
     port = GpuEngine(device="cpu")
     comps = port.chat(
@@ -96,6 +109,93 @@ def test_unported_specs_get_not_yet_ported_error(shared_registry, alias):
     for c in comps:
         assert not c.ok and "not yet ported" in c.error
         assert c.text == ""
+
+
+def _bridged_engines(alias):
+    ref_engine = TpuEngine()
+    lm = ref_engine._load(alias)
+    np_params = jax.tree.map(np.asarray, lm.params)
+    port = GpuEngine(device="cpu")
+    port.install(alias, params_from_jax(np_params, lm.cfg, "cpu", torch.float32))
+    return ref_engine, port
+
+
+@pytest.fixture
+def serving_defaults(monkeypatch):
+    """Both engines' batchers read process-wide knobs (γ, prefix-cache
+    cap, KV tiers, drive loop, streaming) that other test files of the
+    same worker may have moved: pin the defaults for one test."""
+    from adversarial_spec_tpu.engine import interleave, kvtier, prefix_cache, streaming
+    from adversarial_spec_tpu_torch.engine import spec as port_spec
+
+    for cfg, values in (
+        (jax_spec.config(), {"gamma": 8}),
+        (port_spec.config(), {"gamma": 8}),
+        (prefix_cache.config(), {"enabled": True, "max_pages": 0}),
+        (kvtier.config(), {"enabled": False}),
+        (interleave.config(), {"enabled": True, "pipeline_depth": 2}),
+        (streaming.config(), {"enabled": True}),
+    ):
+        for name, value in values.items():
+            monkeypatch.setattr(cfg, name, value)
+
+
+@pytest.mark.parametrize("speculative", [True, False], ids=["spec", "nospec"])
+def test_paged_chat_text_matches_reference(
+    shared_registry, serving_defaults, speculative, monkeypatch
+):
+    """Two rounds through both engines' continuous batchers: four
+    requests through min(4, 8) slots, the second round on the SAME
+    batcher hitting the prefix cache. Text byte-identical, usage tokens
+    and cached tokens equal."""
+    from adversarial_spec_tpu_torch.engine import spec as port_spec
+
+    monkeypatch.setattr(jax_spec.config(), "enabled", speculative)
+    monkeypatch.setattr(port_spec.config(), "enabled", speculative)
+    ref_engine, port = _bridged_engines("paged-f32")
+    users = USERS + [("You are a DBA.", "# Spec\nMigrations are reversible. " * 4)]
+    for rnd in range(2):
+        ref = ref_engine.chat(
+            [JaxChatRequest("tpu://paged-f32", s, u) for s, u in users],
+            JaxParams(max_new_tokens=24, greedy=True),
+        )
+        got = port.chat(
+            [ChatRequest("tpu://paged-f32", s, u) for s, u in users],
+            SamplingParams(max_new_tokens=24, greedy=True),
+        )
+        assert [c.ok for c in got] == [True] * len(users), [c.error for c in got]
+        for r, g in zip(ref, got):
+            assert g.text.encode() == r.text.encode()
+            for field in ("input_tokens", "output_tokens", "cached_tokens"):
+                assert getattr(g.usage, field) == getattr(r.usage, field)
+        if rnd == 1:
+            assert sum(c.usage.cached_tokens for c in got) > 0
+    batcher = port._resident.batcher
+    assert batcher is not None and batcher.speculative == speculative
+    batcher.allocator.check_invariants()
+
+
+def test_paged_chat_streams_and_cancels(shared_registry, serving_defaults):
+    """A consumer that cancels request 1 after its first delivery: that
+    completion is cancelled and its text is a prefix of the blocking run's;
+    the other rows are untouched."""
+    _, port = _bridged_engines("paged-f32")
+    reqs = [ChatRequest("tpu://paged-f32", s, u) for s, u in USERS]
+    sp = SamplingParams(max_new_tokens=24, greedy=True)
+    blocking = port.chat(reqs, sp)
+    seen = []
+
+    def consumer(row, text):
+        seen.append((row, text))
+        return row != 1
+
+    streamed = port.chat(reqs, sp, consumer=consumer)
+    assert streamed[1].cancelled and blocking[1].text.startswith(streamed[1].text)
+    assert streamed[1].usage.output_tokens < 24
+    assert [c.text for i, c in enumerate(streamed) if i != 1] == [
+        c.text for i, c in enumerate(blocking) if i != 1
+    ]
+    assert {row for row, _ in seen} == {0, 1, 2}
 
 
 def test_unknown_alias_and_validate(shared_registry):

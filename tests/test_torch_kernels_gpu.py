@@ -1,4 +1,5 @@
-"""The port's CUDA decode-attention kernels against their plain versions.
+"""The port's CUDA decode-attention kernels (dense B1/B2, paged B3/B4)
+against their plain versions.
 
 These need a CUDA card (a CUDA kernel has no CPU mode): each test is
 marked ``gpu`` and skips without one. The file imports no jax, so it runs
@@ -15,6 +16,7 @@ import pytest
 import torch
 
 from adversarial_spec_tpu_torch.ops import decode_attention as da
+from adversarial_spec_tpu_torch.ops import paged_attention as pa
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)
@@ -90,3 +92,39 @@ def test_cuda_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
         da.decode_attention(k[:, :, 0], k, k, bnd.long())
     with pytest.raises(ValueError, match="contiguous"):
         da.decode_attention(k[:, :, 0], k.transpose(2, 3).contiguous().transpose(2, 3), k, bnd)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_paged_kernels_match_plain_versions(cuda, dtype):
+    """Scattered pages, -1 padding, a trash (0) entry inside a window, a
+    NaN-poisoned trash page, an empty row; one launch counted per call."""
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    shape = (2, 12, 2, 16, 128)  # [L, n_pages, Hkv, page, D], layer 1 used
+    k = torch.randn(shape, generator=gen, device=cuda).to(dtype)[1]
+    v = torch.randn(shape, generator=gen, device=cuda).to(dtype)[1]
+    k[0] = float("nan")
+    v[0] = float("nan")
+    table = torch.tensor(
+        [[3, 0, 5, -1], [7, 2, 9, 11], [4, -1, -1, -1]], dtype=torch.int32, device=cuda
+    )
+    q = torch.randn((3, 5, 8, 128), generator=gen, device=cuda).to(dtype)
+    bnd = torch.tensor([[1, 40], [0, 64], [9, 9]], dtype=torch.int32, device=cuda)
+    pa.reset_launches()
+    got = pa.paged_decode_attention(q[:, 0], k, v, table, bnd, attn_softcap=30.0)
+    want = pa.paged_decode_attention_plain(q[:, 0], k, v, table, bnd, attn_softcap=30.0)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert (got[2] == 0).all()
+    ends = torch.tensor(
+        [[36 + j for j in range(5)], [59 + j for j in range(5)], [9] * 5],
+        dtype=torch.int32, device=cuda,
+    )
+    starts = torch.tensor([[0], [5], [9]], dtype=torch.int32, device=cuda)
+    got = pa.paged_decode_attention_mq(q, k, v, table, starts, ends)
+    want = pa.paged_decode_attention_mq_plain(q, k, v, table, starts, ends)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert (got[2] == 0).all()
+    assert pa.launches == {"paged_decode_attention": 1, "paged_decode_attention_mq": 1}
