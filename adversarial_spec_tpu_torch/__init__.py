@@ -5,9 +5,10 @@ serves the same ``tpu://`` model ids on an NVIDIA Hopper GPU. Module paths
 mirror the reference so each counterpart is easy to find:
 
 - ``models/``  — model configs and the decoder-only transformer;
-- ``ops/``     — rope, the online-softmax block update, and the decode
-  attention kernels (hand-written CUDA in ``csrc/``, built on first use
-  by ``ops/_build.py``);
+- ``ops/``     — rope, the online-softmax block update, the decode
+  attention kernels, weight quantization and the dequant-matmul kernels
+  (hand-written CUDA in ``csrc/``, built on first use by
+  ``ops/_build.py``);
 - ``engine/``  — sampling, speculative decoding, ``generate()``, the
   registry, tokenizer, loader, the ``GpuEngine`` and provider dispatch.
 

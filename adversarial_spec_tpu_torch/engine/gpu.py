@@ -17,12 +17,17 @@ reference routes them:
 Per-row ``Usage`` is attributed exactly as the reference does. Failures
 are captured into ``Completion.error`` per group, never raised.
 
+Weight-quantized specs (``quant="int8"`` / ``"int4"``) are served on both
+paths: the weights are quantized at load (``engine/loader.py``) and every
+projection and the head run the dequant-matmul kernels B5/B6
+(``ops/quant_matmul.py``).
+
 This slice keeps one resident model at a time (loading another alias
-drops the previous one). Specs the port cannot serve yet — ``quant``
-weights, an int8 KV cache, multi-device meshes, HF checkpoints, and a
-paged spec whose budget leaves no room for a bucketed prompt (the
-reference's round-synchronous ``generate(paged=True)`` corner) — get a
-"not yet ported" error; they are never served silently another way.
+drops the previous one). Specs the port cannot serve yet — an int8 KV
+cache, multi-device meshes, HF checkpoints, and a paged spec whose budget
+leaves no room for a bucketed prompt (the reference's round-synchronous
+``generate(paged=True)`` corner) — get a "not yet ported" error; they are
+never served silently another way.
 """
 
 from __future__ import annotations
@@ -86,8 +91,6 @@ def fits_batcher(cfg: ModelConfig, max_new_tokens: int) -> bool:
 
 def unported_reason(spec: ModelSpec, max_new_tokens: int = 0) -> str | None:
     """Why the port cannot serve ``spec`` at this budget yet, or None."""
-    if spec.quant:
-        return f"quant={spec.quant!r} weights"
     if spec.kv_dtype:
         return f"kv_dtype={spec.kv_dtype!r} (int8 KV cache)"
     if math.prod(spec.mesh.values()) > 1:
@@ -150,6 +153,7 @@ class GpuEngine:
             spec.size,
             dtype=_DTYPES.get(spec.dtype, torch.bfloat16),
             max_seq_len=spec.max_seq_len,
+            quant=spec.quant,
             device=self.device,
         )
         self._resident = LoadedModel(

@@ -23,6 +23,12 @@ masked ``attention`` (plain XLA in the reference too).
 ``forward_paged_decode`` is the continuous batcher's step over the paged
 pool ``[L, n_pages, Hkv, page, D]``: the paged kernels B3 (S=1) and B4
 (the verify span) on the GPU, the reference's gather path on the CPU.
+
+Every projection and the head go through ``ops/quant.py:matmul``: a
+weight quantized at load (``{"q", "scale"}`` int8 or ``{"q4", "scale"}``
+int4) runs the dequant-matmul kernels B5/B6 on the GPU (their plain
+versions on the CPU), on both serving paths; a plain weight stays a plain
+product.
 """
 
 from __future__ import annotations
@@ -42,6 +48,7 @@ from adversarial_spec_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
     paged_decode_attention_mq,
 )
+from adversarial_spec_tpu_torch.ops.quant import matmul
 from adversarial_spec_tpu_torch.ops.rope import apply_rope, rope_angles
 
 Params = dict[str, Any]
@@ -192,9 +199,9 @@ def attention(
 
 def _project_qkv(lp, cfg: ModelConfig, h, B: int, S: int, cos, sin):
     """QKV projection + bias + head reshape + RoPE."""
-    q = h @ lp["wq"]
-    k = h @ lp["wk"]
-    v = h @ lp["wv"]
+    q = matmul(h, lp["wq"])
+    k = matmul(h, lp["wk"])
+    v = matmul(h, lp["wv"])
     if cfg.qkv_bias:
         q = q + lp["bq"]
         k = k + lp["bk"]
@@ -207,15 +214,17 @@ def _project_qkv(lp, cfg: ModelConfig, h, B: int, S: int, cos, sin):
 
 def _attn_out_and_ffn(x, attn_out, lp, cfg: ModelConfig, B: int, S: int):
     """Output projection, residuals and the FFN block."""
-    out = attn_out.reshape(B, S, cfg.n_heads * cfg.head_dim) @ lp["wo"]
+    out = matmul(attn_out.reshape(B, S, cfg.n_heads * cfg.head_dim), lp["wo"])
     if cfg.post_norms:
         out = rms_norm(
             out, lp["post_attn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one
         )
     x = x + out
     h = rms_norm(x, lp["ffn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one)
-    ff = _activation(h @ lp["w_gate"], cfg.activation) * (h @ lp["w_up"])
-    ff = ff @ lp["w_down"]
+    ff = _activation(matmul(h, lp["w_gate"]), cfg.activation) * matmul(
+        h, lp["w_up"]
+    )
+    ff = matmul(ff, lp["w_down"])
     if cfg.post_norms:
         ff = rms_norm(
             ff, lp["post_ffn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one
@@ -471,34 +480,49 @@ def forward_paged_decode(
     return _lm_head_logits(params, cfg, x, lm_head_last_only=False)
 
 
-def _matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """``x @ w`` with an f32 result (the reference's
-    ``preferred_element_type=f32``): half-precision inputs on the GPU keep
-    their f32 accumulator instead of rounding the logits to bf16."""
-    if x.is_cuda and x.dtype in (torch.bfloat16, torch.float16):
-        lead = x.shape[:-1]
-        y = torch.mm(x.reshape(-1, x.shape[-1]), w, out_dtype=torch.float32)
-        return y.reshape(*lead, w.shape[-1])
-    return x.to(torch.float32) @ w.to(torch.float32)
-
-
 def _lm_head_logits(params: Params, cfg: ModelConfig, x, lm_head_last_only):
     x = rms_norm(x, params["final_norm"], cfg.rms_eps, cfg.norm_scale_plus_one)
     if lm_head_last_only:
         # Prompt chunks only need the final position's logits.
         x = x[:, -1:]
+    # f32 logits (the reference's preferred_element_type=f32), quantized
+    # heads included.
     if cfg.tied_embeddings:
         if "lm_head_t" in params:
-            logits = _matmul_f32(x, params["lm_head_t"])
+            logits = matmul(x, params["lm_head_t"], torch.float32)
         else:
-            logits = _matmul_f32(x, params["embed"].t())
+            logits = matmul(x, params["embed"].t(), torch.float32)
     else:
-        logits = _matmul_f32(x, params["lm_head"])
+        logits = matmul(x, params["lm_head"], torch.float32)
     if cfg.logit_softcap > 0.0:
         logits = _softcap(logits, cfg.logit_softcap)
     return logits
 
 
+def leaves(params):
+    """Every tensor of the params, quantized dict leaves included."""
+    if isinstance(params, dict):
+        for v in params.values():
+            yield from leaves(v)
+    elif isinstance(params, list):
+        for v in params:
+            yield from leaves(v)
+    else:
+        yield params
+
+
+def map_params(fn, params):
+    """The params with ``fn`` applied to every tensor (quantized dict
+    leaves included), in the same structure — e.g. to move them between
+    devices: ``map_params(lambda t: t.cpu(), params)``."""
+    if isinstance(params, dict):
+        return {k: map_params(fn, v) for k, v in params.items()}
+    if isinstance(params, list):
+        return [map_params(fn, v) for v in params]
+    return fn(params)
+
+
 def count_params(params: Params) -> int:
-    n = sum(t.numel() for k, t in params.items() if k != "layers")
-    return n + sum(t.numel() for lp in params["layers"] for t in lp.values())
+    """Stored elements over all leaves (a quantized leaf counts its
+    integer weight and its scales), as the reference counts them."""
+    return sum(t.numel() for t in leaves(params))

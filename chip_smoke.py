@@ -11,9 +11,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    reports them (that line is printed raw as well);
 2. build   — compiles every CUDA source of the port with nvcc (in
    parallel), from this checkout, into build/kernels;
-3. kernels — each decode-attention kernel at its main path's shapes
-   against its plain PyTorch version on the card, with the tolerance
-   stated, bf16 and f32:
+3. kernels — each kernel at its main path's shapes against its plain
+   PyTorch version on the card, with the tolerance stated, bf16 and f32:
    - dense B1/B2 (Llama-3-8B: B=4, Hq=32, Hkv=8, D=128, T=4224; S=9 for
      the verify) with left-pad windows, an empty window and softcap;
    - paged B3/B4 (the batcher's 8 slots, page 64, a 128-page table =
@@ -24,6 +23,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    scaled_dot_product_attention over the same windows (a yardstick only —
    the port never calls it; for B3/B4 the pages are gathered dense
    beforehand, untimed) and the least time the card could take;
+   - the dequant-matmuls B5 (int8) and B6 (int4) at Llama-3-8B's weights
+     (K, N) = (4096, 4096) wq/wo, (4096, 1024) wk/wv, (4096, 14336)
+     w_gate/w_up, (14336, 4096) w_down and (4096, 128256) the head (f32
+     out), at M = 4, 36, 72, 1024 and 4096 rows, plus edge cases (M=1, int4 odd
+     K=255, N=40, 130 ragged rows, a 3-D x, an unaligned x row stride,
+     weight scales near 1e-12 and 1e12); bf16 timings rotate the weights
+     past the L2, beside the plain version, a bf16 cuBLAS product on the
+     weight dequantized beforehand (the yardstick; the port never calls
+     it) and the bound (packed weight + x + output bytes over 3.35 TB/s,
+     or 2MKN over 989 TFLOP/s). The kernels line gives B5/B6 as one
+     forward's 225 products (B5 at M=36, B6 at M=72); each case is in
+     chip_smoke.json and printed as a "qmm" line;
 4. slice   — the dense path: GpuEngine.chat on tpu://random-8b (Llama-3-8B
    at full width, bf16, random weights from seed 0) for four opponent
    requests, greedy, 128 new tokens, speculation on; B1/B2 launch counters
@@ -38,9 +49,19 @@ Phases, each printing one JSON line; any failure exits non-zero:
    round 2; B4 must launch in round 1, B3 in round 2, and round 2 must
    hit the prefix cache; with ``--profile``, a third round (speculation
    on, warm cache) runs under torch.profiler;
-6. agree   — tiny f32 models decoded greedily on the card (kernels) and on
+6. quant   — weight-quantized serving on temporary registry entries:
+   (a) random-8b with quant="int8" on the dense path (the slice's four
+   requests), (b) random-8b with quant="int4" and kv="paged" (the paged
+   slice's twelve requests through 8 slots, one round); speculation on,
+   128 new tokens each, greedy. Every counter is zeroed just before each
+   chat() and read just after: B5 and B2 must launch in (a), B6 and B4 in
+   (b). Reports walls, prefill/decode seconds, tokens/s, resident weight
+   bytes beside the bf16 model's, and peak memory; with ``--profile``,
+   one more chat() of each runs under torch.profiler;
+7. agree   — tiny f32 models decoded greedily on the card (kernels) and on
    the CPU (plain versions) give identical tokens: dense generate(), and
-   the paged batcher with speculation on and off.
+   the paged batcher with speculation on and off; full precision, and the
+   same weights quantized int8 (B5) and int4 (B6).
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Results also go to chiprun_out/chip_smoke.json.
@@ -48,6 +69,7 @@ Results also go to chiprun_out/chip_smoke.json.
 
 from __future__ import annotations
 
+import contextlib
 import json
 import os
 import subprocess
@@ -62,6 +84,16 @@ B, HQ, HKV, D, S_SPAN = 4, 32, 8, 128, 9
 T_CACHE = 4096 + 128  # the slice's 4096-token bucket + 128 new tokens
 NS, PAGE, P_TAB = 8, 64, 128  # batcher slots, page size, 8192 / 64 pages
 N_ROTATE = 4  # distinct caches the timing loops cycle through
+# Each kernel of the port: (its source under the package, the TPU kernel
+# it replaces).
+KERNELS = {
+    "decode_attention": ("csrc/decode_attention.cu", "adversarial_spec_tpu/ops/pallas_decode.py:422"),
+    "decode_attention_mq": ("csrc/decode_attention.cu", "adversarial_spec_tpu/ops/pallas_decode.py:249"),
+    "paged_decode_attention": ("csrc/decode_attention.cu", "adversarial_spec_tpu/ops/pallas_paged.py:120"),
+    "paged_decode_attention_mq": ("csrc/decode_attention.cu", "adversarial_spec_tpu/ops/pallas_paged.py:271"),
+    "matmul_int8": ("csrc/quant_matmul.cu", "adversarial_spec_tpu/ops/pallas_quant.py:180"),
+    "matmul_int4": ("csrc/quant_matmul.cu", "adversarial_spec_tpu/ops/pallas_quant.py:216"),
+}
 BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)  # one bf16 rounding of the output
 F32_TOL = dict(rtol=5e-5, atol=5e-5)  # summation order over 4224 slots
 
@@ -461,6 +493,173 @@ def phase_paged_kernels(torch, pa) -> tuple[dict, list]:
     return results, checks
 
 
+# Llama-3-8B's matmul weights (K, N), with launches per forward: each of the
+# 32 layers runs wq, wk, wv, wo, w_gate, w_up, w_down; the head runs once
+# with f32 logits. 7 x 32 + 1 = 225 quantized products a forward.
+QMM_SHAPES = [
+    ("wq/wo", 4096, 4096, 64),
+    ("wk/wv", 4096, 1024, 64),
+    ("w_gate/w_up", 4096, 14336, 64),
+    ("w_down", 14336, 4096, 32),
+    ("head", 4096, 128256, 1),
+]
+# Rows: dense S=1 step, dense verify 4x9, paged verify 8x9, one row's
+# prefill chunk, the dense path's prefill chunk (4 rows x 1024).
+QMM_M = [4, 36, 72, 1024, 4096]
+# The main path's rows for each kernel's line: B5 serves phase quant (a),
+# the dense int8 path (most products there are the 4 x 9 verify); B6 serves
+# (b), the paged int4 path (8 x 9 verify).
+QMM_LINE_M = {"matmul_int8": 36, "matmul_int4": 72}
+# The kernels and their plain versions both accumulate in f32 (the plain
+# version exactly, by cuBLAS sgemm with TF32 off): they differ by summation
+# order (~1e-6 of the largest output at K = 14336) and, for a bf16 output,
+# by one bf16 rounding of nearly equal values (2^-7 relative).
+QMM_TOL = {"float32": (0.0, 2e-5), "bfloat16": (1e-2, 2e-5)}  # (rtol, atol x max|want|)
+L2_BYTES = 50e6
+
+
+def qmm_check(torch, got, want, out_name: str) -> float:
+    """max |got - want|; raises unless |got - want| <= rtol |want| +
+    atol max|want| everywhere (QMM_TOL) and the output is finite."""
+    rtol, atol = QMM_TOL[out_name]
+    g, w = got.float(), want.float()
+    if not bool(torch.isfinite(g).all()):
+        raise AssertionError("non-finite output")
+    d = (g - w).abs()
+    lim = rtol * w.abs() + atol * float(w.abs().max())
+    if not bool((d <= lim).all()):
+        i = int(torch.argmax(d - lim))
+        raise AssertionError(
+            f"max excess {float((d - lim).flatten()[i])} at {i}: got "
+            f"{float(g.flatten()[i])}, want {float(w.flatten()[i])}"
+        )
+    return float(d.max())
+
+
+def phase_quant_kernels(torch, qm, quant) -> tuple[dict, list, list]:
+    """B5/B6 against their plain versions on the card, bf16 and f32, at
+    Llama-3-8B's shapes and the path's row counts, plus edge cases; then
+    bf16 timings with a cold L2 beside the plain version, a bf16 cuBLAS
+    product on the weight dequantized beforehand (the yardstick), and the
+    bound. Returns (per-kernel line numbers, checks, per-case timings)."""
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(2)
+    fmts = {
+        "matmul_int8": (quant.quantize_int8, lambda w: (w["q"],), qm.matmul_int8,
+                        qm.matmul_int8_plain),
+        "matmul_int4": (quant.quantize_int4, lambda w: (w["q4"],), qm.matmul_int4,
+                        qm.matmul_int4_plain),
+    }
+    checks, cases = [], []
+    worst = {name: 0.0 for name in fmts}
+
+    def run_case(label, x, w_f, out_dtype=None, main=False):
+        for name, (qz, qw, fn, plain) in fmts.items():
+            leaf = qz(w_f)
+            args = (x, *qw(leaf), leaf["scale"])
+            got = fn(*args, out_dtype=out_dtype)
+            want = plain(*args, out_dtype=out_dtype)
+            out_name = str(got.dtype).split(".")[1]
+            if got.shape != want.shape or got.dtype != want.dtype:
+                raise AssertionError(f"{name} {label}: {got.shape}/{got.dtype}")
+            try:
+                err = qmm_check(torch, got, want, out_name)
+            except AssertionError as e:
+                raise AssertionError(f"{name} {label}: {e}") from None
+            if main:
+                worst[name] = max(worst[name], err)
+            checks.append({"case": f"{name} {label}", "max_abs_err": err,
+                           "max_abs_want": float(want.float().abs().max()),
+                           "tol": QMM_TOL[out_name]})
+
+    def randn(shape, dtype, mag=1.0):
+        return (torch.randn(shape, generator=gen, device=dev) * mag).to(dtype)
+
+    for dtype in (torch.bfloat16, torch.float32):
+        tn = str(dtype).split(".")[1]
+        for label, K, N, _ in QMM_SHAPES:
+            w_f = randn((K, N), dtype, K ** -0.5)
+            head_out = torch.float32 if label == "head" else None
+            for M in QMM_M:
+                run_case(f"{tn} {label} M={M}", randn((M, K), dtype), w_f, head_out, main=True)
+            del w_f
+        # Edges: one row, odd K (int4 packs a zero row), N no tile multiple,
+        # ragged rows past 80 (the 128-row tiles), a 3-D x, an unaligned x
+        # row stride (scalar loads), tiny and huge scales.
+        w_odd = randn((255, 40), dtype)
+        run_case(f"{tn} M=1 K=4096 N=4096", randn((1, 4096), dtype), randn((4096, 4096), dtype))
+        run_case(f"{tn} odd K=255 N=40 M=5", randn((5, 255), dtype), w_odd)
+        run_case(f"{tn} odd K=255 N=40 M=130", randn((130, 255), dtype), w_odd)
+        run_case(f"{tn} 3-D x (2, 3, 4096) N=1024", randn((2, 3, 4096), dtype),
+                 randn((4096, 1024), dtype))
+        run_case(f"{tn} x row stride 4099 M=36", randn((36, 4099), dtype)[:, :4096],
+                 randn((4096, 1024), dtype), torch.float32)
+        for mag in (1e-12, 1e12):
+            run_case(f"{tn} scale~{mag:g} K=255 N=40 M=72", randn((72, 255), dtype),
+                     randn((255, 40), dtype, mag))
+    torch.cuda.synchronize()
+
+    # ---- timing (bf16), weights rotating so each call finds the L2 cold ----
+    for label, K, N, per_fwd in QMM_SHAPES:
+        w_f = randn((K, N), torch.bfloat16, K ** -0.5)
+        head_out = torch.float32 if label == "head" else None
+        leaves = {name: [fmts[name][0](w_f)] for name in fmts}
+        lib_w = [quant.dequantize(leaves["matmul_int8"][0], torch.bfloat16)]
+        # Enough copies that a rotation spans twice the L2.
+        for name in fmts:
+            leaf = leaves[name][0]
+            copies = 1 + int(2 * L2_BYTES // fmts[name][1](leaf)[0].numel())
+            leaves[name] += [{k: t.clone() for k, t in leaf.items()} for _ in range(copies - 1)]
+        lib_copies = 1 + int(2 * L2_BYTES // (lib_w[0].numel() * 2))
+        lib_w += [lib_w[0].clone() for _ in range(lib_copies - 1)]
+        del w_f
+        for M in QMM_M:
+            x = randn((M, K), torch.bfloat16)
+            out_bytes = M * N * (4 if head_out else 2)
+
+            def lib(i, x=x):
+                w = lib_w[i % len(lib_w)]
+                if head_out:
+                    return torch.mm(x, w, out_dtype=torch.float32)
+                return torch.matmul(x, w)
+
+            lib_ms = cuda_ms(lib, 20, torch)
+            for name, (_, qw, fn, plain) in fmts.items():
+                ls = leaves[name]
+                w_bytes = qw(ls[0])[0].numel() + N * 4
+                t_bytes = (w_bytes + x.numel() * 2 + out_bytes) / HBM_BYTES_PER_S * 1e3
+                t_ops = 2 * M * K * N / PEAK_OPS["bfloat16"] * 1e3
+                cases.append({
+                    "kernel": name, "weight": label, "M": M, "K": K, "N": N,
+                    "per_forward": per_fwd,
+                    "ms": cuda_ms(lambda i: fn(x, *qw(ls[i % len(ls)]), ls[i % len(ls)]["scale"],
+                                              out_dtype=head_out), 20, torch),
+                    "plain_ms": cuda_ms(lambda i: plain(x, *qw(ls[i % len(ls)]),
+                                                        ls[i % len(ls)]["scale"],
+                                                        out_dtype=head_out), 3, torch),
+                    "library_ms": lib_ms,
+                    "bound_ms": max(t_bytes, t_ops),
+                    "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+                })
+        del leaves, lib_w
+        torch.cuda.empty_cache()
+
+    results = {}
+    for name in fmts:
+        rows = [c for c in cases if c["kernel"] == name and c["M"] == QMM_LINE_M[name]]
+        tot = {k: sum(c[k] * c["per_forward"] for c in rows)
+               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
+        by_bytes = sum(c["bound_ms"] * c["per_forward"] for c in rows if c["bound_by"] == "bytes")
+        results[name] = {
+            **tot,
+            "bound_by": "bytes" if by_bytes >= tot["bound_ms"] / 2 else "operations",
+            "max_abs_err": worst[name],
+            "line_is": f"one forward's 225 products at M={QMM_LINE_M[name]}",
+        }
+    return results, checks, cases
+
+
 def profile_chat(torch, engine, reqs, sp, name="chip_profile.txt") -> dict:
     """One more chat call under torch.profiler: device busy time by
     kernel, and the idle share of the call's wall time (the profiler's own
@@ -503,28 +702,66 @@ def profile_chat(torch, engine, reqs, sp, name="chip_profile.txt") -> dict:
     }
 
 
-def phase_slice(torch, profile: bool = False) -> dict:
-    from adversarial_spec_tpu_torch.engine import spec as spec_mod
-    from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
-    from adversarial_spec_tpu_torch.engine.types import ChatRequest, SamplingParams
-    from adversarial_spec_tpu_torch.ops import decode_attention as da
+def slice_requests() -> list:
+    """The dense slice's four opponents on tpu://random-8b: spec documents
+    of 1600-3400 bytes."""
+    from adversarial_spec_tpu_torch.engine.types import ChatRequest
 
-    spec_mod.configure(enabled=True)
-    personas = [
-        "You are a security engineer reviewing a product spec.",
-        "You are an SRE focused on reliability and operability.",
-        "You are a product manager checking scope and acceptance criteria.",
-        "You are a staff engineer looking for design flaws and ambiguity.",
-    ]
-    sizes = [1600, 2300, 2900, 3400]
-    reqs = [
+    return [
         ChatRequest(
             model="tpu://random-8b",
             system=p,
             user=spec_document(n, i) + "\n\nCritique this spec.",
         )
-        for i, (p, n) in enumerate(zip(personas, sizes))
+        for i, (p, n) in enumerate(zip(PERSONAS[:4], [1600, 2300, 2900, 3400]))
     ]
+
+
+def paged_requests() -> list:
+    """The paged slice's twelve opponents on tpu://random-8b: spec
+    documents of 1600-3360 bytes."""
+    from adversarial_spec_tpu_torch.engine.types import ChatRequest
+
+    return [
+        ChatRequest(
+            model="tpu://random-8b",
+            system=p,
+            user=spec_document(1600 + 160 * i, 10 + i) + "\n\nCritique this spec.",
+        )
+        for i, p in enumerate(PERSONAS)
+    ]
+
+
+@contextlib.contextmanager
+def temp_registry(*specs):
+    """The port's registry pointed at a temporary file under build/ that
+    holds ``specs`` (user entries shadow the built-in aliases)."""
+    import tempfile
+    from pathlib import Path
+
+    from adversarial_spec_tpu_torch.engine import registry
+
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    prev_path = registry.REGISTRY_PATH
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        registry.REGISTRY_PATH = Path(tmp) / "registry.json"
+        try:
+            for spec in specs:
+                registry.save_registry_entry(spec)
+            yield
+        finally:
+            registry.REGISTRY_PATH = prev_path
+
+
+def phase_slice(torch, profile: bool = False) -> dict:
+    from adversarial_spec_tpu_torch.engine import spec as spec_mod
+    from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
+    from adversarial_spec_tpu_torch.engine.types import SamplingParams
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+
+    spec_mod.configure(enabled=True)
+    reqs = slice_requests()
     sp = SamplingParams(max_new_tokens=128, greedy=True, seed=0)
     engine = GpuEngine()
     t = time.monotonic()
@@ -601,35 +838,20 @@ def phase_paged(torch, profile: bool = False) -> dict:
     round 2 the same requests with it off, on the same batcher. With
     ``profile``, a third round (speculation on, warm prefix cache) runs
     under torch.profiler."""
-    import tempfile
-    from pathlib import Path
-
     from adversarial_spec_tpu_torch.engine import interleave as il
     from adversarial_spec_tpu_torch.engine import registry
     from adversarial_spec_tpu_torch.engine import spec as spec_mod
     from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
-    from adversarial_spec_tpu_torch.engine.types import ChatRequest, SamplingParams
+    from adversarial_spec_tpu_torch.engine.types import SamplingParams
     from adversarial_spec_tpu_torch.ops import decode_attention as da
     from adversarial_spec_tpu_torch.ops import paged_attention as pa
 
-    reqs = [
-        ChatRequest(
-            model="tpu://random-8b",
-            system=p,
-            user=spec_document(1600 + 160 * i, 10 + i) + "\n\nCritique this spec.",
-        )
-        for i, p in enumerate(PERSONAS)
-    ]
+    reqs = paged_requests()
     sp = SamplingParams(max_new_tokens=128, greedy=True, seed=0)
-    build = os.path.join(HERE, "build")
-    os.makedirs(build, exist_ok=True)
-    prev_path = registry.REGISTRY_PATH
-    with tempfile.TemporaryDirectory(dir=build) as tmp:
-        registry.REGISTRY_PATH = Path(tmp) / "registry.json"
+    with temp_registry(
+        registry.ModelSpec(alias="random-8b", family="llama", size="8b", kv="paged")
+    ):
         try:
-            registry.save_registry_entry(
-                registry.ModelSpec(alias="random-8b", family="llama", size="8b", kv="paged")
-            )
             engine = GpuEngine()
             t = time.monotonic()
             warm = engine.chat([reqs[0]], SamplingParams(max_new_tokens=16, greedy=True))
@@ -683,7 +905,6 @@ def phase_paged(torch, profile: bool = False) -> dict:
             batcher = {"slots": lm.batcher.B, "capacity_tokens": lm.batcher.capacity_tokens,
                        "pool_bytes": pool_bytes}
         finally:
-            registry.REGISTRY_PATH = prev_path
             spec_mod.configure(enabled=True)
     r1, r2 = rounds
     if r1["launches"]["paged_decode_attention_mq"] == 0:
@@ -705,56 +926,184 @@ def phase_paged(torch, profile: bool = False) -> dict:
     }
 
 
+def weight_bytes(params) -> tuple[int, int]:
+    """(resident bytes of the params, the bytes the same model takes in
+    bf16): a quantized leaf would be its unpacked integer weight at two
+    bytes, with no scales."""
+    from adversarial_spec_tpu_torch.models.transformer import leaves
+
+    resident = sum(t.numel() * t.element_size() for t in leaves(params))
+    weights = [v for k, v in params.items() if k != "layers"]
+    weights += [v for lp in params["layers"] for v in lp.values()]
+    bf16 = 0
+    for v in weights:
+        if isinstance(v, dict):  # int8 {"q", "scale"} or int4 {"q4", "scale"}
+            bf16 += 2 * v["q"].numel() if "q" in v else 4 * v["q4"].numel()
+        else:
+            bf16 += 2 * v.numel()
+    return resident, bf16
+
+
+def serve_quantized(torch, spec, reqs, must_launch, profile=False) -> dict:
+    """One warm-up call, then one chat() of ``reqs`` on tpu://random-8b as
+    ``spec`` (speculation on, 128 new tokens, greedy) with every launch
+    counter zeroed just before and read just after; each kernel named in
+    ``must_launch`` must have launched, and every row must be ok with 128
+    tokens. With ``profile``, one more chat() runs under torch.profiler
+    (chiprun_out/chip_profile_quant_<fmt>.txt)."""
+    from adversarial_spec_tpu_torch.engine import interleave as il
+    from adversarial_spec_tpu_torch.engine import spec as spec_mod
+    from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
+    from adversarial_spec_tpu_torch.engine.types import SamplingParams
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+    from adversarial_spec_tpu_torch.ops import quant_matmul as qm
+
+    sp = SamplingParams(max_new_tokens=128, greedy=True, seed=0)
+    spec_mod.configure(enabled=True)
+    with temp_registry(spec):
+        engine = GpuEngine()
+        t = time.monotonic()
+        warm = engine.chat([reqs[0]], SamplingParams(max_new_tokens=16, greedy=True))
+        if not warm[0].ok:
+            raise RuntimeError(f"warm-up chat failed: {warm[0].error}")
+        load_s = time.monotonic() - t
+        resident, bf16 = weight_bytes(engine._resident.params)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        il.reset_stats()
+        for mod in (da, pa, qm):
+            mod.reset_launches()
+        t = time.monotonic()
+        comps = engine.chat(reqs, sp)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+        launched = {**da.launches, **pa.launches, **qm.launches}
+        peak = torch.cuda.max_memory_allocated()
+        prof = (
+            profile_chat(torch, engine, reqs, sp, f"chip_profile_quant_{spec.quant}.txt")
+            if profile else None
+        )
+        del engine
+    torch.cuda.empty_cache()
+    bad = [c.error for c in comps if not c.ok]
+    if bad:
+        raise RuntimeError(f"{spec.alias} quant={spec.quant}: chat failed: {bad}")
+    if any(c.usage.output_tokens != 128 for c in comps):
+        raise RuntimeError(f"rows stopped early: {[c.usage.output_tokens for c in comps]}")
+    missing = [k for k in must_launch if launched[k] == 0]
+    if missing:
+        raise RuntimeError(f"{missing} never launched on quant={spec.quant}: {launched}")
+    decode_s = sum(c.usage.decode_time_s for c in comps)
+    out_tok = sum(c.usage.output_tokens for c in comps)
+    return {
+        "model": f"tpu://random-8b (quant={spec.quant}, kv={spec.kv})",
+        "requests": len(reqs),
+        "load_and_warmup_s": load_s,
+        "chat_wall_s": wall,
+        "prefill_s": sum(c.usage.prefill_time_s for c in comps),
+        "decode_s": decode_s,
+        "decode_tokens_per_s": out_tok / decode_s if decode_s > 0 else 0.0,
+        "input_tokens": [c.usage.input_tokens for c in comps],
+        "output_tokens": [c.usage.output_tokens for c in comps],
+        "resident_weight_bytes": resident,
+        "bf16_weight_bytes": bf16,
+        "max_memory_allocated_bytes": peak,
+        "host_syncs": il.stats.sync_points,
+        "launches": launched,
+        **({"profile": prof} if prof else {}),
+    }
+
+
+def phase_quant(torch, profile: bool = False) -> dict:
+    """Weight-quantized serving of Llama-3-8B on both paths: (a) int8 on
+    the dense path (the slice's four requests; B5 with B2), (b) int4 on the
+    paged batcher (the paged slice's twelve requests through 8 slots, one
+    round; B6 with B4)."""
+    from adversarial_spec_tpu_torch.engine.registry import ModelSpec
+
+    dense = serve_quantized(
+        torch,
+        ModelSpec(alias="random-8b", family="llama", size="8b", quant="int8"),
+        slice_requests(),
+        ("matmul_int8", "decode_attention_mq"),
+        profile,
+    )
+    paged = serve_quantized(
+        torch,
+        ModelSpec(alias="random-8b", family="llama", size="8b", quant="int4", kv="paged"),
+        paged_requests(),
+        ("matmul_int4", "paged_decode_attention_mq"),
+        profile,
+    )
+    return {"phase": "quant", "dense_int8": dense, "paged_int4": paged}
+
+
 def phase_agree(torch) -> dict:
+    """Tiny f32 llama, full precision and quantized int8 and int4 from the
+    same weights: greedy tokens on the card (kernels) and on the CPU
+    (plain versions) must be identical, through generate() and through the
+    paged batcher with speculation on and off."""
     from adversarial_spec_tpu_torch.engine.generate import generate
     from adversarial_spec_tpu_torch.engine.loader import materialize_params
-
-    prompts = [[1] + [5 + (i * 7 + j) % 200 for j in range(60 + 25 * i)] for i in range(3)]
-    params, cfg = materialize_params(
-        "random", "llama", "tiny", dtype=torch.float32, device="cuda"
-    )
-    on_cpu = {  # the same weights on the CPU
-        k: [{n: t.cpu() for n, t in lp.items()} for lp in v]
-        if k == "layers" else v.cpu()
-        for k, v in params.items()
-    }
-    out = {
-        dev: generate(
-            p, cfg, prompts, max_new_tokens=48, eos_ids=[2], greedy=True,
-            device=dev,
-        ).tokens
-        for dev, p in (("cuda", params), ("cpu", on_cpu))
-    }
-    same = bool((out["cuda"] == out["cpu"]).all())
-    if not same:
-        raise RuntimeError("tiny f32 greedy tokens differ between card and CPU")
-    # The paged batcher (B3/B4 on the card, the gather path on the CPU):
-    # 3 requests through 2 slots, prefix cache on, speculation on and off.
     from adversarial_spec_tpu_torch.engine.scheduler import (
         ContinuousBatcher,
         SchedRequest,
     )
+    from adversarial_spec_tpu_torch.models.transformer import map_params
+    from adversarial_spec_tpu_torch.ops import quant
+    from adversarial_spec_tpu_torch.ops import quant_matmul as qm
 
-    paged = {}
-    for spec in (True, False):
-        toks = {}
-        for dev, p in (("cuda", params), ("cpu", on_cpu)):
-            b = ContinuousBatcher(
-                p, cfg, max_batch=2, page_size=16, capacity_tokens=2048,
-                max_new_cap=48, eos_ids=[2], speculative=spec,
-            )
-            for i, pr in enumerate(prompts):
-                b.submit(SchedRequest(req_id=i, prompt_ids=pr, max_new_tokens=40))
-            toks[dev] = [r.tokens.tolist() for r in b.run_all()]
-            b.allocator.check_invariants()
-        paged["spec_on" if spec else "spec_off"] = toks["cuda"] == toks["cpu"]
-        if toks["cuda"] != toks["cpu"]:
-            raise RuntimeError(
-                f"tiny f32 paged batcher tokens differ between card and CPU "
-                f"(speculation {'on' if spec else 'off'})"
-            )
-    return {"phase": "agree", "identical_tokens": same, "shape": list(out["cuda"].shape),
-            "paged_identical_tokens": paged}
+    prompts = [[1] + [5 + (i * 7 + j) % 200 for j in range(60 + 25 * i)] for i in range(3)]
+    base, cfg = materialize_params(
+        "random", "llama", "tiny", dtype=torch.float32, device="cuda"
+    )
+    report = {"phase": "agree"}
+    for fmt in ("", "int8", "int4"):
+        params = base if not fmt else quant.quantize_params(map_params(torch.clone, base), fmt=fmt)
+        on_cpu = map_params(lambda t: t.cpu(), params)  # the same weights on the CPU
+        qm.reset_launches()
+        out = {
+            dev: generate(
+                p, cfg, prompts, max_new_tokens=48, eos_ids=[2], greedy=True,
+                device=dev,
+            ).tokens
+            for dev, p in (("cuda", params), ("cpu", on_cpu))
+        }
+        name = f"tiny f32{' ' + fmt if fmt else ''}"
+        same = bool((out["cuda"] == out["cpu"]).all())
+        if not same:
+            raise RuntimeError(f"{name} greedy tokens differ between card and CPU")
+        # The paged batcher (B3/B4 on the card, the gather path on the CPU):
+        # 3 requests through 2 slots, prefix cache on, speculation on and off.
+        paged = {}
+        for spec in (True, False):
+            toks = {}
+            for dev, p in (("cuda", params), ("cpu", on_cpu)):
+                b = ContinuousBatcher(
+                    p, cfg, max_batch=2, page_size=16, capacity_tokens=2048,
+                    max_new_cap=48, eos_ids=[2], speculative=spec,
+                )
+                for i, pr in enumerate(prompts):
+                    b.submit(SchedRequest(req_id=i, prompt_ids=pr, max_new_tokens=40))
+                toks[dev] = [r.tokens.tolist() for r in b.run_all()]
+                b.allocator.check_invariants()
+            paged["spec_on" if spec else "spec_off"] = toks["cuda"] == toks["cpu"]
+            if toks["cuda"] != toks["cpu"]:
+                raise RuntimeError(
+                    f"{name} paged batcher tokens differ between card and CPU "
+                    f"(speculation {'on' if spec else 'off'})"
+                )
+        kernel = {"int8": "matmul_int8", "int4": "matmul_int4"}.get(fmt)
+        if kernel and qm.launches[kernel] == 0:
+            raise RuntimeError(f"{name}: {kernel} never launched on the card")
+        entry = {"identical_tokens": same, "shape": list(out["cuda"].shape),
+                 "paged_identical_tokens": paged}
+        if fmt:
+            report[f"quant_{fmt}"] = {**entry, "launches": qm.launches[kernel]}
+        else:
+            report.update(entry)
+    return report
 
 
 def main(argv: list[str]) -> int:
@@ -777,6 +1126,8 @@ def main(argv: list[str]) -> int:
     from adversarial_spec_tpu_torch.ops import _build
     from adversarial_spec_tpu_torch.ops import decode_attention as da
     from adversarial_spec_tpu_torch.ops import paged_attention as pa
+    from adversarial_spec_tpu_torch.ops import quant
+    from adversarial_spec_tpu_torch.ops import quant_matmul as qm
 
     kind = torch.cuda.get_device_name(0)
     smi = subprocess.run(
@@ -803,8 +1154,18 @@ def main(argv: list[str]) -> int:
     pres, pchecks = phase_paged_kernels(torch, pa)
     kres.update(pres)
     checks += pchecks
-    emit({"phase": "kernels", "checks": checks})
-    record = {"device": kind, "nvidia_smi": smi_line, "kernels": kres, "checks": checks}
+    qres, qchecks, qcases = phase_quant_kernels(torch, qm, quant)
+    kres.update(qres)
+    emit({"phase": "kernels", "checks": checks, "quant_checks": len(qchecks),
+          "quant_worst": {name: r["max_abs_err"] for name, r in qres.items()}})
+    for c in qcases:  # one short line per B5/B6 timing (all in chip_smoke.json)
+        print(f"qmm {c['kernel']} {c['weight']} M={c['M']}: ms {c['ms']:.5f} plain "
+              f"{c['plain_ms']:.4f} library {c['library_ms']:.5f} bound "
+              f"{c['bound_ms']:.5f} ({c['bound_by']})", flush=True)
+    checks += qchecks
+    torch.cuda.empty_cache()
+    record = {"device": kind, "nvidia_smi": smi_line, "kernels": kres, "checks": checks,
+              "quant_cases": qcases}
 
     launches = {name: None for name in kres}
     if not quick:
@@ -816,23 +1177,22 @@ def main(argv: list[str]) -> int:
         emit(pg)
         launches.update(pg["launches"])
         torch.cuda.empty_cache()
+        qt = phase_quant(torch, profile=profile)
+        emit(qt)
+        launches["matmul_int8"] = qt["dense_int8"]["launches"]["matmul_int8"]
+        launches["matmul_int4"] = qt["paged_int4"]["launches"]["matmul_int4"]
         ag = phase_agree(torch)
         emit(ag)
-        record.update(slice=sl, paged=pg, agree=ag)
+        record.update(slice=sl, paged=pg, quant=qt, agree=ag)
 
-    replaces = {
-        "decode_attention": "adversarial_spec_tpu/ops/pallas_decode.py:422",
-        "decode_attention_mq": "adversarial_spec_tpu/ops/pallas_decode.py:249",
-        "paged_decode_attention": "adversarial_spec_tpu/ops/pallas_paged.py:120",
-        "paged_decode_attention_mq": "adversarial_spec_tpu/ops/pallas_paged.py:271",
-    }
     line = []
     for name, r in kres.items():
+        source, replaces = KERNELS[name]
         line.append({
             "name": name,
             "route": "cuda",
-            "source": f"{PKG}/csrc/decode_attention.cu",
-            "replaces": replaces[name],
+            "source": f"{PKG}/{source}",
+            "replaces": replaces,
             "launches": launches[name],
             "max_abs_err": r["max_abs_err"],
             "max_abs_diff": r["max_abs_err"],

@@ -52,7 +52,9 @@ def shared_registry(tmp_path, monkeypatch):
         registry.ModelSpec(alias="paged-int8kv", kv="paged", kv_dtype="int8"),
         registry.ModelSpec(alias="paged-mesh", kv="paged", mesh={"tp": 2}),
         registry.ModelSpec(alias="paged-hf", kv="paged", checkpoint="/no/such/dir"),
-        registry.ModelSpec(alias="int8-tiny", quant="int8"),
+        # quant alone is served; beside an int8 KV cache it is not (the
+        # int8-KV kernels are not ported).
+        registry.ModelSpec(alias="int8-tiny", quant="int8", kv_dtype="int8"),
     ):
         registry.save_registry_entry(spec, path)
     return path

@@ -1,5 +1,5 @@
-"""The port's CUDA decode-attention kernels (dense B1/B2, paged B3/B4)
-against their plain versions.
+"""The port's CUDA kernels — decode attention (dense B1/B2, paged B3/B4)
+and the dequant-matmuls (B5 int8, B6 int4) — against their plain versions.
 
 These need a CUDA card (a CUDA kernel has no CPU mode): each test is
 marked ``gpu`` and skips without one. The file imports no jax, so it runs
@@ -9,7 +9,9 @@ on a machine that has only PyTorch and the CUDA toolkit:
 
 Tolerances: f32 at atol/rtol 2e-5 (summation order only); bf16 at
 rtol 1.6e-2 (one bf16 rounding of the output, the plain version
-accumulating in f32 like the kernel).
+accumulating in f32 like the kernel). B5/B6: |got - want| <= rtol |want|
++ 2e-5 max|want|, rtol 0 for an f32 output and 1e-2 for a bf16 one (both
+accumulate in f32; TF32 is off for the plain version's product).
 """
 
 import pytest
@@ -17,6 +19,8 @@ import torch
 
 from adversarial_spec_tpu_torch.ops import decode_attention as da
 from adversarial_spec_tpu_torch.ops import paged_attention as pa
+from adversarial_spec_tpu_torch.ops import quant
+from adversarial_spec_tpu_torch.ops import quant_matmul as qm
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)
@@ -128,3 +132,61 @@ def test_cuda_paged_kernels_match_plain_versions(cuda, dtype):
     torch.testing.assert_close(got.float(), want.float(), **tol)
     assert (got[2] == 0).all()
     assert pa.launches == {"paged_decode_attention": 1, "paged_decode_attention_mq": 1}
+
+
+def _assert_qmm_close(got, want):
+    rtol = 1e-2 if got.dtype == torch.bfloat16 else 0.0
+    g, w = got.float(), want.float()
+    assert torch.isfinite(g).all()
+    assert ((g - w).abs() <= rtol * w.abs() + 2e-5 * w.abs().max()).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_cuda_quant_matmul_matches_plain_versions(cuda, fmt, dtype, monkeypatch):
+    """One row, odd K (int4's zero pad row), N no tile multiple, the
+    one-block decode tiles (M <= 80) and the 128-row tiles with a ragged
+    edge, a 3-D x, an f32 output; one launch counted per call."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    qz = quant.quantize_int8 if fmt == "int8" else quant.quantize_int4
+    key = "q" if fmt == "int8" else "q4"
+    fn = qm.matmul_int8 if fmt == "int8" else qm.matmul_int4
+    plain = qm.matmul_int8_plain if fmt == "int8" else qm.matmul_int4_plain
+    cases = [((1, 64), 48), ((5, 255), 40), ((72, 512), 1000), ((130, 300), 96),
+             ((2, 3, 256), 64)]
+    qm.reset_launches()
+    for xshape, N in cases:
+        K = xshape[-1]
+        leaf = qz(torch.randn((K, N), generator=gen, device=cuda).to(dtype))
+        x = torch.randn(xshape, generator=gen, device=cuda).to(dtype)
+        for out_dtype in (None, torch.float32):
+            got = fn(x, leaf[key], leaf["scale"], out_dtype=out_dtype)
+            want = plain(x, leaf[key], leaf["scale"], out_dtype=out_dtype)
+            assert got.shape == (*xshape[:-1], N) and got.dtype == want.dtype
+            _assert_qmm_close(got, want)
+    assert qm.launches[f"matmul_{fmt}"] == 2 * len(cases)
+
+
+@pytest.mark.gpu
+def test_cuda_quant_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
+    leaf = quant.quantize_int8(torch.randn((64, 32), device=cuda))
+    x = torch.randn((4, 64), device=cuda)
+    with pytest.raises(ValueError, match="operands on"):
+        qm.matmul_int8(x, leaf["q"].cpu(), leaf["scale"])
+    with pytest.raises(TypeError, match="float32 or bfloat16"):
+        qm.matmul_int8(x.half(), leaf["q"], leaf["scale"])
+    with pytest.raises(TypeError, match="int8"):
+        qm.matmul_int8(x, leaf["q"].to(torch.int16), leaf["scale"])
+    with pytest.raises(TypeError, match="scale must be float32"):
+        qm.matmul_int8(x, leaf["q"], leaf["scale"].double())
+    with pytest.raises(ValueError, match="contraction width"):
+        qm.matmul_int8(x[:, :63], leaf["q"], leaf["scale"])
+    with pytest.raises(ValueError, match="contiguous"):
+        qm.matmul_int8(x, leaf["q"].t().contiguous().t(), leaf["scale"])
+    with pytest.raises(TypeError, match="output"):
+        qm.matmul_int8(x, leaf["q"], leaf["scale"], out_dtype=torch.bfloat16)
+    q4 = quant.quantize_int4(torch.randn((65, 32), device=cuda))
+    with pytest.raises(ValueError, match="contraction width"):
+        qm.matmul_int4(x, q4["q4"], q4["scale"])  # 33 packed rows; K=64 needs 32
