@@ -223,6 +223,7 @@ def generate(
     share_prefix: bool = True,
     speculative: bool | None = None,
     device: str | torch.device | None = None,
+    kv_dtype: str = "",
 ) -> GenerateResult:
     """End-to-end batched generation on ``device`` (default ``cuda``;
     ``params`` must already live there).
@@ -230,6 +231,10 @@ def generate(
     ``speculative``: prompt-lookup speculative decoding; None = the
     process switchboard (engine/spec.py). Decode steps and verify spans
     go through the decode-attention wrappers.
+
+    ``kv_dtype="int8"``: the KV cache stores int8 K/V with per-(token,
+    head) f32 scales (half the cache bytes); the decode kernels read it
+    as int8.
     """
     device = resolve_device(device)
     tokens_np, pad_lens_np = pad_batch(prompt_ids, pad_id)
@@ -292,6 +297,7 @@ def generate(
         total_len,
         device=device,
         dtype=params["embed"].dtype,
+        kv_dtype=kv_dtype,
     )
     chunk_len = min(S, PREFILL_CHUNK)
     last_logits = None

@@ -20,14 +20,17 @@ are captured into ``Completion.error`` per group, never raised.
 Weight-quantized specs (``quant="int8"`` / ``"int4"``) are served on both
 paths: the weights are quantized at load (``engine/loader.py``) and every
 projection and the head run the dequant-matmul kernels B5/B6
-(``ops/quant_matmul.py``).
+(``ops/quant_matmul.py``). An int8 KV cache (``kv_dtype="int8"``, with or
+without ``quant``) is served on both paths too: ``generate()``'s dense
+cache and the batcher's page pool store int8 K/V with per-(token, head)
+scales, read by the int8-KV variants of B1-B4.
 
 This slice keeps one resident model at a time (loading another alias
-drops the previous one). Specs the port cannot serve yet — an int8 KV
-cache, multi-device meshes, HF checkpoints, and a paged spec whose budget
-leaves no room for a bucketed prompt (the reference's round-synchronous
-``generate(paged=True)`` corner) — get a "not yet ported" error; they are
-never served silently another way.
+drops the previous one). Specs the port cannot serve yet — multi-device
+meshes, HF checkpoints, and a paged spec whose budget leaves no room for a
+bucketed prompt (the reference's round-synchronous ``generate(paged=True)``
+corner) — get a "not yet ported" error; they are never served silently
+another way. A ``kv_dtype`` other than ``""`` or ``"int8"`` is an error.
 """
 
 from __future__ import annotations
@@ -66,6 +69,7 @@ from adversarial_spec_tpu_torch.engine.types import (
     SamplingParams,
 )
 from adversarial_spec_tpu_torch.models.config import ModelConfig, get_config
+from adversarial_spec_tpu_torch.models.transformer import check_kv_dtype
 from adversarial_spec_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {
@@ -91,8 +95,6 @@ def fits_batcher(cfg: ModelConfig, max_new_tokens: int) -> bool:
 
 def unported_reason(spec: ModelSpec, max_new_tokens: int = 0) -> str | None:
     """Why the port cannot serve ``spec`` at this budget yet, or None."""
-    if spec.kv_dtype:
-        return f"kv_dtype={spec.kv_dtype!r} (int8 KV cache)"
     if math.prod(spec.mesh.values()) > 1:
         return f"a multi-device mesh {spec.mesh}"
     if spec.checkpoint != "random":
@@ -192,6 +194,7 @@ class GpuEngine:
 
             try:
                 spec = registry_mod.resolve_model_spec(f"tpu://{alias}")
+                check_kv_dtype(spec.kv_dtype)
                 reason = unported_reason(spec, params.max_new_tokens)
                 if reason is not None:
                     raise NotImplementedError(
@@ -252,6 +255,7 @@ class GpuEngine:
             seed=params.seed,
             timeout_s=params.timeout_s,
             device=self.device,
+            kv_dtype=lm.spec.kv_dtype,
         )
         total_time = time.monotonic() - t0
 
@@ -323,6 +327,7 @@ class GpuEngine:
             n_slots,
             capacity,
             params.max_new_tokens,
+            lm.spec.kv_dtype,
             prefix_mod.config().enabled,
             prefix_mod.config().max_pages,
             interleave_mod.config().enabled,
@@ -415,6 +420,7 @@ class GpuEngine:
                 top_k=params.top_k,
                 top_p=params.top_p,
                 seed=seed,
+                kv_dtype=lm.spec.kv_dtype,
             )
             lm.batcher = batcher
             lm.batcher_key = batcher_key

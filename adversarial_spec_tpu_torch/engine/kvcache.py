@@ -5,10 +5,11 @@ bookkeeping (``OutOfPages``, ``PagedCacheLayout``, ``PageAllocator``: free
 list, ref-counted per-sequence page tables, ``truncate``/``adopt``/
 ``cache_ref``/swap pins and ``check_invariants``) is the reference's, line
 for line — it is plain Python over integers. The page pool is a dict of
-torch tensors ``{"k", "v": [L, n_pages, Hkv, page_size, D]}`` on the
-engine's device, read by the paged decode kernels
-(``ops/paged_attention.py``) and written IN PLACE by ``write_tokens``
-(the reference returns a new functional pool; the port saves the copy).
+torch tensors ``{"k", "v": [L, n_pages, Hkv, page_size, D]}`` (plus
+``{"ks", "vs"}`` scale pages for an int8 pool) on the engine's device,
+read by the paged decode kernels (``ops/paged_attention.py``) and written
+IN PLACE by ``write_tokens`` (the reference returns a new functional
+pool; the port saves the copy).
 
 Sizing: a debate round's opponents share the pool; ``n_pages`` bounds
 total resident tokens across all rows, not per-row length.
@@ -27,6 +28,8 @@ from dataclasses import dataclass
 
 import numpy as np
 import torch
+
+from adversarial_spec_tpu_torch.models.transformer import check_kv_dtype
 
 
 class OutOfPages(RuntimeError):
@@ -290,9 +293,15 @@ def init_page_pool(
     *,
     device: torch.device,
     dtype: torch.dtype = torch.bfloat16,
+    kv_dtype: str = "",
 ) -> dict[str, torch.Tensor]:
     """Zeroed device page pool ``{"k", "v": [L, n_pages, Hkv, page, D]}``
-    (per-layer stacked, heads-major pages). Int8 pools are not ported."""
+    (per-layer stacked, heads-major pages).
+
+    ``kv_dtype="int8"``: int8 K/V pages plus f32 scale pages
+    ``{"ks", "vs": [L, n_pages, Hkv, page, 1]}`` — the paged counterpart
+    of the dense int8 cache (``models/transformer.py:init_cache``); the
+    presence of ``"ks"`` marks a quantized pool."""
     shape = (
         layout.n_layers,
         layout.n_pages,
@@ -300,6 +309,14 @@ def init_page_pool(
         layout.page_size,
         layout.head_dim,
     )
+    if check_kv_dtype(kv_dtype):
+        sshape = shape[:-1] + (1,)
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "ks": torch.zeros(sshape, dtype=torch.float32, device=device),
+            "vs": torch.zeros(sshape, dtype=torch.float32, device=device),
+        }
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
@@ -316,20 +333,29 @@ def write_tokens(
     v_new: torch.Tensor,
     page_ids,  # [B, S] physical page per token (array-like)
     offsets,  # [B, S] slot within page per token
+    ks_new: torch.Tensor | None = None,  # [L, B, Hkv, S, 1] (int8 pools)
+    vs_new: torch.Tensor | None = None,
 ) -> dict[str, torch.Tensor]:
     """Scatter freshly computed K/V into their pages, IN PLACE; returns
     ``pool``. ``pool[l, pid[n], :, off[n]] = new[n, l]`` for every layer
     and token: the advanced indices at dims 1 and 3 are separated by the
-    head slice, so the token axis leads the update (built token-major)."""
+    head slice, so the token axis leads the update (built token-major).
+    A quantized pool takes the matching scale slices too (both or
+    neither), in the dense int8 cache's layout."""
     L, B, H, S, D = k_new.shape
     dev = pool["k"].device
     pid, off = _index(page_ids, dev), _index(offsets, dev)
+    new = {"k": k_new, "v": v_new}
+    if "ks" in pool:
+        if ks_new is None or vs_new is None:
+            raise ValueError("quantized pool requires ks_new/vs_new scale slices")
+        new.update(ks=ks_new, vs=vs_new)
 
-    def flat(x):  # [L, B, H, S, D] → [B*S, L, H, D]
-        return x.permute(1, 3, 0, 2, 4).reshape(B * S, L, H, D)
+    def flat(x):  # [L, B, H, S, X] → [B*S, L, H, X]
+        return x.permute(1, 3, 0, 2, 4).reshape(B * S, L, H, x.shape[-1])
 
-    pool["k"][:, pid, :, off] = flat(k_new).to(pool["k"].dtype)
-    pool["v"][:, pid, :, off] = flat(v_new).to(pool["v"].dtype)
+    for name, x in new.items():
+        pool[name][:, pid, :, off] = flat(x).to(pool[name].dtype)
     return pool
 
 
@@ -338,10 +364,10 @@ def read_tokens(
     page_ids,  # [B, S] physical page per token
     offsets,  # [B, S] slot within page per token
 ) -> dict[str, torch.Tensor]:
-    """Gather per-token K/V back out of their pages: the exact inverse of
-    ``write_tokens``, in the dense-cache layout [L, B, Hkv, S, D] (a new
-    tensor). Materializes a cached prefix into a fresh admission's dense
-    prefill cache (engine/scheduler.py)."""
+    """Gather per-token K/V (and an int8 pool's scales) back out of their
+    pages: the exact inverse of ``write_tokens``, in the dense-cache layout
+    [L, B, Hkv, S, D|1] (new tensors). Materializes a cached prefix into a
+    fresh admission's dense prefill cache (engine/scheduler.py)."""
     B, S = np.asarray(page_ids).shape
     dev = pool["k"].device
     pid, off = _index(page_ids, dev), _index(offsets, dev)

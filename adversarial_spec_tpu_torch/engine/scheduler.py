@@ -467,6 +467,8 @@ class ContinuousBatcher:
     """Admits requests into decode slots over one shared model + pool.
 
     Every tensor lives on the params' device (the engine's).
+    ``kv_dtype="int8"`` makes the pool and every admission's dense cache
+    int8 with per-(token, head) f32 scales (the reference's int8 layout).
     """
 
     def __init__(
@@ -489,6 +491,7 @@ class ContinuousBatcher:
         step_tokens: int = 0,
         speculative: bool | None = None,
         gamma: int | None = None,
+        kv_dtype: str = "",
     ):
         if not interleave_mod.config().enabled:
             raise NotImplementedError(
@@ -501,6 +504,7 @@ class ContinuousBatcher:
         self.device = params["embed"].device
         self._dtype = params["embed"].dtype
         self.page_size = page_size
+        self.kv_dtype = kv_dtype
         self.chunk = chunk
         # Sarathi-style shared per-step token budget: a fused step's
         # prompt chunk shrinks so chunk_len + n_live·width stays under it.
@@ -549,7 +553,9 @@ class ContinuousBatcher:
             n_kv_heads=cfg.n_kv_heads,
             head_dim=cfg.head_dim,
         )
-        self.pool = init_page_pool(layout, device=dev, dtype=self._dtype)
+        self.pool = init_page_pool(
+            layout, device=dev, dtype=self._dtype, kv_dtype=kv_dtype
+        )
         self.max_pages_per_seq = -(-cfg.max_seq_len // page_size)
 
         B, cap = self.B, max_new_cap
@@ -692,7 +698,10 @@ class ContinuousBatcher:
         self.queue.append(req)
 
     def _new_cache(self, S: int) -> dict:
-        return init_cache(self.cfg, 1, S, device=self.device, dtype=self._dtype)
+        return init_cache(
+            self.cfg, 1, S, device=self.device, dtype=self._dtype,
+            kv_dtype=self.kv_dtype,
+        )
 
     def _start_admission(self, slot: int, req: SchedRequest) -> bool:
         """Reserve pages and set up the chunked prefill for ``slot``;
@@ -769,8 +778,9 @@ class ContinuousBatcher:
             )
             cache = self._new_cache(S)
             if matched:
-                # Materialize the adopted prefix KV into the dense
-                # admission cache so the delta's attention sees it.
+                # Materialize the adopted prefix KV (and an int8 pool's
+                # scales: every pool key) into the dense admission cache
+                # so the delta's attention sees it.
                 table = (
                     np.asarray(self.allocator.table(seq_id)[: matched // ps])
                     + 1
@@ -858,12 +868,15 @@ class ContinuousBatcher:
             pad = int(adm.pads[0])
         slots = scat[None, :]
         lo, hi = int(scat[0]), int(scat[-1]) + 1
+        quant_kv = "ks" in cache
         write_tokens(
             self.pool,
             cache["k"][:, :, :, lo:hi],
             cache["v"][:, :, :, lo:hi],
             table[slots // self.page_size],
             slots % self.page_size,
+            ks_new=cache["ks"][:, :, :, lo:hi] if quant_kv else None,
+            vs_new=cache["vs"][:, :, :, lo:hi] if quant_kv else None,
         )
         first = sample_tokens(
             last_logits,

@@ -13,6 +13,9 @@ layout (one tensor each for K and V): a layer's slice ``cache["k"][l]`` is
 a view the decode-attention kernels read through its strides, with no
 copy. Unlike the reference, ``forward`` updates the cache IN PLACE (the
 reference returns a new functional cache; the port saves the copy).
+``kv_dtype="int8"`` stores int8 K/V beside per-(token, head) f32 scales
+``{"ks", "vs"}: [L, B, Hkv, T, 1]`` (the reference's int8 cache); every
+path below writes and reads both layouts.
 
 Attention routes like the reference's kernel path: S=1 steps through
 ``decode_attention`` (B1), short spans (1 < S <= 16, the speculative
@@ -21,8 +24,9 @@ GPU, its plain version on the CPU — and prefill chunks through the plain
 masked ``attention`` (plain XLA in the reference too).
 
 ``forward_paged_decode`` is the continuous batcher's step over the paged
-pool ``[L, n_pages, Hkv, page, D]``: the paged kernels B3 (S=1) and B4
-(the verify span) on the GPU, the reference's gather path on the CPU.
+pool ``[L, n_pages, Hkv, page, D]`` (int8 pages beside ``[..., 1]`` scale
+pages for an int8 pool): the paged kernels B3 (S=1) and B4 (the verify
+span) on the GPU, the reference's gather path on the CPU.
 
 Every projection and the head go through ``ops/quant.py:matmul``: a
 weight quantized at load (``{"q", "scale"}`` int8 or ``{"q4", "scale"}``
@@ -121,6 +125,17 @@ def init_params(
     return params
 
 
+KV_DTYPES = ("", "int8")
+
+
+def check_kv_dtype(kv_dtype: str) -> bool:
+    """True for an int8 cache, False for one in the model's dtype; raises
+    on any other value."""
+    if kv_dtype not in KV_DTYPES:
+        raise ValueError(f"kv_dtype {kv_dtype!r} not one of {KV_DTYPES}")
+    return kv_dtype == "int8"
+
+
 def init_cache(
     cfg: ModelConfig,
     batch: int,
@@ -128,13 +143,55 @@ def init_cache(
     *,
     device: torch.device,
     dtype: torch.dtype = torch.bfloat16,
+    kv_dtype: str = "",
 ) -> Cache:
-    """Zeroed dense cache ``{"k", "v"}: [L, B, Hkv, max_seq, D]``."""
+    """Zeroed dense cache ``{"k", "v"}: [L, B, Hkv, max_seq, D]``.
+
+    ``kv_dtype="int8"``: K/V int8 plus f32 scales ``{"ks", "vs"}:
+    [L, B, Hkv, max_seq, 1]`` (the reference's layout); the presence of
+    ``"ks"`` marks a quantized cache. An unwritten slot's scale is 0, so
+    it dequantizes to 0.
+    """
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
+    if check_kv_dtype(kv_dtype):
+        sshape = shape[:-1] + (1,)
+        return {
+            "k": torch.zeros(shape, dtype=torch.int8, device=device),
+            "v": torch.zeros(shape, dtype=torch.int8, device=device),
+            "ks": torch.zeros(sshape, dtype=torch.float32, device=device),
+            "vs": torch.zeros(sshape, dtype=torch.float32, device=device),
+        }
     return {
         "k": torch.zeros(shape, dtype=dtype, device=device),
         "v": torch.zeros(shape, dtype=dtype, device=device),
     }
+
+
+# The reference writes ``max(amax, 1e-8) / 127.0``, but every path that
+# fills a cache runs it compiled, and XLA rewrites a division by a constant
+# into a product with the constant's f32 reciprocal: that product is what
+# the reference's caches hold, so it is what the port computes. A Python
+# scalar reaches an f32 op as f32(1/127), the same bits, with no copy to
+# the device.
+_INV_127 = 1.0 / 127.0
+
+
+def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """Per-(token, head) symmetric int8 over the feature axis, bit-identical
+    to the reference's compiled quantization: f32 amax, ``max(amax, 1e-8)
+    * f32(1/127)``, round half to even, clip to ±127. Returns (int8, f32
+    scale [..., 1])."""
+    xf = x.to(torch.float32)
+    amax = xf.abs().amax(dim=-1, keepdim=True)
+    scale = torch.clamp(amax, min=1e-8) * _INV_127
+    q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
+    return q, scale
+
+
+def _dequantize_kv(q: torch.Tensor, scale: torch.Tensor, dtype) -> torch.Tensor:
+    """An int8 cache read for the plain attention, in the activations'
+    dtype, as the reference reads it: ``(q.float() * scale).to(dtype)``."""
+    return (q.to(torch.float32) * scale).to(dtype)
 
 
 def rms_norm(
@@ -242,9 +299,10 @@ def _layer_window_start(cfg: ModelConfig, layer_id: int, base_start, q_pos):
     return torch.maximum(base_start, q_pos - cfg.sliding_window + 1)
 
 
-def _write_kv(buf: torch.Tensor, val: torch.Tensor, cache_index) -> None:
-    """Store a chunk's K or V ``val [B, S, Hkv, D]`` into a layer's cache
-    slice ``buf [B, Hkv, T, D]`` in place.
+def _write_kv(pairs, cache_index) -> None:
+    """Store each ``(buf, val)`` of ``pairs`` — a chunk's K, V (or an int8
+    cache's scales) ``val [B, S, Hkv, D|1]`` into a layer's cache slice
+    ``buf [B, Hkv, T, D|1]`` — in place.
 
     Start slots clamp to ``[0, T - S]`` exactly as the reference's
     ``dynamic_update_slice`` does: a span that would run past the end of
@@ -252,16 +310,19 @@ def _write_kv(buf: torch.Tensor, val: torch.Tensor, cache_index) -> None:
     speculative verify rely on this). A vector ``cache_index`` ([B])
     writes each row at its own slot: an advanced-index scatter.
     """
-    S, T = val.shape[1], buf.shape[2]
+    buf0, val0 = pairs[0]
+    S, T = val0.shape[1], buf0.shape[2]
     if isinstance(cache_index, int):
         i = min(max(cache_index, 0), T - S)
-        buf[:, :, i : i + S] = val.transpose(1, 2).to(buf.dtype)
+        for buf, val in pairs:
+            buf[:, :, i : i + S] = val.transpose(1, 2).to(buf.dtype)
         return
     start = torch.clamp(cache_index, 0, T - S)
-    slots = start[:, None] + torch.arange(S, device=buf.device)  # [B, S]
-    rows = torch.arange(buf.shape[0], device=buf.device)[:, None]
+    slots = start[:, None] + torch.arange(S, device=buf0.device)  # [B, S]
+    rows = torch.arange(buf0.shape[0], device=buf0.device)[:, None]
     # Advanced indices at dims 0 and 2 put (B, S) first: [B, S, Hkv, D].
-    buf[rows, :, slots] = val.to(buf.dtype)
+    for buf, val in pairs:
+        buf[rows, :, slots] = val.to(buf.dtype)
 
 
 def forward(
@@ -282,6 +343,11 @@ def forward(
     ``use_kernels`` routes short spans through the decode-attention
     wrappers (the reference's ``use_pallas_decode``); False keeps every
     chunk on the plain masked ``attention``.
+
+    An int8 cache (``"ks"`` in it) stores each chunk's K/V quantized, as
+    the reference's ``_write_and_read_kv`` does: the plain attention reads
+    the layer dequantized to x's dtype (so the chunk attends to its own
+    quantized K/V); the kernels get the raw int8 K/V and the scales.
     """
     B, S = tokens.shape
     T = cache["k"].shape[3]
@@ -289,6 +355,7 @@ def forward(
     vector_index = isinstance(cache_index, torch.Tensor)
     if not vector_index:
         cache_index = int(cache_index)
+    quant_kv = "ks" in cache
     kernel_b1 = use_kernels and S == 1
     kernel_b2 = use_kernels and 1 < S <= MQ_MAX_SPAN
 
@@ -325,8 +392,17 @@ def forward(
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one)
         q, k, v = _project_qkv(lp, cfg, h, B, S, cos, sin)
         k_l, v_l = cache["k"][layer_id], cache["v"][layer_id]
-        _write_kv(k_l, k, cache_index)
-        _write_kv(v_l, v, cache_index)
+        skw = {}  # the int8 cache's scales, for the kernels
+        if quant_kv:
+            ks_l, vs_l = cache["ks"][layer_id], cache["vs"][layer_id]
+            kvq, kvs = _quantize_kv(torch.stack([k, v]))  # K and V in one pass
+            _write_kv(
+                ((k_l, kvq[0]), (v_l, kvq[1]), (ks_l, kvs[0]), (vs_l, kvs[1])),
+                cache_index,
+            )
+            skw = dict(k_scale=ks_l, v_scale=vs_l)
+        else:
+            _write_kv(((k_l, k), (v_l, v)), cache_index)
         if kernel_b1:
             lo = _layer_window_start(cfg, layer_id, start, q_pos[:, 0])
             bounds = torch.stack([lo, ends[:, 0]], dim=1)
@@ -337,6 +413,7 @@ def forward(
                 bounds,
                 attn_softcap=cfg.attn_softcap,
                 scale=cfg.attn_scale,
+                **skw,
             )[:, None]
         elif kernel_b2:
             starts = _layer_window_start(cfg, layer_id, start[:, None], q_pos)
@@ -348,12 +425,16 @@ def forward(
                 ends,
                 attn_softcap=cfg.attn_softcap,
                 scale=cfg.attn_scale,
+                **skw,
             )
         else:
             windowed = cfg.sliding_window > 0 and not (
                 cfg.sliding_window_pattern > 1
                 and layer_id % cfg.sliding_window_pattern
             )
+            if quant_kv:
+                k_l = _dequantize_kv(k_l, ks_l, x.dtype)
+                v_l = _dequantize_kv(v_l, vs_l, x.dtype)
             out = attention(
                 q,
                 k_l,
@@ -371,7 +452,8 @@ def forward_paged_decode(
     cfg: ModelConfig,
     tokens: torch.Tensor,  # [B, S] — decode step (S=1) or verify span (γ+1)
     positions: torch.Tensor,  # [B, S] rope positions
-    pool: Cache,  # {"k","v": [L, n_pages, Hkv, page, D]}, written in place
+    pool: Cache,  # {"k","v": [L, n_pages, Hkv, page, D]} (+"ks"/"vs"
+    # [..., 1] f32 scale pages when the pool is int8), written in place
     page_table: torch.Tensor,  # [B, P] int32; <= 0 = unmapped (0 = trash)
     write_page: torch.Tensor,  # [B(, S)] physical page per token's KV
     write_off: torch.Tensor,  # [B(, S)] slot within that page
@@ -391,10 +473,15 @@ def forward_paged_decode(
     CPU it takes the reference's gather path — the page table densified
     once per row, then the plain masked ``attention`` — which is what
     the reference runs off the TPU, so the two packages agree there.
+
+    An int8 pool (``"ks"`` in it) scatters quantized K/V and their scales;
+    the kernels read the int8 pages and scale pages, the gather path
+    densifies both and dequantizes to x's dtype, as the reference does.
     """
     B, S = tokens.shape
     page_size = pool["k"].shape[3]
     use_kernels = pool["k"].is_cuda
+    quant_kv = "ks" in pool
     write_page = write_page.reshape(B, S)
     write_off = write_off.reshape(B, S)
     bounds = bounds.reshape(B, S, 2)
@@ -424,12 +511,18 @@ def forward_paged_decode(
         # put the flattened (row, span) axis first: update [B·S, Hkv, D].
         # One scatter per layer; rejected-draft and inactive-row targets
         # are the trash page, never read.
-        k_pages[flat_page, :, flat_off] = k.reshape(
-            B * S, cfg.n_kv_heads, cfg.head_dim
-        ).to(k_pages.dtype)
-        v_pages[flat_page, :, flat_off] = v.reshape(
-            B * S, cfg.n_kv_heads, cfg.head_dim
-        ).to(v_pages.dtype)
+        kf = k.reshape(B * S, cfg.n_kv_heads, cfg.head_dim)
+        vf = v.reshape(B * S, cfg.n_kv_heads, cfg.head_dim)
+        skw = {}  # the int8 pool's scale pages, for the kernels
+        if quant_kv:
+            ks_pages, vs_pages = pool["ks"][layer_id], pool["vs"][layer_id]
+            # K and V in one pass: [2, B·S, Hkv, D] and [2, B·S, Hkv, 1].
+            (kf, vf), (ks, vs) = _quantize_kv(torch.stack([kf, vf]))
+            ks_pages[flat_page, :, flat_off] = ks
+            vs_pages[flat_page, :, flat_off] = vs
+            skw = dict(k_scale=ks_pages, v_scale=vs_pages)
+        k_pages[flat_page, :, flat_off] = kf.to(k_pages.dtype)
+        v_pages[flat_page, :, flat_off] = vf.to(v_pages.dtype)
 
         start = _layer_window_start(cfg, layer_id, bounds[..., 0], q_pos)
         end = bounds[..., 1]
@@ -443,6 +536,7 @@ def forward_paged_decode(
                 layer_bounds.to(torch.int32).contiguous(),
                 attn_softcap=cfg.attn_softcap,
                 scale=cfg.attn_scale,
+                **skw,
             )[:, None]
         elif use_kernels:
             out = paged_decode_attention_mq(
@@ -454,14 +548,20 @@ def forward_paged_decode(
                 end.to(torch.int32).contiguous(),
                 attn_softcap=cfg.attn_softcap,
                 scale=cfg.attn_scale,
+                **skw,
             )
         else:
 
-            def to_dense(pages):  # [B, P, Hkv, page, D] → [B, Hkv, T, D]
+            def to_dense(pages):  # [B, P, Hkv, page, X] → [B, Hkv, T, X]
                 g = pages[safe_table]
                 return g.transpose(1, 2).reshape(
                     B, cfg.n_kv_heads, -1, pages.shape[-1]
                 )
+
+            k_dense, v_dense = to_dense(k_pages), to_dense(v_pages)
+            if quant_kv:
+                k_dense = _dequantize_kv(k_dense, to_dense(ks_pages), x.dtype)
+                v_dense = _dequantize_kv(v_dense, to_dense(vs_pages), x.dtype)
 
             mask = (
                 mapped
@@ -470,8 +570,8 @@ def forward_paged_decode(
             )  # [B, S, T]
             out = attention(
                 q,
-                to_dense(k_pages),
-                to_dense(v_pages),
+                k_dense,
+                v_dense,
                 mask,
                 attn_softcap=cfg.attn_softcap,
                 scale=cfg.attn_scale,

@@ -8,6 +8,13 @@ Counterpart of ``adversarial_spec_tpu/ops/pallas_decode.py``:
   (the speculative verify), each position with its own ``[start, end)``
   window. Replaces the Pallas ``_mq_attn_kernel``.
 
+Both take an int8 cache as the reference does (``kv_dtype="int8"``):
+``k_scale``/``v_scale`` (both or neither) are the per-(token, head) f32
+scales ``[B, Hkv, T, 1]`` of int8 K/V, dequantized inside the kernel's
+tiles (``float(k8) * ks``, the Pallas kernels' order); such a call counts
+under its own name (``decode_attention_int8kv``,
+``decode_attention_mq_int8kv``).
+
 Each wrapper launches the hand-written Hopper kernel
 (``csrc/decode_attention.cu``, built by ``ops/_build.py``) for CUDA
 tensors and counts the launch in ``launches``; for CPU tensors it runs the
@@ -35,7 +42,12 @@ _PLAIN_BLOCK = 512
 # Kernel launches per wrapper (the chip smoke zeroes and reads these to
 # show the main path really went through the kernels). Plain runs on CPU
 # tensors never count.
-launches = {"decode_attention": 0, "decode_attention_mq": 0}
+launches = {
+    "decode_attention": 0,
+    "decode_attention_mq": 0,
+    "decode_attention_int8kv": 0,
+    "decode_attention_mq_int8kv": 0,
+}
 
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 
@@ -50,7 +62,7 @@ def _lib() -> ctypes.CDLL:
     if not getattr(lib, "_advspec_bound", False):
         lib.advspec_decode_attention.argtypes = (
             [_P, _L, _L]
-            + [_P, _L, _L, _L] * 2
+            + [_P, _L, _L, _L] * 4  # k, v, k scales, v scales
             + [_P, _L]
             + [_P, _L, _L]
             + [_I] * 6
@@ -59,7 +71,7 @@ def _lib() -> ctypes.CDLL:
         lib.advspec_decode_attention.restype = _I
         lib.advspec_decode_attention_mq.argtypes = (
             [_P, _L, _L, _L]
-            + [_P, _L, _L, _L] * 2
+            + [_P, _L, _L, _L] * 4  # k, v, k scales, v scales
             + [_P, _L, _L] * 2
             + [_P, _L, _L, _L]
             + [_I] * 7
@@ -70,20 +82,32 @@ def _lib() -> ctypes.CDLL:
     return lib
 
 
+def scales_pair(k_scale, v_scale) -> bool:
+    """True for an int8 cache (both scales given), False for a float one;
+    raises when only one is given."""
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("pass both k_scale and v_scale, or neither")
+    return k_scale is not None
+
+
 # -- plain PyTorch versions ---------------------------------------------------
 
 
 def decode_attention_mq_plain(
     q: torch.Tensor,  # [B, S, Hq, D]
-    k_cache: torch.Tensor,  # [B, Hkv, T, D]
+    k_cache: torch.Tensor,  # [B, Hkv, T, D] float, or int8 with scales
     v_cache: torch.Tensor,  # [B, Hkv, T, D]
     starts: torch.Tensor,  # [B, S] or [B, 1] int
     ends: torch.Tensor,  # [B, S] or [B, 1] int
     attn_softcap: float = 0.0,
     scale: float | None = None,
+    k_scale: torch.Tensor | None = None,  # [B, Hkv, T, 1] f32 (int8 cache)
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain B2: f32 online softmax over cache blocks, per-row windows;
-    rows with an empty window give exact zeros. Returns [B, S, Hq, D]."""
+    rows with an empty window give exact zeros. An int8 block dequantizes
+    as ``k.float() * ks`` before the update. Returns [B, S, Hq, D]."""
+    scales_pair(k_scale, v_scale)
     B, S, Hq, D = q.shape
     Hkv, T = k_cache.shape[1], k_cache.shape[2]
     g = Hq // Hkv
@@ -98,11 +122,18 @@ def decode_attention_mq_plain(
     m = torch.full((B, Hkv, S * g, 1), float("-inf"), device=q.device)
     l = torch.zeros((B, Hkv, S * g, 1), device=q.device)
     acc = torch.zeros((B, Hkv, S * g, D), device=q.device)
+
+    def block(x, x_scale, t0):  # → f32 [B, Hkv, block, D]
+        xb = x[:, :, t0 : t0 + _PLAIN_BLOCK].to(torch.float32)
+        if x_scale is None:
+            return xb
+        return xb * x_scale[:, :, t0 : t0 + _PLAIN_BLOCK]
+
     for t0 in range(0, T, _PLAIN_BLOCK):
         m, l, acc = flash_update(
             qg,
-            k_cache[:, :, t0 : t0 + _PLAIN_BLOCK].to(torch.float32),
-            v_cache[:, :, t0 : t0 + _PLAIN_BLOCK].to(torch.float32),
+            block(k_cache, k_scale, t0),
+            block(v_cache, v_scale, t0),
             t0,
             lo,
             hi,
@@ -123,6 +154,8 @@ def decode_attention_plain(
     bounds: torch.Tensor,  # [B, 2] (start, end)
     attn_softcap: float = 0.0,
     scale: float | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain B1 (the S=1 case of the plain B2). Returns [B, Hq, D]."""
     return decode_attention_mq_plain(
@@ -133,16 +166,28 @@ def decode_attention_plain(
         bounds[:, 1:2],
         attn_softcap=attn_softcap,
         scale=scale,
+        k_scale=k_scale,
+        v_scale=v_scale,
     )[:, 0]
 
 
 # -- kernel wrappers ----------------------------------------------------------
 
 
-def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *ints) -> int:
-    """Validate what the kernel takes; returns the dtype code."""
+def _check(
+    q: torch.Tensor,
+    k: torch.Tensor,
+    v: torch.Tensor,
+    *ints,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
+) -> int:
+    """Validate what the kernel takes; returns the dtype code. K/V are in
+    q's dtype, or int8 beside f32 scales ``k.shape[:-1] + (1,)``."""
+    quant = scales_pair(k_scale, v_scale)
     dev = q.device
-    for t in (k, v, *ints):
+    scales = (k_scale, v_scale) if quant else ()
+    for t in (k, v, *scales, *ints):
         if t.device != dev:
             raise ValueError(
                 f"decode attention operands on {t.device} and {dev}"
@@ -151,9 +196,23 @@ def _check(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *ints) -> int:
         raise TypeError(
             f"decode attention kernel takes float32 or bfloat16, got {q.dtype}"
         )
-    if k.dtype != q.dtype or v.dtype != q.dtype:
+    if quant:
+        if k.dtype != torch.int8 or v.dtype != torch.int8:
+            raise TypeError(
+                f"scaled K/V must be int8, got {k.dtype}, {v.dtype}"
+            )
+        for s in scales:
+            if s.dtype != torch.float32:
+                raise TypeError(f"K/V scales must be float32, got {s.dtype}")
+            if s.shape != k.shape[:-1] + (1,):
+                raise ValueError(
+                    f"scale shape {tuple(s.shape)} vs cache {tuple(k.shape)}"
+                )
+    elif k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(
             f"q/k/v dtypes differ: {q.dtype}, {k.dtype}, {v.dtype}"
+            + (" (an int8 cache needs k_scale and v_scale)"
+               if k.dtype == torch.int8 else "")
         )
     D = q.shape[-1]
     if D not in SUPPORTED_HEAD_DIMS:
@@ -178,6 +237,18 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+def scale_args(k_scale, v_scale) -> list:
+    """The C entry points' scale operands: pointer and (row or page, head,
+    slot) strides of each, or nulls for a float cache."""
+    if k_scale is None:
+        return [None, 0, 0, 0] * 2
+    return [
+        x
+        for s in (k_scale, v_scale)
+        for x in (s.data_ptr(), s.stride(0), s.stride(1), s.stride(2))
+    ]
+
+
 def decode_attention(
     q: torch.Tensor,  # [B, Hq, D] one query token per row
     k_cache: torch.Tensor,  # [B, Hkv, T, D] heads-major
@@ -185,13 +256,16 @@ def decode_attention(
     bounds: torch.Tensor,  # [B, 2] int32 (start, end) valid-slot window
     attn_softcap: float = 0.0,
     scale: float | None = None,
+    k_scale: torch.Tensor | None = None,  # [B, Hkv, T, 1] f32 (int8 cache)
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """B1: fused decode attention. Returns [B, Hq, D] in q.dtype."""
     if not q.is_cuda:
         return decode_attention_plain(
-            q, k_cache, v_cache, bounds, attn_softcap=attn_softcap, scale=scale
+            q, k_cache, v_cache, bounds, attn_softcap=attn_softcap,
+            scale=scale, k_scale=k_scale, v_scale=v_scale,
         )
-    code = _check(q, k_cache, v_cache, bounds)
+    code = _check(q, k_cache, v_cache, bounds, k_scale=k_scale, v_scale=v_scale)
     B, Hq, D = q.shape
     Hkv, T = k_cache.shape[1], k_cache.shape[2]
     if bounds.shape != (B, 2):
@@ -203,6 +277,7 @@ def decode_attention(
         q.data_ptr(), q.stride(0), q.stride(1),
         kc.data_ptr(), kc.stride(0), kc.stride(1), kc.stride(2),
         vc.data_ptr(), vc.stride(0), vc.stride(1), vc.stride(2),
+        *scale_args(k_scale, v_scale),
         bounds.data_ptr(), bounds.stride(0),
         out.data_ptr(), out.stride(0), out.stride(1),
         B, Hq, Hkv, T, D, code,
@@ -210,8 +285,9 @@ def decode_attention(
         float(attn_softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(rc, "decode_attention")
-    launches["decode_attention"] += 1
+    name = "decode_attention" + ("_int8kv" if k_scale is not None else "")
+    _raise_on(rc, name)
+    launches[name] += 1
     return out
 
 
@@ -223,14 +299,19 @@ def decode_attention_mq(
     ends: torch.Tensor,  # [B, S] or [B, 1] int32 one past the last
     attn_softcap: float = 0.0,
     scale: float | None = None,
+    k_scale: torch.Tensor | None = None,  # [B, Hkv, T, 1] f32 (int8 cache)
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """B2: multi-query fused decode attention. Returns [B, S, Hq, D]."""
     if not q.is_cuda:
         return decode_attention_mq_plain(
             q, k_cache, v_cache, starts, ends,
             attn_softcap=attn_softcap, scale=scale,
+            k_scale=k_scale, v_scale=v_scale,
         )
-    code = _check(q, k_cache, v_cache, starts, ends)
+    code = _check(
+        q, k_cache, v_cache, starts, ends, k_scale=k_scale, v_scale=v_scale
+    )
     B, S, Hq, D = q.shape
     Hkv, T = k_cache.shape[1], k_cache.shape[2]
     strides = []
@@ -244,6 +325,7 @@ def decode_attention_mq(
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
         kc.data_ptr(), kc.stride(0), kc.stride(1), kc.stride(2),
         vc.data_ptr(), vc.stride(0), vc.stride(1), vc.stride(2),
+        *scale_args(k_scale, v_scale),
         starts.data_ptr(), *strides[0],
         ends.data_ptr(), *strides[1],
         out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
@@ -252,6 +334,7 @@ def decode_attention_mq(
         float(attn_softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
-    _raise_on(rc, "decode_attention_mq")
-    launches["decode_attention_mq"] += 1
+    name = "decode_attention_mq" + ("_int8kv" if k_scale is not None else "")
+    _raise_on(rc, name)
+    launches[name] += 1
     return out

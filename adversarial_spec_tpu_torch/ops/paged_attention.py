@@ -10,6 +10,13 @@ Counterpart of ``adversarial_spec_tpu/ops/pallas_paged.py``:
   row's pages — the batcher's span-native speculative verify. Replaces
   the Pallas ``_paged_mq_attn_kernel``.
 
+Both take an int8 pool as the reference does (``kv_dtype="int8"``):
+``k_scale``/``v_scale`` (both or neither) are the f32 scale pages
+``[n_pages, Hkv, page, 1]`` beside int8 K/V pages, read through the same
+page table and dequantized inside the kernel's tiles; such a call counts
+under its own name (``paged_decode_attention_int8kv``,
+``paged_decode_attention_mq_int8kv``).
+
 Page-table sentinel convention (shared with the gather path of
 ``models/transformer.py:forward_paged_decode``): physical page 0 is the
 reserved TRASH page and negative ids are padding, so any entry <= 0 is
@@ -37,6 +44,8 @@ from adversarial_spec_tpu_torch.ops.decode_attention import (
     SOURCE,
     _check,
     _raise_on,
+    scale_args,
+    scales_pair,
 )
 from adversarial_spec_tpu_torch.ops.flash_common import flash_update
 
@@ -46,7 +55,12 @@ _PLAIN_BLOCK = 512
 # Kernel launches per wrapper (the chip smoke zeroes and reads these to
 # show the batcher really went through the kernels). Plain runs on CPU
 # tensors never count.
-launches = {"paged_decode_attention": 0, "paged_decode_attention_mq": 0}
+launches = {
+    "paged_decode_attention": 0,
+    "paged_decode_attention_mq": 0,
+    "paged_decode_attention_int8kv": 0,
+    "paged_decode_attention_mq_int8kv": 0,
+}
 
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 
@@ -62,7 +76,7 @@ def _lib() -> ctypes.CDLL:
         lib.advspec_paged_decode_attention.argtypes = (
             [_I]
             + [_P, _L, _L, _L]  # q
-            + [_P, _L, _L, _L] * 2  # k, v pages
+            + [_P, _L, _L, _L] * 4  # k, v pages, k, v scale pages
             + [_P, _L]  # table
             + [_P, _L, _L] * 2  # starts, ends
             + [_P, _L, _L, _L]  # out
@@ -79,18 +93,23 @@ def _lib() -> ctypes.CDLL:
 
 def paged_decode_attention_mq_plain(
     q: torch.Tensor,  # [B, S, Hq, D]
-    k_pages: torch.Tensor,  # [n_pages, Hkv, page, D]
+    k_pages: torch.Tensor,  # [n_pages, Hkv, page, D] float, or int8 + scales
     v_pages: torch.Tensor,  # [n_pages, Hkv, page, D]
     page_table: torch.Tensor,  # [B, P] int; <= 0 = unmapped
     starts: torch.Tensor,  # [B, S] or [B, 1] int
     ends: torch.Tensor,  # [B, S] or [B, 1] int
     attn_softcap: float = 0.0,
     scale: float | None = None,
+    k_scale: torch.Tensor | None = None,  # [n_pages, Hkv, page, 1] f32
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain B4: f32 online softmax over the row's gathered pages, per-row
     windows; unmapped pages are masked, and their K/V SELECTED to zero
-    (never multiplied in), so a poisoned trash page cannot leak. Rows
-    with an empty window give exact zeros. Returns [B, S, Hq, D]."""
+    (never multiplied in), so a poisoned trash page cannot leak. An int8
+    pool's pages dequantize as ``k.float() * ks`` (scale pages gathered
+    beside them) before that select. Rows with an empty window give exact
+    zeros. Returns [B, S, Hq, D]."""
+    scales_pair(k_scale, v_scale)
     B, S, Hq, D = q.shape
     Hkv, page = k_pages.shape[1], k_pages.shape[2]
     P = page_table.shape[1]
@@ -113,14 +132,20 @@ def paged_decode_attention_mq_plain(
         mapped = (ids > 0).repeat_interleave(page, dim=1)  # [B, n*page]
         safe = torch.clamp(ids, min=0).long()
 
-        def gather(pages):  # → [B, Hkv, n*page, D] f32, unmapped slots = 0
-            x = pages[safe].permute(0, 2, 1, 3, 4).reshape(B, Hkv, n * page, D)
-            return torch.where(mapped[:, None, :, None], x.to(torch.float32), 0.0)
+        def dense(pages):  # [n_pages, Hkv, page, X] → [B, Hkv, n*page, X]
+            x = pages[safe].permute(0, 2, 1, 3, 4)
+            return x.reshape(B, Hkv, n * page, pages.shape[-1])
+
+        def gather(pages, scales):  # → f32, dequantized, unmapped slots = 0
+            x = dense(pages).to(torch.float32)
+            if scales is not None:
+                x = x * dense(scales)
+            return torch.where(mapped[:, None, :, None], x, 0.0)
 
         m, l, acc = flash_update(
             qg,
-            gather(k_pages),
-            gather(v_pages),
+            gather(k_pages, k_scale),
+            gather(v_pages, v_scale),
             p0 * page,
             lo,
             hi,
@@ -143,6 +168,8 @@ def paged_decode_attention_plain(
     bounds: torch.Tensor,  # [B, 2] (start, end)
     attn_softcap: float = 0.0,
     scale: float | None = None,
+    k_scale: torch.Tensor | None = None,
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """Plain B3 (the S=1 case of the plain B4). Returns [B, Hq, D]."""
     return paged_decode_attention_mq_plain(
@@ -154,6 +181,8 @@ def paged_decode_attention_plain(
         bounds[:, 1:2],
         attn_softcap=attn_softcap,
         scale=scale,
+        k_scale=k_scale,
+        v_scale=v_scale,
     )[:, 0]
 
 
@@ -172,8 +201,13 @@ def _launch(
     span: bool,
     attn_softcap: float,
     scale: float | None,
+    k_scale: torch.Tensor | None,
+    v_scale: torch.Tensor | None,
 ) -> None:
-    code = _check(q, k_pages, v_pages, page_table, starts, ends)
+    code = _check(
+        q, k_pages, v_pages, page_table, starts, ends,
+        k_scale=k_scale, v_scale=v_scale,
+    )
     B, S, Hq, D = q.shape
     Hkv, page = k_pages.shape[1], k_pages.shape[2]
     if page_table.dim() != 2 or page_table.shape[0] != B:
@@ -190,6 +224,7 @@ def _launch(
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
         k_pages.data_ptr(), k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         v_pages.data_ptr(), v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
+        *scale_args(k_scale, v_scale),
         page_table.data_ptr(), page_table.stride(0),
         starts.data_ptr(), *strides[0],
         ends.data_ptr(), *strides[1],
@@ -199,6 +234,8 @@ def _launch(
         float(attn_softcap),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
+    if k_scale is not None:
+        name += "_int8kv"
     _raise_on(rc, name)
     launches[name] += 1
 
@@ -211,12 +248,15 @@ def paged_decode_attention(
     bounds: torch.Tensor,  # [B, 2] int32 (start, end) token window
     attn_softcap: float = 0.0,
     scale: float | None = None,
+    k_scale: torch.Tensor | None = None,  # [n_pages, Hkv, page, 1] f32
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """B3: fused paged decode attention. Returns [B, Hq, D] in q.dtype."""
     if not q.is_cuda:
         return paged_decode_attention_plain(
             q, k_pages, v_pages, page_table, bounds,
             attn_softcap=attn_softcap, scale=scale,
+            k_scale=k_scale, v_scale=v_scale,
         )
     B, Hq, D = q.shape
     if bounds.shape != (B, 2):
@@ -225,6 +265,7 @@ def paged_decode_attention(
     _launch(
         "paged_decode_attention", q[:, None], k_pages, v_pages, page_table,
         bounds[:, 0:1], bounds[:, 1:2], out, False, attn_softcap, scale,
+        k_scale, v_scale,
     )
     return out[:, 0]
 
@@ -238,16 +279,19 @@ def paged_decode_attention_mq(
     ends: torch.Tensor,  # [B, S] or [B, 1] int32 one past the last
     attn_softcap: float = 0.0,
     scale: float | None = None,
+    k_scale: torch.Tensor | None = None,  # [n_pages, Hkv, page, 1] f32
+    v_scale: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """B4: multi-position paged decode attention. Returns [B, S, Hq, D]."""
     if not q.is_cuda:
         return paged_decode_attention_mq_plain(
             q, k_pages, v_pages, page_table, starts, ends,
             attn_softcap=attn_softcap, scale=scale,
+            k_scale=k_scale, v_scale=v_scale,
         )
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     _launch(
         "paged_decode_attention_mq", q, k_pages, v_pages, page_table,
-        starts, ends, out, True, attn_softcap, scale,
+        starts, ends, out, True, attn_softcap, scale, k_scale, v_scale,
     )
     return out

@@ -35,6 +35,12 @@ Phases, each printing one JSON line; any failure exits non-zero:
      or 2MKN over 989 TFLOP/s). The kernels line gives B5/B6 as one
      forward's 225 products (B5 at M=36, B6 at M=72); each case is in
      chip_smoke.json and printed as a "qmm" line;
+   - the int8-KV variants of B1-B4 (kv_dtype="int8": int8 K/V beside
+     per-(slot, head) f32 scales) at the same shapes and windows, bf16 and
+     f32 q, the pool's trash and unused pages holding int8 -128 and NaN
+     scales, B4 over one position bit-equal to B3; timed beside the plain
+     version, SDPA over the cache dequantized to bf16 beforehand and the
+     bound (int8 K/V and scale bytes in the windows, q and out);
 4. slice   — the dense path: GpuEngine.chat on tpu://random-8b (Llama-3-8B
    at full width, bf16, random weights from seed 0) for four opponent
    requests, greedy, 128 new tokens, speculation on; B1/B2 launch counters
@@ -58,10 +64,21 @@ Phases, each printing one JSON line; any failure exits non-zero:
    (b). Reports walls, prefill/decode seconds, tokens/s, resident weight
    bytes beside the bf16 model's, and peak memory; with ``--profile``,
    one more chat() of each runs under torch.profiler;
-7. agree   — tiny f32 models decoded greedily on the card (kernels) and on
+7. kv8     — the int8 KV cache on temporary registry entries: (a)
+   random-8b with kv_dtype="int8" on the dense path (the slice's four
+   requests, speculation on); (b) random-8b with kv="paged",
+   kv_dtype="int8" and quant="int4" (the paged slice's twelve requests
+   through 8 slots, round 1 speculation on, round 2 off, one batcher).
+   Counters zeroed just before each chat() and read just after: B2-i8 and
+   B1-i8 must launch in (a), B4-i8 and B6 in (b) round 1, B3-i8 in round
+   2, the float-cache B1-B4 never, and round 2 must hit the prefix cache.
+   Reports walls, prefill/decode seconds, tokens/s, the cache or pool
+   bytes beside the bf16 layout's, resident weight bytes and peak memory;
+8. agree   — tiny f32 models decoded greedily on the card (kernels) and on
    the CPU (plain versions) give identical tokens: dense generate(), and
-   the paged batcher with speculation on and off; full precision, and the
-   same weights quantized int8 (B5) and int4 (B6).
+   the paged batcher with speculation on and off; full precision, the
+   same weights quantized int8 (B5) and int4 (B6), and an int8 KV cache
+   beside full-precision and int4 weights.
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Results also go to chiprun_out/chip_smoke.json.
@@ -70,6 +87,7 @@ Results also go to chiprun_out/chip_smoke.json.
 from __future__ import annotations
 
 import contextlib
+import functools
 import json
 import os
 import subprocess
@@ -91,6 +109,10 @@ KERNELS = {
     "decode_attention_mq": ("csrc/decode_attention.cu", "adversarial_spec_tpu/ops/pallas_decode.py:249"),
     "paged_decode_attention": ("csrc/decode_attention.cu", "adversarial_spec_tpu/ops/pallas_paged.py:120"),
     "paged_decode_attention_mq": ("csrc/decode_attention.cu", "adversarial_spec_tpu/ops/pallas_paged.py:271"),
+    "decode_attention_int8kv": ("csrc/decode_attention.cu", "adversarial_spec_tpu/ops/pallas_decode.py:422"),
+    "decode_attention_mq_int8kv": ("csrc/decode_attention.cu", "adversarial_spec_tpu/ops/pallas_decode.py:249"),
+    "paged_decode_attention_int8kv": ("csrc/decode_attention.cu", "adversarial_spec_tpu/ops/pallas_paged.py:120"),
+    "paged_decode_attention_mq_int8kv": ("csrc/decode_attention.cu", "adversarial_spec_tpu/ops/pallas_paged.py:271"),
     "matmul_int8": ("csrc/quant_matmul.cu", "adversarial_spec_tpu/ops/pallas_quant.py:180"),
     "matmul_int4": ("csrc/quant_matmul.cu", "adversarial_spec_tpu/ops/pallas_quant.py:216"),
 }
@@ -155,9 +177,57 @@ def window_bytes(starts, ends, T, per_slot):
     return total * per_slot
 
 
-def phase_kernels(torch, da) -> tuple[dict, list]:
+# B1 windows: left pads, a full row, a single slot, an empty window.
+B1_BOUNDS = [[0, T_CACHE], [700, T_CACHE], [1500, 3001], [2000, 2000]]
+B1_SINGLE = [[0, T_CACHE], [700, T_CACHE], [3000, 3001], [1200, T_CACHE]]
+# B2: rows desynchronized (own cache index), per-query causal ends.
+B2_PADS = [0, 700, 1500, 2300]
+B2_ENDS = [[c + j + 1 for j in range(S_SPAN)] for c in (4100, 4150, 4000, 4214)]
+B2_STARTS = [[p] * S_SPAN for p in B2_PADS]
+B2_STARTS_EMPTY = B2_STARTS[:3] + [B2_ENDS[3][:]]  # row 3: empty windows
+
+
+def finish_bounds(results: dict) -> None:
+    """Each result's bound: the larger of its bytes over the memory rate
+    and its operations over the bf16 peak."""
+    for r in results.values():
+        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
+        t_ops = r["ops"] / PEAK_OPS["bfloat16"] * 1e3
+        r["bound_ms"] = max(t_bytes, t_ops)
+        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+
+
+def sdpa(qq, kk, vv, mask):
+    """scaled_dot_product_attention over a cache of HKV heads shared by
+    HQ // HKV query heads: the library yardstick (the port never calls it)."""
     import torch.nn.functional as F
 
+    try:
+        return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, enable_gqa=True)
+    except TypeError:  # older torch: no enable_gqa
+        g = HQ // HKV
+        return F.scaled_dot_product_attention(
+            qq, kk.repeat_interleave(g, 1), vv.repeat_interleave(g, 1), attn_mask=mask
+        )
+
+
+def check_close(checks: list, name, got, want, tol, empty_row=None) -> float:
+    """Raise unless ``got`` is finite (no poison leaked), within ``tol`` of
+    ``want`` and, for ``empty_row``, exactly zero; record the case in
+    ``checks`` and return the max abs error."""
+    import torch
+
+    if not bool(torch.isfinite(got).all()):
+        raise AssertionError(f"{name}: non-finite output (poison leaked)")
+    err = (got.float() - want.float()).abs().max().item()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    if empty_row is not None and not bool((got[empty_row] == 0).all()):
+        raise AssertionError(f"{name}: empty window did not give exact zeros")
+    checks.append({"case": name, "max_abs_err": err, "tol": tol})
+    return err
+
+
+def phase_kernels(torch, da) -> tuple[dict, list]:
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(0)
@@ -173,16 +243,8 @@ def phase_kernels(torch, da) -> tuple[dict, list]:
     def qdraw(shape, dtype):
         return torch.randn(shape, generator=gen, device=dev).to(dtype)
 
-    # B1 windows: left pads, a full row, a single slot, an empty window.
-    b1_bounds = [[0, T_CACHE], [700, T_CACHE], [1500, 3001], [2000, 2000]]
-    b1_single = [[0, T_CACHE], [700, T_CACHE], [3000, 3001], [1200, T_CACHE]]
-    # B2: rows desynchronized (own cache index), per-query causal ends.
-    ci = [4100, 4150, 4000, 4214]
-    pads = [0, 700, 1500, 2300]
-    ends = [[c + j + 1 for j in range(S_SPAN)] for c in ci]
-    starts = [[p] * S_SPAN for p in pads]
-    starts_empty = [row[:] for row in starts]
-    starts_empty[3] = [ends[3][j] for j in range(S_SPAN)]  # empty windows
+    b1_bounds, b1_single = B1_BOUNDS, B1_SINGLE
+    pads, ends, starts, starts_empty = B2_PADS, B2_ENDS, B2_STARTS, B2_STARTS_EMPTY
 
     def check(name, got, want, tol, extra=None):
         err = (got.float() - want.float()).abs().max().item()
@@ -262,18 +324,6 @@ def phase_kernels(torch, da) -> tuple[dict, list]:
     for r, (lo, hi) in enumerate(a["bnd"]):
         mask1[r, :, :, lo:hi] = True
 
-    def sdpa(qq, kk, vv, mask):
-        try:
-            return F.scaled_dot_product_attention(
-                qq, kk, vv, attn_mask=mask, enable_gqa=True
-            )
-        except TypeError:  # older torch: no enable_gqa
-            g = HQ // HKV
-            return F.scaled_dot_product_attention(
-                qq, kk.repeat_interleave(g, 1), vv.repeat_interleave(g, 1),
-                attn_mask=mask,
-            )
-
     results["decode_attention"] = {
         "ms": cuda_ms(lambda i: da.decode_attention(q, *kv(i), bounds), 50, torch),
         "plain_ms": cuda_ms(
@@ -313,11 +363,7 @@ def phase_kernels(torch, da) -> tuple[dict, list]:
         "ops": b2_ops,
         "max_abs_err": a["err"],
     }
-    for r in results.values():
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["ops"] / PEAK_OPS["bfloat16"] * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    finish_bounds(results)
     return results, checks
 
 
@@ -356,7 +402,6 @@ def paged_counts(table, starts, ends):
 
 def phase_paged_kernels(torch, pa) -> tuple[dict, list]:
     import numpy as np
-    import torch.nn.functional as F
 
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
@@ -382,15 +427,7 @@ def phase_paged_kernels(torch, pa) -> tuple[dict, list]:
             x[1, [0] + unused] = float("nan")
         return k[1], v[1]
 
-    def check(name, got, want, tol, empty_row=None):
-        if not bool(torch.isfinite(got).all()):
-            raise AssertionError(f"{name}: non-finite output (poison leaked)")
-        err = (got.float() - want.float()).abs().max().item()
-        torch.testing.assert_close(got.float(), want.float(), **tol)
-        if empty_row is not None and not bool((got[empty_row] == 0).all()):
-            raise AssertionError(f"{name}: empty window did not give exact zeros")
-        checks.append({"case": name, "max_abs_err": err, "tol": tol})
-        return err
+    check = functools.partial(check_close, checks)
 
     kw = {}
     for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
@@ -440,15 +477,6 @@ def phase_paged_kernels(torch, pa) -> tuple[dict, list]:
         e_t = torch.tensor(ends, device=dev)[..., None]
         return ((slot >= s_t) & (slot < e_t) & mapped[:, None, :])[:, None]
 
-    def sdpa(qq, kk, vv, m):
-        try:
-            return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=m, enable_gqa=True)
-        except TypeError:  # older torch: no enable_gqa
-            g = HQ // HKV
-            return F.scaled_dot_product_attention(
-                qq, kk.repeat_interleave(g, 1), vv.repeat_interleave(g, 1), attn_mask=m
-            )
-
     elem = 2
     per_slot = 2 * HKV * D * elem
     b3_starts = [[lo] for lo, _ in b3_bnd]
@@ -485,11 +513,251 @@ def phase_paged_kernels(torch, pa) -> tuple[dict, list]:
         "max_abs_err": kw["b4"]["err"],
     }
     del rot, rot_dense
-    for r in results.values():
-        t_bytes = r["bytes"] / HBM_BYTES_PER_S * 1e3
-        t_ops = r["ops"] / PEAK_OPS["bfloat16"] * 1e3
-        r["bound_ms"] = max(t_bytes, t_ops)
-        r["bound_by"] = "bytes" if t_bytes >= t_ops else "operations"
+    finish_bounds(results)
+    return results, checks
+
+
+def phase_int8kv_kernels(torch, da, pa) -> tuple[dict, list]:
+    """The int8-KV variants of B1-B4 (kv_dtype="int8": int8 K/V beside
+    per-(slot, head) f32 scales) at the float cases' shapes and windows,
+    q and out in bf16 and f32, against their plain versions; the paged
+    pool's trash page and unused pages hold int8 -128 values and NaN
+    scales. Then bf16 timings with a cold L2 beside the plain version,
+    SDPA over the cache dequantized to bf16 beforehand (the yardstick;
+    the port never calls it) and the bound."""
+    import numpy as np
+
+    from adversarial_spec_tpu_torch.models.transformer import _quantize_kv
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(3)
+    results, checks = {}, []
+
+    def int8_pair(shape):
+        # Layer 1 of a two-layer int8 cache or pool and its [..., 1] scales.
+        k8, ks = _quantize_kv(torch.randn((2, *shape), generator=gen, device=dev))
+        v8, vs = _quantize_kv(torch.randn((2, *shape), generator=gen, device=dev))
+        return k8[1], v8[1], dict(k_scale=ks[1], v_scale=vs[1])
+
+    def dequant(x8, s):  # untimed, for the SDPA yardstick
+        return (x8.float() * s).to(torch.bfloat16)
+
+    check = functools.partial(check_close, checks)
+
+    # ---- dense B1-i8 / B2-i8 (B=4, Hq=32, Hkv=8, D=128, T=4224, S=9) ----
+    errs = {}
+    e_t = torch.tensor(B2_ENDS, dtype=torch.int32, device=dev)
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        tn = str(dtype).split(".")[1]
+        k8, v8, sc = int8_pair((B, HKV, T_CACHE, D))
+        q1 = torch.randn((B, HQ, D), generator=gen, device=dev).to(dtype)
+        q2 = torch.randn((B, S_SPAN, HQ, D), generator=gen, device=dev).to(dtype)
+        for label, bnd in (("windows", B1_BOUNDS), ("single", B1_SINGLE)):
+            bounds = torch.tensor(bnd, dtype=torch.int32, device=dev)
+            for cap in (0.0, 50.0):
+                got = da.decode_attention(q1, k8, v8, bounds, attn_softcap=cap, **sc)
+                want = da.decode_attention_plain(q1, k8, v8, bounds, attn_softcap=cap, **sc)
+                err = check(f"B1-i8 {tn} {label} softcap={cap}", got, want, tol,
+                            3 if label == "windows" else None)
+                if label == "single":
+                    # One valid slot: the output is that slot's dequantized v.
+                    one = (v8[2, :, 3000].float() * sc["v_scale"][2, :, 3000]).to(dtype)
+                    torch.testing.assert_close(
+                        got[2], one.repeat_interleave(HQ // HKV, 0), rtol=0, atol=0
+                    )
+                if dtype == torch.bfloat16 and label == "windows" and cap == 0.0:
+                    errs["b1"] = err
+        for label, st in (("per-query", B2_STARTS), ("empty", B2_STARTS_EMPTY)):
+            s_t = torch.tensor(st, dtype=torch.int32, device=dev)
+            for cap in (0.0, 50.0):
+                got = da.decode_attention_mq(q2, k8, v8, s_t, e_t, attn_softcap=cap, **sc)
+                want = da.decode_attention_mq_plain(q2, k8, v8, s_t, e_t, attn_softcap=cap, **sc)
+                err = check(f"B2-i8 {tn} {label} softcap={cap}", got, want, tol,
+                            3 if label == "empty" else None)
+                if dtype == torch.bfloat16 and label == "per-query" and cap == 0.0:
+                    errs["b2"] = err
+        s1 = torch.tensor([[p] for p in B2_PADS], dtype=torch.int32, device=dev)
+        got = da.decode_attention_mq(q2, k8, v8, s1, e_t, **sc)
+        want = da.decode_attention_mq_plain(q2, k8, v8, s1, e_t, **sc)
+        check(f"B2-i8 {tn} broadcast-starts", got, want, tol)
+        del k8, v8, sc
+    torch.cuda.synchronize()
+
+    # ---- dense timing (bf16 q), int8 caches rotating past the L2 ----
+    rot = [int8_pair((B, HKV, T_CACHE, D)) for _ in range(N_ROTATE)]
+    rot_deq = [(dequant(k8, sc["k_scale"]), dequant(v8, sc["v_scale"])) for k8, v8, sc in rot]
+    q1 = torch.randn((B, HQ, D), generator=gen, device=dev).to(torch.bfloat16)
+    q2 = torch.randn((B, S_SPAN, HQ, D), generator=gen, device=dev).to(torch.bfloat16)
+    bounds = torch.tensor(B1_BOUNDS, dtype=torch.int32, device=dev)
+    s_t = torch.tensor(B2_STARTS, dtype=torch.int32, device=dev)
+    per_slot = 2 * HKV * (D + 4)  # int8 K and V rows plus one f32 scale each
+    mask1 = torch.zeros((B, 1, 1, T_CACHE), dtype=torch.bool, device=dev)
+    for r, (lo, hi) in enumerate(B1_BOUNDS):
+        mask1[r, :, :, lo:hi] = True
+    mask2 = torch.zeros((B, 1, S_SPAN, T_CACHE), dtype=torch.bool, device=dev)
+    for r in range(B):
+        for j in range(S_SPAN):
+            mask2[r, 0, j, B2_STARTS[r][j] : B2_ENDS[r][j]] = True
+
+    def kv(i):
+        k8, v8, sc = rot[i % N_ROTATE]
+        return (k8, v8), sc
+
+    b1_valid = sum(max(hi - lo, 0) for lo, hi in B1_BOUNDS)
+    results["decode_attention_int8kv"] = {
+        "ms": cuda_ms(lambda i: da.decode_attention(q1, *kv(i)[0], bounds, **kv(i)[1]), 50, torch),
+        "plain_ms": cuda_ms(
+            lambda i: da.decode_attention_plain(q1, *kv(i)[0], bounds, **kv(i)[1]), 8, torch
+        ),
+        "library_ms": cuda_ms(
+            lambda i: sdpa(q1[:, :, None], *rot_deq[i % N_ROTATE], mask1), 20, torch
+        ),
+        "bytes": window_bytes([[lo] for lo, _ in B1_BOUNDS], [[hi] for _, hi in B1_BOUNDS],
+                              T_CACHE, per_slot) + 2 * q1.numel() * 2 + bounds.numel() * 4,
+        "ops": 4 * HQ * D * b1_valid,
+        "max_abs_err": errs["b1"],
+    }
+    b2_valid = sum(max(e - st, 0) for srow, erow in zip(B2_STARTS, B2_ENDS)
+                   for st, e in zip(srow, erow))
+    results["decode_attention_mq_int8kv"] = {
+        "ms": cuda_ms(
+            lambda i: da.decode_attention_mq(q2, *kv(i)[0], s_t, e_t, **kv(i)[1]), 50, torch
+        ),
+        "plain_ms": cuda_ms(
+            lambda i: da.decode_attention_mq_plain(q2, *kv(i)[0], s_t, e_t, **kv(i)[1]), 8, torch
+        ),
+        "library_ms": cuda_ms(
+            lambda i: sdpa(q2.transpose(1, 2), *rot_deq[i % N_ROTATE], mask2), 20, torch
+        ),
+        "bytes": window_bytes(B2_STARTS, B2_ENDS, T_CACHE, per_slot)
+        + 2 * q2.numel() * 2 + 2 * s_t.numel() * 4,
+        "ops": 4 * HQ * D * b2_valid,
+        "max_abs_err": errs["b2"],
+    }
+    del rot, rot_deq
+    torch.cuda.empty_cache()
+
+    # ---- paged B3-i8 / B4-i8 (8 slots, page 64, a 128-page table) ----
+    table_l, pads, cur_lens, n_pages = paged_layout(np.random.RandomState(0))
+    used = {p for row in table_l for p in row if p > 0}
+    poisoned = [0] + [p for p in range(n_pages) if p not in used]
+    table = torch.tensor(table_l, dtype=torch.int32, device=dev)
+    b3_bnd = [[pads[r], cur_lens[r]] for r in range(NS)]
+    b3_bnd[7] = [2600, 2600]  # empty window
+    b4_st = [[pads[r]] * S_SPAN for r in range(NS)]
+    b4_en = [[cur_lens[r] + j for j in range(S_SPAN)] for r in range(NS)]
+    b4_st[7] = b4_en[7][:]  # empty windows
+
+    def pool():
+        k8, v8, sc = int8_pair((n_pages, HKV, PAGE, D))
+        for x in (k8, v8):
+            x[poisoned] = -128
+        for x in sc.values():
+            x[poisoned] = float("nan")
+        return k8, v8, sc
+
+    bnd = torch.tensor(b3_bnd, dtype=torch.int32, device=dev)
+    st = torch.tensor(b4_st, dtype=torch.int32, device=dev)
+    en = torch.tensor(b4_en, dtype=torch.int32, device=dev)
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        tn = str(dtype).split(".")[1]
+        k8, v8, sc = pool()
+        q1 = torch.randn((NS, HQ, D), generator=gen, device=dev).to(dtype)
+        q2 = torch.randn((NS, S_SPAN, HQ, D), generator=gen, device=dev).to(dtype)
+        for cap in (0.0, 50.0):
+            got3 = pa.paged_decode_attention(q1, k8, v8, table, bnd, attn_softcap=cap, **sc)
+            want = pa.paged_decode_attention_plain(q1, k8, v8, table, bnd, attn_softcap=cap, **sc)
+            err = check(f"B3-i8 {tn} softcap={cap}", got3, want, tol, empty_row=7)
+            if dtype == torch.bfloat16 and cap == 0.0:
+                errs["b3"] = err
+            got = pa.paged_decode_attention_mq(q2, k8, v8, table, st, en, attn_softcap=cap, **sc)
+            want = pa.paged_decode_attention_mq_plain(
+                q2, k8, v8, table, st, en, attn_softcap=cap, **sc
+            )
+            err = check(f"B4-i8 {tn} softcap={cap}", got, want, tol, empty_row=7)
+            if dtype == torch.bfloat16 and cap == 0.0:
+                errs["b4"] = err
+            # B4-i8 over one position is B3-i8, bit for bit.
+            one = pa.paged_decode_attention_mq(
+                q1[:, None], k8, v8, table, bnd[:, :1], bnd[:, 1:], attn_softcap=cap, **sc
+            )[:, 0]
+            if not torch.equal(one, got3):
+                raise AssertionError(f"B4-i8 {tn} S=1 differs from B3-i8")
+            checks.append({"case": f"B4-i8 {tn} S=1 == B3-i8 softcap={cap}",
+                           "max_abs_err": 0.0, "tol": "bitwise"})
+        s1 = st[:, :1].contiguous()
+        got = pa.paged_decode_attention_mq(q2, k8, v8, table, s1, en, **sc)
+        want = pa.paged_decode_attention_mq_plain(q2, k8, v8, table, s1, en, **sc)
+        check(f"B4-i8 {tn} broadcast-starts", got, want, tol)
+        del k8, v8, sc
+    torch.cuda.synchronize()
+
+    # ---- paged timing (bf16 q), pools rotating ----
+    rot = [pool() for _ in range(N_ROTATE)]
+    ids = torch.clamp(table, min=0).long()
+
+    def dense(pages, scales):  # untimed gather + dequant for the yardstick
+        x = pages[ids].permute(0, 2, 1, 3, 4).reshape(NS, HKV, P_TAB * PAGE, D)
+        s = scales[ids].permute(0, 2, 1, 3, 4).reshape(NS, HKV, P_TAB * PAGE, 1)
+        return torch.nan_to_num(dequant(x, s))  # unmapped slots are masked anyway
+
+    rot_dense = [(dense(k8, sc["k_scale"]), dense(v8, sc["v_scale"])) for k8, v8, sc in rot]
+    mapped = (table > 0).repeat_interleave(PAGE, dim=1)
+    slot = torch.arange(P_TAB * PAGE, device=dev)
+
+    def mask(starts, ends):
+        s_ = torch.tensor(starts, device=dev)[..., None]
+        e_ = torch.tensor(ends, device=dev)[..., None]
+        m = ((slot >= s_) & (slot < e_) & mapped[:, None, :])[:, None]
+        m[7] = True  # SDPA gives NaN for an all-masked row; the yardstick only
+        return m
+
+    def pkv(i):
+        k8, v8, sc = rot[i % N_ROTATE]
+        return (k8, v8), sc
+
+    q1 = torch.randn((NS, HQ, D), generator=gen, device=dev).to(torch.bfloat16)
+    q2 = torch.randn((NS, S_SPAN, HQ, D), generator=gen, device=dev).to(torch.bfloat16)
+    b3_starts, b3_ends = [[lo] for lo, _ in b3_bnd], [[hi] for _, hi in b3_bnd]
+    m3, m4 = mask(b3_starts, b3_ends), mask(b4_st, b4_en)
+    read, scored = paged_counts(table_l, b3_starts, b3_ends)
+    results["paged_decode_attention_int8kv"] = {
+        "ms": cuda_ms(
+            lambda i: pa.paged_decode_attention(q1, *pkv(i)[0], table, bnd, **pkv(i)[1]), 50, torch
+        ),
+        "plain_ms": cuda_ms(
+            lambda i: pa.paged_decode_attention_plain(q1, *pkv(i)[0], table, bnd, **pkv(i)[1]),
+            8, torch,
+        ),
+        "library_ms": cuda_ms(
+            lambda i: sdpa(q1[:, :, None], *rot_dense[i % N_ROTATE], m3), 20, torch
+        ),
+        "bytes": read * per_slot + 2 * q1.numel() * 2 + table.numel() * 4 + bnd.numel() * 4,
+        "ops": 4 * HQ * D * scored,
+        "max_abs_err": errs["b3"],
+    }
+    read, scored = paged_counts(table_l, b4_st, b4_en)
+    results["paged_decode_attention_mq_int8kv"] = {
+        "ms": cuda_ms(
+            lambda i: pa.paged_decode_attention_mq(q2, *pkv(i)[0], table, st, en, **pkv(i)[1]),
+            50, torch,
+        ),
+        "plain_ms": cuda_ms(
+            lambda i: pa.paged_decode_attention_mq_plain(
+                q2, *pkv(i)[0], table, st, en, **pkv(i)[1]
+            ), 8, torch,
+        ),
+        "library_ms": cuda_ms(
+            lambda i: sdpa(q2.transpose(1, 2), *rot_dense[i % N_ROTATE], m4), 20, torch
+        ),
+        "bytes": read * per_slot + 2 * q2.numel() * 2 + table.numel() * 4 + 2 * st.numel() * 4,
+        "ops": 4 * HQ * D * scored,
+        "max_abs_err": errs["b4"],
+    }
+    del rot, rot_dense
+    torch.cuda.empty_cache()
+    finish_bounds(results)
     return results, checks
 
 
@@ -776,8 +1044,9 @@ def phase_slice(torch, profile: bool = False) -> dict:
     comps = engine.chat(reqs, sp)
     torch.cuda.synchronize()
     wall = time.monotonic() - t
+    floats = ("decode_attention", "decode_attention_mq")
     calls = [{"call": "main", "speculative": True, **dict(da.launches)}]
-    launched = dict(da.launches)
+    launched = {k: da.launches[k] for k in floats}
     bad = [c.error for c in comps if not c.ok]
     if bad:
         raise RuntimeError(f"chat failed: {bad}")
@@ -895,7 +1164,8 @@ def phase_paged(torch, profile: bool = False) -> dict:
                     "decode_steps": il.stats.decode_steps,
                     "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
                 })
-            launched = dict(pa.launches)
+            launched = {k: pa.launches[k] for k in ("paged_decode_attention",
+                                                    "paged_decode_attention_mq")}
             prof = None
             if profile:
                 spec_mod.configure(enabled=True)
@@ -1039,11 +1309,198 @@ def phase_quant(torch, profile: bool = False) -> dict:
     return {"phase": "quant", "dense_int8": dense, "paged_int4": paged}
 
 
+FLOAT_ATTENTION = (
+    "decode_attention", "decode_attention_mq",
+    "paged_decode_attention", "paged_decode_attention_mq",
+)
+
+
+@contextlib.contextmanager
+def recording_dense_caches(made: list):
+    """Record (bytes, the same cache's bytes in bf16) of every dense cache
+    ``generate()`` builds while the block runs."""
+    from adversarial_spec_tpu_torch.engine import generate as gen_mod
+
+    real = gen_mod.init_cache
+
+    def init_cache(*args, **kwargs):
+        cache = real(*args, **kwargs)
+        made.append((
+            sum(t.numel() * t.element_size() for t in cache.values()),
+            2 * 2 * cache["k"].numel(),
+        ))
+        return cache
+
+    gen_mod.init_cache = init_cache
+    try:
+        yield
+    finally:
+        gen_mod.init_cache = real
+
+
+def phase_kv8(torch, profile: bool = False) -> dict:
+    """The int8 KV cache (kv_dtype="int8") on random-8b, on temporary
+    registry entries: (a) the dense path, the slice's four requests,
+    speculation on; (b) the paged path beside int4 weights, the paged
+    slice's twelve requests through 8 slots, round 1 with speculation on
+    and round 2 with it off on the same batcher. Every launch counter is
+    zeroed just before each chat() and read just after: B2-i8 and B1-i8
+    must launch in (a), B4-i8 and B6 in (b) round 1, B3-i8 in round 2,
+    and the float-cache B1-B4 never. With ``profile``, one more chat() of
+    each runs under torch.profiler."""
+    from adversarial_spec_tpu_torch.engine import interleave as il
+    from adversarial_spec_tpu_torch.engine import spec as spec_mod
+    from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
+    from adversarial_spec_tpu_torch.engine.registry import ModelSpec
+    from adversarial_spec_tpu_torch.engine.types import SamplingParams
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+    from adversarial_spec_tpu_torch.ops import quant_matmul as qm
+
+    sp = SamplingParams(max_new_tokens=128, greedy=True, seed=0)
+
+    def load(reqs):
+        engine = GpuEngine()
+        t = time.monotonic()
+        warm = engine.chat([reqs[0]], SamplingParams(max_new_tokens=16, greedy=True))
+        if not warm[0].ok:
+            raise RuntimeError(f"warm-up chat failed: {warm[0].error}")
+        return engine, time.monotonic() - t
+
+    def chat(engine, reqs, label, full_rows=True):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        for mod in (da, pa, qm):
+            mod.reset_launches()
+        il.reset_stats()
+        t = time.monotonic()
+        comps = engine.chat(reqs, sp)
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t
+        launched = {**da.launches, **pa.launches, **qm.launches}
+        bad = [c.error for c in comps if not c.ok]
+        if bad:
+            raise RuntimeError(f"{label}: chat failed: {bad}")
+        out = [c.usage.output_tokens for c in comps]
+        if (full_rows and any(n != 128 for n in out)) or min(out) < 1:
+            raise RuntimeError(f"{label}: rows stopped early: {out}")
+        leaked = {k: launched[k] for k in FLOAT_ATTENTION if launched[k]}
+        if leaked:
+            raise RuntimeError(f"{label}: float-cache kernels ran on an int8 cache: {leaked}")
+        decode_s = sum(c.usage.decode_time_s for c in comps)
+        return comps, {
+            "wall_s": wall,
+            "prefill_s": sum(c.usage.prefill_time_s for c in comps),
+            "decode_s": decode_s,
+            "decode_tokens_per_s": sum(out) / decode_s if decode_s > 0 else 0.0,
+            "input_tokens": [c.usage.input_tokens for c in comps],
+            "output_tokens": out,
+            "cached_tokens": sum(c.usage.cached_tokens for c in comps),
+            "host_syncs": il.stats.sync_points,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {k: v for k, v in launched.items() if v},
+        }
+
+    report = {"phase": "kv8"}
+    # (a) dense int8 KV, full-precision (bf16) weights.
+    reqs = slice_requests()
+    spec_mod.configure(enabled=True)
+    with temp_registry(ModelSpec(alias="random-8b", family="llama", size="8b", kv_dtype="int8")):
+        engine, load_s = load(reqs)
+        made = []
+        with recording_dense_caches(made):
+            _, main = chat(engine, reqs, "kv8 dense")
+        calls = [main]
+        launched = dict(main["launches"])
+        if not launched.get("decode_attention_int8kv"):
+            # Speculation kept matching to the budget: force plain decode.
+            spec_mod.configure(enabled=False)
+            try:
+                _, off = chat(engine, reqs, "kv8 dense, speculation off")
+            finally:
+                spec_mod.configure(enabled=True)
+            calls.append({"speculation": "off", **off})
+            launched["decode_attention_int8kv"] = off["launches"].get("decode_attention_int8kv", 0)
+        missing = [k for k in ("decode_attention_int8kv", "decode_attention_mq_int8kv")
+                   if not launched.get(k)]
+        if missing:
+            raise RuntimeError(f"kv8 dense: {missing} never launched: {calls}")
+        resident, _ = weight_bytes(engine._resident.params)
+        prof = (profile_chat(torch, engine, reqs, sp, "chip_profile_kv8_dense.txt")
+                if profile else None)
+        del engine
+    torch.cuda.empty_cache()
+    report["dense"] = {
+        "model": "tpu://random-8b (kv_dtype=int8)",
+        "requests": len(reqs),
+        "load_and_warmup_s": load_s,
+        **main,
+        "cache_bytes": made[0][0],
+        "bf16_cache_bytes": made[0][1],
+        "resident_weight_bytes": resident,
+        "calls": calls[1:],
+        "launches": launched,
+        **({"profile": prof} if prof else {}),
+    }
+
+    # (b) paged int8 KV beside int4 weights, two rounds on one batcher.
+    reqs = paged_requests()
+    with temp_registry(ModelSpec(alias="random-8b", family="llama", size="8b", kv="paged",
+                                 quant="int4", kv_dtype="int8")):
+        engine, load_s = load(reqs)
+        rounds, launched = [], {}
+        try:
+            for label, on in (("round 1, speculation on", True),
+                              ("round 2, speculation off", False)):
+                spec_mod.configure(enabled=on)
+                _, r = chat(engine, reqs, f"kv8 paged {label}", full_rows=False)
+                rounds.append({"round": label, **r})
+                for k, v in r["launches"].items():
+                    launched[k] = launched.get(k, 0) + v
+            prof = None
+            if profile:
+                spec_mod.configure(enabled=True)
+                prof = profile_chat(torch, engine, reqs, sp, "chip_profile_kv8_paged.txt")
+        finally:
+            spec_mod.configure(enabled=True)
+        lm = engine._resident
+        pool = lm.batcher.pool
+        resident, bf16 = weight_bytes(lm.params)
+        paged = {
+            "model": "tpu://random-8b (kv=paged, quant=int4, kv_dtype=int8)",
+            "requests": len(reqs),
+            "load_and_warmup_s": load_s,
+            "slots": lm.batcher.B,
+            "capacity_tokens": lm.batcher.capacity_tokens,
+            "pool_bytes": sum(t.numel() * t.element_size() for t in pool.values()),
+            "bf16_pool_bytes": 2 * 2 * pool["k"].numel(),
+            "pool_dtypes": {k: str(t.dtype) for k, t in pool.items()},
+            "resident_weight_bytes": resident,
+            "bf16_weight_bytes": bf16,
+            "rounds": rounds,
+            "launches": launched,
+            **({"profile": prof} if prof else {}),
+        }
+        del engine, lm, pool
+    torch.cuda.empty_cache()
+    r1, r2 = rounds
+    for r, names in ((r1, ("paged_decode_attention_mq_int8kv", "matmul_int4")),
+                     (r2, ("paged_decode_attention_int8kv",))):
+        missing = [k for k in names if not r["launches"].get(k)]
+        if missing:
+            raise RuntimeError(f"kv8 paged {r['round']}: {missing} never launched: {r['launches']}")
+    if r2["cached_tokens"] == 0:
+        raise RuntimeError("kv8 paged round 2 found no prefix-cache hits on int8 pages")
+    report["paged_int4"] = paged
+    return report
+
+
 def phase_agree(torch) -> dict:
     """Tiny f32 llama, full precision and quantized int8 and int4 from the
-    same weights: greedy tokens on the card (kernels) and on the CPU
-    (plain versions) must be identical, through generate() and through the
-    paged batcher with speculation on and off."""
+    same weights, and with an int8 KV cache beside full-precision and int4
+    weights: greedy tokens on the card (kernels) and on the CPU (plain
+    versions) must be identical, through generate() and through the paged
+    batcher with speculation on and off."""
     from adversarial_spec_tpu_torch.engine.generate import generate
     from adversarial_spec_tpu_torch.engine.loader import materialize_params
     from adversarial_spec_tpu_torch.engine.scheduler import (
@@ -1051,6 +1508,8 @@ def phase_agree(torch) -> dict:
         SchedRequest,
     )
     from adversarial_spec_tpu_torch.models.transformer import map_params
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
     from adversarial_spec_tpu_torch.ops import quant
     from adversarial_spec_tpu_torch.ops import quant_matmul as qm
 
@@ -1059,18 +1518,31 @@ def phase_agree(torch) -> dict:
         "random", "llama", "tiny", dtype=torch.float32, device="cuda"
     )
     report = {"phase": "agree"}
-    for fmt in ("", "int8", "int4"):
+    # (weights, KV cache): the report key and the kernels that must launch
+    # (of each group, at least one: generate() decodes by verify spans or
+    # by single steps, as its drafts allow).
+    dense8 = ("decode_attention_int8kv", "decode_attention_mq_int8kv")
+    paged8 = ("paged_decode_attention_int8kv", "paged_decode_attention_mq_int8kv")
+    cases = (
+        ("", "", None, ()),
+        ("int8", "", "quant_int8", (("matmul_int8",),)),
+        ("int4", "", "quant_int4", (("matmul_int4",),)),
+        ("", "int8", "kv8", (dense8, paged8)),
+        ("int4", "int8", "kv8_int4", (("matmul_int4",), dense8, paged8)),
+    )
+    for fmt, kv_dtype, key, must_launch in cases:
         params = base if not fmt else quant.quantize_params(map_params(torch.clone, base), fmt=fmt)
         on_cpu = map_params(lambda t: t.cpu(), params)  # the same weights on the CPU
-        qm.reset_launches()
+        for mod in (da, pa, qm):
+            mod.reset_launches()
         out = {
             dev: generate(
                 p, cfg, prompts, max_new_tokens=48, eos_ids=[2], greedy=True,
-                device=dev,
+                device=dev, kv_dtype=kv_dtype,
             ).tokens
             for dev, p in (("cuda", params), ("cpu", on_cpu))
         }
-        name = f"tiny f32{' ' + fmt if fmt else ''}"
+        name = f"tiny f32{' ' + fmt if fmt else ''}{' kv ' + kv_dtype if kv_dtype else ''}"
         same = bool((out["cuda"] == out["cpu"]).all())
         if not same:
             raise RuntimeError(f"{name} greedy tokens differ between card and CPU")
@@ -1082,7 +1554,7 @@ def phase_agree(torch) -> dict:
             for dev, p in (("cuda", params), ("cpu", on_cpu)):
                 b = ContinuousBatcher(
                     p, cfg, max_batch=2, page_size=16, capacity_tokens=2048,
-                    max_new_cap=48, eos_ids=[2], speculative=spec,
+                    max_new_cap=48, eos_ids=[2], speculative=spec, kv_dtype=kv_dtype,
                 )
                 for i, pr in enumerate(prompts):
                     b.submit(SchedRequest(req_id=i, prompt_ids=pr, max_new_tokens=40))
@@ -1094,13 +1566,18 @@ def phase_agree(torch) -> dict:
                     f"{name} paged batcher tokens differ between card and CPU "
                     f"(speculation {'on' if spec else 'off'})"
                 )
-        kernel = {"int8": "matmul_int8", "int4": "matmul_int4"}.get(fmt)
-        if kernel and qm.launches[kernel] == 0:
-            raise RuntimeError(f"{name}: {kernel} never launched on the card")
+        launched = {**da.launches, **pa.launches, **qm.launches}
+        missing = [g for g in must_launch if not sum(launched[k] for k in g)]
+        if missing:
+            raise RuntimeError(f"{name}: none of {missing} launched on the card")
+        if kv_dtype:
+            leaked = {k: launched[k] for k in FLOAT_ATTENTION if launched[k]}
+            if leaked:
+                raise RuntimeError(f"{name}: float-cache kernels ran on an int8 cache: {leaked}")
         entry = {"identical_tokens": same, "shape": list(out["cuda"].shape),
                  "paged_identical_tokens": paged}
-        if fmt:
-            report[f"quant_{fmt}"] = {**entry, "launches": qm.launches[kernel]}
+        if key:
+            report[key] = {**entry, "launches": {k: launched[k] for g in must_launch for k in g}}
         else:
             report.update(entry)
     return report
@@ -1154,6 +1631,9 @@ def main(argv: list[str]) -> int:
     pres, pchecks = phase_paged_kernels(torch, pa)
     kres.update(pres)
     checks += pchecks
+    ires, ichecks = phase_int8kv_kernels(torch, da, pa)
+    kres.update(ires)
+    checks += ichecks
     qres, qchecks, qcases = phase_quant_kernels(torch, qm, quant)
     kres.update(qres)
     emit({"phase": "kernels", "checks": checks, "quant_checks": len(qchecks),
@@ -1181,9 +1661,15 @@ def main(argv: list[str]) -> int:
         emit(qt)
         launches["matmul_int8"] = qt["dense_int8"]["launches"]["matmul_int8"]
         launches["matmul_int4"] = qt["paged_int4"]["launches"]["matmul_int4"]
+        kv8 = phase_kv8(torch, profile=profile)
+        emit(kv8)
+        for name in KERNELS:
+            if name.endswith("_int8kv"):
+                launches[name] = (kv8["dense"]["launches"].get(name, 0)
+                                  + kv8["paged_int4"]["launches"].get(name, 0))
         ag = phase_agree(torch)
         emit(ag)
-        record.update(slice=sl, paged=pg, quant=qt, agree=ag)
+        record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, agree=ag)
 
     line = []
     for name, r in kres.items():

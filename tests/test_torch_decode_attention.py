@@ -152,5 +152,13 @@ def test_cpu_tensors_never_count_a_launch():
     da.decode_attention(_t(q[:, 0]), _t(k), _t(v), bnd)
     se = torch.tensor([[0, 0, 0], [3, 3, 3]], dtype=torch.int32)
     da.decode_attention_mq(_t(q), _t(k), _t(v), se, se + 30)
-    assert da.launches == {"decode_attention": 0, "decode_attention_mq": 0}
+    ks = torch.ones((2, 2, 64, 1))
+    k8 = _t(k).clamp(-1, 1).to(torch.int8)
+    da.decode_attention_mq(_t(q), k8, k8, se, se + 30, k_scale=ks, v_scale=ks)
+    assert da.launches == {
+        "decode_attention": 0,
+        "decode_attention_mq": 0,
+        "decode_attention_int8kv": 0,
+        "decode_attention_mq_int8kv": 0,
+    }
 

@@ -5,7 +5,8 @@
 continuous batcher) are registered here in f32 on a one-device mesh (user
 registry entries, which both packages read from the same file): f32 is
 where the two attention paths agree closely enough for greedy text to be
-byte-identical.
+byte-identical. So are the int8 KV cache's specs (``kv_dtype="int8"``),
+dense and paged, alone and beside quantized weights.
 """
 
 import jax
@@ -49,12 +50,22 @@ def shared_registry(tmp_path, monkeypatch):
         # beside the budget: the reference's round-synchronous
         # generate(paged=True) corner, not ported.
         registry.ModelSpec(alias="paged-tiny", kv="paged", max_seq_len=130),
-        registry.ModelSpec(alias="paged-int8kv", kv="paged", kv_dtype="int8"),
         registry.ModelSpec(alias="paged-mesh", kv="paged", mesh={"tp": 2}),
         registry.ModelSpec(alias="paged-hf", kv="paged", checkpoint="/no/such/dir"),
-        # quant alone is served; beside an int8 KV cache it is not (the
-        # int8-KV kernels are not ported).
-        registry.ModelSpec(alias="int8-tiny", quant="int8", kv_dtype="int8"),
+        # The int8 KV cache, dense and paged, alone and beside quantized
+        # weights: served, with the reference's text.
+        *(
+            registry.ModelSpec(
+                alias=alias, family="llama", size="tiny", dtype="float32",
+                mesh={"dp": 1}, kv=kv, quant=quant, kv_dtype="int8",
+            )
+            for alias, kv, quant in (
+                ("int8-tiny", "dense", "int8"),
+                ("dense-int8kv", "dense", ""),
+                ("paged-int8kv", "paged", ""),
+                ("paged-int8kv-int4", "paged", "int4"),
+            )
+        ),
     ):
         registry.save_registry_entry(spec, path)
     return path
@@ -98,10 +109,40 @@ def test_chat_text_and_usage_match_reference(shared_registry, speculative, monke
     assert sum(c.usage.device_time_s for c in got) >= total_decode
 
 
+def _chat_matches_reference(alias: str) -> GpuEngine:
+    """One chat() of USERS on ``alias`` through both engines, on the same
+    (bridged) weights: every row ok, text byte-identical, usage tokens
+    equal. Returns the port's engine."""
+    ref_engine, port = _bridged_engines(alias)
+    sp = dict(max_new_tokens=24, greedy=True)
+    ref = ref_engine.chat(
+        [JaxChatRequest(f"tpu://{alias}", s, u) for s, u in USERS], JaxParams(**sp)
+    )
+    got = port.chat([ChatRequest(f"tpu://{alias}", s, u) for s, u in USERS], SamplingParams(**sp))
+    assert [c.ok for c in got] == [True] * len(USERS), [c.error for c in got]
+    for r, g in zip(ref, got):
+        assert g.text.encode() == r.text.encode()
+        for field in ("input_tokens", "output_tokens", "cached_tokens"):
+            assert getattr(g.usage, field) == getattr(r.usage, field)
+    return port
+
+
+# Refused until the int8 KV cache was ported; served now.
+SERVED_NOW = ("int8-tiny", "paged-int8kv")
+
+
 @pytest.mark.parametrize(
     "alias", ["paged-tiny", "int8-tiny", "paged-int8kv", "paged-mesh", "paged-hf"]
 )
-def test_unported_specs_get_not_yet_ported_error(shared_registry, alias):
+def test_unported_specs_get_not_yet_ported_error(shared_registry, serving_defaults, alias):
+    """Each row of a spec the port cannot serve yet gets a "not yet
+    ported" error. The int8 KV cache's cases (``SERVED_NOW``) are served
+    instead, with the reference's text."""
+    if alias in SERVED_NOW:
+        port = _chat_matches_reference(alias)
+        cache = port._resident.batcher.pool if alias.startswith("paged") else None
+        assert cache is None or cache["k"].dtype == torch.int8
+        return
     port = GpuEngine(device="cpu")
     comps = port.chat(
         [ChatRequest(f"tpu://{alias}", "s", "u")] * 2,
@@ -111,6 +152,18 @@ def test_unported_specs_get_not_yet_ported_error(shared_registry, alias):
     for c in comps:
         assert not c.ok and "not yet ported" in c.error
         assert c.text == ""
+
+
+@pytest.mark.parametrize("alias", ["dense-int8kv", "paged-int8kv-int4"])
+def test_int8kv_chat_text_matches_reference(shared_registry, serving_defaults, alias):
+    """The int8 KV cache on the dense path with full-precision weights, and
+    on the paged path beside int4 weights (B6 with the int8-KV B3/B4)."""
+    port = _chat_matches_reference(alias)
+    lm = port._resident
+    assert lm.spec.kv_dtype == "int8"
+    if lm.batcher is not None:
+        assert lm.batcher.pool["ks"].dtype == torch.float32
+        lm.batcher.allocator.check_invariants()
 
 
 def _bridged_engines(alias):

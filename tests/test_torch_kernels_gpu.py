@@ -64,7 +64,10 @@ def test_cuda_kernels_match_plain_versions(cuda, dtype):
     want = da.decode_attention_mq_plain(q, k, v, starts, ends)
     torch.testing.assert_close(got.float(), want.float(), **tol)
     assert (got[2] == 0).all()
-    assert da.launches == {"decode_attention": 1, "decode_attention_mq": 1}
+    assert da.launches == {
+        "decode_attention": 1, "decode_attention_mq": 1,
+        "decode_attention_int8kv": 0, "decode_attention_mq_int8kv": 0,
+    }
 
 
 @pytest.mark.gpu
@@ -131,7 +134,76 @@ def test_cuda_paged_kernels_match_plain_versions(cuda, dtype):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), **tol)
     assert (got[2] == 0).all()
-    assert pa.launches == {"paged_decode_attention": 1, "paged_decode_attention_mq": 1}
+    assert pa.launches == {
+        "paged_decode_attention": 1, "paged_decode_attention_mq": 1,
+        "paged_decode_attention_int8kv": 0, "paged_decode_attention_mq_int8kv": 0,
+    }
+
+
+def _int8(x):
+    """Symmetric per-(slot, head) int8 of ``x`` [..., D]: (int8, f32 [..., 1])."""
+    s = x.float().abs().amax(-1, keepdim=True).clamp(min=1e-8) / 127.0
+    return torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8), s
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_int8kv_kernels_match_plain_versions(cuda, dtype):
+    """The int8-KV variants of B1-B4: strided layer slices of int8 caches
+    and pools with their f32 scales, softcap, an empty window, a trash page
+    whose values and scale page are poisoned; each call counts under its
+    own ``_int8kv`` name and never under the float kernel's."""
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    gen = torch.Generator(device=cuda).manual_seed(3)
+    kf, vf = _cache(gen, cuda, torch.float32, 3, 2, 300, 128)
+    (k8, ks), (v8, vs) = _int8(kf), _int8(vf)
+    q = torch.randn((3, 9, 8, 128), generator=gen, device=cuda).to(dtype)
+    sc = dict(k_scale=ks, v_scale=vs)
+    da.reset_launches()
+    pa.reset_launches()
+    bnd = torch.tensor([[0, 300], [17, 90], [40, 40]], dtype=torch.int32, device=cuda)
+    got = da.decode_attention(q[:, 0], k8, v8, bnd, attn_softcap=50.0, **sc)
+    want = da.decode_attention_plain(q[:, 0], k8, v8, bnd, attn_softcap=50.0, **sc)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert (got[2] == 0).all()
+    ends = torch.tensor([[280 + j for j in range(1, 10)]] * 3, dtype=torch.int32, device=cuda)
+    starts = torch.tensor([[0], [5], [300]], dtype=torch.int32, device=cuda)
+    got = da.decode_attention_mq(q, k8, v8, starts, ends, **sc)
+    want = da.decode_attention_mq_plain(q, k8, v8, starts, ends, **sc)
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert (got[2] == 0).all()
+
+    shape = (2, 12, 2, 16, 128)  # [L, n_pages, Hkv, page, D], layer 1 used
+    (kp, ksp), (vp, vsp) = (_int8(torch.randn(shape, generator=gen, device=cuda)) for _ in "kv")
+    kp, ksp, vp, vsp = kp[1], ksp[1], vp[1], vsp[1]
+    kp[0] = vp[0] = -128
+    ksp[0] = vsp[0] = float("nan")
+    table = torch.tensor(
+        [[3, 0, 5, -1], [7, 2, 9, 11], [4, -1, -1, -1]], dtype=torch.int32, device=cuda
+    )
+    sc = dict(k_scale=ksp, v_scale=vsp)
+    bnd = torch.tensor([[1, 40], [0, 64], [9, 9]], dtype=torch.int32, device=cuda)
+    got = pa.paged_decode_attention(q[:, 0], kp, vp, table, bnd, attn_softcap=30.0, **sc)
+    want = pa.paged_decode_attention_plain(q[:, 0], kp, vp, table, bnd, attn_softcap=30.0, **sc)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    ends = torch.tensor(
+        [[36 + j for j in range(9)], [55 + j for j in range(9)], [9] * 9],
+        dtype=torch.int32, device=cuda,
+    )
+    starts = torch.tensor([[0], [5], [9]], dtype=torch.int32, device=cuda)
+    got = pa.paged_decode_attention_mq(q, kp, vp, table, starts, ends, **sc)
+    want = pa.paged_decode_attention_mq_plain(q, kp, vp, table, starts, ends, **sc)
+    assert torch.isfinite(got).all() and (got[2] == 0).all()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    assert da.launches == {
+        "decode_attention": 0, "decode_attention_mq": 0,
+        "decode_attention_int8kv": 1, "decode_attention_mq_int8kv": 1,
+    }
+    assert pa.launches == {
+        "paged_decode_attention": 0, "paged_decode_attention_mq": 0,
+        "paged_decode_attention_int8kv": 1, "paged_decode_attention_mq_int8kv": 1,
+    }
 
 
 def _assert_qmm_close(got, want):

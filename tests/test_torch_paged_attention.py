@@ -199,4 +199,9 @@ def test_cpu_wrappers_never_count_launches():
         torch.from_numpy(q), torch.from_numpy(kp), torch.from_numpy(vp),
         table, torch.zeros_like(e), e,
     )
-    assert pa.launches == {"paged_decode_attention": 0, "paged_decode_attention_mq": 0}
+    assert pa.launches == {
+        "paged_decode_attention": 0,
+        "paged_decode_attention_mq": 0,
+        "paged_decode_attention_int8kv": 0,
+        "paged_decode_attention_mq_int8kv": 0,
+    }

@@ -151,22 +151,26 @@ def test_rope_llama3_scaling_matches_reference():
 
 def test_write_kv_clamps_like_dynamic_update_slice():
     """A span that would run past the buffer lands shifted back to fit,
-    as jax.lax.dynamic_update_slice clamps (rows at budget rely on it)."""
+    as jax.lax.dynamic_update_slice clamps (rows at budget rely on it);
+    an int8 cache's scale buffer ([..., 1]) written in the same call lands
+    at the same slots."""
     rng = np.random.default_rng(3)
-    buf = rng.standard_normal((2, 1, 12, 4)).astype(np.float32)
-    val = rng.standard_normal((2, 5, 1, 4)).astype(np.float32)
-    for ci in (10, np.asarray([10, 3]), np.asarray([0, 11])):
-        jv = jnp.swapaxes(jnp.asarray(val), 1, 2)
-        if np.ndim(ci):
-            want = jax.vmap(
-                lambda b, v_, i: jax.lax.dynamic_update_slice(b, v_, (0, i, 0))
-            )(jnp.asarray(buf), jv, jnp.asarray(ci))
-            idx = torch.from_numpy(ci.astype(np.int64))
-        else:
-            want = jax.lax.dynamic_update_slice(
-                jnp.asarray(buf), jv, (0, 0, ci, 0)
-            )
-            idx = ci
-        got = torch.from_numpy(buf.copy())
-        tf._write_kv(got, torch.from_numpy(val), idx)
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+    for D in (4, 1):
+        buf = rng.standard_normal((2, 1, 12, D)).astype(np.float32)
+        val = rng.standard_normal((2, 5, 1, D)).astype(np.float32)
+        for ci in (10, np.asarray([10, 3]), np.asarray([0, 11])):
+            jv = jnp.swapaxes(jnp.asarray(val), 1, 2)
+            if np.ndim(ci):
+                want = jax.vmap(
+                    lambda b, v_, i: jax.lax.dynamic_update_slice(b, v_, (0, i, 0))
+                )(jnp.asarray(buf), jv, jnp.asarray(ci))
+                idx = torch.from_numpy(ci.astype(np.int64))
+            else:
+                want = jax.lax.dynamic_update_slice(
+                    jnp.asarray(buf), jv, (0, 0, ci, 0)
+                )
+                idx = ci
+            got, twin = torch.from_numpy(buf.copy()), torch.from_numpy(buf.copy())
+            tf._write_kv(((got, torch.from_numpy(val)), (twin, torch.from_numpy(val))), idx)
+            np.testing.assert_array_equal(got.numpy(), np.asarray(want))
+            np.testing.assert_array_equal(twin.numpy(), np.asarray(want))
