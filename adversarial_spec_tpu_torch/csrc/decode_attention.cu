@@ -1,63 +1,54 @@
-// Decode attention over a dense, heads-major KV cache or a paged KV pool,
-// for Hopper (sm_90a).
+// Decode attention for one query token per row over a dense, heads-major KV
+// cache or a paged KV pool, for Hopper (sm_90a).
 //
-// Replaces four Pallas TPU kernels of the reference package:
+// Replaces two Pallas TPU kernels of the reference package:
 //   - adversarial_spec_tpu/ops/pallas_decode.py:decode_attention
-//     (_decode_attn_kernel, B1): one query token per row, every S=1 dense
-//     decode step;
-//   - adversarial_spec_tpu/ops/pallas_decode.py:decode_attention_mq
-//     (_mq_attn_kernel, B2): a short span of S query positions per row
-//     (the speculative verify, S = gamma + 1), each position with its own
-//     [start, end) window, the whole span reading the cache in one pass;
+//     (_decode_attn_kernel, B1): every S=1 dense decode step;
 //   - adversarial_spec_tpu/ops/pallas_paged.py:paged_decode_attention
 //     (_paged_attn_kernel, B3): B1 through a page table over a shared
-//     page pool (the continuous batcher's S=1 decode);
-//   - adversarial_spec_tpu/ops/pallas_paged.py:paged_decode_attention_mq
-//     (_paged_mq_attn_kernel, B4): B2 through a page table (the batcher's
-//     span-native verify).
-// One online-softmax body serves all four, each over a float cache (K/V
-// in q's type) or an int8 cache (the reference's kv_dtype="int8": int8 K/V
-// with per-(token, head) f32 scales, dequantized inside the staged tile as
-// the Pallas kernels do, ops/flash_common.py flash_update_heads) — eight
-// entries. Three template switches pick the entry: the K/V element type
-// (q's type or int8_t), kSpan (S > 1 query positions per row, or S = 1
-// with the span axis compiled out) and kPaged, the tile-address policy: a
-// dense cache tile is `tile` consecutive slots of the row's [Hkv, T, D]
-// slice; a paged tile is exactly one page, found through the row's
-// page-table entry. Each entry has its own launch counter on the Python
-// side (ops/decode_attention.py and ops/paged_attention.py, an `_int8kv`
-// counter for the int8 cache), and shows up under its own name in a
-// profile.
+//     page pool (the continuous batcher's S=1 decode).
+// The speculative verify (S > 1 query positions per row: B2, B4) is
+// verify_attention.cu. One online-softmax body serves both, each over a
+// float cache (K/V in q's type) or an int8 cache (the reference's
+// kv_dtype="int8": int8 K/V with per-(token, head) f32 scales, dequantized
+// inside the staged tile as the Pallas kernels do, ops/flash_common.py
+// flash_update_heads) — four entries. Two template switches pick the entry:
+// the K/V element type (q's type or int8_t) and kPaged, the tile-address
+// policy: a dense cache tile is `tile` consecutive slots of the row's
+// [Hkv, T, D] slice; a paged tile is exactly one page, found through the
+// row's page-table entry. Each entry has its own launch counter on the
+// Python side (ops/decode_attention.py and ops/paged_attention.py, an
+// `_int8kv` counter for the int8 cache), and shows up under its own name in
+// a profile.
 //
 // What bounds it: the bytes of K and V it reads. At the main paths' shapes
 // (Llama-3-8B, Hkv=8, D=128, bf16; thousands of cached slots per row) a
-// layer does ~2 flops per K/V byte for S=1 (~18 for S=9), far below the
-// card's ~295 flops/byte balance point, so the floor is bytes / 3.35 TB/s.
-// The int8 cache reads D + 4 bytes per (slot, head) for each of K and V
-// (the values and one f32 scale) instead of 2D.
+// layer does ~2 flops per K/V byte, far below the card's ~295 flops/byte
+// balance point, so the floor is bytes / 3.35 TB/s. The int8 cache reads
+// D + 4 bytes per (slot, head) for each of K and V (the values and one f32
+// scale) instead of 2D.
 //
 // What the design does about it: every K/V byte is read from device memory
-// at most once per call — all g*S query rows of a KV head share each staged
+// at most once per call — all g query rows of a KV head share each staged
 // tile (the GQA fold), scores/softmax state/accumulator never leave the SM,
-// tiles wholly outside the union of the rows' windows are never loaded, and
-// loads are 16-byte vectors where alignment allows.
+// tiles wholly outside the row's window are never loaded, and loads are
+// 16-byte vectors where alignment allows.
 //
 // Paged pools: physical page 0 is the trash page (inactive rows and
 // rejected drafts write arbitrary K/V there) and negative ids are table
 // padding, so a page whose id is <= 0 is skipped whole — never loaded,
 // never scored — exactly as the Pallas kernels skip it (its scale page
-// too). Inside a loaded tile, slots outside the union of the block's
-// windows are zero-filled rather than loaded (values and scales alike), so
-// whatever bytes lie there (stale or poisoned) can never reach the softmax
-// through a 0 * x product.
+// too). Inside a loaded tile, slots outside the window are zero-filled
+// rather than loaded (values and scales alike), so whatever bytes lie there
+// (stale or poisoned) can never reach the softmax through a 0 * x product.
 //
 // What it does not do yet: one block per (row, KV head) fills only B*Hkv
 // SMs (64 of 132 at the batcher's 8 slots), and tile loads are not
-// overlapped with compute. A split-KV (flash-decoding) grid with a combine
-// pass, cp.async/TMA double buffering and tensor-core scores are later work.
+// overlapped with compute; verify_attention.cu's split-KV grid and cp.async
+// ring are what this body would take next.
 //
 // Layout and contract (checked again by the Python wrappers):
-//   q   [B, S, Hq, D]   (S=1 entries pass a zero S stride), D contiguous
+//   q   [B, Hq, D], D contiguous
 //   dense: k,v [B, Hkv, T, D] any strides except D contiguous — a layer's
 //          slice of the [L, B, Hkv, T, D] cache needs no copy
 //   paged: k,v [n_pages, Hkv, page, D] (a layer's view of the
@@ -66,11 +57,11 @@
 //   int8 cache: k,v int8 in the same layouts, and ks,vs f32 scales
 //          [B, Hkv, T, 1] (dense) or [n_pages, Hkv, page, 1] (paged), any
 //          strides; a null ks means a float cache
-//   starts/ends int32 [B, S] (or [B, 1] broadcast via a zero S stride)
-//   out [B, S, Hq, D]   in q's dtype; written, never allocated, here
-// Each query row masks its own [start, end); the ragged tail past T is
-// masked; a row with an empty window yields exact zeros. Softmax state and
-// the accumulator are f32; the optional softcap is tanh(s/c)*c; scores are
+//   bounds int32 [B, 2] (start, end)
+//   out [B, Hq, D]   in q's dtype; written, never allocated, here
+// Each row masks its own [start, end); the ragged tail past T is masked; a
+// row with an empty window yields exact zeros. Softmax state and the
+// accumulator are f32; the optional softcap is tanh(s/c)*c; scores are
 // (q . k) * scale. An int8 slot dequantizes in f32 before it is used,
 // k = float(k8) * ks[t], v = float(v8) * vs[t], in the reference's order.
 
@@ -90,7 +81,7 @@ constexpr size_t kMaxSmem = 232448 - 1024;
 
 struct Args {
   const void* q;
-  long long q_sb, q_ss, q_sh;
+  long long q_sb, q_sh;
   // Dense: k_sb is the batch-row stride. Paged: k_sb is the page stride.
   const void* k;
   long long k_sb, k_sh, k_st;
@@ -104,13 +95,11 @@ struct Args {
   long long vs_sb, vs_sh, vs_st;
   const int* table;  // paged only: [B, P] physical page ids
   long long tb_sb;
-  const int* starts;
-  long long st_sb, st_ss;
-  const int* ends;
-  long long en_sb, en_ss;
+  const int* bounds;  // [B, 2] (start, end), row stride bd_sb
+  long long bd_sb;
   void* out;
-  long long o_sb, o_ss, o_sh;
-  int B, S, Hq, Hkv, T, D, tile, vec16;
+  long long o_sb, o_sh;
+  int B, Hq, Hkv, T, D, tile, vec16;
   float scale, softcap;
 };
 
@@ -181,22 +170,19 @@ template <typename TK>
 size_t smem_bytes(int R, int D, int tile) {
   size_t floats = 2 * (size_t)R * D + (size_t)R * tile + 3 * (size_t)R;
   if (is_int8<TK>()) floats += 2 * (size_t)tile;  // the tile's K and V scales
-  size_t ints = 2 * (size_t)R;
   size_t kv = 2 * (size_t)tile * tile_stride<TK>(D) * sizeof(TK);
-  return floats * 4 + ints * 4 + kv;
+  return floats * 4 + kv;
 }
 
 // TQ is q's and out's type; TK the K/V element type (TQ, or int8_t for the
-// int8 cache). kSpan = false is the S = 1 entry (B1, B3): the span axis is
-// compiled out. kPaged = true reads tiles through the page table (B3, B4);
-// its tile is one page (a.tile == page size).
-template <typename TQ, typename TK, bool kSpan, bool kPaged>
+// int8 cache). kPaged = true reads tiles through the page table (B3); its
+// tile is one page (a.tile == page size).
+template <typename TQ, typename TK, bool kPaged>
 __global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a) {
   constexpr bool kQuant = is_int8<TK>();
   const int h = blockIdx.x;  // KV head
   const int b = blockIdx.y;  // batch row
-  const int g = a.Hq / a.Hkv;
-  const int R = kSpan ? g * a.S : g;  // query rows owned by this block
+  const int R = a.Hq / a.Hkv;  // query rows owned by this block: the group
   const int D = a.D;
   const int TT = a.tile;
   const int ks = tile_stride<TK>(D);
@@ -208,46 +194,26 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a) {
   float* m_s = p_s + R * TT;                    // [R] running max
   float* l_s = m_s + R;                         // [R] running normalizer
   float* al_s = l_s + R;                        // [R] this tile's alpha
-  int* lo_s = reinterpret_cast<int*>(al_s + R);  // [R] window start
-  int* hi_s = lo_s + R;                          // [R] window end
-  float* ksc_s = reinterpret_cast<float*>(hi_s + R);  // [TT] K scales (int8)
-  float* vsc_s = ksc_s + (kQuant ? TT : 0);            // [TT] V scales (int8)
+  float* ksc_s = al_s + R;                      // [TT] K scales (int8)
+  float* vsc_s = ksc_s + (kQuant ? TT : 0);     // [TT] V scales (int8)
   TK* k_s = reinterpret_cast<TK*>(vsc_s + (kQuant ? TT : 0));  // [TT, ks]
   TK* v_s = k_s + TT * ks;                                      // [TT, ks]
-  __shared__ int range_s[2];
 
-  // Query row r = (span position s, group lane gi) -> head h*g + gi.
+  // Query row r -> head h*R + r.
   const TQ* qb = static_cast<const TQ*>(a.q) + b * a.q_sb;
   for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int r = i / D, d = i % D;
-    const int s = kSpan ? r / g : 0, gi = kSpan ? r % g : r;
-    q_s[i] = to_f32(qb[s * a.q_ss + (long long)(h * g + gi) * a.q_sh + d]) * a.scale;
+    q_s[i] = to_f32(qb[(long long)(h * R + r) * a.q_sh + d]) * a.scale;
     acc_s[i] = 0.f;
   }
   for (int r = threadIdx.x; r < R; r += kThreads) {
-    const int s = kSpan ? r / g : 0;
-    lo_s[r] = a.starts[b * a.st_sb + s * a.st_ss];
-    hi_s[r] = a.ends[b * a.en_sb + s * a.en_ss];
     m_s[r] = -INFINITY;
     l_s[r] = 0.f;
   }
   __syncthreads();
-  if (threadIdx.x == 0) {
-    // Union of the non-empty windows, clipped to the cache: tiles outside
-    // it are skipped entirely (never loaded).
-    int lo = a.T, hi = 0;
-    for (int r = 0; r < R; ++r) {
-      const int s0 = max(lo_s[r], 0), e0 = min(hi_s[r], a.T);
-      if (s0 < e0) {
-        lo = min(lo, s0);
-        hi = max(hi, e0);
-      }
-    }
-    range_s[0] = lo;
-    range_s[1] = hi;
-  }
-  __syncthreads();
-  const int lo = range_s[0], hi = range_s[1];
+  // The row's window, clipped to the cache: tiles outside it are skipped
+  // entirely (never loaded); an empty window loads nothing.
+  const int lo = max(a.bounds[b * a.bd_sb], 0), hi = min(a.bounds[b * a.bd_sb + 1], a.T);
 
   const TK* kbase = static_cast<const TK*>(a.k) + h * a.k_sh;
   const TK* vbase = static_cast<const TK*>(a.v) + h * a.v_sh;
@@ -319,7 +285,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a) {
     for (int i = threadIdx.x; i < R * TT; i += kThreads) {
       const int r = i / TT, j = i % TT, t = t0 + j;
       float sc = -INFINITY;
-      if (t < a.T && t >= lo_s[r] && t < hi_s[r]) {
+      if (t >= lo && t < hi) {
         if constexpr (kQuant) {
           sc = dot_row(q_s + r * D, k_s + j * ks, D, ksc_s[j]);
         } else {
@@ -377,9 +343,7 @@ __global__ void __launch_bounds__(kThreads) decode_attn_kernel(Args a) {
   TQ* ob = static_cast<TQ*>(a.out) + b * a.o_sb;
   for (int i = threadIdx.x; i < R * D; i += kThreads) {
     const int r = i / D, d = i % D;
-    const int s = kSpan ? r / g : 0, gi = kSpan ? r % g : r;
-    store_as(ob + s * a.o_ss + (long long)(h * g + gi) * a.o_sh + d,
-             acc_s[i] / fmaxf(l_s[r], 1e-30f));
+    store_as(ob + (long long)(h * R + r) * a.o_sh + d, acc_s[i] / fmaxf(l_s[r], 1e-30f));
   }
 }
 
@@ -390,9 +354,9 @@ bool aligned16(const void* p, long long sb, long long sh, long long st) {
          (sh * e) % 16 == 0 && (st * e) % 16 == 0;
 }
 
-template <typename TQ, typename TK, bool kSpan, bool kPaged>
+template <typename TQ, typename TK, bool kPaged>
 int launch(Args a, cudaStream_t stream) {
-  const int R = (a.Hq / a.Hkv) * a.S;
+  const int R = a.Hq / a.Hkv;
   int tile = 0;
   if (kPaged) {
     tile = a.tile;  // one page per tile
@@ -414,19 +378,19 @@ int launch(Args a, cudaStream_t stream) {
   static size_t opted_in = 48 * 1024;
   if (smem > opted_in) {
     cudaError_t e = cudaFuncSetAttribute(
-        decode_attn_kernel<TQ, TK, kSpan, kPaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+        decode_attn_kernel<TQ, TK, kPaged>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
     if (e != cudaSuccess) return (int)e;
     opted_in = smem;
   }
   dim3 grid(a.Hkv, a.B);
-  decode_attn_kernel<TQ, TK, kSpan, kPaged><<<grid, kThreads, smem, stream>>>(a);
+  decode_attn_kernel<TQ, TK, kPaged><<<grid, kThreads, smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
-template <bool kSpan, bool kPaged>
+template <bool kPaged>
 int dispatch(Args& a, int dtype, void* stream) {
   if (a.D != 64 && a.D != 128 && a.D != 256) return (int)cudaErrorInvalidValue;
-  if (a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.B <= 0 || a.S <= 0 || a.T <= 0)
+  if (a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.B <= 0 || a.T <= 0)
     return (int)cudaErrorInvalidValue;
   if (kPaged && (a.tile <= 0 || a.T % a.tile != 0)) return (int)cudaErrorInvalidValue;
   // Both scales or neither: a null ks is a float cache in q's type.
@@ -434,12 +398,12 @@ int dispatch(Args& a, int dtype, void* stream) {
   const bool quant = a.ks != nullptr;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return quant ? launch<float, int8_t, kSpan, kPaged>(a, s)
-                 : launch<float, float, kSpan, kPaged>(a, s);
+    return quant ? launch<float, int8_t, kPaged>(a, s)
+                 : launch<float, float, kPaged>(a, s);
   }
   if (dtype == 1) {
-    return quant ? launch<__nv_bfloat16, int8_t, kSpan, kPaged>(a, s)
-                 : launch<__nv_bfloat16, __nv_bfloat16, kSpan, kPaged>(a, s);
+    return quant ? launch<__nv_bfloat16, int8_t, kPaged>(a, s)
+                 : launch<__nv_bfloat16, __nv_bfloat16, kPaged>(a, s);
   }
   return (int)cudaErrorInvalidValue;
 }
@@ -467,72 +431,42 @@ extern "C" int advspec_decode_attention(
     int B, int Hq, int Hkv, int T, int D, int dtype,
     float scale, float softcap, void* stream) {
   Args a{};
-  a.q = q; a.q_sb = q_sb; a.q_ss = 0; a.q_sh = q_sh;
+  a.q = q; a.q_sb = q_sb; a.q_sh = q_sh;
   a.k = k; a.k_sb = k_sb; a.k_sh = k_sh; a.k_st = k_st;
   a.v = v; a.v_sb = v_sb; a.v_sh = v_sh; a.v_st = v_st;
   set_scales(a, ks, ks_sb, ks_sh, ks_st, vs, vs_sb, vs_sh, vs_st);
-  a.starts = bounds; a.st_sb = bd_sb; a.st_ss = 0;
-  a.ends = bounds + 1; a.en_sb = bd_sb; a.en_ss = 0;
-  a.out = out; a.o_sb = o_sb; a.o_ss = 0; a.o_sh = o_sh;
-  a.B = B; a.S = 1; a.Hq = Hq; a.Hkv = Hkv; a.T = T; a.D = D;
+  a.bounds = bounds; a.bd_sb = bd_sb;
+  a.out = out; a.o_sb = o_sb; a.o_sh = o_sh;
+  a.B = B; a.Hq = Hq; a.Hkv = Hkv; a.T = T; a.D = D;
   a.scale = scale; a.softcap = softcap;
-  return dispatch<false, false>(a, dtype, stream);
+  return dispatch<false>(a, dtype, stream);
 }
 
-extern "C" int advspec_decode_attention_mq(
-    const void* q, long long q_sb, long long q_ss, long long q_sh,
-    const void* k, long long k_sb, long long k_sh, long long k_st,
-    const void* v, long long v_sb, long long v_sh, long long v_st,
-    const float* ks, long long ks_sb, long long ks_sh, long long ks_st,
-    const float* vs, long long vs_sb, long long vs_sh, long long vs_st,
-    const int* starts, long long st_sb, long long st_ss,
-    const int* ends, long long en_sb, long long en_ss,
-    void* out, long long o_sb, long long o_ss, long long o_sh,
-    int B, int S, int Hq, int Hkv, int T, int D, int dtype,
-    float scale, float softcap, void* stream) {
-  Args a{};
-  a.q = q; a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
-  a.k = k; a.k_sb = k_sb; a.k_sh = k_sh; a.k_st = k_st;
-  a.v = v; a.v_sb = v_sb; a.v_sh = v_sh; a.v_st = v_st;
-  set_scales(a, ks, ks_sb, ks_sh, ks_st, vs, vs_sb, vs_sh, vs_st);
-  a.starts = starts; a.st_sb = st_sb; a.st_ss = st_ss;
-  a.ends = ends; a.en_sb = en_sb; a.en_ss = en_ss;
-  a.out = out; a.o_sb = o_sb; a.o_ss = o_ss; a.o_sh = o_sh;
-  a.B = B; a.S = S; a.Hq = Hq; a.Hkv = Hkv; a.T = T; a.D = D;
-  a.scale = scale; a.softcap = softcap;
-  return dispatch<true, false>(a, dtype, stream);
-}
-
-// Paged entries (B3: span = 0, S = 1; B4: span = 1). k/v are a layer's
-// [n_pages, Hkv, page, D] pool view: k_sp is the page stride (ks_sp the
-// scale pages', [n_pages, Hkv, page, 1], for an int8 pool). The table is
-// int32 [B, P] with row stride tb_sb and contiguous entries; T = P * page.
+// Paged entry (B3). k/v are a layer's [n_pages, Hkv, page, D] pool view:
+// k_sp is the page stride (ks_sp the scale pages', [n_pages, Hkv, page, 1],
+// for an int8 pool). The table is int32 [B, P] with row stride tb_sb and
+// contiguous entries; T = P * page.
 extern "C" int advspec_paged_decode_attention(
-    int span,
-    const void* q, long long q_sb, long long q_ss, long long q_sh,
+    const void* q, long long q_sb, long long q_sh,
     const void* k, long long k_sp, long long k_sh, long long k_st,
     const void* v, long long v_sp, long long v_sh, long long v_st,
     const float* ks, long long ks_sp, long long ks_sh, long long ks_st,
     const float* vs, long long vs_sp, long long vs_sh, long long vs_st,
     const int* table, long long tb_sb,
-    const int* starts, long long st_sb, long long st_ss,
-    const int* ends, long long en_sb, long long en_ss,
-    void* out, long long o_sb, long long o_ss, long long o_sh,
-    int B, int S, int Hq, int Hkv, int P, int page, int D, int dtype,
+    const int* bounds, long long bd_sb,
+    void* out, long long o_sb, long long o_sh,
+    int B, int Hq, int Hkv, int P, int page, int D, int dtype,
     float scale, float softcap, void* stream) {
   Args a{};
-  a.q = q; a.q_sb = q_sb; a.q_ss = q_ss; a.q_sh = q_sh;
+  a.q = q; a.q_sb = q_sb; a.q_sh = q_sh;
   a.k = k; a.k_sb = k_sp; a.k_sh = k_sh; a.k_st = k_st;
   a.v = v; a.v_sb = v_sp; a.v_sh = v_sh; a.v_st = v_st;
   set_scales(a, ks, ks_sp, ks_sh, ks_st, vs, vs_sp, vs_sh, vs_st);
   a.table = table; a.tb_sb = tb_sb;
-  a.starts = starts; a.st_sb = st_sb; a.st_ss = st_ss;
-  a.ends = ends; a.en_sb = en_sb; a.en_ss = en_ss;
-  a.out = out; a.o_sb = o_sb; a.o_ss = o_ss; a.o_sh = o_sh;
-  a.B = B; a.S = S; a.Hq = Hq; a.Hkv = Hkv; a.T = P * page; a.D = D;
+  a.bounds = bounds; a.bd_sb = bd_sb;
+  a.out = out; a.o_sb = o_sb; a.o_sh = o_sh;
+  a.B = B; a.Hq = Hq; a.Hkv = Hkv; a.T = P * page; a.D = D;
   a.tile = page;
   a.scale = scale; a.softcap = softcap;
-  if (span) return dispatch<true, true>(a, dtype, stream);
-  if (S != 1) return (int)cudaErrorInvalidValue;
-  return dispatch<false, true>(a, dtype, stream);
+  return dispatch<true>(a, dtype, stream);
 }

@@ -20,7 +20,7 @@ import threading
 from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
-SOURCES = ("decode_attention.cu", "quant_matmul.cu")
+SOURCES = ("decode_attention.cu", "verify_attention.cu", "quant_matmul.cu")
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -35,6 +35,7 @@ NVCC_FLAGS = (
 
 _lock = threading.Lock()
 _loaded: dict[str, ctypes.CDLL] = {}
+_entries: dict[tuple[str, str], ctypes._CFuncPtr] = {}
 
 
 def build_dir() -> Path:
@@ -120,3 +121,15 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(path))
             _loaded[source] = lib
         return lib
+
+
+def entry(source: str, name: str, argtypes: list) -> ctypes._CFuncPtr:
+    """The C entry point ``name`` of one source, its argument types set
+    (``ctypes.c_void_p`` for pointers and the stream) and returning int."""
+    fn = _entries.get((source, name))
+    if fn is None:
+        fn = getattr(load(source), name)
+        fn.argtypes = argtypes
+        fn.restype = ctypes.c_int
+        _entries[(source, name)] = fn
+    return fn

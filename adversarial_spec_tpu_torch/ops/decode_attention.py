@@ -15,12 +15,14 @@ tiles (``float(k8) * ks``, the Pallas kernels' order); such a call counts
 under its own name (``decode_attention_int8kv``,
 ``decode_attention_mq_int8kv``).
 
-Each wrapper launches the hand-written Hopper kernel
-(``csrc/decode_attention.cu``, built by ``ops/_build.py``) for CUDA
-tensors and counts the launch in ``launches``; for CPU tensors it runs the
-plain PyTorch version beside it (``*_plain``), which the tests and the
-chip smoke also use as the reference. A CUDA tensor never takes the plain
-version: the wrapper launches the kernel or raises.
+Each wrapper launches a hand-written Hopper kernel for CUDA tensors — B1
+``csrc/decode_attention.cu``, B2 the split-KV, tensor-core verify kernel
+of ``csrc/verify_attention.cu`` and its combine pass (``n_split`` from
+``ops/split_kv.py``), both built by ``ops/_build.py`` — and counts the call
+in ``launches``; for CPU tensors it runs the plain PyTorch version beside
+it (``*_plain``), which the tests and the chip smoke also use as the
+reference. A CUDA tensor never takes the plain version: the wrapper
+launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -30,10 +32,11 @@ import math
 
 import torch
 
-from adversarial_spec_tpu_torch.ops import _build
+from adversarial_spec_tpu_torch.ops import _build, split_kv
 from adversarial_spec_tpu_torch.ops.flash_common import flash_update
 
-SOURCE = "decode_attention.cu"
+SOURCE = "decode_attention.cu"  # B1 (and B3)
+VERIFY_SOURCE = "verify_attention.cu"  # B2 (and B4)
 SUPPORTED_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 # Cache block the plain versions fold per online-softmax update.
@@ -57,29 +60,31 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
-    if not getattr(lib, "_advspec_bound", False):
-        lib.advspec_decode_attention.argtypes = (
-            [_P, _L, _L]
-            + [_P, _L, _L, _L] * 4  # k, v, k scales, v scales
-            + [_P, _L]
-            + [_P, _L, _L]
-            + [_I] * 6
-            + [_F, _F, _P]
-        )
-        lib.advspec_decode_attention.restype = _I
-        lib.advspec_decode_attention_mq.argtypes = (
-            [_P, _L, _L, _L]
-            + [_P, _L, _L, _L] * 4  # k, v, k scales, v scales
-            + [_P, _L, _L] * 2
-            + [_P, _L, _L, _L]
-            + [_I] * 7
-            + [_F, _F, _P]
-        )
-        lib.advspec_decode_attention_mq.restype = _I
-        lib._advspec_bound = True
-    return lib
+def _b1_entry():
+    return _build.entry(
+        SOURCE,
+        "advspec_decode_attention",
+        [_P, _L, _L]
+        + [_P, _L, _L, _L] * 4  # k, v, k scales, v scales
+        + [_P, _L]  # bounds
+        + [_P, _L, _L]  # out
+        + [_I] * 6
+        + [_F, _F, _P],
+    )
+
+
+def _b2_entry():
+    return _build.entry(
+        VERIFY_SOURCE,
+        "advspec_decode_attention_mq",
+        [_P, _L, _L, _L]
+        + [_P, _L, _L, _L] * 4  # k, v, k scales, v scales
+        + [_P, _L, _L] * 2  # starts, ends
+        + [_P, _L, _L, _L]  # out
+        + [_P, _I]  # split workspace, n_split
+        + [_I] * 7
+        + [_F, _F, _P],
+    )
 
 
 def scales_pair(k_scale, v_scale) -> bool:
@@ -237,6 +242,27 @@ def _raise_on(rc: int, name: str) -> None:
         raise RuntimeError(f"{name} kernel launch failed: CUDA error {rc}")
 
 
+def span_strides(starts, ends, B: int, S: int) -> list:
+    """(row, position) strides of ``starts`` and ``ends``, each [B, S] or a
+    [B, 1] broadcast (a zero position stride)."""
+    strides = []
+    for name, t in (("starts", starts), ("ends", ends)):
+        if t.dim() != 2 or t.shape[0] != B or t.shape[1] not in (1, S):
+            raise ValueError(f"{name} shape {tuple(t.shape)} vs B={B}, S={S}")
+        strides.append((t.stride(0), t.stride(1) if t.shape[1] == S else 0))
+    return strides
+
+
+def verify_plan(q, Hkv: int, n_tiles: int) -> tuple[int, torch.Tensor | None]:
+    """B2/B4's (n_split, partials workspace) from shapes alone; raises when
+    the span has more query rows per KV head than the kernel holds."""
+    B, S, Hq, D = q.shape
+    R = Hq // Hkv * S
+    split_kv.check_rows(R, D, q.dtype)
+    n_split = split_kv.plan_splits(B, Hkv, n_tiles)
+    return n_split, split_kv.workspace(n_split, B, Hkv, R, D, q.device)
+
+
 def scale_args(k_scale, v_scale) -> list:
     """The C entry points' scale operands: pointer and (row or page, head,
     slot) strides of each, or nulls for a float cache."""
@@ -273,7 +299,7 @@ def decode_attention(
     bounds = bounds.contiguous()
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
     kc, vc = k_cache, v_cache
-    rc = _lib().advspec_decode_attention(
+    rc = _b1_entry()(
         q.data_ptr(), q.stride(0), q.stride(1),
         kc.data_ptr(), kc.stride(0), kc.stride(1), kc.stride(2),
         vc.data_ptr(), vc.stride(0), vc.stride(1), vc.stride(2),
@@ -309,19 +335,33 @@ def decode_attention_mq(
             attn_softcap=attn_softcap, scale=scale,
             k_scale=k_scale, v_scale=v_scale,
         )
+    out, ws, args = mq_args(
+        q, k_cache, v_cache, starts, ends, attn_softcap, scale, k_scale, v_scale
+    )
+    rc = _b2_entry()(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    del ws  # the partials live until the launch is queued
+    name = "decode_attention_mq" + ("_int8kv" if k_scale is not None else "")
+    _raise_on(rc, name)
+    launches[name] += 1
+    return out
+
+
+def mq_args(
+    q, k_cache, v_cache, starts, ends, attn_softcap, scale, k_scale, v_scale
+) -> tuple[torch.Tensor, torch.Tensor | None, list]:
+    """B2's output, partials workspace and C arguments (all but the
+    stream), from shapes, strides and pointers alone: nothing here reads a
+    device tensor."""
     code = _check(
         q, k_cache, v_cache, starts, ends, k_scale=k_scale, v_scale=v_scale
     )
     B, S, Hq, D = q.shape
     Hkv, T = k_cache.shape[1], k_cache.shape[2]
-    strides = []
-    for name, t in (("starts", starts), ("ends", ends)):
-        if t.dim() != 2 or t.shape[0] != B or t.shape[1] not in (1, S):
-            raise ValueError(f"{name} shape {tuple(t.shape)} vs B={B}, S={S}")
-        strides.append((t.stride(0), t.stride(1) if t.shape[1] == S else 0))
+    strides = span_strides(starts, ends, B, S)
+    n_split, ws = verify_plan(q, Hkv, -(-T // split_kv.DENSE_TILE))
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     kc, vc = k_cache, v_cache
-    rc = _lib().advspec_decode_attention_mq(
+    return out, ws, [
         q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
         kc.data_ptr(), kc.stride(0), kc.stride(1), kc.stride(2),
         vc.data_ptr(), vc.stride(0), vc.stride(1), vc.stride(2),
@@ -329,12 +369,8 @@ def decode_attention_mq(
         starts.data_ptr(), *strides[0],
         ends.data_ptr(), *strides[1],
         out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
+        None if ws is None else ws.data_ptr(), n_split,
         B, S, Hq, Hkv, T, D, code,
         float(scale if scale is not None else 1.0 / math.sqrt(D)),
         float(attn_softcap),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    name = "decode_attention_mq" + ("_int8kv" if k_scale is not None else "")
-    _raise_on(rc, name)
-    launches[name] += 1
-    return out
+    ]

@@ -22,14 +22,16 @@ Page-table sentinel convention (shared with the gather path of
 reserved TRASH page and negative ids are padding, so any entry <= 0 is
 unmapped and never contributes.
 
-Each wrapper launches the hand-written Hopper kernel for CUDA tensors —
-the paged tile-address policy of ``csrc/decode_attention.cu`` (one page
-per tile, pages with id <= 0 skipped whole, pages outside the union of
-the rows' windows never loaded) — and counts the launch in ``launches``;
-for CPU tensors it runs the plain PyTorch version beside it (``*_plain``,
-the ``ops/flash_common.py`` update folded over the gathered pages), which
-the tests and the chip smoke also use as the reference. A CUDA tensor
-never takes the plain version: the wrapper launches the kernel or raises.
+Each wrapper launches a hand-written Hopper kernel for CUDA tensors — B3
+the paged tile-address policy of ``csrc/decode_attention.cu``, B4 the
+split-KV verify kernel of ``csrc/verify_attention.cu`` with its combine
+pass; both read one page per tile, skip pages with id <= 0 whole and never
+load pages outside the union of the rows' windows (B4 takes pages that are
+a multiple of 16 slots) — and counts the call in ``launches``; for CPU
+tensors it runs the plain PyTorch version beside it (``*_plain``, the
+``ops/flash_common.py`` update folded over the gathered pages), which the
+tests and the chip smoke also use as the reference. A CUDA tensor never
+takes the plain version: the wrapper launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -42,10 +44,13 @@ import torch
 from adversarial_spec_tpu_torch.ops import _build
 from adversarial_spec_tpu_torch.ops.decode_attention import (
     SOURCE,
+    VERIFY_SOURCE,
     _check,
     _raise_on,
     scale_args,
     scales_pair,
+    span_strides,
+    verify_plan,
 )
 from adversarial_spec_tpu_torch.ops.flash_common import flash_update
 
@@ -70,22 +75,33 @@ def reset_launches() -> None:
         launches[name] = 0
 
 
-def _lib() -> ctypes.CDLL:
-    lib = _build.load(SOURCE)
-    if not getattr(lib, "_advspec_paged_bound", False):
-        lib.advspec_paged_decode_attention.argtypes = (
-            [_I]
-            + [_P, _L, _L, _L]  # q
-            + [_P, _L, _L, _L] * 4  # k, v pages, k, v scale pages
-            + [_P, _L]  # table
-            + [_P, _L, _L] * 2  # starts, ends
-            + [_P, _L, _L, _L]  # out
-            + [_I] * 8
-            + [_F, _F, _P]
-        )
-        lib.advspec_paged_decode_attention.restype = _I
-        lib._advspec_paged_bound = True
-    return lib
+def _b3_entry():
+    return _build.entry(
+        SOURCE,
+        "advspec_paged_decode_attention",
+        [_P, _L, _L]  # q
+        + [_P, _L, _L, _L] * 4  # k, v pages, k, v scale pages
+        + [_P, _L]  # table
+        + [_P, _L]  # bounds
+        + [_P, _L, _L]  # out
+        + [_I] * 7
+        + [_F, _F, _P],
+    )
+
+
+def _b4_entry():
+    return _build.entry(
+        VERIFY_SOURCE,
+        "advspec_paged_decode_attention_mq",
+        [_P, _L, _L, _L]  # q
+        + [_P, _L, _L, _L] * 4  # k, v pages, k, v scale pages
+        + [_P, _L]  # table
+        + [_P, _L, _L] * 2  # starts, ends
+        + [_P, _L, _L, _L]  # out
+        + [_P, _I]  # split workspace, n_split
+        + [_I] * 8
+        + [_F, _F, _P],
+    )
 
 
 # -- plain PyTorch versions ---------------------------------------------------
@@ -189,55 +205,15 @@ def paged_decode_attention_plain(
 # -- kernel wrappers ----------------------------------------------------------
 
 
-def _launch(
-    name: str,
-    q: torch.Tensor,  # [B, S, Hq, D]
-    k_pages: torch.Tensor,
-    v_pages: torch.Tensor,
-    page_table: torch.Tensor,
-    starts: torch.Tensor,
-    ends: torch.Tensor,
-    out: torch.Tensor,  # [B, S, Hq, D]
-    span: bool,
-    attn_softcap: float,
-    scale: float | None,
-    k_scale: torch.Tensor | None,
-    v_scale: torch.Tensor | None,
-) -> None:
-    code = _check(
-        q, k_pages, v_pages, page_table, starts, ends,
-        k_scale=k_scale, v_scale=v_scale,
-    )
-    B, S, Hq, D = q.shape
-    Hkv, page = k_pages.shape[1], k_pages.shape[2]
+def _check_table(page_table: torch.Tensor, B: int) -> None:
     if page_table.dim() != 2 or page_table.shape[0] != B:
         raise ValueError(f"page table shape {tuple(page_table.shape)} vs B={B}")
     if page_table.stride(1) != 1:
         raise ValueError("page table entries must be contiguous")
-    strides = []
-    for nm, t in (("starts", starts), ("ends", ends)):
-        if t.dim() != 2 or t.shape[0] != B or t.shape[1] not in (1, S):
-            raise ValueError(f"{nm} shape {tuple(t.shape)} vs B={B}, S={S}")
-        strides.append((t.stride(0), t.stride(1) if t.shape[1] == S else 0))
-    rc = _lib().advspec_paged_decode_attention(
-        int(span),
-        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
-        k_pages.data_ptr(), k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
-        v_pages.data_ptr(), v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
-        *scale_args(k_scale, v_scale),
-        page_table.data_ptr(), page_table.stride(0),
-        starts.data_ptr(), *strides[0],
-        ends.data_ptr(), *strides[1],
-        out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
-        B, S, Hq, Hkv, page_table.shape[1], page, D, code,
-        float(scale if scale is not None else 1.0 / math.sqrt(D)),
-        float(attn_softcap),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    if k_scale is not None:
-        name += "_int8kv"
-    _raise_on(rc, name)
-    launches[name] += 1
+
+
+def _kernel_name(name: str, k_scale) -> str:
+    return name + ("_int8kv" if k_scale is not None else "")
 
 
 def paged_decode_attention(
@@ -258,16 +234,33 @@ def paged_decode_attention(
             attn_softcap=attn_softcap, scale=scale,
             k_scale=k_scale, v_scale=v_scale,
         )
+    code = _check(
+        q, k_pages, v_pages, page_table, bounds, k_scale=k_scale, v_scale=v_scale
+    )
     B, Hq, D = q.shape
+    Hkv, page = k_pages.shape[1], k_pages.shape[2]
+    _check_table(page_table, B)
     if bounds.shape != (B, 2):
         raise ValueError(f"bounds shape {tuple(bounds.shape)} != ({B}, 2)")
-    out = torch.empty((B, 1, Hq, D), dtype=q.dtype, device=q.device)
-    _launch(
-        "paged_decode_attention", q[:, None], k_pages, v_pages, page_table,
-        bounds[:, 0:1], bounds[:, 1:2], out, False, attn_softcap, scale,
-        k_scale, v_scale,
+    bounds = bounds.contiguous()
+    out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
+    rc = _b3_entry()(
+        q.data_ptr(), q.stride(0), q.stride(1),
+        k_pages.data_ptr(), k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+        v_pages.data_ptr(), v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
+        *scale_args(k_scale, v_scale),
+        page_table.data_ptr(), page_table.stride(0),
+        bounds.data_ptr(), bounds.stride(0),
+        out.data_ptr(), out.stride(0), out.stride(1),
+        B, Hq, Hkv, page_table.shape[1], page, D, code,
+        float(scale if scale is not None else 1.0 / math.sqrt(D)),
+        float(attn_softcap),
+        torch.cuda.current_stream(q.device).cuda_stream,
     )
-    return out[:, 0]
+    name = _kernel_name("paged_decode_attention", k_scale)
+    _raise_on(rc, name)
+    launches[name] += 1
+    return out
 
 
 def paged_decode_attention_mq(
@@ -289,9 +282,51 @@ def paged_decode_attention_mq(
             attn_softcap=attn_softcap, scale=scale,
             k_scale=k_scale, v_scale=v_scale,
         )
-    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    _launch(
-        "paged_decode_attention_mq", q, k_pages, v_pages, page_table,
-        starts, ends, out, True, attn_softcap, scale, k_scale, v_scale,
+    out, ws, args = mq_args(
+        q, k_pages, v_pages, page_table, starts, ends, attn_softcap, scale,
+        k_scale, v_scale,
     )
+    rc = _b4_entry()(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    del ws  # the partials live until the launch is queued
+    name = _kernel_name("paged_decode_attention_mq", k_scale)
+    _raise_on(rc, name)
+    launches[name] += 1
     return out
+
+
+def mq_args(
+    q, k_pages, v_pages, page_table, starts, ends, attn_softcap, scale,
+    k_scale, v_scale,
+) -> tuple[torch.Tensor, torch.Tensor | None, list]:
+    """B4's output, partials workspace and C arguments (all but the
+    stream), from shapes, strides and pointers alone: nothing here reads a
+    device tensor (the page table included)."""
+    code = _check(
+        q, k_pages, v_pages, page_table, starts, ends,
+        k_scale=k_scale, v_scale=v_scale,
+    )
+    B, S, Hq, D = q.shape
+    Hkv, page = k_pages.shape[1], k_pages.shape[2]
+    _check_table(page_table, B)
+    if page % 16:
+        raise ValueError(
+            f"the verify kernel takes pages of a multiple of 16 slots, got {page}"
+        )
+    strides = span_strides(starts, ends, B, S)
+    P = page_table.shape[1]
+    n_split, ws = verify_plan(q, Hkv, P)
+    out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
+    return out, ws, [
+        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+        k_pages.data_ptr(), k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
+        v_pages.data_ptr(), v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
+        *scale_args(k_scale, v_scale),
+        page_table.data_ptr(), page_table.stride(0),
+        starts.data_ptr(), *strides[0],
+        ends.data_ptr(), *strides[1],
+        out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
+        None if ws is None else ws.data_ptr(), n_split,
+        B, S, Hq, Hkv, P, page, D, code,
+        float(scale if scale is not None else 1.0 / math.sqrt(D)),
+        float(attn_softcap),
+    ]

@@ -1,5 +1,6 @@
-"""The port's CUDA kernels — decode attention (dense B1/B2, paged B3/B4)
-and the dequant-matmuls (B5 int8, B6 int4) — against their plain versions.
+"""The port's CUDA kernels — decode attention (dense B1, paged B3), the
+split-KV verify attention (dense B2, paged B4) and the dequant-matmuls (B5
+int8, B6 int4) — against their plain versions.
 
 These need a CUDA card (a CUDA kernel has no CPU mode): each test is
 marked ``gpu`` and skips without one. The file imports no jax, so it runs
@@ -204,6 +205,100 @@ def test_cuda_int8kv_kernels_match_plain_versions(cuda, dtype):
         "paged_decode_attention": 0, "paged_decode_attention_mq": 0,
         "paged_decode_attention_int8kv": 1, "paged_decode_attention_mq_int8kv": 1,
     }
+
+
+def _kv_pair(kf, vf, dtype, kv):
+    """K/V in ``dtype`` (a float cache) or int8 with f32 scales."""
+    if kv == "int8":
+        (k, ks), (v, vs) = _int8(kf), _int8(vf)
+        return k, v, dict(k_scale=ks, v_scale=vs)
+    return kf.to(dtype), vf.to(dtype), {}
+
+
+def _assert_verify_close(got, want, tol, empty_row=None):
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got.float(), want.float(), **tol)
+    if empty_row is not None:
+        assert (got[empty_row] == 0).all()
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("kv", ["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_verify_kernels_edge_cases(cuda, dtype, kv, D):
+    """The split-KV verify kernels (B2, B4) against their plain versions:
+    a ragged tail past T, a one-tile union shorter than n_split, an empty
+    row, [B, 1] starts, softcap, 64 query rows per KV head, unaligned
+    strides; pages of 16 and 64 slots with a trash entry, -1 padding and
+    a NaN-poisoned trash page; B4 over one position against B3."""
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    gen = torch.Generator(device=cuda).manual_seed(D)
+    da.reset_launches()
+    pa.reset_launches()
+    kf, vf = _cache(gen, cuda, torch.float32, 3, 2, 300, D)
+    k, v, sc = _kv_pair(kf, vf, dtype, kv)
+    q = torch.randn((3, 16, 8, D), generator=gen, device=cuda).to(dtype)
+    ends = torch.tensor([[291 + j for j in range(9)], [71 + j for j in range(9)], [300] * 9],
+                        dtype=torch.int32, device=cuda)
+    starts = torch.tensor([[0] * 9, [70] * 9, [300] * 9], dtype=torch.int32, device=cuda)
+    for cap in (0.0, 50.0):
+        got = da.decode_attention_mq(q[:, :9], k, v, starts, ends, attn_softcap=cap, **sc)
+        want = da.decode_attention_mq_plain(q[:, :9], k, v, starts, ends, attn_softcap=cap, **sc)
+        _assert_verify_close(got, want, tol, empty_row=2)
+    b1 = starts[:, :1].clone()
+    b1[2] = 0  # row 2 no longer empty
+    got = da.decode_attention_mq(q[:, :9], k, v, b1, ends, **sc)
+    _assert_verify_close(got, da.decode_attention_mq_plain(q[:, :9], k, v, b1, ends, **sc), tol)
+    # 16 positions: 64 query rows per KV head (the most bf16 takes at D=256).
+    e16 = torch.tensor([[280 + j for j in range(16)]] * 3, dtype=torch.int32, device=cuda)
+    s16 = torch.tensor([[5], [100], [250]], dtype=torch.int32, device=cuda)
+    got = da.decode_attention_mq(q, k, v, s16, e16, **sc)
+    _assert_verify_close(got, da.decode_attention_mq_plain(q, k, v, s16, e16, **sc), tol)
+    # Rows whose stride is no multiple of 16 bytes: staged element by element.
+    if kv == "float":
+        buf = torch.randn((3, 2, 300, D + 1), generator=gen, device=cuda).to(dtype)
+        ku, vu = buf[..., :D], buf[..., 1:]
+        got = da.decode_attention_mq(q[:, :9], ku, vu, starts, ends)
+        _assert_verify_close(got, da.decode_attention_mq_plain(q[:, :9], ku, vu, starts, ends),
+                             tol, empty_row=2)
+
+    for page in (16, 64):
+        P, n_pages = 8, 24
+        shape = (2, n_pages, 2, page, D)  # [L, n_pages, Hkv, page, D], layer 1 used
+        kf = torch.randn(shape, generator=gen, device=cuda)[1]
+        vf = torch.randn(shape, generator=gen, device=cuda)[1]
+        kp, vp, psc = _kv_pair(kf, vf, dtype, kv)
+        table = torch.tensor([[3, 0, 5, 6, 7, 8, 9, 10], [11, 12, 13, -1, -1, -1, -1, -1],
+                              [14, -1, -1, -1, -1, -1, -1, -1]], dtype=torch.int32, device=cuda)
+        unused = [0] + [p for p in range(n_pages) if p not in set(table.flatten().tolist())]
+        if kv == "int8":
+            kp[unused] = vp[unused] = -128
+            psc["k_scale"][unused] = psc["v_scale"][unused] = float("nan")
+        else:
+            kp[unused] = vp[unused] = float("nan")
+        last = P * page - 9
+        ends = torch.tensor([[last + j for j in range(1, 10)], [2 * page + j for j in range(9)],
+                             [page // 2] * 9], dtype=torch.int32, device=cuda)
+        starts = torch.tensor([[1], [page + 3], [page // 2]], dtype=torch.int32, device=cuda)
+        for cap in (0.0, 30.0):
+            got = pa.paged_decode_attention_mq(q[:, :9], kp, vp, table, starts, ends,
+                                               attn_softcap=cap, **psc)
+            want = pa.paged_decode_attention_mq_plain(q[:, :9], kp, vp, table, starts, ends,
+                                                      attn_softcap=cap, **psc)
+            _assert_verify_close(got, want, tol, empty_row=2)
+        bnd = torch.tensor([[1, last], [page + 3, 2 * page], [0, 5]], dtype=torch.int32,
+                           device=cuda)
+        one = pa.paged_decode_attention_mq(q[:, :1], kp, vp, table, bnd[:, :1], bnd[:, 1:],
+                                           **psc)[:, 0]
+        b3 = pa.paged_decode_attention(q[:, 0], kp, vp, table, bnd, **psc)
+        _assert_verify_close(one, b3, tol)
+        want = pa.paged_decode_attention_plain(q[:, 0], kp, vp, table, bnd, **psc)
+        _assert_verify_close(one, want, tol)
+    suffix = "_int8kv" if kv == "int8" else ""
+    assert da.launches["decode_attention_mq" + suffix] == (5 if kv == "float" else 4)
+    assert pa.launches["paged_decode_attention_mq" + suffix] == 6
+    assert pa.launches["paged_decode_attention" + suffix] == 2
 
 
 def _assert_qmm_close(got, want):
