@@ -35,9 +35,11 @@
 //   - A cp.async ring of K/V tiles (kStages = 2, 16-byte copies): the next
 //     tile's copy is in flight while this tile's scores and P.V run (a page
 //     too large for two stages in shared memory takes one). Slots
-//     outside the union (and past T) are zero-filled by the copy itself
-//     (source size 0), never loaded, so stale or poisoned bytes cannot
-//     reach a 0 * x product. Rows whose address or strides are not 16-byte
+//     outside the union (and past T, and a page's pad slots below) are
+//     zero-filled by the copy itself (source size 0), never loaded, so
+//     stale or poisoned bytes cannot reach a 0 * x product. The copies,
+//     the split of the union's tiles and the combine pass are
+//     split_kv.cuh's, shared with decode_attention.cu. Rows whose address or strides are not 16-byte
 //     aligned are staged element by element instead (same ring, no
 //     overlap). Shared-memory rows carry 16 bytes of padding, so the
 //     ldmatrix loads below are free of bank conflicts.
@@ -69,8 +71,10 @@
 //
 // Paged pools: physical page 0 is the trash page and negative ids are table
 // padding, so a page whose id is <= 0 is skipped whole (block-uniform),
-// values and scale page alike. A tile is exactly one page, and the page
-// size must be a multiple of 16.
+// values and scale page alike. A tile is exactly one page (tslots = page
+// real slots), staged into a shared-memory tile of the next multiple of 16
+// slots: the pad slots are zero-filled by the copy and masked like slots
+// past the window, so any page size works.
 //
 // Layout and contract (checked again by the Python wrappers):
 //   q   [B, S, Hq, D]   D contiguous
@@ -85,12 +89,7 @@
 // Each query row masks its own [start, end); a row with an empty window
 // yields exact zeros.
 
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
-#include <stdint.h>
-
-#include <type_traits>
+#include "split_kv.cuh"
 
 namespace {
 
@@ -121,14 +120,11 @@ struct Args {
   void* out;
   long long o_sb, o_ss, o_sh;
   float* ws;  // partials, n_split > 1 only
-  int B, S, Hq, Hkv, T, D, R, Rp, tile, n_split, vec16, q16;
+  // tile: shared-memory slots of a staged tile (a multiple of 16 for bf16
+  // q); tslots: the cache slots it holds (dense: tile; paged: the page).
+  int B, S, Hq, Hkv, T, D, R, Rp, tile, tslots, n_split, vec16, q16;
   float scale, softcap;
 };
-
-template <typename TK>
-__host__ __device__ constexpr bool is_int8() {
-  return std::is_same<TK, int8_t>::value;
-}
 
 // Shared-memory carve-up (byte offsets), the same on host and device.
 struct Layout {
@@ -177,27 +173,6 @@ __host__ __device__ Layout make_layout(int Rp, int D, int TT, int stages) {
 
 // ---- PTX wrappers ----------------------------------------------------------
 
-__device__ __forceinline__ unsigned smem_addr(const void* p) {
-  return (unsigned)__cvta_generic_to_shared(p);
-}
-// 16-byte async copy; src_bytes = 0 zero-fills the destination, reads nothing.
-__device__ __forceinline__ void cp_async16(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async4(void* dst, const void* src, int src_bytes) {
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_addr(dst)),
-               "l"(src), "r"(src_bytes)
-               : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
 __device__ __forceinline__ void ldsm_x4(uint32_t (&r)[4], const void* p) {
   asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0,%1,%2,%3}, [%4];\n"
                : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
@@ -228,17 +203,11 @@ __device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4],
 
 // ---- shared pieces of the two verify kernels -------------------------------
 
-__device__ __forceinline__ float to_f32(float x) { return x; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 x) { return __bfloat162float(x); }
-__device__ __forceinline__ float to_f32(int8_t x) { return (float)x; }
-__device__ __forceinline__ void store_as(float* p, float x) { *p = x; }
-__device__ __forceinline__ void store_as(__nv_bfloat16* p, float x) { *p = __float2bfloat16(x); }
-
 // Every row's window (pad rows r >= R get the empty [T, 0)), m = -inf and
 // l = 0; then the union of the non-empty windows clipped to [0, T) (in
 // range_s[0..1]), the slots inside every row's window (range_s[2..3]: a
 // tile there needs no mask), and this split's run [*t_a, *t_b) of the
-// union's tiles (ops/split_kv.py split_tiles mirrors it).
+// union's tiles (split_run).
 __device__ void setup_rows(const Args& a, int b, int* lo_s, int* hi_s, float* m_s, float* l_s,
                            int* range_s, int* t_a, int* t_b) {
   const int g = a.Hq / a.Hkv;
@@ -272,11 +241,7 @@ __device__ void setup_rows(const Args& a, int b, int* lo_s, int* hi_s, float* m_
     range_s[3] = all_hi;
   }
   __syncthreads();
-  const int lo = range_s[0], hi = range_s[1];
-  const int first = lo < hi ? lo / a.tile : 0;
-  const int n = lo < hi ? (hi + a.tile - 1) / a.tile - first : 0;
-  *t_a = first + (int)((long long)blockIdx.x * n / a.n_split);
-  *t_b = first + (int)((long long)(blockIdx.x + 1) * n / a.n_split);
+  split_run(range_s[0], range_s[1], a.tslots, a.n_split, blockIdx.x, t_a, t_b);
 }
 
 // The tile's page id (paged) or batch row (dense), and its first slot there;
@@ -291,27 +256,28 @@ __device__ __forceinline__ bool tile_home(const Args& a, int b, int ti, long lon
     return id > 0;
   }
   *row = b;
-  *slot0 = ti * a.tile;
+  *slot0 = ti * a.tslots;
   return true;
 }
 
 // Start the copy of tile ti into ring stage dst (K, V and, for an int8
-// cache, their scales). Slots outside [lo, hi) are zero-filled. kD is the
-// head dim when known at compile time (0: a.D).
+// cache, their scales). Slots outside [lo, hi), and a page's pad slots
+// (j >= tslots), are zero-filled. kD is the head dim when known at compile
+// time (0: a.D).
 template <typename TK, bool kPaged, int kD>
 __device__ void issue_tile(const Args& a, int b, int h, int ti, int lo, int hi, unsigned char* kd,
                            unsigned char* vd, float* ksd, float* vsd, int kv_ld) {
   long long row;
   int slot0;
   if (!tile_home<kPaged>(a, b, ti, &row, &slot0)) return;
-  const int TT = a.tile, D = kD ? kD : a.D, t0 = ti * TT;
+  const int TT = a.tile, D = kD ? kD : a.D, t0 = ti * a.tslots;
   const TK* kt = static_cast<const TK*>(a.k) + row * a.k_sb + h * a.k_sh + (long long)slot0 * a.k_st;
   const TK* vt = static_cast<const TK*>(a.v) + row * a.v_sb + h * a.v_sh + (long long)slot0 * a.v_st;
   if (a.vec16) {
     const int C = D * (int)sizeof(TK) / 16;  // 16-byte chunks per row
     for (int i = threadIdx.x; i < TT * C; i += kThreads) {
       const int j = i / C, c = i % C, t = t0 + j;
-      const bool in = t >= lo && t < hi;
+      const bool in = j < a.tslots && t >= lo && t < hi;
       const int e = c * (16 / (int)sizeof(TK));
       cp_async16(kd + j * kv_ld + c * 16, in ? kt + (long long)j * a.k_st + e : kt, in ? 16 : 0);
       cp_async16(vd + j * kv_ld + c * 16, in ? vt + (long long)j * a.v_st + e : vt, in ? 16 : 0);
@@ -319,7 +285,7 @@ __device__ void issue_tile(const Args& a, int b, int h, int ti, int lo, int hi, 
   } else {
     for (int i = threadIdx.x; i < TT * D; i += kThreads) {
       const int j = i / D, d = i % D, t = t0 + j;
-      const bool in = t >= lo && t < hi;
+      const bool in = j < a.tslots && t >= lo && t < hi;
       TK kx{}, vx{};
       if (in) {
         kx = kt[(long long)j * a.k_st + d];
@@ -334,7 +300,7 @@ __device__ void issue_tile(const Args& a, int b, int h, int ti, int lo, int hi, 
     const float* vst = a.vs + row * a.vs_sb + h * a.vs_sh + (long long)slot0 * a.vs_st;
     for (int j = threadIdx.x; j < TT; j += kThreads) {
       const int t = t0 + j;
-      const bool in = t >= lo && t < hi;
+      const bool in = j < a.tslots && t >= lo && t < hi;
       cp_async4(ksd + j, in ? kst + (long long)j * a.ks_st : kst, in ? 4 : 0);
       cp_async4(vsd + j, in ? vst + (long long)j * a.vs_st : vst, in ? 4 : 0);
     }
@@ -431,12 +397,13 @@ __device__ void softmax_f32(float* s, int s_ld, int rows, int TT, float* m_s, fl
 
 // bf16 q: online softmax over one tile's scaled scores s [rows, TT] (slot
 // pairs, tpr threads per row). Softcap, then, unless the tile lies inside
-// every row's window (interior), the row's mask [lo, hi) and t < T. p =
+// every row's window (interior), the row's mask [lo, hi), t < T and j <
+// nvalid (a page's pad slots). p =
 // exp(s - m) is written, times the V scale vsc when given, as bf16 hi and
 // lo terms; l, m and alpha as in softmax_f32.
 __device__ void softmax_bf16(const Args& a, float* s, int s_ld, __nv_bfloat16* phi,
                              __nv_bfloat16* plo, int p_ld, const float* vsc, int rows, int TT,
-                             int t0, bool interior, const int* lo_s, const int* hi_s, float* m_s,
+                             int nvalid, int t0, bool interior, const int* lo_s, const int* hi_s, float* m_s,
                              float* l_s, float* al_s) {
   constexpr float kLog2e = 1.4426950408889634f;
   const int tpr = softmax_tpr(rows, TT, 2);
@@ -457,8 +424,8 @@ __device__ void softmax_bf16(const Args& a, float* s, int s_ld, __nv_bfloat16* p
           }
           if (!interior) {
             const int t = t0 + j;
-            if (t < lo || t >= hi) v.x = -INFINITY;
-            if (t + 1 < lo || t + 1 >= hi) v.y = -INFINITY;
+            if (t < lo || t >= hi || j >= nvalid) v.x = -INFINITY;
+            if (t + 1 < lo || t + 1 >= hi || j + 1 >= nvalid) v.y = -INFINITY;
           }
           *reinterpret_cast<float2*>(sr + j) = v;
         }
@@ -506,8 +473,7 @@ __device__ __forceinline__ void emit(const Args& a, int b, int h, int r, int d, 
     store_as(static_cast<TQ*>(a.out) + b * a.o_sb + s * a.o_ss + (long long)(h * g + gi) * a.o_sh + d,
              acc / fmaxf(l, 1e-30f));
   } else {
-    const long long row = (((long long)blockIdx.x * a.B + b) * a.Hkv + h) * a.R + r;
-    a.ws[row * a.D + d] = acc;
+    a.ws[partial_row(blockIdx.x, a.B, a.Hkv, a.R, b, h, r) * a.D + d] = acc;
   }
 }
 
@@ -515,7 +481,7 @@ __device__ __forceinline__ void emit(const Args& a, int b, int h, int r, int d, 
 __device__ void emit_state(const Args& a, int b, int h, const float* m_s, const float* l_s) {
   if (a.n_split == 1) return;
   const long long per = (long long)a.n_split * a.B * a.Hkv * a.R;
-  const long long row0 = (((long long)blockIdx.x * a.B + b) * a.Hkv + h) * a.R;
+  const long long row0 = partial_row(blockIdx.x, a.B, a.Hkv, a.R, b, h, 0);
   float* ms = a.ws + per * a.D;
   for (int r = threadIdx.x; r < a.R; r += kThreads) {
     ms[row0 + r] = m_s[r];
@@ -587,7 +553,7 @@ __global__ void __launch_bounds__(kThreads, 2) verify_tc_kernel(Args a) {
   for (int ti = t_a; ti < t_b; ++ti) {
     const int st = ring.wait(a, ti);
     if (kPaged && a.table[b * a.tb_sb + ti] <= 0) continue;  // block-uniform skip
-    const int t0 = ti * TT;
+    const int t0 = ti * a.tslots;
     const float* ksc = ring.ks(st, TT);
     const float* vsc = ring.vs(st, TT);
     const __nv_bfloat16* kT;
@@ -656,9 +622,10 @@ __global__ void __launch_bounds__(kThreads, 2) verify_tc_kernel(Args a) {
       }
     }
     __syncthreads();
-    const bool interior = t0 >= range_s[2] && t0 + TT <= min(range_s[3], a.T);
-    softmax_bf16(a, s_s, sld, phi, plo, pld, kQuant ? vsc : nullptr, a.Rp, TT, t0, interior, lo_s,
-                 hi_s, m_s, l_s, al_s);
+    const bool interior =
+        TT == a.tslots && t0 >= range_s[2] && t0 + TT <= min(range_s[3], a.T);
+    softmax_bf16(a, s_s, sld, phi, plo, pld, kQuant ? vsc : nullptr, a.Rp, TT, a.tslots, t0,
+                 interior, lo_s, hi_s, m_s, l_s, al_s);
     __syncthreads();
 
     // ---- O = O * alpha + P V: each warp owns kNTW n8 tiles of D, all rows.
@@ -775,7 +742,7 @@ __global__ void __launch_bounds__(kThreads) verify_f32_kernel(Args a) {
   for (int ti = t_a; ti < t_b; ++ti) {
     const int st = ring.wait(a, ti);
     if (kPaged && a.table[b * a.tb_sb + ti] <= 0) continue;  // block-uniform skip
-    const int t0 = ti * TT;
+    const int t0 = ti * a.tslots;
     const TK* k_t = reinterpret_cast<const TK*>(ring.k(st, TT));
     const TK* v_t = reinterpret_cast<const TK*>(ring.v(st, TT));
     const float* ksc = ring.ks(st, TT);
@@ -784,7 +751,7 @@ __global__ void __launch_bounds__(kThreads) verify_f32_kernel(Args a) {
     for (int i = threadIdx.x; i < R * TT; i += kThreads) {
       const int r = i / TT, j = i % TT, t = t0 + j;
       float sc = -INFINITY;
-      if (t < a.T && t >= lo_s[r] && t < hi_s[r]) {
+      if (j < a.tslots && t < a.T && t >= lo_s[r] && t < hi_s[r]) {
         sc = dot_row(q_s + r * D, k_t + j * ld, D, kQuant ? ksc[j] : 1.f);
         if (a.softcap > 0.f) sc = tanhf(sc / a.softcap) * a.softcap;
       }
@@ -812,56 +779,19 @@ __global__ void __launch_bounds__(kThreads) verify_f32_kernel(Args a) {
   emit_state(a, b, h, m_s, l_s);
 }
 
-// ---- the combine: merge n_split partials by the log-sum-exp rescale ---------
-
-// One thread per output element: grid (ceil(R * D / kThreads), Hkv, B).
-template <typename TQ>
-__global__ void __launch_bounds__(kThreads) verify_combine_kernel(Args a) {
-  const int h = blockIdx.y, b = blockIdx.z;
-  const int R = a.R, D = a.D, g = a.Hq / a.Hkv, ns = a.n_split;
-  const long long per = (long long)ns * a.B * a.Hkv * R;  // rows of all partials
-  const long long step = (long long)a.B * a.Hkv * R;      // one split's rows
-  const long long row0 = ((long long)b * a.Hkv + h) * R;
-  const float* m = a.ws + per * D;
-  const float* l = m + per;
-  TQ* ob = static_cast<TQ*>(a.out) + b * a.o_sb;
-  const int i = blockIdx.x * kThreads + threadIdx.x;
-  if (i < R * D) {
-    const int r = i / D, d = i % D;
-    float mx = -INFINITY;
-    for (int s = 0; s < ns; ++s) mx = fmaxf(mx, m[s * step + row0 + r]);
-    float o = 0.f, den = 0.f;
-    if (mx != -INFINITY) {  // every split empty: exact zeros
-      for (int s = 0; s < ns; ++s) {
-        const long long row = s * step + row0 + r;
-        const float w = expf(m[row] - mx);  // an empty split's m = -inf: w = 0
-        den += w * l[row];
-        o += w * a.ws[row * D + d];
-      }
-    }
-    store_as(ob + (r / g) * a.o_ss + (long long)(h * g + r % g) * a.o_sh + d, o / fmaxf(den, 1e-30f));
-  }
-}
-
 // ---- host side --------------------------------------------------------------
-
-template <typename T>
-bool aligned16(const void* p, long long sb, long long sh, long long st) {
-  const long long e = (long long)sizeof(T);
-  return (reinterpret_cast<uintptr_t>(p) % 16 == 0) && (sb * e) % 16 == 0 &&
-         (sh * e) % 16 == 0 && (st * e) % 16 == 0;
-}
 
 // The tile and ring depth whose layout fits, and its shared-memory bytes
 // (tile 0 when nothing fits). Dense: the largest of 64, 32, 16 slots with
-// two stages. Paged: the page, with two stages or else one.
+// two stages. Paged: the page padded to a multiple of 16 slots, with two
+// stages or else one.
 struct Plan {
   int tile, stages;
   size_t smem;
 };
 template <bool kTC, typename TK, bool kPaged>
 Plan pick(const Args& a) {
-  const int tiles[] = {kPaged ? a.tile : 64, 32, 16};
+  const int tiles[] = {kPaged ? (a.tslots + 15) / 16 * 16 : 64, 32, 16};
   for (int i = 0; i < (kPaged ? 1 : 3); ++i) {
     for (int st = kStages; st >= (kPaged ? 1 : kStages); --st) {
       const size_t bytes = make_layout<kTC, TK>(a.Rp, a.D, tiles[i], st).total;
@@ -883,12 +813,12 @@ int run(Kernel kernel, size_t* opted_in, size_t smem, const Args& a, cudaStream_
   return (int)cudaGetLastError();
 }
 
+// The combine of this call's partials (split_kv.cuh).
 template <typename TQ>
-int combine(const Args& a, cudaStream_t stream) {
-  if (a.n_split == 1) return 0;
-  verify_combine_kernel<TQ><<<dim3((a.R * a.D + kThreads - 1) / kThreads, a.Hkv, a.B), kThreads, 0,
-                              stream>>>(a);
-  return (int)cudaGetLastError();
+int combine_splits(const Args& a, cudaStream_t stream) {
+  const Partials p{a.ws, a.out, a.o_sb, a.o_ss, a.o_sh, a.B, a.Hkv, a.R, a.D, a.Hq / a.Hkv,
+                   a.n_split};
+  return combine<TQ>(p, stream);
 }
 
 template <typename TK, bool kPaged, int kD>
@@ -898,6 +828,7 @@ int launch_tc(Args a, cudaStream_t stream) {
   const Plan p = pick<true, TK, kPaged>(a);
   if (p.tile == 0) return (int)cudaErrorInvalidConfiguration;
   a.tile = p.tile;
+  if (!kPaged) a.tslots = p.tile;
   static size_t opted_in[2] = {48 * 1024, 48 * 1024};
   int rc;
   if constexpr (kPaged) {
@@ -906,7 +837,7 @@ int launch_tc(Args a, cudaStream_t stream) {
   } else {
     rc = run(verify_tc_kernel<TK, false, kD, kStages>, &opted_in[1], p.smem, a, stream);
   }
-  return rc ? rc : combine<__nv_bfloat16>(a, stream);
+  return rc ? rc : combine_splits<__nv_bfloat16>(a, stream);
 }
 
 template <typename TK, bool kPaged>
@@ -915,6 +846,7 @@ int launch_f32(Args a, cudaStream_t stream) {
   const Plan p = pick<false, TK, kPaged>(a);
   if (p.tile == 0) return (int)cudaErrorInvalidConfiguration;
   a.tile = p.tile;
+  if (!kPaged) a.tslots = p.tile;
   static size_t opted_in[2] = {48 * 1024, 48 * 1024};
   int rc;
   if constexpr (kPaged) {
@@ -923,7 +855,7 @@ int launch_f32(Args a, cudaStream_t stream) {
   } else {
     rc = run(verify_f32_kernel<TK, false, kStages>, &opted_in[1], p.smem, a, stream);
   }
-  return rc ? rc : combine<float>(a, stream);
+  return rc ? rc : combine_splits<float>(a, stream);
 }
 
 template <bool kPaged>
@@ -932,8 +864,7 @@ int dispatch(Args& a, int dtype, void* stream) {
   if (a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.B <= 0 || a.S <= 0 || a.T <= 0 || a.n_split <= 0)
     return (int)cudaErrorInvalidValue;
   if (a.n_split > 1 && a.ws == nullptr) return (int)cudaErrorInvalidValue;
-  if (kPaged && (a.tile <= 0 || a.tile % 16 != 0 || a.T % a.tile != 0))
-    return (int)cudaErrorInvalidValue;
+  if (kPaged && (a.tslots <= 0 || a.T % a.tslots != 0)) return (int)cudaErrorInvalidValue;
   if ((a.ks == nullptr) != (a.vs == nullptr)) return (int)cudaErrorInvalidValue;
   const bool quant = a.ks != nullptr;
   a.R = (a.Hq / a.Hkv) * a.S;
@@ -1027,7 +958,7 @@ extern "C" int advspec_paged_decode_attention_mq(
              o_ss, o_sh, ws, n_split);
   a.table = table; a.tb_sb = tb_sb;
   a.B = B; a.S = S; a.Hq = Hq; a.Hkv = Hkv; a.T = P * page; a.D = D;
-  a.tile = page;
+  a.tslots = page;
   a.scale = scale; a.softcap = softcap;
   return dispatch<true>(a, dtype, stream);
 }

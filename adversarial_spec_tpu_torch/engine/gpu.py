@@ -27,10 +27,12 @@ scales, read by the int8-KV variants of B1-B4.
 
 This slice keeps one resident model at a time (loading another alias
 drops the previous one). Specs the port cannot serve yet — multi-device
-meshes, HF checkpoints, and a paged spec whose budget leaves no room for a
+meshes, HF checkpoints, a paged spec whose budget leaves no room for a
 bucketed prompt (the reference's round-synchronous ``generate(paged=True)``
-corner) — get a "not yet ported" error; they are never served silently
-another way. A ``kv_dtype`` other than ``""`` or ``"int8"`` is an error.
+corner), and a paged request with ``request_deadline_s > 0`` (the
+batcher's per-request TIMEOUT watchdog) — get a "not yet ported" error;
+they are never served silently another way. A ``kv_dtype`` other than
+``""`` or ``"int8"`` is an error.
 """
 
 from __future__ import annotations
@@ -93,8 +95,11 @@ def fits_batcher(cfg: ModelConfig, max_new_tokens: int) -> bool:
     return cfg.max_seq_len - max_new_tokens >= MIN_BUCKET
 
 
-def unported_reason(spec: ModelSpec, max_new_tokens: int = 0) -> str | None:
-    """Why the port cannot serve ``spec`` at this budget yet, or None."""
+def unported_reason(
+    spec: ModelSpec, max_new_tokens: int = 0, request_deadline_s: float = 0.0
+) -> str | None:
+    """Why the port cannot serve ``spec`` at this budget and per-request
+    deadline yet, or None."""
     if math.prod(spec.mesh.values()) > 1:
         return f"a multi-device mesh {spec.mesh}"
     if spec.checkpoint != "random":
@@ -105,6 +110,15 @@ def unported_reason(spec: ModelSpec, max_new_tokens: int = 0) -> str | None:
             return (
                 "kv='paged' with a budget that leaves no room for a "
                 "bucketed prompt (the round-synchronous generate(paged=True))"
+            )
+        if request_deadline_s > 0:
+            # The reference's batcher evicts an over-deadline slot as
+            # TIMEOUT; serving the request to its budget instead would
+            # ignore the deadline silently. The dense generate() reads no
+            # such field, in the reference either.
+            return (
+                "the paged batcher's per-request TIMEOUT watchdog "
+                "(request_deadline_s > 0)"
             )
     return None
 
@@ -195,7 +209,9 @@ class GpuEngine:
             try:
                 spec = registry_mod.resolve_model_spec(f"tpu://{alias}")
                 check_kv_dtype(spec.kv_dtype)
-                reason = unported_reason(spec, params.max_new_tokens)
+                reason = unported_reason(
+                    spec, params.max_new_tokens, params.request_deadline_s
+                )
                 if reason is not None:
                     raise NotImplementedError(
                         f"tpu://{alias} needs {reason}, which is not yet "

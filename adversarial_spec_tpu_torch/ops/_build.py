@@ -2,10 +2,10 @@
 
 Each source under ``csrc/`` compiles on first use into a shared library
 with a plain C interface (no PyTorch headers, so a build takes seconds),
-for ``sm_90a`` (Hopper). Libraries are cached by a hash of the source and
-the flags in the build directory — ``build/kernels`` at the repository
-root, or ``$ADVSPEC_KERNEL_BUILD_DIR`` — so an unchanged source is never
-rebuilt. ``build_all`` compiles every source in parallel (one ``nvcc``
+for ``sm_90a`` (Hopper). Libraries are cached by a hash of the source, the
+shared headers and the flags in the build directory — ``build/kernels`` at
+the repository root, or ``$ADVSPEC_KERNEL_BUILD_DIR`` — so an unchanged
+source is never rebuilt. ``build_all`` compiles every source in parallel (one ``nvcc``
 each); nothing here runs when a module is imported.
 """
 
@@ -21,6 +21,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent.parent / "csrc"
 SOURCES = ("decode_attention.cu", "verify_attention.cu", "quant_matmul.cu")
+HEADERS = ("split_kv.cuh",)  # shared by the attention sources
 NVCC_FLAGS = (
     "-gencode",
     "arch=compute_90a,code=sm_90a",
@@ -60,6 +61,8 @@ def nvcc_path() -> str:
 
 def _target(source: str) -> Path:
     h = hashlib.sha256((CSRC / source).read_bytes())
+    for header in HEADERS:  # every source may include them
+        h.update((CSRC / header).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return build_dir() / f"{Path(source).stem}-{h.hexdigest()[:16]}.so"
 

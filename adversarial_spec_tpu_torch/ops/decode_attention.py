@@ -16,13 +16,15 @@ under its own name (``decode_attention_int8kv``,
 ``decode_attention_mq_int8kv``).
 
 Each wrapper launches a hand-written Hopper kernel for CUDA tensors — B1
-``csrc/decode_attention.cu``, B2 the split-KV, tensor-core verify kernel
-of ``csrc/verify_attention.cu`` and its combine pass (``n_split`` from
-``ops/split_kv.py``), both built by ``ops/_build.py`` — and counts the call
-in ``launches``; for CPU tensors it runs the plain PyTorch version beside
-it (``*_plain``), which the tests and the chip smoke also use as the
-reference. A CUDA tensor never takes the plain version: the wrapper
-launches the kernel or raises.
+the split-KV CUDA-core kernel of ``csrc/decode_attention.cu``, B2 the
+split-KV, tensor-core verify kernel of ``csrc/verify_attention.cu``, each
+with its combine pass (``n_split`` from ``ops/split_kv.py``), built by
+``ops/_build.py`` — and counts each launch in ``launches`` (a bf16 span
+longer than the verify kernel's registers hold is cut into runs of
+positions, one launch each); for CPU tensors it runs the plain PyTorch
+version beside it (``*_plain``), which the tests and the chip smoke also
+use as the reference. A CUDA tensor never takes the plain version: the
+wrapper launches the kernel or raises.
 """
 
 from __future__ import annotations
@@ -68,6 +70,7 @@ def _b1_entry():
         + [_P, _L, _L, _L] * 4  # k, v, k scales, v scales
         + [_P, _L]  # bounds
         + [_P, _L, _L]  # out
+        + [_P, _I]  # split workspace, n_split
         + [_I] * 6
         + [_F, _F, _P],
     )
@@ -253,14 +256,44 @@ def span_strides(starts, ends, B: int, S: int) -> list:
     return strides
 
 
-def verify_plan(q, Hkv: int, n_tiles: int) -> tuple[int, torch.Tensor | None]:
-    """B2/B4's (n_split, partials workspace) from shapes alone; raises when
-    the span has more query rows per KV head than the kernel holds."""
+def verify_plan(
+    q, k_cache, n_tiles: int
+) -> tuple[list[tuple[int, int]], int, torch.Tensor | None]:
+    """B2/B4's runs of span positions (one launch each), n_split and
+    partials workspace (sized for the longest run, reused by each launch in
+    stream order), from shapes alone."""
     B, S, Hq, D = q.shape
-    R = Hq // Hkv * S
-    split_kv.check_rows(R, D, q.dtype)
+    Hkv = k_cache.shape[1]
+    g = Hq // Hkv
+    runs = split_kv.span_runs(S, g, D, q.dtype)
     n_split = split_kv.plan_splits(B, Hkv, n_tiles)
-    return n_split, split_kv.workspace(n_split, B, Hkv, R, D, q.device)
+    R = g * max(s1 - s0 for s0, s1 in runs)
+    return runs, n_split, split_kv.workspace(n_split, B, Hkv, R, D, q.device)
+
+
+def span_calls(q, starts, ends, out, runs, middle: list, tail: list, ws, n_split) -> list:
+    """One C argument list (all but the stream) per run ``[s0, s1)`` of
+    span positions: q, ``middle`` (the cache operands), the run's starts,
+    ends and output slice, the workspace and ``n_split``, ``B`` and the
+    run's length, then ``tail`` (the remaining sizes, dtype code, scale and
+    softcap). Pointers and strides only: nothing here reads a device
+    tensor."""
+    B, S = q.shape[:2]
+    calls = []
+    for s0, s1 in runs:
+        qr, orun = q[:, s0:s1], out[:, s0:s1]
+        st, en = (t[:, s0:s1] if t.shape[1] == S else t for t in (starts, ends))
+        strides = span_strides(st, en, B, s1 - s0)
+        calls.append([
+            qr.data_ptr(), qr.stride(0), qr.stride(1), qr.stride(2),
+            *middle,
+            st.data_ptr(), *strides[0],
+            en.data_ptr(), *strides[1],
+            orun.data_ptr(), orun.stride(0), orun.stride(1), orun.stride(2),
+            None if ws is None else ws.data_ptr(), n_split,
+            B, s1 - s0, *tail,
+        ])
+    return calls
 
 
 def scale_args(k_scale, v_scale) -> list:
@@ -291,30 +324,46 @@ def decode_attention(
             q, k_cache, v_cache, bounds, attn_softcap=attn_softcap,
             scale=scale, k_scale=k_scale, v_scale=v_scale,
         )
+    bounds = bounds.contiguous()
+    out, ws, args = decode_args(
+        q, k_cache, v_cache, bounds, attn_softcap, scale, k_scale, v_scale
+    )
+    rc = _b1_entry()(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    del ws  # the partials live until the launch is queued
+    name = "decode_attention" + ("_int8kv" if k_scale is not None else "")
+    _raise_on(rc, name)
+    launches[name] += 1
+    return out
+
+
+def decode_args(
+    q, k_cache, v_cache, bounds, attn_softcap, scale, k_scale, v_scale
+) -> tuple[torch.Tensor, torch.Tensor | None, list]:
+    """B1's output, partials workspace and C arguments (all but the
+    stream), from shapes, strides and pointers alone: nothing here reads a
+    device tensor (the bounds included)."""
     code = _check(q, k_cache, v_cache, bounds, k_scale=k_scale, v_scale=v_scale)
     B, Hq, D = q.shape
     Hkv, T = k_cache.shape[1], k_cache.shape[2]
-    if bounds.shape != (B, 2):
-        raise ValueError(f"bounds shape {tuple(bounds.shape)} != ({B}, 2)")
-    bounds = bounds.contiguous()
+    if bounds.shape != (B, 2) or bounds.stride(1) != 1:
+        raise ValueError(f"bounds must be a contiguous ({B}, 2), got {tuple(bounds.shape)}")
+    g = Hq // Hkv
+    n_split = split_kv.decode_splits(B, Hkv, g, T, D, k_cache.element_size())
+    ws = split_kv.workspace(n_split, B, Hkv, g, D, q.device)
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
     kc, vc = k_cache, v_cache
-    rc = _b1_entry()(
+    return out, ws, [
         q.data_ptr(), q.stride(0), q.stride(1),
         kc.data_ptr(), kc.stride(0), kc.stride(1), kc.stride(2),
         vc.data_ptr(), vc.stride(0), vc.stride(1), vc.stride(2),
         *scale_args(k_scale, v_scale),
         bounds.data_ptr(), bounds.stride(0),
         out.data_ptr(), out.stride(0), out.stride(1),
+        None if ws is None else ws.data_ptr(), n_split,
         B, Hq, Hkv, T, D, code,
         float(scale if scale is not None else 1.0 / math.sqrt(D)),
         float(attn_softcap),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    name = "decode_attention" + ("_int8kv" if k_scale is not None else "")
-    _raise_on(rc, name)
-    launches[name] += 1
-    return out
+    ]
 
 
 def decode_attention_mq(
@@ -335,42 +384,41 @@ def decode_attention_mq(
             attn_softcap=attn_softcap, scale=scale,
             k_scale=k_scale, v_scale=v_scale,
         )
-    out, ws, args = mq_args(
+    out, ws, calls = mq_args(
         q, k_cache, v_cache, starts, ends, attn_softcap, scale, k_scale, v_scale
     )
-    rc = _b2_entry()(*args, torch.cuda.current_stream(q.device).cuda_stream)
-    del ws  # the partials live until the launch is queued
+    entry, stream = _b2_entry(), torch.cuda.current_stream(q.device).cuda_stream
     name = "decode_attention_mq" + ("_int8kv" if k_scale is not None else "")
-    _raise_on(rc, name)
-    launches[name] += 1
+    for args in calls:
+        _raise_on(entry(*args, stream), name)
+        launches[name] += 1
+    del ws  # the partials live until the launches are queued
     return out
 
 
 def mq_args(
     q, k_cache, v_cache, starts, ends, attn_softcap, scale, k_scale, v_scale
 ) -> tuple[torch.Tensor, torch.Tensor | None, list]:
-    """B2's output, partials workspace and C arguments (all but the
-    stream), from shapes, strides and pointers alone: nothing here reads a
-    device tensor."""
+    """B2's output, partials workspace and one C argument list (all but
+    the stream) per run of span positions, from shapes, strides and
+    pointers alone: nothing here reads a device tensor."""
     code = _check(
         q, k_cache, v_cache, starts, ends, k_scale=k_scale, v_scale=v_scale
     )
     B, S, Hq, D = q.shape
     Hkv, T = k_cache.shape[1], k_cache.shape[2]
-    strides = span_strides(starts, ends, B, S)
-    n_split, ws = verify_plan(q, Hkv, -(-T // split_kv.DENSE_TILE))
+    span_strides(starts, ends, B, S)
+    runs, n_split, ws = verify_plan(q, k_cache, -(-T // split_kv.DENSE_TILE))
     out = torch.empty((B, S, Hq, D), dtype=q.dtype, device=q.device)
     kc, vc = k_cache, v_cache
-    return out, ws, [
-        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+    middle = [
         kc.data_ptr(), kc.stride(0), kc.stride(1), kc.stride(2),
         vc.data_ptr(), vc.stride(0), vc.stride(1), vc.stride(2),
         *scale_args(k_scale, v_scale),
-        starts.data_ptr(), *strides[0],
-        ends.data_ptr(), *strides[1],
-        out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
-        None if ws is None else ws.data_ptr(), n_split,
-        B, S, Hq, Hkv, T, D, code,
+    ]
+    tail = [
+        Hq, Hkv, T, D, code,
         float(scale if scale is not None else 1.0 / math.sqrt(D)),
         float(attn_softcap),
     ]
+    return out, ws, span_calls(q, starts, ends, out, runs, middle, tail, ws, n_split)

@@ -23,11 +23,13 @@ reserved TRASH page and negative ids are padding, so any entry <= 0 is
 unmapped and never contributes.
 
 Each wrapper launches a hand-written Hopper kernel for CUDA tensors — B3
-the paged tile-address policy of ``csrc/decode_attention.cu``, B4 the
-split-KV verify kernel of ``csrc/verify_attention.cu`` with its combine
-pass; both read one page per tile, skip pages with id <= 0 whole and never
-load pages outside the union of the rows' windows (B4 takes pages that are
-a multiple of 16 slots) — and counts the call in ``launches``; for CPU
+the paged slot policy of the split-KV kernel of ``csrc/decode_attention.cu``
+(16 KB tiles aligned in slot space: part of a page, one page or several),
+B4 the split-KV verify kernel of ``csrc/verify_attention.cu`` (one page per
+tile, padded to a multiple of 16 slots), each with its combine pass; both
+read the page ids on the card, never load a page with id <= 0 or a slot
+outside the rows' windows, and take any page size — and counts each launch
+in ``launches``; for CPU
 tensors it runs the plain PyTorch version beside it (``*_plain``, the
 ``ops/flash_common.py`` update folded over the gathered pages), which the
 tests and the chip smoke also use as the reference. A CUDA tensor never
@@ -41,7 +43,7 @@ import math
 
 import torch
 
-from adversarial_spec_tpu_torch.ops import _build
+from adversarial_spec_tpu_torch.ops import _build, split_kv
 from adversarial_spec_tpu_torch.ops.decode_attention import (
     SOURCE,
     VERIFY_SOURCE,
@@ -49,6 +51,7 @@ from adversarial_spec_tpu_torch.ops.decode_attention import (
     _raise_on,
     scale_args,
     scales_pair,
+    span_calls,
     span_strides,
     verify_plan,
 )
@@ -84,6 +87,7 @@ def _b3_entry():
         + [_P, _L]  # table
         + [_P, _L]  # bounds
         + [_P, _L, _L]  # out
+        + [_P, _I]  # split workspace, n_split
         + [_I] * 7
         + [_F, _F, _P],
     )
@@ -234,17 +238,37 @@ def paged_decode_attention(
             attn_softcap=attn_softcap, scale=scale,
             k_scale=k_scale, v_scale=v_scale,
         )
+    bounds = bounds.contiguous()
+    out, ws, args = decode_args(
+        q, k_pages, v_pages, page_table, bounds, attn_softcap, scale, k_scale, v_scale
+    )
+    rc = _b3_entry()(*args, torch.cuda.current_stream(q.device).cuda_stream)
+    del ws  # the partials live until the launch is queued
+    name = _kernel_name("paged_decode_attention", k_scale)
+    _raise_on(rc, name)
+    launches[name] += 1
+    return out
+
+
+def decode_args(
+    q, k_pages, v_pages, page_table, bounds, attn_softcap, scale, k_scale, v_scale
+) -> tuple[torch.Tensor, torch.Tensor | None, list]:
+    """B3's output, partials workspace and C arguments (all but the
+    stream), from shapes, strides and pointers alone: nothing here reads a
+    device tensor (the bounds and the page table included)."""
     code = _check(
         q, k_pages, v_pages, page_table, bounds, k_scale=k_scale, v_scale=v_scale
     )
     B, Hq, D = q.shape
     Hkv, page = k_pages.shape[1], k_pages.shape[2]
     _check_table(page_table, B)
-    if bounds.shape != (B, 2):
-        raise ValueError(f"bounds shape {tuple(bounds.shape)} != ({B}, 2)")
-    bounds = bounds.contiguous()
+    if bounds.shape != (B, 2) or bounds.stride(1) != 1:
+        raise ValueError(f"bounds must be a contiguous ({B}, 2), got {tuple(bounds.shape)}")
+    P, g = page_table.shape[1], Hq // Hkv
+    n_split = split_kv.decode_splits(B, Hkv, g, P * page, D, k_pages.element_size())
+    ws = split_kv.workspace(n_split, B, Hkv, g, D, q.device)
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
-    rc = _b3_entry()(
+    return out, ws, [
         q.data_ptr(), q.stride(0), q.stride(1),
         k_pages.data_ptr(), k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         v_pages.data_ptr(), v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
@@ -252,15 +276,11 @@ def paged_decode_attention(
         page_table.data_ptr(), page_table.stride(0),
         bounds.data_ptr(), bounds.stride(0),
         out.data_ptr(), out.stride(0), out.stride(1),
-        B, Hq, Hkv, page_table.shape[1], page, D, code,
+        None if ws is None else ws.data_ptr(), n_split,
+        B, Hq, Hkv, P, page, D, code,
         float(scale if scale is not None else 1.0 / math.sqrt(D)),
         float(attn_softcap),
-        torch.cuda.current_stream(q.device).cuda_stream,
-    )
-    name = _kernel_name("paged_decode_attention", k_scale)
-    _raise_on(rc, name)
-    launches[name] += 1
-    return out
+    ]
 
 
 def paged_decode_attention_mq(
@@ -282,15 +302,16 @@ def paged_decode_attention_mq(
             attn_softcap=attn_softcap, scale=scale,
             k_scale=k_scale, v_scale=v_scale,
         )
-    out, ws, args = mq_args(
+    out, ws, calls = mq_args(
         q, k_pages, v_pages, page_table, starts, ends, attn_softcap, scale,
         k_scale, v_scale,
     )
-    rc = _b4_entry()(*args, torch.cuda.current_stream(q.device).cuda_stream)
-    del ws  # the partials live until the launch is queued
+    entry, stream = _b4_entry(), torch.cuda.current_stream(q.device).cuda_stream
     name = _kernel_name("paged_decode_attention_mq", k_scale)
-    _raise_on(rc, name)
-    launches[name] += 1
+    for args in calls:
+        _raise_on(entry(*args, stream), name)
+        launches[name] += 1
+    del ws  # the partials live until the launches are queued
     return out
 
 
@@ -298,9 +319,10 @@ def mq_args(
     q, k_pages, v_pages, page_table, starts, ends, attn_softcap, scale,
     k_scale, v_scale,
 ) -> tuple[torch.Tensor, torch.Tensor | None, list]:
-    """B4's output, partials workspace and C arguments (all but the
-    stream), from shapes, strides and pointers alone: nothing here reads a
-    device tensor (the page table included)."""
+    """B4's output, partials workspace and one C argument list (all but
+    the stream) per run of span positions, from shapes, strides and
+    pointers alone: nothing here reads a device tensor (the page table
+    included)."""
     code = _check(
         q, k_pages, v_pages, page_table, starts, ends,
         k_scale=k_scale, v_scale=v_scale,
@@ -308,25 +330,19 @@ def mq_args(
     B, S, Hq, D = q.shape
     Hkv, page = k_pages.shape[1], k_pages.shape[2]
     _check_table(page_table, B)
-    if page % 16:
-        raise ValueError(
-            f"the verify kernel takes pages of a multiple of 16 slots, got {page}"
-        )
-    strides = span_strides(starts, ends, B, S)
+    span_strides(starts, ends, B, S)
     P = page_table.shape[1]
-    n_split, ws = verify_plan(q, Hkv, P)
+    runs, n_split, ws = verify_plan(q, k_pages, P)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
-    return out, ws, [
-        q.data_ptr(), q.stride(0), q.stride(1), q.stride(2),
+    middle = [
         k_pages.data_ptr(), k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),
         v_pages.data_ptr(), v_pages.stride(0), v_pages.stride(1), v_pages.stride(2),
         *scale_args(k_scale, v_scale),
         page_table.data_ptr(), page_table.stride(0),
-        starts.data_ptr(), *strides[0],
-        ends.data_ptr(), *strides[1],
-        out.data_ptr(), out.stride(0), out.stride(1), out.stride(2),
-        None if ws is None else ws.data_ptr(), n_split,
-        B, S, Hq, Hkv, P, page, D, code,
+    ]
+    tail = [
+        Hq, Hkv, P, page, D, code,
         float(scale if scale is not None else 1.0 / math.sqrt(D)),
         float(attn_softcap),
     ]
+    return out, ws, span_calls(q, starts, ends, out, runs, middle, tail, ws, n_split)

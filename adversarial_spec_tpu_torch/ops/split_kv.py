@@ -1,16 +1,18 @@
-"""Host-side planning of the split-KV verify kernels (B2, B4).
+"""Host-side planning of the split-KV attention kernels (B1-B4).
 
-``csrc/verify_attention.cu`` runs the speculative verify on a
-``(n_split, Hkv, B)`` grid: each block finds the union of its (row, KV
-head)'s windows on the card, cuts the union's tiles into ``n_split``
-near-equal contiguous runs and takes one; a second kernel merges the
-runs' f32 partials. The host picks ``n_split`` from shapes alone — it
-never reads ``starts``, ``ends`` or the page table, which would cost a
-blocking device-to-host copy per layer.
+``csrc/verify_attention.cu`` (B2, B4) and ``csrc/decode_attention.cu``
+(B1, B3) run on a ``(n_split, heads, B)`` grid: each block finds its (row,
+KV head)'s window (the verify kernels: the union of the span's windows) on
+the card, cuts its tiles into ``n_split`` near-equal contiguous runs and
+takes one; a second kernel merges the runs' f32 partials. The host picks
+``n_split`` from shapes alone — it never reads ``bounds``, ``starts``,
+``ends`` or the page table, which would cost a blocking device-to-host
+copy per layer and keep the call out of a CUDA graph.
 
-``split_tiles`` and ``window_union`` mirror the kernel's own arithmetic
-for the tests (``tests/test_torch_split_kv.py``), which fold a plain
-split-and-combine through ``ops/flash_common.py`` with them.
+``split_tiles`` and ``window_union`` mirror the kernels' own arithmetic
+(``csrc/split_kv.cuh`` ``split_run``) for the tests
+(``tests/test_torch_split_kv.py``), which fold a plain split-and-combine
+through ``ops/flash_common.py`` with them.
 """
 
 from __future__ import annotations
@@ -24,6 +26,12 @@ BLOCKS_PER_SM = 2
 DENSE_TILE = 64  # the dense verify's largest tile, in cache slots
 MAX_ACC = 16384  # bf16 q: padded rows x head_dim held in registers
 ROW_PAD = 16  # bf16 q: query rows are padded to a multiple of the mma's 16
+# The S=1 kernel (B1, B3): 128 threads at most 128 registers each (its
+# launch bound) and ~49-52 KB of shared memory (a 3-stage ring of 16 KB
+# K/V tiles), so one SM holds four blocks.
+DECODE_BLOCKS_PER_SM = 4
+DECODE_STAGE_BYTES = 16384  # K + V bytes of one staged tile
+DECODE_GROUP = 4  # query rows a block holds; larger groups take more blocks
 
 
 def plan_splits(
@@ -31,11 +39,32 @@ def plan_splits(
 ) -> int:
     """The least ``n_split`` for which ``n_split * B * Hkv`` blocks fill the
     card's ``slots`` resident-block slots, capped by the ``n_tiles`` tiles a
-    row can have (and at least 1). A block streams its run of tiles with
-    little else in flight to hide its latency, so both blocks an SM can
-    hold are filled (``chip_smoke.py`` times B2 and B4 over a range of
-    split counts beside this plan)."""
+    row can have (and at least 1). ``slots`` is SMs times the blocks of
+    the kernel at hand one SM holds: ``BLOCKS_PER_SM`` for the verify
+    kernels, ``DECODE_BLOCKS_PER_SM`` for the S=1 kernel. A block streams
+    its run of tiles with little else in flight to hide its latency, so
+    every block an SM can hold is filled (``chip_smoke.py`` times B1-B4
+    over a range of split counts beside this plan)."""
     return max(1, min(-(-slots // (B * Hkv)), n_tiles))
+
+
+def decode_tile(D: int, kv_itemsize: int) -> int:
+    """Slots of one staged tile of the S=1 kernel: 16 KB of K and V rows
+    (32 at bf16 D=128, 64 for an int8 cache). Tiles are aligned in slot
+    space, for the dense cache and the paged pool alike."""
+    return DECODE_STAGE_BYTES // (2 * D * kv_itemsize)
+
+
+def decode_splits(B: int, Hkv: int, g: int, T: int, D: int, kv_itemsize: int) -> int:
+    """B1/B3's ``n_split`` for a ``T``-slot cache: ``plan_splits`` over the
+    ``Hkv * ceil(g / DECODE_GROUP)`` blocks of each row, at the S=1
+    kernel's own blocks per SM."""
+    return plan_splits(
+        B,
+        Hkv * -(-g // DECODE_GROUP),
+        -(-T // decode_tile(D, kv_itemsize)),
+        slots=SMS * DECODE_BLOCKS_PER_SM,
+    )
 
 
 def window_union(starts, ends, T: int) -> tuple[int, int]:
@@ -57,14 +86,23 @@ def split_tiles(lo: int, hi: int, tile: int, n_split: int, i: int) -> tuple[int,
     return first + i * n // n_split, first + (i + 1) * n // n_split
 
 
-def check_rows(R: int, D: int, dtype: torch.dtype) -> None:
-    """Raise unless the kernel holds ``R`` query rows per KV head (``g *
-    S``): with bf16 q the padded rows times ``D`` live in registers."""
-    if dtype == torch.bfloat16 and -(-R // ROW_PAD) * ROW_PAD * D > MAX_ACC:
+def span_runs(S: int, g: int, D: int, dtype: torch.dtype) -> list[tuple[int, int]]:
+    """The runs ``[s0, s1)`` of span positions the verify kernel takes one
+    launch each. bf16 q keeps its query rows, padded to ``ROW_PAD``, times
+    ``D`` in registers (at most ``MAX_ACC``), so a longer span is cut into
+    runs of as many positions as fit; each position attends only to its
+    own window, so the runs' outputs are the span's. f32 q keeps its rows
+    in shared memory: one launch, which the kernel refuses (a launch
+    error) when no tile fits beside them."""
+    if dtype != torch.bfloat16:
+        return [(0, S)]
+    per = MAX_ACC // D // ROW_PAD * ROW_PAD // g
+    if per == 0:
         raise ValueError(
-            f"the verify kernel takes at most {MAX_ACC // D} query rows per KV "
-            f"head (g * S) at head_dim {D} in bfloat16, got {R}"
+            f"the verify kernel holds at most {MAX_ACC // D} query rows per KV head "
+            f"at head_dim {D} in bfloat16; got {g} query heads per KV head"
         )
+    return [(s0, min(s0 + per, S)) for s0 in range(0, S, per)]
 
 
 def workspace(

@@ -10,7 +10,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
 1. device  — the card's name, and its name and power limit as nvidia-smi
    reports them (that line is printed raw as well);
 2. build   — compiles every CUDA source of the port with nvcc (in
-   parallel), from this checkout, into build/kernels;
+   parallel), from this checkout, into build/kernels, and prints each
+   attention kernel's registers, spills and shared memory (``ptxas``);
 3. kernels — each kernel at its main path's shapes against its plain
    PyTorch version on the card, with the tolerance stated, bf16 and f32:
    - dense B1/B2 (Llama-3-8B: B=4, Hq=32, Hkv=8, D=128, T=4224; S=9 for
@@ -51,12 +52,23 @@ Phases, each printing one JSON line; any failure exits non-zero:
      row, [B, 1] starts, softcap, 64 query rows per KV head, unaligned
      strides, pages of 16 and 64 slots with a trash entry, -1 padding and
      a NaN-poisoned trash page, B4 over one position against B3;
+   - the split-KV S=1 kernels B1/B3 (csrc/decode_attention.cu), float and
+     int8 K/V, bf16 and f32 q, head_dim 64/128/256, on their edges: a
+     ragged tail past T, left pads, one slot (exactly v), an empty window,
+     softcap, 4, 1 and 7 query heads per KV head, unaligned strides, pages
+     of 1, 8, 24 and 64 slots with a trash entry, -1 padding and a
+     poisoned trash page, B4 at S=1 against B3; then B4 on pages of 8 and
+     24 slots and B2/B4 over a 33-position span (132 query rows per KV
+     head: two launches in bf16); B1 and B3, like B2 and B4, are also
+     timed over a range of forced split counts;
 4. slice   — the dense path: GpuEngine.chat on tpu://random-8b (Llama-3-8B
    at full width, bf16, random weights from seed 0) for four opponent
-   requests, greedy, 128 new tokens, speculation on; B1/B2 launch counters
-   are zeroed just before and read just after, and both must have
-   launched; with ``--profile``, one more chat call runs under
-   torch.profiler (device time by kernel, idle share);
+   requests, greedy, 128 new tokens, speculation on, then the same round
+   with speculation off (every decode step B1: its wall, decode seconds
+   and launches); B1/B2 launch counters are zeroed just before each call
+   and read just after, B2 must launch in the first and B1 in the second;
+   with ``--profile``, one more chat call runs under torch.profiler
+   (device time by kernel, idle share);
 5. paged   — the paged path: GpuEngine.chat on a temporary registry entry
    random-8b with kv="paged" (the continuous batcher): twelve opponent
    requests through 8 slots, 128 new tokens, greedy; round 1 with
@@ -79,9 +91,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
    requests, speculation on); (b) random-8b with kv="paged",
    kv_dtype="int8" and quant="int4" (the paged slice's twelve requests
    through 8 slots, round 1 speculation on, round 2 off, one batcher).
-   Counters zeroed just before each chat() and read just after: B2-i8 and
-   B1-i8 must launch in (a), B4-i8 and B6 in (b) round 1, B3-i8 in round
-   2, the float-cache B1-B4 never, and round 2 must hit the prefix cache.
+   Counters zeroed just before each chat() and read just after: B2-i8 must
+   launch in (a), B1-i8 in (a) repeated with speculation off, B4-i8 and B6
+   in (b) round 1, B3-i8 in round 2, the float-cache B1-B4 never, and
+   round 2 must hit the prefix cache.
    Reports walls, prefill/decode seconds, tokens/s, the cache or pool
    bytes beside the bf16 layout's, resident weight bytes and peak memory;
 8. agree   — tiny f32 models decoded greedily on the card (kernels) and on
@@ -187,18 +200,19 @@ def timed(fn, iters: int, torch) -> dict:
     return {"ms": graph_ms(fn, iters, torch), "call_ms": cuda_ms(fn, iters, torch)}
 
 
-SWEEP_SPLITS = (1, 2, 3, 5, 8, 9, 12)
+SWEEP_SPLITS = (1, 2, 3, 5, 8, 9, 12)  # the verify kernels (B2, B4)
+DECODE_SWEEP = (1, 2, 4, 8, 9, 12, 17, 24, 34, 48)  # the S=1 kernels (B1, B3)
 
 
-def split_sweep(torch, fn, n_tiles: int) -> dict:
-    """Device ms of a verify call with n_split forced to each count of
-    SWEEP_SPLITS (capped by the tiles), beside the planner's choice."""
+def split_sweep(torch, fn, n_tiles: int, splits=SWEEP_SPLITS) -> dict:
+    """Device ms of a split-KV call with n_split forced to each count of
+    ``splits`` (capped by the tiles), beside the planner's choice."""
     from adversarial_spec_tpu_torch.ops import split_kv
 
     real = split_kv.plan_splits
     out = {}
     try:
-        for n in SWEEP_SPLITS:
+        for n in splits:
             split_kv.plan_splits = lambda *args, n=n, **kw: max(1, min(n, n_tiles))
             out[str(n)] = graph_ms(fn, 20, torch)
     finally:
@@ -388,6 +402,7 @@ def phase_kernels(torch, da) -> tuple[dict, list]:
     for r, (lo, hi) in enumerate(a["bnd"]):
         mask1[r, :, :, lo:hi] = True
 
+    b1_tiles = -(-T_CACHE // split_kv.decode_tile(D, elem))
     results["decode_attention"] = {
         **timed(lambda i: da.decode_attention(q, *kv(i), bounds), 50, torch),
         "plain_ms": cuda_ms(
@@ -399,6 +414,10 @@ def phase_kernels(torch, da) -> tuple[dict, list]:
         "bytes": b1_bytes,
         "ops": b1_ops,
         "max_abs_err": a["err"],
+        "n_split": split_kv.decode_splits(B, HKV, HQ // HKV, T_CACHE, D, elem),
+        "split_sweep": split_sweep(
+            torch, lambda i: da.decode_attention(q, *kv(i), bounds), b1_tiles, DECODE_SWEEP
+        ),
     }
     a = kw_b2
     q, s_t, e_t = a["q"], a["starts"], a["ends"]
@@ -436,6 +455,16 @@ def phase_kernels(torch, da) -> tuple[dict, list]:
     return results, checks
 
 
+def kv_pair(torch, gen, dev, shape, dtype, kv):
+    """Layer 1 of a random two-layer K/V pair: in ``dtype``, or int8 beside
+    its f32 scales (``kv="int8"``)."""
+    from adversarial_spec_tpu_torch.ops import kv_inputs
+
+    kf = torch.randn((2, *shape), generator=gen, device=dev)[1]
+    vf = torch.randn((2, *shape), generator=gen, device=dev)[1]
+    return kv_inputs.kv_pair(kf, vf, dtype, kv)
+
+
 def phase_verify_edges(torch, da, pa) -> list:
     """The split-KV verify kernels (B2, B4) against their plain versions on
     the edges their grid, ring and combine must get right; returns the
@@ -445,18 +474,7 @@ def phase_verify_edges(torch, da, pa) -> list:
     gen.manual_seed(4)
     checks = []
     check = functools.partial(check_close, checks)
-
-    def int8(x):  # symmetric per-(slot, head) int8 and its f32 scales
-        s = x.abs().amax(-1, keepdim=True).clamp(min=1e-8) / 127.0
-        return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8), s
-
-    def kv_pair(shape, dtype, kv):
-        kf = torch.randn((2, *shape), generator=gen, device=dev)[1]
-        vf = torch.randn((2, *shape), generator=gen, device=dev)[1]
-        if kv == "int8":
-            (k, ks), (v, vs) = int8(kf), int8(vf)
-            return k, v, dict(k_scale=ks, v_scale=vs)
-        return kf.to(dtype), vf.to(dtype), {}
+    pair = functools.partial(kv_pair, torch, gen, dev)
 
     def tensor(x):
         return torch.tensor(x, dtype=torch.int32, device=dev)
@@ -466,7 +484,7 @@ def phase_verify_edges(torch, da, pa) -> list:
         for kv in ("float", "int8"):
             for hd in (64, 128, 256):
                 tag = f"{tn} {kv} D={hd}"
-                k, v, sc = kv_pair((3, 2, 300, hd), dtype, kv)
+                k, v, sc = pair((3, 2, 300, hd), dtype, kv)
                 q = torch.randn((3, 16, 8, hd), generator=gen, device=dev).to(dtype)
                 q9 = q[:, :S_SPAN]
                 # Row 0 runs past the last full tile (T = 300), row 1's union
@@ -494,7 +512,7 @@ def phase_verify_edges(torch, da, pa) -> list:
                           da.decode_attention_mq_plain(q9, ku, vu, starts, ends), tol, empty_row=2)
                 for page in (16, 64):
                     n_pages, P = 24, 8
-                    kp, vp, psc = kv_pair((n_pages, 2, page, hd), dtype, kv)
+                    kp, vp, psc = pair((n_pages, 2, page, hd), dtype, kv)
                     table = tensor([[3, 0, 5, 6, 7, 8, 9, 10], [11, 12, 13] + [-1] * 5,
                                     [14] + [-1] * 7])
                     used = set(table.flatten().tolist())
@@ -525,6 +543,102 @@ def phase_verify_edges(torch, da, pa) -> list:
                           pa.paged_decode_attention(q[:, 0], kp, vp, table, bnd, **psc), tol)
                     check(f"B4 edges {tag} page={page} S=1", one,
                           pa.paged_decode_attention_plain(q[:, 0], kp, vp, table, bnd, **psc), tol)
+    torch.cuda.synchronize()
+    return checks
+
+
+def phase_decode_edges(torch, da, pa) -> list:
+    """The split-KV S=1 kernels (B1, B3) against their plain versions on
+    the edges their grid, ring and combine must get right, then the
+    verify kernels on the spans and pages they refused before (a span of
+    g * S = 132 query rows per KV head, pages of 8 and 24 slots); returns
+    the checks."""
+    from adversarial_spec_tpu_torch.ops import kv_inputs
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(6)
+    checks = []
+    check = functools.partial(check_close, checks)
+    pair = functools.partial(kv_pair, torch, gen, dev)
+
+    def tensor(x):
+        return torch.tensor(x, dtype=torch.int32, device=dev)
+
+    paged = functools.partial(kv_inputs.poisoned_pages, gen, dev)
+
+    for dtype, tol in ((torch.bfloat16, BF16_TOL), (torch.float32, F32_TOL)):
+        tn = str(dtype).split(".")[1]
+        for kv in ("float", "int8"):
+            for hd in (64, 128, 256):
+                tag = f"{tn} {kv} D={hd}"
+                k, v, sc = pair((4, 2, 300, hd), dtype, kv)
+                # Row 0 runs past the last full tile (T = 300), row 1 has a
+                # left pad, row 2 one slot, row 3 an empty window.
+                bnd = tensor([[0, 300], [37, 250], [100, 101], [80, 80]])
+                for hq in (8, 2, 14):  # 4, 1 and 7 query heads per KV head
+                    q = torch.randn((4, hq, hd), generator=gen, device=dev).to(dtype)
+                    for cap in (0.0, 50.0):
+                        got = da.decode_attention(q, k, v, bnd, attn_softcap=cap, **sc)
+                        want = da.decode_attention_plain(q, k, v, bnd, attn_softcap=cap, **sc)
+                        check(f"B1 edges {tag} g={hq // 2} softcap={cap}", got, want, tol,
+                              empty_row=3)
+                    one = v[2, :, 100].float()
+                    if kv == "int8":
+                        one = one * sc["v_scale"][2, :, 100]
+                    if not torch.equal(got[2], one.to(dtype).repeat_interleave(hq // 2, 0)):
+                        raise AssertionError(f"B1 edges {tag}: one slot is not exactly v")
+                if kv == "float":  # rows (D + 1) elements apart: no 16-byte copies
+                    buf = torch.randn((4, 2, 300, hd + 1), generator=gen, device=dev).to(dtype)
+                    ku, vu = buf[..., :hd], buf[..., 1:]
+                    check(f"B1 edges {tag} unaligned rows", da.decode_attention(q, ku, vu, bnd),
+                          da.decode_attention_plain(q, ku, vu, bnd), tol, empty_row=3)
+                q = q[:3, :8]
+                for page in (1, 8, 24, 64):
+                    kp, vp, psc, table, pb = paged(page, hd, dtype, kv)
+                    for cap in (0.0, 30.0):
+                        got = pa.paged_decode_attention(q, kp, vp, table, pb, attn_softcap=cap,
+                                                        **psc)
+                        want = pa.paged_decode_attention_plain(q, kp, vp, table, pb,
+                                                               attn_softcap=cap, **psc)
+                        check(f"B3 edges {tag} page={page} softcap={cap}", got, want, tol,
+                              empty_row=2)
+                    one = pa.paged_decode_attention_mq(q[:, None], kp, vp, table, pb[:, :1],
+                                                       pb[:, 1:], **psc)[:, 0]
+                    check(f"B4 {tag} page={page} S=1 vs B3", one,
+                          pa.paged_decode_attention(q, kp, vp, table, pb, **psc), tol, empty_row=2)
+                    if page in (8, 24):  # pages no multiple of 16 (B4 pads them)
+                        ends = (pb[:, 1:] - 8 + torch.arange(9, device=dev)).int()
+                        ends[2] = 0
+                        q9 = torch.randn((3, 9, 8, hd), generator=gen, device=dev).to(dtype)
+                        check(f"B4 odd pages {tag} page={page}",
+                              pa.paged_decode_attention_mq(q9, kp, vp, table, pb[:, :1], ends,
+                                                           **psc),
+                              pa.paged_decode_attention_mq_plain(q9, kp, vp, table, pb[:, :1],
+                                                                 ends, **psc), tol, empty_row=2)
+            # A span of 33 positions at g = 4: 132 query rows per KV head
+            # (bf16 q: two launches, runs of 32 and 1 positions; f32 q: one).
+            q33 = torch.randn((3, 33, 8, 128), generator=gen, device=dev).to(dtype)
+            k, v, sc = pair((3, 2, 300, 128), dtype, kv)
+            ends = tensor([[250 + j for j in range(1, 34)], [100 + j for j in range(33)],
+                           [60] * 33])
+            starts = tensor([[0], [40], [60]])
+            check(f"B2 long span {tn} {kv} S=33",
+                  da.decode_attention_mq(q33, k, v, starts, ends, **sc),
+                  da.decode_attention_mq_plain(q33, k, v, starts, ends, **sc), tol, empty_row=2)
+            kp, vp, psc, table, _ = paged(64, 128, dtype, kv)
+            if dtype == torch.float32 and kv == "float":
+                # f32 q keeps its 132 rows in shared memory, where no 64-slot
+                # f32 page fits beside them: the launch must be refused.
+                try:
+                    pa.paged_decode_attention_mq(q33, kp, vp, table, starts, ends)
+                except RuntimeError:
+                    continue
+                raise AssertionError("B4 long span f32 float S=33 page=64 was not refused")
+            check(f"B4 long span {tn} {kv} S=33",
+                  pa.paged_decode_attention_mq(q33, kp, vp, table, starts, ends, **psc),
+                  pa.paged_decode_attention_mq_plain(q33, kp, vp, table, starts, ends, **psc),
+                  tol, empty_row=2)
     torch.cuda.synchronize()
     return checks
 
@@ -649,6 +763,7 @@ def phase_paged_kernels(torch, pa) -> tuple[dict, list]:
     m3[7] = True  # SDPA gives NaN for an all-masked row; the yardstick only
     q, bnd = kw["b3"]["q"], kw["b3"]["bnd"]
     read, scored = paged_counts(table_l, b3_starts, b3_ends)
+    b3_tiles = -(-P_TAB * PAGE // split_kv.decode_tile(D, elem))
     results["paged_decode_attention"] = {
         **timed(lambda i: pa.paged_decode_attention(q, *kv(i), table, bnd), 50, torch),
         "plain_ms": cuda_ms(
@@ -658,6 +773,11 @@ def phase_paged_kernels(torch, pa) -> tuple[dict, list]:
         "bytes": read * per_slot + 2 * q.numel() * elem + table.numel() * 4 + bnd.numel() * 4,
         "ops": 4 * HQ * D * scored,
         "max_abs_err": kw["b3"]["err"],
+        "n_split": split_kv.decode_splits(NS, HKV, HQ // HKV, P_TAB * PAGE, D, elem),
+        "split_sweep": split_sweep(
+            torch, lambda i: pa.paged_decode_attention(q, *kv(i), table, bnd), b3_tiles,
+            DECODE_SWEEP,
+        ),
     }
     m4 = mask(b4_st, b4_en)
     m4[7] = True
@@ -1221,19 +1341,37 @@ def phase_slice(torch, profile: bool = False) -> dict:
         raise RuntimeError(
             f"rows stopped early: {[c.usage.output_tokens for c in comps]}"
         )
-    if launched["decode_attention"] == 0:
-        # Speculation kept matching to the budget: force plain decode.
-        spec_mod.configure(enabled=False)
-        da.reset_launches()
-        engine.chat(reqs, sp)
-        spec_mod.configure(enabled=True)
-        calls.append({"call": "speculation off", "speculative": False, **dict(da.launches)})
-        launched["decode_attention"] = da.launches["decode_attention"]
-    if min(launched.values()) == 0:
-        raise RuntimeError(f"a kernel of the path never launched: {calls}")
     prefill_s = sum(c.usage.prefill_time_s for c in comps)
     decode_s = sum(c.usage.decode_time_s for c in comps)
     out_tok = sum(c.usage.output_tokens for c in comps)
+    # The same round with speculation off (the user's ADVSPEC_SPECULATIVE=0,
+    # or the adaptive off-switch): every decode step is B1, at full width.
+    spec_mod.configure(enabled=False)
+    try:
+        da.reset_launches()
+        t = time.monotonic()
+        off = engine.chat(reqs, sp)
+        torch.cuda.synchronize()
+        wall_off = time.monotonic() - t
+    finally:
+        spec_mod.configure(enabled=True)
+    bad = [c.error for c in off if not c.ok]
+    if bad or any(c.usage.output_tokens != 128 for c in off):
+        raise RuntimeError(f"speculation-off chat failed: {bad or [c.usage for c in off]}")
+    off_decode_s = sum(c.usage.decode_time_s for c in off)
+    calls.append({"call": "speculation off", "speculative": False, **dict(da.launches)})
+    speculation_off = {
+        "chat_wall_s": wall_off,
+        "prefill_s": sum(c.usage.prefill_time_s for c in off),
+        "decode_s": off_decode_s,
+        "decode_tokens_per_s": 128 * len(off) / off_decode_s if off_decode_s > 0 else 0.0,
+        "launches": dict(da.launches),
+    }
+    if da.launches["decode_attention"] == 0:
+        raise RuntimeError(f"B1 never launched with speculation off: {calls}")
+    launched["decode_attention"] += da.launches["decode_attention"]
+    if min(launched.values()) == 0:
+        raise RuntimeError(f"a kernel of the path never launched: {calls}")
     prof = profile_chat(torch, engine, reqs, sp) if profile else None
     return {
         "phase": "slice",
@@ -1247,6 +1385,7 @@ def phase_slice(torch, profile: bool = False) -> dict:
         "decode_s": decode_s,
         "decode_tokens_per_s": out_tok / decode_s if decode_s > 0 else 0.0,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "speculation_off": speculation_off,
         "launch_calls": calls,
         "launches": launched,
         **({"profile": prof} if prof else {}),
@@ -1579,15 +1718,18 @@ def phase_kv8(torch, profile: bool = False) -> dict:
             _, main = chat(engine, reqs, "kv8 dense")
         calls = [main]
         launched = dict(main["launches"])
-        if not launched.get("decode_attention_int8kv"):
-            # Speculation kept matching to the budget: force plain decode.
-            spec_mod.configure(enabled=False)
-            try:
-                _, off = chat(engine, reqs, "kv8 dense, speculation off")
-            finally:
-                spec_mod.configure(enabled=True)
-            calls.append({"speculation": "off", **off})
-            launched["decode_attention_int8kv"] = off["launches"].get("decode_attention_int8kv", 0)
+        # The same round with speculation off: every decode step is B1-i8.
+        spec_mod.configure(enabled=False)
+        try:
+            _, off = chat(engine, reqs, "kv8 dense, speculation off")
+        finally:
+            spec_mod.configure(enabled=True)
+        calls.append({"speculation": "off", **off})
+        if not off["launches"].get("decode_attention_int8kv"):
+            raise RuntimeError(f"kv8 dense: B1-i8 never launched with speculation off: {off}")
+        launched["decode_attention_int8kv"] = (
+            launched.get("decode_attention_int8kv", 0) + off["launches"]["decode_attention_int8kv"]
+        )
         missing = [k for k in ("decode_attention_int8kv", "decode_attention_mq_int8kv")
                    if not launched.get(k)]
         if missing:
@@ -1605,7 +1747,7 @@ def phase_kv8(torch, profile: bool = False) -> dict:
         "cache_bytes": made[0][0],
         "bf16_cache_bytes": made[0][1],
         "resident_weight_bytes": resident,
-        "calls": calls[1:],
+        "speculation_off": off,
         "launches": launched,
         **({"profile": prof} if prof else {}),
     }
@@ -1793,16 +1935,17 @@ def main(argv: list[str]) -> int:
     ]
     emit({"phase": "build", "seconds": time.monotonic() - t,
           "sources": sorted(libs), "ptxas": ptxas})
-    # The verify kernels' registers, shared memory and spills, by function.
-    report = [
-        ln.split(":", 1)[-1].strip()
-        for ln in _build.ptxas_report("verify_attention.cu").splitlines()
-        if "entry function" in ln or "registers" in ln or "spill" in ln
-    ]
-    with contextlib.suppress(OSError, subprocess.SubprocessError):
-        report = subprocess.run(["c++filt"], input="\n".join(report), capture_output=True,
-                                text=True, timeout=60).stdout.splitlines() or report
-    emit({"phase": "ptxas", "source": "verify_attention.cu", "lines": report})
+    # The attention kernels' registers, shared memory and spills, by function.
+    for src in ("decode_attention.cu", "verify_attention.cu"):
+        report = [
+            ln.split(":", 1)[-1].strip()
+            for ln in _build.ptxas_report(src).splitlines()
+            if "entry function" in ln or "registers" in ln or "spill" in ln
+        ]
+        with contextlib.suppress(OSError, subprocess.SubprocessError):
+            report = subprocess.run(["c++filt"], input="\n".join(report), capture_output=True,
+                                    text=True, timeout=60).stdout.splitlines() or report
+        emit({"phase": "ptxas", "source": src, "lines": report})
 
     kres, checks = phase_kernels(torch, da)
     pres, pchecks = phase_paged_kernels(torch, pa)
@@ -1812,6 +1955,7 @@ def main(argv: list[str]) -> int:
     kres.update(ires)
     checks += ichecks
     checks += phase_verify_edges(torch, da, pa)
+    checks += phase_decode_edges(torch, da, pa)
     qres, qchecks, qcases = phase_quant_kernels(torch, qm, quant)
     kres.update(qres)
     emit({"phase": "kernels", "checks": checks, "quant_checks": len(qchecks),

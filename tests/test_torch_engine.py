@@ -253,6 +253,27 @@ def test_paged_chat_streams_and_cancels(shared_registry, serving_defaults):
     assert {row for row, _ in seen} == {0, 1, 2}
 
 
+def test_paged_request_deadline_gets_not_yet_ported_error(shared_registry, serving_defaults):
+    """A paged request with ``request_deadline_s > 0`` is refused with the
+    port's "not yet ported" error until the batcher's per-request TIMEOUT
+    watchdog is ported: served to its budget it would ignore the deadline
+    silently. The dense path serves it (the reference's ``generate()``
+    reads no such field either), and the paged path serves the same
+    request without a deadline."""
+    port = GpuEngine(device="cpu")
+    req = ChatRequest("tpu://paged-f32", "s", "u")
+    timed = SamplingParams(max_new_tokens=4, greedy=True, request_deadline_s=30.0)
+    comps = port.chat([req] * 2, timed)
+    assert len(comps) == 2
+    for c in comps:
+        assert not c.ok and "not yet ported" in c.error
+        assert "request_deadline_s" in c.error and c.text == ""
+    dense = port.chat([ChatRequest("tpu://random-tiny", "s", "u")], timed)
+    assert dense[0].ok and dense[0].usage.output_tokens == 4
+    untimed = port.chat([req], SamplingParams(max_new_tokens=4, greedy=True))
+    assert untimed[0].ok and untimed[0].usage.output_tokens == 4
+
+
 def test_unknown_alias_and_validate(shared_registry):
     port = GpuEngine(device="cpu")
     assert port.validate("tpu://random-tiny") is None

@@ -22,6 +22,8 @@ from adversarial_spec_tpu_torch.ops import decode_attention as da
 from adversarial_spec_tpu_torch.ops import paged_attention as pa
 from adversarial_spec_tpu_torch.ops import quant
 from adversarial_spec_tpu_torch.ops import quant_matmul as qm
+from adversarial_spec_tpu_torch.ops import split_kv
+from adversarial_spec_tpu_torch.ops.kv_inputs import int8_kv, kv_pair, poisoned_pages
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)
@@ -141,12 +143,6 @@ def test_cuda_paged_kernels_match_plain_versions(cuda, dtype):
     }
 
 
-def _int8(x):
-    """Symmetric per-(slot, head) int8 of ``x`` [..., D]: (int8, f32 [..., 1])."""
-    s = x.float().abs().amax(-1, keepdim=True).clamp(min=1e-8) / 127.0
-    return torch.clamp(torch.round(x.float() / s), -127, 127).to(torch.int8), s
-
-
 @pytest.mark.gpu
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
 def test_cuda_int8kv_kernels_match_plain_versions(cuda, dtype):
@@ -157,7 +153,7 @@ def test_cuda_int8kv_kernels_match_plain_versions(cuda, dtype):
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     gen = torch.Generator(device=cuda).manual_seed(3)
     kf, vf = _cache(gen, cuda, torch.float32, 3, 2, 300, 128)
-    (k8, ks), (v8, vs) = _int8(kf), _int8(vf)
+    (k8, ks), (v8, vs) = int8_kv(kf), int8_kv(vf)
     q = torch.randn((3, 9, 8, 128), generator=gen, device=cuda).to(dtype)
     sc = dict(k_scale=ks, v_scale=vs)
     da.reset_launches()
@@ -175,7 +171,7 @@ def test_cuda_int8kv_kernels_match_plain_versions(cuda, dtype):
     assert (got[2] == 0).all()
 
     shape = (2, 12, 2, 16, 128)  # [L, n_pages, Hkv, page, D], layer 1 used
-    (kp, ksp), (vp, vsp) = (_int8(torch.randn(shape, generator=gen, device=cuda)) for _ in "kv")
+    (kp, ksp), (vp, vsp) = (int8_kv(torch.randn(shape, generator=gen, device=cuda)) for _ in "kv")
     kp, ksp, vp, vsp = kp[1], ksp[1], vp[1], vsp[1]
     kp[0] = vp[0] = -128
     ksp[0] = vsp[0] = float("nan")
@@ -207,14 +203,6 @@ def test_cuda_int8kv_kernels_match_plain_versions(cuda, dtype):
     }
 
 
-def _kv_pair(kf, vf, dtype, kv):
-    """K/V in ``dtype`` (a float cache) or int8 with f32 scales."""
-    if kv == "int8":
-        (k, ks), (v, vs) = _int8(kf), _int8(vf)
-        return k, v, dict(k_scale=ks, v_scale=vs)
-    return kf.to(dtype), vf.to(dtype), {}
-
-
 def _assert_verify_close(got, want, tol, empty_row=None):
     assert torch.isfinite(got).all()
     torch.testing.assert_close(got.float(), want.float(), **tol)
@@ -237,7 +225,7 @@ def test_cuda_verify_kernels_edge_cases(cuda, dtype, kv, D):
     da.reset_launches()
     pa.reset_launches()
     kf, vf = _cache(gen, cuda, torch.float32, 3, 2, 300, D)
-    k, v, sc = _kv_pair(kf, vf, dtype, kv)
+    k, v, sc = kv_pair(kf, vf, dtype, kv)
     q = torch.randn((3, 16, 8, D), generator=gen, device=cuda).to(dtype)
     ends = torch.tensor([[291 + j for j in range(9)], [71 + j for j in range(9)], [300] * 9],
                         dtype=torch.int32, device=cuda)
@@ -268,7 +256,7 @@ def test_cuda_verify_kernels_edge_cases(cuda, dtype, kv, D):
         shape = (2, n_pages, 2, page, D)  # [L, n_pages, Hkv, page, D], layer 1 used
         kf = torch.randn(shape, generator=gen, device=cuda)[1]
         vf = torch.randn(shape, generator=gen, device=cuda)[1]
-        kp, vp, psc = _kv_pair(kf, vf, dtype, kv)
+        kp, vp, psc = kv_pair(kf, vf, dtype, kv)
         table = torch.tensor([[3, 0, 5, 6, 7, 8, 9, 10], [11, 12, 13, -1, -1, -1, -1, -1],
                               [14, -1, -1, -1, -1, -1, -1, -1]], dtype=torch.int32, device=cuda)
         unused = [0] + [p for p in range(n_pages) if p not in set(table.flatten().tolist())]
@@ -357,3 +345,130 @@ def test_cuda_quant_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
     q4 = quant.quantize_int4(torch.randn((65, 32), device=cuda))
     with pytest.raises(ValueError, match="contraction width"):
         qm.matmul_int4(x, q4["q4"], q4["scale"])  # 33 packed rows; K=64 needs 32
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("D", [64, 128, 256])
+@pytest.mark.parametrize("kv", ["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_s1_kernels_edge_cases(cuda, dtype, kv, D):
+    """The split-KV S=1 kernels (B1, B3) against their plain versions: a
+    ragged tail past T, left pads, a single slot (exactly v), an empty
+    window (exact zeros), softcap, groups of 4, 1 and 7 query heads per KV
+    head, unaligned strides; pages of 1, 8, 24 and 64 slots with a trash
+    entry, -1 padding and a NaN-poisoned trash page; B4 at S=1 against
+    B3."""
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    gen = torch.Generator(device=cuda).manual_seed(D + 1)
+    da.reset_launches()
+    pa.reset_launches()
+    kf, vf = _cache(gen, cuda, torch.float32, 4, 2, 300, D)
+    k, v, sc = kv_pair(kf, vf, dtype, kv)
+    bnd = torch.tensor([[0, 300], [37, 250], [100, 101], [80, 80]], dtype=torch.int32,
+                       device=cuda)
+    for Hq in (8, 2, 14):
+        q = torch.randn((4, Hq, D), generator=gen, device=cuda).to(dtype)
+        for cap in (0.0, 50.0):
+            got = da.decode_attention(q, k, v, bnd, attn_softcap=cap, **sc)
+            want = da.decode_attention_plain(q, k, v, bnd, attn_softcap=cap, **sc)
+            _assert_verify_close(got, want, tol, empty_row=3)
+        one = v[2, :, 100].float()
+        if kv == "int8":
+            one = one * sc["v_scale"][2, :, 100]
+        assert torch.equal(got[2], one.to(dtype).repeat_interleave(Hq // 2, 0))
+    if kv == "float":  # rows (D + 1) elements apart: staged element by element
+        buf = torch.randn((4, 2, 300, D + 1), generator=gen, device=cuda).to(dtype)
+        ku, vu = buf[..., :D], buf[..., 1:]
+        _assert_verify_close(da.decode_attention(q, ku, vu, bnd),
+                             da.decode_attention_plain(q, ku, vu, bnd), tol, empty_row=3)
+    q = q[:3, :8]
+    for page in (1, 8, 24, 64):
+        kp, vp, psc, table, pb = poisoned_pages(gen, cuda, page, D, dtype, kv)
+        for cap in (0.0, 30.0):
+            got = pa.paged_decode_attention(q, kp, vp, table, pb, attn_softcap=cap, **psc)
+            want = pa.paged_decode_attention_plain(q, kp, vp, table, pb, attn_softcap=cap, **psc)
+            _assert_verify_close(got, want, tol, empty_row=2)
+        one = pa.paged_decode_attention_mq(q[:, None], kp, vp, table, pb[:, :1], pb[:, 1:],
+                                           **psc)[:, 0]
+        _assert_verify_close(one, pa.paged_decode_attention(q, kp, vp, table, pb, **psc), tol,
+                             empty_row=2)
+    suffix = "_int8kv" if kv == "int8" else ""
+    assert da.launches["decode_attention" + suffix] == (7 if kv == "float" else 6)
+    assert pa.launches["paged_decode_attention" + suffix] == 12
+    assert da.launches["decode_attention" + ("" if suffix else "_int8kv")] == 0
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_s1_kernels_every_split_count(cuda, dtype, kv, monkeypatch):
+    """B1 and B3 with n_split forced from 1 to past the tile count: runs
+    shorter than a tile, empty runs and the combine agree with the plain
+    version."""
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    kf, vf = _cache(gen, cuda, torch.float32, 4, 2, 300, 128)
+    k, v, sc = kv_pair(kf, vf, dtype, kv)
+    q = torch.randn((4, 8, 128), generator=gen, device=cuda).to(dtype)
+    bnd = torch.tensor([[0, 300], [37, 250], [100, 101], [80, 80]], dtype=torch.int32,
+                       device=cuda)
+    kp, vp, psc, table, pb = poisoned_pages(gen, cuda, 24, 128, dtype, kv)
+    want = da.decode_attention_plain(q, k, v, bnd, **sc)
+    want_p = pa.paged_decode_attention_plain(q[:3], kp, vp, table, pb, **psc)
+    for n in (1, 2, 3, 5, 9, 17, 40):
+        monkeypatch.setattr(split_kv, "plan_splits", lambda *a, n=n, **kw: n)
+        _assert_verify_close(da.decode_attention(q, k, v, bnd, **sc), want, tol, empty_row=3)
+        _assert_verify_close(pa.paged_decode_attention(q[:3], kp, vp, table, pb, **psc), want_p,
+                             tol, empty_row=2)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["float", "int8"])
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+def test_cuda_verify_kernels_odd_pages_and_long_spans(cuda, dtype, kv):
+    """B4 on pages of 8 and 24 slots (staged into 16-slot multiples whose
+    pad slots are zero-filled and masked), and B2/B4 over a span of S = 33
+    positions at g = 4 (132 query rows per KV head: bf16 q takes two
+    launches, runs of 32 and 1 positions; f32 q one), against their plain
+    versions. f32 q keeps its 132 rows in shared memory, where no 64-slot
+    page of f32 K/V fits beside them: that launch is refused, not served
+    another way."""
+    tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
+    gen = torch.Generator(device=cuda).manual_seed(24)
+    da.reset_launches()
+    pa.reset_launches()
+    S = 9
+    q = torch.randn((3, 33, 8, 128), generator=gen, device=cuda).to(dtype)
+    for page in (8, 24):
+        kp, vp, psc, table, pb = poisoned_pages(gen, cuda, page, 128, dtype, kv)
+        ends = (pb[:, 1:] - S + 1 + torch.arange(S, device=cuda)).int()
+        ends[2] = 0
+        starts = pb[:, :1]
+        for cap in (0.0, 30.0):
+            got = pa.paged_decode_attention_mq(q[:, :S], kp, vp, table, starts, ends,
+                                               attn_softcap=cap, **psc)
+            want = pa.paged_decode_attention_mq_plain(q[:, :S], kp, vp, table, starts, ends,
+                                                      attn_softcap=cap, **psc)
+            _assert_verify_close(got, want, tol, empty_row=2)
+    # The long span, dense and paged (page 64).
+    kf, vf = _cache(gen, cuda, torch.float32, 3, 2, 300, 128)
+    k, v, sc = kv_pair(kf, vf, dtype, kv)
+    ends = torch.tensor([[250 + j for j in range(1, 34)], [100 + j for j in range(33)],
+                         [60] * 33], dtype=torch.int32, device=cuda)
+    starts = torch.tensor([[0], [40], [60]], dtype=torch.int32, device=cuda)
+    got = da.decode_attention_mq(q, k, v, starts, ends, **sc)
+    _assert_verify_close(got, da.decode_attention_mq_plain(q, k, v, starts, ends, **sc), tol,
+                         empty_row=2)
+    kp, vp, psc, table, _ = poisoned_pages(gen, cuda, 64, 128, dtype, kv)
+    refused = dtype == torch.float32 and kv == "float"
+    if refused:
+        with pytest.raises(RuntimeError, match="launch failed"):
+            pa.paged_decode_attention_mq(q, kp, vp, table, starts, ends, **psc)
+    else:
+        got = pa.paged_decode_attention_mq(q, kp, vp, table, starts, ends, **psc)
+        want = pa.paged_decode_attention_mq_plain(q, kp, vp, table, starts, ends, **psc)
+        _assert_verify_close(got, want, tol, empty_row=2)
+    runs = len(split_kv.span_runs(33, 4, 128, dtype))
+    suffix = "_int8kv" if kv == "int8" else ""
+    assert da.launches["decode_attention_mq" + suffix] == runs
+    assert pa.launches["paged_decode_attention_mq" + suffix] == 4 + (0 if refused else runs)
