@@ -71,10 +71,17 @@
 //
 // Paged pools: physical page 0 is the trash page and negative ids are table
 // padding, so a page whose id is <= 0 is skipped whole (block-uniform),
-// values and scale page alike. A tile is exactly one page (tslots = page
-// real slots), staged into a shared-memory tile of the next multiple of 16
-// slots: the pad slots are zero-filled by the copy and masked like slots
-// past the window, so any page size works.
+// values and scale page alike. A tile is one page (tslots = page real
+// slots) where the page fits in shared memory beside the span's rows; where
+// it does not, a page is staged as tpp tiles of page / tpp slots (halves,
+// quarters, ... of the page, at least 16 slots: D = 256 with 128-slot f32
+// pages takes 64, or 32 beside 132 f32 query rows). Either way a tile is staged
+// into a shared-memory tile of the next multiple of 16 slots: the pad
+// slots are zero-filled by the copy and masked like slots past the window,
+// so any page size works. advspec_verify_max_rows reports, from the same
+// tile choice, the most query rows an f32 launch holds; the wrappers cut
+// longer f32 spans into runs of positions that fit (ops/split_kv.py
+// span_runs).
 //
 // Layout and contract (checked again by the Python wrappers):
 //   q   [B, S, Hq, D]   D contiguous
@@ -121,8 +128,9 @@ struct Args {
   long long o_sb, o_ss, o_sh;
   float* ws;  // partials, n_split > 1 only
   // tile: shared-memory slots of a staged tile (a multiple of 16 for bf16
-  // q); tslots: the cache slots it holds (dense: tile; paged: the page).
-  int B, S, Hq, Hkv, T, D, R, Rp, tile, tslots, n_split, vec16, q16;
+  // q); tslots: the cache slots it holds (dense: tile; paged: the page, or
+  // page / tpp where a page does not fit); tpp: tiles per page (paged).
+  int B, S, Hq, Hkv, T, D, R, Rp, tile, tslots, tpp, n_split, vec16, q16;
   float scale, softcap;
 };
 
@@ -250,9 +258,9 @@ template <bool kPaged>
 __device__ __forceinline__ bool tile_home(const Args& a, int b, int ti, long long* row,
                                           int* slot0) {
   if (kPaged) {
-    const int id = a.table[b * a.tb_sb + ti];
+    const int id = a.table[b * a.tb_sb + ti / a.tpp];
     *row = id;
-    *slot0 = 0;
+    *slot0 = ti % a.tpp * a.tslots;
     return id > 0;
   }
   *row = b;
@@ -552,7 +560,7 @@ __global__ void __launch_bounds__(kThreads, 2) verify_tc_kernel(Args a) {
 #pragma unroll 1
   for (int ti = t_a; ti < t_b; ++ti) {
     const int st = ring.wait(a, ti);
-    if (kPaged && a.table[b * a.tb_sb + ti] <= 0) continue;  // block-uniform skip
+    if (kPaged && a.table[b * a.tb_sb + ti / a.tpp] <= 0) continue;  // block-uniform skip
     const int t0 = ti * a.tslots;
     const float* ksc = ring.ks(st, TT);
     const float* vsc = ring.vs(st, TT);
@@ -741,7 +749,7 @@ __global__ void __launch_bounds__(kThreads) verify_f32_kernel(Args a) {
 #pragma unroll 1
   for (int ti = t_a; ti < t_b; ++ti) {
     const int st = ring.wait(a, ti);
-    if (kPaged && a.table[b * a.tb_sb + ti] <= 0) continue;  // block-uniform skip
+    if (kPaged && a.table[b * a.tb_sb + ti / a.tpp] <= 0) continue;  // block-uniform skip
     const int t0 = ti * a.tslots;
     const TK* k_t = reinterpret_cast<const TK*>(ring.k(st, TT));
     const TK* v_t = reinterpret_cast<const TK*>(ring.v(st, TT));
@@ -781,24 +789,38 @@ __global__ void __launch_bounds__(kThreads) verify_f32_kernel(Args a) {
 
 // ---- host side --------------------------------------------------------------
 
-// The tile and ring depth whose layout fits, and its shared-memory bytes
-// (tile 0 when nothing fits). Dense: the largest of 64, 32, 16 slots with
-// two stages. Paged: the page padded to a multiple of 16 slots, with two
-// stages or else one.
+// The tile, the cache slots it holds and the ring depth whose layout fits
+// Rp query rows, and its shared-memory bytes (tile 0 when nothing fits).
+// Dense: the largest of 64, 32, 16 slots with two stages. Paged: the page
+// and then its halves down to 16 slots, each padded to a multiple of 16
+// slots, with two stages or else one.
 struct Plan {
-  int tile, stages;
+  int tile, tslots, stages;
   size_t smem;
 };
 template <bool kTC, typename TK, bool kPaged>
-Plan pick(const Args& a) {
-  const int tiles[] = {kPaged ? (a.tslots + 15) / 16 * 16 : 64, 32, 16};
-  for (int i = 0; i < (kPaged ? 1 : 3); ++i) {
+Plan pick(int Rp, int D, int page) {
+  for (int ts = kPaged ? page : 64;; ts /= 2) {
+    const int tile = (ts + 15) / 16 * 16;
     for (int st = kStages; st >= (kPaged ? 1 : kStages); --st) {
-      const size_t bytes = make_layout<kTC, TK>(a.Rp, a.D, tiles[i], st).total;
-      if (bytes <= kMaxSmem) return {tiles[i], st, bytes};
+      const size_t bytes = make_layout<kTC, TK>(Rp, D, tile, st).total;
+      if (bytes <= kMaxSmem) return {tile, ts, st, bytes};
     }
+    if (kPaged ? ts % 2 != 0 || ts / 2 < 16 : ts == 16) return {0, 0, 0, 0};
   }
-  return {0, 0, 0};
+}
+
+// f32 q: the most query rows (R = g x span positions) whose layout fits
+// beside the smallest tile pick() would take (0 when none does).
+template <typename TK, bool kPaged>
+int f32_max_rows(int D, int page) {
+  if (pick<false, TK, kPaged>(1, D, page).tile == 0) return 0;
+  int lo = 1, hi = 1 << 16;  // pick(lo) fits; find the last R that fits
+  while (lo < hi) {
+    const int mid = lo + (hi - lo + 1) / 2;
+    if (pick<false, TK, kPaged>(mid, D, page).tile != 0) lo = mid; else hi = mid - 1;
+  }
+  return lo;
 }
 
 template <typename Kernel>
@@ -825,10 +847,11 @@ template <typename TK, bool kPaged, int kD>
 int launch_tc(Args a, cudaStream_t stream) {
   a.Rp = (a.R + 15) / 16 * 16;
   if (a.Rp * kD > kMaxAcc) return (int)cudaErrorInvalidValue;
-  const Plan p = pick<true, TK, kPaged>(a);
+  const Plan p = pick<true, TK, kPaged>(a.Rp, kD, a.tslots);
   if (p.tile == 0) return (int)cudaErrorInvalidConfiguration;
   a.tile = p.tile;
-  if (!kPaged) a.tslots = p.tile;
+  a.tpp = kPaged ? a.tslots / p.tslots : 1;
+  a.tslots = p.tslots;
   static size_t opted_in[2] = {48 * 1024, 48 * 1024};
   int rc;
   if constexpr (kPaged) {
@@ -843,10 +866,11 @@ int launch_tc(Args a, cudaStream_t stream) {
 template <typename TK, bool kPaged>
 int launch_f32(Args a, cudaStream_t stream) {
   a.Rp = a.R;
-  const Plan p = pick<false, TK, kPaged>(a);
+  const Plan p = pick<false, TK, kPaged>(a.Rp, a.D, a.tslots);
   if (p.tile == 0) return (int)cudaErrorInvalidConfiguration;
   a.tile = p.tile;
-  if (!kPaged) a.tslots = p.tile;
+  a.tpp = kPaged ? a.tslots / p.tslots : 1;
+  a.tslots = p.tslots;
   static size_t opted_in[2] = {48 * 1024, 48 * 1024};
   int rc;
   if constexpr (kPaged) {
@@ -959,6 +983,21 @@ extern "C" int advspec_paged_decode_attention_mq(
   a.table = table; a.tb_sb = tb_sb;
   a.B = B; a.S = S; a.Hq = Hq; a.Hkv = Hkv; a.T = P * page; a.D = D;
   a.tslots = page;
+  a.tpp = 1;
   a.scale = scale; a.softcap = softcap;
   return dispatch<true>(a, dtype, stream);
+}
+
+// The most query rows per KV head (g x span positions) one f32-q launch of
+// B2 (paged = 0) or B4 (paged = 1, page slots per page) holds at head_dim
+// D over a float (kv_itemsize 4) or int8 (1) cache: the rows that fit in
+// shared memory beside the smallest tile the kernel would stage. 0 when
+// not even one row fits; -1 for arguments the kernels do not take.
+extern "C" int advspec_verify_max_rows(int D, int kv_itemsize, int paged, int page) {
+  if ((D != 64 && D != 128 && D != 256) || (paged && page <= 0)) return -1;
+  if (kv_itemsize == 4)
+    return paged ? f32_max_rows<float, true>(D, page) : f32_max_rows<float, false>(D, 0);
+  if (kv_itemsize == 1)
+    return paged ? f32_max_rows<int8_t, true>(D, page) : f32_max_rows<int8_t, false>(D, 0);
+  return -1;
 }

@@ -30,6 +30,7 @@ wrapper launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -88,6 +89,18 @@ def _b2_entry():
         + [_I] * 7
         + [_F, _F, _P],
     )
+
+
+@functools.lru_cache(maxsize=None)
+def f32_max_rows(D: int, kv_itemsize: int, page: int | None) -> int:
+    """The most query rows per KV head one f32-q verify launch holds (B2
+    when ``page`` is None, else B4 over ``page``-slot pages), as the
+    kernel's own tile choice reports it (``advspec_verify_max_rows``)."""
+    fn = _build.entry(VERIFY_SOURCE, "advspec_verify_max_rows", [_I] * 4)
+    rows = fn(D, kv_itemsize, int(page is not None), page or 0)
+    if rows < 0:
+        raise ValueError(f"verify kernel takes no head_dim {D} / {kv_itemsize}-byte cache")
+    return rows
 
 
 def scales_pair(k_scale, v_scale) -> bool:
@@ -257,15 +270,19 @@ def span_strides(starts, ends, B: int, S: int) -> list:
 
 
 def verify_plan(
-    q, k_cache, n_tiles: int
+    q, k_cache, n_tiles: int, page: int | None = None
 ) -> tuple[list[tuple[int, int]], int, torch.Tensor | None]:
     """B2/B4's runs of span positions (one launch each), n_split and
     partials workspace (sized for the longest run, reused by each launch in
-    stream order), from shapes alone."""
+    stream order), from shapes alone. ``page``: B4's slots per page. f32 q
+    on the card takes its runs from the kernel's own row limit."""
     B, S, Hq, D = q.shape
     Hkv = k_cache.shape[1]
     g = Hq // Hkv
-    runs = split_kv.span_runs(S, g, D, q.dtype)
+    max_rows = None
+    if q.dtype == torch.float32 and q.is_cuda:
+        max_rows = f32_max_rows(D, k_cache.element_size(), page)
+    runs = split_kv.span_runs(S, g, D, q.dtype, max_rows)
     n_split = split_kv.plan_splits(B, Hkv, n_tiles)
     R = g * max(s1 - s0 for s0, s1 in runs)
     return runs, n_split, split_kv.workspace(n_split, B, Hkv, R, D, q.device)

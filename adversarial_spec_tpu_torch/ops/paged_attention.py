@@ -332,7 +332,7 @@ def mq_args(
     _check_table(page_table, B)
     span_strides(starts, ends, B, S)
     P = page_table.shape[1]
-    runs, n_split, ws = verify_plan(q, k_pages, P)
+    runs, n_split, ws = verify_plan(q, k_pages, P, page)
     out = torch.empty(q.shape, dtype=q.dtype, device=q.device)
     middle = [
         k_pages.data_ptr(), k_pages.stride(0), k_pages.stride(1), k_pages.stride(2),

@@ -86,21 +86,30 @@ def split_tiles(lo: int, hi: int, tile: int, n_split: int, i: int) -> tuple[int,
     return first + i * n // n_split, first + (i + 1) * n // n_split
 
 
-def span_runs(S: int, g: int, D: int, dtype: torch.dtype) -> list[tuple[int, int]]:
+def span_runs(
+    S: int, g: int, D: int, dtype: torch.dtype, max_rows: int | None = None
+) -> list[tuple[int, int]]:
     """The runs ``[s0, s1)`` of span positions the verify kernel takes one
-    launch each. bf16 q keeps its query rows, padded to ``ROW_PAD``, times
-    ``D`` in registers (at most ``MAX_ACC``), so a longer span is cut into
-    runs of as many positions as fit; each position attends only to its
-    own window, so the runs' outputs are the span's. f32 q keeps its rows
-    in shared memory: one launch, which the kernel refuses (a launch
-    error) when no tile fits beside them."""
-    if dtype != torch.bfloat16:
+    launch each; each position attends only to its own window, so the
+    runs' outputs are the span's. bf16 q keeps its query rows, padded to
+    ``ROW_PAD``, times ``D`` in registers (at most ``MAX_ACC``), so a
+    longer span is cut into runs of as many positions as fit. f32 q keeps
+    its rows in shared memory beside a tile: ``max_rows`` is the most the
+    kernel holds (its C entry ``advspec_verify_max_rows``, read by the
+    wrappers for a CUDA tensor), and runs are ``max_rows // g`` positions;
+    without it (a CPU or meta tensor) the span is one run."""
+    if dtype == torch.bfloat16:
+        limit = MAX_ACC // D // ROW_PAD * ROW_PAD
+    elif max_rows is None:
         return [(0, S)]
-    per = MAX_ACC // D // ROW_PAD * ROW_PAD // g
+    else:
+        limit = max_rows
+    per = limit // g
     if per == 0:
         raise ValueError(
-            f"the verify kernel holds at most {MAX_ACC // D} query rows per KV head "
-            f"at head_dim {D} in bfloat16; got {g} query heads per KV head"
+            f"the verify kernel holds at most {limit} query rows per KV head "
+            f"at head_dim {D} in {str(dtype).split('.')[-1]}; got {g} query heads "
+            "per KV head"
         )
     return [(s0, min(s0 + per, S)) for s0 in range(0, S, per)]
 

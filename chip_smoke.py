@@ -4,6 +4,10 @@
     python3 chip_smoke.py            # every phase (needs one CUDA card)
     python3 chip_smoke.py --quick    # device, build and kernel phases only
     python3 chip_smoke.py --profile  # also profile one more chat call
+    python3 chip_smoke.py --qmm-only # device, build and B5/B6 only: their checks
+                                     # and device times (chiprun_out/chip_smoke_qmm.json);
+                                     # run from another checkout's root, it times that
+                                     # checkout's B5/B6 the same way
 
 Phases, each printing one JSON line; any failure exits non-zero:
 
@@ -30,15 +34,22 @@ Phases, each printing one JSON line; any failure exits non-zero:
    - the dequant-matmuls B5 (int8) and B6 (int4) at Llama-3-8B's weights
      (K, N) = (4096, 4096) wq/wo, (4096, 1024) wk/wv, (4096, 14336)
      w_gate/w_up, (14336, 4096) w_down and (4096, 128256) the head (f32
-     out), at M = 4, 36, 72, 1024 and 4096 rows, plus edge cases (M=1, int4 odd
-     K=255, N=40, 130 ragged rows, a 3-D x, an unaligned x row stride,
-     weight scales near 1e-12 and 1e12); bf16 timings rotate the weights
-     past the L2, beside the plain version, a bf16 cuBLAS product on the
-     weight dequantized beforehand (the yardstick; the port never calls
-     it) and the bound (packed weight + x + output bytes over 3.35 TB/s,
-     or 2MKN over 989 TFLOP/s). The kernels line gives B5/B6 as one
-     forward's 225 products (B5 at M=36, B6 at M=72); each case is in
-     chip_smoke.json and printed as a "qmm" line;
+     out), at M = 4, 36, 72, 512, 1024 and 4096 rows (the head at the
+     decode rows and at the 1 or 4 rows a prefill chunk ends), plus edge
+     cases (M=1, int4 odd K=255 at decode and prefill rows, N=40 and
+     N=144, ragged rows past 128, a 3-D x, unaligned x row strides,
+     weight scales near 1e-12 and 1e12), each main case called twice and
+     required bit-identical; bf16 device times by CUDA-graph replay
+     (``ms``; ``call_ms`` the eager call) over enough weight copies to
+     span twice the L2, beside the plain version, a bf16 cuBLAS product on
+     the weight dequantized beforehand, timed the same way (the
+     yardstick; the port never calls it), and the bound (packed weight +
+     x + output bytes over 3.35 TB/s, or 2MKN over 989 TFLOP/s). The
+     kernels line gives B5/B6 as one forward (224 layer products and the
+     head; B5 at M=36, B6 at M=72); each case and the per-forward sums at
+     every M are in chip_smoke.json, printed as "qmm" lines; the decode
+     path's K split is swept over 1-16 blocks at the line's M, and the
+     planned split is timed against whole-K tiles at 96-256 rows;
    - the int8-KV variants of B1-B4 (kv_dtype="int8": int8 K/V beside
      per-(slot, head) f32 scales) at the same shapes and windows, bf16 and
      f32 q, the pool's trash and unused pages holding int8 -128 and NaN
@@ -58,9 +69,10 @@ Phases, each printing one JSON line; any failure exits non-zero:
      softcap, 4, 1 and 7 query heads per KV head, unaligned strides, pages
      of 1, 8, 24 and 64 slots with a trash entry, -1 padding and a
      poisoned trash page, B4 at S=1 against B3; then B4 on pages of 8 and
-     24 slots and B2/B4 over a 33-position span (132 query rows per KV
-     head: two launches in bf16); B1 and B3, like B2 and B4, are also
-     timed over a range of forced split counts;
+     24 slots, B2/B4 over a 33-position span (132 query rows per KV
+     head: two launches in bf16; f32 runs from the kernel's own row limit)
+     and B4 at D = 256 over 128-slot pages (S = 9 and 33); B1 and B3, like
+     B2 and B4, are also timed over a range of forced split counts;
 4. slice   — the dense path: GpuEngine.chat on tpu://random-8b (Llama-3-8B
    at full width, bf16, random weights from seed 0) for four opponent
    requests, greedy, 128 new tokens, speculation on, then the same round
@@ -551,8 +563,8 @@ def phase_decode_edges(torch, da, pa) -> list:
     """The split-KV S=1 kernels (B1, B3) against their plain versions on
     the edges their grid, ring and combine must get right, then the
     verify kernels on the spans and pages they refused before (a span of
-    g * S = 132 query rows per KV head, pages of 8 and 24 slots); returns
-    the checks."""
+    g * S = 132 query rows per KV head, pages of 8 and 24 slots, D = 256
+    over 128-slot pages); returns the checks."""
     from adversarial_spec_tpu_torch.ops import kv_inputs
 
     dev = torch.device("cuda")
@@ -626,19 +638,24 @@ def phase_decode_edges(torch, da, pa) -> list:
             check(f"B2 long span {tn} {kv} S=33",
                   da.decode_attention_mq(q33, k, v, starts, ends, **sc),
                   da.decode_attention_mq_plain(q33, k, v, starts, ends, **sc), tol, empty_row=2)
+            # f32 q keeps its rows in shared memory: beside 132 of them a
+            # 64-slot f32 page is staged in smaller tiles.
             kp, vp, psc, table, _ = paged(64, 128, dtype, kv)
-            if dtype == torch.float32 and kv == "float":
-                # f32 q keeps its 132 rows in shared memory, where no 64-slot
-                # f32 page fits beside them: the launch must be refused.
-                try:
-                    pa.paged_decode_attention_mq(q33, kp, vp, table, starts, ends)
-                except RuntimeError:
-                    continue
-                raise AssertionError("B4 long span f32 float S=33 page=64 was not refused")
             check(f"B4 long span {tn} {kv} S=33",
                   pa.paged_decode_attention_mq(q33, kp, vp, table, starts, ends, **psc),
                   pa.paged_decode_attention_mq_plain(q33, kp, vp, table, starts, ends, **psc),
                   tol, empty_row=2)
+            # D = 256 over 128-slot pages (one f32 page's K + V, 256 KB, is
+            # more than a block's shared memory), at S = 9 and S = 33.
+            kp, vp, psc, table, _ = paged(128, 256, dtype, kv)
+            q256 = torch.randn((3, 33, 8, 256), generator=gen, device=dev).to(dtype)
+            for S in (9, 33):
+                check(f"B4 D=256 page=128 {tn} {kv} S={S}",
+                      pa.paged_decode_attention_mq(q256[:, :S], kp, vp, table, starts,
+                                                   ends[:, :S], **psc),
+                      pa.paged_decode_attention_mq_plain(q256[:, :S], kp, vp, table, starts,
+                                                         ends[:, :S], **psc),
+                      tol, empty_row=2)
     torch.cuda.synchronize()
     return checks
 
@@ -1049,8 +1066,9 @@ def phase_int8kv_kernels(torch, da, pa) -> tuple[dict, list]:
 
 
 # Llama-3-8B's matmul weights (K, N), with launches per forward: each of the
-# 32 layers runs wq, wk, wv, wo, w_gate, w_up, w_down; the head runs once
-# with f32 logits. 7 x 32 + 1 = 225 quantized products a forward.
+# 32 layers runs wq, wk, wv, wo, w_gate, w_up, w_down (224 products); the
+# head runs once with f32 logits, at every row of a decode step and at the
+# last position of each row of a prefill (lm_head_last_only).
 QMM_SHAPES = [
     ("wq/wo", 4096, 4096, 64),
     ("wk/wv", 4096, 1024, 64),
@@ -1058,13 +1076,18 @@ QMM_SHAPES = [
     ("w_down", 14336, 4096, 32),
     ("head", 4096, 128256, 1),
 ]
-# Rows: dense S=1 step, dense verify 4x9, paged verify 8x9, one row's
-# prefill chunk, the dense path's prefill chunk (4 rows x 1024).
-QMM_M = [4, 36, 72, 1024, 4096]
+# Rows: dense S=1 step, dense verify 4x9, paged verify 8x9, the batcher's
+# admission chunk (ADMISSION_CHUNK), one row's prefill chunk, the dense
+# path's prefill chunk (4 rows x 1024).
+QMM_M = [4, 36, 72, 512, 1024, 4096]
+# The head's rows in a forward of M rows: all of them at decode, one per
+# prompt row in a prefill chunk.
+QMM_HEAD_ROWS = {4: 4, 36: 36, 72: 72, 512: 1, 1024: 1, 4096: 4}
 # The main path's rows for each kernel's line: B5 serves phase quant (a),
 # the dense int8 path (most products there are the 4 x 9 verify); B6 serves
 # (b), the paged int4 path (8 x 9 verify).
 QMM_LINE_M = {"matmul_int8": 36, "matmul_int4": 72}
+QMM_SWEEP_M = (96, 128, 160, 192, 256)  # the planned split against none, around 128 rows
 # The kernels and their plain versions both accumulate in f32 (the plain
 # version exactly, by cuBLAS sgemm with TF32 off): they differ by summation
 # order (~1e-6 of the largest output at K = 14336) and, for a bf16 output,
@@ -1091,12 +1114,52 @@ def qmm_check(torch, got, want, out_name: str) -> float:
     return float(d.max())
 
 
-def phase_quant_kernels(torch, qm, quant) -> tuple[dict, list, list]:
+def graph_seq_ms(fn, n: int, torch, reps: int = 3) -> float:
+    """Mean device milliseconds per call of ``fn(0) .. fn(n - 1)`` captured
+    in one CUDA graph (after an eager warm-up of each), replayed ``reps``
+    times between CUDA events: the host's per-call work is left out, and
+    ``n`` inputs spanning twice the L2 keep it cold."""
+    for i in range(n):
+        fn(i)
+    torch.cuda.synchronize()
+    g = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(g):
+        for i in range(n):
+            fn(i)
+    g.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    stop = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        g.replay()
+    stop.record()
+    torch.cuda.synchronize()
+    ms = start.elapsed_time(stop) / (reps * n)
+    del g
+    return ms
+
+
+@contextlib.contextmanager
+def forced_plan(qm, plan):
+    """The wrappers' plan (``qm.planned``) replaced by ``plan(M, N, K,
+    int4, tma_ok)``."""
+    real = qm.planned
+    qm.planned = plan
+    try:
+        yield
+    finally:
+        qm.planned = real
+
+
+def phase_quant_kernels(torch, qm, quant) -> tuple[dict, list, list, dict]:
     """B5/B6 against their plain versions on the card, bf16 and f32, at
-    Llama-3-8B's shapes and the path's row counts, plus edge cases; then
-    bf16 timings with a cold L2 beside the plain version, a bf16 cuBLAS
-    product on the weight dequantized beforehand (the yardstick), and the
-    bound. Returns (per-kernel line numbers, checks, per-case timings)."""
+    Llama-3-8B's shapes and the path's row counts, plus edge cases, each
+    main case twice and bit-identical; then bf16 device times with a cold
+    L2 beside the plain version, a bf16 cuBLAS product on the weight
+    dequantized beforehand (the yardstick), and the bound, summed into
+    forwards at every QMM_M; the K-split and path-threshold sweeps.
+    Returns (per-kernel line numbers, checks, per-case timings, sweeps)."""
     dev = torch.device("cuda")
     gen = torch.Generator(device=dev)
     gen.manual_seed(2)
@@ -1124,6 +1187,8 @@ def phase_quant_kernels(torch, qm, quant) -> tuple[dict, list, list]:
                 raise AssertionError(f"{name} {label}: {e}") from None
             if main:
                 worst[name] = max(worst[name], err)
+                if not torch.equal(got, fn(*args, out_dtype=out_dtype)):
+                    raise AssertionError(f"{name} {label}: two calls differ")
             checks.append({"case": f"{name} {label}", "max_abs_err": err,
                            "max_abs_want": float(want.float().abs().max()),
                            "tol": QMM_TOL[out_name]})
@@ -1131,31 +1196,43 @@ def phase_quant_kernels(torch, qm, quant) -> tuple[dict, list, list]:
     def randn(shape, dtype, mag=1.0):
         return (torch.randn(shape, generator=gen, device=dev) * mag).to(dtype)
 
+    def rows_of(label):
+        if label != "head":
+            return QMM_M
+        return sorted(set(QMM_HEAD_ROWS.values()))
+
     for dtype in (torch.bfloat16, torch.float32):
         tn = str(dtype).split(".")[1]
         for label, K, N, _ in QMM_SHAPES:
             w_f = randn((K, N), dtype, K ** -0.5)
             head_out = torch.float32 if label == "head" else None
-            for M in QMM_M:
+            for M in rows_of(label):
                 run_case(f"{tn} {label} M={M}", randn((M, K), dtype), w_f, head_out, main=True)
             del w_f
-        # Edges: one row, odd K (int4 packs a zero row), N no tile multiple,
-        # ragged rows past 80 (the 128-row tiles), a 3-D x, an unaligned x
-        # row stride (scalar loads), tiny and huge scales.
+        # Edges: one row, odd K (int4 packs a zero row) at decode and
+        # prefill rows, N no multiple of 16 and N = 144 (no tile multiple),
+        # ragged rows past 128, a 3-D x, unaligned x row strides (scalar
+        # loads), tiny and huge scales.
         w_odd = randn((255, 40), dtype)
         run_case(f"{tn} M=1 K=4096 N=4096", randn((1, 4096), dtype), randn((4096, 4096), dtype))
         run_case(f"{tn} odd K=255 N=40 M=5", randn((5, 255), dtype), w_odd)
         run_case(f"{tn} odd K=255 N=40 M=130", randn((130, 255), dtype), w_odd)
+        run_case(f"{tn} odd K=1023 N=144 M=300", randn((300, 1023), dtype),
+                 randn((1023, 144), dtype))
         run_case(f"{tn} 3-D x (2, 3, 4096) N=1024", randn((2, 3, 4096), dtype),
                  randn((4096, 1024), dtype))
         run_case(f"{tn} x row stride 4099 M=36", randn((36, 4099), dtype)[:, :4096],
                  randn((4096, 1024), dtype), torch.float32)
+        run_case(f"{tn} x row stride 4099 M=300", randn((300, 4099), dtype)[:, :4096],
+                 randn((4096, 1024), dtype))
         for mag in (1e-12, 1e12):
             run_case(f"{tn} scale~{mag:g} K=255 N=40 M=72", randn((72, 255), dtype),
                      randn((255, 40), dtype, mag))
     torch.cuda.synchronize()
 
     # ---- timing (bf16), weights rotating so each call finds the L2 cold ----
+    sweeps = {"ksplit": [], "threshold": []}
+    sweeps_on = hasattr(qm, "planned")  # a checkout whose B5/B6 have a K-split plan
     for label, K, N, per_fwd in QMM_SHAPES:
         w_f = randn((K, N), torch.bfloat16, K ** -0.5)
         head_out = torch.float32 if label == "head" else None
@@ -1169,7 +1246,9 @@ def phase_quant_kernels(torch, qm, quant) -> tuple[dict, list, list]:
         lib_copies = 1 + int(2 * L2_BYTES // (lib_w[0].numel() * 2))
         lib_w += [lib_w[0].clone() for _ in range(lib_copies - 1)]
         del w_f
-        for M in QMM_M:
+        rows = rows_of(label)
+        sweep_rows = () if label == "head" else QMM_SWEEP_M
+        for M in sorted(set(rows) | set(sweep_rows)):
             x = randn((M, K), torch.bfloat16)
             out_bytes = M * N * (4 if head_out else 2)
 
@@ -1179,17 +1258,34 @@ def phase_quant_kernels(torch, qm, quant) -> tuple[dict, list, list]:
                     return torch.mm(x, w, out_dtype=torch.float32)
                 return torch.matmul(x, w)
 
-            lib_ms = cuda_ms(lib, 20, torch)
+            lib_ms = graph_seq_ms(lib, len(lib_w), torch) if M in rows else None
             for name, (_, qw, fn, plain) in fmts.items():
                 ls = leaves[name]
+
+                def call(i, fn=fn, ls=ls, x=x):
+                    leaf = ls[i % len(ls)]
+                    return fn(x, *qw(leaf), leaf["scale"], out_dtype=head_out)
+
+                if M in sweep_rows and sweeps_on:  # the planned split against whole-K tiles
+                    planned = qm.planned(M, N, K, name == "matmul_int4", True)
+                    for path, pl in (("planned", planned), ("whole-K", (qm.DECODE_WIDTHS[0], 1))):
+                        with forced_plan(qm, lambda *a, pl=pl: pl):
+                            sweeps["threshold"].append({
+                                "kernel": name, "weight": label, "M": M, "path": path,
+                                "bn": pl[0], "ksplit": pl[1],
+                                "ms": graph_seq_ms(call, len(ls), torch)})
+                if M not in rows:
+                    continue
                 w_bytes = qw(ls[0])[0].numel() + N * 4
                 t_bytes = (w_bytes + x.numel() * 2 + out_bytes) / HBM_BYTES_PER_S * 1e3
                 t_ops = 2 * M * K * N / PEAK_OPS["bfloat16"] * 1e3
+                bn, ks = (qm.planned(M, N, K, name == "matmul_int4", True) if sweeps_on
+                          else (None, None))
                 cases.append({
                     "kernel": name, "weight": label, "M": M, "K": K, "N": N,
-                    "per_forward": per_fwd,
-                    "ms": cuda_ms(lambda i: fn(x, *qw(ls[i % len(ls)]), ls[i % len(ls)]["scale"],
-                                              out_dtype=head_out), 20, torch),
+                    "per_forward": per_fwd, "bn": bn, "ksplit": ks,
+                    "ms": graph_seq_ms(call, len(ls), torch),
+                    "call_ms": cuda_ms(call, 20, torch),
                     "plain_ms": cuda_ms(lambda i: plain(x, *qw(ls[i % len(ls)]),
                                                         ls[i % len(ls)]["scale"],
                                                         out_dtype=head_out), 3, torch),
@@ -1197,22 +1293,37 @@ def phase_quant_kernels(torch, qm, quant) -> tuple[dict, list, list]:
                     "bound_ms": max(t_bytes, t_ops),
                     "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                 })
+                if M == QMM_LINE_M[name] and sweeps_on:  # the decode path's K split
+                    for n in range(1, qm.MAX_CLUSTER + 1):
+                        with forced_plan(qm, lambda *a, bn=bn, n=n: (bn, n)):
+                            sweeps["ksplit"].append({
+                                "kernel": name, "weight": label, "M": M, "bn": bn,
+                                "ksplit": n, "planned": n == ks,
+                                "ms": graph_seq_ms(call, len(ls), torch)})
         del leaves, lib_w
         torch.cuda.empty_cache()
 
+    def forward(name, M):
+        """One forward's sums at M rows: 224 layer products and the head."""
+        rows = [c for c in cases if c["kernel"] == name and (
+            (c["weight"] != "head" and c["M"] == M)
+            or (c["weight"] == "head" and c["M"] == QMM_HEAD_ROWS[M]))]
+        tot = {k: sum(c[k] * c["per_forward"] for c in rows)
+               for k in ("ms", "call_ms", "plain_ms", "library_ms", "bound_ms")}
+        by_bytes = sum(c["bound_ms"] * c["per_forward"] for c in rows if c["bound_by"] == "bytes")
+        tot["bound_by"] = "bytes" if by_bytes >= tot["bound_ms"] / 2 else "operations"
+        return tot
+
+    per_m = {name: {str(M): forward(name, M) for M in QMM_M} for name in fmts}
+    sweeps["per_forward"] = per_m
     results = {}
     for name in fmts:
-        rows = [c for c in cases if c["kernel"] == name and c["M"] == QMM_LINE_M[name]]
-        tot = {k: sum(c[k] * c["per_forward"] for c in rows)
-               for k in ("ms", "plain_ms", "library_ms", "bound_ms")}
-        by_bytes = sum(c["bound_ms"] * c["per_forward"] for c in rows if c["bound_by"] == "bytes")
         results[name] = {
-            **tot,
-            "bound_by": "bytes" if by_bytes >= tot["bound_ms"] / 2 else "operations",
+            **per_m[name][str(QMM_LINE_M[name])],
             "max_abs_err": worst[name],
-            "line_is": f"one forward's 225 products at M={QMM_LINE_M[name]}",
+            "line_is": f"one forward (224 products and the head) at M={QMM_LINE_M[name]}",
         }
-    return results, checks, cases
+    return results, checks, cases, sweeps
 
 
 def profile_chat(torch, engine, reqs, sp, name="chip_profile.txt") -> dict:
@@ -1893,7 +2004,9 @@ def phase_agree(torch) -> dict:
 
 
 def main(argv: list[str]) -> int:
+    t_start = time.monotonic()
     quick = "--quick" in argv
+    qmm_only = "--qmm-only" in argv
     profile = "--profile" in argv
     if not os.path.isdir(os.path.join(HERE, PKG)):
         return fail(f"{PKG}/ not found beside chip_smoke.py: run from a checkout")
@@ -1935,8 +2048,8 @@ def main(argv: list[str]) -> int:
     ]
     emit({"phase": "build", "seconds": time.monotonic() - t,
           "sources": sorted(libs), "ptxas": ptxas})
-    # The attention kernels' registers, shared memory and spills, by function.
-    for src in ("decode_attention.cu", "verify_attention.cu"):
+    # Each kernel's registers, shared memory and spills, by function.
+    for src in ("decode_attention.cu", "verify_attention.cu", "quant_matmul.cu"):
         report = [
             ln.split(":", 1)[-1].strip()
             for ln in _build.ptxas_report(src).splitlines()
@@ -1947,6 +2060,23 @@ def main(argv: list[str]) -> int:
                                     text=True, timeout=60).stdout.splitlines() or report
         emit({"phase": "ptxas", "source": src, "lines": report})
 
+    if qmm_only:
+        qres, qchecks, qcases, qsweeps = phase_quant_kernels(torch, qm, quant)
+        for c in qcases:
+            print(f"qmm {c['kernel']} {c['weight']} M={c['M']}: ms {c['ms']:.5f} call "
+                  f"{c['call_ms']:.5f} library {c['library_ms']:.5f}", flush=True)
+        for name, per_m in qsweeps["per_forward"].items():
+            for M, t in per_m.items():
+                print(f"qmm forward {name} M={M}: ms {t['ms']:.4f} call {t['call_ms']:.4f} "
+                      f"library {t['library_ms']:.4f} bound {t['bound_ms']:.4f}", flush=True)
+        out_dir = os.path.join(HERE, "chiprun_out")
+        os.makedirs(out_dir, exist_ok=True)
+        with open(os.path.join(out_dir, "chip_smoke_qmm.json"), "w") as f:
+            json.dump({"device": kind, "nvidia_smi": smi_line, "kernels": qres,
+                       "checks": qchecks, "quant_cases": qcases, "quant_sweeps": qsweeps}, f,
+                      indent=1)
+        print(smi_line, flush=True)
+        return 0
     kres, checks = phase_kernels(torch, da)
     pres, pchecks = phase_paged_kernels(torch, pa)
     kres.update(pres)
@@ -1956,18 +2086,28 @@ def main(argv: list[str]) -> int:
     checks += ichecks
     checks += phase_verify_edges(torch, da, pa)
     checks += phase_decode_edges(torch, da, pa)
-    qres, qchecks, qcases = phase_quant_kernels(torch, qm, quant)
+    qres, qchecks, qcases, qsweeps = phase_quant_kernels(torch, qm, quant)
     kres.update(qres)
     emit({"phase": "kernels", "checks": checks, "quant_checks": len(qchecks),
           "quant_worst": {name: r["max_abs_err"] for name, r in qres.items()}})
     for c in qcases:  # one short line per B5/B6 timing (all in chip_smoke.json)
-        print(f"qmm {c['kernel']} {c['weight']} M={c['M']}: ms {c['ms']:.5f} plain "
-              f"{c['plain_ms']:.4f} library {c['library_ms']:.5f} bound "
-              f"{c['bound_ms']:.5f} ({c['bound_by']})", flush=True)
+        print(f"qmm {c['kernel']} {c['weight']} M={c['M']} bn={c['bn']} ks={c['ksplit']}: "
+              f"ms {c['ms']:.5f} call {c['call_ms']:.5f} plain {c['plain_ms']:.4f} library "
+              f"{c['library_ms']:.5f} bound {c['bound_ms']:.5f} ({c['bound_by']})", flush=True)
+    for name, per_m in qsweeps["per_forward"].items():
+        for M, t in per_m.items():
+            print(f"qmm forward {name} M={M}: ms {t['ms']:.4f} call {t['call_ms']:.4f} "
+                  f"library {t['library_ms']:.4f} bound {t['bound_ms']:.4f}", flush=True)
+    for c in qsweeps["ksplit"]:
+        print(f"qmm ksplit {c['kernel']} {c['weight']} M={c['M']} bn={c['bn']} "
+              f"ks={c['ksplit']}{'*' if c['planned'] else ''}: ms {c['ms']:.5f}", flush=True)
+    for c in qsweeps["threshold"]:
+        print(f"qmm threshold {c['kernel']} {c['weight']} M={c['M']} {c['path']}: "
+              f"ms {c['ms']:.5f}", flush=True)
     checks += qchecks
     torch.cuda.empty_cache()
     record = {"device": kind, "nvidia_smi": smi_line, "kernels": kres, "checks": checks,
-              "quant_cases": qcases}
+              "quant_cases": qcases, "quant_sweeps": qsweeps}
 
     launches = {name: None for name in kres}
     if not quick:
@@ -2013,6 +2153,8 @@ def main(argv: list[str]) -> int:
             "library_ms": r["library_ms"],
         })
     record["kernels_line"] = line
+    record["seconds"] = time.monotonic() - t_start
+    emit({"phase": "done", "seconds": record["seconds"]})
     out_dir = os.path.join(HERE, "chiprun_out")
     os.makedirs(out_dir, exist_ok=True)
     with open(os.path.join(out_dir, "chip_smoke.json"), "w") as f:

@@ -347,6 +347,94 @@ def test_cuda_quant_wrappers_raise_on_what_the_kernel_does_not_take(cuda):
         qm.matmul_int4(x, q4["q4"], q4["scale"])  # 33 packed rows; K=64 needs 32
 
 
+def _qmm_case(gen, dev, fmt, dtype, M, K, N, x_stride=None):
+    """A quantized weight [K, N] and x [M, K] (rows ``x_stride`` apart)."""
+    qz = quant.quantize_int8 if fmt == "int8" else quant.quantize_int4
+    leaf = qz(torch.randn((K, N), generator=gen, device=dev).to(dtype))
+    x = torch.randn((M, x_stride or K), generator=gen, device=dev).to(dtype)[:, :K]
+    w = leaf["q" if fmt == "int8" else "q4"]
+    fn = qm.matmul_int8 if fmt == "int8" else qm.matmul_int4
+    plain = qm.matmul_int8_plain if fmt == "int8" else qm.matmul_int4_plain
+    return x, w, leaf["scale"], fn, plain
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_cuda_quant_matmul_every_split_count(cuda, fmt, monkeypatch):
+    """The decode weight stream at every column width (32, 64, 128) and K
+    split (1-8 blocks in a cluster) the plan can give, against the plain
+    version: odd K (int4's zero row in the last split), N no width
+    multiple, 36 rows; and the plan's own choice at Llama-3-8B's wk/wv."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    for M, K, N in ((36, 1999, 200), (4, 4096, 1024)):
+        x, w, sc, fn, plain = _qmm_case(gen, cuda, fmt, torch.bfloat16, M, K, N)
+        want = plain(x, w, sc, out_dtype=torch.float32)
+        for bn in qm.DECODE_WIDTHS:
+            for ks in range(1, qm.MAX_CLUSTER + 1):
+                monkeypatch.setattr(qm, "planned", lambda *a, bn=bn, ks=ks: (bn, ks))
+                _assert_qmm_close(fn(x, w, sc, out_dtype=torch.float32), want)
+        monkeypatch.undo()
+        _assert_qmm_close(fn(x, w, sc, out_dtype=torch.float32), want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_cuda_quant_matmul_rows_around_the_path_threshold(cuda, fmt, dtype, monkeypatch):
+    """M from 1 to 1024 across the decode stream (8-row tiles, 128 rows a
+    block) and the prefill tile (above 128 rows): K no stage multiple, N
+    three 128-column tiles and a ragged fourth."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(5)
+    for M in (1, 2, 4, 7, 8, 9, 16, 17, 36, 63, 64, 65, 72, 80, 81, 127, 128, 129, 200,
+              255, 256, 300, 512, 1024):
+        x, w, sc, fn, plain = _qmm_case(gen, cuda, fmt, dtype, M, 320, 400)
+        for out_dtype in (None, torch.float32):
+            got = fn(x, w, sc, out_dtype=out_dtype)
+            want = plain(x, w, sc, out_dtype=out_dtype)
+            assert got.shape == want.shape and got.dtype == want.dtype
+            _assert_qmm_close(got, want)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32], ids=["bf16", "f32"])
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_cuda_quant_matmul_odd_shapes_and_strides(cuda, fmt, dtype, monkeypatch):
+    """Odd K at decode and prefill rows, an x row stride no multiple of 8
+    (scalar loads, also above 128 rows), N no multiple of 16 (scalar
+    weight loads) and N a multiple of 16 but not of the 128-column tile."""
+    monkeypatch.setattr(torch.backends.cuda.matmul, "allow_tf32", False)
+    gen = torch.Generator(device=cuda).manual_seed(11)
+    for M, K, N, *stride in ((5, 255, 40), (200, 255, 144), (36, 4096, 1024, 4099),
+                             (300, 512, 256, 515), (72, 130, 136), (300, 130, 136),
+                             (257, 1024, 144)):
+        x, w, sc, fn, plain = _qmm_case(gen, cuda, fmt, dtype, M, K, N, *stride)
+        _assert_qmm_close(fn(x, w, sc), plain(x, w, sc))
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("fmt", ["int8", "int4"])
+def test_cuda_quant_matmul_is_deterministic_and_graph_capturable(cuda, fmt):
+    """Two calls on the same inputs are bit-identical (a fixed summation
+    order, no atomics), decode rows with a K split and prefill rows alike;
+    a call captured in a CUDA graph and replayed gives the eager result."""
+    gen = torch.Generator(device=cuda).manual_seed(29)
+    for M in (4, 72, 300):
+        x, w, sc, fn, _ = _qmm_case(gen, cuda, fmt, torch.bfloat16, M, 4096, 1024)
+        first = fn(x, w, sc)
+        assert torch.equal(first, fn(x, w, sc))
+        static = fn(x, w, sc)
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        with torch.cuda.graph(graph):
+            static = fn(x, w, sc)
+        static.zero_()
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(static, first)
+
+
 @pytest.mark.gpu
 @pytest.mark.parametrize("D", [64, 128, 256])
 @pytest.mark.parametrize("kv", ["float", "int8"])
@@ -429,10 +517,12 @@ def test_cuda_verify_kernels_odd_pages_and_long_spans(cuda, dtype, kv):
     """B4 on pages of 8 and 24 slots (staged into 16-slot multiples whose
     pad slots are zero-filled and masked), and B2/B4 over a span of S = 33
     positions at g = 4 (132 query rows per KV head: bf16 q takes two
-    launches, runs of 32 and 1 positions; f32 q one), against their plain
-    versions. f32 q keeps its 132 rows in shared memory, where no 64-slot
-    page of f32 K/V fits beside them: that launch is refused, not served
-    another way."""
+    launches, runs of 32 and 1 positions; f32 q as many as the kernel's
+    own row limit gives), against their plain versions. f32 q keeps its
+    rows in shared memory: 132 rows beside 64-slot f32 pages are served
+    with the page staged in smaller tiles; so is D = 256 with 128-slot
+    pages (K + V of one page, 256 KB, exceed a block's shared memory), at
+    S = 9 and over the 33-position span in runs."""
     tol = BF16_TOL if dtype == torch.bfloat16 else F32_TOL
     gen = torch.Generator(device=cuda).manual_seed(24)
     da.reset_launches()
@@ -460,15 +550,27 @@ def test_cuda_verify_kernels_odd_pages_and_long_spans(cuda, dtype, kv):
     _assert_verify_close(got, da.decode_attention_mq_plain(q, k, v, starts, ends, **sc), tol,
                          empty_row=2)
     kp, vp, psc, table, _ = poisoned_pages(gen, cuda, 64, 128, dtype, kv)
-    refused = dtype == torch.float32 and kv == "float"
-    if refused:
-        with pytest.raises(RuntimeError, match="launch failed"):
-            pa.paged_decode_attention_mq(q, kp, vp, table, starts, ends, **psc)
-    else:
-        got = pa.paged_decode_attention_mq(q, kp, vp, table, starts, ends, **psc)
-        want = pa.paged_decode_attention_mq_plain(q, kp, vp, table, starts, ends, **psc)
+    got = pa.paged_decode_attention_mq(q, kp, vp, table, starts, ends, **psc)
+    want = pa.paged_decode_attention_mq_plain(q, kp, vp, table, starts, ends, **psc)
+    _assert_verify_close(got, want, tol, empty_row=2)
+    # D = 256 over 128-slot pages, at S = 9 and over the long span.
+    q256 = torch.randn((3, 33, 8, 256), generator=gen, device=cuda).to(dtype)
+    kp, vp, psc, table, _ = poisoned_pages(gen, cuda, 128, 256, dtype, kv)
+    for S in (9, 33):
+        got = pa.paged_decode_attention_mq(q256[:, :S], kp, vp, table, starts, ends[:, :S],
+                                           **psc)
+        want = pa.paged_decode_attention_mq_plain(q256[:, :S], kp, vp, table, starts,
+                                                  ends[:, :S], **psc)
         _assert_verify_close(got, want, tol, empty_row=2)
-    runs = len(split_kv.span_runs(33, 4, 128, dtype))
+
+    def runs(S, D, page):
+        rows = None
+        if dtype == torch.float32:
+            rows = da.f32_max_rows(D, k.element_size(), page)
+        return len(split_kv.span_runs(S, 4, D, dtype, rows))
+
     suffix = "_int8kv" if kv == "int8" else ""
-    assert da.launches["decode_attention_mq" + suffix] == runs
-    assert pa.launches["paged_decode_attention_mq" + suffix] == 4 + (0 if refused else runs)
+    assert da.launches["decode_attention_mq" + suffix] == runs(33, 128, None)
+    assert pa.launches["paged_decode_attention_mq" + suffix] == (
+        4 + runs(33, 128, 64) + runs(9, 256, 128) + runs(33, 256, 128)
+    )

@@ -160,6 +160,27 @@ def test_span_runs_fit_the_kernel(S, g, D, dtype, want):
         assert per == S or padded(per + 1) > split_kv.MAX_ACC
 
 
+@pytest.mark.parametrize(
+    "S, g, max_rows, want",
+    [
+        (33, 4, 205, [(0, 33)]),  # f32 K/V in 64-slot pages at D=128: one launch
+        (33, 4, 92, [(0, 23), (23, 33)]),  # D=256 in 128-slot f32 pages
+        (9, 4, 36, [(0, 9)]),
+        (10, 4, 36, [(0, 9), (9, 10)]),
+    ],
+)
+def test_span_runs_f32_take_the_kernels_row_limit(S, g, max_rows, want):
+    """f32 q: runs of ``max_rows // g`` positions, ``max_rows`` being what
+    the kernel's own C entry reports for the launch (read on the card);
+    without it (a CPU or meta tensor) one run."""
+    runs = split_kv.span_runs(S, g, 128, torch.float32, max_rows)
+    assert runs == want
+    assert all(g * (s1 - s0) <= max_rows for s0, s1 in runs)
+    assert split_kv.span_runs(S, g, 128, torch.float32) == [(0, S)]
+    with pytest.raises(ValueError, match="at most 3 query rows"):
+        split_kv.span_runs(1, g, 128, torch.float32, 3)
+
+
 def test_span_runs_raise_when_one_position_does_not_fit():
     with pytest.raises(ValueError, match="at most 64 query rows"):
         split_kv.span_runs(1, 65, 256, torch.bfloat16)
