@@ -10,7 +10,11 @@ mirror the reference so each counterpart is easy to find:
   (hand-written CUDA in ``csrc/``, built on first use by
   ``ops/_build.py``);
 - ``engine/``  — sampling, speculative decoding, ``generate()``, the
-  registry, tokenizer, loader, the ``GpuEngine`` and provider dispatch.
+  registry, tokenizer, loader, the ``GpuEngine``, the ``MockEngine`` and
+  provider dispatch (``mock://``, ``tpu://``);
+- ``debate/``, ``obs/``, ``resilience/``, ``utils/tracing.py`` and
+  ``cli.py`` — the reference's debate layer and ``critique`` CLI
+  (``python -m adversarial_spec_tpu_torch.cli``), copied.
 
 The package imports torch, numpy and the standard library only: never
 jax, and nothing from the reference package.

@@ -1,6 +1,5 @@
-"""Token-usage accounting (PyTorch port's copy of ``Usage`` and its price
-lookup from ``adversarial_spec_tpu/debate/usage.py``; the caller-side
-``CostTracker`` comes with the debate-layer slice).
+"""Token-usage and cost accounting (the PyTorch port's copy of
+``adversarial_spec_tpu/debate/usage.py``).
 
 Behavioral parity: the reference tracks per-model dollar cost in a
 ``CostTracker`` keyed by a static price table (scripts/models.py:81-127,
@@ -20,7 +19,7 @@ functions returning values, reduction at the caller.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 # Per-1M-token (input, output) dollar prices. TPU-local models cost $0 —
 # their "cost" is device time, reported separately. The mock provider uses a
@@ -88,3 +87,59 @@ class Usage:
             "prefill_time_s": round(self.prefill_time_s, 4),
             "decode_time_s": round(self.decode_time_s, 4),
         }
+
+
+@dataclass
+class CostTracker:
+    """Caller-side reduction of per-model usage into a cost report.
+
+    Output shape mirrors the reference's JSON cost block
+    (scripts/debate.py:930-937): per-model input/output tokens and dollars,
+    plus totals.
+    """
+
+    by_model: dict[str, Usage] = field(default_factory=dict)
+
+    def add(self, model: str, usage: Usage) -> None:
+        prev = self.by_model.get(model, Usage())
+        self.by_model[model] = prev + usage
+
+    @property
+    def total_usage(self) -> Usage:
+        total = Usage()
+        for u in self.by_model.values():
+            total = total + u
+        return total
+
+    @property
+    def total_cost(self) -> float:
+        return sum(u.cost_for(m) for m, u in self.by_model.items())
+
+    def tokens_per_sec(self, model: str | None = None) -> float:
+        """Decode throughput (the north-star metric's numerator)."""
+        u = self.by_model.get(model, Usage()) if model else self.total_usage
+        return u.decode_tokens / u.decode_time_s if u.decode_time_s > 0 else 0.0
+
+    def report(self) -> dict:
+        return {
+            "models": {
+                m: {**u.to_dict(), "cost_usd": round(u.cost_for(m), 6)}
+                for m, u in sorted(self.by_model.items())
+            },
+            "total_tokens": self.total_usage.total_tokens,
+            "total_cost_usd": round(self.total_cost, 6),
+            "total_device_time_s": round(self.total_usage.device_time_s, 4),
+        }
+
+    def format_text(self) -> str:
+        lines = ["Cost summary:"]
+        for m, u in sorted(self.by_model.items()):
+            lines.append(
+                f"  {m}: {u.input_tokens} in / {u.output_tokens} out"
+                f" tokens, ${u.cost_for(m):.4f}"
+            )
+        lines.append(
+            f"  TOTAL: {self.total_usage.total_tokens} tokens,"
+            f" ${self.total_cost:.4f}"
+        )
+        return "\n".join(lines)

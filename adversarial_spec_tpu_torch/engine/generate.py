@@ -29,6 +29,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from adversarial_spec_tpu_torch.engine import prefix_cache as prefix_mod
 from adversarial_spec_tpu_torch.engine import spec as spec_cfg_mod
 from adversarial_spec_tpu_torch.engine.sampling import sample_tokens
 from adversarial_spec_tpu_torch.engine.speculative import (
@@ -315,9 +316,14 @@ def generate(
             cache,
             ci,
         )
+    # The rows that reused the shared prefill count as saved prefill
+    # tokens in ``perf.prefix_cache``, as the reference counts them.
+    if shared_until:
+        prefix_mod.stats.record_prefill(0, (B - 1) * shared_until)
     if shared:
         cache = {k: v.repeat_interleave(B, dim=1) for k, v in cache.items()}
         last_logits = last_logits.repeat_interleave(B, dim=0)
+        prefix_mod.stats.record_prefill(0, (B - 1) * S)
     first = sample_tokens(last_logits, gen, **sample_kw)
     _sync(device)
     prefill_time = time.monotonic() - t0

@@ -30,9 +30,15 @@ drops the previous one). Specs the port cannot serve yet — multi-device
 meshes, HF checkpoints, a paged spec whose budget leaves no room for a
 bucketed prompt (the reference's round-synchronous ``generate(paged=True)``
 corner), and a paged request with ``request_deadline_s > 0`` (the
-batcher's per-request TIMEOUT watchdog) — get a "not yet ported" error;
+batcher's per-request deadline watchdog) — get a "not yet ported" error;
 they are never served silently another way. A ``kv_dtype`` other than
 ``""`` or ``"int8"`` is an error.
+
+Every failure is classified as the reference's ``TpuEngine`` classifies
+it (``resilience.faults.classify``): the kind sets
+``Completion.transient`` and is counted at seam ``generate``. The
+refusals' wording names no fault marker, so each one classifies as
+``BUG``: a refusal is never retried, hedged, or counted as a TIMEOUT.
 """
 
 from __future__ import annotations
@@ -44,6 +50,7 @@ from dataclasses import dataclass
 
 import torch
 
+from adversarial_spec_tpu_torch import obs as obs_mod
 from adversarial_spec_tpu_torch.debate.usage import Usage
 from adversarial_spec_tpu_torch.engine import interleave as interleave_mod
 from adversarial_spec_tpu_torch.engine import prefix_cache as prefix_mod
@@ -72,6 +79,7 @@ from adversarial_spec_tpu_torch.engine.types import (
 )
 from adversarial_spec_tpu_torch.models.config import ModelConfig, get_config
 from adversarial_spec_tpu_torch.models.transformer import check_kv_dtype
+from adversarial_spec_tpu_torch.resilience import faults
 from adversarial_spec_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {
@@ -112,12 +120,14 @@ def unported_reason(
                 "bucketed prompt (the round-synchronous generate(paged=True))"
             )
         if request_deadline_s > 0:
-            # The reference's batcher evicts an over-deadline slot as
-            # TIMEOUT; serving the request to its budget instead would
-            # ignore the deadline silently. The dense generate() reads no
-            # such field, in the reference either.
+            # The reference's batcher evicts an over-deadline slot;
+            # serving the request to its budget instead would ignore the
+            # deadline silently. The dense generate() reads no such
+            # field, in the reference either. The wording avoids the
+            # fault markers of resilience/faults.py: a refusal must
+            # classify as BUG, never as the watchdog's own TIMEOUT.
             return (
-                "the paged batcher's per-request TIMEOUT watchdog "
+                "the paged batcher's per-request deadline watchdog "
                 "(request_deadline_s > 0)"
             )
     return None
@@ -221,11 +231,20 @@ class GpuEngine:
                     self._load(alias), batch, params, group_consumer
                 )
             except Exception as e:  # degrade, never raise (parity: ref)
-                completions = [
-                    Completion(
-                        error=f"{type(e).__name__}: {e}",
-                        transient=isinstance(e, torch.OutOfMemoryError),
+                msg = f"{type(e).__name__}: {e}"
+                kind = faults.classify(e)
+                faults.record(kind, "generate")
+                obs_mod.emit(
+                    obs_mod.FaultEvent(
+                        seam="generate",
+                        kind=kind.value,
+                        error=msg,
+                        trace_id=batch[0].trace_id if batch else "",
                     )
+                )
+                obs_mod.autodump("fault")
+                completions = [
+                    Completion(error=msg, transient=kind.transient)
                     for _ in batch
                 ]
             for i, comp in zip(indices, completions):

@@ -5,10 +5,11 @@ Counterpart of ``adversarial_spec_tpu/engine/interleave.py``. The port's
 iteration runs the in-flight admission's prompt chunk and every resident
 row's decode (or verify) step back to back (Sarathi-style piggybacked
 chunked prefill), one step deep — the reference's pipelined loop at
-depth 1. Depth 2 (CUDA streams and events, the reference's
-``pipeline_depth`` knob) and the legacy serialized loop are not ported:
-``enabled=False`` (env ``ADVSPEC_INTERLEAVE=0``, the reference's switch
-to the legacy loop) is refused by the batcher.
+depth 1. ``perf.interleave`` reports that depth under the reference's key
+``pipeline_depth``. Depth 2 (CUDA streams and events; the CLI refuses
+it) and the legacy serialized loop are not ported: ``enabled=False`` (env
+``ADVSPEC_INTERLEAVE=0``, the reference's switch to the legacy loop) is
+refused by the batcher.
 
 The counters are the reference's:
 
@@ -31,6 +32,12 @@ import os
 from dataclasses import dataclass
 
 from adversarial_spec_tpu_torch.engine import procconfig
+
+
+# The reference keeps up to two device steps in flight; the port serves
+# depth 1 only (depth 2 is not ported).
+MAX_PIPELINE_DEPTH = 2
+SERVED_PIPELINE_DEPTH = 1
 
 
 @dataclass
@@ -78,6 +85,22 @@ class InterleaveStats(procconfig.StatsBase):
         return out
 
 
+def clamp_depth(depth) -> int:
+    """The reference's clamp of a requested depth to [1, 2]."""
+    return max(1, min(int(depth), MAX_PIPELINE_DEPTH))
+
+
+def env_pipeline_depth() -> int:
+    """The depth ``ADVSPEC_PIPELINE_DEPTH`` asks for, clamped as the
+    reference clamps it (unset: the depth the port serves)."""
+    try:
+        return clamp_depth(
+            os.environ.get("ADVSPEC_PIPELINE_DEPTH", SERVED_PIPELINE_DEPTH)
+        )
+    except ValueError:
+        return MAX_PIPELINE_DEPTH
+
+
 _state = procconfig.ProcState(
     InterleaveConfig(enabled=os.environ.get("ADVSPEC_INTERLEAVE", "1") != "0"),
     InterleaveStats(),
@@ -98,5 +121,5 @@ def reset_stats() -> None:
 
 
 def snapshot() -> dict:
-    """Stats + config, the ``perf.interleave`` payload."""
-    return _state.snapshot()
+    """Stats + config + the served depth, the ``perf.interleave`` payload."""
+    return {**_state.snapshot(), "pipeline_depth": SERVED_PIPELINE_DEPTH}

@@ -1,8 +1,8 @@
 """Content-addressed cross-round prefix KV cache (host-side index).
 
-Counterpart of ``adversarial_spec_tpu/engine/prefix_cache.py`` (a copy;
-the flight-recorder events of the reference's ``obs`` package are not
-ported). The debate loop's dominant compute is redundant prefill: every
+Counterpart of ``adversarial_spec_tpu/engine/prefix_cache.py`` (a copy,
+emitting the same flight-recorder events through the port's ``obs``
+package). The debate loop's dominant compute is redundant prefill: every
 round all N opponents re-prefill the same spec+transcript prefix, and
 round R+1 re-prefills everything round R already computed. This module is
 the host-side half of the fix — the device half is the ref-counted page
@@ -33,6 +33,7 @@ from __future__ import annotations
 import os
 from dataclasses import dataclass, field
 
+from adversarial_spec_tpu_torch import obs as obs_mod
 from adversarial_spec_tpu_torch.engine import procconfig
 from adversarial_spec_tpu_torch.engine.kvcache import OutOfPages, PageAllocator
 from adversarial_spec_tpu_torch.engine.kvtier import chain_hash
@@ -71,6 +72,17 @@ class PrefixCacheStats(procconfig.StatsBase):
             self.cached_tokens += matched_tokens
         else:
             self.misses += 1
+        # Every engine (the batcher and the mock's CPU accounting)
+        # funnels lookups through here — ONE emit site covers both.
+        obs_mod.emit(
+            obs_mod.CacheEvent(
+                op="lookup",
+                matched_tokens=matched_tokens,
+                hit=matched_tokens > 0,
+            )
+        )
+        if obs_mod.config().enabled:
+            obs_mod.hot.hit_ratio.set(round(self.hits / self.lookups, 6))
 
     def record_prefill(self, computed_tokens: int, saved_tokens: int) -> None:
         self.prefilled_tokens += computed_tokens
@@ -296,6 +308,8 @@ class PrefixCache:
             parent = node
             children = node.children
         self.stats.inserted_blocks += added
+        if added:
+            obs_mod.emit(obs_mod.CacheEvent(op="insert", blocks=added))
         if self.max_pages > 0 and self.cached_pages > self.max_pages:
             self._evict(self.cached_pages - self.max_pages, shared_ok=True)
         return added
@@ -332,6 +346,9 @@ class PrefixCache:
         self.stats.evicted_blocks += 1
         if freed:
             self.stats.evicted_pages += 1
+        obs_mod.emit(
+            obs_mod.CacheEvent(op="evict", blocks=1, pages=int(freed))
+        )
         return freed
 
     def _evict(self, n_pages: int, shared_ok: bool) -> int:

@@ -22,27 +22,10 @@ network egress — the test/bench story in an air-gapped environment.
 from __future__ import annotations
 
 import json
-import os
 from dataclasses import dataclass, field, asdict
 from pathlib import Path
 
-
-
-def atomic_write_text(path: str, data: str) -> None:
-    """Write ``data`` to ``path`` atomically: a pid-suffixed temp file in
-    the same directory, then ``os.replace`` — a reader sees the old or the
-    new complete file, never a torn one."""
-    tmp = f"{path}.{os.getpid()}.tmp"
-    try:
-        with open(tmp, "w", encoding="utf-8") as f:
-            f.write(data)
-        os.replace(tmp, path)
-    except BaseException:
-        try:
-            os.unlink(tmp)
-        except OSError:
-            pass
-        raise
+from adversarial_spec_tpu_torch.obs.events import atomic_write_text
 
 REGISTRY_PATH = Path.home() / ".config" / "adversarial-spec-tpu" / "registry.json"
 

@@ -1307,23 +1307,29 @@ class ContinuousBatcher:
     def _apply_spec_counts(self, counts_np: np.ndarray, live: list[int]) -> None:
         """Apply one spec step's per-row counts to the host state: advance
         the cur_len/active views, ROLL BACK draft pages past each row's
-        accepted prefix (``PageAllocator.truncate``), record telemetry."""
+        accepted prefix (``PageAllocator.truncate``), record telemetry
+        (``perf.spec``: one step per live row, as the reference counts)."""
         for slot in live:
             n_allowed, n_acc = int(counts_np[0, slot]), int(counts_np[1, slot])
+            n_emit = int(counts_np[2, slot])
             new_cl = int(counts_np[4, slot])
             seq = self._slot_seq[slot]
             length = self.allocator.length(seq)
+            released = 0
             if new_cl > length:
                 # Fully accepted span: a pure length bump within the pages
                 # already held (the draft bound's −1 reserve).
                 self.allocator.extend(seq, new_cl - length)
             else:
-                self.allocator.truncate(seq, new_cl)
+                released = len(self.allocator.truncate(seq, new_cl))
             self._cur_len_np[slot] = new_cl
             st = self._slot_spec[slot]
             st[0] += 1
             st[1] += n_allowed
             st[2] += n_acc
+            spec_mod.stats.record_step(n_allowed, n_acc, n_emit)
+            if released:
+                spec_mod.stats.record_rollback(released)
             self._active_np[slot] = bool(counts_np[3, slot])
 
     def _drive(self, timeout_s: float) -> None:
@@ -1406,4 +1412,11 @@ class ContinuousBatcher:
                 self.decode_time_s += dec_dt
                 for s in live:
                     self._slot_decode_s[s] += dec_dt / len(live)
+                if spec:
+                    # Draft/verify wall split by position share (the
+                    # reference's SpecStats convention).
+                    span = self.gamma + 1
+                    spec_mod.stats.record_wall(
+                        dec_dt / (span + 1), dec_dt * span / (span + 1)
+                    )
             self._collect()

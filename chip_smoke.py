@@ -109,9 +109,28 @@ Phases, each printing one JSON line; any failure exits non-zero:
    round 2 must hit the prefix cache.
    Reports walls, prefill/decode seconds, tokens/s, the cache or pool
    bytes beside the bf16 layout's, resident weight bytes and peak memory;
-8. agree   — tiny f32 models decoded greedily on the card (kernels) and on
-   the CPU (plain versions) give identical tokens: dense generate(), and
-   the paged batcher with speculation on and off; full precision, the
+8. cli     — the user's entry point: ``critique`` through the port's CLI
+   (``adversarial_spec_tpu_torch.cli.main`` in this process, the spec on
+   stdin, sessions and registry in a temporary directory under build/),
+   on tpu://random-8b at full width (Llama-3-8B, bf16, random weights
+   from seed 0), greedy, 128 new tokens, a ~3 KB spec from
+   spec_document: (a) the dense path, four opponents, round 1 with
+   speculation on (B2 must launch), round 2 ``--resume`` with
+   ``--no-speculative`` (B1 must launch); (b) the paged path, on a
+   temporary registry entry random-8b with kv="paged" that the CLI's own
+   ``registry add-model`` writes: twelve opponents through 8 slots over
+   two rounds of one session, B4 in round 1, B3 in round 2, and round 2
+   must report prefix-cache hits in its ``perf.prefix_cache``. B1-B4's
+   counters are zeroed just before each round and read just after; each
+   round prints one ``cli round`` line (the round wall from
+   ``perf.spans.round``, decode tokens/s, per-model usage, launches, peak
+   device memory, all_agreed). B1-B4's launches in the kernels line are
+   this phase's. The process-wide knobs the CLI sets are restored after
+   it;
+9. agree   — tiny f32 models decoded greedily on the card (kernels) and on
+   the CPU (plain versions) give identical tokens: dense generate() with
+   speculation on (B2, or B2-i8, must launch), and the paged batcher with
+   speculation on and off; full precision, the
    same weights quantized int8 (B5) and int4 (B6), and an int8 KV cache
    beside full-precision and int4 weights.
 
@@ -1915,12 +1934,174 @@ def phase_kv8(torch, profile: bool = False) -> dict:
     return report
 
 
+@contextlib.contextmanager
+def cli_state():
+    """The port's CLI pointed at temporary state under build/: sessions
+    (and their journals), checkpoints and the registry, all empty. On the
+    way out the engines it built are dropped, and the process-wide knobs
+    each CLI round sets (speculation, prefix cache, interleave, streaming,
+    weight residency) get back their values from before: a round's
+    ``--no-speculative`` must not reach the phases after it."""
+    import dataclasses
+    import tempfile
+    from pathlib import Path
+
+    from adversarial_spec_tpu_torch.debate import session
+    from adversarial_spec_tpu_torch.engine import (
+        dispatch,
+        interleave,
+        prefix_cache,
+        registry,
+        spec,
+        streaming,
+        weightres,
+    )
+
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+    prev = (session.SESSIONS_DIR, session.CHECKPOINTS_DIR, registry.REGISTRY_PATH)
+    knobs = [(m, dataclasses.asdict(m.config()))
+             for m in (spec, prefix_cache, interleave, streaming, weightres)]
+    with tempfile.TemporaryDirectory(dir=build) as tmp:
+        session.SESSIONS_DIR = Path(tmp) / "sessions"
+        session.CHECKPOINTS_DIR = Path(tmp) / "checkpoints"
+        registry.REGISTRY_PATH = Path(tmp) / "registry.json"
+        try:
+            yield
+        finally:
+            session.SESSIONS_DIR, session.CHECKPOINTS_DIR, registry.REGISTRY_PATH = prev
+            for mod, values in knobs:
+                mod.configure(**values)
+            dispatch.clear_engine_cache()
+
+
+def run_cli(argv: list, stdin: str = "") -> tuple[int, str, str]:
+    """``adversarial_spec_tpu_torch.cli.main(argv)`` in this process, with
+    ``stdin`` as its standard input: (exit code, stdout, stderr)."""
+    import io
+
+    from adversarial_spec_tpu_torch import cli
+
+    out, err = io.StringIO(), io.StringIO()
+    prev_stdin = sys.stdin
+    sys.stdin = io.StringIO(stdin)
+    try:
+        with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+            code = cli.main(argv)
+    finally:
+        sys.stdin = prev_stdin
+    return code, out.getvalue(), err.getvalue()
+
+
+def cli_round(torch, label: str, argv: list, stdin: str, must_launch: str) -> dict:
+    """One ``critique`` round through the CLI: B1-B4's counters zeroed just
+    before it and read just after; ``must_launch`` must have launched.
+    Returns the round's line: its wall (perf.spans.round), decode tokens/s,
+    per-model usage, launches, peak device memory and all_agreed."""
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    da.reset_launches()
+    pa.reset_launches()
+    code, out, err = run_cli(argv, stdin)
+    torch.cuda.synchronize()
+    launched = {k: v for k, v in {**da.launches, **pa.launches}.items()
+                if k in FLOAT_ATTENTION}
+    if code != 0:
+        raise RuntimeError(f"{label}: cli exited {code}: {err[-2000:]}")
+    doc = json.loads(out)
+    bad = [r["error"] for r in doc["results"] if r["error"]]
+    if bad:
+        raise RuntimeError(f"{label}: opponents failed: {bad}")
+    if launched[must_launch] == 0:
+        raise RuntimeError(f"{label}: {must_launch} never launched: {launched}")
+    perf = doc["perf"]
+    return {
+        "round": label,
+        "round_num": doc["round"],
+        "round_wall_s": perf["spans"]["round"],
+        "decode_tokens_per_sec": perf["decode_tokens_per_sec"],
+        "usage": doc["cost"]["models"],
+        "output_tokens": [r["output_tokens"] for r in doc["results"]],
+        "cached_tokens": sum(r["cached_tokens"] for r in doc["results"]),
+        "prefix_cache": {k: perf["prefix_cache"][k]
+                         for k in ("lookups", "hits", "saved_tokens")},
+        "spec_steps": perf["spec"]["spec_steps"],
+        "launches": launched,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "all_agreed": doc["all_agreed"],
+    }
+
+
+def phase_cli(torch) -> dict:
+    """The user's entry point: ``critique`` through the port's CLI
+    (``cli.main`` in this process, the spec on stdin), on tpu://random-8b
+    at full width, bf16, random weights from seed 0, greedy, 128 new
+    tokens. (a) dense: four opponents on a ~3 KB spec, round 1 with
+    speculation on (B2 must launch), round 2 ``--resume`` with
+    ``--no-speculative`` (B1 must launch); (b) paged: a temporary registry
+    entry random-8b with kv="paged" made by the CLI's own ``registry``
+    action, twelve opponents through 8 slots over two rounds of one
+    session, B4 in round 1, B3 in round 2, and round 2 must report
+    prefix-cache hits. Each engine loads in a short warm-up round first."""
+    from adversarial_spec_tpu_torch.engine import dispatch
+
+    spec = spec_document(3000, 0)
+    common = ["--greedy", "--max-new-tokens", "128", "--json"]
+    report = {"phase": "cli", "model": "tpu://random-8b", "spec_bytes": len(spec)}
+    for part, n_opp, extra in (("dense", 4, []), ("paged", 12, ["--kv", "paged"])):
+        models = ",".join(["tpu://random-8b"] * n_opp)
+        b_round1, b_round2 = (
+            ("decode_attention_mq", "decode_attention") if part == "dense"
+            else ("paged_decode_attention_mq", "paged_decode_attention")
+        )
+        with cli_state():
+            if extra:
+                code, _, err = run_cli(["registry", "add-model", "random-8b", "--family",
+                                        "llama", "--size", "8b", *extra])
+                if code != 0:
+                    raise RuntimeError(f"registry add-model failed: {err}")
+            t = time.monotonic()
+            code, _, err = run_cli(["critique", "--models", "tpu://random-8b",
+                                    "--greedy", "--max-new-tokens", "16"], spec)
+            if code != 0:
+                raise RuntimeError(f"{part}: warm-up round exited {code}: {err[-2000:]}")
+            load_s = time.monotonic() - t
+            session = f"smoke-{part}"
+            r1 = cli_round(torch, f"{part} round 1, speculation on",
+                           ["critique", "--models", models, "--session", session, *common],
+                           spec, b_round1)
+            emit({"phase": "cli round", "part": part, **r1})
+            r2 = cli_round(torch, f"{part} round 2, speculation off",
+                           ["critique", "--resume", session, "--no-speculative", *common],
+                           "", b_round2)
+            emit({"phase": "cli round", "part": part, **r2})
+            if r2["round_num"] != 2:
+                raise RuntimeError(f"{part}: --resume ran round {r2['round_num']}")
+            if part == "paged" and r2["prefix_cache"]["hits"] == 0:
+                raise RuntimeError("paged round 2 reported no prefix-cache hits")
+            report[part] = {"opponents": n_opp, "load_and_warmup_s": load_s,
+                            "rounds": [r1, r2]}
+        dispatch.clear_engine_cache()
+        torch.cuda.empty_cache()
+    launched = {k: 0 for k in FLOAT_ATTENTION}
+    for part in ("dense", "paged"):
+        for r in report[part]["rounds"]:
+            for k, v in r["launches"].items():
+                launched[k] += v
+    report["launches"] = launched
+    return report
+
+
 def phase_agree(torch) -> dict:
     """Tiny f32 llama, full precision and quantized int8 and int4 from the
     same weights, and with an int8 KV cache beside full-precision and int4
     weights: greedy tokens on the card (kernels) and on the CPU (plain
-    versions) must be identical, through generate() and through the paged
-    batcher with speculation on and off."""
+    versions) must be identical, through generate() (speculation on: B2,
+    or B2-i8, must launch) and through the paged batcher with speculation
+    on and off."""
     from adversarial_spec_tpu_torch.engine.generate import generate
     from adversarial_spec_tpu_torch.engine.loader import materialize_params
     from adversarial_spec_tpu_torch.engine.scheduler import (
@@ -1939,16 +2120,18 @@ def phase_agree(torch) -> dict:
     )
     report = {"phase": "agree"}
     # (weights, KV cache): the report key and the kernels that must launch
-    # (of each group, at least one: generate() decodes by verify spans or
-    # by single steps, as its drafts allow).
-    dense8 = ("decode_attention_int8kv", "decode_attention_mq_int8kv")
-    paged8 = ("paged_decode_attention_int8kv", "paged_decode_attention_mq_int8kv")
+    # (of each group, at least one). generate() runs with speculation on,
+    # so its first decode step is a verify span: B2 (or B2-i8) must launch;
+    # after that it decodes by spans or single steps, as its drafts allow.
+    dense = (("decode_attention_mq",),)
+    dense8 = (("decode_attention_mq_int8kv",),)
+    paged8 = (("paged_decode_attention_int8kv", "paged_decode_attention_mq_int8kv"),)
     cases = (
-        ("", "", None, ()),
-        ("int8", "", "quant_int8", (("matmul_int8",),)),
-        ("int4", "", "quant_int4", (("matmul_int4",),)),
-        ("", "int8", "kv8", (dense8, paged8)),
-        ("int4", "int8", "kv8_int4", (("matmul_int4",), dense8, paged8)),
+        ("", "", None, dense),
+        ("int8", "", "quant_int8", (("matmul_int8",), *dense)),
+        ("int4", "", "quant_int4", (("matmul_int4",), *dense)),
+        ("", "int8", "kv8", (*dense8, *paged8)),
+        ("int4", "int8", "kv8_int4", (("matmul_int4",), *dense8, *paged8)),
     )
     for fmt, kv_dtype, key, must_launch in cases:
         params = base if not fmt else quant.quantize_params(map_params(torch.clone, base), fmt=fmt)
@@ -1958,7 +2141,7 @@ def phase_agree(torch) -> dict:
         out = {
             dev: generate(
                 p, cfg, prompts, max_new_tokens=48, eos_ids=[2], greedy=True,
-                device=dev, kv_dtype=kv_dtype,
+                speculative=True, device=dev, kv_dtype=kv_dtype,
             ).tokens
             for dev, p in (("cuda", params), ("cpu", on_cpu))
         }
@@ -1995,9 +2178,10 @@ def phase_agree(torch) -> dict:
             if leaked:
                 raise RuntimeError(f"{name}: float-cache kernels ran on an int8 cache: {leaked}")
         entry = {"identical_tokens": same, "shape": list(out["cuda"].shape),
-                 "paged_identical_tokens": paged}
+                 "paged_identical_tokens": paged,
+                 "launches": {k: v for k, v in launched.items() if v}}
         if key:
-            report[key] = {**entry, "launches": {k: launched[k] for g in must_launch for k in g}}
+            report[key] = entry
         else:
             report.update(entry)
     return report
@@ -2129,9 +2313,16 @@ def main(argv: list[str]) -> int:
             if name.endswith("_int8kv"):
                 launches[name] = (kv8["dense"]["launches"].get(name, 0)
                                   + kv8["paged_int4"]["launches"].get(name, 0))
+        torch.cuda.empty_cache()
+        # The main path from the user's entry point: B1-B4's launches in
+        # the kernels line are this phase's.
+        cl = phase_cli(torch)
+        emit(cl)
+        launches.update(cl["launches"])
+        torch.cuda.empty_cache()
         ag = phase_agree(torch)
         emit(ag)
-        record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, agree=ag)
+        record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, cli=cl, agree=ag)
 
     line = []
     for name, r in kres.items():

@@ -81,7 +81,20 @@ def test_package_imports_with_jax_blocked():
         )
     }
     assert paged_path <= set(mods)
-    assert len(mods) >= 23
+    debate_path = {
+        f"adversarial_spec_tpu_torch.{m}"
+        for m in (
+            "cli", "debate.core", "debate.journal", "debate.session",
+            "debate.profiles", "debate.parsing", "debate.prompts",
+            "debate.telegram", "debate.types", "debate.usage", "obs",
+            "obs.events", "obs.metrics", "obs.retrace", "obs.trace",
+            "resilience", "resilience.breaker", "resilience.faults",
+            "resilience.injector", "resilience.lockdep", "utils.tracing",
+            "engine.mock", "engine.weightres", "engine.dispatch",
+        )
+    }
+    assert debate_path <= set(mods)
+    assert len(mods) >= 47
 
 
 def test_materialize_params_requires_device_or_gpu():

@@ -1,0 +1,231 @@
+"""Shared harness of the port's CLI parity tests (``test_torch_cli.py``,
+``test_torch_debate.py``): isolation of the port's process-wide state, a
+CLI runner that works for both packages, and the normalization that
+strips wall-clock fields before two ``--json`` reports are compared.
+
+The reference package's state is isolated by ``tests/conftest.py``; the
+port keeps its own copies of every module with process-wide state, and
+``isolate_port`` resets those the same way.
+"""
+
+import io
+import json
+from pathlib import Path
+
+from adversarial_spec_tpu.debate import profiles as ref_profiles
+from adversarial_spec_tpu.debate import session as ref_session
+from adversarial_spec_tpu.engine import interleave as ref_interleave
+from adversarial_spec_tpu.engine import registry as ref_registry
+from adversarial_spec_tpu_torch import obs as port_obs
+from adversarial_spec_tpu_torch.debate import profiles as port_profiles
+from adversarial_spec_tpu_torch.debate import session as port_session
+from adversarial_spec_tpu_torch.engine import dispatch as port_dispatch
+from adversarial_spec_tpu_torch.engine import interleave as port_interleave
+from adversarial_spec_tpu_torch.engine import prefix_cache as port_prefix
+from adversarial_spec_tpu_torch.engine import registry as port_registry
+from adversarial_spec_tpu_torch.engine import streaming as port_streaming
+from adversarial_spec_tpu_torch.engine import weightres as port_weightres
+from adversarial_spec_tpu_torch.resilience import breaker as port_breaker
+from adversarial_spec_tpu_torch.resilience import faults as port_faults
+from adversarial_spec_tpu_torch.resilience import injector as port_injector
+from adversarial_spec_tpu_torch.resilience import lockdep as port_lockdep
+
+# Wall-clock fields of a ``--json`` critique report: ``perf.total_s``,
+# every value of ``perf.spans`` and every ``total_s`` of
+# ``perf.span_tree`` (keys and counts stay). Nothing else in a mock
+# report reads a clock: the mock engine's walls are synthetic.
+WALL_CLOCK_FIELDS = ("perf.total_s", "perf.spans.*", "perf.span_tree.**.total_s")
+
+# Fields where the port reports a subsystem it does not have, or has
+# only in part: (path, the port's value). Removed from both reports after
+# the port's value is checked.
+KNOWN_DIFFERENCES = (
+    # Pipeline depth 2 is not ported; the reference's default is 2.
+    (("perf", "interleave", "pipeline_depth"), 1),
+)
+
+
+def point_state(
+    monkeypatch, pkg: str, root: Path, registry_path: Path | None = None
+) -> None:
+    """Point one package's persistence paths under ``root`` (its
+    registry at ``registry_path`` when given)."""
+    session, profiles, registry = (
+        (ref_session, ref_profiles, ref_registry)
+        if pkg == "ref"
+        else (port_session, port_profiles, port_registry)
+    )
+    monkeypatch.setattr(session, "SESSIONS_DIR", root / "sessions")
+    monkeypatch.setattr(session, "CHECKPOINTS_DIR", root / "checkpoints")
+    monkeypatch.setattr(profiles, "PROFILES_DIR", root / "profiles")
+    monkeypatch.setattr(profiles, "GLOBAL_CONFIG_PATH", root / "config.json")
+    monkeypatch.setattr(
+        registry, "REGISTRY_PATH", registry_path or root / "registry.json"
+    )
+
+
+def reset_port_process() -> None:
+    """What a new process of the port starts from: no engines, closed
+    breakers, no faults, no injector, default knobs, empty obs."""
+    port_dispatch.clear_engine_cache()
+    port_breaker.reset_default_registry()
+    port_faults.reset()
+    port_injector.reset()
+    port_prefix.configure(enabled=True, max_pages=0)
+    port_prefix.reset_stats()
+    port_weightres.configure(
+        enabled=True, host_mb=port_weightres.DEFAULT_HOST_MB
+    )
+    port_weightres.reset_stats()
+    port_streaming.configure(enabled=True, early_cancel=True)
+    port_streaming.reset_stats()
+    port_interleave.configure(enabled=True)
+    port_interleave.reset_stats()
+    port_obs.configure(
+        enabled=True,
+        recorder_size=port_obs.DEFAULT_RECORDER_SIZE,
+        events_out="",
+        dump_on_fault=True,
+        arrivals=False,
+    )
+    port_obs.reset_stats()
+    port_obs.retrace.clear()
+
+
+def isolate_port(tmp_path: Path, monkeypatch):
+    """Generator body of the port's autouse fixture: the port's state
+    under ``tmp_path`` (the reference's registry file is shared, as it
+    is in production), reset before and after, lockdep clean."""
+    monkeypatch.setenv("HOME", str(tmp_path / "home"))
+    monkeypatch.setenv("ADVSPEC_SESSIONS_DIR", str(tmp_path / "sessions"))
+    point_state(monkeypatch, "port", tmp_path)
+    monkeypatch.delenv("ADVSPEC_PIPELINE_DEPTH", raising=False)
+    # The reference keeps its pipeline depth across invocations unless a
+    # flag sets it; start each test from its default.
+    ref_interleave.configure(
+        enabled=True, pipeline_depth=ref_interleave.MAX_PIPELINE_DEPTH
+    )
+    reset_port_process()
+    port_lockdep.reset()
+    yield
+    leaked = port_lockdep.violations()
+    assert not leaked, "\n\n".join(str(v) for v in leaked)
+    port_lockdep.reset()
+    reset_port_process()
+    ref_interleave.configure(
+        enabled=True, pipeline_depth=ref_interleave.MAX_PIPELINE_DEPTH
+    )
+
+
+def run_cli(cli_mod, argv, monkeypatch, capsys, stdin=None):
+    """One ``main(argv)`` → (exit code, stdout, stderr)."""
+    monkeypatch.setattr("sys.stdin", io.StringIO(stdin or ""))
+    try:
+        code = cli_mod.main(list(argv))
+    except SystemExit as e:  # argparse refusals exit before main's try
+        code = int(e.code or 0)
+    out, err = capsys.readouterr()
+    return code, out, err
+
+
+def _strip(doc, path: tuple) -> None:
+    """Delete the field at ``path`` ("*" = every key, "**" = any depth)."""
+    if not isinstance(doc, dict) or not path:
+        return
+    head, rest = path[0], path[1:]
+    if head == "**":
+        _strip(doc, rest)
+        for v in doc.values():
+            _strip(v, path)
+        return
+    keys = list(doc) if head == "*" else [head] if head in doc else []
+    for k in keys:
+        if rest:
+            _strip(doc[k], rest)
+        else:
+            del doc[k]
+
+
+def normalize_report(doc, pkg: str):
+    """A ``--json`` document without its wall-clock fields, and with the
+    port's known differences checked and removed. Non-report documents
+    (lists, other actions' objects) pass through."""
+    if not isinstance(doc, dict) or "perf" not in doc:
+        return doc
+    doc = json.loads(json.dumps(doc))
+    for field in WALL_CLOCK_FIELDS:
+        _strip(doc, tuple(field.split(".")))
+    for path, port_value in KNOWN_DIFFERENCES:
+        node = doc
+        for k in path[:-1]:
+            node = node[k]
+        value = node.pop(path[-1])
+        assert pkg == "ref" or value == port_value, (path, value)
+    # The fleet is not ported: the port reports only that it is off.
+    fleet = doc["perf"].pop("fleet")
+    assert fleet["enabled"] is False, (pkg, fleet)
+    if pkg == "port":
+        assert fleet == {"enabled": False}
+    return doc
+
+
+def normalize_stdout(out: str, pkg: str, root: Path | None = None):
+    """Parsed and normalized when the output is one JSON document (the
+    ``sessions --json`` listing loses its save times); else the text
+    with the package's state root replaced by ``<root>``."""
+    try:
+        doc = json.loads(out)
+    except ValueError:
+        return out.replace(str(root), "<root>") if root else out
+    if isinstance(doc, list):
+        for item in doc:
+            if isinstance(item, dict):
+                item.pop("created_at", None)
+                item.pop("updated_at", None)
+    return normalize_report(doc, pkg)
+
+
+def normalize_stderr(err: str, root: Path | None = None) -> str:
+    """The human progress lines without the round wall, and with the
+    package's state root replaced by ``<root>``."""
+    if root:
+        err = err.replace(str(root), "<root>")
+    return "\n".join(
+        "perf: round <wall>" + line[line.index("s,") + 1 :]
+        if line.startswith("perf: round ")
+        else line
+        for line in err.splitlines()
+    )
+
+
+def _normalize_file(path: Path) -> bytes | object:
+    data = path.read_bytes()
+    if path.suffix == ".json":
+        doc = json.loads(data)
+        if isinstance(doc, dict):
+            # Session files: save times, and each breaker's cooldown
+            # left at the save (read off the clock).
+            doc.pop("created_at", None)
+            doc.pop("updated_at", None)
+            for state in (doc.get("breakers") or {}).values():
+                state.pop("cooldown_remaining", None)
+        return doc
+    if path.suffix == ".jsonl":
+        recs = []
+        for line in data.decode().splitlines():
+            rec = json.loads(line)
+            rec.pop("latency_s", None)
+            rec.pop("ts", None)
+            recs.append(rec)
+        return recs
+    return data
+
+
+def state_tree(root: Path) -> dict:
+    """Every file the CLI wrote under ``root`` (sessions, checkpoints,
+    journals, profiles), with wall-clock stamps removed."""
+    return {
+        str(p.relative_to(root)): _normalize_file(p)
+        for p in sorted(root.rglob("*"))
+        if p.is_file()
+    }
