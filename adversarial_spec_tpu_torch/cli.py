@@ -12,7 +12,8 @@ Knobs of subsystems the port does not have yet exit 2 with "not yet
 ported" (``_unported_knobs``): the ``serve`` action, ``--fleet*``,
 ``--pipeline-depth 2``, the KV tier's flags, ``--weight-res`` and
 ``--weight-host-mb``, their env vars, and ``--chaos`` rules at engine
-seams. Of the subsystems the reference arms by default, the KV tier is
+seams other than ``checkpoint_load``. Of the subsystems the reference
+arms by default, the KV tier is
 reported off (``perf.kv_tier.enabled: false``), ``perf.interleave``
 shows pipeline depth 1, and a round a ``tpu://`` model serves reports
 weight residency off (``perf.weights.enabled: false``). A ``tpu://`` id with no GPU present exits 2 with
@@ -910,10 +911,10 @@ _UNPORTED_ENV = (
     "ADVSPEC_FLEET_SCALE_INTERVAL_S",
     "ADVSPEC_FLEET_HANDOFF_THRESHOLD",
 )
-# Chaos seams the port fires: the round journal's. The engine seams
-# (generate, the batcher's, checkpoint load, weight swap, the fleet's
-# replica) are not ported.
-_PORTED_CHAOS_SEAMS = ("crash",)
+# Chaos seams the port fires: the round journal's and the engine's
+# checkpoint load. The other engine seams (generate, the batcher's,
+# weight swap, the fleet's replica) are not ported.
+_PORTED_CHAOS_SEAMS = ("crash", "checkpoint_load")
 
 
 def _unported_knobs(args: argparse.Namespace) -> list[str]:

@@ -25,26 +25,34 @@ without ``quant``) is served on both paths too: ``generate()``'s dense
 cache and the batcher's page pool store int8 K/V with per-(token, head)
 scales, read by the int8-KV variants of B1-B4.
 
+Weights come from ``_materialize``, as the reference's do: a
+``random`` checkpoint is a synthetic init; an HF safetensors directory is
+read from the port's native cache (``engine/checkpoint.py``) when one
+matches, else converted (``engine/loader.py``) and then cached. The
+``checkpoint_load`` chaos seam fires there.
+
 This slice keeps one resident model at a time (loading another alias
 drops the previous one). Specs the port cannot serve yet — multi-device
-meshes, HF checkpoints, a paged spec whose budget leaves no room for a
-bucketed prompt (the reference's round-synchronous ``generate(paged=True)``
-corner), and a paged request with ``request_deadline_s > 0`` (the
+meshes, a paged spec whose budget leaves no room for a bucketed prompt
+(the reference's round-synchronous ``generate(paged=True)`` corner), and a paged request with ``request_deadline_s > 0`` (the
 batcher's per-request deadline watchdog) — get a "not yet ported" error;
 they are never served silently another way. A ``kv_dtype`` other than
 ``""`` or ``"int8"`` is an error.
 
 Every failure is classified as the reference's ``TpuEngine`` classifies
 it (``resilience.faults.classify``): the kind sets
-``Completion.transient`` and is counted at seam ``generate``. The
-refusals' wording names no fault marker, so each one classifies as
-``BUG``: a refusal is never retried, hedged, or counted as a TIMEOUT.
+``Completion.transient`` and is counted at the injected fault's own seam,
+else at ``generate``. The refusals' wording names no fault marker, so
+each one classifies as ``BUG``: a refusal is never retried, hedged, or
+counted as a TIMEOUT.
 """
 
 from __future__ import annotations
 
 import math
 import os
+import shutil
+import sys
 import time
 from dataclasses import dataclass
 
@@ -52,6 +60,7 @@ import torch
 
 from adversarial_spec_tpu_torch import obs as obs_mod
 from adversarial_spec_tpu_torch.debate.usage import Usage
+from adversarial_spec_tpu_torch.engine import checkpoint as ckpt_mod
 from adversarial_spec_tpu_torch.engine import interleave as interleave_mod
 from adversarial_spec_tpu_torch.engine import prefix_cache as prefix_mod
 from adversarial_spec_tpu_torch.engine import registry as registry_mod
@@ -79,7 +88,7 @@ from adversarial_spec_tpu_torch.engine.types import (
 )
 from adversarial_spec_tpu_torch.models.config import ModelConfig, get_config
 from adversarial_spec_tpu_torch.models.transformer import check_kv_dtype
-from adversarial_spec_tpu_torch.resilience import faults
+from adversarial_spec_tpu_torch.resilience import faults, injector
 from adversarial_spec_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {
@@ -110,8 +119,6 @@ def unported_reason(
     deadline yet, or None."""
     if math.prod(spec.mesh.values()) > 1:
         return f"a multi-device mesh {spec.mesh}"
-    if spec.checkpoint != "random":
-        return "HF safetensors checkpoints"
     if spec.kv == "paged":
         cfg = get_config(spec.family, spec.size, max_seq_len=spec.max_seq_len)
         if not fits_batcher(cfg, max_new_tokens):
@@ -173,19 +180,62 @@ class GpuEngine:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
         spec = registry_mod.resolve_model_spec(f"tpu://{alias}")
-        params, cfg = materialize_params(
-            spec.checkpoint,
-            spec.family,
-            spec.size,
-            dtype=_DTYPES.get(spec.dtype, torch.bfloat16),
-            max_seq_len=spec.max_seq_len,
-            quant=spec.quant,
-            device=self.device,
-        )
+        params, cfg = self._materialize(spec, _DTYPES.get(spec.dtype, torch.bfloat16))
         self._resident = LoadedModel(
             spec, cfg, params, load_tokenizer(spec.tokenizer)
         )
         return self._resident
+
+    def _materialize(self, spec: ModelSpec, dtype: torch.dtype) -> tuple[dict, ModelConfig]:
+        """Params via the fastest available source: the native cache
+        (converted once, read straight onto the device) → HF safetensors
+        conversion (then cached) → synthetic init."""
+        injector.fire("checkpoint_load")
+        cfg = get_config(spec.family, spec.size, max_seq_len=spec.max_seq_len)
+        cache_path = None
+        if spec.checkpoint != "random":
+            cache_path = ckpt_mod.cache_dir_for(
+                spec.checkpoint,
+                spec.family,
+                spec.size,
+                spec.dtype,
+                spec.quant,
+                tied_embeddings=cfg.tied_embeddings,
+            )
+        if cache_path is not None and ckpt_mod.has_native(cache_path):
+            # The cache is an optimization in BOTH directions: a corrupt
+            # or layout-incompatible cache falls back to HF conversion
+            # instead of permanently breaking the model.
+            try:
+                params = ckpt_mod.load_native(
+                    cache_path, cfg, dtype, spec.quant, self.device
+                )
+                return params, cfg
+            except Exception as e:
+                print(
+                    f"warning: native checkpoint cache unreadable "
+                    f"({e}); reconverting from HF",
+                    file=sys.stderr,
+                )
+                shutil.rmtree(cache_path, ignore_errors=True)
+        params, cfg = materialize_params(
+            spec.checkpoint,
+            spec.family,
+            spec.size,
+            dtype=dtype,
+            max_seq_len=spec.max_seq_len,
+            quant=spec.quant,
+            device=self.device,
+        )
+        if cache_path is not None:
+            try:  # the write side is best-effort too
+                ckpt_mod.save_native(params, cache_path)
+            except Exception as e:
+                print(
+                    f"warning: native checkpoint cache write failed: {e}",
+                    file=sys.stderr,
+                )
+        return params, cfg
 
     def chat(
         self,
@@ -233,10 +283,12 @@ class GpuEngine:
             except Exception as e:  # degrade, never raise (parity: ref)
                 msg = f"{type(e).__name__}: {e}"
                 kind = faults.classify(e)
-                faults.record(kind, "generate")
+                # Injected faults know their seam; real ones are counted
+                # where caught.
+                faults.record(kind, getattr(e, "seam", "generate"))
                 obs_mod.emit(
                     obs_mod.FaultEvent(
-                        seam="generate",
+                        seam=getattr(e, "seam", "generate"),
                         kind=kind.value,
                         error=msg,
                         trace_id=batch[0].trace_id if batch else "",

@@ -124,10 +124,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
    counters are zeroed just before each round and read just after; each
    round prints one ``cli round`` line (the round wall from
    ``perf.spans.round``, decode tokens/s, per-model usage, launches, peak
-   device memory, all_agreed). B1-B4's launches in the kernels line are
-   this phase's. The process-wide knobs the CLI sets are restored after
-   it;
-9. agree   — tiny f32 models decoded greedily on the card (kernels) and on
+   device memory, all_agreed). The process-wide knobs the CLI sets are
+   restored after it;
+9. hf      — HF safetensors checkpoints from the user's entry point:
+   random-8b's own weights (init on the card, seed 0, Llama-3-8B at full
+   width and depth, bf16) written under build/ as Meta lays the model out
+   (four bf16 shards with HF names and torch's [out, in] Linear layout, an
+   index and a config.json from the registered config; the port's own
+   safetensors writer), registered by ``registry add-model --checkpoint``
+   (no tokenizer: the byte tokenizer) and served through ``critique``:
+   (a) ``hf-8b`` dense, the four opponents of phase cli (a) — a cold load
+   (HF conversion, then the native-cache write), B2 and B1 must launch;
+   the engine dropped and the round run again — a warm load from the
+   native cache, greedy text identical; (b) ``hf-8b-int4`` (kv=paged,
+   quant=int4) on the same directory, twelve opponents through 8 slots,
+   round 1 speculation on (B4, B6), round 2 ``--resume
+   --no-speculative`` (B3, B6). After each load every served leaf must be
+   bit-identical to the init it was written from (the int4 leaves to
+   ``quantize_params`` of it). Each load and cache write prints an ``hf
+   load`` line (seconds, bytes read, the reader's largest host staging,
+   device memory before it and its peak, resident bytes); each round a
+   ``cli round`` line. The phase fails with the bytes it needs when
+   build/ lacks the disk (~38 GB at its peak), and deletes its files at
+   the end, on failure too. B1-B4's and B6's launches in the kernels line
+   are this phase's;
+10. agree  — tiny f32 models decoded greedily on the card (kernels) and on
    the CPU (plain versions) give identical tokens: dense generate() with
    speculation on (B2, or B2-i8, must launch), and the paged batcher with
    speculation on and off; full precision, the
@@ -1993,31 +2014,37 @@ def run_cli(argv: list, stdin: str = "") -> tuple[int, str, str]:
     return code, out.getvalue(), err.getvalue()
 
 
-def cli_round(torch, label: str, argv: list, stdin: str, must_launch: str) -> dict:
-    """One ``critique`` round through the CLI: B1-B4's counters zeroed just
-    before it and read just after; ``must_launch`` must have launched.
-    Returns the round's line: its wall (perf.spans.round), decode tokens/s,
-    per-model usage, launches, peak device memory and all_agreed."""
+def cli_round(torch, label: str, argv: list, stdin: str, must_launch: tuple) -> dict:
+    """One ``critique`` round through the CLI: B1-B4's and B5/B6's counters
+    zeroed just before it and read just after; every kernel of
+    ``must_launch`` must have launched. Returns the round's line: its wall
+    (perf.spans.round), decode tokens/s, per-model usage, launches, peak
+    device memory, all_agreed and a digest of the responses."""
+    import hashlib
+
     from adversarial_spec_tpu_torch.ops import decode_attention as da
     from adversarial_spec_tpu_torch.ops import paged_attention as pa
+    from adversarial_spec_tpu_torch.ops import quant_matmul as qm
 
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    da.reset_launches()
-    pa.reset_launches()
+    for mod in (da, pa, qm):
+        mod.reset_launches()
     code, out, err = run_cli(argv, stdin)
     torch.cuda.synchronize()
-    launched = {k: v for k, v in {**da.launches, **pa.launches}.items()
-                if k in FLOAT_ATTENTION}
+    launched = {k: v for k, v in {**da.launches, **pa.launches, **qm.launches}.items()
+                if k in FLOAT_ATTENTION or k in must_launch}
     if code != 0:
         raise RuntimeError(f"{label}: cli exited {code}: {err[-2000:]}")
     doc = json.loads(out)
     bad = [r["error"] for r in doc["results"] if r["error"]]
     if bad:
         raise RuntimeError(f"{label}: opponents failed: {bad}")
-    if launched[must_launch] == 0:
-        raise RuntimeError(f"{label}: {must_launch} never launched: {launched}")
+    missing = [k for k in must_launch if launched[k] == 0]
+    if missing:
+        raise RuntimeError(f"{label}: {missing} never launched: {launched}")
     perf = doc["perf"]
+    responses = json.dumps([r["response"] for r in doc["results"]])
     return {
         "round": label,
         "round_num": doc["round"],
@@ -2032,6 +2059,7 @@ def cli_round(torch, label: str, argv: list, stdin: str, must_launch: str) -> di
         "launches": launched,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "all_agreed": doc["all_agreed"],
+        "responses_sha1": hashlib.sha1(responses.encode()).hexdigest(),
     }
 
 
@@ -2072,11 +2100,11 @@ def phase_cli(torch) -> dict:
             session = f"smoke-{part}"
             r1 = cli_round(torch, f"{part} round 1, speculation on",
                            ["critique", "--models", models, "--session", session, *common],
-                           spec, b_round1)
+                           spec, (b_round1,))
             emit({"phase": "cli round", "part": part, **r1})
             r2 = cli_round(torch, f"{part} round 2, speculation off",
                            ["critique", "--resume", session, "--no-speculative", *common],
-                           "", b_round2)
+                           "", (b_round2,))
             emit({"phase": "cli round", "part": part, **r2})
             if r2["round_num"] != 2:
                 raise RuntimeError(f"{part}: --resume ran round {r2['round_num']}")
@@ -2089,9 +2117,253 @@ def phase_cli(torch) -> dict:
     launched = {k: 0 for k in FLOAT_ATTENTION}
     for part in ("dense", "paged"):
         for r in report[part]["rounds"]:
-            for k, v in r["launches"].items():
-                launched[k] += v
+            for k in FLOAT_ATTENTION:
+                launched[k] += r["launches"][k]
     report["launches"] = launched
+    return report
+
+
+# Meta's HF names of a Llama layer's tensors (``model.layers.{i}.`` prefix).
+HF_LAYER_NAMES = {
+    "attn_norm": "input_layernorm.weight",
+    "wq": "self_attn.q_proj.weight",
+    "wk": "self_attn.k_proj.weight",
+    "wv": "self_attn.v_proj.weight",
+    "wo": "self_attn.o_proj.weight",
+    "ffn_norm": "post_attention_layernorm.weight",
+    "w_gate": "mlp.gate_proj.weight",
+    "w_up": "mlp.up_proj.weight",
+    "w_down": "mlp.down_proj.weight",
+}
+
+
+def write_hf_checkpoint(torch, params, cfg, path: str) -> dict:
+    """``params`` (the port's ``[in, out]`` layout, on the card) written at
+    ``path`` as Meta lays out Llama-3-8B: four ``model-0000k-of-00004``
+    bf16 shards with HF names and torch's ``[out, in]`` Linear layout,
+    ``model.safetensors.index.json`` and a ``config.json`` built from the
+    registered config. Written with the port's own ``save_file``, one
+    tensor at a time."""
+    from adversarial_spec_tpu_torch.utils.safetensors import save_file
+
+    named = [("model.embed_tokens.weight", params["embed"])]
+    for i, lp in enumerate(params["layers"]):
+        for key, hf in HF_LAYER_NAMES.items():
+            t = lp[key]
+            named.append((f"model.layers.{i}.{hf}", t.t() if t.dim() == 2 else t))
+    named += [("model.norm.weight", params["final_norm"]),
+              ("lm_head.weight", params["lm_head"].t())]
+    total = sum(t.numel() * t.element_size() for _, t in named)
+    shards = [{} for _ in range(4)]
+    cum = 0
+    for name, t in named:  # each tensor in the shard where it starts
+        shards[min(3, cum * 4 // total)][name] = t
+        cum += t.numel() * t.element_size()
+    weight_map = {}
+    t0 = time.monotonic()
+    for k, shard in enumerate(shards, 1):
+        fname = f"model-{k:05d}-of-00004.safetensors"
+        save_file(shard, os.path.join(path, fname), metadata={"format": "pt"})
+        weight_map.update(dict.fromkeys(shard, fname))
+    with open(os.path.join(path, "model.safetensors.index.json"), "w") as f:
+        json.dump({"metadata": {"total_size": total}, "weight_map": weight_map}, f, indent=1)
+    with open(os.path.join(path, "config.json"), "w") as f:
+        json.dump({
+            "architectures": ["LlamaForCausalLM"], "model_type": "llama",
+            "hidden_size": cfg.dim, "num_hidden_layers": cfg.n_layers,
+            "num_attention_heads": cfg.n_heads, "num_key_value_heads": cfg.n_kv_heads,
+            "head_dim": cfg.head_dim, "intermediate_size": cfg.ffn_dim,
+            "vocab_size": cfg.vocab_size, "rope_theta": cfg.rope_theta,
+            "rms_norm_eps": cfg.rms_eps, "max_position_embeddings": cfg.max_seq_len,
+            "tie_word_embeddings": cfg.tied_embeddings, "hidden_act": "silu",
+            "torch_dtype": "bfloat16",
+        }, f, indent=1)
+    return {"seconds": time.monotonic() - t0, "bytes": total, "tensors": len(named),
+            "shard_bytes": [sum(t.numel() * t.element_size() for t in s.values())
+                            for s in shards]}
+
+
+@contextlib.contextmanager
+def recording_loads(torch, records: list):
+    """Time each HF conversion (``materialize_params`` as ``GpuEngine``
+    calls it), native-cache read (``load_native``) and cache write
+    (``save_native``) while the block runs, each with the bytes the port's
+    reader read, its largest host staging (read buffers alive at once),
+    the device memory allocated before it and the peak during it
+    (``max_memory_allocated``, reset just before), and the resident bytes
+    of the params it produced."""
+    from adversarial_spec_tpu_torch.engine import checkpoint as ckpt_mod
+    from adversarial_spec_tpu_torch.engine import gpu as gpu_mod
+    from adversarial_spec_tpu_torch.utils import safetensors
+
+    def wrap(what, fn):
+        def run(*args, **kwargs):
+            torch.cuda.synchronize()
+            before = torch.cuda.memory_allocated()
+            torch.cuda.reset_peak_memory_stats()
+            safetensors.reset_stats()
+            t = time.monotonic()
+            out = fn(*args, **kwargs)
+            torch.cuda.synchronize()
+            st = safetensors.stats
+            rec = {"phase": "hf load", "what": what, "seconds": time.monotonic() - t,
+                   "bytes_read": st.bytes_read, "tensors_read": st.tensors_read,
+                   "largest_read_bytes": st.max_read_bytes,
+                   "largest_host_staging_bytes": st.peak_live_bytes,
+                   "device_bytes_before": before,
+                   "peak_device_bytes": torch.cuda.max_memory_allocated()}
+            params = {"hf": lambda: out[0], "cache": lambda: out}.get(what)
+            if params is not None:
+                rec["resident_weight_bytes"] = weight_bytes(params())[0]
+            else:
+                cache = args[1]
+                rec["bytes_written"] = sum(
+                    os.path.getsize(os.path.join(cache, f)) for f in os.listdir(cache))
+            records.append(rec)
+            return out
+        return run
+
+    real = (gpu_mod.materialize_params, ckpt_mod.load_native, ckpt_mod.save_native)
+    gpu_mod.materialize_params = wrap("hf", real[0])
+    ckpt_mod.load_native = wrap("cache", real[1])
+    ckpt_mod.save_native = wrap("cache write", real[2])
+    try:
+        yield
+    finally:
+        gpu_mod.materialize_params, ckpt_mod.load_native, ckpt_mod.save_native = real
+
+
+def served_params():
+    """The params the CLI's cached ``GpuEngine`` holds."""
+    from adversarial_spec_tpu_torch.engine import dispatch
+
+    (engine,) = [e for e in dispatch.cached_engines() if hasattr(e, "_resident")]
+    return engine._resident.params
+
+
+def check_same_params(torch, got, init, quant: str = "") -> int:
+    """Every leaf of ``got`` bit-identical to ``init`` (full precision, on
+    the card) — with ``quant``, each matmul weight to ``quantize_params``
+    of its init leaf — and no leaf missing or extra. Returns the leaves
+    compared."""
+    from adversarial_spec_tpu_torch.engine.checkpoint import flatten
+    from adversarial_spec_tpu_torch.ops.quant import QUANTIZABLE, quantize_params
+
+    have = flatten(got)
+    names = set()
+    for name, t in flatten(init).items():
+        key = name.rsplit(".", 1)[-1]
+        parts = ({f"{name}.{p}": v for p, v in quantize_params({key: t}, fmt=quant)[key].items()}
+                 if quant and key in QUANTIZABLE else {name: t})
+        for n, v in parts.items():
+            names.add(n)
+            g = have.get(n)
+            if g is None or g.dtype != v.dtype or not torch.equal(g, v):
+                raise RuntimeError(f"loaded leaf {n} differs from its source")
+    if set(have) != names:
+        raise RuntimeError(f"loaded leaves {sorted(set(have) ^ names)[:6]} differ")
+    return len(have)
+
+
+def phase_hf(torch) -> dict:
+    """HF safetensors checkpoints from the user's entry point. random-8b's
+    own weights (init on the card, seed 0: Llama-3-8B at full width and
+    depth, bf16) written as Meta lays out the model (``write_hf_checkpoint``)
+    under build/, registered with the CLI's ``registry add-model`` (no
+    tokenizer: the byte tokenizer) and served by ``critique`` rounds:
+    (a) ``hf-8b``, dense, four opponents (phase ``cli`` (a)'s round) —
+    cold: HF conversion, then the native-cache write (B2 and B1 must
+    launch); then the engine dropped (dispatch cleared) and the round run
+    again — warm: from the native cache, identical greedy text; (b)
+    ``hf-8b-int4`` (kv=paged, quant=int4) on the same directory, twelve
+    opponents through 8 slots: round 1 speculation on (B4 and B6 must
+    launch), round 2 ``--resume --no-speculative`` (B3 and B6). After each
+    load the served params must be bit-identical to the init they were
+    written from (the int4 leaves to ``quantize_params`` of it). Each load
+    and cache write prints an ``hf load`` line. The phase fails, with the
+    bytes it needs, when build/ lacks the disk; its files are deleted at
+    the end, on failure too."""
+    import math
+    import shutil
+    import tempfile
+
+    from adversarial_spec_tpu_torch.engine import dispatch
+    from adversarial_spec_tpu_torch.engine.checkpoint import layout
+    from adversarial_spec_tpu_torch.models.config import get_config
+    from adversarial_spec_tpu_torch.models.transformer import init_params
+
+    cfg = get_config("llama", "8b")
+    build = os.path.join(HERE, "build")
+    os.makedirs(build, exist_ok=True)
+
+    def nbytes(lay):
+        return sum(math.prod(shape) * dt.itemsize for dt, shape in lay.values())
+
+    bf16 = nbytes(layout(cfg, torch.bfloat16, "", False))
+    # The checkpoint, its bf16 cache and the int4 cache, with 1 GiB slack.
+    need = 2 * bf16 + nbytes(layout(cfg, torch.bfloat16, "int4", False)) + (1 << 30)
+    free = shutil.disk_usage(build).free
+    if free < need:
+        raise RuntimeError(f"phase hf needs {need} bytes of disk under build/, {free} are free")
+    report = {"phase": "hf", "model": "random-8b written as an HF checkpoint",
+              "disk_needed_bytes": need, "disk_free_bytes": free}
+    ckpt = tempfile.mkdtemp(prefix="hf-8b-", dir=build)
+    loads: list = []
+    try:
+        init = init_params(cfg, device=torch.device("cuda"), dtype=torch.bfloat16, seed=0)
+        report["write"] = write_hf_checkpoint(torch, init, cfg, ckpt)
+        emit({"phase": "hf write", **report["write"]})
+        spec = spec_document(3000, 0)
+        common = ["--greedy", "--max-new-tokens", "128", "--json"]
+        rounds = []
+        with cli_state(), recording_loads(torch, loads):
+            for alias, extra in (("hf-8b", []), ("hf-8b-int4", ["--kv", "paged", "--quant", "int4"])):
+                code, _, err = run_cli(["registry", "add-model", alias, "--checkpoint", ckpt,
+                                        "--family", "llama", "--size", "8b", *extra])
+                if code != 0:
+                    raise RuntimeError(f"registry add-model {alias} failed: {err}")
+            dense = ",".join(["tpu://hf-8b"] * 4)
+            for label in ("cold", "warm"):
+                r = cli_round(torch, f"hf dense, {label} load",
+                              ["critique", "--models", dense, "--session", f"hf-{label}",
+                               *common], spec, ("decode_attention_mq", "decode_attention"))
+                r["leaves_identical"] = check_same_params(torch, served_params(), init)
+                emit({"phase": "cli round", "part": f"hf dense {label}", **r})
+                rounds.append(r)
+                dispatch.clear_engine_cache()
+                torch.cuda.empty_cache()
+            if rounds[0]["responses_sha1"] != rounds[1]["responses_sha1"]:
+                raise RuntimeError("the warm round's greedy text differs from the cold round's")
+            paged = ",".join(["tpu://hf-8b-int4"] * 12)
+            for label, argv, stdin, must in (
+                ("round 1, speculation on",
+                 ["critique", "--models", paged, "--session", "hf-int4", *common], spec,
+                 ("paged_decode_attention_mq", "matmul_int4")),
+                ("round 2, speculation off",
+                 ["critique", "--resume", "hf-int4", "--no-speculative", *common], "",
+                 ("paged_decode_attention", "matmul_int4")),
+            ):
+                r = cli_round(torch, f"hf paged int4 {label}", argv, stdin, must)
+                if label.startswith("round 1"):  # the round that loaded
+                    r["leaves_identical"] = check_same_params(
+                        torch, served_params(), init, "int4")
+                emit({"phase": "cli round", "part": f"hf paged int4 {label}", **r})
+                rounds.append(r)
+        for rec in loads:
+            emit(rec)
+        whats = [rec["what"] for rec in loads]
+        if whats != ["hf", "cache write", "cache", "hf", "cache write"]:
+            raise RuntimeError(f"loads ran {whats}: expected HF, cache write, cache, HF "
+                               "(int4), cache write")
+    finally:
+        dispatch.clear_engine_cache()
+        shutil.rmtree(ckpt, ignore_errors=True)
+        torch.cuda.empty_cache()
+    launched = {}
+    for r in rounds:
+        for k, v in r["launches"].items():
+            launched[k] = launched.get(k, 0) + v
+    report.update(rounds=rounds, loads=loads, launches=launched)
     return report
 
 
@@ -2318,11 +2590,16 @@ def main(argv: list[str]) -> int:
         # the kernels line are this phase's.
         cl = phase_cli(torch)
         emit(cl)
-        launches.update(cl["launches"])
+        torch.cuda.empty_cache()
+        # HF checkpoints from the user's entry point, the newest main path:
+        # B1-B4's and B6's launches in the kernels line are this phase's.
+        hf = phase_hf(torch)
+        emit(hf)
+        launches.update(hf["launches"])
         torch.cuda.empty_cache()
         ag = phase_agree(torch)
         emit(ag)
-        record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, cli=cl, agree=ag)
+        record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, cli=cl, hf=hf, agree=ag)
 
     line = []
     for name, r in kres.items():

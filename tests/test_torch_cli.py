@@ -434,9 +434,9 @@ def test_tpu_critique_without_gpu_exits_2(monkeypatch, capsys):
 
 
 def test_unservable_alias_exits_2_before_the_round(monkeypatch, capsys):
-    """An alias the port cannot serve (an HF checkpoint, a mesh) exits 2
-    with its "not yet ported" message at validation, before any engine
-    work — even with an engine installed."""
+    """An alias the port cannot serve (a mesh) exits 2 with its "not yet
+    ported" message at validation, before any engine work — even with an
+    engine installed."""
     from adversarial_spec_tpu_torch.engine import dispatch, registry
     from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
 
@@ -450,6 +450,32 @@ def test_unservable_alias_exits_2_before_the_round(monkeypatch, capsys):
     assert code == 2
     assert "not yet ported" in err and "multi-device mesh" in err
     assert out == ""
+
+
+def test_default_models_pick_an_hf_alias_as_the_reference_does(tmp_path, monkeypatch):
+    """With no ``--models``, both CLIs pick the same opponent: the largest
+    registry alias whose checkpoint directory exists (an HF alias is now
+    served by the port), else the mock critic."""
+    from adversarial_spec_tpu.engine import registry as ref_registry
+    from adversarial_spec_tpu_torch.engine import registry
+
+    reg = tmp_path / "shared-registry.json"
+    monkeypatch.setattr(ref_registry, "REGISTRY_PATH", reg)
+    monkeypatch.setattr(registry, "REGISTRY_PATH", reg)
+    assert port_cli.get_default_models() == ref_cli.get_default_models()
+    assert port_cli.get_default_models() == ["mock://critic?agree_after=3"]
+    for alias, size, exists in (
+        ("tiny-hf", "tiny", True), ("big-gone", "70b", False), ("mid-hf", "8b", True),
+        ("small-hf", "1b", True),
+    ):
+        ckpt = tmp_path / alias
+        if exists:
+            ckpt.mkdir()
+        registry.save_registry_entry(
+            registry.ModelSpec(alias=alias, size=size, checkpoint=str(ckpt))
+        )
+        assert port_cli.get_default_models() == ref_cli.get_default_models()
+    assert port_cli.get_default_models() == ["tpu://mid-hf"]
 
 
 def test_port_cli_runs_with_jax_blocked(tmp_path):

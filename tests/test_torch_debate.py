@@ -176,7 +176,6 @@ def test_paged_session_matches_reference_and_hits_the_prefix_cache(
 def _refusal_specs():
     return {
         "mesh": registry.ModelSpec(alias="m", mesh={"tp": 2}),
-        "hf": registry.ModelSpec(alias="h", checkpoint="/no/such/dir"),
         "paged_budget": registry.ModelSpec(alias="p", kv="paged", max_seq_len=130),
         "paged_deadline": registry.ModelSpec(alias="d", kv="paged"),
     }
@@ -196,6 +195,14 @@ def test_every_refusal_classifies_as_bug(case):
     assert faults.classify_message(msg) is FaultKind.BUG
     assert ref_classify_message(msg) is RefFaultKind.BUG
     assert not FaultKind.BUG.transient
+
+
+def test_hf_checkpoint_alias_is_not_refused():
+    """An HF checkpoint alias is served (dense and paged, every weight
+    format): ``unported_reason`` has no refusal for it."""
+    for extra in ({}, {"kv": "paged"}, {"quant": "int4", "kv": "paged"}, {"quant": "int8"}):
+        spec = registry.ModelSpec(alias="h", checkpoint="/some/hf/dir", **extra)
+        assert unported_reason(spec, max_new_tokens=24) is None
 
 
 def test_refused_chat_is_a_counted_permanent_bug(tmp_path):

@@ -51,6 +51,8 @@ def shared_registry(tmp_path, monkeypatch):
         # generate(paged=True) corner, not ported.
         registry.ModelSpec(alias="paged-tiny", kv="paged", max_seq_len=130),
         registry.ModelSpec(alias="paged-mesh", kv="paged", mesh={"tp": 2}),
+        # An HF checkpoint alias whose directory holds no weights: served
+        # now, so both engines answer it with the same error.
         registry.ModelSpec(alias="paged-hf", kv="paged", checkpoint="/no/such/dir"),
         # The int8 KV cache, dense and paged, alone and beside quantized
         # weights: served, with the reference's text.
@@ -137,11 +139,29 @@ SERVED_NOW = ("int8-tiny", "paged-int8kv")
 def test_unported_specs_get_not_yet_ported_error(shared_registry, serving_defaults, alias):
     """Each row of a spec the port cannot serve yet gets a "not yet
     ported" error. The int8 KV cache's cases (``SERVED_NOW``) are served
-    instead, with the reference's text."""
+    instead, with the reference's text. An HF checkpoint (``paged-hf``) is
+    served too: its directory holds no weights, so both engines answer
+    every row with an error of the same fault kind."""
     if alias in SERVED_NOW:
         port = _chat_matches_reference(alias)
         cache = port._resident.batcher.pool if alias.startswith("paged") else None
         assert cache is None or cache["k"].dtype == torch.int8
+        return
+    if alias == "paged-hf":
+        from adversarial_spec_tpu.resilience.faults import classify_message as ref_classify
+        from adversarial_spec_tpu_torch.resilience.faults import classify_message
+
+        sp = dict(max_new_tokens=4, greedy=True)
+        ref = TpuEngine().chat([JaxChatRequest("tpu://paged-hf", "s", "u")] * 2, JaxParams(**sp))
+        got = GpuEngine(device="cpu").chat(
+            [ChatRequest("tpu://paged-hf", "s", "u")] * 2, SamplingParams(**sp)
+        )
+        assert [c.ok for c in ref + got] == [False] * 4
+        assert [c.error for c in got] == [c.error for c in ref]
+        assert "no *.safetensors under /no/such/dir" in got[0].error
+        assert "not yet ported" not in got[0].error
+        assert classify_message(got[0].error).value == ref_classify(ref[0].error).value
+        assert [c.transient for c in got] == [c.transient for c in ref]
         return
     port = GpuEngine(device="cpu")
     comps = port.chat(

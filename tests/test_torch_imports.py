@@ -2,7 +2,10 @@
 
 The port imports torch, numpy and the standard library: never jax, and
 nothing of the reference package ``adversarial_spec_tpu`` (whose name is a
-prefix of the port's own — matched here by whole dotted components).
+prefix of the port's own — matched here by whole dotted components). Nor
+does it import the packages the GPU machine lacks — ``safetensors``,
+``orbax``, ``ml_dtypes``, ``transformers`` — except ``tokenizers``, which
+``engine/tokenizer.py`` alone may import (its HF tokenizer).
 """
 
 import ast
@@ -35,6 +38,17 @@ def _forbidden(name: str) -> bool:
     return name.split(".")[0] in FORBIDDEN
 
 
+# Packages the GPU machine does not have; (package, the port files that
+# may import it).
+ABSENT_ON_CARD = {
+    "safetensors": (),
+    "orbax": (),
+    "ml_dtypes": (),
+    "transformers": (),
+    "tokenizers": ("adversarial_spec_tpu_torch/engine/tokenizer.py",),
+}
+
+
 @pytest.mark.parametrize(
     "path",
     sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"],
@@ -43,6 +57,66 @@ def _forbidden(name: str) -> bool:
 def test_no_jax_or_reference_imports(path):
     bad = [n for n in _imported_modules(path) if _forbidden(n)]
     assert not bad, f"{path.name} imports {bad}"
+
+
+@pytest.mark.parametrize(
+    "path",
+    sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    ids=lambda p: str(p.relative_to(REPO)),
+)
+def test_no_imports_the_card_machine_lacks(path):
+    rel = str(path.relative_to(REPO))
+    bad = [
+        n for n in _imported_modules(path)
+        if n.split(".")[0] in ABSENT_ON_CARD and rel not in ABSENT_ON_CARD[n.split(".")[0]]
+    ]
+    assert not bad, f"{rel} imports {bad}"
+
+
+def test_loader_runs_without_the_packages_the_card_machine_lacks(tmp_path):
+    """In a process where jax, the reference package and every package of
+    ``ABSENT_ON_CARD`` fail to import, the port writes an HF-layout
+    checkpoint with its own ``save_file``, loads it (cold, then from its
+    native cache) and quantizes it."""
+    blocked = ["jax", "adversarial_spec_tpu", *ABSENT_ON_CARD]
+    code = (
+        "import sys\n"
+        f"for m in {blocked!r}:\n"
+        "    sys.modules[m] = None\n"
+        "import json, torch\n"
+        "from adversarial_spec_tpu_torch.engine import checkpoint, loader\n"
+        "from adversarial_spec_tpu_torch.models.config import get_config\n"
+        "from adversarial_spec_tpu_torch.models.transformer import init_params\n"
+        "from adversarial_spec_tpu_torch.utils.safetensors import save_file\n"
+        "cfg = get_config('llama', 'tiny')\n"
+        "p = init_params(cfg, device=torch.device('cpu'), dtype=torch.float32)\n"
+        "names = {'input_layernorm.weight': 'attn_norm', 'self_attn.q_proj.weight': 'wq',\n"
+        "    'self_attn.k_proj.weight': 'wk', 'self_attn.v_proj.weight': 'wv',\n"
+        "    'self_attn.o_proj.weight': 'wo', 'post_attention_layernorm.weight': 'ffn_norm',\n"
+        "    'mlp.gate_proj.weight': 'w_gate', 'mlp.up_proj.weight': 'w_up',\n"
+        "    'mlp.down_proj.weight': 'w_down'}\n"
+        "hf = {'model.embed_tokens.weight': p['embed'], 'model.norm.weight': p['final_norm'],\n"
+        "      'lm_head.weight': p['lm_head'].t()}\n"
+        "for i, lp in enumerate(p['layers']):\n"
+        "    for h, k in names.items():\n"
+        "        hf[f'model.layers.{i}.{h}'] = lp[k].t() if lp[k].dim() == 2 else lp[k]\n"
+        f"d = {str(tmp_path)!r}\n"
+        "save_file(hf, d + '/model.safetensors')\n"
+        "got, _ = loader.materialize_params(d, 'llama', 'tiny', dtype=torch.float32,\n"
+        "                                   device='cpu', quant='int4')\n"
+        "cache = checkpoint.cache_dir_for(d, 'llama', 'tiny', 'float32', 'int4')\n"
+        "checkpoint.save_native(got, cache)\n"
+        "again = checkpoint.load_native(cache, cfg, torch.float32, 'int4', torch.device('cpu'))\n"
+        "a, b = checkpoint.flatten(got), checkpoint.flatten(again)\n"
+        "assert list(a) == list(b) and all(torch.equal(a[k], b[k]) for k in a)\n"
+        "print('ok', len(a))\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")
 
 
 def test_forbidden_matcher_minds_the_suffix():
