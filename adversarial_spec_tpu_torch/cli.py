@@ -10,13 +10,16 @@ session one package started, the other resumes.
 
 Knobs of subsystems the port does not have yet exit 2 with "not yet
 ported" (``_unported_knobs``): the ``serve`` action, ``--fleet*``,
-``--pipeline-depth 2``, the KV tier's flags, ``--weight-res`` and
-``--weight-host-mb``, their env vars, and ``--chaos`` rules at engine
-seams other than ``checkpoint_load``. Of the subsystems the reference
-arms by default, the KV tier is
-reported off (``perf.kv_tier.enabled: false``), ``perf.interleave``
-shows pipeline depth 1, and a round a ``tpu://`` model serves reports
-weight residency off (``perf.weights.enabled: false``). A ``tpu://`` id with no GPU present exits 2 with
+``--pipeline-depth 2``, the KV tier's flags, their env vars, and
+``--chaos`` rules at engine seams other than ``checkpoint_load`` and
+``weight_swap``. Of the subsystems the reference arms by default, the KV
+tier is reported off (``perf.kv_tier.enabled: false``) and
+``perf.interleave`` shows pipeline depth 1. Weight residency is the
+reference's: ``--weight-res``/``--no-weight-res``, ``--weight-host-mb``
+and their env vars arm ``GpuEngine``'s ledger (on, 2048 MiB of host by
+default), and ``perf.weights`` reports it. A ``tpu://`` id whose
+``tokenizer.json`` the port's reader refuses exits 2 with the
+component's name. A ``tpu://`` id with no GPU present exits 2 with
 "no CUDA device is available"; the CLI never runs a model on the CPU
 (tests put a CPU engine into ``engine/dispatch.py`` themselves).
 
@@ -622,10 +625,16 @@ def validate_models_before_run(
     The port also asks ``engine/gpu.py`` ``unported_reason`` about each
     ``tpu://`` alias at this round's token budget, so an alias it cannot
     serve exits 2 with its "not yet ported" message instead of running a
-    round of errors; and a ``tpu://`` id with no GPU present exits 2 with
-    the port's "no CUDA device is available" message.
+    round of errors; reads the alias's ``tokenizer.json``, so one whose
+    components the port's reader does not implement exits 2 naming the
+    component; and a ``tpu://`` id with no GPU present exits 2 with the
+    port's "no CUDA device is available" message.
     """
     from adversarial_spec_tpu_torch.engine.gpu import unported_reason
+    from adversarial_spec_tpu_torch.engine.tokenizer import load_tokenizer
+    from adversarial_spec_tpu_torch.engine.tokenizer_json import (
+        UnsupportedTokenizer,
+    )
 
     errors = []
     reg = None
@@ -642,6 +651,13 @@ def validate_models_before_run(
                         f"needs {reason}, which is not yet ported to the "
                         "PyTorch/CUDA package"
                     )
+            if err is None:
+                try:
+                    load_tokenizer(reg[model_registry.parse_tpu_model_id(m)].tokenizer)
+                except UnsupportedTokenizer as e:
+                    err = str(e)
+                except Exception:
+                    pass  # a missing or unreadable file: the engine reports it per model
             if err is None:
                 try:
                     dispatch.get_engine(m)
@@ -778,24 +794,26 @@ def _configure_interleave(args: argparse.Namespace):
     return interleave
 
 
-def _configure_weightres(args: argparse.Namespace, models: list[str]):
-    """Arm weight residency for ``perf.weights``, flag-else-env each
-    invocation; returns the module for reporting. Only the mock engine
-    simulates residency: ``GpuEngine`` drops the previous model and
-    reloads it, so a round that a ``tpu://`` model serves reports
-    residency off. The knobs that would arm it beyond the default
-    (``--weight-res``, ``--weight-host-mb`` and their env vars) were
-    refused by ``_unported_knobs``; switching it off passes."""
+def _configure_weightres(args: argparse.Namespace):
+    """Arm weight-residency paging from flags; returns the module for
+    reporting. Flag-else-env-default each invocation (one invocation =
+    one round): one round's --no-weight-res or host budget must not leak
+    into the next. Stats reset per invocation so ``perf.weights``
+    accounts exactly this round's loads and swaps; the ledger itself
+    lives on the engine and persists round to round."""
     from adversarial_spec_tpu_torch.engine import weightres
 
-    enabled = (
-        args.weight_res
-        if args.weight_res is not None
-        else weightres.env_enabled()
-    )
-    on_gpu = any(m.startswith("tpu://") for m in models)
     weightres.configure(
-        enabled=enabled and not on_gpu, host_mb=weightres.env_host_mb()
+        enabled=(
+            args.weight_res
+            if args.weight_res is not None
+            else weightres.env_enabled()
+        ),
+        host_mb=(
+            args.weight_host_mb
+            if args.weight_host_mb is not None
+            else weightres.env_host_mb()
+        ),
     )
     weightres.reset_stats()
     return weightres
@@ -886,7 +904,6 @@ _UNPORTED_FLAGS = {
     "kv_host_mb": "--kv-host-mb (the tiered KV cache)",
     "kv_store_dir": "--kv-store-dir (the tiered KV cache)",
     "kv_flush_blocks": "--kv-flush-blocks (the tiered KV cache)",
-    "weight_host_mb": "--weight-host-mb (weight residency paging)",
     "fleet_replicas": "--fleet-replicas (the fleet)",
     "fleet_transport": "--fleet-transport (the fleet)",
     "fleet_autoscale": "--[no-]fleet-autoscale (the fleet)",
@@ -900,7 +917,6 @@ _UNPORTED_ENV = (
     "ADVSPEC_KV_HOST_MB",
     "ADVSPEC_KV_STORE_DIR",
     "ADVSPEC_KV_FLUSH_BLOCKS",
-    "ADVSPEC_WEIGHT_HOST_MB",
     "ADVSPEC_FLEET_REPLICAS",
     "ADVSPEC_FLEET_TRANSPORT",
     "ADVSPEC_FLEET_AUTOSCALE",
@@ -911,18 +927,17 @@ _UNPORTED_ENV = (
     "ADVSPEC_FLEET_SCALE_INTERVAL_S",
     "ADVSPEC_FLEET_HANDOFF_THRESHOLD",
 )
-# Chaos seams the port fires: the round journal's and the engine's
-# checkpoint load. The other engine seams (generate, the batcher's,
-# weight swap, the fleet's replica) are not ported.
-_PORTED_CHAOS_SEAMS = ("crash", "checkpoint_load")
+# Chaos seams the port fires: the round journal's, and the engine's
+# checkpoint load and weight swap. The other engine seams (generate, the
+# batcher's, the fleet's replica) are not ported.
+_PORTED_CHAOS_SEAMS = ("crash", "checkpoint_load", "weight_swap")
 
 
 def _unported_knobs(args: argparse.Namespace) -> list[str]:
     """The knobs of unported subsystems this invocation sets, by flag or
     env var (``main`` exits 2 on any). Switching off a subsystem the port
-    does not have (``--no-kv-tier``, ``--no-fleet``, ``--no-weight-res``,
-    ``ADVSPEC_KV_TIER=0``, ``ADVSPEC_WEIGHT_RES=0``) is what the port does
-    anyway, and passes."""
+    does not have (``--no-kv-tier``, ``--no-fleet``, ``ADVSPEC_KV_TIER=0``)
+    is what the port does anyway, and passes."""
     from adversarial_spec_tpu_torch.engine import interleave
     from adversarial_spec_tpu_torch.resilience import injector
 
@@ -937,10 +952,6 @@ def _unported_knobs(args: argparse.Namespace) -> list[str]:
         out.append("--fleet (the fleet)")
     if os.environ.get("ADVSPEC_FLEET", "0") not in ("", "0"):
         out.append("ADVSPEC_FLEET (the fleet)")
-    if args.weight_res:
-        out.append("--weight-res (weight residency paging)")
-    if os.environ.get("ADVSPEC_WEIGHT_RES", "0") not in ("", "0"):
-        out.append("ADVSPEC_WEIGHT_RES (weight residency paging)")
     for dest, label in _UNPORTED_FLAGS.items():
         if getattr(args, dest, None) is not None:
             out.append(label)
@@ -981,7 +992,7 @@ def run_critique(args: argparse.Namespace) -> int:
         # rounds of this session must survive the process boundary.
         breakers.restore(session_state.breakers)
     models = parse_models(args)
-    weightres = _configure_weightres(args, models)
+    weightres = _configure_weightres(args)
     with tracer.span("validate"):
         errors = validate_models_before_run(
             models, args.max_new_tokens or 1024
@@ -1304,7 +1315,7 @@ def handle_export_tasks(args: argparse.Namespace) -> int:
     obs = _configure_obs(args)
     spec = _read_spec_stdin()
     models = parse_models(args)
-    _configure_weightres(args, models[:1])
+    _configure_weightres(args)
     errors = validate_models_before_run(
         models[:1], args.max_new_tokens or 2048
     )

@@ -31,8 +31,20 @@ read from the port's native cache (``engine/checkpoint.py``) when one
 matches, else converted (``engine/loader.py``) and then cached. The
 ``checkpoint_load`` chaos seam fires there.
 
-This slice keeps one resident model at a time (loading another alias
-drops the previous one). Specs the port cannot serve yet — multi-device
+Models stay resident under a byte budget of the device's memory
+(``hbm_budget_bytes``), as the reference's do: an evicted model demotes
+its weights to pinned host memory (``engine/weightres.py``'s ledger,
+``--weight-res``/``--weight-host-mb``) and promotes back with one
+host→device copy; groups whose weights are resident serve first; and
+the next group's weights load or promote on a background thread (a side
+CUDA stream, joined by an event) while the current group decodes. Each
+resident model keeps its own batcher and prefix cache; a demoted model's
+batcher is freed with its KV pool. An HF alias's ``tokenizer.json`` is
+read by the port's own reader (``engine/tokenizer_json.py``), which
+refuses by name a component it does not implement, before any weights
+load.
+
+Specs the port cannot serve yet — multi-device
 meshes, a paged spec whose budget leaves no room for a bucketed prompt
 (the reference's round-synchronous ``generate(paged=True)`` corner), and a paged request with ``request_deadline_s > 0`` (the
 batcher's per-request deadline watchdog) — get a "not yet ported" error;
@@ -53,7 +65,9 @@ import math
 import os
 import shutil
 import sys
+import threading
 import time
+from concurrent.futures import Future
 from dataclasses import dataclass
 
 import torch
@@ -66,6 +80,7 @@ from adversarial_spec_tpu_torch.engine import prefix_cache as prefix_mod
 from adversarial_spec_tpu_torch.engine import registry as registry_mod
 from adversarial_spec_tpu_torch.engine import spec as spec_mod
 from adversarial_spec_tpu_torch.engine import streaming as stream_mod
+from adversarial_spec_tpu_torch.engine import weightres as weightres_mod
 from adversarial_spec_tpu_torch.engine.generate import (
     MIN_BUCKET,
     bucket_length,
@@ -87,8 +102,13 @@ from adversarial_spec_tpu_torch.engine.types import (
     SamplingParams,
 )
 from adversarial_spec_tpu_torch.models.config import ModelConfig, get_config
-from adversarial_spec_tpu_torch.models.transformer import check_kv_dtype
+from adversarial_spec_tpu_torch.models.transformer import (
+    check_kv_dtype,
+    leaves,
+    map_params,
+)
 from adversarial_spec_tpu_torch.resilience import faults, injector
+from adversarial_spec_tpu_torch.resilience import lockdep as lockdep_mod
 from adversarial_spec_tpu_torch.utils.device import resolve_device
 
 _DTYPES = {
@@ -96,6 +116,7 @@ _DTYPES = {
     "float32": torch.float32,
     "float16": torch.float16,
 }
+_GIB = 1 << 30
 
 
 def _trim_prompt(ids: list[int], limit: int) -> list[int]:
@@ -140,25 +161,164 @@ def unported_reason(
     return None
 
 
+def hbm_budget_bytes(device: torch.device | None = None) -> int:
+    """Byte budget for resident model weights on the device.
+
+    Residency is budgeted in bytes, not models: two 8B bf16 models are
+    ~32 GB, and a pool of mixed families must fit beside its KV caches.
+    The budget is the device's total memory (16 GiB where there is no
+    CUDA device, e.g. the CPU) times a 0.75 headroom factor, the reserve
+    covering KV caches, activations and the transient peak of a swap.
+    ``ADVSPEC_HBM_BUDGET_BYTES`` overrides it (read per decision, so
+    tests and operators can retune a live engine)."""
+    env = os.environ.get("ADVSPEC_HBM_BUDGET_BYTES")
+    if env:
+        return int(env)
+    limit = 0
+    if device is not None and device.type == "cuda":
+        limit = torch.cuda.get_device_properties(device).total_memory
+    return int((limit or 16 * _GIB) * 0.75)
+
+
+def param_bytes(params) -> int:
+    """Bytes the params occupy (quantized leaves at their stored size)."""
+    return sum(t.numel() * t.element_size() for t in leaves(params))
+
+
+def estimate_param_bytes(spec: ModelSpec) -> int:
+    """Bytes ``spec``'s params WILL occupy, before loading: the layout
+    the loader builds (quantized leaves, the transposed head of tied
+    embeddings) — no memory is touched."""
+    cfg = get_config(spec.family, spec.size, max_seq_len=spec.max_seq_len)
+    t_head = cfg.tied_embeddings and (
+        spec.checkpoint == "random" or ckpt_mod.transposed_head_flag()
+    )
+    lay = ckpt_mod.layout(
+        cfg, _DTYPES.get(spec.dtype, torch.bfloat16), spec.quant, t_head
+    )
+    return sum(math.prod(shape) * dt.itemsize for dt, shape in lay.values())
+
+
+class HostArena:
+    """One flat host buffer that holds a demoted model's leaves, page-locked
+    with ``cudaHostRegister`` when they come from the GPU. It is the
+    model's size (the caching host allocator rounds each block up to a
+    power of two), its pages are faulted in by a parallel zero-fill before
+    they are locked, and the engine reuses it for later demotions: a fresh
+    buffer gets pages only as fast as the host frees memory. If the
+    registration fails the buffer stays pageable: copies are then
+    synchronous, and still right."""
+
+    ALIGN = 256
+
+    def __init__(self, nbytes: int, pin: bool):
+        self.buf = torch.zeros(nbytes, dtype=torch.uint8)
+        self.pinned = False
+        if pin and nbytes:
+            err = torch.cuda.cudart().cudaHostRegister(self.buf.data_ptr(), nbytes, 0)
+            self.pinned = int(err) == 0
+        self._used = 0
+
+    @property
+    def nbytes(self) -> int:
+        return self.buf.numel()
+
+    def reset(self) -> None:
+        """Reuse the buffer for another model (its old views are dead)."""
+        self._used = 0
+
+    @classmethod
+    def size_of(cls, t: torch.Tensor) -> int:
+        n = t.numel() * t.element_size()
+        return -(-n // cls.ALIGN) * cls.ALIGN
+
+    def take(self, t: torch.Tensor) -> torch.Tensor:
+        """A view of the buffer shaped and typed as ``t``."""
+        n = t.numel() * t.element_size()
+        view = self.buf[self._used : self._used + n].view(t.dtype).view(t.shape)
+        self._used += self.size_of(t)
+        return view
+
+    def __del__(self) -> None:
+        if self.pinned:
+            try:
+                torch.cuda.cudart().cudaHostUnregister(self.buf.data_ptr())
+            except Exception:
+                pass  # interpreter teardown: the process frees it
+
+
+@dataclass
+class HostWeights:
+    """A demoted model's weights in host memory (views of one
+    ``HostArena``) and what re-activates it: the weight ledger's opaque
+    payload (``engine/weightres.py``). Quantized leaves stay quantized."""
+
+    spec: ModelSpec
+    cfg: ModelConfig
+    tokenizer: object
+    host_params: dict
+    bytes_device: int
+    arena: HostArena
+
+
 @dataclass
 class LoadedModel:
     spec: ModelSpec
     cfg: ModelConfig
     params: dict
     tokenizer: object
+    last_used: float = 0.0
+    bytes_per_chip: int = 0
+    prefetched: bool = False  # loaded ahead of use by _maybe_prefetch
+    # Recorded after a prefetch's host→device copies on the side stream;
+    # the serving stream waits on it before the first use.
+    ready: object = None
     # The paged path's persistent batcher and the knobs it was built
     # with: round R+1 reuses round R's (and its warm prefix cache) while
-    # the key matches.
+    # the key matches. Dropped with the weights on demotion.
     batcher: ContinuousBatcher | None = None
     batcher_key: tuple | None = None
 
 
 class GpuEngine:
-    """Serves ``tpu://`` aliases on one device (default ``cuda``)."""
+    """Serves ``tpu://`` aliases on one device (default ``cuda``).
+
+    Loaded models stay resident under a byte budget
+    (:func:`hbm_budget_bytes`), least recently used first out. An evicted
+    model demotes to pinned host memory (``engine/weightres.py``'s
+    ledger) and promotes back with one host→device copy instead of a
+    reload; a heterogeneous round serves resident models first and
+    prefetches the next group's weights on a side CUDA stream while the
+    current group decodes."""
 
     def __init__(self, device: str | torch.device | None = None) -> None:
         self.device = resolve_device(device)
-        self._resident: LoadedModel | None = None
+        self._models: dict[str, LoadedModel] = {}
+        self._lock = lockdep_mod.make_lock("GpuEngine._lock")
+        self._inflight: dict[str, Future] = {}
+        # Estimated bytes of loads materializing now (foreground or
+        # prefetch): counted with _models in every budget sum, so two
+        # concurrent loads cannot each conclude they fit alone.
+        self._loading: dict[str, int] = {}
+        # Resident / host / freed bookkeeping, eviction pins (a model
+        # mid-decode is never a victim) and the host payloads.
+        self.ledger = weightres_mod.WeightLedger()
+        # Demotions whose device→host copy is in flight: the victim is
+        # out of _models but not yet in the host tier. A load of THAT
+        # alias waits for the commit (then promotes).
+        self._demoting: dict[str, threading.Event] = {}
+        self.prefetch_hits = 0  # prefetched loads actually consumed
+        self._side_stream = None  # prefetch copies (CUDA only)
+        # Host arenas of promoted models, kept for the next demotion: its
+        # pages are already faulted in and page-locked, which is most of
+        # a demotion's cost on a host whose memory is in use.
+        self._spare_arenas: list[HostArena] = []
+
+    def _committed_bytes_locked(self) -> int:
+        """Resident + materializing bytes. Caller holds self._lock."""
+        return sum(m.bytes_per_chip for m in self._models.values()) + sum(
+            self._loading.values()
+        )
 
     def validate(self, model: str) -> str | None:
         return registry_mod.validate_tpu_model(model)
@@ -168,23 +328,388 @@ class GpuEngine:
         weights bridged from the reference (``loader.params_from_jax``)."""
         spec = registry_mod.resolve_model_spec(f"tpu://{alias}")
         cfg = get_config(spec.family, spec.size, max_seq_len=spec.max_seq_len)
-        self._resident = LoadedModel(
-            spec, cfg, params, load_tokenizer(spec.tokenizer)
+        lm = LoadedModel(
+            spec, cfg, params, load_tokenizer(spec.tokenizer),
+            last_used=time.monotonic(), bytes_per_chip=param_bytes(params),
         )
+        with self._lock:
+            self._models[alias] = lm
+        self.ledger.admit_load(alias, lm.bytes_per_chip)
+
+    # -- model residency ---------------------------------------------------
+
+    def _ready(self, lm: LoadedModel, prefetched: bool) -> LoadedModel:
+        """Hand a loaded model to the serving thread: join a prefetch's
+        side-stream copies, count the prefetch hit, stamp its use."""
+        if lm.ready is not None:
+            torch.cuda.current_stream(self.device).wait_event(lm.ready)
+            lm.ready = None
+        if prefetched:
+            self.prefetch_hits += 1
+            lm.prefetched = False
+        lm.last_used = time.monotonic()
+        return lm
 
     def _load(self, alias: str) -> LoadedModel:
-        lm = self._resident
-        if lm is not None and lm.spec.alias == alias:
-            return lm
-        self._resident = None  # one resident model: free before loading
-        if self.device.type == "cuda":
-            torch.cuda.empty_cache()
+        with self._lock:
+            lm = self._models.get(alias)
+            if lm is not None:
+                # A finished prefetch pops its own marker under the lock
+                # that publishes the model; clear it on every hit anyway.
+                self._inflight.pop(alias, None)
+            fut = self._inflight.get(alias)
+        if lm is not None:
+            return self._ready(lm, lm.prefetched)
+        if fut is not None:
+            try:
+                lm = fut.result()
+            except Exception:
+                lm = None  # the prefetch died: load on this thread
+            with self._lock:
+                self._inflight.pop(alias, None)
+            if lm is not None:
+                return self._ready(lm, True)
+        self._wait_demoting(alias)
+        if self.ledger.is_host(alias):
+            return self._promote_sync(alias)
+        return self._load_sync(alias)
+
+    def _load_sync(
+        self,
+        alias: str,
+        prefetched: bool = False,
+        estimate: int | None = None,
+        evict: bool = True,
+        reserved: bool = False,  # the caller put alias in _loading
+    ) -> LoadedModel:
         spec = registry_mod.resolve_model_spec(f"tpu://{alias}")
-        params, cfg = self._materialize(spec, _DTYPES.get(spec.dtype, torch.bfloat16))
-        self._resident = LoadedModel(
-            spec, cfg, params, load_tokenizer(spec.tokenizer)
-        )
-        return self._resident
+        # Make room BEFORE materializing, or both weight sets coexist on
+        # the device during the swap. A prefetch passes evict=False (it
+        # fit-checked and never evicts on another group's behalf).
+        if estimate is None:
+            estimate = estimate_param_bytes(spec)
+        if evict:
+            self._evict_for(estimate, reserve_as=alias)
+        elif not reserved:
+            with self._lock:
+                self._loading[alias] = estimate
+        try:
+            t_load = time.monotonic()
+            params, cfg = self._materialize(
+                spec, _DTYPES.get(spec.dtype, torch.bfloat16)
+            )
+            tokenizer = load_tokenizer(spec.tokenizer)
+            if obs_mod.config().enabled:
+                obs_mod.metrics.counter(
+                    "advspec_model_loads_total",
+                    help="model materializations (foreground + prefetch)",
+                ).inc()
+                obs_mod.metrics.histogram(
+                    "advspec_model_load_seconds",
+                    help="checkpoint materialization + tokenizer wall",
+                ).observe(time.monotonic() - t_load)
+            lm = LoadedModel(
+                spec, cfg, params, tokenizer,
+                last_used=time.monotonic(),
+                bytes_per_chip=param_bytes(params) or estimate,
+                prefetched=prefetched,
+            )
+            with self._lock:
+                # Publish and retire the in-flight marker atomically.
+                self._models[alias] = lm
+                self._inflight.pop(alias, None)
+            self.ledger.admit_load(
+                alias, lm.bytes_per_chip, time.monotonic() - t_load
+            )
+            return lm
+        finally:
+            with self._lock:
+                self._loading.pop(alias, None)
+
+    def _evict_for(self, needed_bytes: int, reserve_as: str | None = None) -> None:
+        """Evict LRU models until ``needed_bytes`` fits the budget.
+
+        Pinned aliases (mid-decode) are never victims. When nothing
+        evictable is left and it still does not fit, the load proceeds
+        and a device OOM surfaces as a transient error (the debate core
+        retries after backoff)."""
+        budget = hbm_budget_bytes(self.device)
+        while True:
+            with self._lock:
+                resident = self._committed_bytes_locked()
+                if not self._models or resident + needed_bytes <= budget:
+                    break
+                victims = [a for a in self._models if not self.ledger.pinned(a)]
+                if not victims:
+                    break
+                oldest = min(victims, key=lambda a: self._models[a].last_used)
+                lm, ev = self._pop_for_demotion_locked(oldest)
+            # The device→host copy runs outside the engine lock; the
+            # _demoting event makes a racing load of the victim wait.
+            self._demote_popped(oldest, lm, ev)
+        with self._lock:
+            resident = self._committed_bytes_locked()
+            if reserve_as is not None:
+                # Reserve with the final fit check, under one lock hold.
+                self._loading[reserve_as] = needed_bytes
+        if resident + needed_bytes > budget:
+            print(
+                f"warning: model needs {needed_bytes >> 20} MiB with "
+                f"{resident >> 20} MiB pinned-resident, budget "
+                f"{budget >> 20} MiB — loading anyway (OOM will retry "
+                "as transient)",
+                file=sys.stderr,
+            )
+
+    def _pop_for_demotion_locked(self, alias: str) -> tuple[LoadedModel, threading.Event]:
+        """Take one model out of the loaded dict for demotion, with its
+        batcher (page pool, prefix cache): a demoted model holds no
+        device memory. Caller holds ``self._lock``; the event is
+        registered under the same hold."""
+        lm = self._models.pop(alias)
+        lm.batcher = None
+        lm.batcher_key = None
+        ev = threading.Event()
+        self._demoting[alias] = ev
+        return lm, ev
+
+    def _demote_popped(self, alias: str, lm: LoadedModel, ev: threading.Event) -> None:
+        """Finish one eviction outside the engine lock: the weights copy
+        to pinned host memory (every leaf's copy started before any is
+        waited on), quantized leaves as they are; with paging off, or an
+        entry larger than the whole host budget, the model is freed."""
+        try:
+            host_budget = weightres_mod.config().host_mb << 20
+            if not weightres_mod.paging_armed() or lm.bytes_per_chip > host_budget:
+                self.ledger.free_model(alias)
+                return
+            t0 = time.monotonic()
+            try:
+                host, arena = self._to_host(lm.params)
+            except BaseException:
+                self.ledger.free_model(alias)  # its weights go with lm
+                raise
+            holder = HostWeights(
+                lm.spec, lm.cfg, lm.tokenizer, host, lm.bytes_per_chip, arena
+            )
+            self.ledger.demote_model(
+                alias, holder, param_bytes(host), time.monotonic() - t0
+            )
+        finally:
+            lm.params = {}
+            with self._lock:
+                self._demoting.pop(alias, None)
+            ev.set()
+
+    def _arena_for(self, nbytes: int) -> HostArena:
+        """The smallest spare arena that holds ``nbytes``, else a new one.
+        Spares and host-tier weights together stay within the host budget:
+        the largest spares are dropped first to make room."""
+        with self._lock:
+            fits = [a for a in self._spare_arenas if a.nbytes >= nbytes]
+            if fits:
+                arena = min(fits, key=lambda a: a.nbytes)
+                self._spare_arenas.remove(arena)
+                arena.reset()
+                return arena
+            budget = weightres_mod.config().host_mb << 20
+            while self._spare_arenas and (
+                self.ledger.host_bytes + sum(a.nbytes for a in self._spare_arenas)
+                + nbytes > budget
+            ):
+                self._spare_arenas.remove(max(self._spare_arenas, key=lambda a: a.nbytes))
+        return HostArena(nbytes, pin=self.device.type == "cuda")
+
+    def _to_host(self, params: dict) -> tuple[dict, HostArena]:
+        """The params copied into one host arena (every copy started
+        before any is waited on), and the arena."""
+        cuda = self.device.type == "cuda"
+        arena = self._arena_for(sum(HostArena.size_of(t) for t in leaves(params)))
+
+        def copy(t: torch.Tensor) -> torch.Tensor:
+            return arena.take(t).copy_(t, non_blocking=arena.pinned)
+
+        host = map_params(copy, params)
+        if cuda:
+            torch.cuda.current_stream(self.device).synchronize()
+        return host, arena
+
+    def _wait_demoting(self, alias: str) -> None:
+        """Block until an in-flight demotion of ``alias`` (if any) commits
+        to the ledger. Never blocks for other aliases."""
+        with self._lock:
+            ev = self._demoting.get(alias)
+        if ev is not None:
+            ev.wait()
+
+    def _promote_sync(
+        self,
+        alias: str,
+        prefetched: bool = False,
+        evict: bool = True,
+        reserved: bool = False,
+    ) -> LoadedModel:
+        """Re-activate a host-demoted model with one host→device copy per
+        leaf. A prefetch copies on a side CUDA stream, records an event
+        the serving stream waits on, and overlaps the current group's
+        decode. A fault mid-swap (the ``weight_swap`` chaos seam fires
+        here) leaves the host entry untouched: only the admission waiting
+        on it degrades, and the swap is declared (``swap_fault``)."""
+        holder = self.ledger.peek_host(alias)
+        if holder is None or not isinstance(holder.payload, HostWeights):
+            return self._load_sync(alias, prefetched=prefetched, reserved=reserved)
+        hw: HostWeights = holder.payload
+        try:
+            injector.fire("weight_swap")
+            if evict:
+                self._evict_for(hw.bytes_device, reserve_as=alias)
+            elif not reserved:
+                with self._lock:
+                    self._loading[alias] = hw.bytes_device
+            t0 = time.monotonic()
+            params, ready = self._to_device(hw.host_params, side=prefetched)
+            lm = LoadedModel(
+                hw.spec, hw.cfg, params, hw.tokenizer,
+                last_used=time.monotonic(), bytes_per_chip=hw.bytes_device,
+                prefetched=prefetched, ready=ready,
+            )
+            with self._lock:
+                self._models[alias] = lm
+                self._inflight.pop(alias, None)
+            self.ledger.promote_model(
+                alias, hw.bytes_device, time.monotonic() - t0, overlapped=prefetched
+            )
+            with self._lock:  # the copies are done: the arena is free
+                self._spare_arenas.append(hw.arena)
+            return lm
+        except BaseException:
+            # Conservation: the host entry was never consumed.
+            self.ledger.note_swap_fault(alias)
+            raise
+        finally:
+            with self._lock:
+                self._loading.pop(alias, None)
+
+    def _to_device(self, host: dict, side: bool) -> tuple[dict, object]:
+        """The host params on the device, and the event their copies end
+        with (None unless copied on the side stream). The copy is
+        complete when this returns, so the wall it took is the swap's."""
+        if self.device.type != "cuda":
+            return map_params(torch.clone, host), None
+        if not side:
+            params = map_params(lambda h: h.to(self.device, non_blocking=True), host)
+            torch.cuda.current_stream(self.device).synchronize()
+            return params, None
+        if self._side_stream is None:
+            self._side_stream = torch.cuda.Stream(self.device)
+        serving = torch.cuda.default_stream(self.device)
+        with torch.cuda.stream(self._side_stream):
+            params = map_params(lambda h: h.to(self.device, non_blocking=True), host)
+            ready = torch.cuda.Event()
+            ready.record(self._side_stream)
+        for t in leaves(params):
+            # Freed later, the block must wait for the serving stream's
+            # uses before the side stream's allocator reuses it.
+            t.record_stream(serving)
+        ready.synchronize()
+        return params, ready
+
+    def check_residency_invariants(self) -> None:
+        """Ledger conservation plus the ledger↔engine mirror: the ledger's
+        resident set is exactly the loaded models, and no demoted model
+        holds a batcher."""
+        with self._lock:
+            pending = list(self._demoting.values())
+        for ev in pending:
+            ev.wait()
+        self.ledger.check_invariants()
+        with self._lock:
+            resident = set(self.ledger.resident_aliases())
+            loaded = set(self._models)
+        if resident != loaded:
+            raise RuntimeError(
+                f"weight ledger/engine drift: ledger resident "
+                f"{sorted(resident)} != loaded models {sorted(loaded)}"
+            )
+
+    def _maybe_prefetch(self, alias: str) -> None:
+        """Queue a background load of ``alias`` (non-blocking). All the
+        work (estimate, fit check, the load or promotion) runs on a
+        daemon thread, so a prefetch wedged on a dead device cannot hang
+        the process at exit."""
+        with self._lock:
+            if alias in self._models or alias in self._inflight:
+                return
+            fut: Future = Future()
+            self._inflight[alias] = fut
+
+        def _work() -> None:
+            try:
+                fut.set_result(self._prefetch_task(alias))
+            except BaseException as e:  # the future owns error delivery
+                fut.set_exception(e)
+
+        try:
+            threading.Thread(
+                target=_work, daemon=True, name=f"advspec-prefetch-{alias}"
+            ).start()
+        except BaseException as e:
+            with self._lock:
+                self._inflight.pop(alias, None)
+            fut.set_exception(e)
+
+    def _prefetch_task(self, alias: str) -> LoadedModel | None:
+        """Background half of _maybe_prefetch. It never evicts: if the
+        alias does not fit beside everything resident, it gives up and
+        the load happens at use time. Exceptions stay in the future; the
+        foreground _load falls back to a load of its own."""
+        try:
+            self._wait_demoting(alias)
+            host_entry = self.ledger.peek_host(alias)
+            if host_entry is not None and isinstance(host_entry.payload, HostWeights):
+                estimate = host_entry.payload.bytes_device
+            else:
+                host_entry = None
+                estimate = estimate_param_bytes(
+                    registry_mod.resolve_model_spec(f"tpu://{alias}")
+                )
+            with self._lock:
+                fits = (
+                    self._committed_bytes_locked() + estimate
+                    <= hbm_budget_bytes(self.device)
+                )
+                if fits:
+                    self._loading[alias] = estimate
+            if fits and host_entry is not None:
+                return self._promote_sync(alias, prefetched=True, evict=False, reserved=True)
+            if fits:
+                return self._load_sync(
+                    alias, prefetched=True, estimate=estimate, evict=False, reserved=True
+                )
+            return None
+        finally:
+            with self._lock:
+                if not isinstance(self._models.get(alias), LoadedModel):
+                    self._inflight.pop(alias, None)
+                    self._loading.pop(alias, None)
+
+    def _stage_next(self, alias: str) -> None:
+        """Make the NEXT group's swap overlap this group's decode: when
+        the next model is host-demoted and the budget is full, demote the
+        LRU resident now (the current group's model is pinned), so the
+        background promotion fits. Cold loads keep the fit-check-only
+        prefetch."""
+        entry = self.ledger.peek_host(alias)
+        if entry is not None and isinstance(entry.payload, HostWeights):
+            needed = entry.payload.bytes_device
+            with self._lock:
+                fits = (
+                    self._committed_bytes_locked() + needed
+                    <= hbm_budget_bytes(self.device)
+                )
+            if not fits:
+                self._evict_for(needed)
+        self._maybe_prefetch(alias)
 
     def _materialize(self, spec: ModelSpec, dtype: torch.dtype) -> tuple[dict, ModelConfig]:
         """Params via the fastest available source: the native cache
@@ -256,7 +781,15 @@ class GpuEngine:
                 out[i] = Completion(error=f"ValueError: {e}")
                 continue
             groups.setdefault(alias, []).append(i)
-        for alias, indices in groups.items():
+        # Resident-first: groups whose weights are resident serve before
+        # any group that forces a swap, so a pool larger than the budget
+        # pays at most (pool - resident) swaps per round. Groups decode
+        # independently: the order changes no row's greedy tokens.
+        aliases = self.ledger.resident_first(list(groups))
+        refusals = {a: self._refusal(a, params) for a in aliases}
+        servable = [a for a in aliases if refusals[a] is None]
+        for alias in aliases:
+            indices = groups[alias]
             batch = [requests[i] for i in indices]
             # The caller's consumer indexes rows of ITS batch; re-map each
             # group's row back through the group's indices.
@@ -267,18 +800,17 @@ class GpuEngine:
                     return _c(_ix[row], text)
 
             try:
-                spec = registry_mod.resolve_model_spec(f"tpu://{alias}")
-                check_kv_dtype(spec.kv_dtype)
-                reason = unported_reason(
-                    spec, params.max_new_tokens, params.request_deadline_s
-                )
-                if reason is not None:
-                    raise NotImplementedError(
-                        f"tpu://{alias} needs {reason}, which is not yet "
-                        "ported to the PyTorch/CUDA package"
-                    )
-                completions = self._chat_loaded(
-                    self._load(alias), batch, params, group_consumer
+                if refusals[alias] is not None:
+                    raise refusals[alias]
+                k = servable.index(alias)
+                completions = self._chat_one_model(
+                    alias,
+                    batch,
+                    params,
+                    # The next group's weights load (or promote) while
+                    # this group decodes.
+                    prefetch_next=servable[k + 1] if k + 1 < len(servable) else None,
+                    consumer=group_consumer,
                 )
             except Exception as e:  # degrade, never raise (parity: ref)
                 msg = f"{type(e).__name__}: {e}"
@@ -302,6 +834,45 @@ class GpuEngine:
             for i, comp in zip(indices, completions):
                 out[i] = comp
         return [c for c in out if c is not None]
+
+    def _refusal(self, alias: str, params: SamplingParams) -> Exception | None:
+        """Why ``alias`` cannot be served this round, checked before any
+        weights load: an unknown alias, a KV dtype or spec the port does
+        not serve, or a ``tokenizer.json`` its reader refuses."""
+        try:
+            spec = registry_mod.resolve_model_spec(f"tpu://{alias}")
+            check_kv_dtype(spec.kv_dtype)
+            reason = unported_reason(
+                spec, params.max_new_tokens, params.request_deadline_s
+            )
+            if reason is not None:
+                raise NotImplementedError(
+                    f"tpu://{alias} needs {reason}, which is not yet "
+                    "ported to the PyTorch/CUDA package"
+                )
+            load_tokenizer(spec.tokenizer)
+        except Exception as e:
+            return e
+        return None
+
+    def _chat_one_model(
+        self,
+        alias: str,
+        batch: list[ChatRequest],
+        params: SamplingParams,
+        prefetch_next: str | None = None,
+        consumer=None,
+    ) -> list[Completion]:
+        # Pin BEFORE loading: from the moment the model can be resident
+        # it is no victim of a concurrent background load.
+        self.ledger.acquire_weights(alias)
+        try:
+            lm = self._load(alias)
+            if prefetch_next is not None:
+                self._stage_next(prefetch_next)
+            return self._chat_loaded(lm, batch, params, consumer)
+        finally:
+            self.ledger.release_weights(alias)
 
     def _chat_loaded(
         self,

@@ -3,8 +3,10 @@
 Two implementations behind one duck-typed interface (``encode``, ``decode``,
 ``bos_id``, ``eos_ids``, ``pad_id``, ``vocab_size``):
 
-- ``HFTokenizer`` wraps a ``tokenizer.json`` via the ``tokenizers`` library
-  (ships with transformers) for real checkpoints.
+- ``HFTokenizer`` reads a checkpoint's ``tokenizer.json`` with the port's
+  own reader (``engine/tokenizer_json.py``; the GPU machine has no
+  ``tokenizers`` package). A component the reader does not implement
+  raises ``UnsupportedTokenizer`` when the tokenizer loads.
 - ``ByteTokenizer`` is a 3-special + 256-byte vocabulary used by synthetic
   ``random-*`` models, so the full engine path (chat templating → encode →
   decode loop → detokenize) runs with zero downloads in an air-gapped
@@ -18,6 +20,8 @@ family template via ``CHAT_TEMPLATES`` keyed on the registry family.
 from __future__ import annotations
 
 from pathlib import Path
+
+from adversarial_spec_tpu_torch.engine.tokenizer_json import TokenizerJSON
 
 PAD_ID = 0
 BOS_ID = 1
@@ -52,15 +56,13 @@ class ByteTokenizer:
 
 
 class HFTokenizer:
-    """Wraps a HuggingFace ``tokenizer.json`` (tokenizers library)."""
+    """A HuggingFace ``tokenizer.json``, read by ``TokenizerJSON``."""
 
     def __init__(self, path: str):
-        from tokenizers import Tokenizer  # deferred heavy import
-
         p = Path(path)
         if p.is_dir():
             p = p / "tokenizer.json"
-        self._tok = Tokenizer.from_file(str(p))
+        self._tok = TokenizerJSON(p)
         self.vocab_size = self._tok.get_vocab_size()
         # Note: Qwen-2 has no BOS at all — <|im_start|> is a chat-turn
         # delimiter already present in the template, not a BOS candidate.
@@ -91,7 +93,7 @@ class HFTokenizer:
         return None
 
     def encode(self, text: str, add_bos: bool = True) -> list[int]:
-        ids = self._tok.encode(text, add_special_tokens=False).ids
+        ids = self._tok.encode(text)
         if add_bos and self.bos_id is not None:
             return [self.bos_id] + ids
         return ids
@@ -133,8 +135,22 @@ def apply_chat_template(
     return template.format(system=system or "", user=user)
 
 
+_LOADED: dict[tuple, HFTokenizer] = {}
+
+
 def load_tokenizer(tokenizer_path: str):
-    """Tokenizer factory: path → HFTokenizer, empty → ByteTokenizer."""
-    if tokenizer_path:
-        return HFTokenizer(tokenizer_path)
-    return ByteTokenizer()
+    """Tokenizer factory: path → HFTokenizer, empty → ByteTokenizer. An
+    ``HFTokenizer`` is read once per file version (path, size, mtime):
+    the CLI's validation and the engine's load share it."""
+    if not tokenizer_path:
+        return ByteTokenizer()
+    p = Path(tokenizer_path)
+    f = p / "tokenizer.json" if p.is_dir() else p
+    try:
+        st = f.stat()
+        key = (str(f.resolve()), st.st_size, st.st_mtime_ns)
+    except OSError:
+        return HFTokenizer(tokenizer_path)  # raises the reader's error
+    if key not in _LOADED:
+        _LOADED[key] = HFTokenizer(tokenizer_path)
+    return _LOADED[key]

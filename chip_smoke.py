@@ -145,10 +145,26 @@ Phases, each printing one JSON line; any failure exits non-zero:
    load`` line (seconds, bytes read, the reader's largest host staging,
    device memory before it and its peak, resident bytes); each round a
    ``cli round`` line. The phase fails with the bytes it needs when
-   build/ lacks the disk (~38 GB at its peak), and deletes its files at
-   the end, on failure too. B1-B4's and B6's launches in the kernels line
-   are this phase's;
-10. agree  — tiny f32 models decoded greedily on the card (kernels) and on
+   build/ lacks the disk (~47 GB at its peak with phase pool's int8
+   cache) and leaves its checkpoint to phase pool;
+10. pool   — real checkpoints as an opponent pool: phase hf's checkpoint
+   registered four times by ``registry add-model``, each alias with its
+   own ``tokenizer.json`` from tests/torch_tokenizers/ (Llama-3, Mistral,
+   Gemma-2 and Qwen2 layouts, read by the port's own reader): pool-a
+   bf16, pool-b int8, pool-c int4 with kv=paged, pool-d bf16 (~45.5 GB of
+   weights), one ``critique`` session naming all four, 128 new tokens,
+   greedy, prefix cache off: round 1 speculation on (B2, B4, B5, B6 must
+   launch), rounds 2 and 3 ``--resume --no-speculative`` (B1, B3, B5,
+   B6). (a) At the natural budget: rounds 2 and 3 must load nothing. (b) A fresh engine
+   under ADVSPEC_HBM_BUDGET_BYTES = pool-a + pool-b + half of pool-c (two
+   of the four fit) with ``--weight-host-mb 48000``: the rounds must demote,
+   promote and consume a prefetch. Each alias's greedy text and generated
+   ids must be identical between (a) and (b). Each round prints a ``cli round`` line
+   (its wall, perf.weights, each swap's bytes and seconds, prefetch hits,
+   encode seconds per prompt, peak device memory, launches). B1-B6's
+   launches in the kernels line are this phase's. The checkpoint is
+   deleted after it, on failure too;
+11. agree  — tiny f32 models decoded greedily on the card (kernels) and on
    the CPU (plain versions) give identical tokens: dense generate() with
    speculation on (B2, or B2-i8, must launch), and the paged batcher with
    speculation on and off; full precision, the
@@ -165,8 +181,10 @@ import contextlib
 import functools
 import json
 import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
@@ -1442,7 +1460,6 @@ def paged_requests() -> list:
 def temp_registry(*specs):
     """The port's registry pointed at a temporary file under build/ that
     holds ``specs`` (user entries shadow the built-in aliases)."""
-    import tempfile
     from pathlib import Path
 
     from adversarial_spec_tpu_torch.engine import registry
@@ -1627,7 +1644,7 @@ def phase_paged(torch, profile: bool = False) -> dict:
             if profile:
                 spec_mod.configure(enabled=True)
                 prof = profile_chat(torch, engine, reqs, sp, "chip_profile_paged.txt")
-            lm = engine._resident
+            lm = served(engine)
             pool_bytes = sum(t.numel() * t.element_size() for t in lm.batcher.pool.values())
             batcher = {"slots": lm.batcher.B, "capacity_tokens": lm.batcher.capacity_tokens,
                        "pool_bytes": pool_bytes}
@@ -1695,7 +1712,7 @@ def serve_quantized(torch, spec, reqs, must_launch, profile=False) -> dict:
         if not warm[0].ok:
             raise RuntimeError(f"warm-up chat failed: {warm[0].error}")
         load_s = time.monotonic() - t
-        resident, bf16 = weight_bytes(engine._resident.params)
+        resident, bf16 = weight_bytes(served(engine).params)
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         il.reset_stats()
@@ -1885,7 +1902,7 @@ def phase_kv8(torch, profile: bool = False) -> dict:
                    if not launched.get(k)]
         if missing:
             raise RuntimeError(f"kv8 dense: {missing} never launched: {calls}")
-        resident, _ = weight_bytes(engine._resident.params)
+        resident, _ = weight_bytes(served(engine).params)
         prof = (profile_chat(torch, engine, reqs, sp, "chip_profile_kv8_dense.txt")
                 if profile else None)
         del engine
@@ -1923,7 +1940,7 @@ def phase_kv8(torch, profile: bool = False) -> dict:
                 prof = profile_chat(torch, engine, reqs, sp, "chip_profile_kv8_paged.txt")
         finally:
             spec_mod.configure(enabled=True)
-        lm = engine._resident
+        lm = served(engine)
         pool = lm.batcher.pool
         resident, bf16 = weight_bytes(lm.params)
         paged = {
@@ -1964,7 +1981,6 @@ def cli_state():
     weight residency) get back their values from before: a round's
     ``--no-speculative`` must not reach the phases after it."""
     import dataclasses
-    import tempfile
     from pathlib import Path
 
     from adversarial_spec_tpu_torch.debate import session
@@ -2045,6 +2061,9 @@ def cli_round(torch, label: str, argv: list, stdin: str, must_launch: tuple) -> 
         raise RuntimeError(f"{label}: {missing} never launched: {launched}")
     perf = doc["perf"]
     responses = json.dumps([r["response"] for r in doc["results"]])
+    per_model: dict = {}
+    for r in doc["results"]:
+        per_model.setdefault(r["model"], []).append(r["response"])
     return {
         "round": label,
         "round_num": doc["round"],
@@ -2060,6 +2079,9 @@ def cli_round(torch, label: str, argv: list, stdin: str, must_launch: tuple) -> 
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "all_agreed": doc["all_agreed"],
         "responses_sha1": hashlib.sha1(responses.encode()).hexdigest(),
+        "per_model_sha1": {m: hashlib.sha1(json.dumps(t).encode()).hexdigest()
+                           for m, t in per_model.items()},
+        "weights": perf["weights"],
     }
 
 
@@ -2233,12 +2255,25 @@ def recording_loads(torch, records: list):
         gpu_mod.materialize_params, ckpt_mod.load_native, ckpt_mod.save_native = real
 
 
-def served_params():
-    """The params the CLI's cached ``GpuEngine`` holds."""
+def served(engine):
+    """The one model a single-alias ``GpuEngine`` holds."""
+    (lm,) = engine._models.values()
+    return lm
+
+
+def cli_engine():
+    """The CLI's cached ``GpuEngine``."""
     from adversarial_spec_tpu_torch.engine import dispatch
 
-    (engine,) = [e for e in dispatch.cached_engines() if hasattr(e, "_resident")]
-    return engine._resident.params
+    from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
+
+    (engine,) = [e for e in dispatch.cached_engines() if isinstance(e, GpuEngine)]
+    return engine
+
+
+def served_params():
+    """The params the CLI's cached ``GpuEngine`` holds (one model)."""
+    return served(cli_engine()).params
 
 
 def check_same_params(torch, got, init, quant: str = "") -> int:
@@ -2265,11 +2300,12 @@ def check_same_params(torch, got, init, quant: str = "") -> int:
     return len(have)
 
 
-def phase_hf(torch) -> dict:
+def phase_hf(torch, ckpt: str) -> dict:
     """HF safetensors checkpoints from the user's entry point. random-8b's
     own weights (init on the card, seed 0: Llama-3-8B at full width and
     depth, bf16) written as Meta lays out the model (``write_hf_checkpoint``)
-    under build/, registered with the CLI's ``registry add-model`` (no
+    at ``ckpt`` (a directory under build/, which phase pool reuses and the
+    caller deletes), registered with the CLI's ``registry add-model`` (no
     tokenizer: the byte tokenizer) and served by ``critique`` rounds:
     (a) ``hf-8b``, dense, four opponents (phase ``cli`` (a)'s round) —
     cold: HF conversion, then the native-cache write (B2 and B1 must
@@ -2281,11 +2317,9 @@ def phase_hf(torch) -> dict:
     load the served params must be bit-identical to the init they were
     written from (the int4 leaves to ``quantize_params`` of it). Each load
     and cache write prints an ``hf load`` line. The phase fails, with the
-    bytes it needs, when build/ lacks the disk; its files are deleted at
-    the end, on failure too."""
+    bytes it needs, when build/ lacks the disk (for phase pool's int8 cache
+    too)."""
     import math
-    import shutil
-    import tempfile
 
     from adversarial_spec_tpu_torch.engine import dispatch
     from adversarial_spec_tpu_torch.engine.checkpoint import layout
@@ -2300,14 +2334,15 @@ def phase_hf(torch) -> dict:
         return sum(math.prod(shape) * dt.itemsize for dt, shape in lay.values())
 
     bf16 = nbytes(layout(cfg, torch.bfloat16, "", False))
-    # The checkpoint, its bf16 cache and the int4 cache, with 1 GiB slack.
-    need = 2 * bf16 + nbytes(layout(cfg, torch.bfloat16, "int4", False)) + (1 << 30)
+    # The checkpoint, its bf16 cache, the int4 cache and phase pool's int8
+    # cache, with 1 GiB slack.
+    need = (2 * bf16 + nbytes(layout(cfg, torch.bfloat16, "int4", False))
+            + nbytes(layout(cfg, torch.bfloat16, "int8", False)) + (1 << 30))
     free = shutil.disk_usage(build).free
     if free < need:
         raise RuntimeError(f"phase hf needs {need} bytes of disk under build/, {free} are free")
     report = {"phase": "hf", "model": "random-8b written as an HF checkpoint",
               "disk_needed_bytes": need, "disk_free_bytes": free}
-    ckpt = tempfile.mkdtemp(prefix="hf-8b-", dir=build)
     loads: list = []
     try:
         init = init_params(cfg, device=torch.device("cuda"), dtype=torch.bfloat16, seed=0)
@@ -2357,13 +2392,196 @@ def phase_hf(torch) -> dict:
                                "(int4), cache write")
     finally:
         dispatch.clear_engine_cache()
-        shutil.rmtree(ckpt, ignore_errors=True)
         torch.cuda.empty_cache()
     launched = {}
     for r in rounds:
         for k, v in r["launches"].items():
             launched[k] = launched.get(k, 0) + v
     report.update(rounds=rounds, loads=loads, launches=launched)
+    return report
+
+
+# Phase pool's aliases on phase hf's checkpoint: (its tokenizer under
+# tests/torch_tokenizers/, ``registry add-model`` flags).
+POOL = {
+    "pool-a": ("llama3", []),
+    "pool-b": ("mistral", ["--quant", "int8"]),
+    "pool-c": ("gemma2", ["--quant", "int4", "--kv", "paged"]),
+    "pool-d": ("qwen2", []),
+}
+POOL_HOST_MB = 48000  # room on the host for every demoted model at once
+
+
+@contextlib.contextmanager
+def recording_tokenizers(encodes: list, decodes: dict):
+    """While the block runs, time every ``HFTokenizer.encode`` ((seconds,
+    characters, tokens) per prompt into ``encodes``) and keep the longest
+    id sequence each tokenizer file decodes (a row's generated ids; a
+    streamed row decodes growing prefixes) in ``decodes``."""
+    from adversarial_spec_tpu_torch.engine import tokenizer as tok_mod
+
+    real_encode, real_decode = tok_mod.HFTokenizer.encode, tok_mod.HFTokenizer.decode
+
+    def encode(self, text, add_bos=True):
+        t = time.perf_counter()
+        ids = real_encode(self, text, add_bos)
+        encodes.append((time.perf_counter() - t, len(text), len(ids)))
+        return ids
+
+    def decode(self, ids):
+        ids = [int(i) for i in ids]
+        if len(ids) >= len(decodes.get(self._tok.path, ())):
+            decodes[self._tok.path] = ids
+        return real_decode(self, ids)
+
+    tok_mod.HFTokenizer.encode, tok_mod.HFTokenizer.decode = encode, decode
+    try:
+        yield
+    finally:
+        tok_mod.HFTokenizer.encode, tok_mod.HFTokenizer.decode = real_encode, real_decode
+
+
+def recording_swaps(engine) -> list:
+    """The list each load, demotion and promotion the engine's ledger
+    commits from now on is appended to: {op, alias, bytes, seconds,
+    overlapped}."""
+    ledger, records = engine.ledger, []
+
+    def wrap(op, fn, nbytes_at):
+        def run(alias, *args, **kwargs):
+            out = fn(alias, *args, **kwargs)
+            wall = kwargs.get("wall_s", args[nbytes_at + 1] if len(args) > nbytes_at + 1 else 0.0)
+            records.append({"op": op, "alias": alias, "bytes": args[nbytes_at],
+                            "seconds": wall, "overlapped": bool(kwargs.get("overlapped"))})
+            return out
+        return run
+
+    ledger.admit_load = wrap("load", ledger.admit_load, 0)
+    ledger.demote_model = wrap("demote", ledger.demote_model, 1)
+    ledger.promote_model = wrap("promote", ledger.promote_model, 0)
+    return records
+
+
+def phase_pool(torch, ckpt: str) -> dict:
+    """Real checkpoints as an opponent pool, from the user's entry point.
+    Phase hf's checkpoint (random-8b's weights in Meta's 4-shard layout)
+    registered four times with ``registry add-model``, each alias with
+    its own ``tokenizer.json`` (``tests/torch_tokenizers/``: Llama-3,
+    Mistral, Gemma-2 and Qwen2 layouts, read by the port's reader):
+    ``pool-a`` bf16, ``pool-b`` int8, ``pool-c`` int4 with kv=paged,
+    ``pool-d`` bf16 (~45.5 GB of weights). One ``critique`` session names
+    all four on an ~11 KB spec (prompts of ~4200 tokens), 128 new tokens, greedy, prefix cache off (a demoted model
+    loses its prefix cache, so text is compared without it): round 1
+    speculation on (B2, B4, B5, B6 must launch), rounds 2 and 3 ``--resume
+    --no-speculative`` (B1, B3, B5, B6). (a) At the natural budget all
+    four stay resident: rounds 2 and 3 must load nothing. (b) A fresh engine
+    under ``ADVSPEC_HBM_BUDGET_BYTES`` = pool-a + pool-b + half of pool-c
+    (two of the four fit) and ``--weight-host-mb 48000``: the rounds must
+    demote, promote and consume a prefetch. Every alias's greedy text and
+    generated ids must be identical between (a) and (b) (random weights
+    pick many ids outside a ~3000-token vocabulary, which decode drops).
+    Each round prints a ``cli round`` line with its
+    residency counters, the swaps the ledger committed (bytes, seconds),
+    the prefetch hits and the encode seconds per prompt."""
+    import hashlib
+
+    from adversarial_spec_tpu_torch.engine import dispatch, registry
+    from adversarial_spec_tpu_torch.engine.gpu import estimate_param_bytes
+
+    tok_root = os.path.join(HERE, "tests", "torch_tokenizers")
+    spec = spec_document(11000, 0)  # prompts of ~4200 tokens
+    models = ",".join(f"tpu://{a}" for a in POOL)
+    common = ["--greedy", "--max-new-tokens", "128", "--json", "--no-prefix-cache",
+              "--weight-host-mb", str(POOL_HOST_MB)]
+    round_1 = ("decode_attention_mq", "paged_decode_attention_mq", "matmul_int8", "matmul_int4")
+    round_2 = ("decode_attention", "paged_decode_attention", "matmul_int8", "matmul_int4")
+    report = {"phase": "pool", "aliases": {a: {"tokenizer": t, "flags": f}
+                                           for a, (t, f) in POOL.items()}}
+    texts = {}
+    prev_budget = os.environ.pop("ADVSPEC_HBM_BUDGET_BYTES", None)
+    try:
+        with cli_state():
+            for alias, (layout, flags) in POOL.items():
+                code, _, err = run_cli(["registry", "add-model", alias, "--checkpoint", ckpt,
+                                        "--tokenizer", os.path.join(tok_root, layout),
+                                        "--family", "llama", "--size", "8b", *flags])
+                if code != 0:
+                    raise RuntimeError(f"registry add-model {alias} failed: {err}")
+            sizes = {a: estimate_param_bytes(registry.resolve_model_spec(f"tpu://{a}"))
+                     for a in POOL}
+            report["weight_bytes"] = sizes
+            for part in ("a", "b"):
+                if part == "b":
+                    budget = sizes["pool-a"] + sizes["pool-b"] + sizes["pool-c"] // 2
+                    os.environ["ADVSPEC_HBM_BUDGET_BYTES"] = str(budget)
+                    report["forced_budget_bytes"] = budget
+                dispatch.clear_engine_cache()
+                torch.cuda.empty_cache()
+                engine = dispatch.get_engine("tpu://pool-a")
+                committed = recording_swaps(engine)
+                rounds = []
+                for label, argv, stdin, must in (
+                    ("round 1, speculation on",
+                     ["critique", "--models", models, "--session", f"pool-{part}", *common],
+                     spec, round_1),
+                    ("round 2, speculation off",
+                     ["critique", "--resume", f"pool-{part}", "--no-speculative", *common],
+                     "", round_2),
+                    ("round 3, speculation off",
+                     ["critique", "--resume", f"pool-{part}", "--no-speculative", *common],
+                     "", round_2),
+                ):
+                    encodes, decodes = [], {}
+                    n_swaps, hits = len(committed), engine.prefetch_hits
+                    with recording_tokenizers(encodes, decodes):
+                        r = cli_round(torch, f"pool ({part}) {label}", argv, stdin, must)
+                    swaps = committed[n_swaps:]
+                    ids = {a: decodes[os.path.join(tok_root, t, "tokenizer.json")]
+                           for a, (t, _) in POOL.items()}
+                    vocab = {a: engine._models[a].tokenizer.vocab_size
+                             if a in engine._models else None for a in POOL}
+                    r.update(
+                        ids_sha1={a: hashlib.sha1(json.dumps(v).encode()).hexdigest()
+                                  for a, v in ids.items()},
+                        ids_in_vocab={a: sum(i < (vocab[a] or 0) for i in v)
+                                      for a, v in ids.items()},
+                        prefetch_hits=engine.prefetch_hits - hits, swaps=swaps,
+                        swap_bytes=sum(w["bytes"] for w in swaps if w["op"] != "load"),
+                        swap_seconds=sum(w["seconds"] for w in swaps if w["op"] != "load"),
+                        encode_seconds=[e[0] for e in encodes],
+                        encode_tokens=[e[2] for e in encodes],
+                        resident=sorted(engine.ledger.resident_aliases()),
+                        host=sorted(engine.ledger.host_aliases()),
+                    )
+                    engine.check_residency_invariants()
+                    emit({"phase": "cli round", "part": f"pool ({part})", **r})
+                    rounds.append(r)
+                report[part] = rounds
+                texts[part] = [(r["per_model_sha1"], r["ids_sha1"]) for r in rounds]
+        for r in report["a"][1:]:
+            if r["weights"]["loads"] != 0:
+                raise RuntimeError(f"{r['round']} loaded {r['weights']['loads']} models")
+        wb = [r["weights"] for r in report["b"]]
+        for key in ("demotions", "promotions"):
+            if not sum(w[key] for w in wb):
+                raise RuntimeError(f"pool (b) made no {key}: {wb}")
+        if not sum(r["prefetch_hits"] for r in report["b"]):
+            raise RuntimeError("pool (b) consumed no prefetch")
+        if texts["a"] != texts["b"]:
+            raise RuntimeError("pool: greedy text or ids differ between (a) and (b)")
+    finally:
+        if prev_budget is None:
+            os.environ.pop("ADVSPEC_HBM_BUDGET_BYTES", None)
+        else:
+            os.environ["ADVSPEC_HBM_BUDGET_BYTES"] = prev_budget
+        dispatch.clear_engine_cache()
+        torch.cuda.empty_cache()
+    launched = {}
+    for part in ("a", "b"):
+        for r in report[part]:
+            for k, v in r["launches"].items():
+                launched[k] = launched.get(k, 0) + v
+    report["launches"] = launched
     return report
 
 
@@ -2591,15 +2809,24 @@ def main(argv: list[str]) -> int:
         cl = phase_cli(torch)
         emit(cl)
         torch.cuda.empty_cache()
-        # HF checkpoints from the user's entry point, the newest main path:
-        # B1-B4's and B6's launches in the kernels line are this phase's.
-        hf = phase_hf(torch)
-        emit(hf)
-        launches.update(hf["launches"])
+        # HF checkpoints from the user's entry point; then the same
+        # checkpoint as an opponent pool, the newest main path: B1-B4's,
+        # B5's and B6's launches in the kernels line are phase pool's.
+        os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
+        ckpt = tempfile.mkdtemp(prefix="hf-8b-", dir=os.path.join(HERE, "build"))
+        try:
+            hf = phase_hf(torch, ckpt)
+            emit(hf)
+            torch.cuda.empty_cache()
+            pl = phase_pool(torch, ckpt)
+            emit(pl)
+        finally:
+            shutil.rmtree(ckpt, ignore_errors=True)
+        launches.update({k: v for k, v in pl["launches"].items() if k in launches})
         torch.cuda.empty_cache()
         ag = phase_agree(torch)
         emit(ag)
-        record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, cli=cl, hf=hf, agree=ag)
+        record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, cli=cl, hf=hf, pool=pl, agree=ag)
 
     line = []
     for name, r in kres.items():

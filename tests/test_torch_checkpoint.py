@@ -354,7 +354,7 @@ def test_second_load_reads_no_hf_tensor(hf_ckpt, monkeypatch, quant):
     assert first.ok, first.error
     cache = _cache(hf_ckpt, quant)
     assert ckpt_mod.has_native(cache)
-    params1 = ckpt_mod.flatten(eng._resident.params)
+    params1 = ckpt_mod.flatten(eng._models[alias].params)
     read = []
     real = safetensors.read_tensor
     monkeypatch.setattr(
@@ -365,7 +365,7 @@ def test_second_load_reads_no_hf_tensor(hf_ckpt, monkeypatch, quant):
     assert second.ok, second.error
     assert read and all(cache in p.parents for p in read)  # the cache only
     assert second.text == first.text
-    params2 = ckpt_mod.flatten(eng2._resident.params)
+    params2 = ckpt_mod.flatten(eng2._models[alias].params)
     assert list(params2) == list(params1)
     for name, t in params1.items():
         assert params2[name].dtype == t.dtype and torch.equal(params2[name], t), name
@@ -445,4 +445,4 @@ def test_hf_params_equal_the_reference_through_the_engines(hf_ckpt):
     import jax.numpy as jnp
 
     ref = ref_loader.load_hf_checkpoint(hf_ckpt, ref_cfg, "llama", dtype=jnp.float32)
-    hf.assert_bit_identical(eng._resident.params, jax.tree.map(np.asarray, ref), cfg.n_layers)
+    hf.assert_bit_identical(eng._models["hf-tiny"].params, jax.tree.map(np.asarray, ref), cfg.n_layers)

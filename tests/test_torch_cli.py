@@ -370,15 +370,41 @@ REFUSED = {
     "kv_store_dir_env": (["critique"], {"ADVSPEC_KV_STORE_DIR": "/tmp/kv"}),
     "kv_host_mb": (["critique", "--kv-host-mb", "64"], {}),
     "kv_flush_blocks": (["critique", "--kv-flush-blocks", "2"], {}),
-    "weight_res": (["critique", "--weight-res"], {}),
-    "weight_host_mb": (["critique", "--weight-host-mb", "64"], {}),
-    "weight_res_env": (["critique"], {"ADVSPEC_WEIGHT_RES": "1"}),
-    "weight_host_mb_env": (["critique"], {"ADVSPEC_WEIGHT_HOST_MB": "64"}),
     "chaos_engine_seam": (["critique", "--chaos", "oom@scheduler_chunk"], {}),
     "chaos_generate_env": (["critique"], {"ADVSPEC_CHAOS": "bug@generate"}),
     "chaos_mixed": (["critique", "--chaos", "bug@crash,oom@kv_alloc"], {}),
     "export_tasks_fleet": (["export-tasks", "--fleet"], {}),
 }
+
+
+# Refused until GpuEngine's weight residency was ported; accepted now,
+# with the reference's report.
+ACCEPTED_NOW = {
+    "weight_res": (["critique", "--weight-res"], {}),
+    "weight_host_mb": (["critique", "--weight-host-mb", "64"], {}),
+    "weight_res_env": (["critique"], {"ADVSPEC_WEIGHT_RES": "1"}),
+    "weight_host_mb_env": (["critique"], {"ADVSPEC_WEIGHT_HOST_MB": "64"}),
+    "weight_swap_chaos": (["critique", "--chaos", "oom@weight_swap"], {}),
+}
+
+
+@pytest.mark.parametrize("name", sorted(ACCEPTED_NOW))
+def test_weight_residency_knob_matches_reference(name, tmp_path, monkeypatch, capsys):
+    argv, env = ACCEPTED_NOW[name]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    docs = []
+    for pkg, cli_mod in (("ref", ref_cli), ("port", port_cli)):
+        sup.point_state(monkeypatch, pkg, tmp_path / pkg)
+        code, out, err = sup.run_cli(
+            cli_mod, argv + ["--models", "mock://critic", "--json"], monkeypatch, capsys, SPEC
+        )
+        assert code == 0, err
+        docs.append(sup.normalize_report(json.loads(out), pkg))
+    assert docs[1] == docs[0]
+    weights = docs[1]["perf"]["weights"]
+    assert weights["enabled"] is True
+    assert weights["host_mb"] == (64 if "host_mb" in name else 2048)
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))

@@ -123,8 +123,12 @@ def _assert_round_matches(ref, got):
         assert got["perf"]["prefix_cache"][k] == ref["perf"]["prefix_cache"][k], k
     assert got["all_agreed"] == ref["all_agreed"]
     assert got["trace_id"] == ref["trace_id"]
-    # GpuEngine reloads instead of paging weights: residency is off.
-    assert got["perf"]["weights"]["enabled"] is False
+    # Weight residency is the reference's: the same ledger report.
+    assert got["perf"]["weights"]["enabled"] is True
+    walls = ("load_s", "demote_s", "promote_s", "weight_load_wall_s")
+    assert {k: v for k, v in got["perf"]["weights"].items() if k not in walls} == {
+        k: v for k, v in ref["perf"]["weights"].items() if k not in walls
+    }
 
 
 @pytest.mark.parametrize("speculative", [True, False], ids=["spec", "nospec"])

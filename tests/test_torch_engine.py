@@ -144,7 +144,7 @@ def test_unported_specs_get_not_yet_ported_error(shared_registry, serving_defaul
     every row with an error of the same fault kind."""
     if alias in SERVED_NOW:
         port = _chat_matches_reference(alias)
-        cache = port._resident.batcher.pool if alias.startswith("paged") else None
+        cache = port._models[alias].batcher.pool if alias.startswith("paged") else None
         assert cache is None or cache["k"].dtype == torch.int8
         return
     if alias == "paged-hf":
@@ -179,7 +179,7 @@ def test_int8kv_chat_text_matches_reference(shared_registry, serving_defaults, a
     """The int8 KV cache on the dense path with full-precision weights, and
     on the paged path beside int4 weights (B6 with the int8-KV B3/B4)."""
     port = _chat_matches_reference(alias)
-    lm = port._resident
+    lm = port._models[alias]
     assert lm.spec.kv_dtype == "int8"
     if lm.batcher is not None:
         assert lm.batcher.pool["ks"].dtype == torch.float32
@@ -245,7 +245,7 @@ def test_paged_chat_text_matches_reference(
                 assert getattr(g.usage, field) == getattr(r.usage, field)
         if rnd == 1:
             assert sum(c.usage.cached_tokens for c in got) > 0
-    batcher = port._resident.batcher
+    batcher = port._models["paged-f32"].batcher
     assert batcher is not None and batcher.speculative == speculative
     batcher.allocator.check_invariants()
 

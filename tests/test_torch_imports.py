@@ -4,8 +4,8 @@ The port imports torch, numpy and the standard library: never jax, and
 nothing of the reference package ``adversarial_spec_tpu`` (whose name is a
 prefix of the port's own — matched here by whole dotted components). Nor
 does it import the packages the GPU machine lacks — ``safetensors``,
-``orbax``, ``ml_dtypes``, ``transformers`` — except ``tokenizers``, which
-``engine/tokenizer.py`` alone may import (its HF tokenizer).
+``orbax``, ``ml_dtypes``, ``transformers``, ``tokenizers``, ``regex`` — anywhere
+(``engine/tokenizer_json.py`` reads ``tokenizer.json`` itself).
 """
 
 import ast
@@ -45,7 +45,8 @@ ABSENT_ON_CARD = {
     "orbax": (),
     "ml_dtypes": (),
     "transformers": (),
-    "tokenizers": ("adversarial_spec_tpu_torch/engine/tokenizer.py",),
+    "tokenizers": (),
+    "regex": (),
 }
 
 

@@ -29,7 +29,6 @@ import numpy as np
 import pytest
 import torch
 
-from adversarial_spec_tpu import cli as ref_cli
 from adversarial_spec_tpu.engine import loader as ref_loader
 from adversarial_spec_tpu.engine import registry as ref_registry
 from adversarial_spec_tpu.engine import spec as ref_spec
@@ -38,8 +37,6 @@ from adversarial_spec_tpu.engine.types import ChatRequest as RefChatRequest
 from adversarial_spec_tpu.engine.types import SamplingParams as RefParams
 from adversarial_spec_tpu.models.config import get_config as ref_get_config
 from adversarial_spec_tpu.ops.quant import quantize_params as ref_quantize
-from adversarial_spec_tpu_torch import cli as port_cli
-from adversarial_spec_tpu_torch.engine import dispatch as port_dispatch
 from adversarial_spec_tpu_torch.engine import loader
 from adversarial_spec_tpu_torch.engine import registry
 from adversarial_spec_tpu_torch.engine import spec as port_spec
@@ -413,51 +410,21 @@ def test_chat_on_hf_alias_matches_reference(hf_aliases, alias):
         for field in ("input_tokens", "output_tokens", "cached_tokens"):
             assert getattr(g.usage, field) == getattr(r.usage, field)
     assert sum(c.usage.output_tokens for c in got) > 0
-    lm = port._resident
+    lm = port._models[alias]
     assert lm.spec.checkpoint == hf_aliases
     assert (lm.batcher is not None) == (lm.spec.kv == "paged")
     wq = lm.params["layers"][0]["wq"]
     assert set(wq) == {"q4", "scale"} if "int4" in alias else wq.dtype == torch.float32
 
 
-def _both_cli(argv, tmp_path, monkeypatch, capsys, stdin=None):
-    """One invocation through each CLI (the port's serving through a CPU
-    GpuEngine), each with its own sessions: (code, stdout, stderr) each."""
-    out = []
-    for pkg, cli_mod in (("ref", ref_cli), ("port", port_cli)):
-        sup.point_state(monkeypatch, pkg, tmp_path / pkg, tmp_path / "registry.json")
-        if pkg == "port" and not port_dispatch.cached_engines():
-            port_dispatch.install_engine("tpu://x", GpuEngine(device="cpu"))
-        out.append(sup.run_cli(cli_mod, argv, monkeypatch, capsys, stdin))
-    return out
-
-
-def _without_walls(doc):
-    """A ``--json`` report without its wall-clock fields: the harness's
-    list (``sup.normalize_report``), and every ``*_s`` / ``*_per_sec``
-    timing of the rows, the cost table and perf (a ``tpu://`` round times
-    real work, unlike the mock engine's synthetic walls)."""
-    def strip(node):
-        if isinstance(node, dict):
-            return {
-                k: strip(v) for k, v in node.items()
-                if not (k.endswith("_s") or k.endswith("_per_sec"))
-            }
-        if isinstance(node, list):
-            return [strip(v) for v in node]
-        return node
-
-    return strip(doc)
-
-
 @pytest.mark.parametrize("alias", ["hf-dense", "hf-paged"])
 def test_critique_on_hf_alias_matches_reference(hf_aliases, alias, tmp_path, monkeypatch, capsys):
     argv = ["critique", "--models", ",".join([f"tpu://{alias}"] * 2), "--greedy",
             "--max-new-tokens", "24", "--json"]
-    (rc, rout, rerr), (pc, pout, perr) = _both_cli(argv, tmp_path, monkeypatch, capsys, SPEC)
+    (rc, rout, rerr), (pc, pout, perr) = sup.both_cli(argv, tmp_path, monkeypatch, capsys, SPEC)
     assert rc == pc == 0, (rerr, perr)
     ref_doc, port_doc = (
-        _without_walls(sup.normalize_report(json.loads(o), pkg))
+        sup.without_walls(sup.normalize_report(json.loads(o), pkg))
         for o, pkg in ((rout, "ref"), (pout, "port"))
     )
     assert [r["error"] for r in port_doc["results"]] == [None, None]
@@ -466,8 +433,9 @@ def test_critique_on_hf_alias_matches_reference(hf_aliases, alias, tmp_path, mon
         assert port_doc[key] == ref_doc[key], key
     for key in ("spec", "prefix_cache", "resilience"):
         assert port_doc["perf"][key] == ref_doc["perf"][key], key
-    # Weight residency is not ported: the port reports it off.
-    assert port_doc["perf"]["weights"]["enabled"] is False
+    # Weight residency is the reference's: the same ledger report.
+    assert port_doc["perf"]["weights"]["enabled"] is True
+    assert port_doc["perf"]["weights"] == ref_doc["perf"]["weights"]
 
 
 def test_checkpoint_load_chaos_matches_reference(hf_aliases, tmp_path, monkeypatch, capsys):
@@ -476,7 +444,7 @@ def test_checkpoint_load_chaos_matches_reference(hf_aliases, tmp_path, monkeypat
     next round serves."""
     argv = ["critique", "--models", "tpu://hf-dense", "--greedy", "--max-new-tokens",
             "8", "--json", "--chaos", "bug@checkpoint_load:times=1"]
-    (rc, rout, rerr), (pc, pout, perr) = _both_cli(argv, tmp_path, monkeypatch, capsys, SPEC)
+    (rc, rout, rerr), (pc, pout, perr) = sup.both_cli(argv, tmp_path, monkeypatch, capsys, SPEC)
     assert pc == rc, (rerr, perr)
     ref_doc, port_doc = json.loads(rout), json.loads(pout)
     assert [r["error"] for r in port_doc["results"]] == [r["error"] for r in ref_doc["results"]]
@@ -485,7 +453,7 @@ def test_checkpoint_load_chaos_matches_reference(hf_aliases, tmp_path, monkeypat
     assert faults == ref_doc["perf"]["resilience"]["faults"]
     assert faults == {"checkpoint_load.bug": 1}
     argv = argv[:-2]
-    (rc, rout, rerr), (pc, pout, perr) = _both_cli(argv, tmp_path, monkeypatch, capsys, SPEC)
+    (rc, rout, rerr), (pc, pout, perr) = sup.both_cli(argv, tmp_path, monkeypatch, capsys, SPEC)
     assert rc == pc == 0, (rerr, perr)
     ref_doc, port_doc = json.loads(rout), json.loads(pout)
     assert [r["error"] for r in port_doc["results"]] == [None]

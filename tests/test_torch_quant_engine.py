@@ -256,6 +256,6 @@ def test_chat_materializes_quantized_spec(quant_registry):
     )
     assert all(c.ok for c in comps), [c.error for c in comps]
     assert comps[0].text == comps[1].text and comps[0].usage.output_tokens == 8
-    params = port._resident.params
+    params = port._models["int4-dense"].params
     assert quant.is_quantized_int4(params["lm_head"])
     assert all(quant.is_quantized_int4(lp[n]) for lp in params["layers"] for n in ("wq", "w_down"))

@@ -1,5 +1,6 @@
 """Shared harness of the port's CLI parity tests (``test_torch_cli.py``,
-``test_torch_debate.py``): isolation of the port's process-wide state, a
+``test_torch_debate.py``, ``test_torch_loader.py``, ``test_torch_pool.py``):
+isolation of the port's process-wide state, a
 CLI runner that works for both packages, and the normalization that
 strips wall-clock fields before two ``--json`` reports are compared.
 
@@ -12,10 +13,12 @@ import io
 import json
 from pathlib import Path
 
+from adversarial_spec_tpu import cli as ref_cli
 from adversarial_spec_tpu.debate import profiles as ref_profiles
 from adversarial_spec_tpu.debate import session as ref_session
 from adversarial_spec_tpu.engine import interleave as ref_interleave
 from adversarial_spec_tpu.engine import registry as ref_registry
+from adversarial_spec_tpu_torch import cli as port_cli
 from adversarial_spec_tpu_torch import obs as port_obs
 from adversarial_spec_tpu_torch.debate import profiles as port_profiles
 from adversarial_spec_tpu_torch.debate import session as port_session
@@ -25,6 +28,7 @@ from adversarial_spec_tpu_torch.engine import prefix_cache as port_prefix
 from adversarial_spec_tpu_torch.engine import registry as port_registry
 from adversarial_spec_tpu_torch.engine import streaming as port_streaming
 from adversarial_spec_tpu_torch.engine import weightres as port_weightres
+from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
 from adversarial_spec_tpu_torch.resilience import breaker as port_breaker
 from adversarial_spec_tpu_torch.resilience import faults as port_faults
 from adversarial_spec_tpu_torch.resilience import injector as port_injector
@@ -229,3 +233,33 @@ def state_tree(root: Path) -> dict:
         for p in sorted(root.rglob("*"))
         if p.is_file()
     }
+
+
+def both_cli(argv, tmp_path, monkeypatch, capsys, stdin=None):
+    """One invocation through each CLI (the port's serving through a CPU
+    GpuEngine), each with its own sessions: (code, stdout, stderr) each."""
+    out = []
+    for pkg, cli_mod in (("ref", ref_cli), ("port", port_cli)):
+        point_state(monkeypatch, pkg, tmp_path / pkg, tmp_path / "registry.json")
+        if pkg == "port" and not port_dispatch.cached_engines():
+            port_dispatch.install_engine("tpu://x", GpuEngine(device="cpu"))
+        out.append(run_cli(cli_mod, argv, monkeypatch, capsys, stdin))
+    return out
+
+
+def without_walls(doc):
+    """A ``--json`` report without its wall-clock fields: the harness's
+    list (``normalize_report``), and every ``*_s`` / ``*_per_sec``
+    timing of the rows, the cost table and perf (a ``tpu://`` round times
+    real work, unlike the mock engine's synthetic walls)."""
+    def strip(node):
+        if isinstance(node, dict):
+            return {
+                k: strip(v) for k, v in node.items()
+                if not (k.endswith("_s") or k.endswith("_per_sec"))
+            }
+        if isinstance(node, list):
+            return [strip(v) for v in node]
+        return node
+
+    return strip(doc)
