@@ -10,11 +10,14 @@ session one package started, the other resumes.
 
 Knobs of subsystems the port does not have yet exit 2 with "not yet
 ported" (``_unported_knobs``): the ``serve`` action, ``--fleet*``,
-``--pipeline-depth 2``, the KV tier's flags, their env vars, and
-``--chaos`` rules at engine seams other than ``checkpoint_load`` and
-``weight_swap``. Of the subsystems the reference arms by default, the KV
-tier is reported off (``perf.kv_tier.enabled: false``) and
-``perf.interleave`` shows pipeline depth 1. Weight residency is the
+``--pipeline-depth 2``, their env vars, and ``--chaos`` rules at the
+fleet's ``replica`` seam. The KV tiers are the reference's
+(``--kv-tier``/``--no-kv-tier``, ``--kv-host-mb``, ``--kv-store-dir``,
+``--kv-flush-blocks`` and their env vars; ``perf.kv_tier``), and so are
+``--no-interleave`` (the batcher's legacy loop) and the chaos seams
+``generate``, ``scheduler_chunk``, ``kv_alloc`` and ``kv_swap``. Of the
+subsystems the reference arms by default, ``perf.interleave`` shows
+pipeline depth 1. Weight residency is the
 reference's: ``--weight-res``/``--no-weight-res``, ``--weight-host-mb``
 and their env vars arm ``GpuEngine``'s ledger (on, 2048 MiB of host by
 default), and ``perf.weights`` reports it. A ``tpu://`` id whose
@@ -794,6 +797,40 @@ def _configure_interleave(args: argparse.Namespace):
     return interleave
 
 
+def _configure_kv_tier(args: argparse.Namespace):
+    """Arm the tiered KV cache from flags; returns the module for
+    reporting. Flag-else-env-default each invocation (one invocation =
+    one round), like obs/spec: one round's --no-kv-tier or store dir
+    must not leak into the next. Stats reset per invocation so
+    ``perf.kv_tier`` accounts exactly this round's swaps; the tiers
+    themselves live on the engine's persistent batcher (rebuilt when
+    these knobs change — the batcher key covers them)."""
+    from adversarial_spec_tpu_torch.engine import kvtier
+
+    kvtier.configure(
+        enabled=(
+            args.kv_tier if args.kv_tier is not None else kvtier.env_enabled()
+        ),
+        host_mb=(
+            args.kv_host_mb
+            if args.kv_host_mb is not None
+            else kvtier.env_host_mb()
+        ),
+        store_dir=(
+            args.kv_store_dir
+            if args.kv_store_dir is not None
+            else kvtier.env_store_dir()
+        ),
+        flush_blocks=(
+            args.kv_flush_blocks
+            if args.kv_flush_blocks is not None
+            else kvtier.env_flush_blocks()
+        ),
+    )
+    kvtier.reset_stats()
+    return kvtier
+
+
 def _configure_weightres(args: argparse.Namespace):
     """Arm weight-residency paging from flags; returns the module for
     reporting. Flag-else-env-default each invocation (one invocation =
@@ -901,9 +938,6 @@ def _configure_obs(args: argparse.Namespace):
 # have yet. Any explicit value refuses the run: set, each would change
 # what the reference serves, and the port must not ignore it silently.
 _UNPORTED_FLAGS = {
-    "kv_host_mb": "--kv-host-mb (the tiered KV cache)",
-    "kv_store_dir": "--kv-store-dir (the tiered KV cache)",
-    "kv_flush_blocks": "--kv-flush-blocks (the tiered KV cache)",
     "fleet_replicas": "--fleet-replicas (the fleet)",
     "fleet_transport": "--fleet-transport (the fleet)",
     "fleet_autoscale": "--[no-]fleet-autoscale (the fleet)",
@@ -914,9 +948,6 @@ _UNPORTED_FLAGS = {
     "scale_interval_s": "--scale-interval-s (the fleet)",
 }
 _UNPORTED_ENV = (
-    "ADVSPEC_KV_HOST_MB",
-    "ADVSPEC_KV_STORE_DIR",
-    "ADVSPEC_KV_FLUSH_BLOCKS",
     "ADVSPEC_FLEET_REPLICAS",
     "ADVSPEC_FLEET_TRANSPORT",
     "ADVSPEC_FLEET_AUTOSCALE",
@@ -927,27 +958,32 @@ _UNPORTED_ENV = (
     "ADVSPEC_FLEET_SCALE_INTERVAL_S",
     "ADVSPEC_FLEET_HANDOFF_THRESHOLD",
 )
-# Chaos seams the port fires: the round journal's, and the engine's
-# checkpoint load and weight swap. The other engine seams (generate, the
-# batcher's, the fleet's replica) are not ported.
-_PORTED_CHAOS_SEAMS = ("crash", "checkpoint_load", "weight_swap")
+# Chaos seams the port fires: the round journal's, the engine's
+# (generate, checkpoint load, weight swap) and the batcher's
+# (scheduler_chunk, kv_alloc, kv_swap). The fleet's replica seam is not
+# ported.
+_PORTED_CHAOS_SEAMS = (
+    "crash",
+    "generate",
+    "checkpoint_load",
+    "weight_swap",
+    "scheduler_chunk",
+    "kv_alloc",
+    "kv_swap",
+)
 
 
 def _unported_knobs(args: argparse.Namespace) -> list[str]:
     """The knobs of unported subsystems this invocation sets, by flag or
     env var (``main`` exits 2 on any). Switching off a subsystem the port
-    does not have (``--no-kv-tier``, ``--no-fleet``, ``ADVSPEC_KV_TIER=0``)
-    is what the port does anyway, and passes."""
+    does not have (``--no-fleet``) is what the port does anyway, and
+    passes."""
     from adversarial_spec_tpu_torch.engine import interleave
     from adversarial_spec_tpu_torch.resilience import injector
 
     out = []
     if args.action == "serve":
         out.append("the serve daemon ('serve')")
-    if args.kv_tier:
-        out.append("--kv-tier (the tiered KV cache)")
-    if os.environ.get("ADVSPEC_KV_TIER", "0") not in ("", "0"):
-        out.append("ADVSPEC_KV_TIER (the tiered KV cache)")
     if args.fleet:
         out.append("--fleet (the fleet)")
     if os.environ.get("ADVSPEC_FLEET", "0") not in ("", "0"):
@@ -976,7 +1012,6 @@ def _unported_knobs(args: argparse.Namespace) -> list[str]:
 
 
 def run_critique(args: argparse.Namespace) -> int:
-    from adversarial_spec_tpu_torch.engine import kvtier
     from adversarial_spec_tpu_torch.utils.tracing import Tracer, maybe_profile
 
     tracer = Tracer()
@@ -984,6 +1019,7 @@ def run_critique(args: argparse.Namespace) -> int:
     prefix_cache = _configure_prefix_cache(args)
     interleave = _configure_interleave(args)
     spec_cfg = _configure_speculative(args)
+    kv_tier = _configure_kv_tier(args)
     streaming = _configure_streaming(args)
     obs = _configure_obs(args)
     spec, session_state = load_or_resume_session(args)
@@ -1085,9 +1121,9 @@ def run_critique(args: argparse.Namespace) -> int:
     # Speculation telemetry: verify steps, acceptance rate, tokens/step,
     # rollback pages, draft/verify wall split (engine/spec.py).
     perf["spec"] = spec_cfg.snapshot()
-    # The KV tiers are not ported (their knobs exit 2): the reference's
-    # keys, reported off with every counter zero (engine/kvtier.py).
-    perf["kv_tier"] = kvtier.snapshot()
+    # Tiered-KV telemetry: demotions, promotions, rehydrations, swap
+    # walls and hit rates (engine/kvtier.py).
+    perf["kv_tier"] = kv_tier.snapshot()
     # Weight-residency telemetry: loads vs promotions (the reload the
     # host tier avoided), demote/promote walls, swap-overlap fraction,
     # coalesced groups/units (engine/weightres.py).
@@ -1143,6 +1179,15 @@ def run_critique(args: argparse.Namespace) -> int:
             f"early cancel: {stream_snap['cancels']} request(s) stopped "
             f"at their verdict marker, {stream_snap['tokens_saved']} "
             "decode token(s) saved"
+        )
+    tier_snap = perf["kv_tier"]
+    if tier_snap["enabled"] and (
+        tier_snap["promoted_tokens"] or tier_snap["rehydrated_tokens"]
+    ):
+        _err(
+            f"kv tier: {tier_snap['promoted_tokens']} tokens promoted "
+            f"from host RAM, {tier_snap['rehydrated_tokens']} rehydrated "
+            "from the disk store"
         )
     if fault_counts:
         total_faults = sum(fault_counts.values())
@@ -1311,6 +1356,7 @@ def handle_export_tasks(args: argparse.Namespace) -> int:
     _configure_prefix_cache(args)
     _configure_interleave(args)
     _configure_speculative(args)
+    _configure_kv_tier(args)
     _configure_streaming(args)
     obs = _configure_obs(args)
     spec = _read_spec_stdin()

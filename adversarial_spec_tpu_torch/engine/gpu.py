@@ -44,12 +44,21 @@ read by the port's own reader (``engine/tokenizer_json.py``), which
 refuses by name a component it does not implement, before any weights
 load.
 
-Specs the port cannot serve yet — multi-device
-meshes, a paged spec whose budget leaves no room for a bucketed prompt
-(the reference's round-synchronous ``generate(paged=True)`` corner), and a paged request with ``request_deadline_s > 0`` (the
-batcher's per-request deadline watchdog) — get a "not yet ported" error;
-they are never served silently another way. A ``kv_dtype`` other than
-``""`` or ``"int8"`` is an error.
+The batcher contains faults as the reference's does: a fault at one
+slot (an injected chaos fault, an out-of-memory error, a per-request
+deadline, ``SamplingParams.request_deadline_s``) evicts that row only,
+which comes back as its own errored (and, when transient, retryable)
+completion; only a fault the batcher cannot isolate (a CUDA error that
+poisons the context) drops the model's batcher and fails the group. The
+``generate`` chaos seam fires after the load, before the group is
+served. Paged specs carry the reference's KV tiers (``engine/kvtier.py``)
+on their batcher.
+
+Specs the port cannot serve yet — multi-device meshes and a paged spec
+whose budget leaves no room for a bucketed prompt (the reference's
+round-synchronous ``generate(paged=True)`` corner) — get a "not yet
+ported" error; they are never served silently another way. A
+``kv_dtype`` other than ``""`` or ``"int8"`` is an error.
 
 Every failure is classified as the reference's ``TpuEngine`` classifies
 it (``resilience.faults.classify``): the kind sets
@@ -76,6 +85,7 @@ from adversarial_spec_tpu_torch import obs as obs_mod
 from adversarial_spec_tpu_torch.debate.usage import Usage
 from adversarial_spec_tpu_torch.engine import checkpoint as ckpt_mod
 from adversarial_spec_tpu_torch.engine import interleave as interleave_mod
+from adversarial_spec_tpu_torch.engine import kvtier as kvtier_mod
 from adversarial_spec_tpu_torch.engine import prefix_cache as prefix_mod
 from adversarial_spec_tpu_torch.engine import registry as registry_mod
 from adversarial_spec_tpu_torch.engine import spec as spec_mod
@@ -133,11 +143,10 @@ def fits_batcher(cfg: ModelConfig, max_new_tokens: int) -> bool:
     return cfg.max_seq_len - max_new_tokens >= MIN_BUCKET
 
 
-def unported_reason(
-    spec: ModelSpec, max_new_tokens: int = 0, request_deadline_s: float = 0.0
-) -> str | None:
-    """Why the port cannot serve ``spec`` at this budget and per-request
-    deadline yet, or None."""
+def unported_reason(spec: ModelSpec, max_new_tokens: int = 0) -> str | None:
+    """Why the port cannot serve ``spec`` at this budget yet, or None.
+    The wording avoids the fault markers of resilience/faults.py: a
+    refusal must classify as BUG."""
     if math.prod(spec.mesh.values()) > 1:
         return f"a multi-device mesh {spec.mesh}"
     if spec.kv == "paged":
@@ -146,17 +155,6 @@ def unported_reason(
             return (
                 "kv='paged' with a budget that leaves no room for a "
                 "bucketed prompt (the round-synchronous generate(paged=True))"
-            )
-        if request_deadline_s > 0:
-            # The reference's batcher evicts an over-deadline slot;
-            # serving the request to its budget instead would ignore the
-            # deadline silently. The dense generate() reads no such
-            # field, in the reference either. The wording avoids the
-            # fault markers of resilience/faults.py: a refusal must
-            # classify as BUG, never as the watchdog's own TIMEOUT.
-            return (
-                "the paged batcher's per-request deadline watchdog "
-                "(request_deadline_s > 0)"
             )
     return None
 
@@ -842,9 +840,7 @@ class GpuEngine:
         try:
             spec = registry_mod.resolve_model_spec(f"tpu://{alias}")
             check_kv_dtype(spec.kv_dtype)
-            reason = unported_reason(
-                spec, params.max_new_tokens, params.request_deadline_s
-            )
+            reason = unported_reason(spec, params.max_new_tokens)
             if reason is not None:
                 raise NotImplementedError(
                     f"tpu://{alias} needs {reason}, which is not yet "
@@ -870,6 +866,7 @@ class GpuEngine:
             lm = self._load(alias)
             if prefetch_next is not None:
                 self._stage_next(prefetch_next)
+            injector.fire("generate")
             return self._chat_loaded(lm, batch, params, consumer)
         finally:
             self.ledger.release_weights(alias)
@@ -896,7 +893,7 @@ class GpuEngine:
             )
 
         if lm.spec.kv == "paged":
-            return self._chat_continuous(lm, prompts, params, consumer)
+            return self._chat_continuous(lm, prompts, params, batch, consumer)
 
         t0 = time.monotonic()
         result = generate(
@@ -947,9 +944,12 @@ class GpuEngine:
         lm: LoadedModel,
         prompts: list[list[int]],
         params: SamplingParams,
+        batch: list[ChatRequest] | None = None,
         consumer=None,
     ) -> list[Completion]:
         """Serve one model's requests through the ContinuousBatcher.
+        ``batch`` carries the callers' requests, whose causal-trace ids
+        each ``SchedRequest`` inherits.
 
         Pool capacity covers CONCURRENT residency (the max_batch largest
         requests, bucketed to a power of two so repeat rounds of similar
@@ -989,15 +989,21 @@ class GpuEngine:
             prefix_mod.config().enabled,
             prefix_mod.config().max_pages,
             interleave_mod.config().enabled,
+            # The tiers are built with the batcher: flipping --no-kv-tier,
+            # the host budget or the store dir between rounds rebuilds it.
+            kvtier_mod.config().enabled,
+            kvtier_mod.config().host_mb,
+            kvtier_mod.config().store_dir,
         )
         t0 = time.monotonic()
         try:
             results, decode_time = self._run_batcher(
-                lm, batcher_key, prompts, params, seed, consumer
+                lm, batcher_key, prompts, params, seed, batch, consumer
             )
         except BaseException:
-            # A batcher left mid-drain (stale results, occupied slots)
-            # must not be reused next round: drop it.
+            # The batcher contains every fault it can isolate; one that
+            # escapes (a CUDA error that poisons the context) leaves it
+            # mid-drain (stale results, occupied slots): drop it.
             lm.batcher = None
             lm.batcher_key = None
             raise
@@ -1012,8 +1018,15 @@ class GpuEngine:
             decode_share = decode_time * r.n_generated / tok_total
             completions.append(
                 Completion(
+                    # Fault-evicted rows keep their partial decode and
+                    # carry the error (transient faults are retryable).
                     text=tok.decode(r.tokens[: r.n_generated]),
+                    error=r.error,
                     cancelled=r.cancelled,
+                    transient=(
+                        r.fault_kind is not None
+                        and faults.FaultKind(r.fault_kind).transient
+                    ),
                     usage=Usage(
                         input_tokens=len(prompts[r.req_id]),
                         output_tokens=r.n_generated,
@@ -1041,7 +1054,9 @@ class GpuEngine:
 
         return on_tokens
 
-    def _run_batcher(self, lm, batcher_key, prompts, params, seed, consumer=None):
+    def _run_batcher(
+        self, lm, batcher_key, prompts, params, seed, batch=None, consumer=None
+    ):
         """Reuse (or build) the model's persistent batcher and drain this
         call's requests through it. Returns ``(results, decode_time_s)``,
         the decode time being THIS call's delta on the batcher's
@@ -1085,11 +1100,18 @@ class GpuEngine:
         decode_t0 = batcher.decode_time_s
         stream_on = consumer is not None and stream_mod.config().enabled
         for i, ids in enumerate(prompts):
+            src = batch[i] if batch is not None else None
             batcher.submit(
                 SchedRequest(
                     req_id=i,
                     prompt_ids=ids,
                     max_new_tokens=params.max_new_tokens,
+                    # Per-request watchdog: a slow request is evicted as
+                    # TIMEOUT at this deadline while co-residents keep
+                    # decoding (0 = disabled).
+                    deadline_s=params.request_deadline_s,
+                    trace_id=src.trace_id if src is not None else "",
+                    span_id=src.span_id if src is not None else "",
                     on_tokens=(
                         self._make_stream_callback(tok, consumer, i)
                         if stream_on

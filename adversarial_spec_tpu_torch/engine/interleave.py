@@ -1,15 +1,16 @@
 """Fused-step drive-loop config and telemetry (host side).
 
 Counterpart of ``adversarial_spec_tpu/engine/interleave.py``. The port's
-``ContinuousBatcher`` (engine/scheduler.py) has ONE drive loop: each
-iteration runs the in-flight admission's prompt chunk and every resident
-row's decode (or verify) step back to back (Sarathi-style piggybacked
-chunked prefill), one step deep — the reference's pipelined loop at
-depth 1. ``perf.interleave`` reports that depth under the reference's key
-``pipeline_depth``. Depth 2 (CUDA streams and events; the CLI refuses
-it) and the legacy serialized loop are not ported: ``enabled=False`` (env
-``ADVSPEC_INTERLEAVE=0``, the reference's switch to the legacy loop) is
-refused by the batcher.
+``ContinuousBatcher`` (engine/scheduler.py) has two drive loops. The
+fused loop (``enabled=True``) runs the in-flight admission's prompt chunk
+and every resident row's decode (or verify) step back to back in each
+iteration (Sarathi-style piggybacked chunked prefill), one step deep —
+the reference's pipelined loop at depth 1. ``perf.interleave`` reports
+that depth under the reference's key ``pipeline_depth``. Depth 2 (CUDA
+streams and events; the CLI refuses it) is not ported. ``enabled=False``
+(env ``ADVSPEC_INTERLEAVE=0``) selects the reference's legacy serialized
+loop: one prompt-chunk dispatch, then one decode dispatch, each with its
+host sync.
 
 The counters are the reference's:
 

@@ -4,10 +4,10 @@ The PyTorch port's copy of ``adversarial_spec_tpu/engine/mock.py``. It
 implements the same ``Engine`` interface as ``GpuEngine``, so the whole
 debate loop — CLI, rounds, parsing, convergence, sessions, cost — runs
 unmodified on the CPU with scripted critiques, and its ``--json`` reports
-match the reference mock's. Two parts of the reference are left out
-because the subsystems they serve are not ported: the lower KV tiers
-(host RAM, disk store; ``engine/kvtier.py``) are never attached, and the
-fleet's disaggregated ``prefill``/``prefetch`` handoff is absent.
+match the reference mock's. The lower KV tiers (host RAM, disk store;
+``engine/kvtier.py``) attach as the reference's do; the fleet's
+disaggregated ``prefill``/``prefetch`` handoff is left out because the
+fleet is not ported.
 
 Model-id grammar (query params configure behavior):
 
@@ -49,6 +49,14 @@ into fixed-width pieces, so hit-rates and tokens-saved are deterministic
 on CPU and tier-1 tests can pin them without a TPU. There is no device
 pool here: the cache tracks accounting only, and ``Usage.cached_tokens``
 / the process-wide stats reflect what a real engine would have skipped.
+
+Tiered-KV parity works the same way (engine/kvtier.py): the mock's
+prefix cache carries the SAME host/disk tiers the scheduler attaches —
+LRU-evicted blocks demote (payload ``None``; the state machine is
+content-free), tiered lookups continue past the device radix, promoted
+and rehydrated blocks count as cached, and the disk store (keyed by a
+mock-namespace fingerprint) persists across engine instances, so
+restart-rehydration hit rates pin deterministically on CPU.
 
 Trace parity works the same way (obs/trace.py): each request's chat
 runs under its own ambient trace scope, so every event the accounting
@@ -429,12 +437,13 @@ class MockEngine:
         obs_mod.slo_check("round", span_id, prefill_s + decode_s)
 
     def _ensure_prefix(self) -> None:
-        """Build the allocator + prefix cache on first use (no lower KV
-        tiers: they are not ported)."""
+        """Build the allocator + prefix cache (and attach the KV tiers
+        when armed) on first use."""
         from adversarial_spec_tpu_torch.engine import prefix_cache as prefix_mod
 
         if self._prefix is not None:
             return
+        from adversarial_spec_tpu_torch.engine import kvtier as kvtier_mod
         from adversarial_spec_tpu_torch.engine.kvcache import PageAllocator
 
         self._allocator = PageAllocator(_POOL_PAGES, _PAGE_TOKENS)
@@ -442,6 +451,17 @@ class MockEngine:
             self._allocator,
             max_pages=prefix_mod.config().max_pages,
         )
+        if kvtier_mod.armed():
+            # Same tier state machine as the scheduler, accounting
+            # only: nominal block bytes (no KV exists here) and a
+            # mock-namespace store fingerprint, so a real engine
+            # can never rehydrate accounting-only entries.
+            tiers = kvtier_mod.build_for(
+                _PAGE_TOKENS * 64,
+                ("mock", _TOKEN_CHARS, _PAGE_TOKENS),
+            )
+            if tiers is not None:
+                self._prefix.attach_tiers(tiers)
 
     def _account_prefix(
         self,
@@ -468,7 +488,11 @@ class MockEngine:
         # The cap is per-round CLI config; follow it on a live cache.
         self._prefix.max_pages = prefix_mod.config().max_pages
         alloc, cache = self._allocator, self._prefix
-        matched, pages = cache.lookup(tokens)
+        if cache.tiers is not None:
+            matched, pages, tier_hits = cache.lookup_tiered(tokens)
+        else:
+            matched, pages = cache.lookup(tokens)
+            tier_hits = []
         seq = self._seq
         self._seq += 1
         alloc.new_sequence(seq)
@@ -486,6 +510,23 @@ class MockEngine:
                 prefix_mod.stats.record_prefill(len(tokens), 0)
                 self._account_interleave(len(tokens), overlapped, req_index)
                 return 0
+            # Lower-tier blocks continuing the device match "promote":
+            # the state machine is the scheduler's exactly — a hit that
+            # lost the race (host LRU overflow between lookup and here)
+            # degrades to accounted prefill.
+            promoted = 0
+            consumed = []
+            for hit in tier_hits:
+                ok, _payload = cache.tiers.materialize(hit)
+                if not ok:
+                    break
+                promoted += len(hit.tokens)
+                consumed.append(hit)
+            # Consume BEFORE the radix insert (the scheduler's rule):
+            # insert's cap enforcement may re-demote tail blocks into
+            # the host tier, and consuming afterwards would pop them.
+            for hit in consumed:
+                cache.tiers.consume(hit, slot=req_index)
             n_full = len(tokens) // _PAGE_TOKENS
             if n_full:
                 cache.insert(
@@ -494,7 +535,11 @@ class MockEngine:
                 )
         finally:
             alloc.free_sequence(seq)
-        cached = matched
+        if cache.tiers is not None:
+            # The mock has no drive loop: settle (disk write-through of
+            # the blocks just inserted) lands right here.
+            cache.tiers.settle()
+        cached = matched + promoted
         prefix_mod.stats.record_prefill(len(tokens) - cached, cached)
         self._account_interleave(len(tokens) - cached, overlapped, req_index)
         return cached

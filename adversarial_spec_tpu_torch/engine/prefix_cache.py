@@ -21,11 +21,15 @@ pool in engine/kvcache.py:
   chain contiguous.
 
 Sharing is safe without copies because blocks are immutable once full
-and every writer's positions lie strictly past its adopted prefix.
-Process-wide config + stats live here too (``ADVSPEC_PREFIX_CACHE``,
-default on). The lower KV tiers (``attach_tiers``) are not ported yet:
-the port's batcher attaches none, so the tier branches stay dormant.
-Imports neither torch nor the device pool.
+and every writer's positions lie strictly past its adopted prefix. A
+faulted slot merely drops its references; it can never scribble into a
+shared page. Process-wide config + stats live here too
+(``ADVSPEC_PREFIX_CACHE``, default on). The lower KV tiers
+(engine/kvtier.py, ``attach_tiers``) hang below the radix: LRU-evicted
+leaves demote into them and ``lookup_tiered`` continues the walk past
+the device tier. The module holds no device state (page content lives
+wherever the caller keeps it), so the mock engine uses it for CPU
+accounting.
 """
 
 from __future__ import annotations

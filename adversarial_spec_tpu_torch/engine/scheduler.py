@@ -22,20 +22,51 @@ PyTorch idiom: plain functions on tensors with an explicit device; the
 pool is a dict of tensors mutated IN PLACE where the reference donates
 buffers; an explicit, seeded ``torch.Generator`` replaces the PRNG key.
 The reference's ``while_loop`` condition ``active.any()`` becomes one host
-read per decode step, and the drive loop runs one step deep (the
-reference's pipelined loop at depth 1): each step's flags (or the spec
-path's accept counts) are read right after it. Every such host read is
-counted in ``interleave.stats.sync_points``.
+read per decode step.
+
+Drive loops (engine/interleave.py holds the config and telemetry): the
+default loop (``_drive``) is the reference's pipelined loop at depth 1 —
+each step's flags (or the spec path's accept counts) are read right
+after it. ``interleave=False`` (CLI ``--no-interleave``,
+``ADVSPEC_INTERLEAVE=0``) runs the reference's legacy serialized loop
+(``_drive_legacy``): one prompt-chunk dispatch, one decode dispatch and
+their host syncs per iteration. Every host read is counted in
+``interleave.stats.sync_points``.
 
 Inactive-slot safety: physical page 0 is a reserved TRASH page no sequence
 owns. Allocator ids are shifted +1 and inactive rows (and rejected drafts)
 write their masked, discarded K/V there, so a dead slot can never scribble
 into pages re-allocated to a newcomer; the paged kernels skip page 0.
 
-Not ported yet (a fault propagates out of ``run_all``; the engine drops
-the batcher): fault isolation and requeue, the per-request watchdog, the
-chaos injector seams and flight-recorder events, the KV tiers, depth-2
-pipelining, the legacy serialized loop, sharded decode and int8 pools.
+Fault isolation (the reference's): a fault at the decode step, the
+admission prefill or page allocation evicts only the affected slot — its
+``SchedResult`` carries the partial tokens and ``error``/``fault_kind`` —
+frees its pages and leaves the rest of the batch decoding. Transient
+faults (resilience/faults.py) get one requeue. A fault that leaves the
+device unusable re-raises instead (the engine then drops the batcher):
+on CUDA that is every runtime error but out-of-memory, which is sticky
+and poisons the context. The pool is written in place, so a step that
+faults part-way may have written K/V at or past a row's committed length;
+those slots lie in the row's own tail pages, never in a page the prefix
+cache shares (cached blocks are full prompt pages, and every write
+position is at or past the prompt), and the row rewrites them when it
+decodes again. The chaos injector's ``scheduler_chunk``, ``kv_alloc`` and
+``kv_swap`` seams live here.
+
+Per-request watchdog (``SchedRequest.deadline_s``): both drive loops check
+per-request deadlines once per iteration — host clock math only — and
+evict an over-deadline slot as ``FaultKind.TIMEOUT`` through the same
+surgery, partial text delivered to its stream consumer, co-residents
+untouched, no batcher-level requeue.
+
+Tiered KV (engine/kvtier.py): with the prefix cache on and tiers armed,
+LRU-evicted prefix blocks demote to host RAM (and the disk store), and an
+admission whose prefix continues in a lower tier promotes those blocks
+into its pages instead of prefilling them. Demotion copies land in a
+reused pinned arena (``kvtier.DemotionArena``) with ``non_blocking=True``
+and a CUDA event; the lazy materializer waits on that event only.
+
+Not ported: depth-2 pipelining and the sharded decode chunk.
 """
 
 from __future__ import annotations
@@ -46,7 +77,9 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from adversarial_spec_tpu_torch import obs as obs_mod
 from adversarial_spec_tpu_torch.engine import interleave as interleave_mod
+from adversarial_spec_tpu_torch.engine import kvtier as kvtier_mod
 from adversarial_spec_tpu_torch.engine import prefix_cache as prefix_mod
 from adversarial_spec_tpu_torch.engine import spec as spec_mod
 from adversarial_spec_tpu_torch.engine import streaming as stream_mod
@@ -79,12 +112,33 @@ from adversarial_spec_tpu_torch.models.transformer import (
     forward_paged_decode,
     init_cache,
 )
+from adversarial_spec_tpu_torch.resilience import faults, injector
 
 TRASH_PAGE = 0
 # Admission prefill granularity — finer than generate.py's PREFILL_CHUNK
 # (1024): decode steps slot in between more often while a newcomer's
 # prompt streams in.
 ADMISSION_CHUNK = 512
+# numpy's names for the pool dtypes: the tier store's fingerprint part
+# (the reference's ``str`` of its dtype), so both packages namespace a
+# model's KV the same way.
+_DTYPE_NAMES = {
+    torch.float32: "float32",
+    torch.bfloat16: "bfloat16",
+    torch.float16: "float16",
+}
+
+
+def context_lost(exc: BaseException) -> bool:
+    """True when ``exc`` leaves the device unusable, so no slot surgery
+    may follow: a CUDA runtime error other than out-of-memory (illegal
+    address, launch failure, device-side assert) is sticky and poisons
+    the context; an out-of-memory error leaves it usable. A sticky error
+    that a kernel wrapper reports as its launch's return code resurfaces
+    as ``torch.AcceleratorError`` at the next CUDA call."""
+    if isinstance(exc, torch.OutOfMemoryError):
+        return False
+    return isinstance(exc, torch.AcceleratorError)
 
 
 @dataclass
@@ -92,6 +146,13 @@ class SchedRequest:
     req_id: int
     prompt_ids: list[int]
     max_new_tokens: int
+    # Per-request watchdog deadline in seconds from submission (0 = none),
+    # checked once per drive-loop iteration (``_expire_request_deadlines``).
+    deadline_s: float = 0.0
+    # Causal-trace ids (obs/trace.py) of the debate round that issued the
+    # request; every flight-recorder event for it is stamped with them.
+    trace_id: str = ""
+    span_id: str = ""
     # Host-side streaming consumer (engine/streaming.py): called at the
     # drive loop's existing fetch points with ALL token ids this request
     # has emitted so far (np.ndarray); return False to cancel the request
@@ -126,9 +187,14 @@ class _Admission:
     last_logits: torch.Tensor | None = None
     canonical: bool = False
     S_real: int = 0  # true prompt length (== S when padded)
-    matched: int = 0  # tokens adopted from the cache (page multiple)
+    matched: int = 0  # tokens adopted or promoted (page multiple)
     prefill_end: int = 0  # prefill covers [pos0, prefill_end)
     prefill_s: float = 0.0  # this request's own prefill wall-clock
+    # Set when a fused step carrying this admission faulted: the next
+    # chunk runs STANDALONE, so a prefill-side error is attributed to the
+    # admission (_abort_admission) instead of evicting another resident
+    # every iteration.
+    fuse_deferred: bool = False
 
     @property
     def remaining(self) -> int:
@@ -140,8 +206,13 @@ class SchedResult:
     req_id: int
     tokens: np.ndarray  # generated ids (0 past the row's end)
     n_generated: int
-    # Prompt tokens served from the prefix cache and the wall-clock this
-    # request's own admission prefill took.
+    # Set when a fault evicted this request: ``tokens`` then holds the
+    # PARTIAL decode up to the fault and ``fault_kind`` is the
+    # resilience-taxonomy value (resilience/faults.py). None = clean.
+    error: str | None = None
+    fault_kind: str | None = None
+    # Prompt tokens served from the prefix cache (and lower tiers) and the
+    # wall-clock this request's own admission prefill took.
     cached_tokens: int = 0
     prefill_time_s: float = 0.0
     # Speculation telemetry: verify steps this row took part in, eligible
@@ -157,6 +228,9 @@ class SchedResult:
     # remainder never decoded.
     cancelled: bool = False
     tokens_saved: int = 0
+    # Echo of the request's causal-trace ids.
+    trace_id: str = ""
+    span_id: str = ""
 
 
 def _next_chunk_len(remaining: int) -> int:
@@ -463,12 +537,15 @@ def fused_prefill_spec_chunk(
     return adm_logits, _spec_chunk_impl(params, cfg, *spec_args, **spec_kw)
 
 
+
+
 class ContinuousBatcher:
     """Admits requests into decode slots over one shared model + pool.
 
     Every tensor lives on the params' device (the engine's).
     ``kv_dtype="int8"`` makes the pool and every admission's dense cache
     int8 with per-(token, head) f32 scales (the reference's int8 layout).
+    ``interleave`` (None = the process config) picks the drive loop.
     """
 
     def __init__(
@@ -488,16 +565,12 @@ class ContinuousBatcher:
         seed: int = 0,
         chunk: int = 32,
         prefix_cache: bool | None = None,
+        interleave: bool | None = None,
         step_tokens: int = 0,
         speculative: bool | None = None,
         gamma: int | None = None,
         kv_dtype: str = "",
     ):
-        if not interleave_mod.config().enabled:
-            raise NotImplementedError(
-                "the legacy serialized drive loop (interleave off) is not "
-                "ported; the port's batcher runs the fused loop"
-            )
         self.params = params
         self.cfg = cfg
         self.B = max_batch
@@ -506,6 +579,8 @@ class ContinuousBatcher:
         self.page_size = page_size
         self.kv_dtype = kv_dtype
         self.chunk = chunk
+        cfg_il = interleave_mod.config()
+        self.interleave = cfg_il.enabled if interleave is None else bool(interleave)
         # Sarathi-style shared per-step token budget: a fused step's
         # prompt chunk shrinks so chunk_len + n_live·width stays under it.
         self.step_tokens = step_tokens or (ADMISSION_CHUNK + max_batch * chunk)
@@ -556,6 +631,44 @@ class ContinuousBatcher:
         self.pool = init_page_pool(
             layout, device=dev, dtype=self._dtype, kv_dtype=kv_dtype
         )
+        # Tiered KV (engine/kvtier.py): host-RAM demotion of LRU-evicted
+        # prefix blocks and the persistent disk store, both below this
+        # pool. The host budget is denominated in real block bytes (K and
+        # V, plus an int8 pool's f32 scale pages); the store is namespaced
+        # by a model/config/layout fingerprint. None when tiering (or the
+        # prefix cache) is off.
+        self.tiers = None
+        self._arena = None
+        if self.prefix_cache is not None and kvtier_mod.armed():
+            kv_bytes = 1 if kv_dtype == "int8" else self._dtype.itemsize
+            block_bytes = (
+                cfg.n_layers * cfg.n_kv_heads * page_size * cfg.head_dim
+            ) * kv_bytes * 2
+            if kv_dtype == "int8":  # per-(token, head) f32 scale pages
+                block_bytes += cfg.n_layers * cfg.n_kv_heads * page_size * 4 * 2
+            self.tiers = kvtier_mod.build_for(
+                block_bytes,
+                (cfg, page_size, kv_dtype, _DTYPE_NAMES.get(self._dtype, self._dtype)),
+            )
+            if self.tiers is not None:
+                if dev.type == "cuda":
+                    host = self.tiers.host
+                    n_slots = (
+                        host.capacity_bytes // host.block_bytes if host is not None else 0
+                    ) + kvtier_mod._LAZY_RESOLVE_AFTER
+                    # Slot layout: each pool key's block slice, 256-B
+                    # aligned (an int8 pool's scale pages included).
+                    slot_bytes = sum(
+                        kvtier_mod.DemotionArena._aligned(
+                            t.shape[0] * t.shape[2] * page_size * t.shape[4]
+                            * t.element_size()
+                        )
+                        for t in self.pool.values()
+                    )
+                    self._arena = kvtier_mod.DemotionArena(slot_bytes, n_slots)
+                self.prefix_cache.attach_tiers(
+                    self.tiers, kv_fetch=self._fetch_page_kv
+                )
         self.max_pages_per_seq = -(-cfg.max_seq_len // page_size)
 
         B, cap = self.B, max_new_cap
@@ -571,9 +684,9 @@ class ContinuousBatcher:
         self.max_new = torch.zeros((B,), **i64)
         self.active = torch.zeros((B,), dtype=torch.bool, device=dev)
         self.out_buf = torch.zeros((B, cap), **i64)
-        # Host view of ``active``, updated at handoff, release and each
-        # step's flags read (the drive loop is one step deep, so a slot
-        # cannot change owners between a step and its read).
+        # Host view of ``active``, updated at handoff, release, eviction
+        # and each step's flags read (the drive loops are one step deep,
+        # so a slot cannot change owners between a step and its read).
         self._active_np = np.zeros((B,), bool)
         # Speculation state. ctx_buf is the DRAFT SOURCE: each row's real
         # (unpadded) prompt ids followed by everything it has emitted;
@@ -595,11 +708,22 @@ class ContinuousBatcher:
         self._slot_cached: list[int] = [0] * B
         self._slot_prefill_s: list[float] = [0.0] * B
         self._slot_decode_s: list[float] = [0.0] * B
+        self._slot_trace: list[str] = [""] * B
+        self._slot_span: list[str] = [""] * B
+        # Host submit time per queued req_id (the 'queued' span's wall).
+        self._queued_t: dict[int, float] = {}
+        # Per-request watchdog deadlines: req_id -> absolute monotonic
+        # expiry, armed at submit. The absolute time survives a
+        # transient-fault requeue: the watchdog bounds the request's total
+        # wall. Entries clear when the request finally resolves.
+        self._deadline_t: dict[int, float] = {}
         self._admission: _Admission | None = None
         self._seq_counter = 0
         self.capacity_tokens = n_pages * page_size
         self.queue: list[SchedRequest] = []
         self.results: list[SchedResult] = []
+        # req_ids that already consumed their one transient-fault requeue.
+        self._retried: set[int] = set()
         # Wall-clock telemetry: admission prefill (stalled vs overlapped)
         # vs decode; decode_time_s feeds the engine's per-row usage.
         self.stalled_prefill_s = 0.0
@@ -696,6 +820,29 @@ class ContinuousBatcher:
                 f"{self.capacity_tokens}; raise capacity_tokens"
             )
         self.queue.append(req)
+        if req.deadline_s > 0:
+            self._deadline_t[req.req_id] = time.monotonic() + req.deadline_s
+        if obs_mod.config().enabled:
+            self._queued_t[req.req_id] = time.monotonic()
+            obs_mod.emit(
+                obs_mod.RequestEvent(
+                    req_id=req.req_id,
+                    state="queued",
+                    tokens=len(req.prompt_ids),
+                    trace_id=req.trace_id,
+                    span_id=req.span_id,
+                )
+            )
+            for name in ("request", "queued"):
+                obs_mod.emit(
+                    obs_mod.SpanEvent(
+                        name=name,
+                        phase="begin",
+                        req_id=req.req_id,
+                        trace_id=req.trace_id,
+                        span_id=req.span_id,
+                    )
+                )
 
     def _new_cache(self, S: int) -> dict:
         return init_cache(
@@ -706,7 +853,11 @@ class ContinuousBatcher:
     def _start_admission(self, slot: int, req: SchedRequest) -> bool:
         """Reserve pages and set up the chunked prefill for ``slot``;
         False if the pool is momentarily full (the request stays queued
-        and retries after residents free pages)."""
+        and retries after residents free pages). Any other failure —
+        including an injected ``kv_alloc`` fault — propagates with the
+        allocator state rolled back; ``_admit`` isolates it to this
+        request."""
+        injector.fire("kv_alloc", slot)
         if self.prefix_cache is not None:
             return self._start_admission_cached(slot, req)
         tokens_np, pads_np = pad_batch([req.prompt_ids], pad_id=0)
@@ -738,6 +889,12 @@ class ContinuousBatcher:
             self.allocator.free_sequence(seq_id)
             raise
         self._seq_counter += 1
+        obs_mod.emit(
+            obs_mod.RequestEvent(
+                req_id=req.req_id, state="admitted", slot=slot, tokens=S
+            )
+        )
+        self._emit_admitted_spans(req, slot)
         return True
 
     def _extend_evicting(self, seq_id: int, n_tokens: int) -> None:
@@ -748,20 +905,134 @@ class ContinuousBatcher:
         else:
             self.prefix_cache.extend_evicting(seq_id, n_tokens)
 
+    # -- tiered KV swaps ---------------------------------------------------
+
+    def _fetch_page_kv(self, page: int, n_tokens: int):
+        """Demotion fetch: copy one evicted block's KV off its pool page
+        and hand the tier a lazy materializer. The page returns to the
+        free list right after (and may be re-used by the very allocation
+        that triggered the eviction), so the copy is taken now: a device
+        gather into an independent tensor, then, on CUDA, a
+        ``non_blocking`` device→host copy into a pinned arena slot with a
+        CUDA event recorded behind it — no host sync on the drive loop.
+        The materializer waits on that event only. The payload has the
+        reference's layout ([L, 1, Hkv, n, D] per pool key)."""
+        p = page + 1  # physical id: page 0 is trash
+        gathered = {
+            k: v[:, p, :, :n_tokens].unsqueeze(1).clone(
+                memory_format=torch.contiguous_format
+            )
+            for k, v in self.pool.items()
+        }
+        if self._arena is None:
+            return lambda: gathered
+        payload = self._arena.payload(gathered)
+        for k, v in gathered.items():
+            payload[k].copy_(v, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+
+        def materialize() -> dict:
+            done.synchronize()
+            return payload
+
+        return materialize
+
+    def _promote_tier_blocks(
+        self, slot: int, seq_id: int, ids, matched: int, tier_hits: list
+    ) -> int:
+        """Promote a contiguous run of lower-tier blocks into this
+        admission's freshly reserved pages: the blocks' payloads copy
+        host→device into ONE staging tensor (``non_blocking`` from the
+        pinned demotion slots) and ONE pool scatter writes the run, all on
+        the current stream — the stream the admission's prefill runs on,
+        so its gather of the promoted pages queues behind the scatter.
+        Each target page is swap-pinned around the scatter.
+
+        A hit whose entry vanished since lookup (host LRU overflow, a
+        quarantined disk read — the promotion "lost the race") stops the
+        run; the remaining tokens fall back to plain prefill, which is
+        always correct. Returns the promoted token count; the promoted
+        blocks are re-inserted into the radix index so co-admitted
+        requests share them immediately."""
+        tiers = self.tiers
+        ps = self.page_size
+        consumed: list = []
+        payloads: list[dict] = []
+        t0 = time.monotonic()
+        for hit in tier_hits:
+            injector.fire("kv_swap", slot)
+            ok, payload = tiers.materialize(hit)
+            if not ok or payload is None:
+                break  # lost the race: prefill recomputes from here
+            consumed.append(hit)
+            payloads.append(payload)
+        if not consumed:
+            return 0
+        done = len(consumed) * ps
+        table = self.allocator.table(seq_id)
+        pages = [table[(matched + i * ps) // ps] for i in range(len(consumed))]
+        phys = np.repeat(np.asarray(pages, np.int64) + 1, ps)[None, :]
+        offs = np.tile(np.arange(ps, dtype=np.int64), len(consumed))[None, :]
+        promo_kv = {}
+        for k, first in payloads[0].items():
+            shape = list(first.shape)
+            shape[3] = done
+            buf = torch.empty(shape, dtype=first.dtype, device=self.device)
+            for i, p in enumerate(payloads):
+                buf[:, :, :, i * ps : (i + 1) * ps].copy_(p[k], non_blocking=True)
+            promo_kv[k] = buf
+        pinned: list[int] = []
+        try:
+            for page in pages:
+                self.allocator.swap_pin(page)
+                pinned.append(page)
+            write_tokens(
+                self.pool,
+                promo_kv["k"],
+                promo_kv["v"],
+                phys,
+                offs,
+                ks_new=promo_kv.get("ks"),
+                vs_new=promo_kv.get("vs"),
+            )
+        finally:
+            for page in pinned:
+                self.allocator.swap_unpin(page)
+        # Consume BEFORE the radix re-insert: insert's cap enforcement may
+        # LRU-evict tail blocks straight back into the host tier, and
+        # consuming afterwards would pop those freshly re-demoted entries.
+        per = (time.monotonic() - t0) / len(consumed)
+        for hit in consumed:
+            tiers.consume(hit, slot=slot, wall_s=per)
+        self.prefix_cache.insert(
+            list(ids[: matched + done]),
+            table[: (matched + done) // ps],
+        )
+        return done
+
     def _start_admission_cached(self, slot: int, req: SchedRequest) -> bool:
-        """Prefix-cache admission: adopt the longest cached prefix and set
-        up a CANONICAL-layout (pad 0, slot == logical position) prefill of
-        only the remainder. The last prompt token always re-runs, even on
-        a full-prefix hit: its logits seed sampling."""
+        """Prefix-cache admission: adopt the longest cached prefix, promote
+        the lower-tier blocks that continue it, and set up a
+        CANONICAL-layout (pad 0, slot == logical position) prefill of only
+        the remainder. The last prompt token always re-runs, even on a
+        full-prefix hit: its logits seed sampling."""
         ids = req.prompt_ids
         S_real = len(ids)
         ps = self.page_size
         # record=False: a pool-full deferral retries this method every
         # iteration; stats count once, on success, with the adopted match.
-        matched, pages = self.prefix_cache.lookup(ids, record=False)
+        if self.tiers is not None:
+            matched, pages, tier_hits = self.prefix_cache.lookup_tiered(
+                ids, record=False
+            )
+        else:
+            matched, pages = self.prefix_cache.lookup(ids, record=False)
+            tier_hits = []
         limit = ((S_real - 1) // ps) * ps
         matched = min(matched, limit)
         pages = pages[: matched // ps]
+        tier_hits = tier_hits[: (limit - matched) // ps]
         S = bucket_length(S_real)
         prefill_end = min(-(-S_real // ps) * ps, S)
         tokens_np = np.zeros((1, S), np.int64)
@@ -776,19 +1047,27 @@ class ContinuousBatcher:
                 (S_real - matched)
                 + (1 if self.speculative else req.max_new_tokens),
             )
+            # Lower-tier blocks continuing the device match promote into
+            # the pages the extend just reserved; a hit that lost the race
+            # degrades to prefill (chaos seam: kv_swap).
+            promoted = (
+                self._promote_tier_blocks(slot, seq_id, ids, matched, tier_hits)
+                if tier_hits
+                else 0
+            )
+            total = matched + promoted
             cache = self._new_cache(S)
-            if matched:
-                # Materialize the adopted prefix KV (and an int8 pool's
-                # scales: every pool key) into the dense admission cache
-                # so the delta's attention sees it.
+            if total:
+                # Materialize the adopted + promoted prefix KV (and an int8
+                # pool's scales: every pool key) into the dense admission
+                # cache so the delta's attention sees it.
                 table = (
-                    np.asarray(self.allocator.table(seq_id)[: matched // ps])
-                    + 1
+                    np.asarray(self.allocator.table(seq_id)[: total // ps]) + 1
                 )  # physical ids
-                slots = np.arange(matched)[None, :]
+                slots = np.arange(total)[None, :]
                 gathered = read_tokens(self.pool, table[slots // ps], slots % ps)
                 for k in cache:
-                    cache[k][:, :, :, :matched] = gathered[k]
+                    cache[k][:, :, :, :total] = gathered[k]
             self._admission = _Admission(
                 slot=slot,
                 req=req,
@@ -796,11 +1075,11 @@ class ContinuousBatcher:
                 tokens=torch.as_tensor(tokens_np, device=self.device),
                 pads=torch.zeros((1,), dtype=torch.int64, device=self.device),
                 cache=cache,
-                pos=matched,
+                pos=total,
                 S=S,
                 canonical=True,
                 S_real=S_real,
-                matched=matched,
+                matched=total,
                 prefill_end=prefill_end,
             )
         except OutOfPages:
@@ -811,12 +1090,55 @@ class ContinuousBatcher:
             raise
         self._seq_counter += 1
         self.prefix_cache.stats.record_lookup(matched)
+        if self.tiers is not None:
+            self.tiers.record_lookup(tier_hits)
+        obs_mod.emit(
+            obs_mod.RequestEvent(
+                req_id=req.req_id,
+                state="admitted",
+                slot=slot,
+                tokens=S_real,
+                cached_tokens=total,
+            )
+        )
+        self._emit_admitted_spans(req, slot)
         return True
+
+    def _emit_admitted_spans(self, req: SchedRequest, slot: int) -> None:
+        """Trace-span bookkeeping at admission start: the 'queued' span
+        ends (wall = the measured queue wait) and the 'prefill' span
+        opens."""
+        if not obs_mod.config().enabled:
+            return
+        t0 = self._queued_t.pop(req.req_id, None)
+        wait = (time.monotonic() - t0) if t0 is not None else 0.0
+        obs_mod.emit(
+            obs_mod.SpanEvent(
+                name="queued",
+                phase="end",
+                req_id=req.req_id,
+                slot=slot,
+                wall_s=wait,
+                trace_id=req.trace_id,
+                span_id=req.span_id,
+            )
+        )
+        obs_mod.emit(
+            obs_mod.SpanEvent(
+                name="prefill",
+                phase="begin",
+                req_id=req.req_id,
+                slot=slot,
+                trace_id=req.trace_id,
+                span_id=req.span_id,
+            )
+        )
 
     def _advance_admission(self) -> None:
         """One STANDALONE prefill chunk of the in-flight admission — used
-        when no resident row is decoding (nothing to ride with) and for
-        the final chunk. Timed to its completion: a genuine stall."""
+        when no resident row is decoding (nothing to ride with), for the
+        final chunk, and by the legacy loop. Timed to its completion: a
+        genuine stall."""
         adm = self._admission
         t0 = time.monotonic()
         chunk_len = _next_chunk_len(adm.remaining)
@@ -835,13 +1157,35 @@ class ContinuousBatcher:
         adm.prefill_s += elapsed
         interleave_mod.stats.record_step(fused=False, prefill_only=True)
         prefix_mod.stats.record_prefill(chunk_len, 0)
+        if obs_mod.config().enabled:
+            obs_mod.hot.prefill_chunk.observe(elapsed)
+            obs_mod.emit(
+                obs_mod.StepEvent(
+                    kind="prefill",
+                    n_live=int(sum(self._active_np)),
+                    admission_slot=adm.slot,
+                    prefill_tokens=chunk_len,
+                )
+            )
+            obs_mod.emit(
+                obs_mod.RequestEvent(
+                    req_id=adm.req.req_id,
+                    state="prefill",
+                    slot=adm.slot,
+                    tokens=chunk_len,
+                )
+            )
         if adm.pos >= adm.prefill_end:
             self._finish_admission()
 
     def _finish_admission(self) -> None:
         """Prefill done: scatter the dense cache into this sequence's pages
         (+1 shift: page 0 is trash), sample the first token and activate
-        the slot. A host sync: the first token decides activation."""
+        the slot. A host sync: the first token decides activation.
+
+        ``self._admission`` stays set until the slot takes ownership of
+        the sequence: the pool scatter and first-token sampling can fault,
+        and ``_abort_admission`` needs the record to free its pages."""
         t0 = time.monotonic()
         adm = self._admission
         slot, req, seq_id, S = adm.slot, adm.req, adm.seq_id, adm.S
@@ -901,6 +1245,7 @@ class ContinuousBatcher:
         self.out_buf[slot] = 0
         self.out_buf[slot, 0] = first
         interleave_mod.stats.record_sync()
+        obs_mod.record_sync("admission_handoff")
         first_np = int(first)
         first_is_eos = bool(np.isin(first_np, self._eos_np))
         self.n_emitted[slot] = 1
@@ -937,6 +1282,8 @@ class ContinuousBatcher:
         self._slot_req[slot] = req
         self._slot_seq[slot] = seq_id
         self._slot_cached[slot] = adm.matched
+        self._slot_trace[slot] = req.trace_id
+        self._slot_span[slot] = req.span_id
         self._slot_decode_s[slot] = 0.0
         self._slot_consumer[slot] = req.on_tokens
         self._slot_streamed[slot] = 0
@@ -945,6 +1292,40 @@ class ContinuousBatcher:
         elapsed = time.monotonic() - t0
         self._record_prefill_time(elapsed, overlapped=False)
         self._slot_prefill_s[slot] = adm.prefill_s + elapsed
+        if obs_mod.config().enabled:
+            obs_mod.hot.ttft.observe(self._slot_prefill_s[slot])
+            obs_mod.hot.pool_util.set(self._pool_util())
+            obs_mod.emit(
+                obs_mod.RequestEvent(
+                    req_id=req.req_id,
+                    state="decode",
+                    slot=slot,
+                    tokens=1,
+                    cached_tokens=adm.matched,
+                )
+            )
+            obs_mod.emit(
+                obs_mod.SpanEvent(
+                    name="prefill",
+                    phase="end",
+                    req_id=req.req_id,
+                    slot=slot,
+                    wall_s=self._slot_prefill_s[slot],
+                    trace_id=req.trace_id,
+                    span_id=req.span_id,
+                )
+            )
+            obs_mod.emit(
+                obs_mod.SpanEvent(
+                    name="decode",
+                    phase="begin",
+                    req_id=req.req_id,
+                    slot=slot,
+                    trace_id=req.trace_id,
+                    span_id=req.span_id,
+                )
+            )
+            obs_mod.slo_check("ttft", req.span_id, self._slot_prefill_s[slot])
         # First-token stream delivery rides the handoff's read of it.
         if req.on_tokens is not None:
             first_arr = np.asarray([first_np])
@@ -955,31 +1336,280 @@ class ContinuousBatcher:
         if not row_active:
             self._finish_slot(slot)
 
+    def _pool_util(self) -> float:
+        return round(1.0 - self.allocator.free_pages / self.allocator.n_pages, 6)
+
     def _admit(self) -> None:
         """Fill free slots from the queue. Prompts with at most one
         ADMISSION_CHUNK of work left admit to completion immediately, so a
         burst fills the batch before the next decode step; the first
         longer prompt stays in flight and its chunks ride the residents'
-        steps (one chunked admission at a time)."""
+        steps (one chunked admission at a time). A fault while admitting
+        resolves only that request."""
         for slot in range(self.B):
             if self._admission is not None or not self.queue:
                 return
             if self._slot_req[slot] is None and not self._active_np[slot]:
-                if not self._start_admission(slot, self.queue[0]):
+                req0 = self.queue[0]
+                try:
+                    with obs_mod.trace_scope(req0.trace_id, req0.span_id):
+                        started = self._start_admission(slot, req0)
+                except Exception as e:
+                    # Faults that know their seam (an injected kv_swap
+                    # mid-promotion) keep it; everything else faulted
+                    # reserving pages.
+                    self._fault_request(
+                        self.queue.pop(0),
+                        e,
+                        getattr(e, "seam", "kv_alloc") or "kv_alloc",
+                        slot=slot,
+                    )
+                    continue
+                if not started:
                     return  # pool full: the request stays queued (FIFO)
                 self.queue.pop(0)
-                while (
-                    self._admission is not None
-                    and self._admission.slot == slot
-                    and self._admission.remaining <= ADMISSION_CHUNK
-                ):
-                    self._advance_admission()
+                try:
+                    with obs_mod.trace_scope(req0.trace_id, req0.span_id):
+                        while (
+                            self._admission is not None
+                            and self._admission.slot == slot
+                            and self._admission.remaining <= ADMISSION_CHUNK
+                        ):
+                            self._advance_admission()
+                except Exception as e:
+                    self._abort_admission(e)
+
+    # -- fault containment -------------------------------------------------
+
+    def _fault_request(
+        self,
+        req: SchedRequest,
+        exc: BaseException,
+        seam: str,
+        tokens: np.ndarray | None = None,
+        n: int = 0,
+        cached_tokens: int = 0,
+        prefill_time_s: float = 0.0,
+        slot: int = -1,
+        pages_freed: int = 0,
+        spec_counts: tuple[int, int, int] = (0, 0, 0),
+        decode_time_s: float = 0.0,
+    ) -> None:
+        """Resolve one faulted request: requeue once if the fault is
+        transient and this req_id has not been retried yet, else finalize
+        with the partial tokens and the fault's metadata. Every event here
+        stamps the INJURED request's trace/span, and a final resolution
+        dumps the flight recorder at once."""
+        kind = faults.classify(exc)
+        faults.record(kind, seam)
+        requeued = kind.transient and req.req_id not in self._retried
+        obs_mod.emit(
+            obs_mod.FaultEvent(
+                seam=seam,
+                kind=kind.value,
+                slot=slot,
+                req_id=req.req_id,
+                pages_freed=pages_freed,
+                requeued=requeued,
+                error=f"{type(exc).__name__}: {exc}",
+                trace_id=req.trace_id,
+                span_id=req.span_id,
+            )
+        )
+        if requeued:
+            self._retried.add(req.req_id)
+            self.queue.append(req)
+            if obs_mod.config().enabled:
+                self._queued_t[req.req_id] = time.monotonic()
+            obs_mod.emit(
+                obs_mod.RequestEvent(
+                    req_id=req.req_id,
+                    state="queued",
+                    tokens=len(req.prompt_ids),
+                    trace_id=req.trace_id,
+                    span_id=req.span_id,
+                )
+            )
+            obs_mod.emit(
+                obs_mod.SpanEvent(
+                    name="queued",
+                    phase="begin",
+                    req_id=req.req_id,
+                    trace_id=req.trace_id,
+                    span_id=req.span_id,
+                )
+            )
+            return
+        # Final resolution: the watchdog stops tracking this request.
+        self._deadline_t.pop(req.req_id, None)
+        obs_mod.emit(
+            obs_mod.RequestEvent(
+                req_id=req.req_id,
+                state="evicted",
+                slot=slot,
+                tokens=n,
+                cached_tokens=cached_tokens,
+                trace_id=req.trace_id,
+                span_id=req.span_id,
+            )
+        )
+        if obs_mod.config().enabled:
+            obs_mod.hot.req_evicted.inc()
+            obs_mod.emit(
+                obs_mod.SpanEvent(
+                    name="request",
+                    phase="end",
+                    req_id=req.req_id,
+                    slot=slot,
+                    wall_s=prefill_time_s + decode_time_s,
+                    trace_id=req.trace_id,
+                    span_id=req.span_id,
+                )
+            )
+        obs_mod.autodump("fault")
+        self.results.append(
+            SchedResult(
+                req_id=req.req_id,
+                tokens=(
+                    tokens if tokens is not None else np.zeros((0,), np.int32)
+                ),
+                n_generated=n,
+                error=f"{type(exc).__name__}: {exc}",
+                fault_kind=kind.value,
+                cached_tokens=cached_tokens,
+                prefill_time_s=prefill_time_s,
+                spec_steps=spec_counts[0],
+                spec_drafted=spec_counts[1],
+                spec_accepted=spec_counts[2],
+                decode_time_s=decode_time_s,
+                trace_id=req.trace_id,
+                span_id=req.span_id,
+            )
+        )
+
+    def _abort_admission(self, exc: BaseException) -> None:
+        """The in-flight admission's prefill faulted: free its pages and
+        resolve its request; resident rows are untouched. A fault that
+        left the device unusable re-raises."""
+        if context_lost(exc):
+            raise exc
+        adm = self._admission
+        self._admission = None
+        if adm is None:
+            # The fault landed after the slot took ownership (tail of
+            # _finish_admission): nothing to unwind here.
+            raise exc
+        free0 = self.allocator.free_pages
+        self.allocator.free_sequence(adm.seq_id)
+        if self._slot_req[adm.slot] is None:
+            # A handoff that faulted part-way may have set the row's
+            # device state: the slot has no owner, so it must not run.
+            self.active[adm.slot] = False
+            self._active_np[adm.slot] = False
+            self.page_table[adm.slot] = 0
+        if obs_mod.config().enabled:
+            obs_mod.emit(
+                obs_mod.SpanEvent(
+                    name="prefill",
+                    phase="end",
+                    req_id=adm.req.req_id,
+                    slot=adm.slot,
+                    wall_s=adm.prefill_s,
+                    trace_id=adm.req.trace_id,
+                    span_id=adm.req.span_id,
+                )
+            )
+        self._fault_request(
+            adm.req,
+            exc,
+            "admission",
+            cached_tokens=adm.matched,
+            prefill_time_s=adm.prefill_s,
+            slot=adm.slot,
+            pages_freed=self.allocator.free_pages - free0,
+        )
+
+    def _handle_decode_fault(self, exc: BaseException) -> None:
+        """A decode step faulted: evict ONE slot, keep the rest.
+
+        The victim is the slot the fault names (injected faults carry
+        one), else the occupied slot with the longest resident sequence
+        (it owns the most pages). A fault that left the device unusable —
+        a CUDA error other than out-of-memory, or device state that no
+        longer reads back — re-raises: the engine drops the batcher and
+        fails the group, and no step is launched on a dead context."""
+        if context_lost(exc):
+            raise exc
+        try:
+            cur_len_np = self.cur_len.cpu().numpy()
+            self.out_buf[:, :1].cpu()  # probe the output buffer
+        except Exception:
+            raise exc from None
+        slot = getattr(exc, "slot", None)
+        if slot is None or not 0 <= slot < self.B or self._slot_req[slot] is None:
+            occupied = [s for s in range(self.B) if self._slot_req[s] is not None]
+            if not occupied:
+                raise exc
+            slot = max(occupied, key=lambda s: int(cur_len_np[s]))
+        n = int(self.n_emitted[slot])
+        partial = self.out_buf[slot, :n].cpu().numpy().astype(np.int32)
+        # Faults that know their seam keep it (the watchdog's evictions
+        # report at "watchdog"; injected scheduler_chunk faults already
+        # carry that name).
+        seam = getattr(exc, "seam", None) or "scheduler_chunk"
+        self._evict_slot(slot, exc, seam, n, partial)
+
+    def _evict_slot(
+        self,
+        slot: int,
+        exc: BaseException,
+        seam: str,
+        n: int,
+        partial: np.ndarray,
+    ) -> None:
+        """Shared slot-eviction surgery of both fault paths
+        (``_handle_decode_fault``, ``_evict_spec_row``). Eviction only
+        drops this slot's REFERENCES: pages shared with the prefix cache
+        survive untouched; for a speculating row ``free_sequence`` drops
+        its committed pages AND any draft pages. The partial transcript
+        reaches the stream consumer before the slot frees."""
+        req = self._slot_req[slot]
+        st = self._slot_spec[slot]
+        self._deliver_stream(slot, n, partial)
+        pages_freed = self._release_slot(slot)
+        interleave_mod.stats.record_sync()  # fault decision point
+        obs_mod.record_sync("fault")
+        if obs_mod.config().enabled:
+            obs_mod.emit(
+                obs_mod.SpanEvent(
+                    name="decode",
+                    phase="end",
+                    req_id=req.req_id,
+                    slot=slot,
+                    wall_s=self._slot_decode_s[slot],
+                    trace_id=req.trace_id,
+                    span_id=req.span_id,
+                )
+            )
+        self._fault_request(
+            req,
+            exc,
+            seam,
+            tokens=partial,
+            n=n,
+            cached_tokens=self._slot_cached[slot],
+            prefill_time_s=self._slot_prefill_s[slot],
+            slot=slot,
+            pages_freed=pages_freed,
+            spec_counts=(st[0], st[1], st[2]),
+            decode_time_s=self._slot_decode_s[slot],
+        )
 
     # -- slot release, streaming, completion -------------------------------
 
     def _release_slot(self, slot: int) -> int:
-        """THE slot-release surgery, shared by completion and
-        cancellation: drop the sequence's page references (pages shared
+        """THE slot-release surgery, shared by completion, cancellation and
+        fault eviction: drop the sequence's page references (pages shared
         with the prefix cache survive), clear ownership and streaming
         state, deactivate the row and zero its page-table row. Returns
         the pages actually freed."""
@@ -1020,16 +1650,19 @@ class ContinuousBatcher:
         self, emitted_np: np.ndarray, out_np: np.ndarray, live: list[int]
     ) -> None:
         """Stream one step's tokens to every live consumer and cancel the
-        rows whose consumers are done."""
+        rows whose consumers are done (rows evicted since dispatch have
+        no consumer and are skipped)."""
         for slot in live:
-            if self._slot_consumer[slot] is None:
+            if self._slot_req[slot] is None or self._slot_consumer[slot] is None:
                 continue
             n = int(emitted_np[slot])
             keep = self._deliver_stream(slot, n, out_np[slot])
             if not keep and self._active_np[slot]:
                 self._cancel_slot(slot, n, out_np[slot, :n])
 
-    def _cancel_slot(self, slot: int, n: int, tokens) -> None:
+    def _cancel_slot(
+        self, slot: int, n: int, tokens, reason: str = "early_converge"
+    ) -> None:
         """Mid-decode cancellation: a clean result carrying the partial
         transcript. Before the references drop, the computed KV is
         SALVAGED: the full pages covering prompt + emitted tokens go into
@@ -1050,7 +1683,11 @@ class ContinuousBatcher:
                     self.allocator.table(seq)[:n_full],
                 )
         st = self._slot_spec[slot]
+        cached = self._slot_cached[slot]
+        prefill_s = self._slot_prefill_s[slot]
+        decode_s = self._slot_decode_s[slot]
         self._release_slot(slot)
+        self._deadline_t.pop(req.req_id, None)
         stream_mod.stats.record_cancel(n, saved)
         self.results.append(
             SchedResult(
@@ -1059,20 +1696,67 @@ class ContinuousBatcher:
                 n_generated=n,
                 cancelled=True,
                 tokens_saved=saved,
-                cached_tokens=self._slot_cached[slot],
-                prefill_time_s=self._slot_prefill_s[slot],
+                cached_tokens=cached,
+                prefill_time_s=prefill_s,
                 spec_steps=st[0],
                 spec_drafted=st[1],
                 spec_accepted=st[2],
-                decode_time_s=self._slot_decode_s[slot],
+                decode_time_s=decode_s,
+                trace_id=req.trace_id,
+                span_id=req.span_id,
             )
         )
+        if obs_mod.config().enabled:
+            obs_mod.hot.cancel(reason).inc()
+            obs_mod.hot.cancel_tokens_saved.observe(float(saved))
+            if self.speculative and st[1]:
+                obs_mod.hot.spec_acceptance.observe(st[2] / st[1])
+            obs_mod.hot.pool_util.set(self._pool_util())
+            obs_mod.emit(
+                obs_mod.RequestEvent(
+                    req_id=req.req_id,
+                    state="cancelled",
+                    slot=slot,
+                    tokens=n,
+                    cached_tokens=cached,
+                    trace_id=req.trace_id,
+                    span_id=req.span_id,
+                )
+            )
+            obs_mod.emit(
+                obs_mod.CancelEvent(
+                    req_id=req.req_id,
+                    slot=slot,
+                    reason=reason,
+                    tokens_emitted=n,
+                    tokens_saved=saved,
+                    trace_id=req.trace_id,
+                    span_id=req.span_id,
+                )
+            )
+            for name, phase, wall in (
+                ("decode", "end", decode_s),
+                ("request", "cancelled", prefill_s + decode_s),
+            ):
+                obs_mod.emit(
+                    obs_mod.SpanEvent(
+                        name=name,
+                        phase=phase,
+                        req_id=req.req_id,
+                        slot=slot,
+                        wall_s=wall,
+                        trace_id=req.trace_id,
+                        span_id=req.span_id,
+                    )
+                )
+            obs_mod.slo_check("round", req.span_id, prefill_s + decode_s)
 
     def _finish_slot(self, slot: int) -> None:
         """Slot completion: read the row's count and tokens (a host sync;
         the row is frozen), deliver the final tail to its consumer, and
         release the slot."""
         interleave_mod.stats.record_sync()
+        obs_mod.record_sync("slot_complete")
         self._active_np[slot] = False  # invariant: no owner ⇒ not live
         req = self._slot_req[slot]
         n = int(self.n_emitted[slot])
@@ -1090,30 +1774,82 @@ class ContinuousBatcher:
                 spec_drafted=st[1],
                 spec_accepted=st[2],
                 decode_time_s=self._slot_decode_s[slot],
+                trace_id=req.trace_id,
+                span_id=req.span_id,
             )
         )
+        if self.speculative and st[1] and obs_mod.config().enabled:
+            obs_mod.hot.spec_acceptance.observe(st[2] / st[1])
         self._release_slot(slot)
+        self._deadline_t.pop(req.req_id, None)
+        if obs_mod.config().enabled:
+            obs_mod.hot.req_finished.inc()
+            obs_mod.hot.pool_util.set(self._pool_util())
+            obs_mod.emit(
+                obs_mod.RequestEvent(
+                    req_id=req.req_id,
+                    state="finished",
+                    slot=slot,
+                    tokens=n,
+                    cached_tokens=self._slot_cached[slot],
+                    trace_id=req.trace_id,
+                    span_id=req.span_id,
+                )
+            )
+            service_s = self._slot_prefill_s[slot] + self._slot_decode_s[slot]
+            for name, wall in (
+                ("decode", self._slot_decode_s[slot]),
+                ("request", service_s),
+            ):
+                obs_mod.emit(
+                    obs_mod.SpanEvent(
+                        name=name,
+                        phase="end",
+                        req_id=req.req_id,
+                        slot=slot,
+                        wall_s=wall,
+                        trace_id=req.trace_id,
+                        span_id=req.span_id,
+                    )
+                )
+            obs_mod.slo_check("round", req.span_id, service_s)
 
-    def _collect(self) -> None:
-        """Resolve finished slots from the host view of ``active`` (a row
-        inactive after the last step is frozen)."""
+    def _collect(self, active_np: np.ndarray | None = None) -> None:
+        """Resolve finished slots. The fused loop passes its host view of
+        ``active`` (a row inactive after the last step is frozen); the
+        legacy loop passes nothing and reads the device flags (its full
+        sync, uncounted, as the reference's)."""
+        if active_np is None:
+            active_np = self.active.cpu().numpy()
         for slot in range(self.B):
-            if self._slot_req[slot] is not None and not self._active_np[slot]:
+            if self._slot_req[slot] is not None and not active_np[slot]:
                 self._finish_slot(slot)
 
     # -- main loop ---------------------------------------------------------
 
     def run_all(self, timeout_s: float = 0.0) -> list[SchedResult]:
-        """Drain the queue: admit, step (fused prefill+decode), collect,
-        repeat. ``timeout_s`` > 0 is a best-effort wall-clock budget:
-        on expiry resident rows finish with what they have emitted and
-        queued requests return zero tokens. Every submitted ``req_id``
-        gets exactly one ``SchedResult``."""
-        self._drive(timeout_s)
+        """Drain the queue: admit, step, collect, repeat — the fused loop
+        by default, the legacy serialized loop with ``interleave`` off.
+        ``timeout_s`` > 0 is a best-effort wall-clock budget: on expiry
+        resident rows finish with what they have emitted and queued
+        requests return zero tokens. Every submitted ``req_id`` gets
+        exactly one ``SchedResult``: a fault on one slot evicts that slot
+        only (partial tokens + ``fault_kind``, one requeue first when
+        transient) while co-resident rows keep decoding."""
+        if self.interleave:
+            self._drive(timeout_s)
+        else:
+            self._drive_legacy(timeout_s)
+        if self.tiers is not None:
+            # Drain-end settle: flush queued disk write-through entries
+            # and resolve lazy demotion payloads — host work (file I/O and
+            # copies whose events have long fired).
+            self.tiers.settle()
         out = sorted(self.results, key=lambda r: r.req_id)
         # Drain per-run state: a batcher kept alive across rounds must
         # not replay old results.
         self.results = []
+        self._retried.clear()
         return out
 
     def _has_work(self) -> bool:
@@ -1124,10 +1860,11 @@ class ContinuousBatcher:
         )
 
     def _expire_timeout(self) -> None:
-        """Deadline hit: the in-flight admission unwinds (pages freed,
-        its request reports with the queue), resident rows finish with
-        what they have, queued requests resolve with zero tokens."""
+        """Deadline hit: the in-flight admission unwinds (pages freed, its
+        request reports with the queue), resident rows finish with what
+        they have, queued requests resolve with zero tokens."""
         interleave_mod.stats.record_sync()
+        obs_mod.record_sync("timeout")
         if self._admission is not None:
             adm = self._admission
             self._admission = None
@@ -1135,16 +1872,86 @@ class ContinuousBatcher:
             self.queue.insert(0, adm.req)
         self.active.zero_()
         self._active_np[:] = False
-        self._collect()
+        self._collect(self._active_np)
         for req in self.queue:
             self.results.append(
                 SchedResult(
                     req_id=req.req_id,
                     tokens=np.zeros((0,), np.int32),
                     n_generated=0,
+                    trace_id=req.trace_id,
+                    span_id=req.span_id,
                 )
             )
+            obs_mod.emit(
+                obs_mod.RequestEvent(
+                    req_id=req.req_id,
+                    state="timeout",
+                    trace_id=req.trace_id,
+                    span_id=req.span_id,
+                )
+            )
+            if obs_mod.config().enabled:
+                obs_mod.hot.req_timeout.inc()
+                obs_mod.emit(
+                    obs_mod.SpanEvent(
+                        name="request",
+                        phase="end",
+                        req_id=req.req_id,
+                        trace_id=req.trace_id,
+                        span_id=req.span_id,
+                    )
+                )
         self.queue.clear()
+        self._queued_t.clear()
+        self._deadline_t.clear()
+        obs_mod.autodump("timeout")
+
+    def _watchdog_exc(self, req: SchedRequest, where: str) -> TimeoutError:
+        exc = TimeoutError(
+            "DEADLINE_EXCEEDED: per-request watchdog deadline "
+            f"{req.deadline_s:g}s expired ({where}, req {req.req_id})"
+        )
+        exc.seam = "watchdog"
+        # The request's budget is spent: no batcher-level requeue (it
+        # would re-expire on arrival); a hedged re-admission is the debate
+        # layer's decision.
+        self._retried.add(req.req_id)
+        return exc
+
+    def _expire_request_deadlines(self) -> None:
+        """Per-request watchdog (``SchedRequest.deadline_s``), called once
+        per iteration in both drive loops: host clock math only (one dict
+        check when no deadline is armed). An over-deadline RESIDENT row
+        evicts through the decode-fault surgery, its partial tokens
+        delivered to its stream consumer; an over-deadline in-flight
+        ADMISSION aborts; an over-deadline QUEUED request resolves with
+        zero tokens."""
+        if not self._deadline_t:
+            return
+        now = time.monotonic()
+        for slot in range(self.B):
+            req = self._slot_req[slot]
+            if req is None:
+                continue
+            dl = self._deadline_t.get(req.req_id)
+            if dl is None or now <= dl:
+                continue
+            exc = self._watchdog_exc(req, "mid-decode")
+            exc.slot = slot
+            self._handle_decode_fault(exc)
+        adm = self._admission
+        if adm is not None:
+            dl = self._deadline_t.get(adm.req.req_id)
+            if dl is not None and now > dl:
+                self._abort_admission(self._watchdog_exc(adm.req, "mid-prefill"))
+        expired = [r for r in self.queue if self._deadline_t.get(r.req_id, now) < now]
+        for req in expired:
+            self.queue.remove(req)
+            self._deadline_t.pop(req.req_id, None)
+            self._fault_request(req, self._watchdog_exc(req, "queued"), "watchdog")
+
+    # -- stepping ----------------------------------------------------------
 
     def _fused_chunk_len(self, remaining: int, n_live: int, width: int) -> int:
         """Prompt-chunk length for a fused step: the largest power of two
@@ -1186,6 +1993,7 @@ class ContinuousBatcher:
     def _dispatch_fused(self, adm: _Admission, chunk_len: int) -> None:
         """ONE step advancing the admission's prompt chunk and all live
         rows' decode chunk."""
+        injector.fire("scheduler_chunk")
         adm.last_logits, (
             self.cur_tok,
             self.cur_len,
@@ -1201,6 +2009,7 @@ class ContinuousBatcher:
 
     def _dispatch_decode(self) -> None:
         """One decode-only chunk."""
+        injector.fire("scheduler_chunk")
         (
             self.cur_tok,
             self.cur_len,
@@ -1211,6 +2020,15 @@ class ContinuousBatcher:
         )
         interleave_mod.stats.record_step(fused=False)
 
+    def _evict_spec_row(self, slot: int, exc: BaseException, seam: str) -> None:
+        """A speculative step could not secure this row's next KV slot
+        (genuine pool exhaustion after prefix-cache LRU eviction) or an
+        injected ``kv_alloc`` fault fired mid-decode: evict ONLY this row
+        while co-resident rows keep decoding."""
+        n = int(self._cur_len_np[slot] - self._row_len_np[slot])
+        partial = self.out_buf[slot, :n].cpu().numpy().astype(np.int32)
+        self._evict_slot(slot, exc, seam, n, partial)
+
     def _prepare_spec_step(self, live: list[int]) -> torch.Tensor:
         """Size page coverage for ONE speculative step over ``live`` rows
         and return the per-row draft bound (the step's ``alloc_len``).
@@ -1218,9 +2036,9 @@ class ContinuousBatcher:
         - extend each row to ``cur_len + min(γ+1, budget left)`` KV slots
           through the prefix cache's LRU-evicting extend;
         - under genuine pressure fall back to ``cur_len + 1`` (the next
-          mandatory write), degrading the row to a plain step (an
-          ``OutOfPages`` there propagates: fault isolation is not
-          ported);
+          mandatory write), degrading the row to a plain step; if even
+          that page cannot be found, evict the row with a classified OOM
+          (transient → one requeue) — ``live`` loses it;
         - the step receives ``covered_tokens - 1`` as its draft bound:
           the −1 reserves the slot the step's LAST emitted token needs
           next step, so the post-step fix-up never allocates.
@@ -1230,7 +2048,7 @@ class ContinuousBatcher:
         """
         span = self.gamma + 1
         alloc = np.zeros((self.B,), np.int64)
-        for slot in live:
+        for slot in list(live):
             seq = self._slot_seq[slot]
             cl = int(self._cur_len_np[slot])
             remaining = int(self._max_new_np[slot]) - (
@@ -1239,11 +2057,29 @@ class ContinuousBatcher:
             length = self.allocator.length(seq)
             want = cl + min(span, max(remaining, 1))
             try:
+                injector.fire("kv_alloc", slot)
                 if want > length:
-                    self._extend_evicting(seq, want - length)
+                    with obs_mod.trace_scope(
+                        self._slot_trace[slot], self._slot_span[slot]
+                    ):
+                        self._extend_evicting(seq, want - length)
             except OutOfPages:
-                if cl + 1 > length:
-                    self._extend_evicting(seq, cl + 1 - length)
+                try:
+                    if cl + 1 > length:
+                        with obs_mod.trace_scope(
+                            self._slot_trace[slot], self._slot_span[slot]
+                        ):
+                            self._extend_evicting(seq, cl + 1 - length)
+                except OutOfPages as e:
+                    self._evict_spec_row(slot, e, "kv_alloc")
+                    live.remove(slot)
+                    continue
+            except Exception as e:
+                # Injected/bug fault at the alloc seam: isolate to this
+                # row, co-residents keep decoding.
+                self._evict_spec_row(slot, e, "kv_alloc")
+                live.remove(slot)
+                continue
             alloc[slot] = self.allocator.covered_tokens(seq) - 1
         tables = np.zeros((self.B, self.max_pages_per_seq), np.int32)
         for slot in live:
@@ -1258,6 +2094,7 @@ class ContinuousBatcher:
         """ONE speculative step — every live row's draft+verify, fused
         with the in-flight admission's next prompt chunk when ``adm`` is
         given — returning the stacked per-row counts (still on device)."""
+        injector.fire("scheduler_chunk")
         args = (
             self.pool,
             self.page_table,
@@ -1308,8 +2145,11 @@ class ContinuousBatcher:
         """Apply one spec step's per-row counts to the host state: advance
         the cur_len/active views, ROLL BACK draft pages past each row's
         accepted prefix (``PageAllocator.truncate``), record telemetry
-        (``perf.spec``: one step per live row, as the reference counts)."""
+        (``perf.spec``: one step per live row, as the reference counts).
+        Rows evicted since dispatch are skipped."""
         for slot in live:
+            if self._slot_seq[slot] is None:
+                continue
             n_allowed, n_acc = int(counts_np[0, slot]), int(counts_np[1, slot])
             n_emit = int(counts_np[2, slot])
             new_cl = int(counts_np[4, slot])
@@ -1330,17 +2170,107 @@ class ContinuousBatcher:
             spec_mod.stats.record_step(n_allowed, n_acc, n_emit)
             if released:
                 spec_mod.stats.record_rollback(released)
+            if obs_mod.config().enabled:
+                obs_mod.hot.spec_tokens_per_step.observe(float(n_emit))
+                obs_mod.emit(
+                    obs_mod.SpecEvent(
+                        slot=slot,
+                        req_id=self._slot_req[slot].req_id,
+                        drafted=n_allowed,
+                        accepted=n_acc,
+                        emitted=n_emit,
+                        rolled_back_pages=released,
+                        trace_id=self._slot_trace[slot],
+                        span_id=self._slot_span[slot],
+                    )
+                )
             self._active_np[slot] = bool(counts_np[3, slot])
+
+    def _record_step_wall(
+        self, dt: float, live: list[int], fused_share: float, adm, width: int,
+        emitted: int, kind: str, sync_reason: str, chunk_len: int = 0,
+    ) -> None:
+        """Attribute one step's wall: the riding admission's token share to
+        its prefill (overlapped), the rest to decode, split evenly over
+        the rows live at dispatch; the spec path's draft/verify split;
+        the step's flight-recorder event."""
+        dec_dt = dt
+        if fused_share > 0.0:
+            p = dt * fused_share
+            self._record_prefill_time(p, overlapped=True)
+            adm.prefill_s += p
+            dec_dt = dt - p
+        self.decode_time_s += dec_dt
+        for s in live:
+            self._slot_decode_s[s] += dec_dt / len(live)
+        if self.speculative:
+            # Draft/verify wall split by position share (the reference's
+            # SpecStats convention).
+            span = self.gamma + 1
+            spec_mod.stats.record_wall(
+                dec_dt / (span + 1), dec_dt * span / (span + 1)
+            )
+        if obs_mod.config().enabled:
+            obs_mod.hot.step_wall.observe(dt)
+            if live:
+                obs_mod.hot.inter_token.observe(
+                    dt * len(live) / max(emitted, 1)
+                    if self.speculative
+                    else dt / self.chunk
+                )
+            riding = fused_share > 0.0
+            obs_mod.emit(
+                obs_mod.StepEvent(
+                    kind=kind,
+                    n_live=len(live),
+                    admission_slot=adm.slot if riding else -1,
+                    prefill_tokens=chunk_len if riding else 0,
+                    decode_chunk=width,
+                    pipeline_depth=1,
+                    sync_reason=sync_reason,
+                    span_id=adm.req.span_id if riding else "",
+                    trace_id=adm.req.trace_id if riding else "",
+                )
+            )
+
+    def _read_step(self, spec_counts, live: list[int]) -> int:
+        """The step's host read: the spec path's accept counts, or the
+        decode flags; streams the step's tokens to live consumers.
+        Returns the tokens the step emitted (spec path; 0 otherwise)."""
+        interleave_mod.stats.record_sync()
+        if self.speculative:
+            # The host cannot size the next step's coverage or roll drafts
+            # back without the accept counts.
+            counts_np = spec_counts.cpu().numpy()
+            self._apply_spec_counts(counts_np, live)
+            emitted_np = self._cur_len_np - self._row_len_np
+            emitted = int(sum(int(counts_np[2, s]) for s in live))
+        else:
+            act = self.active.cpu().numpy()
+            for s in live:
+                if self._slot_req[s] is not None:
+                    self._active_np[s] = bool(act[s])
+            emitted_np = None
+            emitted = 0
+        if self._stream_armed(live):
+            if emitted_np is None:
+                emitted_np = self.n_emitted.cpu().numpy()
+            self._stream_entry(emitted_np, self.out_buf.cpu().numpy(), live)
+        return emitted
 
     def _drive(self, timeout_s: float) -> None:
         """Admit → one step (fused when an admission and live rows
         coexist) → read the step's flags or counts → collect. The
-        reference's pipelined loop at depth 1."""
+        reference's pipelined loop at depth 1; a fault at dispatch or at
+        the read evicts one slot (``_handle_decode_fault``)."""
         deadline = time.monotonic() + timeout_s if timeout_s > 0 else None
         while self._has_work():
             if deadline is not None and time.monotonic() > deadline:
                 self._expire_timeout()
                 break
+            # Per-request watchdog: evict over-deadline work before
+            # admitting or dispatching more.
+            self._expire_request_deadlines()
             self._admit()
             adm = self._admission
             live = [s for s in range(self.B) if self._active_np[s]]
@@ -1358,65 +2288,153 @@ class ContinuousBatcher:
                 if adm is not None and live
                 else 0
             )
-            ride = adm is not None and bool(live) and chunk_len < adm.remaining
+            ride = (
+                adm is not None
+                and bool(live)
+                and not adm.fuse_deferred
+                and chunk_len < adm.remaining
+            )
             if spec and live and (ride or adm is None):
                 alloc_len = self._prepare_spec_step(live)
             if ride:
-                if spec:
-                    spec_counts = self._dispatch_spec(alloc_len, adm, chunk_len)
-                else:
-                    self._dispatch_fused(adm, chunk_len)
-                # The halves are not separately measurable without a
-                # profiler: split the wall by token share.
-                fused_share = chunk_len / (chunk_len + len(live) * width)
-                dispatched = True
+                try:
+                    with obs_mod.trace_scope(adm.req.trace_id, adm.req.span_id):
+                        if spec:
+                            spec_counts = self._dispatch_spec(
+                                alloc_len, adm, chunk_len
+                            )
+                        else:
+                            self._dispatch_fused(adm, chunk_len)
+                    # The halves are not separately measurable without a
+                    # profiler: split the wall by token share.
+                    fused_share = chunk_len / (chunk_len + len(live) * width)
+                    dispatched = True
+                except Exception as e:
+                    # Treated as decode-side surgery; the NEXT chunk runs
+                    # standalone so a fault that originates in the prefill
+                    # half aborts the admission there instead of evicting
+                    # another resident every iteration.
+                    adm.fuse_deferred = True
+                    self._handle_decode_fault(e)
             else:
                 if adm is not None:
-                    # Final chunk, or nothing live to ride with: a
-                    # standalone (stalled) chunk, which also performs the
-                    # handoff when the prefill completes.
-                    self._advance_admission()
+                    # Final chunk, nothing live to ride, or the last fused
+                    # step carrying this admission faulted: a standalone
+                    # (stalled) chunk, which also performs the handoff.
+                    try:
+                        with obs_mod.trace_scope(
+                            adm.req.trace_id, adm.req.span_id
+                        ):
+                            self._advance_admission()
+                        adm.fuse_deferred = False
+                    except Exception as e:
+                        self._abort_admission(e)
                     live = [s for s in range(self.B) if self._active_np[s]]
                     if spec and live:
                         alloc_len = self._prepare_spec_step(live)
                     t0 = time.monotonic()
                 if live:
-                    if spec:
-                        spec_counts = self._dispatch_spec(alloc_len, None, 0)
-                    else:
-                        self._dispatch_decode()
-                    dispatched = True
+                    try:
+                        if spec:
+                            spec_counts = self._dispatch_spec(alloc_len, None, 0)
+                        else:
+                            self._dispatch_decode()
+                        dispatched = True
+                    except Exception as e:
+                        self._handle_decode_fault(e)
             if dispatched:
-                interleave_mod.stats.record_sync()
-                if spec:
-                    # The accept counts: the host cannot size the next
-                    # step's coverage or roll drafts back without them.
-                    self._apply_spec_counts(spec_counts.cpu().numpy(), live)
-                    emitted_np = self._cur_len_np - self._row_len_np
+                emitted = 0
+                try:
+                    emitted = self._read_step(spec_counts, live)
+                except Exception as e:
+                    # A device fault that surfaces at the read: the same
+                    # eviction surgery as at dispatch.
+                    self._handle_decode_fault(e)
+                self._record_step_wall(
+                    time.monotonic() - t0, live, fused_share, adm, width,
+                    emitted,
+                    ("fused_spec" if fused_share else "spec") if spec
+                    else ("fused" if fused_share else "decode"),
+                    "spec_counts" if spec else "",
+                    chunk_len,
+                )
+            self._collect(self._active_np)
+
+    # -- legacy serialized loop -------------------------------------------
+
+    def _drive_legacy(self, timeout_s: float) -> None:
+        """The pre-fusion loop (``interleave`` off, the escape hatch): one
+        standalone prompt-chunk dispatch, then one decode (or speculative)
+        dispatch over the resident rows, each followed by its host sync,
+        every iteration. Sync points are counted as the reference's
+        legacy loop counts them."""
+        deadline = time.monotonic() + timeout_s if timeout_s > 0 else None
+        while self._has_work():
+            if deadline is not None and time.monotonic() > deadline:
+                self._expire_timeout()
+                break
+            self._expire_request_deadlines()
+            self._admit()
+            if self._admission is not None:
+                # One prompt chunk, then fall through to a decode step —
+                # resident rows keep emitting while the newcomer prefills.
+                adm = self._admission
+                try:
+                    with obs_mod.trace_scope(adm.req.trace_id, adm.req.span_id):
+                        self._advance_admission()
+                except Exception as e:
+                    self._abort_admission(e)
+            if bool(self.active.any()):
+                t_dec = time.monotonic()
+                if self.speculative:
+                    self._active_np[:] = self.active.cpu().numpy()
+                    live = [s for s in range(self.B) if self._active_np[s]]
+                    alloc_len = self._prepare_spec_step(live)
+                    width = self.gamma + 1
+                    emitted = 0
+                    if live:
+                        try:
+                            counts = self._dispatch_spec(alloc_len, None, 0)
+                            counts_np = counts.cpu().numpy()
+                            self._apply_spec_counts(counts_np, live)
+                            emitted = int(sum(int(counts_np[2, s]) for s in live))
+                            if self._stream_armed(live):
+                                self._stream_entry(
+                                    self._cur_len_np - self._row_len_np,
+                                    self.out_buf.cpu().numpy(),
+                                    live,
+                                )
+                        except Exception as e:
+                            self._handle_decode_fault(e)
+                        finally:
+                            self._record_step_wall(
+                                time.monotonic() - t_dec, live, 0.0, None,
+                                width, emitted, "spec", "legacy_step",
+                            )
+                            if obs_mod.config().enabled:
+                                obs_mod.record_sync("legacy_step")
                 else:
-                    act = self.active.cpu().numpy()
-                    for s in live:
-                        self._active_np[s] = bool(act[s])
-                    emitted_np = None
-                if self._stream_armed(live):
-                    if emitted_np is None:
-                        emitted_np = self.n_emitted.cpu().numpy()
-                    self._stream_entry(emitted_np, self.out_buf.cpu().numpy(), live)
-                dt = time.monotonic() - t0
-                dec_dt = dt
-                if fused_share > 0.0:
-                    p = dt * fused_share
-                    self._record_prefill_time(p, overlapped=True)
-                    adm.prefill_s += p
-                    dec_dt = dt - p
-                self.decode_time_s += dec_dt
-                for s in live:
-                    self._slot_decode_s[s] += dec_dt / len(live)
-                if spec:
-                    # Draft/verify wall split by position share (the
-                    # reference's SpecStats convention).
-                    span = self.gamma + 1
-                    spec_mod.stats.record_wall(
-                        dec_dt / (span + 1), dec_dt * span / (span + 1)
-                    )
+                    live = [
+                        s for s in range(self.B) if self._slot_req[s] is not None
+                    ]
+                    try:
+                        self._dispatch_decode()
+                        _sync(self.device)
+                    except Exception as e:
+                        self._handle_decode_fault(e)
+                    finally:
+                        self._record_step_wall(
+                            time.monotonic() - t_dec, live, 0.0, None,
+                            self.chunk, 0, "decode", "legacy_step",
+                        )
+                        if obs_mod.config().enabled:
+                            obs_mod.record_sync("legacy_step")
+                    if self._stream_armed(live):
+                        self._active_np[:] = self.active.cpu().numpy()
+                        self._stream_entry(
+                            self.n_emitted.cpu().numpy(),
+                            self.out_buf.cpu().numpy(),
+                            live,
+                        )
             self._collect()
+        self._active_np[:] = self.active.cpu().numpy()

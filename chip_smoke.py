@@ -164,7 +164,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    encode seconds per prompt, peak device memory, launches). B1-B6's
    launches in the kernels line are this phase's. The checkpoint is
    deleted after it, on failure too;
-11. agree  — tiny f32 models decoded greedily on the card (kernels) and on
+11. batcher — the rest of the paged batcher at full width: random-8b on a
+   ``registry add-model --kv paged`` entry, four opponents on one spec
+   whose prompt the engine trims to 4096 tokens (64 blocks of 8 MiB), 32
+   new tokens, greedy, through ``critique`` and, where the CLI cannot say
+   it, ``GpuEngine.chat`` and the engine's batcher. Rounds are compared
+   by the ids they generate (the byte tokenizer drops most of random
+   weights' ids from the text): (a) the host tier (``--prefix-cache-pages
+   8 --kv-host-mb 1024``: blocks demote and promote, each call timed on
+   the card between CUDA events; the allocator's and tiers' invariants
+   clean; ids those of the round again, and of ``--no-kv-tier`` with and
+   without the cap; stale promotions planted must change them), (b) the
+   disk tier (``--kv-store-dir`` under build/, then the same round in a
+   fresh process: rehydrated blocks, the same ids), (c) an int8 KV cache
+   (demoted blocks carry their scale pages; the ids of tier-off; B4-i8,
+   then B3-i8 ``--no-speculative``), (d) in the fused and then the legacy
+   loop, a transient ``scheduler_chunk`` fault naming one slot (requeued
+   once), a permanent ``kv_alloc`` fault (one request fails) and a
+   per-request deadline expiring mid-decode (partial ids), each with the
+   other rows' ids those of a fault-free run (B3), (e) ``--no-interleave``
+   (the legacy loop) with the fused loop's ids. Prints ``batcher round``
+   lines (walls, prefill seconds, ``perf.kv_tier``), ``batcher tier
+   swaps``, ``batcher faults`` and ``batcher id checks``; B3's, B4's and
+   their int8 modes' launches join the kernels line;
+12. agree  — tiny f32 models decoded greedily on the card (kernels) and on
    the CPU (plain versions) give identical tokens: dense generate() with
    speculation on (B2, or B2-i8, must launch), and the paged batcher with
    speculation on and off; full precision, the
@@ -1978,7 +2001,7 @@ def cli_state():
     (and their journals), checkpoints and the registry, all empty. On the
     way out the engines it built are dropped, and the process-wide knobs
     each CLI round sets (speculation, prefix cache, interleave, streaming,
-    weight residency) get back their values from before: a round's
+    weight residency, KV tiers) get back their values from before: a round's
     ``--no-speculative`` must not reach the phases after it."""
     import dataclasses
     from pathlib import Path
@@ -1987,6 +2010,7 @@ def cli_state():
     from adversarial_spec_tpu_torch.engine import (
         dispatch,
         interleave,
+        kvtier,
         prefix_cache,
         registry,
         spec,
@@ -1998,7 +2022,7 @@ def cli_state():
     os.makedirs(build, exist_ok=True)
     prev = (session.SESSIONS_DIR, session.CHECKPOINTS_DIR, registry.REGISTRY_PATH)
     knobs = [(m, dataclasses.asdict(m.config()))
-             for m in (spec, prefix_cache, interleave, streaming, weightres)]
+             for m in (spec, prefix_cache, interleave, streaming, weightres, kvtier)]
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         session.SESSIONS_DIR = Path(tmp) / "sessions"
         session.CHECKPOINTS_DIR = Path(tmp) / "checkpoints"
@@ -2030,12 +2054,14 @@ def run_cli(argv: list, stdin: str = "") -> tuple[int, str, str]:
     return code, out.getvalue(), err.getvalue()
 
 
-def cli_round(torch, label: str, argv: list, stdin: str, must_launch: tuple) -> dict:
+def cli_round(torch, label: str, argv: list, stdin: str, must_launch: tuple,
+              doc_out: dict | None = None) -> dict:
     """One ``critique`` round through the CLI: B1-B4's and B5/B6's counters
     zeroed just before it and read just after; every kernel of
     ``must_launch`` must have launched. Returns the round's line: its wall
     (perf.spans.round), decode tokens/s, per-model usage, launches, peak
-    device memory, all_agreed and a digest of the responses."""
+    device memory, all_agreed and a digest of the responses; ``doc_out``
+    (when given) receives the round's --json document under "doc"."""
     import hashlib
 
     from adversarial_spec_tpu_torch.ops import decode_attention as da
@@ -2053,6 +2079,8 @@ def cli_round(torch, label: str, argv: list, stdin: str, must_launch: tuple) -> 
     if code != 0:
         raise RuntimeError(f"{label}: cli exited {code}: {err[-2000:]}")
     doc = json.loads(out)
+    if doc_out is not None:
+        doc_out["doc"] = doc
     bad = [r["error"] for r in doc["results"] if r["error"]]
     if bad:
         raise RuntimeError(f"{label}: opponents failed: {bad}")
@@ -2585,6 +2613,619 @@ def phase_pool(torch, ckpt: str) -> dict:
     return report
 
 
+# Phase batcher: the paged batcher's fault containment, per-request
+# watchdog, legacy loop and KV tiers at full width.
+BATCHER_NEW_TOKENS = 32
+BATCHER_HOST_MB = 1024  # holds the ~65 demoted 8 MiB blocks of one prompt
+BATCHER_CAP_PAGES = 8  # the prefix cache keeps 8 pages: the rest demotes
+# A fresh process reads the disk tier: the port's CLI in a new Python,
+# its registry and sessions under the phase's temporary directory; the
+# ids its batcher drains generated go to the file named third.
+FRESH_ROUND = r"""
+import json
+import sys
+from pathlib import Path
+sys.path.insert(0, sys.argv[1])
+import chip_smoke
+from adversarial_spec_tpu_torch import cli
+from adversarial_spec_tpu_torch.debate import session
+from adversarial_spec_tpu_torch.engine import registry
+tmp = Path(sys.argv[2])
+session.SESSIONS_DIR = tmp / "fresh-sessions"
+session.CHECKPOINTS_DIR = tmp / "fresh-checkpoints"
+registry.REGISTRY_PATH = tmp / "registry.json"
+calls = []
+with chip_smoke.recording_ids(calls):
+    code = cli.main(sys.argv[4:])
+Path(sys.argv[3]).write_text(json.dumps(calls))
+sys.exit(code)
+"""
+
+
+@contextlib.contextmanager
+def recording_ids(calls: list):
+    """While the block runs, append the ids each paged batcher drain
+    generated to ``calls``: one list per drain, each request's ids in
+    request order. Phase batcher compares these, not text: random weights
+    pick most ids outside the byte tokenizer's range, whose decode drops
+    them, so most of random-8b's texts are empty."""
+    from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
+
+    real = GpuEngine._run_batcher
+
+    def run(self, *args, **kwargs):
+        results, decode_time = real(self, *args, **kwargs)
+        calls.append([[int(i) for i in r.tokens[: r.n_generated]] for r in results])
+        return results, decode_time
+
+    GpuEngine._run_batcher = run
+    try:
+        yield
+    finally:
+        GpuEngine._run_batcher = real
+
+
+@contextlib.contextmanager
+def timing_tier_swaps(torch, token_bytes: int, out: dict):
+    """While the block runs, time the batcher's own swaps on the card by
+    CUDA events on the current stream, the stream both enqueue their
+    copies on. Each demotion fetch (``_fetch_page_kv``: the page gather
+    and the device→host copy into the pinned arena) is bracketed by two
+    events; each promotion (``_promote_tier_blocks``) by four: its
+    start, the pool scatter's start and end (``write_tokens`` inside the
+    call), its end. An interval also holds any time the stream waited
+    for the host to enqueue the work (the first demotion's holds the
+    arena's allocation). On the way out, wait, and write per path the
+    calls, tokens, bytes, device ms and GB/s (the demotions' also without
+    the first call), the promotions' staging ms (materialize and the
+    host→device copies) and scatter ms, and host ms into ``out``.
+    Patches the class: only batchers built inside the block time their
+    demotions (the prefix cache binds the fetch at construction)."""
+    from adversarial_spec_tpu_torch.engine import scheduler as sched
+
+    cls = sched.ContinuousBatcher
+    real_fetch, real_promote, real_write = (cls._fetch_page_kv, cls._promote_tier_blocks,
+                                            sched.write_tokens)
+    demotes, promotes = [], []
+
+    def event():
+        return torch.cuda.Event(enable_timing=True)
+
+    def fetch(self, page, n_tokens):
+        marks = [event(), event()]
+        t = time.perf_counter()
+        marks[0].record()
+        res = real_fetch(self, page, n_tokens)
+        marks[1].record()
+        demotes.append((marks, n_tokens, time.perf_counter() - t))
+        return res
+
+    def promote(self, *args):
+        marks = [event() for _ in range(4)]
+
+        def write(*a, **kw):
+            marks[1].record()
+            res = real_write(*a, **kw)
+            marks[2].record()
+            return res
+
+        t = time.perf_counter()
+        marks[0].record()
+        sched.write_tokens = write
+        try:
+            done = real_promote(self, *args)
+        finally:
+            sched.write_tokens = real_write
+        marks[3].record()
+        if done:
+            promotes.append((marks, done, time.perf_counter() - t))
+        return done
+
+    cls._fetch_page_kv, cls._promote_tier_blocks = fetch, promote
+    try:
+        yield
+    finally:
+        cls._fetch_page_kv, cls._promote_tier_blocks = real_fetch, real_promote
+        torch.cuda.synchronize()
+        ms = [m[0].elapsed_time(m[1]) for m, _, _ in demotes]
+        tokens = sum(n for _, n, _ in demotes)
+        rest = tokens - (demotes[0][1] if demotes else 0)
+        out["demote"] = {
+            "calls": len(demotes), "tokens": tokens, "bytes": tokens * token_bytes,
+            "device_ms": sum(ms), "gbps": tokens * token_bytes / sum(ms) / 1e6 if ms else None,
+            "first_ms": ms[0] if ms else None,
+            "gbps_after_first": (rest * token_bytes / sum(ms[1:]) / 1e6
+                                 if len(ms) > 1 else None),
+            "host_ms": sum(h for _, _, h in demotes) * 1e3,
+        }
+        tokens = sum(n for _, n, _ in promotes)
+        total = sum(m[0].elapsed_time(m[3]) for m, _, _ in promotes)
+        out["promote"] = {
+            "runs": len(promotes), "tokens": tokens, "bytes": tokens * token_bytes,
+            "device_ms": total, "gbps": tokens * token_bytes / total / 1e6 if total else None,
+            "staging_ms": [m[0].elapsed_time(m[1]) for m, _, _ in promotes],
+            "scatter_ms": [m[1].elapsed_time(m[2]) for m, _, _ in promotes],
+            "host_ms": sum(h for _, _, h in promotes) * 1e3,
+        }
+
+
+@contextlib.contextmanager
+def stale_promotions(torch, page: int, runs: list):
+    """While the block runs, every promoted run reaches the pool as stale
+    KV, what a reused arena slot read before its copy landed would
+    write: each block of the run carries the run's first block's K/V
+    (a one-block run is zeroed). Appends each run's block count to
+    ``runs``. Phase batcher's control that its id checks see a wrong
+    promotion."""
+    from adversarial_spec_tpu_torch.engine import scheduler as sched
+
+    real_promote, real_write = sched.ContinuousBatcher._promote_tier_blocks, sched.write_tokens
+
+    def stale(t):
+        if t is None:
+            return None
+        n = t.shape[3] // page
+        if n < 2:
+            return torch.zeros_like(t)
+        reps = [1] * t.dim()
+        reps[3] = n
+        return t[:, :, :, :page].repeat(*reps)
+
+    def write(pool, k, v, phys, offs, ks_new=None, vs_new=None):
+        runs.append(k.shape[3] // page)
+        return real_write(pool, stale(k), stale(v), phys, offs,
+                          ks_new=stale(ks_new), vs_new=stale(vs_new))
+
+    def promote(self, *args):
+        sched.write_tokens = write
+        try:
+            return real_promote(self, *args)
+        finally:
+            sched.write_tokens = real_write
+
+    sched.ContinuousBatcher._promote_tier_blocks = promote
+    try:
+        yield
+    finally:
+        sched.ContinuousBatcher._promote_tier_blocks = real_promote
+
+
+def compare_ids(checks: list, label: str, got: list, want: list, rows=None) -> None:
+    """Append to ``checks`` whether ``got``'s rows (every row, or those
+    named in ``rows``) hold ``want``'s ids, with the first position at
+    which each row differs. Phase batcher fails at its end if any
+    check did not hold."""
+    rows = list(range(len(want))) if rows is None else list(rows)
+    first = {}
+    for i in rows:
+        a, b = (got[i] if i < len(got) else None), want[i]
+        if a != b:
+            first[i] = (None if a is None else
+                        next((j for j, (x, y) in enumerate(zip(a, b)) if x != y),
+                             min(len(a), len(b))))
+    checks.append({"check": label, "rows": rows, "ok": not first, "first_diff": first})
+
+
+def batcher_round(torch, label, argv, stdin, must_launch, launched) -> tuple[dict, list]:
+    """One ``critique`` round of phase batcher: ``cli_round``'s line plus
+    the round's ``perf.kv_tier``, each opponent's prefill seconds and
+    prompt tokens, and a digest of the generated ids; adds the round's
+    paged-kernel launches (zeroed before it, read after) to ``launched``.
+    Returns (line, each opponent's generated ids)."""
+    import hashlib
+
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+
+    holder: dict = {}
+    calls: list = []
+    with recording_ids(calls):
+        line = cli_round(torch, label, argv, stdin, must_launch, doc_out=holder)
+    for k in pa.launches:
+        launched[k] += pa.launches[k]
+    ids = [row for call in calls for row in call]
+    if not ids or not all(ids):
+        raise RuntimeError(f"{label}: an opponent generated no ids: {[len(r) for r in ids]}")
+    doc = holder["doc"]
+    line["kv_tier"] = doc["perf"]["kv_tier"]
+    line["prefill_s"] = [r["prefill_time_s"] for r in doc["results"]]
+    line["input_tokens"] = [r["input_tokens"] for r in doc["results"]]
+    line["ids_sha1"] = hashlib.sha1(json.dumps(ids).encode()).hexdigest()
+    # The ids the byte tokenizer decodes into text (3-258): few of them.
+    line["ids_decoded"] = sum(3 <= i <= 258 for row in ids for i in row)
+    line["ids"] = sum(len(row) for row in ids)
+    return line, ids
+
+
+def tier_rates(line: dict, block_bytes: int) -> dict:
+    """Demote and promote (or rehydrate, or store-write) rates from a
+    round's ``perf.kv_tier``: blocks × block bytes over the swap walls.
+    ``swap_out_s`` is host time: a demotion's device→host copy is
+    enqueued there and lands later (the store's flush at drain end waits
+    for it and writes the files)."""
+    kt = line["kv_tier"]
+    moved_in = (kt["promoted_blocks"] + kt["rehydrated_blocks"]) * block_bytes
+    moved_out = (kt["demoted_blocks"] + kt["store_writes"]) * block_bytes
+    return {
+        "bytes_in": moved_in,
+        "swap_in_s": kt["swap_in_s"],
+        "in_gbps": moved_in / kt["swap_in_s"] / 1e9 if kt["swap_in_s"] else None,
+        "bytes_out": moved_out,
+        "swap_out_s": kt["swap_out_s"],
+        "out_gbps": moved_out / kt["swap_out_s"] / 1e9 if kt["swap_out_s"] else None,
+    }
+
+
+def batcher_faults(torch, engine, alias: str, launched: dict, checks: list) -> dict:
+    """Part (d): faults and the watchdog through the engine serving
+    ``alias`` (its loaded weights), in the fused loop and then in the
+    legacy loop, speculation and the prefix cache off so that every call
+    prefills the same way: three requests on distinct specs, 48 new
+    tokens, greedy. In each loop: a fault-free call, then (1) a transient
+    ``scheduler_chunk`` fault naming slot 1 (requeued once, completes),
+    (2) a permanent ``kv_alloc`` fault on the first admission (request 0
+    fails, alone), each with the other rows' generated ids checked
+    against the fault-free call's; (3) through the engine's batcher (a
+    per-request deadline is not a chat() argument): request 1 with a
+    deadline of half the fault-free drain's wall is evicted as TIMEOUT
+    with its partial ids, a prefix of its fault-free ids, and the others'
+    ids are the fault-free drain's."""
+    from adversarial_spec_tpu_torch.engine import interleave, prefix_cache, spec
+    from adversarial_spec_tpu_torch.engine.scheduler import SchedRequest
+    from adversarial_spec_tpu_torch.engine.tokenizer import apply_chat_template
+    from adversarial_spec_tpu_torch.engine.types import ChatRequest, SamplingParams
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+    from adversarial_spec_tpu_torch.resilience import faults, injector
+
+    reqs = [
+        ChatRequest(model=f"tpu://{alias}", system=PERSONAS[i],
+                    user=spec_document(1500 + 200 * i, 30 + i) + "\n\nCritique this spec.")
+        for i in range(3)
+    ]
+    sp = SamplingParams(max_new_tokens=48, greedy=True)
+    prev = (spec.config().enabled, prefix_cache.config().enabled, interleave.config().enabled)
+    spec.configure(enabled=False)
+    prefix_cache.configure(enabled=False)
+    report: dict = {}
+
+    def generated(results) -> list:
+        return [[int(i) for i in r.tokens[: r.n_generated]] for r in results]
+
+    def chat(loop, label, chaos=""):
+        pa.reset_launches()
+        faults.reset()
+        injector.install(injector.FaultInjector(injector.parse_chaos_spec(chaos))
+                         if chaos else None)
+        calls: list = []
+        t = time.monotonic()
+        try:
+            with recording_ids(calls):
+                comps = engine.chat(reqs, sp)
+        finally:
+            injector.install(None)
+        torch.cuda.synchronize()
+        for k in pa.launches:
+            launched[k] += pa.launches[k]
+        if pa.launches["paged_decode_attention"] == 0:
+            raise RuntimeError(f"batcher (d) {loop} {label}: B3 never launched: {pa.launches}")
+        report[loop][label] = {"wall_s": time.monotonic() - t, "ok": [c.ok for c in comps],
+                               "errors": [c.error for c in comps],
+                               "transient": [c.transient for c in comps],
+                               "faults": faults.snapshot(), "launches": dict(pa.launches)}
+        return comps, calls[-1]
+
+    try:
+        for loop in ("fused", "legacy"):
+            interleave.configure(enabled=loop == "fused")
+            report[loop] = {}
+            base, base_ids = chat(loop, "fault_free")
+            if not all(c.ok for c in base):
+                raise RuntimeError(f"batcher (d) {loop}: fault-free call failed: {report}")
+            got, got_ids = chat(loop, "transient_scheduler_chunk",
+                                "device_lost@scheduler_chunk:after=1:times=1:slot=1")
+            if not all(c.ok for c in got):
+                raise RuntimeError(f"batcher (d) {loop}: transient fault not contained: {report}")
+            if report[loop]["transient_scheduler_chunk"]["faults"] != {
+                    "scheduler_chunk.device_lost": 1}:
+                raise RuntimeError(f"batcher (d) {loop}: the transient fault did not fire once: "
+                                   f"{report}")
+            compare_ids(checks, f"(d) {loop}: transient scheduler_chunk fault, rows 0 and 2",
+                        got_ids, base_ids, rows=(0, 2))
+            report[loop]["transient_scheduler_chunk"]["requeued_row_ids_equal"] = (
+                got_ids[1] == base_ids[1])
+            got, got_ids = chat(loop, "permanent_kv_alloc", "bug@kv_alloc:times=1")
+            if got[0].ok or got[0].transient or [c.ok for c in got[1:]] != [True, True]:
+                raise RuntimeError(f"batcher (d) {loop}: kv_alloc fault not contained: {report}")
+            compare_ids(checks, f"(d) {loop}: permanent kv_alloc fault, rows 1 and 2",
+                        got_ids, base_ids, rows=(1, 2))
+
+            lm = engine._models[alias]
+            b, tok = lm.batcher, lm.tokenizer
+            if b.interleave is not (loop == "fused"):
+                raise RuntimeError(f"batcher (d) {loop}: the batcher ran the other loop")
+            ids = [tok.encode(apply_chat_template(lm.spec.family, r.system, r.user, False))
+                   for r in reqs]
+
+            def drain(deadline_s=0.0):
+                pa.reset_launches()
+                for i, p in enumerate(ids):
+                    b.submit(SchedRequest(req_id=i, prompt_ids=p, max_new_tokens=48,
+                                          deadline_s=deadline_s if i == 1 else 0.0))
+                t = time.monotonic()
+                res = b.run_all()
+                torch.cuda.synchronize()
+                for k in pa.launches:
+                    launched[k] += pa.launches[k]
+                return res, time.monotonic() - t
+
+            clean, wall = drain()
+            res, timed_wall = drain(deadline_s=wall / 2)
+            report[loop]["watchdog"] = {
+                "fault_free_wall_s": wall, "deadline_s": wall / 2, "wall_s": timed_wall,
+                "fault_kind": [r.fault_kind for r in res],
+                "n_generated": [r.n_generated for r in res],
+            }
+            n = res[1].n_generated
+            if res[1].fault_kind != "timeout" or not 1 <= n < 48:
+                raise RuntimeError(f"batcher (d) {loop}: watchdog eviction wrong: "
+                                   f"{report[loop]['watchdog']}")
+            compare_ids(checks, f"(d) {loop}: deadline, rows 0 and 2",
+                        generated(res), generated(clean), rows=(0, 2))
+            compare_ids(checks, f"(d) {loop}: deadline, row 1's partial ids",
+                        [generated(res)[1]], [generated(clean)[1][:n]])
+            b.allocator.check_invariants()
+    finally:
+        spec.configure(enabled=prev[0])
+        prefix_cache.configure(enabled=prev[1])
+        interleave.configure(enabled=prev[2])
+    return report
+
+
+def phase_batcher(torch) -> dict:
+    """The paged batcher's fault containment, per-request watchdog, legacy
+    loop and KV tiers, at full width: tpu://random-8b (Llama-3-8B, bf16,
+    random weights from seed 0) on a ``registry add-model --kv paged``
+    entry, through ``critique`` (``cli.main`` in this process) and, where
+    the CLI cannot say it, ``GpuEngine.chat`` and the engine's batcher.
+    Four opponents on one ~4200-byte spec, whose prompt the engine trims
+    to 4096 tokens (the largest bucket beside 32 new tokens in 8192: 64
+    blocks of 64), greedy, 32 new tokens. Rounds are compared by the ids
+    they generate (``recording_ids``), each check recorded and the phase
+    failed at its end if any did not hold; any other failed gate raises
+    at once:
+
+    (a) host tier: ``--prefix-cache-pages 8 --kv-host-mb 1024`` — the
+        shared prefix past 8 pages demotes to host RAM and each later
+        opponent promotes it back: demoted_blocks, host_hits and
+        promoted_tokens > 0, the allocator's and the tiers' invariants
+        clean; B4 must launch. The demotion and promotion calls are timed
+        on the card (``timing_tier_swaps``). Its ids must be those of the
+        same round on a fresh batcher and of ``--no-kv-tier`` without the
+        cap (each later opponent adopts the prefix from the pool and
+        prefills the same last 64 tokens: the tier's exact twin). Every
+        opponent's prompt is the same, so ``--no-kv-tier`` with the cap,
+        where each later opponent recomputes the prefix in opponent 1's
+        prefill chunks, must give opponent 1's ids to all four (a reused
+        prefix prefills in other chunks than a recomputed one, and bf16
+        rounds them apart). A round whose promotions land stale
+        (``stale_promotions``) must change the ids;
+    (b) disk tier: the round with ``--kv-store-dir`` (under build/), then
+        the same round in a fresh process over the same store:
+        rehydrated_blocks > 0 there, and every opponent's ids those of
+        the writing round's opponent 2, which adopted the prefix that the
+        fresh process's opponent 1 rehydrates;
+    (c) int8 KV: (a) on a ``--kv-dtype int8`` entry: the demoted blocks
+        carry the scale pages ``ks``/``vs``; the ids checked as in (a)
+        against ``--no-kv-tier`` with and without the cap; B4-i8 must
+        launch, and B3-i8 in a last round ``--no-speculative``;
+    (d) faults and the watchdog in both loops (``batcher_faults``); B3
+        must launch;
+    (e) the legacy loop: (a) with ``--no-interleave`` exits 0 with the
+        fused loop's ids.
+
+    Prints one ``batcher round`` line per round, ``batcher tier swaps``
+    (the timed demotion and promotion calls) for (a) and (c), the tiers'
+    rates from ``perf.kv_tier`` (blocks × block bytes over swap_in_s /
+    swap_out_s), each opponent's prefill seconds with the tier on and
+    off, and ``batcher id checks``."""
+    from adversarial_spec_tpu_torch.engine import dispatch
+    from adversarial_spec_tpu_torch.models.config import get_config
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+
+    cfg = get_config("llama", "8b")
+    block_bytes = cfg.n_layers * cfg.n_kv_heads * PAGE * cfg.head_dim * 2 * 2
+    launched = {k: 0 for k in pa.launches}
+    checks: list = []
+    report = {"phase": "batcher", "model": "tpu://random-8b (kv=paged)",
+              "new_tokens": BATCHER_NEW_TOKENS, "block_bytes": block_bytes}
+    common = ["--greedy", "--max-new-tokens", str(BATCHER_NEW_TOKENS), "--json"]
+    tiered = ["--prefix-cache-pages", str(BATCHER_CAP_PAGES),
+              "--kv-host-mb", str(BATCHER_HOST_MB)]
+    B4, B3 = ("paged_decode_attention_mq",), ("paged_decode_attention",)
+    t_phase = time.monotonic()
+
+    def rnd(label, argv, spec_text, must):
+        line, ids = batcher_round(torch, label, argv, spec_text, must, launched)
+        emit({"phase": "batcher round", **{k: v for k, v in line.items()
+                                          if k not in ("weights", "usage")}})
+        return line, ids
+
+    def drop_batcher():
+        """The next round builds a new batcher, with new tiers and arena."""
+        lm = dispatch.get_engine("tpu://random-8b")._models["random-8b"]
+        lm.batcher = lm.batcher_key = None
+
+    with cli_state():
+        from adversarial_spec_tpu_torch.engine import registry
+
+        tmp = str(registry.REGISTRY_PATH.parent)
+        code, _, err = run_cli(["registry", "add-model", "random-8b", "--family", "llama",
+                                "--size", "8b", "--kv", "paged"])
+        if code != 0:
+            raise RuntimeError(f"registry add-model failed: {err}")
+        models = ",".join(["tpu://random-8b"] * 4)
+        spec_text = spec_document(4200, 7)
+        t = time.monotonic()
+        code, out, err = run_cli(["critique", "--models", "tpu://random-8b",
+                                  "--greedy", "--max-new-tokens", "4"], spec_text)
+        if code != 0:
+            raise RuntimeError(f"batcher warm-up exited {code}: {err[-2000:]}")
+        report["load_and_warmup_s"] = time.monotonic() - t
+
+        # (a) host tier, on and off.
+        swaps: dict = {}
+        with timing_tier_swaps(torch, block_bytes // PAGE, swaps):
+            a_on, ids_a = rnd("(a) host tier on",
+                              ["critique", "--models", models, *tiered, *common], spec_text, B4)
+        engine = dispatch.get_engine("tpu://random-8b")
+        b = engine._models["random-8b"].batcher
+        b.allocator.check_invariants()
+        b.tiers.check_invariants()
+        del b
+        kt = a_on["kv_tier"]
+        if not (kt["demoted_blocks"] > 0 and kt["host_hits"] > 0 and kt["promoted_tokens"] > 0):
+            raise RuntimeError(f"batcher (a): the host tier did not demote and promote: {kt}")
+        emit({"phase": "batcher tier swaps", "part": "(a)", **swaps})
+        drop_batcher()
+        a_again, ids = rnd("(a) host tier on, fresh batcher",
+                           ["critique", "--models", models, *tiered, *common], spec_text, B4)
+        compare_ids(checks, "(a) host tier on, run again on a fresh batcher", ids, ids_a)
+        drop_batcher()
+        runs: list = []
+        with stale_promotions(torch, PAGE, runs):
+            a_bad, ids_bad = rnd("(a) host tier on, stale promotions planted",
+                                 ["critique", "--models", models, *tiered, *common],
+                                 spec_text, B4)
+        drop_batcher()  # its pool and tiers hold the stale KV
+        checks.append({"check": "(a) stale promotions planted change the ids",
+                       "ok": bool(runs) and ids_bad != ids_a, "runs": runs,
+                       "rows_changed": [i for i, (x, y) in enumerate(zip(ids_bad, ids_a))
+                                        if x != y]})
+        a_off, ids = rnd("(a) host tier off",
+                         ["critique", "--models", models, "--no-kv-tier", *tiered, *common],
+                         spec_text, B4)
+        # Every opponent's prompt is the same, so each one recomputing its
+        # prefix past the cap runs opponent 1's prefill chunks: its ids.
+        compare_ids(checks, "(a) --no-kv-tier, prefix cache capped: every opponent "
+                    "recomputes as opponent 1 prefilled", ids, [ids_a[0]] * len(ids))
+        a_pool, ids = rnd("(a) host tier off, prefix cache uncapped",
+                          ["critique", "--models", models, "--no-kv-tier", *common],
+                          spec_text, B4)
+        compare_ids(checks, "(a) --no-kv-tier, prefix cache uncapped: the prefix adopted",
+                    ids, ids_a)
+        reused: list = []
+        compare_ids(reused, "", ids_a, [ids_a[0]] * len(ids_a))
+        report["a"] = {"on": a_on, "again": a_again, "stale": a_bad, "off": a_off,
+                       "off_uncapped": a_pool, "rates": tier_rates(a_on, block_bytes),
+                       "swaps": swaps,
+                       # Where a reused prefix's ids first leave a recomputed one's.
+                       "reused_vs_recomputed_first_diff": reused[0]["first_diff"]}
+
+        # (e) the legacy loop against the fused loop's ids.
+        e_leg, ids = rnd("(e) legacy loop", ["critique", "--models", models, "--no-interleave",
+                                             *tiered, *common], spec_text, B4)
+        compare_ids(checks, "(e) the legacy loop against the fused loop", ids, ids_a)
+        if engine._models["random-8b"].batcher.interleave is not False:
+            raise RuntimeError("batcher (e): the batcher did not run the legacy loop")
+        report["e"] = e_leg
+
+        # (d) faults and the watchdog on the same engine, in both loops.
+        report["d"] = batcher_faults(torch, engine, "random-8b", launched, checks)
+        emit({"phase": "batcher faults", **report["d"]})
+
+        # (b) the disk tier: write through, then a fresh process reads it.
+        store = os.path.join(tmp, "kv-store")
+        b_w, ids_w = rnd("(b) disk tier write", ["critique", "--models", models,
+                                                 "--kv-store-dir", store, *common],
+                         spec_text, B4)
+        if b_w["kv_tier"]["store_writes"] == 0:
+            raise RuntimeError(f"batcher (b): nothing written to the store: {b_w['kv_tier']}")
+        compare_ids(checks, "(b) the writing round against (a)", ids_w, ids_a)
+        dispatch.clear_engine_cache()
+        del engine
+        torch.cuda.empty_cache()
+        ids_file = os.path.join(tmp, "fresh-ids.json")
+        t = time.monotonic()
+        proc = subprocess.run(
+            [sys.executable, "-c", FRESH_ROUND, HERE, tmp, ids_file, "critique",
+             "--models", models, "--kv-store-dir", store, *common],
+            input=spec_text, capture_output=True, text=True, timeout=600,
+        )
+        fresh_wall = time.monotonic() - t
+        if proc.returncode != 0:
+            raise RuntimeError(f"batcher (b): fresh process exited {proc.returncode}: "
+                               f"{proc.stderr[-2000:]}")
+        d_fresh = json.loads(proc.stdout)
+        with open(ids_file) as f:
+            ids = [row for call in json.load(f) for row in call]
+        fresh = {"round": "(b) disk tier, fresh process", "process_wall_s": fresh_wall,
+                 "round_wall_s": d_fresh["perf"]["spans"]["round"],
+                 "kv_tier": d_fresh["perf"]["kv_tier"],
+                 "prefill_s": [r["prefill_time_s"] for r in d_fresh["results"]],
+                 "cached_tokens": sum(r["cached_tokens"] for r in d_fresh["results"])}
+        emit({"phase": "batcher round", **fresh})
+        if fresh["kv_tier"]["rehydrated_blocks"] == 0:
+            raise RuntimeError(f"batcher (b): the fresh process rehydrated nothing: {fresh}")
+        # Its opponent 1 rehydrates the prefix and prefills the rest, as the
+        # writing round's later opponents did after adopting it: their ids.
+        compare_ids(checks, "(b) the fresh process: every opponent as the writing round's "
+                    "opponent 2", ids, [ids_w[1]] * len(ids))
+        report["b"] = {"write": b_w, "fresh": fresh,
+                       "write_rates": tier_rates(b_w, block_bytes),
+                       "read_rates": tier_rates(fresh, block_bytes)}
+    torch.cuda.empty_cache()
+
+    # (c) the int8 KV cache.
+    B4i, B3i = ("paged_decode_attention_mq_int8kv",), ("paged_decode_attention_int8kv",)
+    kv8_block = block_bytes // 2 + cfg.n_layers * cfg.n_kv_heads * PAGE * 4 * 2
+    with cli_state():
+        code, _, err = run_cli(["registry", "add-model", "random-8b", "--family", "llama",
+                                "--size", "8b", "--kv", "paged", "--kv-dtype", "int8"])
+        if code != 0:
+            raise RuntimeError(f"registry add-model failed: {err}")
+        swaps8: dict = {}
+        with timing_tier_swaps(torch, kv8_block // PAGE, swaps8):
+            c_on, ids_c = rnd("(c) int8 KV, host tier on",
+                              ["critique", "--models", models, *tiered, *common],
+                              spec_text, B4i)
+        emit({"phase": "batcher tier swaps", "part": "(c)", **swaps8})
+        b = dispatch.get_engine("tpu://random-8b")._models["random-8b"].batcher
+        b.tiers.check_invariants()
+        b.allocator.check_invariants()
+        keys = {tuple(sorted(blk.payload)) for blk in b.tiers.host._blocks.values()}
+        if c_on["kv_tier"]["demoted_blocks"] == 0 or keys != {("k", "ks", "v", "vs")}:
+            raise RuntimeError(f"batcher (c): demoted int8 blocks lack scales: {keys}")
+        del b
+        c_off, ids = rnd("(c) int8 KV, host tier off",
+                         ["critique", "--models", models, "--no-kv-tier", *tiered, *common],
+                         spec_text, B4i)
+        compare_ids(checks, "(c) int8 KV, --no-kv-tier, prefix cache capped: every opponent "
+                    "recomputes as opponent 1 prefilled", ids, [ids_c[0]] * len(ids))
+        c_pool, ids = rnd("(c) int8 KV, host tier off, prefix cache uncapped",
+                          ["critique", "--models", models, "--no-kv-tier", *common],
+                          spec_text, B4i)
+        compare_ids(checks, "(c) int8 KV, --no-kv-tier, prefix cache uncapped", ids, ids_c)
+        c_b3, _ = rnd("(c) int8 KV, speculation off",
+                      ["critique", "--models", models, "--no-speculative", *tiered, *common],
+                      spec_text, B3i)
+        report["c"] = {"on": c_on, "off": c_off, "off_uncapped": c_pool, "no_spec": c_b3,
+                       "block_bytes": kv8_block, "rates": tier_rates(c_on, kv8_block),
+                       "swaps": swaps8}
+    dispatch.clear_engine_cache()
+    torch.cuda.empty_cache()
+    for k in ("paged_decode_attention", "paged_decode_attention_mq",
+              "paged_decode_attention_int8kv", "paged_decode_attention_mq_int8kv"):
+        if launched[k] == 0:
+            raise RuntimeError(f"batcher: {k} never launched: {launched}")
+    report["id_checks"] = checks
+    emit({"phase": "batcher id checks", "checks": checks})
+    failed = [c["check"] for c in checks if not c["ok"]]
+    if failed:
+        raise RuntimeError(f"batcher: generated ids differ: {failed}")
+    report["launches"] = launched
+    report["seconds"] = time.monotonic() - t_phase
+    return report
+
+
 def phase_agree(torch) -> dict:
     """Tiny f32 llama, full precision and quantized int8 and int4 from the
     same weights, and with an int8 KV cache beside full-precision and int4
@@ -2824,9 +3465,17 @@ def main(argv: list[str]) -> int:
             shutil.rmtree(ckpt, ignore_errors=True)
         launches.update({k: v for k, v in pl["launches"].items() if k in launches})
         torch.cuda.empty_cache()
+        # The batcher's faults, watchdog, legacy loop and KV tiers: B3's,
+        # B4's and their int8 modes' launches here join the kernels line.
+        bt = phase_batcher(torch)
+        emit(bt)
+        for k, n in bt["launches"].items():
+            launches[k] = (launches[k] or 0) + n
+        torch.cuda.empty_cache()
         ag = phase_agree(torch)
         emit(ag)
-        record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, cli=cl, hf=hf, pool=pl, agree=ag)
+        record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, cli=cl, hf=hf, pool=pl,
+                      batcher=bt, agree=ag)
 
     line = []
     for name, r in kres.items():

@@ -11,7 +11,9 @@ round wall), and every file written (sessions, checkpoints, journals,
 profiles, ``--events-out``) must be equal.
 
 Beside them: a session the reference started resumes under the port;
-each knob of an unported subsystem exits 2 with "not yet ported"; a
+each knob of an unported subsystem exits 2 with "not yet ported" (the
+KV tiers' knobs and the batcher's chaos seams now run as the
+reference's do); a
 ``tpu://`` run with no GPU exits 2; and the port's CLI runs with jax
 blocked.
 """
@@ -364,16 +366,28 @@ REFUSED = {
     "pipeline_depth_2": (["critique", "--pipeline-depth", "2"], {}),
     "pipeline_depth_clamped": (["critique", "--pipeline-depth", "7"], {}),
     "pipeline_depth_env": (["critique"], {"ADVSPEC_PIPELINE_DEPTH": "2"}),
+    "chaos_replica_seam": (["critique", "--chaos", "bug@replica"], {}),
+    "chaos_mixed": (["critique", "--chaos", "bug@crash,bug@replica"], {}),
+    "export_tasks_fleet": (["export-tasks", "--fleet"], {}),
+}
+
+# Refused until the KV tiers and the batcher's chaos seams were ported;
+# accepted now, with the reference's report. ``{store}`` is a directory
+# under the test's ``tmp_path``.
+TIER_AND_SEAM_KNOBS = {
     "kv_tier": (["critique", "--kv-tier"], {}),
     "kv_tier_env": (["critique"], {"ADVSPEC_KV_TIER": "1"}),
-    "kv_store_dir": (["critique", "--kv-store-dir", "/tmp/kv"], {}),
-    "kv_store_dir_env": (["critique"], {"ADVSPEC_KV_STORE_DIR": "/tmp/kv"}),
-    "kv_host_mb": (["critique", "--kv-host-mb", "64"], {}),
-    "kv_flush_blocks": (["critique", "--kv-flush-blocks", "2"], {}),
+    "kv_store_dir": (["critique", "--kv-tier", "--kv-store-dir", "{store}"], {}),
+    "kv_store_dir_env": (
+        ["critique"], {"ADVSPEC_KV_TIER": "1", "ADVSPEC_KV_STORE_DIR": "{store}"}
+    ),
+    "kv_host_mb": (["critique", "--kv-tier", "--kv-host-mb", "64"], {}),
+    "kv_flush_blocks": (["critique", "--kv-tier", "--kv-flush-blocks", "2"], {}),
     "chaos_engine_seam": (["critique", "--chaos", "oom@scheduler_chunk"], {}),
     "chaos_generate_env": (["critique"], {"ADVSPEC_CHAOS": "bug@generate"}),
-    "chaos_mixed": (["critique", "--chaos", "bug@crash,oom@kv_alloc"], {}),
-    "export_tasks_fleet": (["export-tasks", "--fleet"], {}),
+    "chaos_batcher_seams": (
+        ["critique", "--chaos", "bug@crash,oom@kv_alloc,bug@kv_swap"], {}
+    ),
 }
 
 
@@ -407,6 +421,39 @@ def test_weight_residency_knob_matches_reference(name, tmp_path, monkeypatch, ca
     assert weights["host_mb"] == (64 if "host_mb" in name else 2048)
 
 
+@pytest.mark.parametrize("name", sorted(TIER_AND_SEAM_KNOBS))
+def test_tier_and_seam_knob_matches_reference(name, tmp_path, monkeypatch, capsys):
+    """The KV tiers' flags and env vars and the engine's chaos seams run
+    the round as the reference does: the same exit code and report
+    (``perf.kv_tier`` included; the mock drives the tiers' state
+    machine), and the same disk-store entries when a store is armed."""
+    argv, env = TIER_AND_SEAM_KNOBS[name]
+    docs, stores = [], []
+    for pkg, cli_mod in (("ref", ref_cli), ("port", port_cli)):
+        store = tmp_path / pkg / "kv"
+        stores.append(store)
+        for k, v in env.items():
+            monkeypatch.setenv(k, v.format(store=store))
+        sup.point_state(monkeypatch, pkg, tmp_path / pkg)
+        code, out, err = sup.run_cli(
+            cli_mod,
+            [a.format(store=store) for a in argv]
+            + ["--models", "mock://critic,mock://critic", "--json"],
+            monkeypatch, capsys, E2E_SPEC * 6,
+        )
+        assert code == 0, err
+        doc = sup.normalize_report(json.loads(out), pkg)
+        for field in ("store_dir", "swap_in_s", "swap_out_s"):  # paths, walls
+            doc["perf"]["kv_tier"].pop(field)
+        docs.append(doc)
+    assert docs[1] == docs[0]
+    tier = docs[1]["perf"]["kv_tier"]
+    assert tier["enabled"] is ("kv_" in name)
+    if "store_dir" in name:
+        assert tier["store_writes"] > 0
+        assert sup.state_tree(stores[1]) == sup.state_tree(stores[0])
+
+
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_knob_exits_2(name, monkeypatch, capsys):
     argv, env = REFUSED[name]
@@ -421,10 +468,10 @@ def test_unported_knob_exits_2(name, monkeypatch, capsys):
 
 
 def test_ported_chaos_seam_and_off_switches_pass(monkeypatch, capsys):
-    """The journal's ``crash`` seam is ported, and switching off what
-    the port does not have (``--no-kv-tier``, ``--no-fleet``, depth 1,
-    ``ADVSPEC_KV_TIER=0``, ``ADVSPEC_WEIGHT_RES=0``) is what the port
-    does anyway."""
+    """The journal's ``crash`` seam is ported, switching off what the
+    port does not have (``--no-fleet``, depth 1) is what the port does
+    anyway, and the off switches of what it has (``--no-kv-tier``,
+    ``ADVSPEC_KV_TIER=0``, ``ADVSPEC_WEIGHT_RES=0``) turn them off."""
     monkeypatch.setenv("ADVSPEC_KV_TIER", "0")
     monkeypatch.setenv("ADVSPEC_FLEET", "0")
     monkeypatch.setenv("ADVSPEC_WEIGHT_RES", "0")

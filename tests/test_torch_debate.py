@@ -11,7 +11,9 @@ counts equal: dense with speculation on and off, and a ``kv="paged"``
 entry over two rounds of one session, the second served from the prefix
 cache.
 
-Every "not yet ported" refusal of ``GpuEngine`` must classify as ``BUG``
+A paged round with a per-request deadline is served as the reference
+serves it. Every "not yet ported" refusal of ``GpuEngine`` must classify
+as ``BUG``
 (never TIMEOUT, which would count against the model's breaker as a
 watchdog expiry and hedge the request), and ``GpuEngine.chat`` must set
 ``Completion.transient`` from the fault's class, as the reference does.
@@ -181,7 +183,7 @@ def _refusal_specs():
     return {
         "mesh": registry.ModelSpec(alias="m", mesh={"tp": 2}),
         "paged_budget": registry.ModelSpec(alias="p", kv="paged", max_seq_len=130),
-        "paged_deadline": registry.ModelSpec(alias="d", kv="paged"),
+        "mesh_dp_tp": registry.ModelSpec(alias="d", mesh={"dp": 2, "tp": 2}),
     }
 
 
@@ -190,7 +192,7 @@ def test_every_refusal_classifies_as_bug(case):
     """The refusal text as ``GpuEngine.chat`` words it classifies as BUG
     under the port's and the reference's ``classify_message``."""
     spec = _refusal_specs()[case]
-    reason = unported_reason(spec, max_new_tokens=24, request_deadline_s=5.0)
+    reason = unported_reason(spec, max_new_tokens=24)
     assert reason is not None
     msg = (
         f"NotImplementedError: tpu://{spec.alias} needs {reason}, which is "
@@ -210,7 +212,7 @@ def test_hf_checkpoint_alias_is_not_refused():
 
 
 def test_refused_chat_is_a_counted_permanent_bug(tmp_path):
-    registry.save_registry_entry(registry.ModelSpec(alias="d", kv="paged"))
+    registry.save_registry_entry(registry.ModelSpec(alias="d", mesh={"tp": 2}))
     eng = GpuEngine(device="cpu")
     (c,) = eng.chat(
         [ChatRequest("tpu://d", "sys", "hi")],
@@ -243,24 +245,20 @@ def test_device_oom_is_transient_and_counted(monkeypatch):
 def test_paged_deadline_round_is_one_failed_attempt_without_hedge(
     tiny_registry, tmp_path, monkeypatch, capsys
 ):
-    """C.5: a paged round with ``--request-deadline-s 5`` through the
-    port's CLI. The refusal is a BUG: one attempt, no hedged
-    re-admission, and the breaker records no TIMEOUT."""
-    port_dispatch.install_engine("tpu://paged-f32", GpuEngine(device="cpu"))
-    code, out, err = sup.run_cli(
-        port_cli,
-        ["critique", "--models", "tpu://paged-f32", "--json",
-         "--request-deadline-s", "5", "--max-new-tokens", "24"],
-        monkeypatch, capsys, SPEC,
-    )
-    assert code == 0, err
-    doc = json.loads(out)
-    (res,) = doc["results"]
-    assert "not yet ported" in res["error"] and "deadline" in res["error"]
-    counters = doc["perf"]["counters"]
-    assert counters["debate/attempts.tpu://paged-f32"] == 1
+    """A paged round with ``--request-deadline-s`` through both CLIs:
+    the batcher's per-request watchdog is armed (C.1 repaired: the
+    request is served, not refused) and, with a deadline the round
+    meets, the round is the reference's — one attempt, no hedge, no
+    fault."""
+    _bridge("paged-f32")
+    argv = [
+        "critique", "--models", "tpu://paged-f32,tpu://paged-f32", "--json",
+        "--greedy", "--request-deadline-s", "300", "--max-new-tokens", "24",
+    ]
+    ref, got = _both(argv, tmp_path, monkeypatch, capsys, SPEC)
+    _assert_round_matches(ref, got)
+    counters = got["perf"]["counters"]
+    assert counters["debate/attempts.tpu://paged-f32"] == 2
     assert not [k for k in counters if k.startswith("debate/hedge.")]
-    breaker = doc["perf"]["resilience"]["breakers"]["tpu://paged-f32"]
-    assert breaker["last_fault"] == "bug"
-    assert doc["perf"]["resilience"]["faults"] == {"generate.bug": 1}
-    assert "timeout" not in json.dumps(doc["perf"]["resilience"])
+    assert got["perf"]["resilience"]["faults"] == {}
+    assert got["perf"]["resilience"] == ref["perf"]["resilience"]

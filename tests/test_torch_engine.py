@@ -201,6 +201,7 @@ def serving_defaults(monkeypatch):
     cap, KV tiers, drive loop, streaming) that other test files of the
     same worker may have moved: pin the defaults for one test."""
     from adversarial_spec_tpu.engine import interleave, kvtier, prefix_cache, streaming
+    from adversarial_spec_tpu_torch.engine import kvtier as port_kvtier
     from adversarial_spec_tpu_torch.engine import spec as port_spec
 
     for cfg, values in (
@@ -208,6 +209,7 @@ def serving_defaults(monkeypatch):
         (port_spec.config(), {"gamma": 8}),
         (prefix_cache.config(), {"enabled": True, "max_pages": 0}),
         (kvtier.config(), {"enabled": False}),
+        (port_kvtier.config(), {"enabled": False}),
         (interleave.config(), {"enabled": True, "pipeline_depth": 2}),
         (streaming.config(), {"enabled": True}),
     ):
@@ -274,24 +276,21 @@ def test_paged_chat_streams_and_cancels(shared_registry, serving_defaults):
 
 
 def test_paged_request_deadline_gets_not_yet_ported_error(shared_registry, serving_defaults):
-    """A paged request with ``request_deadline_s > 0`` is refused with the
-    port's "not yet ported" error until the batcher's per-request TIMEOUT
-    watchdog is ported: served to its budget it would ignore the deadline
-    silently. The dense path serves it (the reference's ``generate()``
-    reads no such field either), and the paged path serves the same
-    request without a deadline."""
+    """A paged request with ``request_deadline_s > 0`` was refused with
+    "not yet ported" until the batcher's per-request watchdog was ported
+    (C.1). It is served now: with a deadline the requests meet, the
+    completions equal the untimed ones, on the paged path and the dense
+    path (whose ``generate()`` reads no such field, as the reference's)."""
     port = GpuEngine(device="cpu")
-    req = ChatRequest("tpu://paged-f32", "s", "u")
-    timed = SamplingParams(max_new_tokens=4, greedy=True, request_deadline_s=30.0)
-    comps = port.chat([req] * 2, timed)
-    assert len(comps) == 2
-    for c in comps:
-        assert not c.ok and "not yet ported" in c.error
-        assert "request_deadline_s" in c.error and c.text == ""
-    dense = port.chat([ChatRequest("tpu://random-tiny", "s", "u")], timed)
-    assert dense[0].ok and dense[0].usage.output_tokens == 4
-    untimed = port.chat([req], SamplingParams(max_new_tokens=4, greedy=True))
-    assert untimed[0].ok and untimed[0].usage.output_tokens == 4
+    timed = SamplingParams(max_new_tokens=4, greedy=True, request_deadline_s=300.0)
+    untimed = SamplingParams(max_new_tokens=4, greedy=True)
+    for alias in ("paged-f32", "random-tiny"):
+        reqs = [ChatRequest(f"tpu://{alias}", "s", "u")] * 2
+        got = port.chat(reqs, timed)
+        assert [c.ok for c in got] == [True, True], [c.error for c in got]
+        assert "not yet ported" not in "".join(c.error or "" for c in got)
+        assert [c.text for c in got] == [c.text for c in port.chat(reqs, untimed)]
+        assert [c.usage.output_tokens for c in got] == [4, 4]
 
 
 def test_unknown_alias_and_validate(shared_registry):

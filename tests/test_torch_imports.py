@@ -20,7 +20,9 @@ import adversarial_spec_tpu_torch
 
 REPO = Path(__file__).resolve().parent.parent
 PKG_DIR = Path(adversarial_spec_tpu_torch.__file__).resolve().parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "adversarial_spec_tpu")
+# ml_dtypes ships with jax: the port writes and reads bf16 KV-tier
+# entries without it (engine/kvtier.py), and the card's machine lacks it.
+FORBIDDEN = ("jax", "jaxlib", "flax", "ml_dtypes", "adversarial_spec_tpu")
 
 
 def _imported_modules(path: Path) -> list[str]:
@@ -123,12 +125,13 @@ def test_loader_runs_without_the_packages_the_card_machine_lacks(tmp_path):
 def test_forbidden_matcher_minds_the_suffix():
     assert _forbidden("adversarial_spec_tpu.engine.tpu")
     assert _forbidden("jax.numpy")
+    assert _forbidden("ml_dtypes")
     assert not _forbidden("adversarial_spec_tpu_torch.engine.gpu")
 
 
 def test_package_imports_with_jax_blocked():
     """Every module of the port imports in a process where ``import jax``
-    (and the reference package) fail."""
+    (and ``ml_dtypes`` and the reference package) fail."""
     mods = [
         m.name
         for m in pkgutil.walk_packages([str(PKG_DIR)], "adversarial_spec_tpu_torch.")
@@ -136,6 +139,7 @@ def test_package_imports_with_jax_blocked():
     code = (
         "import sys, importlib\n"
         "sys.modules['jax'] = None\n"
+        "sys.modules['ml_dtypes'] = None\n"
         "sys.modules['adversarial_spec_tpu'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"

@@ -38,6 +38,7 @@ from adversarial_spec_tpu.engine import spec as jax_spec
 from adversarial_spec_tpu.models import config as jax_config
 from adversarial_spec_tpu.models import transformer as jax_tf
 from adversarial_spec_tpu.ops import pallas_decode, pallas_paged
+from adversarial_spec_tpu_torch.engine import kvtier as port_kvtier
 from adversarial_spec_tpu_torch.engine import generate as gen
 from adversarial_spec_tpu_torch.engine import kvcache
 from adversarial_spec_tpu_torch.engine import scheduler as sched
@@ -381,6 +382,7 @@ def batcher_defaults(monkeypatch):
     for cfg, values in (
         (jax_prefix.config(), {"enabled": True, "max_pages": 0}),
         (jax_kvtier.config(), {"enabled": False}),
+        (port_kvtier.config(), {"enabled": False}),
         (jax_interleave.config(), {"enabled": True, "pipeline_depth": 2}),
     ):
         for name, value in values.items():

@@ -39,6 +39,7 @@ from adversarial_spec_tpu.engine.types import SamplingParams as JaxParams
 from adversarial_spec_tpu.models import config as jax_config
 from adversarial_spec_tpu.models import transformer as jax_tf
 from adversarial_spec_tpu.ops import quant as jax_quant
+from adversarial_spec_tpu_torch.engine import kvtier as port_kvtier
 from adversarial_spec_tpu_torch.engine import generate as gen
 from adversarial_spec_tpu_torch.engine import registry
 from adversarial_spec_tpu_torch.engine import scheduler as sched
@@ -161,6 +162,7 @@ def batcher_defaults(monkeypatch):
     for cfg, values in (
         (jax_prefix.config(), {"enabled": True, "max_pages": 0}),
         (jax_kvtier.config(), {"enabled": False}),
+        (port_kvtier.config(), {"enabled": False}),
         (jax_interleave.config(), {"enabled": True, "pipeline_depth": 2}),
     ):
         for name, value in values.items():

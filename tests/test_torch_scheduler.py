@@ -32,6 +32,9 @@ from adversarial_spec_tpu.engine import prefix_cache as jax_prefix
 from adversarial_spec_tpu.engine import scheduler as jax_sched
 from adversarial_spec_tpu.models import transformer as jax_tf
 from adversarial_spec_tpu.models.config import get_config as jax_config
+from adversarial_spec_tpu_torch.engine import interleave as port_interleave
+from adversarial_spec_tpu_torch.engine import kvtier as port_kvtier
+from adversarial_spec_tpu_torch.engine import prefix_cache as port_prefix
 from adversarial_spec_tpu_torch.engine import scheduler as sched
 from adversarial_spec_tpu_torch.engine.loader import params_from_jax
 from adversarial_spec_tpu_torch.models import transformer as tf
@@ -44,20 +47,27 @@ GAMMA = 8
 
 @pytest.fixture(scope="module", autouse=True)
 def _reference_defaults():
-    """The reference batcher reads process-wide knobs at construction
-    (prefix-cache cap, KV tiers, drive-loop depth) that other test files
-    of the same worker may have moved: pin the defaults for this module."""
+    """Both batchers read process-wide knobs at construction (prefix-cache
+    cap, KV tiers, drive loop) that other test files of the same worker
+    may have moved: pin the defaults for this module, the KV tiers off in
+    both packages (their parity is tests/test_torch_kv_tier.py's)."""
     saved = [
         (cfg, {f: getattr(cfg, f) for f in fields})
         for cfg, fields in (
             (jax_prefix.config(), ("enabled", "max_pages")),
             (jax_kvtier.config(), ("enabled",)),
             (jax_interleave.config(), ("enabled", "pipeline_depth")),
+            (port_prefix.config(), ("enabled", "max_pages")),
+            (port_kvtier.config(), ("enabled",)),
+            (port_interleave.config(), ("enabled",)),
         )
     ]
     jax_prefix.configure(enabled=True, max_pages=0)
     jax_kvtier.configure(enabled=False)
     jax_interleave.configure(enabled=True, pipeline_depth=2)
+    port_prefix.configure(enabled=True, max_pages=0)
+    port_kvtier.configure(enabled=False)
+    port_interleave.configure(enabled=True)
     yield
     for cfg, values in saved:
         for f, v in values.items():

@@ -24,6 +24,7 @@ from adversarial_spec_tpu_torch.debate import profiles as port_profiles
 from adversarial_spec_tpu_torch.debate import session as port_session
 from adversarial_spec_tpu_torch.engine import dispatch as port_dispatch
 from adversarial_spec_tpu_torch.engine import interleave as port_interleave
+from adversarial_spec_tpu_torch.engine import kvtier as port_kvtier
 from adversarial_spec_tpu_torch.engine import prefix_cache as port_prefix
 from adversarial_spec_tpu_torch.engine import registry as port_registry
 from adversarial_spec_tpu_torch.engine import streaming as port_streaming
@@ -77,6 +78,15 @@ def reset_port_process() -> None:
     port_injector.reset()
     port_prefix.configure(enabled=True, max_pages=0)
     port_prefix.reset_stats()
+    # The suite runs with ADVSPEC_KV_TIER=0 (tests/conftest.py pins the
+    # reference's tiers off); a new port process starts so too.
+    port_kvtier.configure(
+        enabled=False,
+        host_mb=port_kvtier.DEFAULT_HOST_MB,
+        store_dir="",
+        flush_blocks=0,
+    )
+    port_kvtier.reset_stats()
     port_weightres.configure(
         enabled=True, host_mb=port_weightres.DEFAULT_HOST_MB
     )
