@@ -9,11 +9,12 @@ journal, profiles and the registry live at the reference's paths, so a
 session one package started, the other resumes.
 
 Knobs of subsystems the port does not have yet exit 2 with "not yet
-ported" (``_unported_knobs``): the ``serve`` action, ``--fleet*``,
-``--pipeline-depth 2``, their env vars, and ``--chaos`` rules at the
-fleet's ``replica`` seam. The KV tiers are the reference's
-(``--kv-tier``/``--no-kv-tier``, ``--kv-host-mb``, ``--kv-store-dir``,
-``--kv-flush-blocks`` and their env vars; ``perf.kv_tier``), and so are
+ported" (``_unported_knobs``): ``--fleet*``, ``--pipeline-depth 2``,
+their env vars, and ``--chaos`` rules at the fleet's ``replica`` seam.
+The ``serve`` action runs the port's daemon (``serve/``). The KV tiers
+are the reference's (``--kv-tier``/``--no-kv-tier``, ``--kv-host-mb``,
+``--kv-store-dir``, ``--kv-flush-blocks`` and their env vars;
+``perf.kv_tier``), and so are
 ``--no-interleave`` (the batcher's legacy loop) and the chaos seams
 ``generate``, ``scheduler_chunk``, ``kv_alloc`` and ``kv_swap``. Of the
 subsystems the reference arms by default, ``perf.interleave`` shows
@@ -616,9 +617,7 @@ def parse_models(args: argparse.Namespace) -> list[str]:
     return models
 
 
-def validate_models_before_run(
-    models: list[str], max_new_tokens: int = 0
-) -> list[str]:
+def validate_models_before_run(models: list[str]) -> list[str]:
     """Collect actionable validation errors (exit code 2 when non-empty).
 
     Parity: reference validate_models_before_run (debate.py:976-1022) →
@@ -626,8 +625,8 @@ def validate_models_before_run(
     validation via each engine's ``validate``.
 
     The port also asks ``engine/gpu.py`` ``unported_reason`` about each
-    ``tpu://`` alias at this round's token budget, so an alias it cannot
-    serve exits 2 with its "not yet ported" message instead of running a
+    ``tpu://`` alias, so an alias it cannot serve (a multi-device mesh)
+    exits 2 with its "not yet ported" message instead of running a
     round of errors; reads the alias's ``tokenizer.json``, so one whose
     components the port's reader does not implement exits 2 naming the
     component; and a ``tpu://`` id with no GPU present exits 2 with the
@@ -648,7 +647,7 @@ def validate_models_before_run(
             err = model_registry.validate_tpu_model(m, registry=reg)
             if err is None:
                 spec = reg[model_registry.parse_tpu_model_id(m)]
-                reason = unported_reason(spec, max_new_tokens)
+                reason = unported_reason(spec)
                 if reason is not None:
                     err = (
                         f"needs {reason}, which is not yet ported to the "
@@ -982,8 +981,6 @@ def _unported_knobs(args: argparse.Namespace) -> list[str]:
     from adversarial_spec_tpu_torch.resilience import injector
 
     out = []
-    if args.action == "serve":
-        out.append("the serve daemon ('serve')")
     if args.fleet:
         out.append("--fleet (the fleet)")
     if os.environ.get("ADVSPEC_FLEET", "0") not in ("", "0"):
@@ -1011,6 +1008,68 @@ def _unported_knobs(args: argparse.Namespace) -> list[str]:
     return out
 
 
+def handle_serve(args: argparse.Namespace) -> int:
+    """``serve`` — the persistent multi-debate daemon
+    (adversarial_spec_tpu_torch/serve). Unlike every other action, this
+    one configures the process-wide subsystems ONCE and then serves until
+    drained: the per-invocation reset cascade must never run mid-serve
+    (concurrent debates would lose their counters and trace scopes)."""
+    from adversarial_spec_tpu_torch import serve as serve_mod
+    from adversarial_spec_tpu_torch.serve.daemon import run_daemon
+
+    # One-time arming of the same knobs a critique round would arm (the
+    # fleet's knobs are refused before this point).
+    _configure_resilience(args)
+    _configure_prefix_cache(args)
+    _configure_interleave(args)
+    _configure_speculative(args)
+    _configure_kv_tier(args)
+    _configure_weightres(args)
+    _configure_streaming(args)
+    _configure_obs(args)
+    serve_mod.configure(
+        max_queue_depth=(
+            args.serve_queue_depth
+            if args.serve_queue_depth is not None
+            else serve_mod.env_queue_depth()
+        ),
+        max_backlog_tokens=(
+            args.serve_backlog_tokens
+            if args.serve_backlog_tokens is not None
+            else serve_mod.env_backlog_tokens()
+        ),
+        tenant_quota_tokens=(
+            args.serve_quota_tokens
+            if args.serve_quota_tokens is not None
+            else serve_mod.env_quota_tokens()
+        ),
+        drain_deadline_s=(
+            args.serve_drain_deadline_s
+            if args.serve_drain_deadline_s is not None
+            else serve_mod.env_drain_deadline_s()
+        ),
+        interactive_ttft_slo_ms=(
+            args.serve_ttft_slo_ms
+            if args.serve_ttft_slo_ms is not None
+            else serve_mod.env_ttft_slo_ms()
+        ),
+    )
+    serve_mod.reset_stats()
+    socket_path = (
+        args.socket
+        or os.environ.get("ADVSPEC_SERVE_SOCKET")
+        or "./advspec-serve.sock"
+    )
+    cfg = serve_mod.config()
+    _err(
+        f"advspec serve: listening on {socket_path} "
+        f"(queue depth {cfg.max_queue_depth}/tenant, backlog cap "
+        f"{cfg.max_backlog_tokens} tokens, drain deadline "
+        f"{cfg.drain_deadline_s}s); SIGTERM drains gracefully"
+    )
+    return run_daemon(socket_path, drain_report_path=args.drain_report)
+
+
 def run_critique(args: argparse.Namespace) -> int:
     from adversarial_spec_tpu_torch.utils.tracing import Tracer, maybe_profile
 
@@ -1030,9 +1089,7 @@ def run_critique(args: argparse.Namespace) -> int:
     models = parse_models(args)
     weightres = _configure_weightres(args)
     with tracer.span("validate"):
-        errors = validate_models_before_run(
-            models, args.max_new_tokens or 1024
-        )
+        errors = validate_models_before_run(models)
     if errors:
         for e in errors:
             _err(f"validation error: {e}")
@@ -1362,9 +1419,7 @@ def handle_export_tasks(args: argparse.Namespace) -> int:
     spec = _read_spec_stdin()
     models = parse_models(args)
     _configure_weightres(args)
-    errors = validate_models_before_run(
-        models[:1], args.max_new_tokens or 2048
-    )
+    errors = validate_models_before_run(models[:1])
     if errors:
         for e in errors:
             _err(f"validation error: {e}")
@@ -1675,6 +1730,8 @@ def main(argv: list[str] | None = None) -> int:
                 return EXIT_VALIDATION
         if args.action == "critique":
             return run_critique(args)
+        if args.action == "serve":
+            return handle_serve(args)
         if args.action == "export-tasks":
             return handle_export_tasks(args)
         if args.action == "diff":

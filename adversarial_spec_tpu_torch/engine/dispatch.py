@@ -3,9 +3,9 @@
 Counterpart of ``adversarial_spec_tpu/engine/dispatch.py``: ``mock://`` ids
 map to one cached ``MockEngine`` and ``tpu://`` ids to one cached
 ``GpuEngine`` (all ``tpu://`` models share it, so same-model opponents
-batch). The fleet and the serve daemon's scheduler gate, which the
-reference wraps around the cached engine, are not ported: the engine is
-returned as it is.
+batch). While the serve daemon is up, ``get_engine`` hands out the
+engine behind the daemon's scheduler gate (serve/gate.py), as the
+reference does; otherwise the engine itself. The fleet is not ported.
 
 ``install_engine`` puts a caller-built engine into the cache, e.g. a
 ``GpuEngine(device="cpu")`` holding weights bridged from the reference,
@@ -48,12 +48,18 @@ def new_engine(model: str, device=None):
 
 
 def get_engine(model: str, device=None):
-    """The cached engine that serves this model id."""
+    """The cached engine that serves this model id. While the serve
+    daemon is up it comes wrapped by the scheduler gate: same ``chat``,
+    but its calls interleave fair-share with every other debate's, and
+    only the daemon's pump thread reaches the engine."""
+    from adversarial_spec_tpu_torch.serve import gate as serve_gate
+
     key = _provider_key(model)
     with _CACHE_LOCK:
         if key not in _ENGINE_CACHE:
             _ENGINE_CACHE[key] = new_engine(model, device=device)
-        return _ENGINE_CACHE[key]
+        engine = _ENGINE_CACHE[key]
+    return serve_gate.wrap(engine)
 
 
 def install_engine(model: str, engine) -> None:
@@ -64,7 +70,8 @@ def install_engine(model: str, engine) -> None:
 
 
 def cached_engines() -> list:
-    """The process's live engines."""
+    """The process's live inner engines (no gate wrappers) — the serve
+    daemon's ``check`` op walks these for allocator/tier invariants."""
     with _CACHE_LOCK:
         return list(_ENGINE_CACHE.values())
 

@@ -1,8 +1,8 @@
-"""Batched autoregressive generation on one device, dense KV cache.
+"""Batched autoregressive generation on one device.
 
-Counterpart of ``adversarial_spec_tpu/engine/generate.py`` (single-device
-dense path). Same execution model and the same shapes, because the
-speculative loop's fit test depends on them:
+Counterpart of ``adversarial_spec_tpu/engine/generate.py`` (its
+single-device dense and paged paths). Same execution model and the same
+shapes, because the speculative loop's fit test depends on them:
 
 - prompts left-padded to a shared power-of-two bucket (>= 128), so every
   row's prompt KV lands at the same slots; the cache holds
@@ -13,16 +13,24 @@ speculative loop's fit test depends on them:
 - prompt-lookup speculation (engine/speculative.py) when enabled, with
   the adaptive off-switch and the rowwise catch-up;
 - chunked single-token decode with EOS early exit and the ``timeout_s``
-  deadline checked between chunks.
+  deadline checked between chunks;
+- ``paged=True``: the round-synchronous paged decode. The dense prefill
+  cache holds the prompt slots only; its K/V migrates into a page pool
+  (physical page 0 the trash page, allocator ids shifted +1), identical
+  prompts keep one physical copy of their prompt pages when the page
+  size divides the bucket, and decode runs the continuous batcher's
+  chunk (engine/scheduler.py ``_decode_chunk_impl``, kernel B3 on the
+  GPU). Speculation does not apply to this path.
 
-The reference's mesh, sequence-parallel, data-parallel and paged branches
-are not ported. The host drives every step (PyTorch runs eagerly), so the
+The reference's mesh, sequence-parallel and data-parallel branches are not
+ported. The host drives every step (PyTorch runs eagerly), so the
 early-exit checks read one flag per step.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import time
 from dataclasses import dataclass
 
@@ -31,6 +39,12 @@ import torch
 
 from adversarial_spec_tpu_torch.engine import prefix_cache as prefix_mod
 from adversarial_spec_tpu_torch.engine import spec as spec_cfg_mod
+from adversarial_spec_tpu_torch.engine.kvcache import (
+    PageAllocator,
+    PagedCacheLayout,
+    init_page_pool,
+    write_tokens,
+)
 from adversarial_spec_tpu_torch.engine.sampling import sample_tokens
 from adversarial_spec_tpu_torch.engine.speculative import (
     rowwise_decode_steps,
@@ -48,6 +62,11 @@ from adversarial_spec_tpu_torch.utils.device import resolve_device
 DECODE_CHUNK = int(os.environ.get("ADVSPEC_DECODE_CHUNK", "128"))
 MIN_BUCKET = 128
 PREFILL_CHUNK = 1024
+
+# One-time flag for the speculative x paged warning in ``generate``:
+# paged speculation is the ContinuousBatcher's per-slot step, and this
+# path has none.
+_PAGED_SPEC_WARNED = False
 
 
 def bucket_length(n: int, minimum: int = MIN_BUCKET) -> int:
@@ -192,6 +211,80 @@ def decode_chunk_steps(
     return cur, finished, step
 
 
+def _migrate_to_pages(
+    cache: Cache,
+    cfg: ModelConfig,
+    B: int,
+    S: int,
+    total_len: int,
+    page_size: int,
+    share_prompt_pages: bool,
+    kv_dtype: str,
+    device: torch.device,
+) -> tuple[dict, torch.Tensor]:
+    """Build the page pool and table of a paged ``generate`` and scatter
+    the prompt KV (slots [0, S)) of the dense prefill ``cache`` into it.
+    Pad-slot garbage lands too but stays masked by each row's window
+    start. With shared prompt pages the one-row cache scatters once.
+    Returns (pool, page_table [B, pages per row] int32)."""
+    # Physical page 0 is the TRASH page (the batcher's decode chunk
+    # redirects inactive rows' writes there), so allocator ids shift +1.
+    n_pages_per_row = -(-total_len // page_size)
+    if share_prompt_pages:
+        prompt_pages = S // page_size
+        decode_pages = n_pages_per_row - prompt_pages
+        allocator = PageAllocator(prompt_pages + B * decode_pages, page_size)
+        allocator.new_sequence("prompt")
+        allocator.extend("prompt", S)
+        shared_table = np.asarray(allocator.table("prompt"), np.int32)
+        for b in range(B):
+            allocator.new_sequence(b)
+            allocator.extend(b, total_len - S)
+        table_np = (
+            np.concatenate(
+                [
+                    np.broadcast_to(shared_table, (B, prompt_pages)),
+                    allocator.table_array(list(range(B)), decode_pages),
+                ],
+                axis=1,
+            )
+            + 1
+        )
+        n_phys_pages = prompt_pages + B * decode_pages
+    else:
+        allocator = PageAllocator(B * n_pages_per_row, page_size)
+        for b in range(B):
+            allocator.new_sequence(b)
+            allocator.extend(b, total_len)
+        table_np = allocator.table_array(list(range(B)), n_pages_per_row) + 1
+        n_phys_pages = B * n_pages_per_row
+    layout = PagedCacheLayout(
+        n_pages=n_phys_pages + 1,  # +1: trash page 0
+        page_size=page_size,
+        n_layers=cfg.n_layers,
+        n_kv_heads=cfg.n_kv_heads,
+        head_dim=cfg.head_dim,
+    )
+    pool = init_page_pool(
+        layout, device=device, dtype=cache["k"].dtype, kv_dtype=kv_dtype
+    )
+    B_mig = cache["k"].shape[1]
+    slots = np.tile(np.arange(S, dtype=np.int64)[None, :], (B_mig, 1))
+    page_ids = table_np[np.arange(B_mig)[:, None], slots // page_size]
+    quant = "ks" in cache
+    write_tokens(
+        pool,
+        cache["k"][..., :S, :],
+        cache["v"][..., :S, :],
+        page_ids,
+        slots % page_size,
+        ks_new=cache["ks"][..., :S, :] if quant else None,
+        vs_new=cache["vs"][..., :S, :] if quant else None,
+    )
+    page_table = torch.as_tensor(table_np, dtype=torch.int32, device=device)
+    return pool, page_table
+
+
 @dataclass
 class GenerateResult:
     tokens: np.ndarray  # [B, <=max_new] generated ids (0 past each row's end)
@@ -222,6 +315,8 @@ def generate(
     seed: int | None = None,
     timeout_s: float = 0.0,
     share_prefix: bool = True,
+    paged: bool = False,
+    page_size: int = 128,
     speculative: bool | None = None,
     device: str | torch.device | None = None,
     kv_dtype: str = "",
@@ -236,6 +331,12 @@ def generate(
     ``kv_dtype="int8"``: the KV cache stores int8 K/V with per-(token,
     head) f32 scales (half the cache bytes); the decode kernels read it
     as int8.
+
+    ``paged``: decode against a page pool of ``page_size``-slot pages
+    instead of the dense per-row cache (the reference's single-device
+    paged path); an int8 ``kv_dtype`` gives int8 pages with scale pages.
+    An explicit ``speculative=True`` is ignored here, with a one-time
+    warning on stderr.
     """
     device = resolve_device(device)
     tokens_np, pad_lens_np = pad_batch(prompt_ids, pad_id)
@@ -292,10 +393,12 @@ def generate(
     prefill_pads = pad_lens[:1] if shared else pad_lens
 
     t0 = time.monotonic()
+    # Paged runs drop the dense cache after migrating the prompt KV, so it
+    # holds only the prompt slots.
     cache = init_cache(
         cfg,
         1 if shared_until else prefill_tokens.shape[0],
-        total_len,
+        S if paged else total_len,
         device=device,
         dtype=params["embed"].dtype,
         kv_dtype=kv_dtype,
@@ -320,8 +423,14 @@ def generate(
     # tokens in ``perf.prefix_cache``, as the reference counts them.
     if shared_until:
         prefix_mod.stats.record_prefill(0, (B - 1) * shared_until)
+    # Paged + identical prompts: the rows share one physical copy of the
+    # prompt pages (never written after migration: decode slots start at
+    # S, page-aligned when the page size divides the bucket), so the
+    # cache stays one row; only the logits tile.
+    share_prompt_pages = shared and paged and S % page_size == 0
     if shared:
-        cache = {k: v.repeat_interleave(B, dim=1) for k, v in cache.items()}
+        if not share_prompt_pages:
+            cache = {k: v.repeat_interleave(B, dim=1) for k, v in cache.items()}
         last_logits = last_logits.repeat_interleave(B, dim=0)
         prefix_mod.stats.record_prefill(0, (B - 1) * S)
     first = sample_tokens(last_logits, gen, **sample_kw)
@@ -335,11 +444,41 @@ def generate(
     step = 1
     timed_out = False
 
+    if paged:
+        pool, page_table = _migrate_to_pages(
+            cache, cfg, B, S, total_len, page_size, share_prompt_pages,
+            kv_dtype, device,
+        )
+        cache = None  # the dense prefill cache is no longer needed
+        # Per-row state of the batcher's decode chunk, which this path
+        # shares: cur's KV slot is S, one token emitted so far.
+        paged_cur_len = torch.full((B,), S + 1, dtype=torch.int64, device=device)
+        paged_n_emitted = torch.ones((B,), dtype=torch.int64, device=device)
+        paged_max_new = torch.full(
+            (B,), max_new_tokens, dtype=torch.int64, device=device
+        )
+        paged_active = ~finished
+
     sp_cfg = spec_cfg_mod.config()
     gamma = sp_cfg.gamma
+    spec_explicit = speculative is not None
     if speculative is None:
         speculative = sp_cfg.enabled
-    use_spec = speculative and max_new_tokens > gamma + 1
+    use_spec = speculative and not paged and max_new_tokens > gamma + 1
+    if spec_explicit and speculative and paged and max_new_tokens > gamma + 1:
+        # Only an EXPLICIT speculative=True warns: a paged call that
+        # inherited the default-on process config asked for nothing.
+        global _PAGED_SPEC_WARNED
+        if not _PAGED_SPEC_WARNED:
+            _PAGED_SPEC_WARNED = True
+            print(
+                "warning: speculative=True is ignored when paged=True in "
+                "generate() — dense-path speculation has no paged "
+                "variant; paged speculation runs per-slot in the "
+                "ContinuousBatcher (GpuEngine.chat / run_all). "
+                "Pass speculative=False to silence this.",
+                file=sys.stderr,
+            )
     desynced = False  # per-row steps diverge after any speculative phase
     steps_rows = None
     if use_spec:
@@ -417,6 +556,23 @@ def generate(
                 ):
                     desynced = False
                     step = target
+        elif paged:
+            from adversarial_spec_tpu_torch.engine.scheduler import (
+                _decode_chunk_impl,
+            )
+
+            cur, paged_cur_len, paged_n_emitted, paged_active = (
+                _decode_chunk_impl(
+                    params, cfg, pool, page_table, cur, paged_cur_len,
+                    pad_lens, paged_n_emitted, paged_max_new, paged_active,
+                    out_buf, eos, gen, float(temperature), float(top_p),
+                    chunk=DECODE_CHUNK,
+                    record_syncs=False,
+                    **{k: sample_kw[k] for k in ("greedy", "top_k", "use_top_p")},
+                )
+            )
+            step = int(paged_n_emitted.max())
+            finished = ~paged_active
         else:
             # Plain chunked decode owns the rest of the budget; the
             # deadline is checked before each chunk.

@@ -143,19 +143,12 @@ def fits_batcher(cfg: ModelConfig, max_new_tokens: int) -> bool:
     return cfg.max_seq_len - max_new_tokens >= MIN_BUCKET
 
 
-def unported_reason(spec: ModelSpec, max_new_tokens: int = 0) -> str | None:
-    """Why the port cannot serve ``spec`` at this budget yet, or None.
-    The wording avoids the fault markers of resilience/faults.py: a
-    refusal must classify as BUG."""
+def unported_reason(spec: ModelSpec) -> str | None:
+    """Why the port cannot serve ``spec`` yet, or None: only a
+    multi-device mesh is refused. The wording avoids the fault markers of
+    resilience/faults.py: a refusal must classify as BUG."""
     if math.prod(spec.mesh.values()) > 1:
         return f"a multi-device mesh {spec.mesh}"
-    if spec.kv == "paged":
-        cfg = get_config(spec.family, spec.size, max_seq_len=spec.max_seq_len)
-        if not fits_batcher(cfg, max_new_tokens):
-            return (
-                "kv='paged' with a budget that leaves no room for a "
-                "bucketed prompt (the round-synchronous generate(paged=True))"
-            )
     return None
 
 
@@ -840,7 +833,7 @@ class GpuEngine:
         try:
             spec = registry_mod.resolve_model_spec(f"tpu://{alias}")
             check_kv_dtype(spec.kv_dtype)
-            reason = unported_reason(spec, params.max_new_tokens)
+            reason = unported_reason(spec)
             if reason is not None:
                 raise NotImplementedError(
                     f"tpu://{alias} needs {reason}, which is not yet "
@@ -892,7 +885,12 @@ class GpuEngine:
                 )
             )
 
-        if lm.spec.kv == "paged":
+        # Paged specs serve through the continuous batcher, unless the
+        # budget leaves no room for a bucketed prompt: that corner takes
+        # the round-synchronous generate(paged=True), as the dense path
+        # takes generate(). Neither streams: their consumers are served
+        # the blocking result only, as the reference's are.
+        if lm.spec.kv == "paged" and fits_batcher(lm.cfg, params.max_new_tokens):
             return self._chat_continuous(lm, prompts, params, batch, consumer)
 
         t0 = time.monotonic()
@@ -910,6 +908,7 @@ class GpuEngine:
             seed=params.seed,
             timeout_s=params.timeout_s,
             device=self.device,
+            paged=lm.spec.kv == "paged",
             kv_dtype=lm.spec.kv_dtype,
         )
         total_time = time.monotonic() - t0

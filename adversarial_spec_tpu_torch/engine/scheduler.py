@@ -295,11 +295,15 @@ def _decode_chunk_impl(
     greedy: bool,
     top_k: int,
     use_top_p: bool = True,
+    record_syncs: bool = True,
 ):
     """Up to ``chunk`` decode steps over whatever rows are active; stops
-    early once no row is. THE paged decode loop: the fused step runs this
-    same body, so the write-page lookup, bounds and sampling glue exist
-    once. Returns (cur, cur_len, n_emitted, active)."""
+    early once no row is. THE paged decode loop: the fused step and the
+    round-synchronous ``generate(paged=True)`` run this same body, so the
+    write-page lookup, bounds and sampling glue exist once. Each step's
+    flag read counts as a drive-loop sync point unless ``record_syncs``
+    is False (``generate`` has no drive loop). Returns (cur, cur_len,
+    n_emitted, active)."""
     B = cur_tok.shape[0]
     page_size = pool["k"].shape[3]
     cap = out_buf.shape[1]
@@ -307,7 +311,8 @@ def _decode_chunk_impl(
     cur = cur_tok
     for _ in range(chunk):
         # The reference's while_loop condition: one host read per step.
-        interleave_mod.stats.record_sync()
+        if record_syncs:
+            interleave_mod.stats.record_sync()
         if not bool(active.any()):
             break
         q_pos = cur_len - 1  # [B] logical slot of cur's KV

@@ -4,6 +4,8 @@
     python3 chip_smoke.py            # every phase (needs one CUDA card)
     python3 chip_smoke.py --quick    # device, build and kernel phases only
     python3 chip_smoke.py --profile  # also profile one more chat call
+    python3 chip_smoke.py --only batcher,pgen,serve,agree  # device, build and the named
+                                     # phases only (no kernels or ok line)
     python3 chip_smoke.py --qmm-only # device, build and B5/B6 only: their checks
                                      # and device times (chiprun_out/chip_smoke_qmm.json);
                                      # run from another checkout's root, it times that
@@ -187,12 +189,38 @@ Phases, each printing one JSON line; any failure exits non-zero:
    lines (walls, prefill seconds, ``perf.kv_tier``), ``batcher tier
    swaps``, ``batcher faults`` and ``batcher id checks``; B3's, B4's and
    their int8 modes' launches join the kernels line;
-12. agree  — tiny f32 models decoded greedily on the card (kernels) and on
+12. pgen   — the round-synchronous ``generate(paged=True)``: a temporary
+   registry entry random-8b with kv="paged" and max_seq_len=256, four
+   opponents through ``critique`` at 192 new tokens (256 - 192 < 128:
+   no bucketed prompt fits, so no batcher), greedy: B3 must launch, B4,
+   B1 and B2 must not, and the engine builds no batcher; again with
+   kv_dtype="int8" (B3-i8 only); then the dense alias at the same budget
+   with ``--no-speculative`` (B1). Each round's first B3 call is
+   recomputed by the plain version on the card; one ``pgen round`` line
+   per round (wall, prefill and decode seconds, tokens/s, launches,
+   peak memory); the rows whose generated ids equal the dense round's
+   are counted, not gated (B1 and B3 reduce bf16 in other orders);
+13. serve  — the serve daemon: ``cli.main(["serve", ...])`` in a
+   subprocess (SERVE_BOOT adds two signal hooks: launch counts out, the
+   speculation switch flipped), its registry in a temporary HOME with
+   random-8b on a ``registry add-model --kv paged`` entry that reads
+   tests/torch_tokenizers/llama3/tokenizer.json, driven through the
+   port's ``serve/client.py``; four opponents, a ~3 KB spec, 64 new
+   tokens, greedy. (a) one debate alone equals the same round through
+   ``critique --json`` (text and tokens per opponent; B4), then its
+   second round with speculation off (B3), one weight load; (b) a
+   batch-tier debate, then two interactive ones of two tenants: all
+   complete, a preempted unit's re-admission hits the prefix cache,
+   ``check`` ok, one load; (c) SIGTERM with a debate in flight: it
+   completes, exit 0, the drain report counts it. ``serve debate`` lines
+   (wall, TTFT, tokens/s, preemptions, sheds, launches) and one ``serve
+   drain`` line; B3's and B4's launches join the kernels line;
+14. agree  — tiny f32 models decoded greedily on the card (kernels) and on
    the CPU (plain versions) give identical tokens: dense generate() with
-   speculation on (B2, or B2-i8, must launch), and the paged batcher with
-   speculation on and off; full precision, the
-   same weights quantized int8 (B5) and int4 (B6), and an int8 KV cache
-   beside full-precision and int4 weights.
+   speculation on (B2, or B2-i8, must launch), generate(paged=True) (B3,
+   or B3-i8), and the paged batcher with speculation on and off; full
+   precision, the same weights quantized int8 (B5) and int4 (B6), and an
+   int8 KV cache beside full-precision and int4 weights.
 
 Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
 Results also go to chiprun_out/chip_smoke.json.
@@ -202,6 +230,7 @@ from __future__ import annotations
 
 import contextlib
 import functools
+import gc
 import json
 import os
 import shutil
@@ -2034,6 +2063,10 @@ def cli_state():
             for mod, values in knobs:
                 mod.configure(**values)
             dispatch.clear_engine_cache()
+            # A dropped engine's batcher and its prefix cache refer to
+            # each other (the tiers' fetch callback): only a collection
+            # frees their device memory before the next phase.
+            gc.collect()
 
 
 def run_cli(argv: list, stdin: str = "") -> tuple[int, str, str]:
@@ -2618,6 +2651,7 @@ def phase_pool(torch, ckpt: str) -> dict:
 BATCHER_NEW_TOKENS = 32
 BATCHER_HOST_MB = 1024  # holds the ~65 demoted 8 MiB blocks of one prompt
 BATCHER_CAP_PAGES = 8  # the prefix cache keeps 8 pages: the rest demotes
+WATCHDOG_TRIES = 4  # drains that may look for a deadline landing mid-decode
 # A fresh process reads the disk tier: the port's CLI in a new Python,
 # its registry and sessions under the phase's temporary directory; the
 # ids its batcher drains generated go to the file named third.
@@ -2866,9 +2900,11 @@ def batcher_faults(torch, engine, alias: str, launched: dict, checks: list) -> d
     fails, alone), each with the other rows' generated ids checked
     against the fault-free call's; (3) through the engine's batcher (a
     per-request deadline is not a chat() argument): request 1 with a
-    deadline of half the fault-free drain's wall is evicted as TIMEOUT
-    with its partial ids, a prefix of its fault-free ids, and the others'
-    ids are the fault-free drain's."""
+    deadline of half the fault-free drain's wall (bisected over at most
+    WATCHDOG_TRIES drains while it expires before the request's first
+    token or after its last) is evicted as TIMEOUT with its partial ids,
+    a prefix of its fault-free ids, and the others' ids are the
+    fault-free drain's."""
     from adversarial_spec_tpu_torch.engine import interleave, prefix_cache, spec
     from adversarial_spec_tpu_torch.engine.scheduler import SchedRequest
     from adversarial_spec_tpu_torch.engine.tokenizer import apply_chat_template
@@ -2958,13 +2994,32 @@ def batcher_faults(torch, engine, alias: str, launched: dict, checks: list) -> d
                 return res, time.monotonic() - t
 
             clean, wall = drain()
-            res, timed_wall = drain(deadline_s=wall / 2)
+            # The deadline must expire while request 1 decodes. Half the
+            # fault-free wall lands there on most runs, but two drains'
+            # walls differ by up to a third on the card, so a deadline
+            # that expires before its first token (too early) or after
+            # its last (too late) is bisected, at most WATCHDOG_TRIES
+            # drains; the outcome is then checked as before.
+            lo, hi, deadline, tries = 0.0, wall, wall / 2, []
+            for _ in range(WATCHDOG_TRIES):
+                res, timed_wall = drain(deadline_s=deadline)
+                n = res[1].n_generated
+                tries.append({"deadline_s": deadline, "wall_s": timed_wall,
+                              "fault_kind": res[1].fault_kind, "n_generated": n})
+                if res[1].fault_kind == "timeout" and n == 0:
+                    lo = deadline
+                elif res[1].fault_kind is None and n == 48:
+                    hi = deadline
+                else:
+                    break
+                deadline = (lo + hi) / 2
             report[loop]["watchdog"] = {
-                "fault_free_wall_s": wall, "deadline_s": wall / 2, "wall_s": timed_wall,
+                "fault_free_wall_s": wall, "deadline_s": tries[-1]["deadline_s"],
+                "wall_s": timed_wall,
                 "fault_kind": [r.fault_kind for r in res],
                 "n_generated": [r.n_generated for r in res],
+                "tries": tries,
             }
-            n = res[1].n_generated
             if res[1].fault_kind != "timeout" or not 1 <= n < 48:
                 raise RuntimeError(f"batcher (d) {loop}: watchdog eviction wrong: "
                                    f"{report[loop]['watchdog']}")
@@ -3226,13 +3281,475 @@ def phase_batcher(torch) -> dict:
     return report
 
 
+# Phase pgen: the round-synchronous paged generate at full width.
+PGEN_SEQ = 256  # the alias's context: 256 - 192 = 64 < 128, no bucketed prompt fits
+PGEN_NEW_TOKENS = 192
+PGEN_OPPONENTS = 4
+
+
+@contextlib.contextmanager
+def capturing_first_call(module, name: str, store: list):
+    """While the block runs, keep copies of the arguments and the output
+    of the first call of ``module.name`` (the kernel wrapper as the model
+    calls it), so the call can be recomputed by its plain version."""
+    import torch
+
+    real = getattr(module, name)
+
+    def copy(x):
+        return x.clone() if isinstance(x, torch.Tensor) else x
+
+    def wrapped(*args, **kwargs):
+        out = real(*args, **kwargs)
+        if not store:
+            store.append(([copy(a) for a in args],
+                          {k: copy(v) for k, v in kwargs.items()}, out.clone()))
+        return out
+
+    setattr(module, name, wrapped)
+    try:
+        yield
+    finally:
+        setattr(module, name, real)
+
+
+@contextlib.contextmanager
+def recording_generate_ids(calls: list):
+    """While the block runs, append the ids each ``generate`` call of
+    ``GpuEngine`` produced: one list per call, each row's ids."""
+    from adversarial_spec_tpu_torch.engine import gpu
+
+    real = gpu.generate
+
+    def run(*args, **kwargs):
+        result = real(*args, **kwargs)
+        calls.append([[int(i) for i in result.tokens[r, : result.n_generated[r]]]
+                      for r in range(len(result.n_generated))])
+        return result
+
+    gpu.generate = run
+    try:
+        yield
+    finally:
+        gpu.generate = real
+
+
+def phase_pgen(torch) -> dict:
+    """The round-synchronous ``generate(paged=True)``: a temporary
+    registry entry random-8b with kv="paged" and max_seq_len=256, four
+    opponents through ``critique`` at 192 new tokens (256 - 192 < 128: no
+    bucketed prompt fits beside the budget, so no batcher), greedy. B3
+    must launch and B4, B1 and B2 must not, and the engine must build no
+    batcher; then the same with kv_dtype="int8" (B3-i8, no float kernel);
+    then the dense alias at the same budget with ``--no-speculative``
+    (B1), whose generated ids are compared row by row with the paged
+    round's (printed, not gated: B1 and B3 reduce bf16 in other orders).
+    The first B3 call of each paged round is recomputed by its plain
+    version on the card."""
+    from adversarial_spec_tpu_torch.engine import dispatch, registry
+    from adversarial_spec_tpu_torch.models import transformer
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+    from adversarial_spec_tpu_torch.ops import quant_matmul as qm
+
+    spec = spec_document(3000, 0)
+    models = ",".join(["tpu://random-8b"] * PGEN_OPPONENTS)
+    report = {"phase": "pgen", "max_seq_len": PGEN_SEQ, "max_new_tokens": PGEN_NEW_TOKENS}
+    checks: list = []
+    every = ("paged_decode_attention", "paged_decode_attention_int8kv")
+    parts = (
+        ("paged", dict(kv="paged"), [], "paged_decode_attention"),
+        ("paged int8 KV", dict(kv="paged", kv_dtype="int8"), [],
+         "paged_decode_attention_int8kv"),
+        ("dense", dict(kv="dense"), ["--no-speculative"], "decode_attention"),
+    )
+    ids: dict = {}
+    launched_all = {k: 0 for k in every}
+    for part, kw, extra, must in parts:
+        with cli_state():
+            registry.save_registry_entry(registry.ModelSpec(
+                alias="random-8b", family="llama", size="8b", max_seq_len=PGEN_SEQ, **kw))
+            engine = dispatch.get_engine("tpu://random-8b")
+            t = time.monotonic()
+            engine._load("random-8b")
+            torch.cuda.synchronize()
+            load_s = time.monotonic() - t
+            first: list = []
+            calls: list = []
+            box: dict = {}
+            with capturing_first_call(transformer, "paged_decode_attention", first), \
+                    recording_generate_ids(calls):
+                line = cli_round(
+                    torch, f"pgen {part}",
+                    ["critique", "--models", models, "--greedy", "--max-new-tokens",
+                     str(PGEN_NEW_TOKENS), "--json", *extra],
+                    spec, (must,), doc_out=box)
+            launched = {k: v for k, v in {**da.launches, **pa.launches, **qm.launches}.items()
+                        if v}
+            stray = {k: v for k, v in launched.items() if k != must}
+            if stray:
+                raise RuntimeError(f"pgen {part}: kernels other than {must} launched: {stray}")
+            if engine._models["random-8b"].batcher is not None:
+                raise RuntimeError(f"pgen {part}: the engine built a batcher")
+            del engine  # the next part's round must not find these weights resident
+            if len(calls) != 1:
+                raise RuntimeError(f"pgen {part}: {len(calls)} generate() calls, expected 1")
+            ids[part] = calls[0]
+            if part != "dense":
+                (args, kwargs, got) = first[0]
+                want = pa.paged_decode_attention_plain(*args, **kwargs)
+                err = check_close(checks, f"pgen {part} first B3 call "
+                                  f"{list(args[0].shape)} page {args[1].shape[2]} table "
+                                  f"{list(args[3].shape)}", got, want, BF16_TOL)
+                line["b3_first_call_max_abs_err"] = err
+                launched_all[must] += launched[must]
+            results = box["doc"]["results"]
+            line.update(
+                part=part, load_s=load_s,
+                prefill_s=sum(r["prefill_time_s"] for r in results),
+                decode_s=sum(r["decode_time_s"] for r in results),
+                input_tokens=[r["input_tokens"] for r in results],
+                all_launches=launched,
+            )
+            emit({"phase": "pgen round", **line})
+            report[part] = line
+        torch.cuda.empty_cache()
+    report["rows_ids_equal_to_dense"] = sum(
+        a == b for a, b in zip(ids["paged"], ids["dense"]))
+    report["rows"] = len(ids["dense"])
+    report["ids_tokens_generated"] = {p: [len(r) for r in v] for p, v in ids.items()}
+    report["checks"] = checks
+    report["launches"] = launched_all
+    return report
+
+
+# Phase serve: the daemon as a subprocess, driven through the port's client.
+SERVE_NEW_TOKENS = 64
+SERVE_OPPONENTS = 4
+SERVE_DRAIN_DEADLINE_S = 300
+# The daemon's process: the port's CLI ``serve`` (``cli.main``) with two
+# signal hooks for this script: SIGUSR1 writes the kernels' launch
+# counts since the last read (then zeroes them), the speculation switch
+# and ``perf.weights`` to the file named second; SIGUSR2 flips the
+# process's speculation switch (the wire protocol has no speculation
+# field; the engine re-reads the switch at its next dispatch, as it does
+# after a brownout retunes gamma). At exit the counts are written once
+# more.
+SERVE_BOOT = r"""
+import json
+import os
+import signal
+import sys
+sys.path.insert(0, sys.argv[1])
+from adversarial_spec_tpu_torch import cli
+from adversarial_spec_tpu_torch.engine import spec, weightres
+from adversarial_spec_tpu_torch.ops import decode_attention as da
+from adversarial_spec_tpu_torch.ops import paged_attention as pa
+from adversarial_spec_tpu_torch.ops import quant_matmul as qm
+out, reads = sys.argv[2], [0]
+def dump(*_):
+    reads[0] += 1
+    counts = {**da.launches, **pa.launches, **qm.launches}
+    for mod in (da, pa, qm):
+        mod.reset_launches()
+    with open(out + ".tmp", "w") as f:
+        json.dump({"read": reads[0], "launches": counts, "speculative": spec.config().enabled,
+                   "weights": weightres.snapshot()}, f)
+    os.replace(out + ".tmp", out)
+def flip(*_):
+    spec.configure(enabled=not spec.config().enabled)
+signal.signal(signal.SIGUSR1, dump)
+signal.signal(signal.SIGUSR2, flip)
+code = cli.main(sys.argv[3:])
+dump()
+sys.exit(code)
+"""
+
+
+class DaemonProcess:
+    """The serve daemon's subprocess and its launch-count file."""
+
+    def __init__(self, proc, counts_path: str):
+        self.proc, self.counts_path, self.reads = proc, counts_path, 0
+
+    def read(self, timeout_s: float = 60.0) -> dict:
+        """The launch counts since the last read (zeroing them), the
+        speculation switch and ``perf.weights``, from the daemon."""
+        import signal
+
+        self.reads += 1
+        os.kill(self.proc.pid, signal.SIGUSR1)
+        deadline = time.monotonic() + timeout_s
+        while time.monotonic() < deadline:
+            with contextlib.suppress(OSError, ValueError):
+                with open(self.counts_path) as f:
+                    got = json.load(f)
+                if got["read"] == self.reads:
+                    return got
+            if self.proc.poll() is not None:
+                raise RuntimeError(f"serve daemon exited {self.proc.returncode}")
+            time.sleep(0.02)
+        raise RuntimeError("serve daemon did not answer SIGUSR1")
+
+    def flip_speculation(self) -> bool:
+        import signal
+
+        os.kill(self.proc.pid, signal.SIGUSR2)
+        time.sleep(0.2)
+        return self.read()["speculative"]
+
+
+def debate_request(spec: str, tenant: str, tier: str, round_num: int = 1) -> dict:
+    return {"op": "debate", "tenant": tenant, "tier": tier, "spec": spec,
+            "models": ["tpu://random-8b"] * SERVE_OPPONENTS, "round": round_num,
+            "max_new_tokens": SERVE_NEW_TOKENS, "greedy": True, "stream": True}
+
+
+def debate_line(label: str, evs: list, launched: dict) -> dict:
+    """One ``serve debate`` line from a debate's events."""
+    res = evs[-1]
+    if res.get("event") != "result" or res.get("error"):
+        raise RuntimeError(f"serve {label}: no result: {res}")
+    bad = [r["error"] for r in res["results"] if r["error"]]
+    if bad:
+        raise RuntimeError(f"serve {label}: opponents failed: {bad}")
+    out_tokens = [r["output_tokens"] for r in res["results"]]
+    return {
+        "debate": label, "id": evs[0].get("debate"), "tenant": res["tenant"],
+        "tier": res["tier"], "wall_s": res["wall_s"], "ttft_s": res["ttft_s"],
+        "output_tokens": out_tokens,
+        "tokens_per_sec": sum(out_tokens) / res["wall_s"] if res["wall_s"] else None,
+        "cached_tokens": [r["cached_tokens"] for r in res["results"]],
+        "streamed": sum(e["event"] == "stream" for e in evs),
+        "preempted_units": res["serve"]["units_preempted"],
+        "shed_debates": res["serve"]["shed_debates"],
+        "launches": {k: v for k, v in launched.items() if v},
+    }
+
+
+def wait_running(client, n: int = 1, timeout_s: float = 300.0) -> None:
+    deadline = time.monotonic() + timeout_s
+    while client.stats()["scheduler"]["running_units"] < n:
+        if time.monotonic() > deadline:
+            raise RuntimeError("serve: no unit started running")
+        time.sleep(0.01)
+
+
+def phase_serve(torch) -> dict:
+    """The serve daemon: ``python -m adversarial_spec_tpu_torch.cli serve``
+    as a subprocess (SERVE_BOOT: the CLI's ``main`` plus the launch-count
+    hooks), its registry in a temporary HOME under build/ with random-8b
+    on a ``registry add-model --kv paged`` entry that reads
+    tests/torch_tokenizers/llama3/tokenizer.json (so a debate's text
+    carries its ids), driven through the port's ``serve/client.py``;
+    each debate four opponents on one ~3 KB spec, 64 new tokens, greedy.
+    (a) one debate alone (speculation on, B4 must launch) must give the
+    results (text and completion tokens per opponent) of the same round
+    through ``critique --json`` in this process beforehand; its second
+    round with speculation off must launch B3; ``perf.weights`` one load.
+    (b) a batch-tier debate (its own spec), then two interactive debates
+    of two tenants once it runs: all complete, at least one unit is
+    preempted, each preempted unit's re-admission reports cached tokens,
+    ``check`` answers ok, still one load; the texts differing from (a)'s
+    are counted (not gated: the batch composition may change bf16
+    reductions). (c) SIGTERM with one debate in flight: it finishes, the
+    process exits 0 and its drain report counts it."""
+    import signal
+
+    from adversarial_spec_tpu_torch.engine import dispatch, registry
+    from adversarial_spec_tpu_torch.serve.client import ServeClient
+
+    spec_a = spec_document(3000, 0)
+    spec_b = spec_document(3000, 1)
+    tok_dir = os.path.join(HERE, "tests", "torch_tokenizers", "llama3")
+    report: dict = {"phase": "serve", "model": "tpu://random-8b (kv=paged, llama3 tokenizer)",
+                    "opponents": SERVE_OPPONENTS, "max_new_tokens": SERVE_NEW_TOKENS}
+    launched_all = {k: 0 for k in FLOAT_ATTENTION}
+    with cli_state():
+        code, _, err = run_cli(["registry", "add-model", "random-8b", "--family", "llama",
+                                "--size", "8b", "--kv", "paged", "--tokenizer", tok_dir])
+        if code != 0:
+            raise RuntimeError(f"registry add-model failed: {err}")
+        box: dict = {}
+        base = cli_round(
+            torch, "serve baseline (critique --json)",
+            ["critique", "--models", ",".join(["tpu://random-8b"] * SERVE_OPPONENTS),
+             "--greedy", "--max-new-tokens", str(SERVE_NEW_TOKENS), "--json"],
+            spec_a, ("paged_decode_attention_mq",), doc_out=box)
+        emit({"phase": "cli round", "part": "serve baseline", **base})
+        baseline = [(r["response"], r["output_tokens"]) for r in box["doc"]["results"]]
+        reg_file = str(registry.REGISTRY_PATH)
+        tmp = os.path.dirname(reg_file)
+        # This process's engine and cached blocks go before the daemon
+        # loads its own copy of the weights.
+        dispatch.clear_engine_cache()
+        gc.collect()
+        torch.cuda.empty_cache()
+        home = os.path.join(tmp, "home")
+        os.makedirs(os.path.join(home, ".config", "adversarial-spec-tpu"))
+        shutil.copy(reg_file, os.path.join(home, ".config", "adversarial-spec-tpu",
+                                           "registry.json"))
+        # Unix socket paths are limited to 107 bytes: the daemon and this
+        # client both name it relative to the working directory.
+        sock = os.path.relpath(os.path.join(tmp, "s.sock"))
+        if len(sock) > 100:
+            raise RuntimeError(f"socket path too long: {sock}")
+        events = os.path.join(tmp, "events.jsonl")
+        drain_file = os.path.join(tmp, "drain.json")
+        counts = os.path.join(tmp, "launches.json")
+        argv = [sys.executable, "-c", SERVE_BOOT, HERE, counts,
+                "serve", "--socket", sock, "--events-out", events, "--drain-report",
+                drain_file, "--flight-recorder-size", "200000", "--serve-ttft-slo-ms", "0",
+                "--serve-drain-deadline-s", str(SERVE_DRAIN_DEADLINE_S)]
+        env = {**os.environ, "HOME": home}
+        out_path, err_path = os.path.join(tmp, "daemon.out"), os.path.join(tmp, "daemon.err")
+        with open(out_path, "w") as out_f, open(err_path, "w") as err_f:
+            proc = subprocess.Popen(argv, cwd=os.getcwd(), env=env, stdout=out_f,
+                                    stderr=err_f)
+        daemon = DaemonProcess(proc, counts)
+        clients = []
+        try:
+            t = time.monotonic()
+            while not os.path.exists(sock):
+                if proc.poll() is not None or time.monotonic() - t > 300:
+                    raise RuntimeError("serve daemon did not come up: "
+                                       + open(err_path).read()[-2000:])
+                time.sleep(0.05)
+            report["startup_s"] = time.monotonic() - t
+            c1 = ServeClient(sock, timeout_s=900)
+            c2 = ServeClient(sock, timeout_s=900)
+            clients += [c1, c2]
+            daemon.read()  # zero the counts
+
+            # (a) one debate alone, then its second round, speculation off.
+            evs = c1.collect(c1.send(debate_request(spec_a, "solo", "interactive")), 900)
+            got = daemon.read()
+            a1 = debate_line("(a) round 1, speculation on", evs, got["launches"])
+            texts_a = [r["response"] for r in evs[-1]["results"]]
+            served = [(r["response"], r["output_tokens"]) for r in evs[-1]["results"]]
+            a1["equal_to_cli"] = served == baseline
+            a1["weights"] = got["weights"]
+            emit({"phase": "serve debate", **a1})
+            if served != baseline:
+                raise RuntimeError("serve (a): results differ from the critique --json round")
+            if not got["launches"]["paged_decode_attention_mq"]:
+                raise RuntimeError("serve (a) round 1: B4 never launched")
+            if daemon.flip_speculation():
+                raise RuntimeError("serve: speculation did not switch off")
+            evs = c1.collect(c1.send(debate_request(spec_a, "solo", "interactive", 2)), 900)
+            got = daemon.read()
+            a2 = debate_line("(a) round 2, speculation off", evs, got["launches"])
+            a2["weights"] = got["weights"]
+            emit({"phase": "serve debate", **a2})
+            if not got["launches"]["paged_decode_attention"]:
+                raise RuntimeError("serve (a) round 2: B3 never launched")
+            if got["weights"]["loads"] != 1:
+                raise RuntimeError(f"serve (a): {got['weights']['loads']} weight loads")
+            if not daemon.flip_speculation():
+                raise RuntimeError("serve: speculation did not switch back on")
+            report["a"] = [a1, a2]
+
+            # (b) three debates at once from two tenants.
+            rid_batch = c1.send(debate_request(spec_b, "acme", "batch"))
+            wait_running(c2)
+            rid_i1 = c2.send(debate_request(spec_a, "acme", "interactive"))
+            rid_i2 = c2.send(debate_request(spec_a, "zeta", "interactive"))
+            b_evs = {"batch": c1.collect(rid_batch, 900), "interactive acme":
+                     c2.collect(rid_i1, 900), "interactive zeta": c2.collect(rid_i2, 900)}
+            got = daemon.read()
+            stats = c2.stats()["serve"]
+            check = c2.check()
+            b_lines = [debate_line(f"(b) {k}", v, got["launches"]) for k, v in b_evs.items()]
+            for line in b_lines:
+                emit({"phase": "serve debate", **line})
+            differ = sum(
+                r["response"] != ta
+                for k in ("interactive acme", "interactive zeta")
+                for r, ta in zip(b_evs[k][-1]["results"], texts_a)
+            )
+            report["b"] = {"debates": b_lines, "texts_differing_from_a": differ,
+                           "units_preempted": stats["units_preempted"],
+                           "units_readmitted": stats["units_readmitted"],
+                           "check": check, "weights": got["weights"],
+                           "launches": got["launches"]}
+            if stats["units_preempted"] < 1:
+                raise RuntimeError("serve (b): no unit was preempted")
+            if not check.get("ok") or check.get("checked") != 1:
+                raise RuntimeError(f"serve (b): check failed: {check}")
+            if got["weights"]["loads"] != 1:
+                raise RuntimeError(f"serve (b): {got['weights']['loads']} weight loads")
+            for k in FLOAT_ATTENTION:
+                launched_all[k] += a1["launches"].get(k, 0) + a2["launches"].get(k, 0)
+                launched_all[k] += got["launches"].get(k, 0)
+
+            # (c) SIGTERM with one debate in flight.
+            rid_c = c1.send(debate_request(spec_b, "zeta", "interactive"))
+            wait_running(c2)
+            t = time.monotonic()
+            proc.send_signal(signal.SIGTERM)
+            c_evs = c1.collect(rid_c, SERVE_DRAIN_DEADLINE_S + 60)
+            # The daemon exits once its connections close.
+            for c in clients:
+                c.close()
+            rc = proc.wait(timeout=SERVE_DRAIN_DEADLINE_S + 60)
+            drain_s = time.monotonic() - t
+        finally:
+            for c in clients:
+                c.close()
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait(timeout=60)
+        got = json.load(open(counts))  # the daemon's last write, at exit
+        c_line = debate_line("(c) in flight at SIGTERM", c_evs, got["launches"])
+        emit({"phase": "serve debate", **c_line})
+        for k in FLOAT_ATTENTION:
+            launched_all[k] += got["launches"].get(k, 0)
+        if rc != 0:
+            raise RuntimeError(f"serve (c): the daemon exited {rc}: "
+                               + open(err_path).read()[-2000:])
+        drain = json.loads(open(out_path).read().strip().splitlines()[-1])
+        if json.load(open(drain_file)) != drain:
+            raise RuntimeError("serve (c): the --drain-report file differs from stdout")
+        serve_events = [e for e in map(json.loads, open(events)) if e.get("type") == "serve"]
+        finished = {e["debate"] for e in serve_events
+                    if e["op"] == "finished" and e["index"] == -1}
+        n_debates = 6
+        if (drain.get("reason") != "sigterm" or not drain.get("clean_exit")
+                or drain["stats"]["completed_debates"] != n_debates
+                or c_line["id"] not in finished):
+            raise RuntimeError(f"serve (c): drain report does not count the debate: {drain}")
+        # Each preempted unit's re-admission hit the prefix cache.
+        results = {line["id"]: b_evs[k][-1]["results"]
+                   for k, line in zip(b_evs, b_lines)}
+        preempted = sorted({(e["debate"], e["index"]) for e in serve_events
+                            if e["op"] == "preempted"})
+        readmit = [results[d][i]["cached_tokens"] for d, i in preempted]
+        report["b"]["preempted_units"] = [list(p) for p in preempted]
+        report["b"]["readmitted_cached_tokens"] = readmit
+        if not preempted or not all(readmit):
+            raise RuntimeError(f"serve (b): preempted {preempted}, re-admissions cached "
+                               f"{readmit}")
+        report["c"] = c_line
+        report["drain"] = {"seconds_from_sigterm": drain_s, "exit_code": rc,
+                           "reason": drain["reason"], "clean_exit": drain["clean_exit"],
+                           "uptime_s": drain["uptime_s"],
+                           "drained_units_at_deadline": drain["drained_units_at_deadline"],
+                           "completed_debates": drain["stats"]["completed_debates"],
+                           "units_preempted": drain["stats"]["units_preempted"],
+                           "shed_debates": drain["stats"]["shed_debates"]}
+        emit({"phase": "serve drain", **report["drain"]})
+    report["launches"] = launched_all
+    return report
+
+
 def phase_agree(torch) -> dict:
     """Tiny f32 llama, full precision and quantized int8 and int4 from the
     same weights, and with an int8 KV cache beside full-precision and int4
     weights: greedy tokens on the card (kernels) and on the CPU (plain
     versions) must be identical, through generate() (speculation on: B2,
-    or B2-i8, must launch) and through the paged batcher with speculation
-    on and off."""
+    or B2-i8, must launch), through the round-synchronous
+    generate(paged=True) (B3, or B3-i8, must launch) and through the
+    paged batcher with speculation on and off."""
     from adversarial_spec_tpu_torch.engine.generate import generate
     from adversarial_spec_tpu_torch.engine.loader import materialize_params
     from adversarial_spec_tpu_torch.engine.scheduler import (
@@ -3280,6 +3797,22 @@ def phase_agree(torch) -> dict:
         same = bool((out["cuda"] == out["cpu"]).all())
         if not same:
             raise RuntimeError(f"{name} greedy tokens differ between card and CPU")
+        # The round-synchronous generate(paged=True): B3 (or B3-i8) on the
+        # card, the gather path on the CPU.
+        b3 = "paged_decode_attention" + ("_int8kv" if kv_dtype else "")
+        before = pa.launches[b3]
+        pgen = {
+            dev: generate(
+                p, cfg, prompts, max_new_tokens=48, eos_ids=[2], greedy=True,
+                paged=True, page_size=16, device=dev, kv_dtype=kv_dtype,
+            ).tokens
+            for dev, p in (("cuda", params), ("cpu", on_cpu))
+        }
+        pgen_same = bool((pgen["cuda"] == pgen["cpu"]).all())
+        if not pgen_same:
+            raise RuntimeError(f"{name} generate(paged=True) tokens differ between card and CPU")
+        if pa.launches[b3] == before:
+            raise RuntimeError(f"{name}: generate(paged=True) never launched {b3}")
         # The paged batcher (B3/B4 on the card, the gather path on the CPU):
         # 3 requests through 2 slots, prefix cache on, speculation on and off.
         paged = {}
@@ -3309,7 +3842,7 @@ def phase_agree(torch) -> dict:
             if leaked:
                 raise RuntimeError(f"{name}: float-cache kernels ran on an int8 cache: {leaked}")
         entry = {"identical_tokens": same, "shape": list(out["cuda"].shape),
-                 "paged_identical_tokens": paged,
+                 "paged_identical_tokens": paged, "pgen_identical_tokens": pgen_same,
                  "launches": {k: v for k, v in launched.items() if v}}
         if key:
             report[key] = entry
@@ -3322,6 +3855,12 @@ def main(argv: list[str]) -> int:
     t_start = time.monotonic()
     quick = "--quick" in argv
     qmm_only = "--qmm-only" in argv
+    only = []
+    if "--only" in argv:
+        only = argv[argv.index("--only") + 1].split(",")
+        unknown = set(only) - {"batcher", "pgen", "serve", "agree"}
+        if unknown:
+            return fail(f"--only takes batcher, pgen, serve and agree, not {sorted(unknown)}")
     profile = "--profile" in argv
     if not os.path.isdir(os.path.join(HERE, PKG)):
         return fail(f"{PKG}/ not found beside chip_smoke.py: run from a checkout")
@@ -3375,6 +3914,13 @@ def main(argv: list[str]) -> int:
                                     text=True, timeout=60).stdout.splitlines() or report
         emit({"phase": "ptxas", "source": src, "lines": report})
 
+    if only:  # iteration on the named phases; no kernels or ok line
+        for name in only:
+            emit({"batcher": phase_batcher, "pgen": phase_pgen, "serve": phase_serve,
+                  "agree": phase_agree}[name](torch))
+            torch.cuda.empty_cache()
+        print(smi_line, flush=True)
+        return 0
     if qmm_only:
         qres, qchecks, qcases, qsweeps = phase_quant_kernels(torch, qm, quant)
         for c in qcases:
@@ -3472,10 +4018,20 @@ def main(argv: list[str]) -> int:
         for k, n in bt["launches"].items():
             launches[k] = (launches[k] or 0) + n
         torch.cuda.empty_cache()
+        # The round-synchronous paged generate and the serve daemon: their
+        # B3 (-i8) and B4 launches join the kernels line.
+        pgen = phase_pgen(torch)
+        emit(pgen)
+        torch.cuda.empty_cache()
+        sv = phase_serve(torch)
+        emit(sv)
+        for k, n in (*pgen["launches"].items(), *sv["launches"].items()):
+            launches[k] = (launches[k] or 0) + n
+        torch.cuda.empty_cache()
         ag = phase_agree(torch)
         emit(ag)
         record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, cli=cl, hf=hf, pool=pl,
-                      batcher=bt, agree=ag)
+                      batcher=bt, pgen=pgen, serve=sv, agree=ag)
 
     line = []
     for name, r in kres.items():

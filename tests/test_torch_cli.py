@@ -21,6 +21,7 @@ blocked.
 import json
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 import pytest
@@ -353,7 +354,9 @@ def test_session_started_by_reference_resumes_under_port(
 
 
 REFUSED = {
-    "serve": (["serve"], {}),
+    # The serve action is served now (test_serve_action_is_served); the
+    # fleet's knobs on it stay refused.
+    "serve_fleet": (["serve", "--fleet-replicas", "2"], {}),
     "fleet": (["critique", "--fleet"], {}),
     "fleet_replicas": (["critique", "--fleet-replicas", "3"], {}),
     "fleet_transport": (["critique", "--fleet-transport", "worker"], {}),
@@ -465,6 +468,52 @@ def test_unported_knob_exits_2(name, monkeypatch, capsys):
     assert code == 2, err
     assert "not yet ported" in err
     assert out == ""
+
+
+def _serve_flags(help_text: str) -> set[str]:
+    section = help_text.split("\nserve:\n", 1)[1].split("\n\n", 1)[0]
+    return {w for w in section.split() if w.startswith("--")}
+
+
+def test_serve_action_is_served(tmp_path, monkeypatch, capsys):
+    """Refused until the serve daemon was ported. ``serve --help`` lists
+    the reference's serve flags, and ``serve`` runs the port's daemon:
+    it answers ``ping`` over its socket and exits 0 after a ``drain``."""
+    import threading
+
+    from adversarial_spec_tpu_torch.serve.client import ServeClient
+
+    helps = []
+    for cli_mod in (ref_cli, port_cli):
+        code, out, _ = sup.run_cli(cli_mod, ["serve", "--help"], monkeypatch, capsys)
+        assert code == 0
+        helps.append(_serve_flags(out))
+    assert helps[1] == helps[0]
+    assert {"--socket", "--serve-drain-deadline-s", "--drain-report"} <= helps[1]
+
+    sock = tmp_path / "s.sock"
+    box = {}
+    th = threading.Thread(
+        target=lambda: box.update(code=port_cli.main(["serve", "--socket", str(sock)])),
+        daemon=True,
+    )
+    th.start()
+    deadline = time.monotonic() + 20
+    while not sock.exists():
+        assert th.is_alive() and time.monotonic() < deadline, "daemon did not come up"
+        time.sleep(0.02)
+    client = ServeClient(str(sock), timeout_s=20)
+    try:
+        pong = client.ping()
+        assert pong["event"] == "pong" and pong["draining"] is False
+        assert client.drain()["event"] == "ok"
+    finally:
+        client.close()
+    th.join(timeout=20)
+    assert not th.is_alive() and box["code"] == 0
+    out, err = capsys.readouterr()
+    assert json.loads(out.strip().splitlines()[-1])["event"] == "drain_report"
+    assert "advspec serve: listening on" in err
 
 
 def test_ported_chaos_seam_and_off_switches_pass(monkeypatch, capsys):

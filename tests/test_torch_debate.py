@@ -182,7 +182,11 @@ def test_paged_session_matches_reference_and_hits_the_prefix_cache(
 def _refusal_specs():
     return {
         "mesh": registry.ModelSpec(alias="m", mesh={"tp": 2}),
-        "paged_budget": registry.ModelSpec(alias="p", kv="paged", max_seq_len=130),
+        # The paged corner with no room for a bucketed prompt is served
+        # (generate(paged=True)); on a mesh it is still refused.
+        "paged_budget": registry.ModelSpec(
+            alias="p", kv="paged", max_seq_len=130, mesh={"dp": 2}
+        ),
         "mesh_dp_tp": registry.ModelSpec(alias="d", mesh={"dp": 2, "tp": 2}),
     }
 
@@ -192,7 +196,7 @@ def test_every_refusal_classifies_as_bug(case):
     """The refusal text as ``GpuEngine.chat`` words it classifies as BUG
     under the port's and the reference's ``classify_message``."""
     spec = _refusal_specs()[case]
-    reason = unported_reason(spec, max_new_tokens=24)
+    reason = unported_reason(spec)
     assert reason is not None
     msg = (
         f"NotImplementedError: tpu://{spec.alias} needs {reason}, which is "
@@ -208,7 +212,18 @@ def test_hf_checkpoint_alias_is_not_refused():
     format): ``unported_reason`` has no refusal for it."""
     for extra in ({}, {"kv": "paged"}, {"quant": "int4", "kv": "paged"}, {"quant": "int8"}):
         spec = registry.ModelSpec(alias="h", checkpoint="/some/hf/dir", **extra)
-        assert unported_reason(spec, max_new_tokens=24) is None
+        assert unported_reason(spec) is None
+
+
+def test_paged_budget_corner_is_not_refused():
+    """A one-device paged alias whose budget leaves no room for a
+    bucketed prompt is served by the round-synchronous
+    ``generate(paged=True)``: ``unported_reason`` refuses only meshes."""
+    for kv_dtype in ("", "int8"):
+        spec = registry.ModelSpec(
+            alias="p", kv="paged", max_seq_len=130, kv_dtype=kv_dtype
+        )
+        assert unported_reason(spec) is None
 
 
 def test_refused_chat_is_a_counted_permanent_bug(tmp_path):

@@ -48,8 +48,11 @@ def shared_registry(tmp_path, monkeypatch):
         ),
         # A paged spec whose context leaves no room for a bucketed prompt
         # beside the budget: the reference's round-synchronous
-        # generate(paged=True) corner, not ported.
-        registry.ModelSpec(alias="paged-tiny", kv="paged", max_seq_len=130),
+        # generate(paged=True) corner, served with the reference's text.
+        registry.ModelSpec(
+            alias="paged-tiny", family="llama", size="tiny", dtype="float32",
+            mesh={"dp": 1}, kv="paged", max_seq_len=130,
+        ),
         registry.ModelSpec(alias="paged-mesh", kv="paged", mesh={"tp": 2}),
         # An HF checkpoint alias whose directory holds no weights: served
         # now, so both engines answer it with the same error.
@@ -67,6 +70,13 @@ def shared_registry(tmp_path, monkeypatch):
                 ("paged-int8kv", "paged", ""),
                 ("paged-int8kv-int4", "paged", "int4"),
             )
+        ),
+        # The paged budget corner with the int8 KV cache: int8 pages
+        # through generate(paged=True).
+        registry.ModelSpec(
+            alias="paged-tiny-int8kv", family="llama", size="tiny",
+            dtype="float32", mesh={"dp": 1}, kv="paged", max_seq_len=130,
+            kv_dtype="int8",
         ),
     ):
         registry.save_registry_entry(spec, path)
@@ -129,8 +139,9 @@ def _chat_matches_reference(alias: str) -> GpuEngine:
     return port
 
 
-# Refused until the int8 KV cache was ported; served now.
-SERVED_NOW = ("int8-tiny", "paged-int8kv")
+# Refused until the int8 KV cache (and, for paged-tiny, the
+# round-synchronous generate(paged=True)) was ported; served now.
+SERVED_NOW = ("int8-tiny", "paged-int8kv", "paged-tiny")
 
 
 @pytest.mark.parametrize(
@@ -138,12 +149,16 @@ SERVED_NOW = ("int8-tiny", "paged-int8kv")
 )
 def test_unported_specs_get_not_yet_ported_error(shared_registry, serving_defaults, alias):
     """Each row of a spec the port cannot serve yet gets a "not yet
-    ported" error. The int8 KV cache's cases (``SERVED_NOW``) are served
-    instead, with the reference's text. An HF checkpoint (``paged-hf``) is
+    ported" error. The int8 KV cache's cases and the paged budget corner
+    (``SERVED_NOW``) are served instead, with the reference's text; the
+    corner builds no batcher. An HF checkpoint (``paged-hf``) is
     served too: its directory holds no weights, so both engines answer
     every row with an error of the same fault kind."""
     if alias in SERVED_NOW:
         port = _chat_matches_reference(alias)
+        if alias == "paged-tiny":
+            assert port._models[alias].batcher is None
+            return
         cache = port._models[alias].batcher.pool if alias.startswith("paged") else None
         assert cache is None or cache["k"].dtype == torch.int8
         return
@@ -174,13 +189,19 @@ def test_unported_specs_get_not_yet_ported_error(shared_registry, serving_defaul
         assert c.text == ""
 
 
-@pytest.mark.parametrize("alias", ["dense-int8kv", "paged-int8kv-int4"])
+@pytest.mark.parametrize(
+    "alias", ["dense-int8kv", "paged-int8kv-int4", "paged-tiny-int8kv"]
+)
 def test_int8kv_chat_text_matches_reference(shared_registry, serving_defaults, alias):
-    """The int8 KV cache on the dense path with full-precision weights, and
-    on the paged path beside int4 weights (B6 with the int8-KV B3/B4)."""
+    """The int8 KV cache on the dense path with full-precision weights, on
+    the paged path beside int4 weights (B6 with the int8-KV B3/B4), and
+    in the paged budget corner (int8 pages through generate(paged=True),
+    no batcher)."""
     port = _chat_matches_reference(alias)
     lm = port._models[alias]
     assert lm.spec.kv_dtype == "int8"
+    if alias == "paged-tiny-int8kv":
+        assert lm.batcher is None
     if lm.batcher is not None:
         assert lm.batcher.pool["ks"].dtype == torch.float32
         lm.batcher.allocator.check_invariants()

@@ -249,3 +249,93 @@ def test_sample_step_clamps_output_slot():
     # Step 9 is past the 4-wide buffer: the write lands in the last slot.
     assert out[:, 3].tolist() == [1, 0]
     assert nxt.tolist() == [1, 0] and fin.tolist() == [True, True]
+
+
+# -- generate(paged=True): the round-synchronous paged path -------------------
+
+
+def _both_paged(model, prompts, eos=(2,), max_new=24, spec=None, **kw):
+    cfg, jp, tp = model
+    ref = jax_gen.generate(
+        jp, cfg, prompts, max_new_tokens=max_new, eos_ids=list(eos),
+        greedy=True, paged=True, speculative=spec, **kw,
+    )
+    got = gen.generate(
+        tp, get_config(cfg_family(cfg), "tiny"), prompts,
+        max_new_tokens=max_new, eos_ids=list(eos), greedy=True, paged=True,
+        speculative=spec, device="cpu", **kw,
+    )
+    return ref, got
+
+
+@pytest.mark.parametrize(
+    "case",
+    [
+        # Unequal prompts: one table row of pages each.
+        dict(lens=[40, 97, 13], copies=1, page_size=128, kv_dtype=""),
+        # Identical prompts, page | S: one physical copy of the prompt pages.
+        dict(lens=[50], copies=3, page_size=128, kv_dtype=""),
+        # Identical prompts, page ∤ S: the cache tiles, pages per row.
+        dict(lens=[50], copies=3, page_size=48, kv_dtype=""),
+        # The int8 KV cache: int8 pages with f32 scale pages.
+        dict(lens=[40, 97, 13], copies=1, page_size=16, kv_dtype="int8"),
+        dict(lens=[50], copies=2, page_size=64, kv_dtype="int8"),
+    ],
+    ids=["unshared", "shared_pages", "tiled", "int8kv", "int8kv_shared"],
+)
+def test_paged_generate_identical_to_reference(llama, case):
+    prompts = _prompts(512, case["lens"], seed=3) * case["copies"]
+    ref, got = _both_paged(
+        llama, prompts, page_size=case["page_size"], kv_dtype=case["kv_dtype"]
+    )
+    _assert_same(ref, got)
+    assert got.n_generated.min() > 0
+
+
+def test_paged_generate_eos_early_exit(llama):
+    prompts = _prompts(512, [30, 61], seed=2)
+    ref, _ = _both_paged(llama, prompts)
+    eos = int(ref.tokens[0, 5])  # a token row 0 emits early
+    ref, got = _both_paged(llama, prompts, eos=(eos,))
+    _assert_same(ref, got)
+    assert got.n_generated[0] <= 6
+
+
+def test_paged_generate_matches_dense(llama):
+    """The paged decode chunk and the dense decode loop agree in f32."""
+    cfg, _, tp = llama
+    prompts = _prompts(512, [40, 97, 13], seed=4)
+    kw = dict(max_new_tokens=20, eos_ids=[2], greedy=True, device="cpu",
+              speculative=False)
+    dense = gen.generate(tp, get_config("llama", "tiny"), prompts, **kw)
+    paged = gen.generate(
+        tp, get_config("llama", "tiny"), prompts, paged=True, page_size=32, **kw
+    )
+    _assert_same(dense, paged)
+
+
+def test_paged_generate_ignores_speculation_with_one_warning(
+    llama, monkeypatch, capsys
+):
+    """An explicit speculative=True is ignored on the paged path, with the
+    reference's one-time warning; an inherited default-on config warns
+    nothing. Tokens stay the reference's either way."""
+    monkeypatch.setattr(jax_gen, "_PAGED_SPEC_WARNED", False)
+    monkeypatch.setattr(gen, "_PAGED_SPEC_WARNED", False)
+    monkeypatch.setattr(jax_spec.config(), "enabled", True)
+    from adversarial_spec_tpu_torch.engine import spec as port_spec
+
+    monkeypatch.setattr(port_spec.config(), "enabled", True)
+    prompts = _prompts(512, [40, 13], seed=5)
+    capsys.readouterr()
+    ref, got = _both_paged(llama, prompts, spec=None)
+    _assert_same(ref, got)
+    assert "warning" not in capsys.readouterr().err
+    for _ in range(2):
+        ref, got = _both_paged(llama, prompts, spec=True)
+        _assert_same(ref, got)
+    err = capsys.readouterr().err
+    port_lines = [l for l in err.splitlines() if "GpuEngine" in l]
+    ref_lines = [l for l in err.splitlines() if "TpuEngine" in l]
+    assert len(port_lines) == len(ref_lines) == 1
+    assert port_lines[0] == ref_lines[0].replace("TpuEngine", "GpuEngine")

@@ -173,7 +173,15 @@ def test_package_imports_with_jax_blocked():
         )
     }
     assert debate_path <= set(mods)
-    assert len(mods) >= 47
+    serve_path = {
+        f"adversarial_spec_tpu_torch.serve{m}"
+        for m in (
+            "", ".protocol", ".sched", ".gate", ".driver", ".daemon",
+            ".client", ".__main__",
+        )
+    }
+    assert serve_path <= set(mods)
+    assert len(mods) >= 55
 
 
 def test_materialize_params_requires_device_or_gpu():

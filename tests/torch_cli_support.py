@@ -20,6 +20,7 @@ from adversarial_spec_tpu.engine import interleave as ref_interleave
 from adversarial_spec_tpu.engine import registry as ref_registry
 from adversarial_spec_tpu_torch import cli as port_cli
 from adversarial_spec_tpu_torch import obs as port_obs
+from adversarial_spec_tpu_torch import serve as port_serve
 from adversarial_spec_tpu_torch.debate import profiles as port_profiles
 from adversarial_spec_tpu_torch.debate import session as port_session
 from adversarial_spec_tpu_torch.engine import dispatch as port_dispatch
@@ -34,6 +35,7 @@ from adversarial_spec_tpu_torch.resilience import breaker as port_breaker
 from adversarial_spec_tpu_torch.resilience import faults as port_faults
 from adversarial_spec_tpu_torch.resilience import injector as port_injector
 from adversarial_spec_tpu_torch.resilience import lockdep as port_lockdep
+from adversarial_spec_tpu_torch.serve import gate as port_gate
 
 # Wall-clock fields of a ``--json`` critique report: ``perf.total_s``,
 # every value of ``perf.spans`` and every ``total_s`` of
@@ -104,6 +106,24 @@ def reset_port_process() -> None:
     )
     port_obs.reset_stats()
     port_obs.retrace.clear()
+    # The serve daemon's state is process-wide (armed once at startup):
+    # a leaked gate would route every later engine call through a dead
+    # scheduler.
+    port_gate.uninstall()
+    port_serve.configure(
+        max_queue_depth=port_serve.DEFAULT_QUEUE_DEPTH,
+        max_backlog_tokens=port_serve.DEFAULT_BACKLOG_TOKENS,
+        tenant_quota_tokens=0,
+        drain_deadline_s=port_serve.DEFAULT_DRAIN_DEADLINE_S,
+        brownout_enter_fraction=port_serve.DEFAULT_BROWNOUT_ENTER_FRACTION,
+        brownout_exit_fraction=port_serve.DEFAULT_BROWNOUT_EXIT_FRACTION,
+        brownout_gamma=port_serve.DEFAULT_BROWNOUT_GAMMA,
+        preempt_grace_s=0.0,
+        interactive_ttft_slo_ms=0.0,
+        max_dispatch_batch=4,
+        max_debates_in_flight=32,
+    )
+    port_serve.reset_stats()
 
 
 def isolate_port(tmp_path: Path, monkeypatch):
@@ -114,6 +134,15 @@ def isolate_port(tmp_path: Path, monkeypatch):
     monkeypatch.setenv("ADVSPEC_SESSIONS_DIR", str(tmp_path / "sessions"))
     point_state(monkeypatch, "port", tmp_path)
     monkeypatch.delenv("ADVSPEC_PIPELINE_DEPTH", raising=False)
+    for var in (
+        "ADVSPEC_SERVE_QUEUE_DEPTH",
+        "ADVSPEC_SERVE_BACKLOG_TOKENS",
+        "ADVSPEC_SERVE_QUOTA_TOKENS",
+        "ADVSPEC_SERVE_DRAIN_DEADLINE_S",
+        "ADVSPEC_SERVE_TTFT_SLO_MS",
+        "ADVSPEC_SERVE_SOCKET",
+    ):
+        monkeypatch.delenv(var, raising=False)
     # The reference keeps its pipeline depth across invocations unless a
     # flag sets it; start each test from its default.
     ref_interleave.configure(
