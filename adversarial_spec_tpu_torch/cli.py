@@ -8,10 +8,12 @@ through ``GpuEngine`` on the GPU. Sessions, checkpoints, the round
 journal, profiles and the registry live at the reference's paths, so a
 session one package started, the other resumes.
 
-Knobs of subsystems the port does not have yet exit 2 with "not yet
-ported" (``_unported_knobs``): ``--fleet*``, ``--pipeline-depth 2``,
-their env vars, and ``--chaos`` rules at the fleet's ``replica`` seam.
-The ``serve`` action runs the port's daemon (``serve/``). The KV tiers
+A knob of a subsystem the port does not have yet exits 2 with "not yet
+ported" (``_unported_knobs``): ``--pipeline-depth 2`` and its env var.
+The ``serve`` action runs the port's daemon (``serve/``), and the fleet
+(``--fleet*``, ``--scale-*``, their ``ADVSPEC_FLEET*`` env vars, the
+``replica`` chaos seam; ``perf.fleet``) is the reference's, over
+replicas of the port's engines (``fleet/``). The KV tiers
 are the reference's (``--kv-tier``/``--no-kv-tier``, ``--kv-host-mb``,
 ``--kv-store-dir``, ``--kv-flush-blocks`` and their env vars;
 ``perf.kv_tier``), and so are
@@ -855,6 +857,66 @@ def _configure_weightres(args: argparse.Namespace):
     return weightres
 
 
+def _configure_fleet(args: argparse.Namespace):
+    """Arm the fleet layer from flags; returns the module for
+    reporting. Flag-else-env-default each invocation (one invocation =
+    one round), like obs/kvtier: one round's --fleet must not leak
+    into the next. Stats reset per invocation so ``perf.fleet``
+    accounts exactly this round's routing; the replicas themselves
+    persist on the process fleet engine (rebuilt when the topology
+    knobs change — fleet.fleet_engine keys on them)."""
+    from adversarial_spec_tpu_torch import fleet
+
+    fleet.configure(
+        enabled=(
+            args.fleet if args.fleet is not None else fleet.env_enabled()
+        ),
+        replicas=(
+            args.fleet_replicas
+            if args.fleet_replicas is not None
+            else fleet.env_replicas()
+        ),
+        transport=(
+            args.fleet_transport
+            if args.fleet_transport is not None
+            else fleet.env_transport()
+        ),
+        autoscale=(
+            args.fleet_autoscale
+            if getattr(args, "fleet_autoscale", None) is not None
+            else fleet.env_autoscale()
+        ),
+        min_replicas=(
+            args.fleet_min
+            if getattr(args, "fleet_min", None) is not None
+            else fleet.env_min_replicas()
+        ),
+        max_replicas=(
+            args.fleet_max
+            if getattr(args, "fleet_max", None) is not None
+            else fleet.env_max_replicas()
+        ),
+        scale_cooldown_s=(
+            args.scale_cooldown_s
+            if getattr(args, "scale_cooldown_s", None) is not None
+            else fleet.env_scale_cooldown_s()
+        ),
+        scale_interval_s=(
+            args.scale_interval_s
+            if getattr(args, "scale_interval_s", None) is not None
+            else fleet.env_scale_interval_s()
+        ),
+        prefill_replicas=(
+            args.fleet_prefill_replicas
+            if getattr(args, "fleet_prefill_replicas", None) is not None
+            else fleet.env_prefill_replicas()
+        ),
+        handoff_threshold_tokens=fleet.env_handoff_threshold_tokens(),
+    )
+    fleet.reset_stats()
+    return fleet
+
+
 def _configure_speculative(args: argparse.Namespace):
     """Apply speculation flags to the process config (one CLI invocation
     is one round) so ``perf.spec`` accounts exactly this round's verify
@@ -933,79 +995,19 @@ def _configure_obs(args: argparse.Namespace):
     return obs
 
 
-# Flags (argparse dest) and env vars of subsystems the port does not
-# have yet. Any explicit value refuses the run: set, each would change
-# what the reference serves, and the port must not ignore it silently.
-_UNPORTED_FLAGS = {
-    "fleet_replicas": "--fleet-replicas (the fleet)",
-    "fleet_transport": "--fleet-transport (the fleet)",
-    "fleet_autoscale": "--[no-]fleet-autoscale (the fleet)",
-    "fleet_min": "--fleet-min (the fleet)",
-    "fleet_max": "--fleet-max (the fleet)",
-    "fleet_prefill_replicas": "--fleet-prefill-replicas (the fleet)",
-    "scale_cooldown_s": "--scale-cooldown-s (the fleet)",
-    "scale_interval_s": "--scale-interval-s (the fleet)",
-}
-_UNPORTED_ENV = (
-    "ADVSPEC_FLEET_REPLICAS",
-    "ADVSPEC_FLEET_TRANSPORT",
-    "ADVSPEC_FLEET_AUTOSCALE",
-    "ADVSPEC_FLEET_MIN",
-    "ADVSPEC_FLEET_MAX",
-    "ADVSPEC_FLEET_PREFILL_REPLICAS",
-    "ADVSPEC_FLEET_SCALE_COOLDOWN_S",
-    "ADVSPEC_FLEET_SCALE_INTERVAL_S",
-    "ADVSPEC_FLEET_HANDOFF_THRESHOLD",
-)
-# Chaos seams the port fires: the round journal's, the engine's
-# (generate, checkpoint load, weight swap) and the batcher's
-# (scheduler_chunk, kv_alloc, kv_swap). The fleet's replica seam is not
-# ported.
-_PORTED_CHAOS_SEAMS = (
-    "crash",
-    "generate",
-    "checkpoint_load",
-    "weight_swap",
-    "scheduler_chunk",
-    "kv_alloc",
-    "kv_swap",
-)
-
-
 def _unported_knobs(args: argparse.Namespace) -> list[str]:
     """The knobs of unported subsystems this invocation sets, by flag or
-    env var (``main`` exits 2 on any). Switching off a subsystem the port
-    does not have (``--no-fleet``) is what the port does anyway, and
-    passes."""
+    env var (``main`` exits 2 on any): a pipeline depth other than 1."""
     from adversarial_spec_tpu_torch.engine import interleave
-    from adversarial_spec_tpu_torch.resilience import injector
 
-    out = []
-    if args.fleet:
-        out.append("--fleet (the fleet)")
-    if os.environ.get("ADVSPEC_FLEET", "0") not in ("", "0"):
-        out.append("ADVSPEC_FLEET (the fleet)")
-    for dest, label in _UNPORTED_FLAGS.items():
-        if getattr(args, dest, None) is not None:
-            out.append(label)
-    out += [v for v in _UNPORTED_ENV if os.environ.get(v)]
     depth = (
         interleave.env_pipeline_depth()
         if args.pipeline_depth is None
         else interleave.clamp_depth(args.pipeline_depth)
     )
     if depth != interleave.SERVED_PIPELINE_DEPTH:
-        out.append(
-            f"pipeline depth {depth} (--pipeline-depth, ADVSPEC_PIPELINE_DEPTH)"
-        )
-    chaos = args.chaos or os.environ.get("ADVSPEC_CHAOS", "")
-    try:
-        rules = injector.parse_chaos_spec(chaos) if chaos else ()
-    except ValueError:
-        rules = ()  # a malformed spec fails loudly where it is armed
-    for seam in sorted({r.seam for r in rules} - set(_PORTED_CHAOS_SEAMS)):
-        out.append(f"the chaos seam {seam!r} (--chaos, ADVSPEC_CHAOS)")
-    return out
+        return [f"pipeline depth {depth} (--pipeline-depth, ADVSPEC_PIPELINE_DEPTH)"]
+    return []
 
 
 def handle_serve(args: argparse.Namespace) -> int:
@@ -1017,8 +1019,7 @@ def handle_serve(args: argparse.Namespace) -> int:
     from adversarial_spec_tpu_torch import serve as serve_mod
     from adversarial_spec_tpu_torch.serve.daemon import run_daemon
 
-    # One-time arming of the same knobs a critique round would arm (the
-    # fleet's knobs are refused before this point).
+    # One-time arming of the same knobs a critique round would arm.
     _configure_resilience(args)
     _configure_prefix_cache(args)
     _configure_interleave(args)
@@ -1026,6 +1027,7 @@ def handle_serve(args: argparse.Namespace) -> int:
     _configure_kv_tier(args)
     _configure_weightres(args)
     _configure_streaming(args)
+    _configure_fleet(args)
     _configure_obs(args)
     serve_mod.configure(
         max_queue_depth=(
@@ -1080,6 +1082,7 @@ def run_critique(args: argparse.Namespace) -> int:
     spec_cfg = _configure_speculative(args)
     kv_tier = _configure_kv_tier(args)
     streaming = _configure_streaming(args)
+    fleet = _configure_fleet(args)
     obs = _configure_obs(args)
     spec, session_state = load_or_resume_session(args)
     if session_state is not None and session_state.breakers:
@@ -1188,8 +1191,9 @@ def run_critique(args: argparse.Namespace) -> int:
     # Streaming telemetry: requests streamed, deliveries, cancels, and
     # the decode tokens early cancellation saved (engine/streaming.py).
     perf["stream"] = streaming.snapshot()
-    # The fleet is not ported (its knobs exit 2): it is reported off.
-    perf["fleet"] = {"enabled": False}
+    # Fleet telemetry: routed/affinity-hit/failover counts, replica
+    # lifecycle, reissued work across replica deaths (fleet/router.py).
+    perf["fleet"] = fleet.snapshot()
     # Observability report: flight-recorder occupancy, event mix, host
     # syncs by reason, retrace watch (unexpected recompiles flagged).
     perf["obs"] = obs.snapshot()
@@ -1236,6 +1240,19 @@ def run_critique(args: argparse.Namespace) -> int:
             f"early cancel: {stream_snap['cancels']} request(s) stopped "
             f"at their verdict marker, {stream_snap['tokens_saved']} "
             "decode token(s) saved"
+        )
+    fleet_snap = perf["fleet"]
+    if fleet_snap["enabled"] and fleet_snap["routed_requests"]:
+        _err(
+            f"fleet: {fleet_snap['routed_requests']} request(s) routed "
+            f"across {fleet_snap['replicas']} replica(s), affinity hit "
+            f"rate {fleet_snap['affinity_hit_rate']:.0%}"
+            + (
+                f", {fleet_snap['reissued_requests']} reissued after "
+                "replica loss"
+                if fleet_snap["reissued_requests"]
+                else ""
+            )
         )
     tier_snap = perf["kv_tier"]
     if tier_snap["enabled"] and (

@@ -3,9 +3,11 @@
 Counterpart of ``adversarial_spec_tpu/engine/dispatch.py``: ``mock://`` ids
 map to one cached ``MockEngine`` and ``tpu://`` ids to one cached
 ``GpuEngine`` (all ``tpu://`` models share it, so same-model opponents
-batch). While the serve daemon is up, ``get_engine`` hands out the
-engine behind the daemon's scheduler gate (serve/gate.py), as the
-reference does; otherwise the engine itself. The fleet is not ported.
+batch). When the fleet is armed (``fleet.armed()``), ``get_engine``
+hands out the process ``FleetEngine`` instead, whose replicas build their
+own engines through ``new_engine``. While the serve daemon is up, the
+engine comes behind the daemon's scheduler gate (serve/gate.py), as the
+reference's does; otherwise the engine itself.
 
 ``install_engine`` puts a caller-built engine into the cache, e.g. a
 ``GpuEngine(device="cpu")`` holding weights bridged from the reference,
@@ -35,7 +37,10 @@ def _provider_key(model: str) -> str:
 
 
 def new_engine(model: str, device=None):
-    """A fresh engine for this model's provider. A ``tpu://`` engine
+    """A FRESH engine instance for this model's provider — the replica
+    lifecycle seam (fleet/replica.py): each fleet replica must own its
+    engine (allocator, prefix cache, batchers), so replicas build here
+    instead of sharing the process cache below. A ``tpu://`` engine
     runs on the GPU unless ``device`` names another; with no GPU it
     raises ``RuntimeError`` (utils/device.py)."""
     if _provider_key(model) == "mock":
@@ -48,13 +53,18 @@ def new_engine(model: str, device=None):
 
 
 def get_engine(model: str, device=None):
-    """The cached engine that serves this model id. While the serve
-    daemon is up it comes wrapped by the scheduler gate: same ``chat``,
-    but its calls interleave fair-share with every other debate's, and
-    only the daemon's pump thread reaches the engine."""
+    """The engine that serves this model id: the process fleet (one
+    FleetEngine over N replicas) when the fleet is armed, else the
+    cached engine of its provider. While the serve daemon is up it comes
+    wrapped by the scheduler gate: same ``chat``, but its calls
+    interleave fair-share with every other debate's, and only the
+    daemon's pump thread reaches the engine."""
+    from adversarial_spec_tpu_torch import fleet as fleet_mod
     from adversarial_spec_tpu_torch.serve import gate as serve_gate
 
-    key = _provider_key(model)
+    key = _provider_key(model)  # validate the id either way
+    if fleet_mod.armed():
+        return serve_gate.wrap(fleet_mod.fleet_engine())
     with _CACHE_LOCK:
         if key not in _ENGINE_CACHE:
             _ENGINE_CACHE[key] = new_engine(model, device=device)
@@ -77,6 +87,10 @@ def cached_engines() -> list:
 
 
 def clear_engine_cache() -> None:
-    """Drop cached engines (and their loaded weights)."""
+    """Drop cached engines (and their loaded weights) and tear down the
+    process fleet."""
+    from adversarial_spec_tpu_torch import fleet as fleet_mod
+
     with _CACHE_LOCK:
         _ENGINE_CACHE.clear()
+    fleet_mod.shutdown_fleet()

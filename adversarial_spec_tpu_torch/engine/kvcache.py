@@ -9,7 +9,10 @@ torch tensors ``{"k", "v": [L, n_pages, Hkv, page_size, D]}`` (plus
 ``{"ks", "vs"}`` scale pages for an int8 pool) on the engine's device,
 read by the paged decode kernels (``ops/paged_attention.py``) and written
 IN PLACE by ``write_tokens`` (the reference returns a new functional
-pool; the port saves the copy).
+pool; the port saves the copy). torch is imported inside the pool
+functions only, as the reference imports jax: the host-side allocator
+stays importable from torch-free flows (the mock engine, a ``mock://``
+fleet worker).
 
 Sizing: a debate round's opponents share the pool; ``n_pages`` bounds
 total resident tokens across all rows, not per-row length.
@@ -27,9 +30,6 @@ from __future__ import annotations
 from dataclasses import dataclass
 
 import numpy as np
-import torch
-
-from adversarial_spec_tpu_torch.models.transformer import check_kv_dtype
 
 
 class OutOfPages(RuntimeError):
@@ -292,7 +292,7 @@ def init_page_pool(
     layout: PagedCacheLayout,
     *,
     device: torch.device,
-    dtype: torch.dtype = torch.bfloat16,
+    dtype: torch.dtype | None = None,
     kv_dtype: str = "",
 ) -> dict[str, torch.Tensor]:
     """Zeroed device page pool ``{"k", "v": [L, n_pages, Hkv, page, D]}``
@@ -301,7 +301,13 @@ def init_page_pool(
     ``kv_dtype="int8"``: int8 K/V pages plus f32 scale pages
     ``{"ks", "vs": [L, n_pages, Hkv, page, 1]}`` — the paged counterpart
     of the dense int8 cache (``models/transformer.py:init_cache``); the
-    presence of ``"ks"`` marks a quantized pool."""
+    presence of ``"ks"`` marks a quantized pool. ``dtype`` defaults to
+    bf16."""
+    import torch
+
+    from adversarial_spec_tpu_torch.models.transformer import check_kv_dtype
+
+    dtype = torch.bfloat16 if dtype is None else dtype
     shape = (
         layout.n_layers,
         layout.n_pages,
@@ -324,6 +330,8 @@ def init_page_pool(
 
 
 def _index(ids, device: torch.device) -> torch.Tensor:
+    import torch
+
     return torch.as_tensor(np.asarray(ids), device=device).reshape(-1).long()
 
 

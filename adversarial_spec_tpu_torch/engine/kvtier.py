@@ -10,9 +10,6 @@ writes is byte-identical to the reference's for the same chain, tokens
 and payload, and each package reads the other's files, without
 ``ml_dtypes``.
 
-The fleet's handoff publication and prefetch (``publish_chains``,
-``prefetch_chains``) wait for the fleet (ROADMAP A.10).
-
 The reference's description of the module:
 
 The device page pool (engine/kvcache.py) is tier 0 and dies twice over:
@@ -51,7 +48,8 @@ with ``interleave``/``spec``/``prefix_cache``: the CLI arms per round
 (``--kv-host-mb``, ``--kv-store-dir``, ``--kv-flush-blocks``,
 ``--no-kv-tier``; env ``ADVSPEC_KV_HOST_MB`` / ``ADVSPEC_KV_STORE_DIR``
 / ``ADVSPEC_KV_FLUSH_BLOCKS`` / ``ADVSPEC_KV_TIER``) and snapshots into
-``perf.kv_tier``. Imports no jax.
+``perf.kv_tier``. Imports no jax, and torch only where a payload is
+built or read.
 """
 
 from __future__ import annotations
@@ -62,11 +60,11 @@ import json
 import os
 import threading
 import time
+import sys
 import weakref
 from dataclasses import dataclass, field
 
 import numpy as np
-import torch
 
 from adversarial_spec_tpu_torch import obs as obs_mod
 from adversarial_spec_tpu_torch.engine import procconfig
@@ -403,45 +401,49 @@ _VERSION = 1
 # Payload dtypes by the names numpy gives them (the entry header's
 # ``dtype`` field): ``bfloat16`` is the name ``ml_dtypes`` gives numpy's
 # bf16, so an entry either package writes names its dtype the same way.
-_DTYPES = {
-    "float32": torch.float32,
-    "float16": torch.float16,
-    "bfloat16": torch.bfloat16,
-    "float64": torch.float64,
-    "int8": torch.int8,
-    "uint8": torch.uint8,
-    "int16": torch.int16,
-    "int32": torch.int32,
-    "int64": torch.int64,
-    "bool": torch.bool,
-}
-_NAMES = {v: k for k, v in _DTYPES.items()}
+_DTYPE_NAMES = (
+    "float32",
+    "float16",
+    "bfloat16",
+    "float64",
+    "int8",
+    "uint8",
+    "int16",
+    "int32",
+    "int64",
+    "bool",
+)
 
 
 def _payload_array(value) -> tuple[str, list[int], bytes]:
     """(dtype name, shape, raw bytes) of one payload array: a torch
     tensor (any device; bf16 through its 16-bit view, since numpy has no
-    bf16) or a numpy array."""
-    if isinstance(value, torch.Tensor):
+    bf16) or a numpy array. A process that never imported torch holds no
+    tensor, so torch is not imported here."""
+    torch = sys.modules.get("torch")
+    if torch is not None and isinstance(value, torch.Tensor):
         t = value.detach().to("cpu").contiguous()
-        if t.dtype not in _NAMES:
+        name = str(t.dtype).removeprefix("torch.")
+        if name not in _DTYPE_NAMES:
             raise TypeError(f"unsupported payload dtype {t.dtype}")
         raw = t.reshape(-1).view(torch.uint8).numpy().tobytes()
-        return _NAMES[t.dtype], list(t.shape), raw
+        return name, list(t.shape), raw
     arr = np.ascontiguousarray(value)
     return str(arr.dtype), list(arr.shape), arr.tobytes()
 
 
-def _tensor_from(raw: bytes, name: str, shape: list[int]) -> torch.Tensor:
+def _tensor_from(raw: bytes, name: str, shape: list[int]):
     """A CPU tensor of dtype ``name`` over a copy of ``raw`` (bytes
     reinterpreted through a uint8 view: a bf16 payload reads back as
     ``torch.bfloat16`` without ``ml_dtypes``). An unknown name raises
     ``TypeError`` (the entry quarantines)."""
-    if name not in _DTYPES:
+    if name not in _DTYPE_NAMES:
         raise TypeError(f"unsupported payload dtype {name!r}")
+    import torch
+
     flat = torch.from_numpy(np.frombuffer(raw, np.uint8).copy())
     try:
-        return flat.view(_DTYPES[name]).reshape(shape)
+        return flat.view(getattr(torch, name)).reshape(shape)
     except RuntimeError as e:  # size/shape disagreement: a bad entry
         raise ValueError(str(e)) from None
 
@@ -908,6 +910,38 @@ class TieredStore:
                 HostTier.materialize(b)
         return wrote
 
+    def publish_chains(self, chains, slot: int = -1) -> list[str]:
+        """Prefill-side handoff publication: force-flush the pending
+        queue (a sanctioned sync point, like ``settle`` — the prefill
+        drain just ended) so the given chains are durable in the SHARED
+        store, and return the sublist that actually is. Emits one
+        ``ship`` SwapEvent for the durable blocks — the cross-replica
+        half of the tier state machine's telemetry."""
+        if self.disk is None:
+            return []
+        self._flush_pending(force=True)
+        durable = [c for c in chains if self.disk.has(c)]
+        if durable:
+            self._emit("ship", "disk", len(durable), 0, slot)
+        return durable
+
+    def prefetch_chains(self, chains) -> int:
+        """Decode-side prefetch hint: probe the store for chains a
+        remote prefill shipped ahead of the admission that will adopt
+        them (existence only — promotion into fresh pages happens in
+        that admission's tiered lookup, overlapped with whatever the
+        decode replica is doing now). Emits one ``prefetch`` SwapEvent;
+        returns the probe's hit count."""
+        if self.disk is None:
+            return 0
+        n = sum(
+            1
+            for c in chains
+            if c in self._pending or self.disk.has(c)
+        )
+        self._emit("prefetch", "disk", n, 0)
+        return n
+
     def check_invariants(self) -> None:
         if self.host is not None:
             self.host.check_invariants()
@@ -970,6 +1004,8 @@ class DemotionArena:
     def payload(self, like: dict) -> dict:
         """A payload dict shaped and typed as ``like`` (name → tensor),
         its tensors views of one pinned slot."""
+        import torch
+
         if self._buf is None and self.n_slots:
             self._buf = torch.empty(
                 self.slot_bytes * self.n_slots, dtype=torch.uint8, pin_memory=True

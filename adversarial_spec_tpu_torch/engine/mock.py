@@ -5,9 +5,10 @@ implements the same ``Engine`` interface as ``GpuEngine``, so the whole
 debate loop — CLI, rounds, parsing, convergence, sessions, cost — runs
 unmodified on the CPU with scripted critiques, and its ``--json`` reports
 match the reference mock's. The lower KV tiers (host RAM, disk store;
-``engine/kvtier.py``) attach as the reference's do; the fleet's
-disaggregated ``prefill``/``prefetch`` handoff is left out because the
-fleet is not ported.
+``engine/kvtier.py``) attach as the reference's do, and so does the
+fleet's disaggregated handoff (``prefill`` publishes a request's blocks
+to the shared store, ``prefetch`` probes it), which only this engine
+has.
 
 Model-id grammar (query params configure behavior):
 
@@ -438,7 +439,9 @@ class MockEngine:
 
     def _ensure_prefix(self) -> None:
         """Build the allocator + prefix cache (and attach the KV tiers
-        when armed) on first use."""
+        when armed) on first use — also reachable through ``prefetch``,
+        so a COLD decode replica can probe the shared store before its
+        first request ever admits."""
         from adversarial_spec_tpu_torch.engine import prefix_cache as prefix_mod
 
         if self._prefix is not None:
@@ -543,6 +546,81 @@ class MockEngine:
         prefix_mod.stats.record_prefill(len(tokens) - cached, cached)
         self._account_interleave(len(tokens) - cached, overlapped, req_index)
         return cached
+
+    @staticmethod
+    def _chain_walk(req: ChatRequest) -> list[str]:
+        """The request's full-page chain hashes, computed from the
+        prompt text alone — exactly the chains ``lookup_tiered`` walks
+        on the decode side, so they are the handoff hint's currency."""
+        from adversarial_spec_tpu_torch.engine import kvtier as kvtier_mod
+
+        text = req.system + "\x1f" + req.user
+        tokens = [
+            text[i : i + _TOKEN_CHARS]
+            for i in range(0, len(text), _TOKEN_CHARS)
+        ]
+        chains: list[str] = []
+        chain = ""
+        for b in range(len(tokens) // _PAGE_TOKENS):
+            key = tuple(tokens[b * _PAGE_TOKENS : (b + 1) * _PAGE_TOKENS])
+            chain = kvtier_mod.chain_hash(chain, key)
+            chains.append(chain)
+        return chains
+
+    def prefill(
+        self, requests: list[ChatRequest], params: SamplingParams
+    ) -> list[dict]:
+        """Disaggregated prefill — the handoff's shipping half: run
+        admission + prefix/tier accounting ONLY (no reply decodes),
+        settle the produced blocks write-through to the shared disk
+        store, and return each request's durable chain hashes. The
+        decode-side replica prefetches those chains and its first step
+        starts from a tier hit; a request whose blocks did not all
+        land reports only the durable prefix, so the router's
+        adopt-vs-degrade decision is store-accurate."""
+        out: list[dict] = []
+        for i, req in enumerate(requests):
+            with obs_mod.trace_scope(req.trace_id, req.span_id):
+                cached = self._account_prefix(
+                    req, overlapped=i > 0, req_index=i
+                )
+                chains = self._chain_walk(req)
+                tiers = (
+                    self._prefix.tiers if self._prefix is not None else None
+                )
+                durable = (
+                    tiers.publish_chains(chains, slot=i)
+                    if tiers is not None
+                    else []
+                )
+                in_tokens = _estimate_tokens(req.system) + _estimate_tokens(
+                    req.user
+                )
+                out.append(
+                    {
+                        "chains": list(durable),
+                        "blocks": len(durable),
+                        "tokens": in_tokens,
+                        "cached": cached,
+                        "new_tokens": max(in_tokens - cached, 0),
+                    }
+                )
+        return out
+
+    def prefetch(self, chains) -> int:
+        """Decode-side handoff hint: how many of the shipped chains
+        this engine's tier store can already serve (the promotion
+        itself happens on the adopting request's own tiered lookup —
+        this is the ahead-of-admission probe)."""
+        from adversarial_spec_tpu_torch.engine import prefix_cache as prefix_mod
+
+        if not prefix_mod.config().enabled:
+            return 0
+        self._ensure_prefix()
+        tiers = self._prefix.tiers
+        if tiers is None:
+            return 0
+        return tiers.prefetch_chains(chains)
 
     def chat(
         self,

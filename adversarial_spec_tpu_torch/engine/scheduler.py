@@ -72,6 +72,7 @@ Not ported: depth-2 pipelining and the sharded decode chunk.
 from __future__ import annotations
 
 import time
+import weakref
 from dataclasses import dataclass
 
 import numpy as np
@@ -671,8 +672,13 @@ class ContinuousBatcher:
                         for t in self.pool.values()
                     )
                     self._arena = kvtier_mod.DemotionArena(slot_bytes, n_slots)
+                # The cache holds the fetch through a weak reference:
+                # a bound method would tie the batcher (which owns the
+                # cache) into a cycle, and its device pool and arena
+                # would outlive the engine until a garbage collection.
+                fetch = weakref.WeakMethod(self._fetch_page_kv)
                 self.prefix_cache.attach_tiers(
-                    self.tiers, kv_fetch=self._fetch_page_kv
+                    self.tiers, kv_fetch=lambda page, n: fetch()(page, n)
                 )
         self.max_pages_per_seq = -(-cfg.max_seq_len // page_size)
 

@@ -37,7 +37,8 @@ engine: the one pump thread (serve/gate.py) is the only thread that
 calls ``GpuEngine`` (all CUDA work, the first-use kernel build
 included), preemption releases the batcher's slot through its
 ``_release_slot`` surgery, and brownout retunes the speculation γ the
-engine re-reads at its next dispatch. The fleet is not ported.
+engine re-reads at its next dispatch. With the fleet armed, the gate
+wraps the process ``FleetEngine`` and the pump thread drives its replicas.
 
 Process-wide config + stats follow the ``procconfig`` pattern shared
 with ``interleave``/``spec``/``kvtier``/``fleet``; the daemon arms the

@@ -28,10 +28,7 @@ Graceful drain (the SIGTERM contract docs/serving.md documents):
    for accepted work: completed opponents are durable the moment they
    resolve.
 
-The port's copy of ``adversarial_spec_tpu/serve/daemon.py``. The fleet
-is not ported, so the reference's autoscaler branch is absent (the CLI
-refuses the fleet's knobs), and ``check_engine_invariants`` lives here
-until the fleet's replica module gives it its mirrored home.
+The port's copy of ``adversarial_spec_tpu/serve/daemon.py``.
 """
 
 from __future__ import annotations
@@ -45,6 +42,7 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from pathlib import Path
 
+from adversarial_spec_tpu_torch import fleet as fleet_mod
 from adversarial_spec_tpu_torch import obs as obs_mod
 from adversarial_spec_tpu_torch import serve as serve_mod
 from adversarial_spec_tpu_torch.serve import driver, gate, protocol
@@ -104,6 +102,9 @@ class ServeDaemon:
         self._done = asyncio.Event()
         self._t_start = time.monotonic()
         self.drain_report: dict | None = None
+        # Built in run() when the fleet is armed with autoscale on:
+        # the elasticity control loop (fleet/autoscale.py).
+        self.autoscaler = None
 
     # -- lifecycle ---------------------------------------------------------
 
@@ -114,6 +115,15 @@ class ServeDaemon:
         self._done = asyncio.Event()
         gate.install(self.sched)
         self.pump.start()
+        if fleet_mod.armed() and fleet_mod.config().autoscale:
+            from adversarial_spec_tpu_torch.fleet.autoscale import Autoscaler
+
+            self.autoscaler = Autoscaler(fleet_mod.fleet_engine(), self.sched)
+            # Couple admission capacity to LIVE membership: scale-out
+            # stretches the backlog ceiling and brownout thresholds,
+            # so the fleet grows BEFORE the scheduler sheds.
+            self.sched.set_capacity_provider(self.autoscaler.capacity_factor)
+            self.autoscaler.start()
         try:
             self._loop.add_signal_handler(
                 signal.SIGTERM, self.begin_drain, "sigterm"
@@ -141,7 +151,12 @@ class ServeDaemon:
             # instead of blocking forever on a queue nobody serves.
             # Only then wait the executor out, and uninstall the gate
             # LAST — a debate thread must never reach the raw
-            # (single-threaded) engine ungated.
+            # (single-threaded) engine ungated. The autoscaler stops
+            # FIRST: no membership change may race the teardown (its
+            # shutdown only touches mid-transition replicas; serving
+            # founders belong to the fleet engine).
+            if self.autoscaler is not None:
+                self.autoscaler.shutdown()
             self.sched.stop()
             self.pump.join(timeout=5.0)
             self.executor.shutdown(wait=True)
@@ -160,6 +175,8 @@ class ServeDaemon:
             return
         self._draining = True
         self._drain_reason = reason
+        if self.autoscaler is not None:
+            self.autoscaler.begin_drain()
         self.sched.begin_drain()
         for w in list(self._writers):
             self._send(w, {"id": "", "event": "draining", "reason": reason})
@@ -342,9 +359,12 @@ class ServeDaemon:
 
     def _check_event(self, req_id: str) -> dict:
         """Allocator/tier invariants across every live inner engine —
-        the chaos drill's clean-survivor probe (``check_engine_invariants``
-        below)."""
+        the chaos drill's clean-survivor probe. ONE implementation of
+        the walk, shared with the fleet worker's ``check`` op
+        (fleet/replica.py check_engine_invariants) so the two probes
+        can never drift."""
         from adversarial_spec_tpu_torch.engine import dispatch
+        from adversarial_spec_tpu_torch.fleet.replica import check_engine_invariants
 
         problems: list[str] = []
         checked = 0
@@ -445,25 +465,6 @@ class ServeDaemon:
             await writer.drain()
         except (ConnectionError, RuntimeError):
             pass
-
-
-def check_engine_invariants(engine) -> None:
-    """Allocator + tier ``check_invariants`` for one engine (raises on
-    drift), duck-typed as the reference's fleet/replica.py walk is: the
-    mock engine's accounting handles, and the weight-residency ledger of
-    either engine — ``GpuEngine``'s stricter ledger↔engine mirror
-    (``check_residency_invariants``) when it has one."""
-    alloc = getattr(engine, "_allocator", None)
-    if alloc is not None:
-        alloc.check_invariants()
-    prefix = getattr(engine, "_prefix", None)
-    if prefix is not None and getattr(prefix, "tiers", None) is not None:
-        prefix.tiers.check_invariants()
-    if getattr(engine, "ledger", None) is not None:
-        if hasattr(engine, "check_residency_invariants"):
-            engine.check_residency_invariants()
-        else:
-            engine.ledger.check_invariants()
 
 
 def run_daemon(

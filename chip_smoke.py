@@ -4,8 +4,8 @@
     python3 chip_smoke.py            # every phase (needs one CUDA card)
     python3 chip_smoke.py --quick    # device, build and kernel phases only
     python3 chip_smoke.py --profile  # also profile one more chat call
-    python3 chip_smoke.py --only batcher,pgen,serve,agree  # device, build and the named
-                                     # phases only (no kernels or ok line)
+    python3 chip_smoke.py --only batcher,pgen,serve,fleet,agree  # device, build and
+                                     # the named phases only (no kernels or ok line)
     python3 chip_smoke.py --qmm-only # device, build and B5/B6 only: their checks
                                      # and device times (chiprun_out/chip_smoke_qmm.json);
                                      # run from another checkout's root, it times that
@@ -128,9 +128,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    ``perf.spans.round``, decode tokens/s, per-model usage, launches, peak
    device memory, all_agreed). The process-wide knobs the CLI sets are
    restored after it;
-9. hf      — HF safetensors checkpoints from the user's entry point:
-   random-8b's own weights (init on the card, seed 0, Llama-3-8B at full
-   width and depth, bf16) written under build/ as Meta lays the model out
+9. hf      — HF safetensors checkpoints from the user's entry point,
+   at a cut depth (this phase and pool: Llama-3-8B at full width with 8
+   of its 32 layers, HF_POOL_LAYERS; a load's correctness, the cache and
+   residency do not need the rest): random-8b's own weights (init on the
+   card, seed 0, bf16, 5.6 GB) written under build/ as Meta lays the model out
    (four bf16 shards with HF names and torch's [out, in] Linear layout, an
    index and a config.json from the registered config; the port's own
    safetensors writer), registered by ``registry add-model --checkpoint``
@@ -147,14 +149,14 @@ Phases, each printing one JSON line; any failure exits non-zero:
    load`` line (seconds, bytes read, the reader's largest host staging,
    device memory before it and its peak, resident bytes); each round a
    ``cli round`` line. The phase fails with the bytes it needs when
-   build/ lacks the disk (~47 GB at its peak with phase pool's int8
+   build/ lacks the disk (~17 GB at its peak with phase pool's int8
    cache) and leaves its checkpoint to phase pool;
 10. pool   — real checkpoints as an opponent pool: phase hf's checkpoint
    registered four times by ``registry add-model``, each alias with its
    own ``tokenizer.json`` from tests/torch_tokenizers/ (Llama-3, Mistral,
    Gemma-2 and Qwen2 layouts, read by the port's own reader): pool-a
-   bf16, pool-b int8, pool-c int4 with kv=paged, pool-d bf16 (~45.5 GB of
-   weights), one ``critique`` session naming all four, 128 new tokens,
+   bf16, pool-b int8, pool-c int4 with kv=paged, pool-d bf16 (~16 GB of
+   weights at 8 layers), one ``critique`` session naming all four, 128 new tokens,
    greedy, prefix cache off: round 1 speculation on (B2, B4, B5, B6 must
    launch), rounds 2 and 3 ``--resume --no-speculative`` (B1, B3, B5,
    B6). (a) At the natural budget: rounds 2 and 3 must load nothing. (b) A fresh engine
@@ -215,22 +217,40 @@ Phases, each printing one JSON line; any failure exits non-zero:
    completes, exit 0, the drain report counts it. ``serve debate`` lines
    (wall, TTFT, tokens/s, preemptions, sheds, launches) and one ``serve
    drain`` line; B3's and B4's launches join the kernels line;
-14. agree  — tiny f32 models decoded greedily on the card (kernels) and on
+14. fleet  — two replicas of random-8b (``--kv paged``, the Llama-3
+   tokenizer fixture) behind the fleet router, four opponents, a ~3 KB
+   spec, 64 new tokens, greedy, through ``critique --fleet
+   --fleet-replicas 2`` in this process: (a) in-process replicas, two
+   debates the hash ring places on different replicas and round 2 of the
+   first, every text equal to a single-engine round's, round 2 an
+   affinity hit with cached tokens, B4 and B3 launched and their first
+   calls held to the plain versions; (c) the ``Autoscaler`` scales (a)'s
+   fleet in (device memory falls by a weight set at once, no garbage
+   collection) and out, and the new replica serves the baseline's texts;
+   (b) ``--fleet-transport worker``: two worker processes sharing a KV
+   store, the serving one SIGKILLed after two completions — the same
+   texts, 2 reissued and 0 duplicated completions, the survivor
+   rehydrating blocks and its ``check`` clean. ``fleet round``, ``fleet
+   scale`` and ``fleet failover`` lines; (a)'s and (c)'s B3/B4 launches
+   join the kernels line;
+15. agree  — tiny f32 models decoded greedily on the card (kernels) and on
    the CPU (plain versions) give identical tokens: dense generate() with
    speculation on (B2, or B2-i8, must launch), generate(paged=True) (B3,
    or B3-i8), and the paged batcher with speculation on and off; full
    precision, the same weights quantized int8 (B5) and int4 (B6), and an
    int8 KV cache beside full-precision and int4 weights.
 
-Then one ``kernels`` JSON line and, last, ``{"ok": true, "device": ...}``.
+Each phase's line carries its ``seconds``; a ``seconds`` line sums them
+up by phase. Then one ``kernels`` JSON line and, last, ``{"ok": true,
+"device": ...}``.
 Results also go to chiprun_out/chip_smoke.json.
 """
 
 from __future__ import annotations
 
+import concurrent.futures
 import contextlib
 import functools
-import gc
 import json
 import os
 import shutil
@@ -2030,11 +2050,14 @@ def cli_state():
     (and their journals), checkpoints and the registry, all empty. On the
     way out the engines it built are dropped, and the process-wide knobs
     each CLI round sets (speculation, prefix cache, interleave, streaming,
-    weight residency, KV tiers) get back their values from before: a round's
-    ``--no-speculative`` must not reach the phases after it."""
+    weight residency, KV tiers, the fleet) get back their values from
+    before: a round's ``--no-speculative`` must not reach the phases after
+    it. A dropped engine frees its device memory at once (its batcher's
+    prefix cache holds no strong reference back), so no collection runs."""
     import dataclasses
     from pathlib import Path
 
+    from adversarial_spec_tpu_torch import fleet
     from adversarial_spec_tpu_torch.debate import session
     from adversarial_spec_tpu_torch.engine import (
         dispatch,
@@ -2051,7 +2074,7 @@ def cli_state():
     os.makedirs(build, exist_ok=True)
     prev = (session.SESSIONS_DIR, session.CHECKPOINTS_DIR, registry.REGISTRY_PATH)
     knobs = [(m, dataclasses.asdict(m.config()))
-             for m in (spec, prefix_cache, interleave, streaming, weightres, kvtier)]
+             for m in (spec, prefix_cache, interleave, streaming, weightres, kvtier, fleet)]
     with tempfile.TemporaryDirectory(dir=build) as tmp:
         session.SESSIONS_DIR = Path(tmp) / "sessions"
         session.CHECKPOINTS_DIR = Path(tmp) / "checkpoints"
@@ -2063,10 +2086,6 @@ def cli_state():
             for mod, values in knobs:
                 mod.configure(**values)
             dispatch.clear_engine_cache()
-            # A dropped engine's batcher and its prefix cache refer to
-            # each other (the tiers' fetch callback): only a collection
-            # frees their device memory before the next phase.
-            gc.collect()
 
 
 def run_cli(argv: list, stdin: str = "") -> tuple[int, str, str]:
@@ -2220,6 +2239,30 @@ HF_LAYER_NAMES = {
 }
 
 
+# Phases hf and pool load and swap whole checkpoints: their point (a
+# bit-identical load, the cache, residency under a byte budget) needs
+# Llama-3-8B's widths, not all 32 of its layers.
+HF_POOL_LAYERS = 8
+
+
+@contextlib.contextmanager
+def depth(n_layers: int):
+    """While the block runs, random-8b's config (llama/8b) keeps its full
+    width and only its first ``n_layers`` layers: every engine, loader
+    preflight and checkpoint written in the block sees that depth."""
+    import dataclasses
+
+    from adversarial_spec_tpu_torch.models import config
+
+    key = ("llama", "8b")
+    full = config.CONFIGS[key]
+    config.CONFIGS[key] = dataclasses.replace(full, n_layers=n_layers)
+    try:
+        yield
+    finally:
+        config.CONFIGS[key] = full
+
+
 def write_hf_checkpoint(torch, params, cfg, path: str) -> dict:
     """``params`` (the port's ``[in, out]`` layout, on the card) written at
     ``path`` as Meta lays out Llama-3-8B: four ``model-0000k-of-00004``
@@ -2363,8 +2406,8 @@ def check_same_params(torch, got, init, quant: str = "") -> int:
 
 def phase_hf(torch, ckpt: str) -> dict:
     """HF safetensors checkpoints from the user's entry point. random-8b's
-    own weights (init on the card, seed 0: Llama-3-8B at full width and
-    depth, bf16) written as Meta lays out the model (``write_hf_checkpoint``)
+    own weights (init on the card, seed 0: Llama-3-8B at full width, at the
+    depth its config has while the phase runs (``depth``), bf16) written as Meta lays out the model (``write_hf_checkpoint``)
     at ``ckpt`` (a directory under build/, which phase pool reuses and the
     caller deletes), registered with the CLI's ``registry add-model`` (no
     tokenizer: the byte tokenizer) and served by ``critique`` rounds:
@@ -2530,7 +2573,7 @@ def phase_pool(torch, ckpt: str) -> dict:
     its own ``tokenizer.json`` (``tests/torch_tokenizers/``: Llama-3,
     Mistral, Gemma-2 and Qwen2 layouts, read by the port's reader):
     ``pool-a`` bf16, ``pool-b`` int8, ``pool-c`` int4 with kv=paged,
-    ``pool-d`` bf16 (~45.5 GB of weights). One ``critique`` session names
+    ``pool-d`` bf16 (~16 GB of weights at phase hf's 8 layers). One ``critique`` session names
     all four on an ~11 KB spec (prompts of ~4200 tokens), 128 new tokens, greedy, prefix cache off (a demoted model
     loses its prefix cache, so text is compared without it): round 1
     speculation on (B2, B4, B5, B6 must launch), rounds 2 and 3 ``--resume
@@ -3583,7 +3626,6 @@ def phase_serve(torch) -> dict:
         # This process's engine and cached blocks go before the daemon
         # loads its own copy of the weights.
         dispatch.clear_engine_cache()
-        gc.collect()
         torch.cuda.empty_cache()
         home = os.path.join(tmp, "home")
         os.makedirs(os.path.join(home, ".config", "adversarial-spec-tpu"))
@@ -3742,6 +3784,299 @@ def phase_serve(torch) -> dict:
     return report
 
 
+# Phase fleet: two replicas of random-8b behind the fleet router.
+FLEET_NEW_TOKENS = 64
+FLEET_OPPONENTS = 4
+FLEET_KILL_AFTER = 2  # the serving worker dies after this many completions
+FLEET_TIMEOUT_S = 300.0  # a worker's per-line deadline (its first line loads 16 GB)
+
+
+def fleet_sessions(nodes: list, want: list, prefix: str) -> list:
+    """Session ids ``<prefix>-<k>`` whose debates the hash ring over
+    ``nodes`` places on each replica of ``want``, in that order (a
+    session's id is its debate's affinity key)."""
+    from adversarial_spec_tpu_torch.fleet.hashring import HashRing
+
+    ring, found, k = HashRing(nodes), {}, 0
+    while len(found) < len(want):
+        sid = f"{prefix}-{k}"
+        rid = ring.primary(sid)
+        if rid in want:
+            found.setdefault(rid, sid)
+        k += 1
+    return [found[r] for r in want]
+
+
+def fleet_texts(doc: dict) -> list:
+    return [(r["response"], r["output_tokens"]) for r in doc["results"]]
+
+
+def fleet_line(line: dict, doc: dict) -> dict:
+    """A fleet round's line: the ``cli_round`` line with the round's
+    ``perf.fleet`` counters, TTFT (each row's prefill seconds in its
+    batcher slot, what the batcher's TTFT histogram records) and
+    tokens/s."""
+    fleet = doc["perf"]["fleet"]
+    results = doc["results"]
+    wall = line["round_wall_s"]
+    line.update(
+        fleet={k: fleet[k] for k in (
+            "routed_requests", "affinity_hits", "affinity_hit_rate", "failover_hops",
+            "reissued_requests", "duplicated_completions", "replicas_retired",
+            "handoff_attempts")},
+        ttft_s=[r["prefill_time_s"] for r in results],
+        output_tokens_per_s=sum(r["output_tokens"] for r in results) / wall if wall else None,
+    )
+    return line
+
+
+def phase_fleet(torch) -> dict:
+    """The fleet (``adversarial_spec_tpu_torch/fleet``) on one card: random-8b
+    on a ``registry add-model --kv paged`` entry that reads
+    tests/torch_tokenizers/llama3/tokenizer.json, four opponents on one
+    ~3 KB spec, 64 new tokens, greedy, through ``critique`` in this process.
+    First the single-engine baseline: round 1 (speculation on) and round 2
+    (``--resume --no-speculative``) of one session. (a) ``--fleet
+    --fleet-replicas 2`` (in-process replicas, a weight set each): two
+    debates whose sessions the hash ring places on different replicas, then
+    round 2 of the first; every opponent's text and token count equal to
+    the baseline's round, round 2 an affinity hit with cached tokens, B4
+    and B3 launched, the first call of each within tolerance of its plain
+    version on the card. (c) Through the port's ``Autoscaler`` on (a)'s
+    fleet: an idle tick scales in (the replica holding no active debate is
+    drained and retired) and device memory falls by at least one weight
+    set at once, with no garbage collection; a pressured tick scales out
+    (spawn, warm, ring) and a debate the ring places on the new replica
+    gives the baseline's texts. (b) ``--fleet-transport worker``: two
+    ``python -m adversarial_spec_tpu_torch.fleet.worker`` processes sharing
+    a KV store (``ADVSPEC_KV_TIER=1``, ``ADVSPEC_KV_STORE_DIR``), the
+    serving one SIGKILLed after its second completion
+    (``ADVSPEC_REPLICA_KILL_AFTER``): the round exits 0 with the baseline's
+    texts, 0 duplicated completions, 2 reissued requests, the survivor
+    rehydrating blocks from the store and answering ``check`` clean. One
+    ``fleet round`` line per round, a ``fleet scale`` line and a ``fleet
+    failover`` line."""
+    from adversarial_spec_tpu_torch import fleet as fleet_mod
+    from adversarial_spec_tpu_torch.engine import dispatch, registry
+    from adversarial_spec_tpu_torch.engine.gpu import estimate_param_bytes
+    from adversarial_spec_tpu_torch.fleet.autoscale import Autoscaler
+    from adversarial_spec_tpu_torch.fleet.router import FleetEngine
+    from adversarial_spec_tpu_torch.models import transformer
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+
+    spec = spec_document(3000, 0)
+    tok_dir = os.path.join(HERE, "tests", "torch_tokenizers", "llama3")
+    model = "tpu://random-8b"
+    models = ",".join([model] * FLEET_OPPONENTS)
+    common = ["--greedy", "--max-new-tokens", str(FLEET_NEW_TOKENS), "--json"]
+    on_fleet = ["--fleet", "--fleet-replicas", "2"]
+    b4, b3 = "paged_decode_attention_mq", "paged_decode_attention"
+    report: dict = {"phase": "fleet", "model": f"{model} (kv=paged, llama3 tokenizer)",
+                    "opponents": FLEET_OPPONENTS, "max_new_tokens": FLEET_NEW_TOKENS}
+    checks: list = []
+    launched = {b4: 0, b3: 0}
+
+    def rnd(label, argv, stdin, must, want=None):
+        box: dict = {}
+        line = fleet_line(cli_round(torch, label, argv, stdin, must, doc_out=box), box["doc"])
+        if want is not None:
+            same = sum(a == b for a, b in zip(fleet_texts(box["doc"]), want))
+            line["texts_equal_to_baseline"] = same
+            if same != len(want):
+                raise RuntimeError(f"{label}: {len(want) - same} opponents' texts differ "
+                                   "from the single-engine round")
+        emit({"phase": "fleet round", **line})
+        return line, box["doc"]
+
+    with cli_state():
+        code, _, err = run_cli(["registry", "add-model", "random-8b", "--family", "llama",
+                                "--size", "8b", "--kv", "paged", "--tokenizer", tok_dir])
+        if code != 0:
+            raise RuntimeError(f"registry add-model failed: {err}")
+        weight_bytes = estimate_param_bytes(registry.resolve_model_spec(model))
+        report["weight_bytes"] = weight_bytes
+        # The single-engine baseline.
+        base1, d = rnd("fleet baseline round 1 (one engine)",
+                       ["critique", "--models", models, "--session", "fleet-base", *common],
+                       spec, (b4,))
+        want1 = fleet_texts(d)
+        base2, d = rnd("fleet baseline round 2 (one engine)",
+                       ["critique", "--resume", "fleet-base", "--no-speculative", *common],
+                       "", (b3,))
+        want2 = fleet_texts(d)
+        report["baseline"] = [base1, base2]
+        dispatch.clear_engine_cache()
+        torch.cuda.synchronize()
+        report["memory_allocated_before_fleet"] = torch.cuda.memory_allocated()
+
+        # (a) two in-process replicas.
+        s1, s2 = fleet_sessions(["r0", "r1"], ["r0", "r1"], "fleet")
+        first4: list = []
+        first3: list = []
+        with capturing_first_call(transformer, b4, first4), \
+                capturing_first_call(transformer, b3, first3):
+            a1, _ = rnd(f"fleet (a) debate 1 ({s1} on r0) round 1",
+                        ["critique", "--models", models, "--session", s1, *common, *on_fleet],
+                        spec, (b4,), want1)
+            a2, _ = rnd(f"fleet (a) debate 2 ({s2} on r1) round 1",
+                        ["critique", "--models", models, "--session", s2, *common, *on_fleet],
+                        spec, (b4,), want1)
+            a3, _ = rnd(f"fleet (a) debate 1 round 2",
+                        ["critique", "--resume", s1, "--no-speculative", *common, *on_fleet],
+                        "", (b3,), want2)
+        for name, store, plain in ((b4, first4, pa.paged_decode_attention_mq_plain),
+                                   (b3, first3, pa.paged_decode_attention_plain)):
+            (args, kwargs, got) = store.pop()
+            err = check_close(checks, f"fleet first {name} call {list(args[0].shape)}",
+                              got, plain(*args, **kwargs), BF16_TOL)
+            report[f"{name}_first_call_max_abs_err"] = err
+        del args, kwargs, got  # the copied page pools
+        eng = fleet_mod.fleet_engine()
+        served = {s["replica"]: sum(s["served"].values()) for s in eng.router.replica_stats()}
+        if served != {"r0": 2 * FLEET_OPPONENTS, "r1": FLEET_OPPONENTS}:
+            raise RuntimeError(f"fleet (a): replicas served {served}")
+        if a3["fleet"]["affinity_hit_rate"] != 1.0 or a3["cached_tokens"] <= 0:
+            raise RuntimeError(f"fleet (a) round 2: no affinity hit with cached tokens: {a3}")
+        torch.cuda.synchronize()
+        resident = torch.cuda.memory_allocated()
+        if resident < 2 * weight_bytes:
+            raise RuntimeError(f"fleet (a): {resident} bytes resident, under two weight sets")
+        report["a"] = {"rounds": [a1, a2, a3], "served": served,
+                       "memory_allocated_bytes": resident,
+                       "max_memory_allocated_bytes": max(
+                           r["max_memory_allocated_bytes"] for r in (a1, a2, a3))}
+        for r in (a1, a2, a3):
+            for k in launched:
+                launched[k] += r["launches"][k]
+
+        # (c) scale-in, then scale-out, through the Autoscaler.
+        fleet_mod.configure(scale_in_ticks=1, scale_out_ticks=1, scale_cooldown_s=0.0)
+        snap = {"backlog_tokens": 0, "brownout": False, "draining": False,
+                "active_keys": [s1], "model_mix": {}}
+        scaler = Autoscaler(eng, pressure=lambda: dict(snap))
+        try:
+            t = time.monotonic()
+            if not scaler.tick():
+                raise RuntimeError("fleet (c): the idle tick did not scale in")
+            torch.cuda.synchronize()
+            scale_in_s = time.monotonic() - t
+            after_in = torch.cuda.memory_allocated()
+            if eng.router.alive_ids() != ["r0"]:
+                raise RuntimeError(f"fleet (c): scale-in left {eng.router.alive_ids()}")
+            if resident - after_in < weight_bytes:
+                raise RuntimeError(f"fleet (c): scale-in freed {resident - after_in} bytes, "
+                                   f"under one weight set ({weight_bytes})")
+            snap.update(brownout=True, model_mix={model: FLEET_OPPONENTS})
+            t = time.monotonic()
+            if not scaler.tick():
+                raise RuntimeError("fleet (c): the pressured tick did not scale out")
+            scale_out_s = time.monotonic() - t
+            scaled = {"scale_ins": fleet_mod.stats.scale_ins,
+                      "scale_outs": fleet_mod.stats.scale_outs}
+            (new,) = set(eng.router.alive_ids()) - {"r0"}
+            (s3,) = fleet_sessions(["r0", new], [new], "fleet-new")
+            c1, _ = rnd(f"fleet (c) debate on the new replica ({s3} on {new})",
+                        ["critique", "--models", models, "--session", s3, *common, *on_fleet],
+                        spec, (b4,), want1)
+            for k in launched:
+                launched[k] += c1["launches"][k]
+            served_new = eng.router.replica(new).stats()["served"]
+            if sum(served_new.values()) != FLEET_OPPONENTS:
+                raise RuntimeError(f"fleet (c): the new replica served {served_new}")
+        finally:
+            scaler.shutdown()
+        report["c"] = {"scale_in_s": scale_in_s, "freed_bytes": resident - after_in,
+                       "memory_allocated_after_scale_in": after_in,
+                       "scale_out_s": scale_out_s, "new_replica": new, "round": c1,
+                       **scaled}
+        emit({"phase": "fleet scale", **{k: v for k, v in report["c"].items() if k != "round"}})
+        dispatch.clear_engine_cache()  # shuts the fleet down: both weight sets go
+        torch.cuda.synchronize()
+        report["memory_allocated_after_fleet"] = torch.cuda.memory_allocated()
+        torch.cuda.empty_cache()
+
+        # (b) two worker processes sharing a KV store; the serving one dies.
+        tmp = os.path.dirname(str(registry.REGISTRY_PATH))
+        home = os.path.join(tmp, "home")
+        os.makedirs(os.path.join(home, ".config", "adversarial-spec-tpu"))
+        shutil.copy(str(registry.REGISTRY_PATH),
+                    os.path.join(home, ".config", "adversarial-spec-tpu", "registry.json"))
+        (sb,) = fleet_sessions(["r0", "r1"], ["r0"], "fleet-kill")
+        primary, survivor = "r0", "r1"
+        env = {**os.environ, "HOME": home, "ADVSPEC_KV_TIER": "1",
+               "ADVSPEC_KV_STORE_DIR": os.path.join(tmp, "kvstore"),
+               "ADVSPEC_REPLICA_KILL_AFTER": f"{primary}:{FLEET_KILL_AFTER}"}
+        fleet_mod.configure(enabled=True, replicas=2, transport="worker",
+                            request_timeout_s=FLEET_TIMEOUT_S, prefill_replicas=0)
+        t0 = time.monotonic()
+        workers = FleetEngine(replicas=2, transport="worker",
+                              request_timeout_s=FLEET_TIMEOUT_S, worker_env=env,
+                              log_dir=os.path.join(tmp, "worker-logs"))
+        fleet_mod.install_engine(workers)
+        startup = {}
+
+        def come_up(rid):  # process, imports, CUDA context: spawn to warm
+            rep = workers.router.replica(rid)
+            if not rep.ping() or rep.warm([model]) != 1:
+                raise RuntimeError(f"fleet (b): worker {rid} did not come up")
+            startup[rid] = time.monotonic() - t0
+
+        with concurrent.futures.ThreadPoolExecutor(2) as pool:
+            list(pool.map(come_up, ("r0", "r1")))
+        died: list = []
+        on_fault = workers.router._on_replica_fault
+
+        def record_fault(rid, exc):
+            died.append((rid, time.monotonic()))
+            on_fault(rid, exc)
+
+        workers.router._on_replica_fault = record_fault
+        b1, d = rnd(f"fleet (b) worker round ({sb} on {primary}, killed after "
+                    f"{FLEET_KILL_AFTER})",
+                    ["critique", "--models", models, "--session", sb, *common, *on_fleet,
+                     "--fleet-transport", "worker"], spec, (), want1)
+        t_end = time.monotonic()
+        fl = d["perf"]["fleet"]
+        surv = workers.router.replica(survivor).stats()
+        problems = []
+        try:
+            workers.router.check_invariants()
+        except Exception as e:  # the survivor's check op
+            problems.append(str(e))
+        failover = {
+            "worker_startup_s": startup, "killed": [r for r, _ in died],
+            "failover_wall_s": t_end - died[0][1] if died else None,
+            "reissued_requests": fl["reissued_requests"],
+            "duplicated_completions": fl["duplicated_completions"],
+            "replicas_retired": fl["replicas_retired"],
+            "alive": workers.router.alive_ids(), "survivor_served": surv["served"],
+            "survivor_rehydrated_blocks": surv["kv_tier"]["rehydrated_blocks"],
+            "survivor_check": problems or "ok",
+        }
+        emit({"phase": "fleet failover", **failover})
+        bad = []
+        if [r for r, _ in died] != [primary]:
+            bad.append(f"expected {primary} to die, saw {died}")
+        if fl["duplicated_completions"] != 0:
+            bad.append(f"{fl['duplicated_completions']} duplicated completions")
+        if fl["reissued_requests"] != FLEET_OPPONENTS - FLEET_KILL_AFTER:
+            bad.append(f"{fl['reissued_requests']} reissued requests")
+        if failover["alive"] != [survivor]:
+            bad.append(f"alive after the kill: {failover['alive']}")
+        if not failover["survivor_rehydrated_blocks"]:
+            bad.append("the survivor rehydrated nothing from the store")
+        if problems:
+            bad.append(f"survivor invariants: {problems}")
+        if bad:
+            raise RuntimeError("fleet (b): " + "; ".join(bad))
+        report["b"] = {"round": b1, **failover}
+        dispatch.clear_engine_cache()  # the survivor gets its shutdown op
+    torch.cuda.empty_cache()
+    report["checks"] = checks
+    report["launches"] = launched
+    return report
+
+
 def phase_agree(torch) -> dict:
     """Tiny f32 llama, full precision and quantized int8 and int4 from the
     same weights, and with an int8 KV cache beside full-precision and int4
@@ -3858,9 +4193,10 @@ def main(argv: list[str]) -> int:
     only = []
     if "--only" in argv:
         only = argv[argv.index("--only") + 1].split(",")
-        unknown = set(only) - {"batcher", "pgen", "serve", "agree"}
+        unknown = set(only) - {"batcher", "pgen", "serve", "fleet", "agree"}
         if unknown:
-            return fail(f"--only takes batcher, pgen, serve and agree, not {sorted(unknown)}")
+            return fail("--only takes batcher, pgen, serve, fleet and agree, "
+                        f"not {sorted(unknown)}")
     profile = "--profile" in argv
     if not os.path.isdir(os.path.join(HERE, PKG)):
         return fail(f"{PKG}/ not found beside chip_smoke.py: run from a checkout")
@@ -3914,11 +4250,22 @@ def main(argv: list[str]) -> int:
                                     text=True, timeout=60).stdout.splitlines() or report
         emit({"phase": "ptxas", "source": src, "lines": report})
 
+    seconds = {"build": time.monotonic() - t}
+
+    def run(name, fn, *args, **kwargs):
+        """One phase, timed: its report gains ``seconds`` and is printed."""
+        t = time.monotonic()
+        out = fn(*args, **kwargs)
+        out["seconds"] = seconds[name] = time.monotonic() - t
+        emit(out)
+        torch.cuda.empty_cache()
+        return out
+
     if only:  # iteration on the named phases; no kernels or ok line
         for name in only:
-            emit({"batcher": phase_batcher, "pgen": phase_pgen, "serve": phase_serve,
-                  "agree": phase_agree}[name](torch))
-            torch.cuda.empty_cache()
+            run(name, {"batcher": phase_batcher, "pgen": phase_pgen, "serve": phase_serve,
+                       "fleet": phase_fleet, "agree": phase_agree}[name], torch)
+        emit({"phase": "seconds", **seconds})
         print(smi_line, flush=True)
         return 0
     if qmm_only:
@@ -3938,6 +4285,7 @@ def main(argv: list[str]) -> int:
                       indent=1)
         print(smi_line, flush=True)
         return 0
+    t_kernels = time.monotonic()
     kres, checks = phase_kernels(torch, da)
     pres, pchecks = phase_paged_kernels(torch, pa)
     kres.update(pres)
@@ -3966,72 +4314,55 @@ def main(argv: list[str]) -> int:
         print(f"qmm threshold {c['kernel']} {c['weight']} M={c['M']} {c['path']}: "
               f"ms {c['ms']:.5f}", flush=True)
     checks += qchecks
+    seconds["kernels"] = time.monotonic() - t_kernels
     torch.cuda.empty_cache()
     record = {"device": kind, "nvidia_smi": smi_line, "kernels": kres, "checks": checks,
               "quant_cases": qcases, "quant_sweeps": qsweeps}
 
     launches = {name: None for name in kres}
     if not quick:
-        sl = phase_slice(torch, profile=profile)
-        emit(sl)
+        sl = run("slice", phase_slice, torch, profile=profile)
         launches.update(sl["launches"])
-        torch.cuda.empty_cache()
-        pg = phase_paged(torch, profile=profile)
-        emit(pg)
+        pg = run("paged", phase_paged, torch, profile=profile)
         launches.update(pg["launches"])
-        torch.cuda.empty_cache()
-        qt = phase_quant(torch, profile=profile)
-        emit(qt)
+        qt = run("quant", phase_quant, torch, profile=profile)
         launches["matmul_int8"] = qt["dense_int8"]["launches"]["matmul_int8"]
         launches["matmul_int4"] = qt["paged_int4"]["launches"]["matmul_int4"]
-        kv8 = phase_kv8(torch, profile=profile)
-        emit(kv8)
+        kv8 = run("kv8", phase_kv8, torch, profile=profile)
         for name in KERNELS:
             if name.endswith("_int8kv"):
                 launches[name] = (kv8["dense"]["launches"].get(name, 0)
                                   + kv8["paged_int4"]["launches"].get(name, 0))
-        torch.cuda.empty_cache()
         # The main path from the user's entry point: B1-B4's launches in
         # the kernels line are this phase's.
-        cl = phase_cli(torch)
-        emit(cl)
-        torch.cuda.empty_cache()
+        cl = run("cli", phase_cli, torch)
         # HF checkpoints from the user's entry point; then the same
         # checkpoint as an opponent pool, the newest main path: B1-B4's,
         # B5's and B6's launches in the kernels line are phase pool's.
         os.makedirs(os.path.join(HERE, "build"), exist_ok=True)
         ckpt = tempfile.mkdtemp(prefix="hf-8b-", dir=os.path.join(HERE, "build"))
         try:
-            hf = phase_hf(torch, ckpt)
-            emit(hf)
-            torch.cuda.empty_cache()
-            pl = phase_pool(torch, ckpt)
-            emit(pl)
+            with depth(HF_POOL_LAYERS):
+                hf = run("hf", phase_hf, torch, ckpt)
+                pl = run("pool", phase_pool, torch, ckpt)
         finally:
             shutil.rmtree(ckpt, ignore_errors=True)
         launches.update({k: v for k, v in pl["launches"].items() if k in launches})
-        torch.cuda.empty_cache()
-        # The batcher's faults, watchdog, legacy loop and KV tiers: B3's,
-        # B4's and their int8 modes' launches here join the kernels line.
-        bt = phase_batcher(torch)
-        emit(bt)
-        for k, n in bt["launches"].items():
-            launches[k] = (launches[k] or 0) + n
-        torch.cuda.empty_cache()
-        # The round-synchronous paged generate and the serve daemon: their
-        # B3 (-i8) and B4 launches join the kernels line.
-        pgen = phase_pgen(torch)
-        emit(pgen)
-        torch.cuda.empty_cache()
-        sv = phase_serve(torch)
-        emit(sv)
-        for k, n in (*pgen["launches"].items(), *sv["launches"].items()):
-            launches[k] = (launches[k] or 0) + n
-        torch.cuda.empty_cache()
-        ag = phase_agree(torch)
-        emit(ag)
+        # The batcher's faults, watchdog, legacy loop and KV tiers, the
+        # round-synchronous paged generate, the serve daemon and the
+        # fleet: their B3 (-i8) and B4 (-i8) launches join the kernels line.
+        bt = run("batcher", phase_batcher, torch)
+        pgen = run("pgen", phase_pgen, torch)
+        sv = run("serve", phase_serve, torch)
+        fl = run("fleet", phase_fleet, torch)
+        for ph in (bt, pgen, sv, fl):
+            for k, n in ph["launches"].items():
+                launches[k] = (launches[k] or 0) + n
+        ag = run("agree", phase_agree, torch)
         record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, cli=cl, hf=hf, pool=pl,
-                      batcher=bt, pgen=pgen, serve=sv, agree=ag)
+                      batcher=bt, pgen=pgen, serve=sv, fleet=fl, agree=ag)
+    emit({"phase": "seconds", **seconds})
+    record["phase_seconds"] = seconds
 
     line = []
     for name, r in kres.items():

@@ -354,8 +354,15 @@ def test_session_started_by_reference_resumes_under_port(
 
 
 REFUSED = {
-    # The serve action is served now (test_serve_action_is_served); the
-    # fleet's knobs on it stay refused.
+    "pipeline_depth_2": (["critique", "--pipeline-depth", "2"], {}),
+    "pipeline_depth_clamped": (["critique", "--pipeline-depth", "7"], {}),
+    "pipeline_depth_env": (["critique"], {"ADVSPEC_PIPELINE_DEPTH": "2"}),
+}
+
+# Refused until the fleet was ported; accepted now, with the reference's
+# exit code and report (``perf.fleet`` included; ``serve`` cases: the
+# daemon's debate results and drain report).
+FLEET_KNOBS = {
     "serve_fleet": (["serve", "--fleet-replicas", "2"], {}),
     "fleet": (["critique", "--fleet"], {}),
     "fleet_replicas": (["critique", "--fleet-replicas", "3"], {}),
@@ -366,9 +373,6 @@ REFUSED = {
     "scale_knobs": (["critique", "--scale-cooldown-s", "1"], {}),
     "fleet_env": (["critique"], {"ADVSPEC_FLEET": "1"}),
     "fleet_replicas_env": (["critique"], {"ADVSPEC_FLEET_REPLICAS": "2"}),
-    "pipeline_depth_2": (["critique", "--pipeline-depth", "2"], {}),
-    "pipeline_depth_clamped": (["critique", "--pipeline-depth", "7"], {}),
-    "pipeline_depth_env": (["critique"], {"ADVSPEC_PIPELINE_DEPTH": "2"}),
     "chaos_replica_seam": (["critique", "--chaos", "bug@replica"], {}),
     "chaos_mixed": (["critique", "--chaos", "bug@crash,bug@replica"], {}),
     "export_tasks_fleet": (["export-tasks", "--fleet"], {}),
@@ -457,6 +461,73 @@ def test_tier_and_seam_knob_matches_reference(name, tmp_path, monkeypatch, capsy
         assert sup.state_tree(stores[1]) == sup.state_tree(stores[0])
 
 
+def _serve_one_debate(cli_mod, argv, sock, monkeypatch, capsys):
+    """``serve`` through ``cli_mod.main`` on a thread: one streamed mock
+    debate over the socket, then a drain. (exit code, results, drain
+    report's counters)."""
+    import threading
+
+    client_mod = (
+        "adversarial_spec_tpu.serve.client"
+        if cli_mod is ref_cli
+        else "adversarial_spec_tpu_torch.serve.client"
+    )
+    ServeClient = __import__(client_mod, fromlist=["ServeClient"]).ServeClient
+    box = {}
+    th = threading.Thread(
+        target=lambda: box.update(code=cli_mod.main(argv + ["--socket", str(sock)])),
+        daemon=True,
+    )
+    th.start()
+    deadline = time.monotonic() + 20
+    while not sock.exists():
+        assert th.is_alive() and time.monotonic() < deadline, "daemon did not come up"
+        time.sleep(0.02)
+    client = ServeClient(str(sock), timeout_s=20)
+    try:
+        rid = client.submit_debate(SPEC, ["mock://critic", "mock://agree"], stream=True)
+        results = client.collect(rid, timeout_s=20)[-1]["results"]
+        client.drain()
+    finally:
+        client.close()
+    th.join(timeout=20)
+    assert not th.is_alive()
+    out, _ = capsys.readouterr()
+    report = json.loads(out.strip().splitlines()[-1])
+    assert report["event"] == "drain_report"
+    return box["code"], results, report["stats"]
+
+
+@pytest.mark.parametrize("name", sorted(FLEET_KNOBS))
+def test_fleet_knob_matches_reference(name, tmp_path, monkeypatch, capsys):
+    """The fleet's flags, env vars and chaos seam run as the reference's
+    do: the same exit code and ``--json`` report (``perf.fleet``
+    included) for ``critique`` and ``export-tasks``, and for ``serve``
+    the same debate results and drain counters."""
+    argv, env = FLEET_KNOBS[name]
+    for k, v in env.items():
+        monkeypatch.setenv(k, v)
+    got = []
+    for pkg, cli_mod in (("ref", ref_cli), ("port", port_cli)):
+        sup.point_state(monkeypatch, pkg, tmp_path / pkg)
+        if argv[0] == "serve":
+            got.append(_serve_one_debate(
+                cli_mod, argv, tmp_path / f"{pkg}.sock", monkeypatch, capsys
+            ))
+            continue
+        models = "mock://tasks" if argv[0] == "export-tasks" else "mock://critic,mock://agree"
+        code, out, err = sup.run_cli(
+            cli_mod, argv + ["--models", models, "--json"], monkeypatch, capsys, SPEC
+        )
+        assert code == 0, err
+        got.append((code, sup.normalize_stdout(out, pkg)))
+    assert got[1] == got[0]
+    if name in ("fleet_replicas", "fleet_prefill", "fleet_env"):
+        # These arm a routed fleet only with ``--fleet``/``ADVSPEC_FLEET``.
+        fleet = got[1][1]["perf"]["fleet"]
+        assert fleet["enabled"] is (name == "fleet_env")
+
+
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unported_knob_exits_2(name, monkeypatch, capsys):
     argv, env = REFUSED[name]
@@ -517,10 +588,10 @@ def test_serve_action_is_served(tmp_path, monkeypatch, capsys):
 
 
 def test_ported_chaos_seam_and_off_switches_pass(monkeypatch, capsys):
-    """The journal's ``crash`` seam is ported, switching off what the
-    port does not have (``--no-fleet``, depth 1) is what the port does
-    anyway, and the off switches of what it has (``--no-kv-tier``,
-    ``ADVSPEC_KV_TIER=0``, ``ADVSPEC_WEIGHT_RES=0``) turn them off."""
+    """The journal's ``crash`` seam is ported, depth 1 is what the port
+    does anyway, and the off switches of what it has (``--no-kv-tier``,
+    ``ADVSPEC_KV_TIER=0``, ``--no-fleet``, ``ADVSPEC_FLEET=0``,
+    ``ADVSPEC_WEIGHT_RES=0``) turn them off."""
     monkeypatch.setenv("ADVSPEC_KV_TIER", "0")
     monkeypatch.setenv("ADVSPEC_FLEET", "0")
     monkeypatch.setenv("ADVSPEC_WEIGHT_RES", "0")
@@ -534,7 +605,8 @@ def test_ported_chaos_seam_and_off_switches_pass(monkeypatch, capsys):
     perf = json.loads(out)["perf"]
     assert perf["kv_tier"]["enabled"] is False
     assert perf["interleave"]["pipeline_depth"] == 1
-    assert perf["fleet"] == {"enabled": False}
+    assert perf["fleet"]["enabled"] is False
+    assert perf["fleet"]["routed_requests"] == 0
     assert perf["weights"]["enabled"] is False
 
 

@@ -181,7 +181,74 @@ def test_package_imports_with_jax_blocked():
         )
     }
     assert serve_path <= set(mods)
-    assert len(mods) >= 55
+    fleet_path = {
+        f"adversarial_spec_tpu_torch.fleet{m}"
+        for m in (
+            "", ".hashring", ".handoff", ".replica", ".worker", ".router",
+            ".autoscale",
+        )
+    }
+    assert fleet_path <= set(mods)
+    assert len(mods) >= 62
+
+
+def test_mock_fleet_worker_imports_no_torch(tmp_path):
+    """``python -m adversarial_spec_tpu_torch.fleet.worker`` serving
+    ``mock://`` runs every op of its protocol in a process where torch
+    (and jax and the reference package) fail to import, with the KV
+    tiers armed over a disk store: a mock replica costs a worker spawn,
+    not a torch import."""
+    import json
+    import os
+
+    ops = [
+        {"op": "ping"},
+        {"op": "chat", "requests": [
+            {"model": "mock://critic", "system": "s", "user": "u" * 4000}
+        ], "params": {}},
+        {"op": "warm", "models": ["mock://critic"]},
+        {"op": "validate", "model": "mock://agree"},
+        {"op": "prefill", "requests": [
+            {"model": "mock://critic", "system": "s", "user": "v" * 4000}
+        ], "params": {}},
+        {"op": "prefetch", "model": "mock://critic", "chains": ["nope"]},
+        {"op": "role"},
+        {"op": "check"},
+        {"op": "stats"},
+        {"op": "shutdown"},
+    ]
+    boot = (
+        "import sys, runpy\n"
+        "for m in ('torch', 'jax', 'adversarial_spec_tpu'):\n"
+        "    sys.modules[m] = None\n"
+        "sys.argv = ['worker', '--replica-id', 'r0', '--role', 'prefill']\n"
+        "runpy.run_module('adversarial_spec_tpu_torch.fleet.worker', run_name='__main__')\n"
+    )
+    env = {
+        **os.environ,
+        "PYTHONPATH": str(REPO),
+        "ADVSPEC_KV_TIER": "1",
+        "ADVSPEC_KV_STORE_DIR": str(tmp_path / "store"),
+    }
+    r = subprocess.run(
+        [sys.executable, "-c", boot], cwd=tmp_path, env=env, timeout=60,
+        input="".join(json.dumps(o) + "\n" for o in ops),
+        capture_output=True, text=True,
+    )
+    assert r.returncode == 0, r.stderr
+    lines = [json.loads(ln) for ln in r.stdout.splitlines()]
+    assert "Traceback" not in r.stderr, r.stderr
+    assert lines[0] == {"pong": True, "replica": "r0"}
+    assert lines[1]["completion"]["error"] is None
+    assert lines[2] == {"done": True, "served": 1}
+    assert lines[3] == {"warmed": 1} and lines[4] == {"error": None}
+    assert lines[5]["result"]["blocks"] > 0
+    assert lines[6] == {"done": True, "prefilled": 1}
+    assert lines[7] == {"found": 0} and lines[8] == {"role": "prefill"}
+    assert lines[9] == {"ok": True}
+    assert lines[10]["served"] == {"mock://critic": 1}
+    assert lines[10]["kv_tier"]["store_writes"] > 0
+    assert lines[11] == {"bye": True}
 
 
 def test_materialize_params_requires_device_or_gpu():

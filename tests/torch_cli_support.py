@@ -14,11 +14,13 @@ import json
 from pathlib import Path
 
 from adversarial_spec_tpu import cli as ref_cli
+from adversarial_spec_tpu import fleet as ref_fleet
 from adversarial_spec_tpu.debate import profiles as ref_profiles
 from adversarial_spec_tpu.debate import session as ref_session
 from adversarial_spec_tpu.engine import interleave as ref_interleave
 from adversarial_spec_tpu.engine import registry as ref_registry
 from adversarial_spec_tpu_torch import cli as port_cli
+from adversarial_spec_tpu_torch import fleet as port_fleet
 from adversarial_spec_tpu_torch import obs as port_obs
 from adversarial_spec_tpu_torch import serve as port_serve
 from adversarial_spec_tpu_torch.debate import profiles as port_profiles
@@ -28,6 +30,7 @@ from adversarial_spec_tpu_torch.engine import interleave as port_interleave
 from adversarial_spec_tpu_torch.engine import kvtier as port_kvtier
 from adversarial_spec_tpu_torch.engine import prefix_cache as port_prefix
 from adversarial_spec_tpu_torch.engine import registry as port_registry
+from adversarial_spec_tpu_torch.engine import spec as port_spec
 from adversarial_spec_tpu_torch.engine import streaming as port_streaming
 from adversarial_spec_tpu_torch.engine import weightres as port_weightres
 from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
@@ -71,10 +74,40 @@ def point_state(
     )
 
 
+def reset_fleet(fleet) -> None:
+    """Every knob of one package's fleet at its default, no process fleet
+    and zeroed stats (the reference's conftest resets only some knobs, and
+    its autoscaler tests set the others)."""
+    fleet.shutdown_fleet()
+    fleet.configure(
+        enabled=False,
+        replicas=fleet.DEFAULT_REPLICAS,
+        transport="inproc",
+        request_timeout_s=30.0,
+        autoscale=False,
+        min_replicas=fleet.DEFAULT_MIN_REPLICAS,
+        max_replicas=fleet.DEFAULT_MAX_REPLICAS,
+        scale_out_fraction=fleet.DEFAULT_SCALE_OUT_FRACTION,
+        scale_in_fraction=fleet.DEFAULT_SCALE_IN_FRACTION,
+        scale_out_ticks=fleet.DEFAULT_SCALE_OUT_TICKS,
+        scale_in_ticks=fleet.DEFAULT_SCALE_IN_TICKS,
+        scale_cooldown_s=fleet.DEFAULT_SCALE_COOLDOWN_S,
+        scale_interval_s=fleet.DEFAULT_SCALE_INTERVAL_S,
+        spawn_retries=fleet.DEFAULT_SPAWN_RETRIES,
+        prefill_replicas=fleet.DEFAULT_PREFILL_REPLICAS,
+        handoff_threshold_tokens=fleet.DEFAULT_HANDOFF_THRESHOLD_TOKENS,
+        min_prefill_replicas=fleet.DEFAULT_MIN_PREFILL_REPLICAS,
+        max_prefill_replicas=fleet.DEFAULT_MAX_PREFILL_REPLICAS,
+    )
+    fleet.reset_stats()
+
+
 def reset_port_process() -> None:
-    """What a new process of the port starts from: no engines, closed
-    breakers, no faults, no injector, default knobs, empty obs."""
+    """What a new process of the port starts from: no engines and no
+    fleet, closed breakers, no faults, no injector, default knobs,
+    empty obs."""
     port_dispatch.clear_engine_cache()
+    reset_fleet(port_fleet)
     port_breaker.reset_default_registry()
     port_faults.reset()
     port_injector.reset()
@@ -93,6 +126,10 @@ def reset_port_process() -> None:
         enabled=True, host_mb=port_weightres.DEFAULT_HOST_MB
     )
     port_weightres.reset_stats()
+    # Speculation as a new process reads it from its env (a serve
+    # brownout retunes gamma process-wide).
+    port_spec.configure(enabled=port_spec.env_enabled(), gamma=port_spec.env_gamma())
+    port_spec.reset_stats()
     port_streaming.configure(enabled=True, early_cancel=True)
     port_streaming.reset_stats()
     port_interleave.configure(enabled=True)
@@ -149,12 +186,14 @@ def isolate_port(tmp_path: Path, monkeypatch):
         enabled=True, pipeline_depth=ref_interleave.MAX_PIPELINE_DEPTH
     )
     reset_port_process()
+    reset_fleet(ref_fleet)
     port_lockdep.reset()
     yield
     leaked = port_lockdep.violations()
     assert not leaked, "\n\n".join(str(v) for v in leaked)
     port_lockdep.reset()
     reset_port_process()
+    reset_fleet(ref_fleet)
     ref_interleave.configure(
         enabled=True, pipeline_depth=ref_interleave.MAX_PIPELINE_DEPTH
     )
@@ -204,11 +243,12 @@ def normalize_report(doc, pkg: str):
             node = node[k]
         value = node.pop(path[-1])
         assert pkg == "ref" or value == port_value, (path, value)
-    # The fleet is not ported: the port reports only that it is off.
-    fleet = doc["perf"].pop("fleet")
-    assert fleet["enabled"] is False, (pkg, fleet)
-    if pkg == "port":
-        assert fleet == {"enabled": False}
+    # Host-sync counters reset to zero in place, so a reason that an
+    # earlier test in the same process counted stays listed at 0: a
+    # zero entry is process history, not this round's.
+    syncs = doc["perf"].get("obs", {}).get("host_syncs")
+    if syncs:
+        doc["perf"]["obs"]["host_syncs"] = {k: v for k, v in syncs.items() if v}
     return doc
 
 
