@@ -627,7 +627,8 @@ def validate_models_before_run(models: list[str]) -> list[str]:
     validation via each engine's ``validate``.
 
     The port also asks ``engine/gpu.py`` ``unported_reason`` about each
-    ``tpu://`` alias, so an alias it cannot serve (a multi-device mesh)
+    ``tpu://`` alias, so an alias it cannot serve (an ``sp`` mesh axis,
+    or a tp that does not divide the model's KV heads)
     exits 2 with its "not yet ported" message instead of running a
     round of errors; reads the alias's ``tokenizer.json``, so one whose
     components the port's reader does not implement exits 2 naming the

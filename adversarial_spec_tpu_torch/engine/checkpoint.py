@@ -225,11 +225,14 @@ def load_native(
     quant: str,
     device: torch.device,
     transposed_head: bool | None = None,
+    device_put=None,
 ) -> Params:
     """The cached params on ``device``. Raises ``ValueError`` (a
     ``SafetensorsError`` for a malformed file) unless the cache holds
     exactly the leaves ``layout`` expects, each of its dtype and shape;
-    every header is checked before any tensor is read."""
+    every header is checked before any tensor is read. ``device_put``
+    (the mesh placement hook, ``parallel/sharding.py``) places each
+    tensor as it is read, before the next is."""
     if transposed_head is None:
         transposed_head = transposed_head_flag()
     want = layout(cfg, dtype, quant, transposed_head)
@@ -252,8 +255,9 @@ def load_native(
     missing = sorted(set(want) - set(seen))
     if missing:
         raise ValueError(f"{cache_dir}: cache lacks {len(missing)} leaves, e.g. {missing[:3]}")
+    put = device_put or (lambda path, t: t)
     flat = {
-        name: safetensors.read_tensor(f, name, header).to(device)
+        name: put(tuple(name.split(".")), safetensors.read_tensor(f, name, header).to(device))
         for name, (f, header) in seen.items()
     }
     return unflatten(flat, cfg.n_layers)

@@ -21,10 +21,18 @@ shapes, because the speculative loop's fit test depends on them:
   size divides the bucket, and decode runs the continuous batcher's
   chunk (engine/scheduler.py ``_decode_chunk_impl``, kernel B3 on the
   GPU). Speculation does not apply to this path.
+- ``mesh``: the reference's dp, tp and dp×tp branches (``params`` are
+  ``MeshParams``, ``parallel/sharding.py``). Rows pad up to a multiple of
+  dp and unpad on return; the cache is born sharded; there is no shared
+  prefill. Dense decode runs the sharded ``forward`` (W1 for the S=1
+  step), paged decode lays the pool out per dp slice and runs the
+  sharded paged step (W3 on a tp-only mesh, W2 on any mesh with dp > 1),
+  and speculation runs the sharded program too: every mesh, dp-only
+  included, runs one program with the round's generator. The sp axis is
+  not ported.
 
-The reference's mesh, sequence-parallel and data-parallel branches are not
-ported. The host drives every step (PyTorch runs eagerly), so the
-early-exit checks read one flag per step.
+The host drives every step (PyTorch runs eagerly), so the early-exit
+checks read one flag per step.
 """
 
 from __future__ import annotations
@@ -43,6 +51,7 @@ from adversarial_spec_tpu_torch.engine.kvcache import (
     PageAllocator,
     PagedCacheLayout,
     init_page_pool,
+    slice_page_tables,
     write_tokens,
 )
 from adversarial_spec_tpu_torch.engine.sampling import sample_tokens
@@ -56,6 +65,13 @@ from adversarial_spec_tpu_torch.models.transformer import (
     Params,
     forward,
     init_cache,
+)
+from adversarial_spec_tpu_torch.parallel.mesh import DP, SP, TP, Mesh
+from adversarial_spec_tpu_torch.parallel.sharding import (
+    MeshParams,
+    Sharded,
+    local,
+    local_config,
 )
 from adversarial_spec_tpu_torch.utils.device import resolve_device
 
@@ -285,6 +301,70 @@ def _migrate_to_pages(
     return pool, page_table
 
 
+def _migrate_to_pages_mesh(
+    cache: dict,
+    cfg: ModelConfig,
+    mesh: Mesh,
+    B: int,
+    S: int,
+    total_len: int,
+    page_size: int,
+    kv_dtype: str,
+) -> tuple[dict, torch.Tensor]:
+    """The mesh counterpart of ``_migrate_to_pages``: the per-dp-slice pool
+    layout (``kvcache.slice_page_tables``; one slice on a tp-only mesh),
+    each shard's pool part holding its slice's pages and its KV heads, the
+    prompt KV scattered shard by shard from the sharded prefill cache.
+    Returns (pool of ``Sharded``, page table of global ids on the
+    controller; the sharded step rebases them per slice)."""
+    dp, tp = mesh.shape[DP], mesh.shape[TP]
+    n_pages_per_row = -(-total_len // page_size)
+    local_table, global_table, lp = slice_page_tables(B, dp, n_pages_per_row)
+    lcfg = local_config(cfg, tp)
+    layout = PagedCacheLayout(
+        n_pages=lp, page_size=page_size, n_layers=cfg.n_layers,
+        n_kv_heads=lcfg.n_kv_heads, head_dim=cfg.head_dim,
+    )
+    r = B // dp
+    slots = np.tile(np.arange(S, dtype=np.int64)[None, :], (r, 1))
+    quant = "ks" in cache
+    grid = []
+    for d in range(dp):
+        row_table = local_table[d * r : (d + 1) * r]
+        page_ids = row_table[np.arange(r)[:, None], slots // page_size]
+        row = []
+        for t in range(tp):
+            part = init_page_pool(layout, device=mesh.device(d, t),
+                                  dtype=cache["k"].dtype, kv_dtype=kv_dtype)
+            c = local(cache, d, t)
+            write_tokens(
+                part, c["k"][..., :S, :], c["v"][..., :S, :], page_ids, slots % page_size,
+                ks_new=c["ks"][..., :S, :] if quant else None,
+                vs_new=c["vs"][..., :S, :] if quant else None,
+            )
+            row.append(part)
+        grid.append(row)
+    spec = (None, DP, TP, None, None)
+    pool = {k: Sharded(mesh, spec, [[p[k] for p in row] for row in grid]) for k in grid[0][0]}
+    return pool, torch.as_tensor(global_table, dtype=torch.int32, device=mesh.controller)
+
+
+def check_mesh(cfg: ModelConfig, mesh: Mesh) -> None:
+    """Raise for a mesh the port cannot serve yet: an sp axis (the ring
+    prefill), or a tp that does not divide the KV heads (the reference's
+    kernel-free GSPMD fallback)."""
+    if mesh.shape[SP] > 1:
+        raise NotImplementedError(
+            f"a sequence-parallel mesh {mesh.shape} is not yet ported to "
+            "the PyTorch/CUDA package"
+        )
+    if cfg.n_kv_heads % mesh.shape[TP]:
+        raise NotImplementedError(
+            f"tp={mesh.shape[TP]} not dividing the {cfg.n_kv_heads} KV heads "
+            "is not yet ported to the PyTorch/CUDA package"
+        )
+
+
 @dataclass
 class GenerateResult:
     tokens: np.ndarray  # [B, <=max_new] generated ids (0 past each row's end)
@@ -320,6 +400,7 @@ def generate(
     speculative: bool | None = None,
     device: str | torch.device | None = None,
     kv_dtype: str = "",
+    mesh: Mesh | None = None,
 ) -> GenerateResult:
     """End-to-end batched generation on ``device`` (default ``cuda``;
     ``params`` must already live there).
@@ -337,8 +418,22 @@ def generate(
     paged path); an int8 ``kv_dtype`` gives int8 pages with scale pages.
     An explicit ``speculative=True`` is ignored here, with a one-time
     warning on stderr.
+
+    ``mesh``: a multi-device mesh, with ``params`` the ``MeshParams``
+    placed on it; the round's global state lives on the mesh's
+    controller (``device`` is ignored).
     """
-    device = resolve_device(device)
+    n_real = len(prompt_ids)
+    on_mesh = mesh is not None and mesh.size > 1
+    if on_mesh:
+        if not isinstance(params, MeshParams):
+            raise TypeError("generate(mesh=...) takes MeshParams (parallel/sharding.py)")
+        check_mesh(cfg, mesh)
+        device = mesh.controller
+        short = (-n_real) % mesh.shape[DP]
+        prompt_ids = prompt_ids + [prompt_ids[-1]] * short
+    else:
+        device = resolve_device(device)
     tokens_np, pad_lens_np = pad_batch(prompt_ids, pad_id)
     B, S = tokens_np.shape
     max_new = bucket_length(max_new_tokens, minimum=DECODE_CHUNK)
@@ -365,8 +460,10 @@ def generate(
     deadline = time.monotonic() + timeout_s if timeout_s > 0 else None
 
     # Shared prefix: identical rows prefill once and tile.
+    # Off the mesh only: dp slices prefill their own rows.
     shared = (
         share_prefix
+        and not on_mesh
         and B > 1
         and all(p == prompt_ids[0] for p in prompt_ids[1:])
     )
@@ -377,6 +474,7 @@ def generate(
     if (
         share_prefix
         and not shared
+        and not on_mesh
         and B > 1
         and all(len(p) == len(prompt_ids[0]) for p in prompt_ids[1:])
     ):
@@ -395,13 +493,15 @@ def generate(
     t0 = time.monotonic()
     # Paged runs drop the dense cache after migrating the prompt KV, so it
     # holds only the prompt slots.
+    dtype = (params.shard() if on_mesh else params)["embed"].dtype
     cache = init_cache(
         cfg,
         1 if shared_until else prefill_tokens.shape[0],
         S if paged else total_len,
         device=device,
-        dtype=params["embed"].dtype,
+        dtype=dtype,
         kv_dtype=kv_dtype,
+        mesh=mesh if on_mesh else None,  # born sharded
     )
     chunk_len = min(S, PREFILL_CHUNK)
     last_logits = None
@@ -445,9 +545,15 @@ def generate(
     timed_out = False
 
     if paged:
-        pool, page_table = _migrate_to_pages(
-            cache, cfg, B, S, total_len, page_size, share_prompt_pages,
-            kv_dtype, device,
+        pool, page_table = (
+            _migrate_to_pages_mesh(
+                cache, cfg, mesh, B, S, total_len, page_size, kv_dtype
+            )
+            if on_mesh
+            else _migrate_to_pages(
+                cache, cfg, B, S, total_len, page_size, share_prompt_pages,
+                kv_dtype, device,
+            )
         )
         cache = None  # the dense prefill cache is no longer needed
         # Per-row state of the batcher's decode chunk, which this path
@@ -599,11 +705,13 @@ def generate(
     _sync(device)
     decode_time = time.monotonic() - t1
 
-    out_np = out_buf.cpu().numpy()[:, :max_new_tokens]
+    # The dp padding rows are dropped.
+    out_np = out_buf.cpu().numpy()[:n_real, :max_new_tokens]
+    B = n_real
     # Per-row step counts: shared scalar on the synced paths; the
     # speculative paths desynchronize rows.
     if steps_rows is not None:
-        row_steps = np.minimum(steps_rows.cpu().numpy(), max_new_tokens)
+        row_steps = np.minimum(steps_rows.cpu().numpy()[:n_real], max_new_tokens)
     else:
         row_steps = np.full((B,), min(step, max_new_tokens))
     eos_np = np.asarray(sorted(set(eos_ids)) or [-1])

@@ -1,4 +1,5 @@
-"""The ``tpu://`` provider served by PyTorch on one GPU: ``GpuEngine``.
+"""The ``tpu://`` provider served by PyTorch on one GPU, or on a mesh of
+them: ``GpuEngine``.
 
 Counterpart of ``adversarial_spec_tpu/engine/tpu.py:TpuEngine``: requests
 are grouped by model alias, each group's prompts are templated, encoded
@@ -54,11 +55,19 @@ poisons the context) drops the model's batcher and fails the group. The
 served. Paged specs carry the reference's KV tiers (``engine/kvtier.py``)
 on their batcher.
 
-Specs the port cannot serve yet — multi-device meshes and a paged spec
-whose budget leaves no room for a bucketed prompt (the reference's
-round-synchronous ``generate(paged=True)`` corner) — get a "not yet
-ported" error; they are never served silently another way. A
-``kv_dtype`` other than ``""`` or ``"int8"`` is an error.
+A spec's mesh is built over the engine's device list (``devices``,
+default every visible card, the counterpart of ``jax.devices()``; a
+device may repeat, a virtual mesh) by the reference's rules
+(``parallel/mesh.py``): ``{"tp": 2}`` on 8 devices is dp=4 × tp=2. A
+multi-device mesh places each leaf in its shards as it is read
+(``parallel/sharding.py``), counts one device's shard against the byte
+budget, demotes and promotes every shard (restoring the layout), and is
+served by ``generate(mesh=...)`` — a paged spec too, never the batcher,
+as the reference routes it. Specs the port cannot serve yet — an ``sp``
+mesh axis and a tp that does not divide the KV heads (both wait for the
+ring prefill and a kernel-free fallback) — get a "not yet ported" error;
+they are never served silently another way. A ``kv_dtype`` other than
+``""`` or ``"int8"`` is an error.
 
 Every failure is classified as the reference's ``TpuEngine`` classifies
 it (``resilience.faults.classify``): the kind sets
@@ -117,6 +126,9 @@ from adversarial_spec_tpu_torch.models.transformer import (
     leaves,
     map_params,
 )
+from adversarial_spec_tpu_torch.parallel import mesh as mesh_mod
+from adversarial_spec_tpu_torch.parallel import sharding as sharding_mod
+from adversarial_spec_tpu_torch.parallel.mesh import Mesh
 from adversarial_spec_tpu_torch.resilience import faults, injector
 from adversarial_spec_tpu_torch.resilience import lockdep as lockdep_mod
 from adversarial_spec_tpu_torch.utils.device import resolve_device
@@ -144,11 +156,17 @@ def fits_batcher(cfg: ModelConfig, max_new_tokens: int) -> bool:
 
 
 def unported_reason(spec: ModelSpec) -> str | None:
-    """Why the port cannot serve ``spec`` yet, or None: only a
-    multi-device mesh is refused. The wording avoids the fault markers of
+    """Why the port cannot serve ``spec`` yet, or None: a mesh with an
+    ``sp`` axis (the ring prefill), or a tp that does not divide the
+    model's KV heads. The wording avoids the fault markers of
     resilience/faults.py: a refusal must classify as BUG."""
-    if math.prod(spec.mesh.values()) > 1:
-        return f"a multi-device mesh {spec.mesh}"
+    if int(spec.mesh.get("sp", 1)) > 1:
+        return f"a sequence-parallel mesh {spec.mesh}"
+    tp = int(spec.mesh.get("tp", 1))
+    if tp > 1:
+        cfg = get_config(spec.family, spec.size, max_seq_len=spec.max_seq_len)
+        if cfg.n_kv_heads % tp:
+            return f"tp={tp} over {cfg.n_kv_heads} KV heads (tp must divide them)"
     return None
 
 
@@ -172,14 +190,18 @@ def hbm_budget_bytes(device: torch.device | None = None) -> int:
 
 
 def param_bytes(params) -> int:
-    """Bytes the params occupy (quantized leaves at their stored size)."""
+    """Bytes the params occupy (quantized leaves at their stored size);
+    on a mesh, every distinct shard's."""
     return sum(t.numel() * t.element_size() for t in leaves(params))
 
 
-def estimate_param_bytes(spec: ModelSpec) -> int:
-    """Bytes ``spec``'s params WILL occupy, before loading: the layout
-    the loader builds (quantized leaves, the transposed head of tied
-    embeddings) — no memory is touched."""
+def estimate_param_bytes(spec: ModelSpec, mesh: Mesh | None = None) -> int:
+    """Bytes ``spec``'s params WILL occupy on one device, before loading:
+    the layout the loader builds (quantized leaves, the transposed head of
+    tied embeddings); on ``mesh``, the most any one device will hold of
+    the shards the rules give it (``sharding.per_chip_bytes``: the
+    reference's per-chip estimate on distinct cards, every shard on a
+    virtual mesh's shared device) — no memory is touched."""
     cfg = get_config(spec.family, spec.size, max_seq_len=spec.max_seq_len)
     t_head = cfg.tied_embeddings and (
         spec.checkpoint == "random" or ckpt_mod.transposed_head_flag()
@@ -187,6 +209,11 @@ def estimate_param_bytes(spec: ModelSpec) -> int:
     lay = ckpt_mod.layout(
         cfg, _DTYPES.get(spec.dtype, torch.bfloat16), spec.quant, t_head
     )
+    if mesh is not None and mesh.size > 1:
+        return sharding_mod.per_chip_bytes(
+            ((tuple(name.split(".")), shape, dt.itemsize) for name, (dt, shape) in lay.items()),
+            mesh,
+        )
     return sum(math.prod(shape) * dt.itemsize for dt, shape in lay.values())
 
 
@@ -247,9 +274,10 @@ class HostWeights:
     spec: ModelSpec
     cfg: ModelConfig
     tokenizer: object
-    host_params: dict
+    host_params: dict  # MeshParams on a mesh: its shards' layout kept
     bytes_device: int
     arena: HostArena
+    mesh: Mesh | None = None
 
 
 @dataclass
@@ -260,6 +288,7 @@ class LoadedModel:
     tokenizer: object
     last_used: float = 0.0
     bytes_per_chip: int = 0
+    mesh: Mesh | None = None  # the spec's mesh (size 1: plain params)
     prefetched: bool = False  # loaded ahead of use by _maybe_prefetch
     # Recorded after a prefetch's host→device copies on the side stream;
     # the serving stream waits on it before the first use.
@@ -272,7 +301,11 @@ class LoadedModel:
 
 
 class GpuEngine:
-    """Serves ``tpu://`` aliases on one device (default ``cuda``).
+    """Serves ``tpu://`` aliases on ``device`` (default ``cuda``), and
+    mesh aliases over ``devices`` (default every visible card; with
+    ``devices`` given and no ``device``, the first of them). A spec that
+    names no mesh axis above 1 stays on ``device`` unless ``devices`` is
+    given, when the reference's rules spread it over them (dp).
 
     Loaded models stay resident under a byte budget
     (:func:`hbm_budget_bytes`), least recently used first out. An evicted
@@ -282,8 +315,21 @@ class GpuEngine:
     prefetches the next group's weights on a side CUDA stream while the
     current group decodes."""
 
-    def __init__(self, device: str | torch.device | None = None) -> None:
+    def __init__(
+        self,
+        device: str | torch.device | None = None,
+        devices: list | None = None,
+    ) -> None:
+        if device is None and devices:
+            device = devices[0]
         self.device = resolve_device(device)
+        self.devices_given = bool(devices)
+        if devices:
+            self.devices = [torch.device(d) for d in devices]
+        elif self.device.type == "cuda":
+            self.devices = mesh_mod.default_devices()
+        else:
+            self.devices = [self.device]
         self._models: dict[str, LoadedModel] = {}
         self._lock = lockdep_mod.make_lock("GpuEngine._lock")
         self._inflight: dict[str, Future] = {}
@@ -316,12 +362,15 @@ class GpuEngine:
 
     def install(self, alias: str, params: dict) -> None:
         """Serve ``alias`` with these (already placed) params — e.g.
-        weights bridged from the reference (``loader.params_from_jax``)."""
+        weights bridged from the reference (``loader.params_from_jax``),
+        or ``MeshParams`` placed on a mesh (``parallel/sharding.py``)."""
         spec = registry_mod.resolve_model_spec(f"tpu://{alias}")
         cfg = get_config(spec.family, spec.size, max_seq_len=spec.max_seq_len)
         lm = LoadedModel(
             spec, cfg, params, load_tokenizer(spec.tokenizer),
-            last_used=time.monotonic(), bytes_per_chip=param_bytes(params),
+            last_used=time.monotonic(),
+            bytes_per_chip=sharding_mod.per_chip_param_bytes(params),
+            mesh=params.mesh if isinstance(params, sharding_mod.MeshParams) else None,
         )
         with self._lock:
             self._models[alias] = lm
@@ -374,11 +423,13 @@ class GpuEngine:
         reserved: bool = False,  # the caller put alias in _loading
     ) -> LoadedModel:
         spec = registry_mod.resolve_model_spec(f"tpu://{alias}")
+        mesh_mod.maybe_initialize_distributed()
+        mesh = self.mesh_for(spec)
         # Make room BEFORE materializing, or both weight sets coexist on
         # the device during the swap. A prefetch passes evict=False (it
         # fit-checked and never evicts on another group's behalf).
         if estimate is None:
-            estimate = estimate_param_bytes(spec)
+            estimate = estimate_param_bytes(spec, mesh)
         if evict:
             self._evict_for(estimate, reserve_as=alias)
         elif not reserved:
@@ -387,7 +438,7 @@ class GpuEngine:
         try:
             t_load = time.monotonic()
             params, cfg = self._materialize(
-                spec, _DTYPES.get(spec.dtype, torch.bfloat16)
+                spec, _DTYPES.get(spec.dtype, torch.bfloat16), mesh
             )
             tokenizer = load_tokenizer(spec.tokenizer)
             if obs_mod.config().enabled:
@@ -402,8 +453,9 @@ class GpuEngine:
             lm = LoadedModel(
                 spec, cfg, params, tokenizer,
                 last_used=time.monotonic(),
-                bytes_per_chip=param_bytes(params) or estimate,
+                bytes_per_chip=sharding_mod.per_chip_param_bytes(params) or estimate,
                 prefetched=prefetched,
+                mesh=mesh if mesh.size > 1 else None,
             )
             with self._lock:
                 # Publish and retire the in-flight marker atomically.
@@ -481,7 +533,8 @@ class GpuEngine:
                 self.ledger.free_model(alias)  # its weights go with lm
                 raise
             holder = HostWeights(
-                lm.spec, lm.cfg, lm.tokenizer, host, lm.bytes_per_chip, arena
+                lm.spec, lm.cfg, lm.tokenizer, host, lm.bytes_per_chip, arena,
+                mesh=lm.mesh,
             )
             self.ledger.demote_model(
                 alias, holder, param_bytes(host), time.monotonic() - t0
@@ -562,7 +615,7 @@ class GpuEngine:
             lm = LoadedModel(
                 hw.spec, hw.cfg, params, hw.tokenizer,
                 last_used=time.monotonic(), bytes_per_chip=hw.bytes_device,
-                prefetched=prefetched, ready=ready,
+                prefetched=prefetched, ready=ready, mesh=hw.mesh,
             )
             with self._lock:
                 self._models[alias] = lm
@@ -584,7 +637,17 @@ class GpuEngine:
     def _to_device(self, host: dict, side: bool) -> tuple[dict, object]:
         """The host params on the device, and the event their copies end
         with (None unless copied on the side stream). The copy is
-        complete when this returns, so the wall it took is the swap's."""
+        complete when this returns, so the wall it took is the swap's.
+        ``MeshParams`` go back to each shard's own device, shards that
+        shared a tensor sharing its copy: the layout they left with."""
+        if isinstance(host, sharding_mod.MeshParams):
+            params = sharding_mod.map_shards(
+                lambda h, dev: h.clone() if dev.type != "cuda"
+                else h.to(dev, non_blocking=True), host,
+            )
+            for dev in {d for d in host.mesh.devices.flat if d.type == "cuda"}:
+                torch.cuda.current_stream(dev).synchronize()
+            return params, None
         if self.device.type != "cuda":
             return map_params(torch.clone, host), None
         if not side:
@@ -661,9 +724,8 @@ class GpuEngine:
                 estimate = host_entry.payload.bytes_device
             else:
                 host_entry = None
-                estimate = estimate_param_bytes(
-                    registry_mod.resolve_model_spec(f"tpu://{alias}")
-                )
+                spec = registry_mod.resolve_model_spec(f"tpu://{alias}")
+                estimate = estimate_param_bytes(spec, self.mesh_for(spec))
             with self._lock:
                 fits = (
                     self._committed_bytes_locked() + estimate
@@ -702,10 +764,35 @@ class GpuEngine:
                 self._evict_for(needed)
         self._maybe_prefetch(alias)
 
-    def _materialize(self, spec: ModelSpec, dtype: torch.dtype) -> tuple[dict, ModelConfig]:
+    def mesh_for(self, spec: ModelSpec) -> Mesh:
+        """``spec``'s mesh over the engine's devices (the reference's
+        ``make_mesh(spec.mesh)``); raises the reference's ``ValueError``
+        when it does not fit them. A spec naming no axis above 1 gets the
+        one-device mesh of ``self.device`` unless the caller gave
+        ``devices``: every card visible by default must not turn each
+        single-device alias into a dp replica set (and a paged one out of
+        its batcher)."""
+        if not self.devices_given and all(int(n) <= 1 for n in spec.mesh.values()):
+            return mesh_mod.make_mesh({}, [self.device])
+        return mesh_mod.make_mesh(spec.mesh, self.devices)
+
+    def _materialize(
+        self, spec: ModelSpec, dtype: torch.dtype, mesh: Mesh | None = None
+    ) -> tuple[dict, ModelConfig]:
         """Params via the fastest available source: the native cache
         (converted once, read straight onto the device) → HF safetensors
-        conversion (then cached) → synthetic init."""
+        conversion (then cached) → synthetic init. On a multi-device
+        ``mesh`` each leaf is placed into its shards as it is read (the
+        loader's ``device_put`` hook) and the params are ``MeshParams``;
+        such a load reads a native cache but does not write one (the cache
+        holds the unsharded layout)."""
+        if mesh is not None and mesh.size > 1:
+            put = sharding_mod.make_device_put(mesh, dtype)
+            params, cfg = self._materialize_tree(spec, dtype, put)
+            return sharding_mod.assemble(mesh, params), cfg
+        return self._materialize_tree(spec, dtype, None)
+
+    def _materialize_tree(self, spec: ModelSpec, dtype: torch.dtype, put) -> tuple[dict, ModelConfig]:
         injector.fire("checkpoint_load")
         cfg = get_config(spec.family, spec.size, max_seq_len=spec.max_seq_len)
         cache_path = None
@@ -724,7 +811,8 @@ class GpuEngine:
             # instead of permanently breaking the model.
             try:
                 params = ckpt_mod.load_native(
-                    cache_path, cfg, dtype, spec.quant, self.device
+                    cache_path, cfg, dtype, spec.quant, self.device,
+                    device_put=put,
                 )
                 return params, cfg
             except Exception as e:
@@ -742,8 +830,9 @@ class GpuEngine:
             max_seq_len=spec.max_seq_len,
             quant=spec.quant,
             device=self.device,
+            device_put=put,
         )
-        if cache_path is not None:
+        if cache_path is not None and put is None:
             try:  # the write side is best-effort too
                 ckpt_mod.save_native(params, cache_path)
             except Exception as e:
@@ -885,12 +974,18 @@ class GpuEngine:
                 )
             )
 
-        # Paged specs serve through the continuous batcher, unless the
-        # budget leaves no room for a bucketed prompt: that corner takes
-        # the round-synchronous generate(paged=True), as the dense path
-        # takes generate(). Neither streams: their consumers are served
-        # the blocking result only, as the reference's are.
-        if lm.spec.kv == "paged" and fits_batcher(lm.cfg, params.max_new_tokens):
+        # Paged single-device specs serve through the continuous batcher,
+        # unless the budget leaves no room for a bucketed prompt: that
+        # corner takes the round-synchronous generate(paged=True), as the
+        # dense path takes generate(), and so does a paged spec on a mesh
+        # (its pool laid out per dp slice), as the reference routes them.
+        # Neither streams: their consumers are served the blocking result
+        # only, as the reference's are.
+        if (
+            lm.spec.kv == "paged"
+            and lm.mesh is None
+            and fits_batcher(lm.cfg, params.max_new_tokens)
+        ):
             return self._chat_continuous(lm, prompts, params, batch, consumer)
 
         t0 = time.monotonic()
@@ -910,6 +1005,7 @@ class GpuEngine:
             device=self.device,
             paged=lm.spec.kv == "paged",
             kv_dtype=lm.spec.kv_dtype,
+            mesh=lm.mesh,
         )
         total_time = time.monotonic() - t0
 

@@ -386,3 +386,21 @@ def read_tokens(
         return g.reshape(B, S, L, H, x.shape[-1]).permute(2, 0, 3, 1, 4)
 
     return {k: gather(v) for k, v in pool.items()}
+
+
+def slice_page_tables(
+    B: int, dp: int, pages_per_row: int
+) -> tuple[np.ndarray, np.ndarray, int]:
+    """The per-dp-slice pool layout (reference ``generate()``'s paged
+    setup for dp-only and dp×tp meshes): slice d owns local pages
+    ``[0, Lp)`` with local page 0 its trash page, its rows' pages after
+    it in row order; global id = local + d·Lp. Returns (local table,
+    global table, Lp); rows are split over dp in order."""
+    local_rows = B // dp
+    lp = 1 + local_rows * pages_per_row
+    lr = np.arange(B) % local_rows
+    dev = np.arange(B) // local_rows
+    local_table = (
+        1 + lr[:, None] * pages_per_row + np.arange(pages_per_row)[None, :]
+    ).astype(np.int32)
+    return local_table, local_table + (dev * lp)[:, None].astype(np.int32), lp

@@ -37,6 +37,7 @@ from adversarial_spec_tpu_torch.engine.checkpoint import (
 )
 from adversarial_spec_tpu_torch.models.config import ModelConfig, get_config
 from adversarial_spec_tpu_torch.models.transformer import Params, init_params
+from adversarial_spec_tpu_torch.parallel.sharding import place_tree
 from adversarial_spec_tpu_torch.ops.quant import quantize_params
 from adversarial_spec_tpu_torch.utils import safetensors
 from adversarial_spec_tpu_torch.utils.device import resolve_device
@@ -239,6 +240,7 @@ def load_hf_checkpoint(
     device: str | torch.device | None = None,
     transposed_head: bool | None = None,
     quant: str = "",
+    device_put=None,
 ) -> Params:
     """Read an HF checkpoint dir into the port's per-layer params on
     ``device`` (default ``cuda``).
@@ -253,6 +255,12 @@ def load_hf_checkpoint(
     ``transposed_head``: materialize the [D, V] head copy for tied
     configs (models/transformer.py:init_params). None reads the
     ADVSPEC_TRANSPOSED_HEAD env var (default on).
+
+    ``device_put(path, tensor)`` (``parallel/sharding.py``
+    ``make_device_put``) places each leaf on a mesh as soon as its layer
+    (or, for the embedding, the norm and the head, the model) is read and
+    quantized: the full-precision layer on ``device`` is freed before the
+    next layer is read. The leaves are then the hook's values.
     """
     device = resolve_device(device)
     ckpt_dir = Path(ckpt_dir)
@@ -288,7 +296,10 @@ def load_hf_checkpoint(
             key: take(f"{prefix}layers.{i}.{hf_name(key)}", key in _TRANSPOSE)
             for key in layer_shapes(cfg)
         }
-        params["layers"].append(quantize_params(lp, fmt=quant) if quant else lp)
+        lp = quantize_params(lp, fmt=quant) if quant else lp
+        if device_put is not None:
+            lp = place_tree(device_put, lp, ("layers", i), consume=True)
+        params["layers"].append(lp)
     params["final_norm"] = take(f"{prefix}norm.weight")
     if transposed_head is None:
         transposed_head = transposed_head_flag()
@@ -298,7 +309,13 @@ def load_hf_checkpoint(
         # Transposed [D, V] copy of the tied table (the decode head's
         # row-major weight, models/transformer.py:init_params).
         params["lm_head_t"] = params["embed"].t().contiguous()
-    return quantize_params(params, fmt=quant) if quant else params
+    # Layer leaves already placed are neither tensors nor dicts to the
+    # quantizer: only the head is left to quantize.
+    params = quantize_params(params, fmt=quant) if quant else params
+    if device_put is not None:
+        for name in [k for k in params if k != "layers"]:
+            params[name] = place_tree(device_put, params[name], (name,), consume=True)
+    return params
 
 
 def materialize_params(
@@ -310,23 +327,34 @@ def materialize_params(
     max_seq_len: int = 0,
     quant: str = "",
     device: str | torch.device | None = None,
+    device_put=None,
 ) -> tuple[Params, ModelConfig]:
     """``checkpoint == "random"`` → synthetic init on ``device`` (default
     ``cuda``); else the HF safetensors dir it names. The matmul weights
     are quantized when ``quant`` names a format (as the reference
-    quantizes at materialization). Returns (params, cfg)."""
+    quantizes at materialization). ``device_put``: the mesh placement
+    hook (see ``load_hf_checkpoint``). The synthetic init quantizes and
+    places each layer as it is drawn, before the next: one layer's full
+    leaves are held at a time beside what is already placed. Returns
+    (params, cfg)."""
     device = resolve_device(device)
     cfg = get_config(family, size, max_seq_len=max_seq_len)
     if checkpoint != "random":
         params = load_hf_checkpoint(
-            checkpoint, cfg, family, dtype=dtype, device=device, quant=quant
+            checkpoint, cfg, family, dtype=dtype, device=device, quant=quant,
+            device_put=device_put,
         )
         return params, cfg
-    params = init_params(cfg, device=device, dtype=dtype, seed=seed)
-    if quant:
-        # In place, layer by layer: each full-precision weight is freed
-        # as its quantized form replaces it.
-        quantize_params(params, fmt=quant)
+    place = None
+    if quant or device_put is not None:
+        def place(path, node):
+            if quant:
+                node = quantize_params({path[-1]: node}, fmt=quant)[path[-1]]
+            if device_put is not None:
+                node = place_tree(device_put, node, path, consume=True)
+            return node
+
+    params = init_params(cfg, device=device, dtype=dtype, seed=seed, place=place)
     return params, cfg
 
 

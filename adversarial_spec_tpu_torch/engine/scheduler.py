@@ -303,8 +303,9 @@ def _decode_chunk_impl(
     round-synchronous ``generate(paged=True)`` run this same body, so the
     write-page lookup, bounds and sampling glue exist once. Each step's
     flag read counts as a drive-loop sync point unless ``record_syncs``
-    is False (``generate`` has no drive loop). Returns (cur, cur_len,
-    n_emitted, active)."""
+    is False (``generate`` has no drive loop). On a mesh it runs over
+    ``MeshParams`` and a sharded pool (``forward_paged_decode`` takes the
+    mesh). Returns (cur, cur_len, n_emitted, active)."""
     B = cur_tok.shape[0]
     page_size = pool["k"].shape[3]
     cap = out_buf.shape[1]

@@ -37,6 +37,7 @@ product.
 
 from __future__ import annotations
 
+import functools
 import math
 from typing import Any
 
@@ -47,13 +48,26 @@ from adversarial_spec_tpu_torch.models.config import ModelConfig
 from adversarial_spec_tpu_torch.ops.decode_attention import (
     decode_attention,
     decode_attention_mq,
+    decode_attention_tp,
 )
 from adversarial_spec_tpu_torch.ops.paged_attention import (
     paged_decode_attention,
+    paged_decode_attention_dp_tp,
     paged_decode_attention_mq,
+    paged_decode_attention_tp,
 )
 from adversarial_spec_tpu_torch.ops.quant import matmul
 from adversarial_spec_tpu_torch.ops.rope import apply_rope, rope_angles
+from adversarial_spec_tpu_torch.parallel.collectives import all_gather, all_reduce
+from adversarial_spec_tpu_torch.parallel.mesh import DP, TP, device_ctx
+from adversarial_spec_tpu_torch.parallel.sharding import (
+    MeshParams,
+    Sharded,
+    cache_sharding,
+    local,
+    local_config,
+    map_shards,
+)
 
 Params = dict[str, Any]
 Cache = dict[str, torch.Tensor]
@@ -70,9 +84,17 @@ def init_params(
     dtype: torch.dtype = torch.bfloat16,
     seed: int = 0,
     transposed_head: bool = True,
+    place=None,
 ) -> Params:
     """Random init with truncated-normal fan-in scaling, made directly on
     ``device`` from a seeded generator (synthetic checkpoints and tests).
+
+    ``place(path, node)``, when given, takes each layer's dict (path
+    ``("layers", i)``) and each top-level leaf (path ``(name,)``) as soon
+    as it is made, before the next is drawn, and its value stands in the
+    node's place: a loader quantizes or shards there, so one layer's
+    full leaves are held at a time. The draw order, and so the weights,
+    do not depend on it.
 
     The draw is not the reference's (torch and jax generators differ);
     tests that compare the two packages bridge the reference's weights
@@ -80,6 +102,9 @@ def init_params(
     """
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
+    if place is None:
+        def place(path, node):
+            return node
 
     def dense(shape, fan_in):
         w = torch.empty(shape, dtype=torch.float32, device=device)
@@ -91,7 +116,7 @@ def init_params(
     KD = cfg.n_kv_heads * cfg.head_dim
     norm_init = torch.zeros if cfg.norm_scale_plus_one else torch.ones
     layers = []
-    for _ in range(cfg.n_layers):
+    for i in range(cfg.n_layers):
         lp = {
             "attn_norm": norm_init(D, dtype=dtype, device=device),
             "wq": dense((D, QD), D),
@@ -110,18 +135,23 @@ def init_params(
         if cfg.post_norms:
             lp["post_attn_norm"] = norm_init(D, dtype=dtype, device=device)
             lp["post_ffn_norm"] = norm_init(D, dtype=dtype, device=device)
-        layers.append(lp)
+        layers.append(place(("layers", i), lp))
+    embed = dense((cfg.vocab_size, D), D)
+    # [D, V] copy of the tied table: the head matmul then streams a
+    # row-major weight like every other projection.
+    head_t = (
+        embed.t().contiguous() if cfg.tied_embeddings and transposed_head else None
+    )
     params: Params = {
-        "embed": dense((cfg.vocab_size, D), D),
+        "embed": place(("embed",), embed),
         "layers": layers,
-        "final_norm": norm_init(D, dtype=dtype, device=device),
+        "final_norm": place(("final_norm",), norm_init(D, dtype=dtype, device=device)),
     }
+    del embed
     if not cfg.tied_embeddings:
-        params["lm_head"] = dense((D, cfg.vocab_size), D)
-    elif transposed_head:
-        # [D, V] copy of the tied table: the head matmul then streams a
-        # row-major weight like every other projection.
-        params["lm_head_t"] = params["embed"].t().contiguous()
+        params["lm_head"] = place(("lm_head",), dense((D, cfg.vocab_size), D))
+    elif head_t is not None:
+        params["lm_head_t"] = place(("lm_head_t",), head_t)
     return params
 
 
@@ -144,6 +174,7 @@ def init_cache(
     device: torch.device,
     dtype: torch.dtype = torch.bfloat16,
     kv_dtype: str = "",
+    mesh=None,
 ) -> Cache:
     """Zeroed dense cache ``{"k", "v"}: [L, B, Hkv, max_seq, D]``.
 
@@ -151,7 +182,22 @@ def init_cache(
     [L, B, Hkv, max_seq, 1]`` (the reference's layout); the presence of
     ``"ks"`` marks a quantized cache. An unwritten slot's scale is 0, so
     it dequantizes to 0.
+
+    On a ``mesh`` the cache is born sharded (rows over dp, heads over tp):
+    a dict of ``Sharded``, each shard zeroed on its own device.
     """
+    if mesh is not None:
+        dp, tp = mesh.shape[DP], mesh.shape[TP]
+        lcfg = local_config(cfg, tp)
+        grid = [
+            [init_cache(lcfg, batch // dp, max_seq, device=mesh.device(d, t),
+                        dtype=dtype, kv_dtype=kv_dtype) for t in range(tp)]
+            for d in range(dp)
+        ]
+        return {
+            k: Sharded(mesh, cache_sharding(mesh), [[c[k] for c in row] for row in grid])
+            for k in grid[0][0]
+        }
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
     if check_kv_dtype(kv_dtype):
         sshape = shape[:-1] + (1,)
@@ -269,24 +315,31 @@ def _project_qkv(lp, cfg: ModelConfig, h, B: int, S: int, cos, sin):
     return apply_rope(q, cos, sin), apply_rope(k, cos, sin), v
 
 
-def _attn_out_and_ffn(x, attn_out, lp, cfg: ModelConfig, B: int, S: int):
-    """Output projection, residuals and the FFN block."""
-    out = matmul(attn_out.reshape(B, S, cfg.n_heads * cfg.head_dim), lp["wo"])
+def _o_proj(attn_out, lp, cfg: ModelConfig, B: int, S: int):
+    """Attention output projection (a partial sum on a tp shard)."""
+    return matmul(attn_out.reshape(B, S, cfg.n_heads * cfg.head_dim), lp["wo"])
+
+
+def _residual(x, out, lp, cfg: ModelConfig, post_norm: str):
+    """``x + out``, the sandwich post-norm applied to ``out`` first."""
     if cfg.post_norms:
-        out = rms_norm(
-            out, lp["post_attn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one
-        )
-    x = x + out
+        out = rms_norm(out, lp[post_norm], cfg.rms_eps, cfg.norm_scale_plus_one)
+    return x + out
+
+
+def _ffn(x, lp, cfg: ModelConfig):
+    """The FFN block's output (a partial sum on a tp shard)."""
     h = rms_norm(x, lp["ffn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one)
     ff = _activation(matmul(h, lp["w_gate"]), cfg.activation) * matmul(
         h, lp["w_up"]
     )
-    ff = matmul(ff, lp["w_down"])
-    if cfg.post_norms:
-        ff = rms_norm(
-            ff, lp["post_ffn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one
-        )
-    return x + ff
+    return matmul(ff, lp["w_down"])
+
+
+def _attn_out_and_ffn(x, attn_out, lp, cfg: ModelConfig, B: int, S: int):
+    """Output projection, residuals and the FFN block."""
+    x = _residual(x, _o_proj(attn_out, lp, cfg, B, S), lp, cfg, "post_attn_norm")
+    return _residual(x, _ffn(x, lp, cfg), lp, cfg, "post_ffn_norm")
 
 
 def _layer_window_start(cfg: ModelConfig, layer_id: int, base_start, q_pos):
@@ -325,6 +378,94 @@ def _write_kv(pairs, cache_index) -> None:
         buf[rows, :, slots] = val.to(buf.dtype)
 
 
+def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
+    x = params["embed"][tokens.long()]
+    if cfg.scale_embeddings:
+        x = (x.to(torch.float32) * math.sqrt(cfg.dim)).to(x.dtype)
+    return x
+
+
+def _dense_prep(cfg: ModelConfig, positions, cache_index, kv_valid, T: int, kernels: bool):
+    """What every layer of a dense forward shares: RoPE angles, and the
+    kernels' per-row windows or the plain attention's masks."""
+    B, S = positions.shape
+    dev = positions.device
+    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    prep = {"cos": cos, "sin": sin, "cache_index": cache_index}
+    ci = (
+        cache_index.reshape(-1, 1)
+        if isinstance(cache_index, torch.Tensor)
+        else torch.full((1, 1), cache_index, device=dev)
+    )  # [1|B, 1]
+    q_pos = ci + torch.arange(S, device=dev)  # [1|B, S] slot of each query
+    if kernels:
+        # Per-row window [start, end) for the kernels; the sliding-window
+        # start tightening happens per layer.
+        prep["start"] = torch.argmax(kv_valid.to(torch.int32), dim=1).to(torch.int32)
+        prep["q_pos"] = q_pos.expand(B, S).to(torch.int32)
+        prep["ends"] = (prep["q_pos"] + 1).contiguous()
+    else:
+        slot_ids = torch.arange(T, device=dev)[None, None, :]
+        causal = slot_ids <= q_pos[:, :, None]
+        prep["base_mask"] = kv_valid[:, None, :] & causal  # [B, S, T]
+        prep["window_mask"] = prep["base_mask"]
+        if cfg.sliding_window > 0:
+            prep["window_mask"] = prep["base_mask"] & (
+                slot_ids > q_pos[:, :, None] - cfg.sliding_window
+            )
+    return prep
+
+
+def _store_kv(cache: Cache, layer_id: int, k, v, cache_index):
+    """Write a chunk's K/V into layer ``layer_id`` of ``cache`` (quantized
+    for an int8 cache); returns the layer's K, V and the kernels' scale
+    kwargs."""
+    k_l, v_l = cache["k"][layer_id], cache["v"][layer_id]
+    if "ks" not in cache:
+        _write_kv(((k_l, k), (v_l, v)), cache_index)
+        return k_l, v_l, {}
+    ks_l, vs_l = cache["ks"][layer_id], cache["vs"][layer_id]
+    kvq, kvs = _quantize_kv(torch.stack([k, v]))  # K and V in one pass
+    _write_kv(
+        ((k_l, kvq[0]), (v_l, kvq[1]), (ks_l, kvs[0]), (vs_l, kvs[1])),
+        cache_index,
+    )
+    return k_l, v_l, dict(k_scale=ks_l, v_scale=vs_l)
+
+
+def _b1_bounds(cfg: ModelConfig, layer_id: int, prep) -> torch.Tensor:
+    lo = _layer_window_start(cfg, layer_id, prep["start"], prep["q_pos"][:, 0])
+    return torch.stack([lo, prep["ends"][:, 0]], dim=1)
+
+
+def _dense_attention(cfg: ModelConfig, layer_id: int, q, k_l, v_l, skw, prep, dtype):
+    """One layer's attention on one device: B1 for S=1 and B2 for short
+    spans when the prep holds kernel windows, else the plain masked
+    ``attention`` (an int8 layer dequantized to ``dtype``)."""
+    S = q.shape[1]
+    if "start" in prep and S == 1:
+        return decode_attention(
+            q[:, 0], k_l, v_l, _b1_bounds(cfg, layer_id, prep),
+            attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale, **skw,
+        )[:, None]
+    if "start" in prep:
+        starts = _layer_window_start(cfg, layer_id, prep["start"][:, None], prep["q_pos"])
+        return decode_attention_mq(
+            q, k_l, v_l, starts.to(torch.int32).contiguous(), prep["ends"],
+            attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale, **skw,
+        )
+    windowed = cfg.sliding_window > 0 and not (
+        cfg.sliding_window_pattern > 1 and layer_id % cfg.sliding_window_pattern
+    )
+    if skw:
+        k_l = _dequantize_kv(k_l, skw["k_scale"], dtype)
+        v_l = _dequantize_kv(v_l, skw["v_scale"], dtype)
+    return attention(
+        q, k_l, v_l, prep["window_mask"] if windowed else prep["base_mask"],
+        attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale,
+    )
+
+
 def forward(
     params: Params,
     cfg: ModelConfig,
@@ -348,103 +489,268 @@ def forward(
     the reference's ``_write_and_read_kv`` does: the plain attention reads
     the layer dequantized to x's dtype (so the chunk attends to its own
     quantized K/V); the kernels get the raw int8 K/V and the scales.
+
+    ``params`` on a mesh (``MeshParams``, with a cache of ``Sharded``
+    tensors) runs the tp-sharded forward: see ``_forward_mesh``.
     """
+    if isinstance(params, MeshParams):
+        return _forward_mesh(
+            params, cfg, tokens, positions, cache, cache_index, kv_valid,
+            use_kernels=use_kernels, lm_head_last_only=lm_head_last_only,
+        )
     B, S = tokens.shape
-    T = cache["k"].shape[3]
-    dev = tokens.device
-    vector_index = isinstance(cache_index, torch.Tensor)
-    if not vector_index:
+    if not isinstance(cache_index, torch.Tensor):
         cache_index = int(cache_index)
-    quant_kv = "ks" in cache
-    kernel_b1 = use_kernels and S == 1
-    kernel_b2 = use_kernels and 1 < S <= MQ_MAX_SPAN
-
-    x = params["embed"][tokens.long()]
-    if cfg.scale_embeddings:
-        x = (x.to(torch.float32) * math.sqrt(cfg.dim)).to(x.dtype)
-    cos, sin = rope_angles(
-        positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling
-    )
-
-    ci = (
-        cache_index.reshape(-1, 1)
-        if vector_index
-        else torch.full((1, 1), cache_index, device=dev)
-    )  # [1|B, 1]
-    q_pos = ci + torch.arange(S, device=dev)  # [1|B, S] slot of each query
-    if kernel_b1 or kernel_b2:
-        # Per-row window [start, end) for the kernels; the sliding-window
-        # start tightening happens per layer.
-        start = torch.argmax(kv_valid.to(torch.int32), dim=1).to(torch.int32)
-        q_pos = q_pos.expand(B, S).to(torch.int32)
-        ends = (q_pos + 1).contiguous()
-    else:
-        slot_ids = torch.arange(T, device=dev)[None, None, :]
-        causal = slot_ids <= q_pos[:, :, None]
-        base_mask = kv_valid[:, None, :] & causal  # [B, S, T]
-        window_mask = base_mask
-        if cfg.sliding_window > 0:
-            window_mask = base_mask & (
-                slot_ids > q_pos[:, :, None] - cfg.sliding_window
-            )
-
+    kernels = use_kernels and S <= MQ_MAX_SPAN
+    prep = _dense_prep(cfg, positions, cache_index, kv_valid, cache["k"].shape[3], kernels)
+    x = _embed(params, cfg, tokens)
     for layer_id, lp in enumerate(params["layers"]):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one)
-        q, k, v = _project_qkv(lp, cfg, h, B, S, cos, sin)
-        k_l, v_l = cache["k"][layer_id], cache["v"][layer_id]
-        skw = {}  # the int8 cache's scales, for the kernels
-        if quant_kv:
-            ks_l, vs_l = cache["ks"][layer_id], cache["vs"][layer_id]
-            kvq, kvs = _quantize_kv(torch.stack([k, v]))  # K and V in one pass
-            _write_kv(
-                ((k_l, kvq[0]), (v_l, kvq[1]), (ks_l, kvs[0]), (vs_l, kvs[1])),
-                cache_index,
-            )
-            skw = dict(k_scale=ks_l, v_scale=vs_l)
-        else:
-            _write_kv(((k_l, k), (v_l, v)), cache_index)
-        if kernel_b1:
-            lo = _layer_window_start(cfg, layer_id, start, q_pos[:, 0])
-            bounds = torch.stack([lo, ends[:, 0]], dim=1)
-            out = decode_attention(
-                q[:, 0],
-                k_l,
-                v_l,
-                bounds,
-                attn_softcap=cfg.attn_softcap,
-                scale=cfg.attn_scale,
-                **skw,
-            )[:, None]
-        elif kernel_b2:
-            starts = _layer_window_start(cfg, layer_id, start[:, None], q_pos)
-            out = decode_attention_mq(
-                q,
-                k_l,
-                v_l,
-                starts.to(torch.int32).contiguous(),
-                ends,
-                attn_softcap=cfg.attn_softcap,
-                scale=cfg.attn_scale,
-                **skw,
-            )
-        else:
-            windowed = cfg.sliding_window > 0 and not (
-                cfg.sliding_window_pattern > 1
-                and layer_id % cfg.sliding_window_pattern
-            )
-            if quant_kv:
-                k_l = _dequantize_kv(k_l, ks_l, x.dtype)
-                v_l = _dequantize_kv(v_l, vs_l, x.dtype)
-            out = attention(
-                q,
-                k_l,
-                v_l,
-                window_mask if windowed else base_mask,
-                attn_softcap=cfg.attn_softcap,
-                scale=cfg.attn_scale,
-            )
+        q, k, v = _project_qkv(lp, cfg, h, B, S, prep["cos"], prep["sin"])
+        k_l, v_l, skw = _store_kv(cache, layer_id, k, v, cache_index)
+        out = _dense_attention(cfg, layer_id, q, k_l, v_l, skw, prep, x.dtype)
         x = _attn_out_and_ffn(x, out, lp, cfg, B, S)
     return _lm_head_logits(params, cfg, x, lm_head_last_only)
+
+
+# -- the tp-sharded forwards ---------------------------------------------------
+
+
+class _MeshRows:
+    """Each dp slice's rows of the round's global tensors, on each shard's
+    device (copied once per device: shards that share a device share
+    them)."""
+
+    def __init__(self, mesh, B: int):
+        self.mesh = mesh
+        self.r = B // mesh.shape[DP]
+        self._memo: dict = {}
+
+    def __call__(self, name: str, x, d: int, t: int):
+        if not isinstance(x, torch.Tensor) or x.dim() == 0:
+            return x
+        dev = self.mesh.device(d, t)
+        key = (name, d, str(dev))
+        if key not in self._memo:
+            self._memo[key] = x[d * self.r : (d + 1) * self.r].to(dev)
+        return self._memo[key]
+
+    def per_device(self, key, d: int, t: int, make):
+        """``make()``'s value once per (dp slice, device)."""
+        k = (key, d, str(self.mesh.device(d, t)))
+        if k not in self._memo:
+            self._memo[k] = make()
+        return self._memo[k]
+
+
+def _shards(mesh):
+    return [(d, t) for d in range(mesh.shape[DP]) for t in range(mesh.shape[TP])]
+
+
+def _grid(mesh, f):
+    """``f(d, t)`` of every shard as a ``[dp][tp]`` grid (a wrapper's operand)."""
+    return [[f(d, t) for t in range(mesh.shape[TP])] for d in range(mesh.shape[DP])]
+
+
+def _reduce_residual(mesh, x, partial, layers, layer_id, cfg, post_norm):
+    """All-reduce each dp slice's tp partials and add them to x (in the
+    grids ``x`` and ``partial``, keyed by shard)."""
+    for d in range(mesh.shape[DP]):
+        tps = range(mesh.shape[TP])
+        summed = all_reduce([partial[d, t] for t in tps])
+        for t in tps:
+            with device_ctx(mesh.device(d, t)):
+                x[d, t] = _residual(x[d, t], summed[t], layers[d, t][layer_id], cfg, post_norm)
+
+
+def _mesh_logits(params: MeshParams, cfg: ModelConfig, x, last_only: bool):
+    """The head on each shard, each dp slice's vocab shards gathered, the
+    slices' rows concatenated on the controller. A tied head without its
+    transposed copy reads the replicated table: no gather."""
+    mesh = params.mesh
+    sharded_head = "lm_head" in params.shard() or "lm_head_t" in params.shard()
+    rows = []
+    for d in range(mesh.shape[DP]):
+        tps = range(mesh.shape[TP]) if sharded_head else range(1)
+        parts = []
+        for t in tps:
+            with device_ctx(mesh.device(d, t)):
+                parts.append(_lm_head_logits(params.parts[d][t], cfg, x[d, t], last_only))
+        rows.append(all_gather(parts, dim=-1).to(mesh.controller))
+    return torch.cat(rows, dim=0)
+
+
+def _forward_mesh(
+    params: MeshParams, cfg, tokens, positions, cache, cache_index, kv_valid,
+    *, use_kernels: bool, lm_head_last_only: bool,
+):
+    """``forward`` on a dp×tp mesh: the reference's GSPMD program, shard
+    by shard.
+
+    The round's tensors stay global on the controller; each dp slice's
+    rows go to its shards. Every shard runs the single-device layer on
+    its own widths (``local_config``: its KV heads with their query
+    heads, its FFN columns) against its own cache shard; the row-parallel
+    ``wo`` / ``w_down`` partials are all-reduced within each dp slice
+    before the residual, and the vocab-sharded logits are all-gathered.
+    The S=1 step runs W1 (``decode_attention_tp``); a verify span runs
+    B2 on each shard (the reference runs plain XLA there: the port runs
+    no plain version on the card); a prefill chunk the plain attention.
+    """
+    mesh = params.mesh
+    lcfg = local_config(cfg, mesh.shape[TP])
+    B, S = tokens.shape
+    rows = _MeshRows(mesh, B)
+    if not isinstance(cache_index, torch.Tensor):
+        cache_index = int(cache_index)
+    kernels = use_kernels and S <= MQ_MAX_SPAN
+    T = cache["k"].shape[3]
+    shards = _shards(mesh)
+    layers = {(d, t): params.parts[d][t]["layers"] for d, t in shards}
+    caches = {(d, t): local(cache, d, t) for d, t in shards}
+    preps, x = {}, {}
+    for d, t in shards:
+        with device_ctx(mesh.device(d, t)):
+            preps[d, t] = rows.per_device("prep", d, t, lambda: _dense_prep(
+                cfg, rows("positions", positions, d, t),
+                rows("cache_index", cache_index, d, t),
+                rows("kv_valid", kv_valid, d, t), T, kernels,
+            ))
+            x[d, t] = rows.per_device("x", d, t, lambda: _embed(
+                params.parts[d][t], cfg, rows("tokens", tokens, d, t)
+            ))
+    r = rows.r
+    for layer_id in range(cfg.n_layers):
+        q, kv = {}, {}
+        for d, t in shards:
+            with device_ctx(mesh.device(d, t)):
+                lp, prep = layers[d, t][layer_id], preps[d, t]
+                h = rms_norm(x[d, t], lp["attn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one)
+                q[d, t], k, v = _project_qkv(lp, lcfg, h, r, S, prep["cos"], prep["sin"])
+                kv[d, t] = _store_kv(caches[d, t], layer_id, k, v, prep["cache_index"])
+        if kernels and S == 1:
+            grid = functools.partial(_grid, mesh)
+            skw = {}
+            if "ks" in cache:
+                skw = {s: grid(lambda d, t, s=s: kv[d, t][2][s]) for s in ("k_scale", "v_scale")}
+            outs = decode_attention_tp(
+                grid(lambda d, t: q[d, t][:, 0]),
+                grid(lambda d, t: kv[d, t][0]),
+                grid(lambda d, t: kv[d, t][1]),
+                grid(lambda d, t: _b1_bounds(cfg, layer_id, preps[d, t])),
+                mesh, attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale, **skw,
+            )
+            out = {(d, t): outs[d][t][:, None] for d, t in shards}
+        else:
+            out = {}
+            for d, t in shards:
+                with device_ctx(mesh.device(d, t)):
+                    out[d, t] = _dense_attention(
+                        lcfg, layer_id, q[d, t], *kv[d, t], preps[d, t], x[d, t].dtype
+                    )
+        _mesh_block(mesh, lcfg, cfg, x, out, layers, layer_id, r, S)
+    return _mesh_logits(params, cfg, x, lm_head_last_only)
+
+
+def _mesh_block(mesh, lcfg, cfg, x, attn_out, layers, layer_id, r, S):
+    """A layer's output projection, FFN and residuals on every shard, each
+    partial all-reduced over its dp slice's tp shards (``x`` updated)."""
+    partial = {}
+    for (d, t), out in attn_out.items():
+        with device_ctx(mesh.device(d, t)):
+            partial[d, t] = _o_proj(out, layers[d, t][layer_id], lcfg, r, S)
+    _reduce_residual(mesh, x, partial, layers, layer_id, cfg, "post_attn_norm")
+    for d, t in attn_out:
+        with device_ctx(mesh.device(d, t)):
+            partial[d, t] = _ffn(x[d, t], layers[d, t][layer_id], lcfg)
+    _reduce_residual(mesh, x, partial, layers, layer_id, cfg, "post_ffn_norm")
+
+
+def _paged_store(pool: Cache, layer_id: int, k, v, flat_page, flat_off):
+    """Scatter a step's K/V ``[B, S, Hkv, D]`` into layer ``layer_id`` of
+    the page pool (quantized for an int8 pool); returns the layer's page
+    views and the kernels' scale kwargs.
+
+    Advanced indices at dims 0 and 2, separated by the head slice, put the
+    flattened (row, span) axis first: update [B·S, Hkv, D]. One scatter
+    per layer; rejected-draft and inactive-row targets are the trash page,
+    never read."""
+    k_pages, v_pages = pool["k"][layer_id], pool["v"][layer_id]
+    kf = k.reshape(-1, k.shape[2], k.shape[3])
+    vf = v.reshape(-1, v.shape[2], v.shape[3])
+    skw = {}
+    if "ks" in pool:
+        ks_pages, vs_pages = pool["ks"][layer_id], pool["vs"][layer_id]
+        # K and V in one pass: [2, B·S, Hkv, D] and [2, B·S, Hkv, 1].
+        (kf, vf), (ks, vs) = _quantize_kv(torch.stack([kf, vf]))
+        ks_pages[flat_page, :, flat_off] = ks
+        vs_pages[flat_page, :, flat_off] = vs
+        skw = dict(k_scale=ks_pages, v_scale=vs_pages)
+    k_pages[flat_page, :, flat_off] = kf.to(k_pages.dtype)
+    v_pages[flat_page, :, flat_off] = vf.to(v_pages.dtype)
+    return k_pages, v_pages, skw
+
+
+def _paged_prep(cfg: ModelConfig, positions, page_table, bounds, q_pos, page_size, gather: bool):
+    """What every layer of a paged step shares: RoPE angles, the windows,
+    and for the gather path the page table's clamped ids and mapped mask."""
+    B, S = positions.shape
+    if q_pos.dim() <= 1:
+        q_pos = q_pos.reshape(-1, 1).expand(B, S)
+    cos, sin = rope_angles(positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling)
+    prep = {"cos": cos, "sin": sin, "bounds": bounds.reshape(B, S, 2),
+            "q_pos": q_pos, "table": page_table}
+    if gather:
+        # Gather reference path: page table → dense [B, Hkv, T, D] per
+        # layer (the whole span reads it); <= 0 entries are unmapped.
+        prep["safe_table"] = torch.clamp(page_table, min=0).long()
+        prep["slot"] = torch.arange(page_table.shape[1] * page_size, device=positions.device)
+        prep["mapped"] = torch.repeat_interleave(
+            page_table > 0, page_size, dim=1
+        )[:, None, :]
+    return prep
+
+
+def _paged_window(cfg: ModelConfig, layer_id: int, prep):
+    start = _layer_window_start(cfg, layer_id, prep["bounds"][..., 0], prep["q_pos"])
+    return start, prep["bounds"][..., 1]
+
+
+def _paged_attention(cfg: ModelConfig, layer_id: int, q, k_pages, v_pages, skw, prep, dtype):
+    """One layer's paged attention on one device: B3 for S=1 and B4 for a
+    span when the pool is on the GPU, else the reference's gather path."""
+    B, S = q.shape[:2]
+    start, end = _paged_window(cfg, layer_id, prep)
+    if "safe_table" not in prep and S == 1:
+        layer_bounds = torch.stack([start[:, 0], end[:, 0]], dim=1)
+        return paged_decode_attention(
+            q[:, 0], k_pages, v_pages, prep["table"],
+            layer_bounds.to(torch.int32).contiguous(),
+            attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale, **skw,
+        )[:, None]
+    if "safe_table" not in prep:
+        return paged_decode_attention_mq(
+            q, k_pages, v_pages, prep["table"],
+            start.to(torch.int32).contiguous(), end.to(torch.int32).contiguous(),
+            attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale, **skw,
+        )
+
+    def to_dense(pages):  # [B, P, Hkv, page, X] → [B, Hkv, T, X]
+        g = pages[prep["safe_table"]]
+        return g.transpose(1, 2).reshape(B, cfg.n_kv_heads, -1, pages.shape[-1])
+
+    k_dense, v_dense = to_dense(k_pages), to_dense(v_pages)
+    if skw:
+        k_dense = _dequantize_kv(k_dense, to_dense(skw["k_scale"]), dtype)
+        v_dense = _dequantize_kv(v_dense, to_dense(skw["v_scale"]), dtype)
+    mask = (
+        prep["mapped"]
+        & (prep["slot"] >= start[..., None])
+        & (prep["slot"] < end[..., None])
+    )  # [B, S, T]
+    return attention(
+        q, k_dense, v_dense, mask, attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale
+    )
 
 
 def forward_paged_decode(
@@ -477,107 +783,119 @@ def forward_paged_decode(
     An int8 pool (``"ks"`` in it) scatters quantized K/V and their scales;
     the kernels read the int8 pages and scale pages, the gather path
     densifies both and dequantizes to x's dtype, as the reference does.
-    """
-    B, S = tokens.shape
-    page_size = pool["k"].shape[3]
-    use_kernels = pool["k"].is_cuda
-    quant_kv = "ks" in pool
-    write_page = write_page.reshape(B, S)
-    write_off = write_off.reshape(B, S)
-    bounds = bounds.reshape(B, S, 2)
-    if q_pos.dim() <= 1:
-        q_pos = q_pos.reshape(-1, 1).expand(B, S)
 
-    x = params["embed"][tokens.long()]
-    if cfg.scale_embeddings:
-        x = (x.to(torch.float32) * math.sqrt(cfg.dim)).to(x.dtype)
-    cos, sin = rope_angles(
-        positions, cfg.head_dim, cfg.rope_theta, cfg.rope_scaling
-    )
+    ``params`` on a mesh (``MeshParams``, with a pool of ``Sharded``
+    tensors) runs the tp-sharded step: see ``_forward_paged_mesh``.
+    """
+    if isinstance(params, MeshParams):
+        return _forward_paged_mesh(
+            params, cfg, tokens, positions, pool, page_table, write_page,
+            write_off, bounds, q_pos,
+        )
+    B, S = tokens.shape
+    prep = _paged_prep(cfg, positions, page_table, bounds, q_pos,
+                       pool["k"].shape[3], gather=not pool["k"].is_cuda)
     flat_page = write_page.reshape(-1).long()
     flat_off = write_off.reshape(-1).long()
-    if not use_kernels:
-        # Gather reference path: page table → dense [B, Hkv, T, D] per
-        # layer (the whole span reads it); <= 0 entries are unmapped.
-        safe_table = torch.clamp(page_table, min=0).long()
-        slot = torch.arange(page_table.shape[1] * page_size, device=x.device)
-        mapped = torch.repeat_interleave(page_table > 0, page_size, dim=1)[:, None, :]
-
+    x = _embed(params, cfg, tokens)
     for layer_id, lp in enumerate(params["layers"]):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one)
-        q, k, v = _project_qkv(lp, cfg, h, B, S, cos, sin)
-        k_pages, v_pages = pool["k"][layer_id], pool["v"][layer_id]
-        # Advanced indices at dims 0 and 2, separated by the head slice,
-        # put the flattened (row, span) axis first: update [B·S, Hkv, D].
-        # One scatter per layer; rejected-draft and inactive-row targets
-        # are the trash page, never read.
-        kf = k.reshape(B * S, cfg.n_kv_heads, cfg.head_dim)
-        vf = v.reshape(B * S, cfg.n_kv_heads, cfg.head_dim)
-        skw = {}  # the int8 pool's scale pages, for the kernels
-        if quant_kv:
-            ks_pages, vs_pages = pool["ks"][layer_id], pool["vs"][layer_id]
-            # K and V in one pass: [2, B·S, Hkv, D] and [2, B·S, Hkv, 1].
-            (kf, vf), (ks, vs) = _quantize_kv(torch.stack([kf, vf]))
-            ks_pages[flat_page, :, flat_off] = ks
-            vs_pages[flat_page, :, flat_off] = vs
-            skw = dict(k_scale=ks_pages, v_scale=vs_pages)
-        k_pages[flat_page, :, flat_off] = kf.to(k_pages.dtype)
-        v_pages[flat_page, :, flat_off] = vf.to(v_pages.dtype)
-
-        start = _layer_window_start(cfg, layer_id, bounds[..., 0], q_pos)
-        end = bounds[..., 1]
-        if use_kernels and S == 1:
-            layer_bounds = torch.stack([start[:, 0], end[:, 0]], dim=1)
-            out = paged_decode_attention(
-                q[:, 0],
-                k_pages,
-                v_pages,
-                page_table,
-                layer_bounds.to(torch.int32).contiguous(),
-                attn_softcap=cfg.attn_softcap,
-                scale=cfg.attn_scale,
-                **skw,
-            )[:, None]
-        elif use_kernels:
-            out = paged_decode_attention_mq(
-                q,
-                k_pages,
-                v_pages,
-                page_table,
-                start.to(torch.int32).contiguous(),
-                end.to(torch.int32).contiguous(),
-                attn_softcap=cfg.attn_softcap,
-                scale=cfg.attn_scale,
-                **skw,
-            )
-        else:
-
-            def to_dense(pages):  # [B, P, Hkv, page, X] → [B, Hkv, T, X]
-                g = pages[safe_table]
-                return g.transpose(1, 2).reshape(
-                    B, cfg.n_kv_heads, -1, pages.shape[-1]
-                )
-
-            k_dense, v_dense = to_dense(k_pages), to_dense(v_pages)
-            if quant_kv:
-                k_dense = _dequantize_kv(k_dense, to_dense(ks_pages), x.dtype)
-                v_dense = _dequantize_kv(v_dense, to_dense(vs_pages), x.dtype)
-
-            mask = (
-                mapped
-                & (slot >= start[..., None])
-                & (slot < end[..., None])
-            )  # [B, S, T]
-            out = attention(
-                q,
-                k_dense,
-                v_dense,
-                mask,
-                attn_softcap=cfg.attn_softcap,
-                scale=cfg.attn_scale,
-            )
+        q, k, v = _project_qkv(lp, cfg, h, B, S, prep["cos"], prep["sin"])
+        k_pages, v_pages, skw = _paged_store(pool, layer_id, k, v, flat_page, flat_off)
+        out = _paged_attention(cfg, layer_id, q, k_pages, v_pages, skw, prep, x.dtype)
         x = _attn_out_and_ffn(x, out, lp, cfg, B, S)
     return _lm_head_logits(params, cfg, x, lm_head_last_only=False)
+
+
+def _forward_paged_mesh(
+    params: MeshParams, cfg, tokens, positions, pool, page_table, write_page,
+    write_off, bounds, q_pos,
+):
+    """``forward_paged_decode`` on a tp-only or dp×tp mesh, shard by shard
+    as ``_forward_mesh`` runs the dense step.
+
+    tp-only: one global pool, its head axis split over tp; the table is
+    replicated. dp×tp: the pool is laid out per dp slice (slice d owns
+    global pages ``[d·Lp, (d+1)·Lp)``, its local page 0 its trash page)
+    and the table carries global ids. Each shard writes its K/V at the
+    local id (a write aimed outside its slice — the global trash page 0
+    of an inactive row — lands on the slice's own trash page) and attends
+    through W3 (tp-only) or W2 (dp×tp) for S=1, B4 with the rebased table
+    for a span, and the gather path with the rebased table on the CPU.
+    """
+    mesh = params.mesh
+    dp = mesh.shape[DP]
+    lcfg = local_config(cfg, mesh.shape[TP])
+    B, S = tokens.shape
+    rows = _MeshRows(mesh, B)
+    k0 = pool["k"].parts[0][0]
+    page_size, local_pages, on_gpu = k0.shape[3], k0.shape[1], k0.is_cuda
+    shards = _shards(mesh)
+    layers = {(d, t): params.parts[d][t]["layers"] for d, t in shards}
+    pools = {(d, t): local(pool, d, t) for d, t in shards}
+    preps, x, writes = {}, {}, {}
+    for d, t in shards:
+        with device_ctx(mesh.device(d, t)):
+            base = d * local_pages
+
+            def make(d=d, t=t, base=base):
+                table = rows("table", page_table, d, t)
+                local_table = table - base if base else table
+                prep = _paged_prep(
+                    cfg, rows("positions", positions, d, t), local_table,
+                    rows("bounds", bounds, d, t), rows("q_pos", q_pos, d, t),
+                    page_size, gather=not on_gpu,
+                )
+                prep["global_table"] = table
+                wp = rows("write_page", write_page, d, t).reshape(-1).long() - base
+                prep["flat_page"] = torch.where((wp >= 0) & (wp < local_pages), wp, 0)
+                prep["flat_off"] = rows("write_off", write_off, d, t).reshape(-1).long()
+                return prep
+
+            preps[d, t] = rows.per_device("prep", d, t, make)
+            x[d, t] = rows.per_device("x", d, t, lambda: _embed(
+                params.parts[d][t], cfg, rows("tokens", tokens, d, t)
+            ))
+    r = rows.r
+    for layer_id in range(cfg.n_layers):
+        q, kv = {}, {}
+        for d, t in shards:
+            with device_ctx(mesh.device(d, t)):
+                lp, prep = layers[d, t][layer_id], preps[d, t]
+                h = rms_norm(x[d, t], lp["attn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one)
+                q[d, t], k, v = _project_qkv(lp, lcfg, h, r, S, prep["cos"], prep["sin"])
+                kv[d, t] = _paged_store(
+                    pools[d, t], layer_id, k, v, prep["flat_page"], prep["flat_off"]
+                )
+        if on_gpu and S == 1:
+            grid = functools.partial(_grid, mesh)
+
+            def layer_bounds(d, t):
+                start, end = _paged_window(cfg, layer_id, preps[d, t])
+                return torch.stack([start[:, 0], end[:, 0]], dim=1).to(torch.int32).contiguous()
+
+            skw = {}
+            if "ks" in pool:
+                skw = {s: grid(lambda d, t, s=s: kv[d, t][2][s]) for s in ("k_scale", "v_scale")}
+            wrapper = paged_decode_attention_dp_tp if dp > 1 else paged_decode_attention_tp
+            outs = wrapper(
+                grid(lambda d, t: q[d, t][:, 0]),
+                grid(lambda d, t: kv[d, t][0]),
+                grid(lambda d, t: kv[d, t][1]),
+                grid(lambda d, t: preps[d, t]["global_table"]),
+                grid(layer_bounds),
+                mesh, attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale, **skw,
+            )
+            out = {(d, t): outs[d][t][:, None] for d, t in shards}
+        else:
+            out = {}
+            for d, t in shards:
+                with device_ctx(mesh.device(d, t)):
+                    out[d, t] = _paged_attention(
+                        lcfg, layer_id, q[d, t], *kv[d, t], preps[d, t], x[d, t].dtype
+                    )
+        _mesh_block(mesh, lcfg, cfg, x, out, layers, layer_id, r, S)
+    return _mesh_logits(params, cfg, x, False)
 
 
 def _lm_head_logits(params: Params, cfg: ModelConfig, x, lm_head_last_only):
@@ -600,7 +918,17 @@ def _lm_head_logits(params: Params, cfg: ModelConfig, x, lm_head_last_only):
 
 
 def leaves(params):
-    """Every tensor of the params, quantized dict leaves included."""
+    """Every tensor of the params, quantized dict leaves included; of
+    ``MeshParams``, every distinct shard tensor once."""
+    if isinstance(params, MeshParams):
+        seen = set()
+        for row in params.parts:
+            for part in row:
+                for t in leaves(part):
+                    if id(t) not in seen:
+                        seen.add(id(t))
+                        yield t
+        return
     if isinstance(params, dict):
         for v in params.values():
             yield from leaves(v)
@@ -614,7 +942,11 @@ def leaves(params):
 def map_params(fn, params):
     """The params with ``fn`` applied to every tensor (quantized dict
     leaves included), in the same structure — e.g. to move them between
-    devices: ``map_params(lambda t: t.cpu(), params)``."""
+    devices: ``map_params(lambda t: t.cpu(), params)``. Of ``MeshParams``,
+    each distinct shard tensor is mapped once (shards that share one share
+    the result)."""
+    if isinstance(params, MeshParams):
+        return map_shards(lambda t, _dev: fn(t), params)
     if isinstance(params, dict):
         return {k: map_params(fn, v) for k, v in params.items()}
     if isinstance(params, list):

@@ -7,6 +7,10 @@ Counterpart of ``adversarial_spec_tpu/ops/pallas_decode.py``:
 - ``decode_attention_mq`` (B2): a short span of S query positions per row
   (the speculative verify), each position with its own ``[start, end)``
   window. Replaces the Pallas ``_mq_attn_kernel``.
+- ``decode_attention_tp`` (W1): B1 on a dp×tp mesh, the reference's
+  ``shard_map`` wrapper of the same name — rows split over dp, KV heads
+  over tp, one B1 launch per shard on its local tensors; counted per
+  shard in ``mesh_launches`` (and each launch in B1's count too).
 
 Both take an int8 cache as the reference does (``kv_dtype="int8"``):
 ``k_scale``/``v_scale`` (both or neither) are the per-(token, head) f32
@@ -36,6 +40,7 @@ import math
 import torch
 
 from adversarial_spec_tpu_torch.ops import _build, split_kv
+from adversarial_spec_tpu_torch.parallel.mesh import TP, compat_shard_map
 from adversarial_spec_tpu_torch.ops.flash_common import flash_update
 
 SOURCE = "decode_attention.cu"  # B1 (and B3)
@@ -58,9 +63,14 @@ launches = {
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 
 
+# W1's launches: one per shard it launches B1 on.
+mesh_launches = {"decode_attention_tp": 0}
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, mesh_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _b1_entry():
@@ -439,3 +449,57 @@ def mq_args(
         float(attn_softcap),
     ]
     return out, ws, span_calls(q, starts, ends, out, runs, middle, tail, ws, n_split)
+
+
+# -- W1: B1 on a mesh -----------------------------------------------------------
+
+
+def tp_decode_supported(n_kv_heads: int, mesh) -> bool:
+    """True iff the mesh's tp degree keeps GQA groups shard-local."""
+    return n_kv_heads % mesh.shape.get(TP, 1) == 0
+
+
+def _w1(kernel, counted: bool, q, k_cache, v_cache, bounds, mesh, attn_softcap,
+        scale, k_scale, v_scale):
+    def one(q_, k_, v_, b_, *s):
+        out = kernel(q_, k_, v_, b_, attn_softcap=attn_softcap, scale=scale,
+                     k_scale=s[0] if s else None, v_scale=s[1] if s else None)
+        if counted and q_.is_cuda:
+            mesh_launches["decode_attention_tp"] += 1
+        return out
+
+    scales = (k_scale, v_scale) if scales_pair(k_scale, v_scale) else ()
+    return compat_shard_map(one, mesh, q, k_cache, v_cache, bounds, *scales)
+
+
+def decode_attention_tp(
+    q,  # [dp][tp] grid of [B/dp, Hq/tp, D]
+    k_cache,  # [dp][tp] grid of [B/dp, Hkv/tp, T, D]
+    v_cache,
+    bounds,  # [dp][tp] grid of [B/dp, 2] int32 (each dp slice's rows)
+    mesh,
+    attn_softcap: float = 0.0,
+    scale: float | None = None,
+    k_scale=None,  # grids like k_cache, [..., 1] f32 (int8 cache)
+    v_scale=None,
+):
+    """W1: fused decode attention on a dp×tp mesh. Returns the ``[dp][tp]``
+    grid of each shard's ``[B/dp, Hq/tp, D]``.
+
+    The reference's ``decode_attention_tp`` ``shard_map``s its Pallas
+    kernel over a GSPMD mesh: the batch over ``dp``, the KV-head axis (and
+    q's heads) over ``tp``. Here the operands already are the shards, and
+    each shard runs B1 on its own tensors with its device current. A GQA
+    group stays on its shard (callers gate on ``tp_decode_supported``),
+    so there is no cross-shard softmax and no collective in or around
+    the kernel."""
+    return _w1(decode_attention, True, q, k_cache, v_cache, bounds, mesh,
+               attn_softcap, scale, k_scale, v_scale)
+
+
+def decode_attention_tp_plain(q, k_cache, v_cache, bounds, mesh,
+                              attn_softcap: float = 0.0, scale=None,
+                              k_scale=None, v_scale=None):
+    """Plain W1: the same per-shard split around B1's plain version."""
+    return _w1(decode_attention_plain, False, q, k_cache, v_cache, bounds,
+               mesh, attn_softcap, scale, k_scale, v_scale)

@@ -9,6 +9,10 @@ Counterpart of ``adversarial_spec_tpu/ops/pallas_paged.py``:
   per row, each under its own ``[start, end)`` window, one pass over the
   row's pages — the batcher's span-native speculative verify. Replaces
   the Pallas ``_paged_mq_attn_kernel``.
+- ``paged_decode_attention_tp`` (W3) and ``paged_decode_attention_dp_tp``
+  (W2): B3 on a mesh, the reference's ``shard_map`` wrappers of the same
+  names — one B3 launch per shard on its local pool, counted per shard in
+  ``mesh_launches`` (and each launch in B3's count too).
 
 Both take an int8 pool as the reference does (``kv_dtype="int8"``):
 ``k_scale``/``v_scale`` (both or neither) are the f32 scale pages
@@ -56,6 +60,7 @@ from adversarial_spec_tpu_torch.ops.decode_attention import (
     verify_plan,
 )
 from adversarial_spec_tpu_torch.ops.flash_common import flash_update
+from adversarial_spec_tpu_torch.parallel.mesh import compat_shard_map
 
 # Slots the plain versions gather per online-softmax update.
 _PLAIN_BLOCK = 512
@@ -73,9 +78,17 @@ launches = {
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 
 
+# W2's and W3's launches: one per shard they launch B3 on.
+mesh_launches = {
+    "paged_decode_attention_tp": 0,
+    "paged_decode_attention_dp_tp": 0,
+}
+
+
 def reset_launches() -> None:
-    for name in launches:
-        launches[name] = 0
+    for counts in (launches, mesh_launches):
+        for name in counts:
+            counts[name] = 0
 
 
 def _b3_entry():
@@ -346,3 +359,102 @@ def mq_args(
         float(attn_softcap),
     ]
     return out, ws, span_calls(q, starts, ends, out, runs, middle, tail, ws, n_split)
+
+
+# -- W2 / W3: B3 on a mesh ------------------------------------------------------
+
+
+def _paged_mesh(kernel, name, rebase: bool, q, k_pages, v_pages, page_table,
+                bounds, mesh, attn_softcap, scale, k_scale, v_scale):
+    """Shared body of W2/W3 and their plain versions: ``kernel`` on each
+    shard's local operands. ``rebase``: the table holds global ids of a
+    per-dp-slice pool, shifted to the shard's slice here."""
+
+    def one(q_, k_, v_, t_, b_, *s):
+        out = kernel(q_, k_, v_, t_, b_, attn_softcap=attn_softcap,
+                     scale=scale, k_scale=s[0] if s else None,
+                     v_scale=s[1] if s else None)
+        if name and q_.is_cuda:
+            mesh_launches[name] += 1
+        return out
+
+    if rebase:
+        # Slice d owns global pages [d·Lp, (d+1)·Lp): each shard's table
+        # goes to local ids. The trash page (global 0) and padding (< 0)
+        # land <= 0 and stay masked.
+        page_table = [
+            [tab - d * k_pages[d][t].shape[0] for t, tab in enumerate(row)]
+            for d, row in enumerate(page_table)
+        ]
+    scales = (k_scale, v_scale) if scales_pair(k_scale, v_scale) else ()
+    return compat_shard_map(one, mesh, q, k_pages, v_pages, page_table, bounds, *scales)
+
+
+def paged_decode_attention_tp(
+    q,  # [1][tp] grid of [B, Hq/tp, D]
+    k_pages,  # [1][tp] grid of [n_pages, Hkv/tp, page, D]
+    v_pages,
+    page_table,  # [1][tp] grid of the (replicated) [B, P] table
+    bounds,  # [1][tp] grid of the (replicated) [B, 2] windows
+    mesh,
+    attn_softcap: float = 0.0,
+    scale: float | None = None,
+    k_scale=None,  # grids like k_pages, [..., 1] f32 (int8 pool)
+    v_scale=None,
+):
+    """W3: fused paged decode attention with the head axis tp-sharded.
+    Returns the grid of each shard's ``[B, Hq/tp, D]``.
+
+    The reference's ``paged_decode_attention_tp``: one global pool whose
+    KV-head axis is split over ``tp``; the page table and the bounds are
+    replicated, so every shard reads the same pages, its own heads. Each
+    shard runs B3 on its local tensors; a GQA group stays on its shard, so
+    there is no collective in or around the kernel."""
+    return _paged_mesh(paged_decode_attention, "paged_decode_attention_tp", False,
+                       q, k_pages, v_pages, page_table, bounds, mesh,
+                       attn_softcap, scale, k_scale, v_scale)
+
+
+def paged_decode_attention_dp_tp(
+    q,  # [dp][tp] grid of [B/dp, Hq/tp, D]
+    k_pages,  # [dp][tp] grid of [Lp, Hkv/tp, page, D]: slice d's pages
+    v_pages,
+    page_table,  # [dp][tp] grid of [B/dp, P] GLOBAL ids (slice d's rows)
+    bounds,  # [dp][tp] grid of [B/dp, 2]
+    mesh,
+    attn_softcap: float = 0.0,
+    scale: float | None = None,
+    k_scale=None,
+    v_scale=None,
+):
+    """W2: fused paged decode attention on a mixed dp×tp mesh. Returns the
+    grid of each shard's ``[B/dp, Hq/tp, D]``.
+
+    The reference's ``paged_decode_attention_dp_tp``. Layout contract: the
+    pool is laid out per dp slice — slice d owns global pages
+    ``[d·Lp, (d+1)·Lp)``, its local page 0 is that slice's trash page, and
+    every row's pages live in its own slice. The table carries global ids;
+    each shard subtracts its slice base, so the trash page and padding
+    land <= 0 and stay masked. One B3 launch per shard."""
+    return _paged_mesh(paged_decode_attention, "paged_decode_attention_dp_tp", True,
+                       q, k_pages, v_pages, page_table, bounds, mesh,
+                       attn_softcap, scale, k_scale, v_scale)
+
+
+def paged_decode_attention_tp_plain(q, k_pages, v_pages, page_table, bounds, mesh,
+                                    attn_softcap: float = 0.0, scale=None,
+                                    k_scale=None, v_scale=None):
+    """Plain W3: the same per-shard split around B3's plain version."""
+    return _paged_mesh(paged_decode_attention_plain, "", False, q, k_pages,
+                       v_pages, page_table, bounds, mesh, attn_softcap, scale,
+                       k_scale, v_scale)
+
+
+def paged_decode_attention_dp_tp_plain(q, k_pages, v_pages, page_table, bounds,
+                                       mesh, attn_softcap: float = 0.0,
+                                       scale=None, k_scale=None, v_scale=None):
+    """Plain W2: the same per-shard split (and rebase) around B3's plain
+    version."""
+    return _paged_mesh(paged_decode_attention_plain, "", True, q, k_pages,
+                       v_pages, page_table, bounds, mesh, attn_softcap, scale,
+                       k_scale, v_scale)

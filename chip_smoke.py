@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # every phase (needs one CUDA card)
     python3 chip_smoke.py --quick    # device, build and kernel phases only
     python3 chip_smoke.py --profile  # also profile one more chat call
-    python3 chip_smoke.py --only batcher,pgen,serve,fleet,agree  # device, build and
+    python3 chip_smoke.py --only batcher,pgen,serve,fleet,mesh,agree  # device, build and
                                      # the named phases only (no kernels or ok line)
     python3 chip_smoke.py --qmm-only # device, build and B5/B6 only: their checks
                                      # and device times (chiprun_out/chip_smoke_qmm.json);
@@ -75,6 +75,15 @@ Phases, each printing one JSON line; any failure exits non-zero:
      head: two launches in bf16; f32 runs from the kernel's own row limit)
      and B4 at D = 256 over 128-slot pages (S = 9 and 33); B1 and B3, like
      B2 and B4, are also timed over a range of forced split counts;
+   - the mesh wrappers on a virtual mesh (every shard on the one card) at
+     phase mesh's shapes: W1 (B1 a shard) at Llama-3-70B's tp=8 decode
+     (64 query heads over 8 KV heads: one KV head a shard, B=4, T=4224),
+     W3 and W2 (B3 a shard) at Llama-3-8B's paged decode on tp=2 and on
+     dp=2 × tp=2 (128-slot pages, 33 a row, each dp slice's trash page
+     NaN-poisoned, the global trash id inside a window); each against its
+     plain version (the same split around B1's / B3's), timed as B1/B3
+     (all shards of one call), beside SDPA on the unsharded tensors and
+     the bound (the sum of the shards' bytes);
 4. slice   — the dense path: GpuEngine.chat on tpu://random-8b (Llama-3-8B
    at full width, bf16, random weights from seed 0) for four opponent
    requests, greedy, 128 new tokens, speculation on, then the same round
@@ -233,12 +242,31 @@ Phases, each printing one JSON line; any failure exits non-zero:
    rehydrating blocks and its ``check`` clean. ``fleet round``, ``fleet
    scale`` and ``fleet failover`` lines; (a)'s and (c)'s B3/B4 launches
    join the kernels line;
-15. agree  — tiny f32 models decoded greedily on the card (kernels) and on
+15. mesh   — the multi-device mesh from ``GpuEngine.chat`` on virtual
+   meshes (``GpuEngine(devices=[cuda] * n)``: every shard on the one
+   card), four opponents, a ~3 KB spec, 64 new tokens, greedy: (a)
+   tpu://random-70b on its own {"tp": 8} mesh at full width (Llama-3-70B:
+   dim 8192, 64 query over 8 KV heads, ffn 28672) with 8 of its 80
+   layers, dense, round 1 speculation on (B2 on every shard), round 2
+   off (W1 every step); (b) random-8b at full width and depth, dense on
+   {"dp": 2} (the sharded program: B2 a shard, W1), paged on {"tp": 2} (W3) and on
+   {"dp": 2, "tp": 2} (W2). Counters zeroed before each round; each
+   named kernel must launch at least once a shard; each wrapper's first
+   call is recomputed by its plain version (bf16 tolerance); the tp=2
+   round's first-step logits are held to one device's on the same
+   prompts (bf16 tolerance of the largest logit); each engine is dropped
+   before the next and device memory must fall back. ``mesh round``
+   lines carry the mesh, its devices and which collective ran. With two
+   or more cards it also runs (b)'s tp=2 alias through ``critique``
+   over cuda:0 and cuda:1 (NCCL); with one it says it did not;
+16. agree  — tiny f32 models decoded greedily on the card (kernels) and on
    the CPU (plain versions) give identical tokens: dense generate() with
    speculation on (B2, or B2-i8, must launch), generate(paged=True) (B3,
    or B3-i8), and the paged batcher with speculation on and off; full
    precision, the same weights quantized int8 (B5) and int4 (B6), and an
-   int8 KV cache beside full-precision and int4 weights.
+   int8 KV cache beside full-precision and int4 weights; and generate()
+   on virtual {"tp": 2}, {"dp": 2} and {"dp": 2, "tp": 2} meshes, dense
+   and paged (B2, W3, W2 on dp=2 and on dp=2 x tp=2).
 
 Each phase's line carries its ``seconds``; a ``seconds`` line sums them
 up by phase. Then one ``kernels`` JSON line and, last, ``{"ok": true,
@@ -280,6 +308,10 @@ KERNELS = {
     "paged_decode_attention_mq_int8kv": ("csrc/verify_attention.cu", "adversarial_spec_tpu/ops/pallas_paged.py:271"),
     "matmul_int8": ("csrc/quant_matmul.cu", "adversarial_spec_tpu/ops/pallas_quant.py:180"),
     "matmul_int4": ("csrc/quant_matmul.cu", "adversarial_spec_tpu/ops/pallas_quant.py:216"),
+    # The mesh wrappers: per-shard launches of B1 / B3 (csrc/decode_attention.cu).
+    "decode_attention_tp": ("ops/decode_attention.py", "adversarial_spec_tpu/ops/pallas_decode.py:350"),
+    "paged_decode_attention_tp": ("ops/paged_attention.py", "adversarial_spec_tpu/ops/pallas_paged.py:443"),
+    "paged_decode_attention_dp_tp": ("ops/paged_attention.py", "adversarial_spec_tpu/ops/pallas_paged.py:372"),
 }
 BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)  # one bf16 rounding of the output
 F32_TOL = dict(rtol=5e-5, atol=5e-5)  # summation order over 4224 slots
@@ -416,14 +448,15 @@ def finish_bounds(results: dict) -> None:
 
 
 def sdpa(qq, kk, vv, mask):
-    """scaled_dot_product_attention over a cache of HKV heads shared by
-    HQ // HKV query heads: the library yardstick (the port never calls it)."""
+    """scaled_dot_product_attention over a cache of KV heads each shared by
+    a group of query heads: the library yardstick (the port never calls
+    it)."""
     import torch.nn.functional as F
 
     try:
         return F.scaled_dot_product_attention(qq, kk, vv, attn_mask=mask, enable_gqa=True)
     except TypeError:  # older torch: no enable_gqa
-        g = HQ // HKV
+        g = qq.shape[1] // kk.shape[1]
         return F.scaled_dot_product_attention(
             qq, kk.repeat_interleave(g, 1), vv.repeat_interleave(g, 1), attn_mask=mask
         )
@@ -2246,15 +2279,15 @@ HF_POOL_LAYERS = 8
 
 
 @contextlib.contextmanager
-def depth(n_layers: int):
-    """While the block runs, random-8b's config (llama/8b) keeps its full
-    width and only its first ``n_layers`` layers: every engine, loader
-    preflight and checkpoint written in the block sees that depth."""
+def depth(n_layers: int, key: tuple = ("llama", "8b")):
+    """While the block runs, the config ``key`` (random-8b's, llama/8b, by
+    default) keeps its full width and only its first ``n_layers`` layers:
+    every engine, loader preflight and checkpoint written in the block
+    sees that depth."""
     import dataclasses
 
     from adversarial_spec_tpu_torch.models import config
 
-    key = ("llama", "8b")
     full = config.CONFIGS[key]
     config.CONFIGS[key] = dataclasses.replace(full, n_layers=n_layers)
     try:
@@ -3339,14 +3372,16 @@ def capturing_first_call(module, name: str, store: list):
 
     real = getattr(module, name)
 
-    def copy(x):
+    def copy(x):  # a tensor, or a mesh wrapper's [dp][tp] grid of them
+        if isinstance(x, list):
+            return [copy(y) for y in x]
         return x.clone() if isinstance(x, torch.Tensor) else x
 
     def wrapped(*args, **kwargs):
         out = real(*args, **kwargs)
         if not store:
             store.append(([copy(a) for a in args],
-                          {k: copy(v) for k, v in kwargs.items()}, out.clone()))
+                          {k: copy(v) for k, v in kwargs.items()}, copy(out)))
         return out
 
     setattr(module, name, wrapped)
@@ -4183,7 +4218,460 @@ def phase_agree(torch) -> dict:
             report[key] = entry
         else:
             report.update(entry)
+    report["mesh"] = agree_on_meshes(torch, base, cfg, prompts)
     return report
+
+
+def agree_on_meshes(torch, base, cfg, prompts) -> dict:
+    """The tiny f32 llama on virtual {"tp": 2}, {"dp": 2} and {"dp": 2,
+    "tp": 2} meshes, every shard on the card and then every shard on the
+    CPU: greedy tokens of generate(mesh=...) identical, dense (speculation
+    on: B2 a shard) and paged (W3 on tp=2, W2 on dp=2 and on dp=2 × tp=2:
+    every mesh runs the one sharded program)."""
+    from adversarial_spec_tpu_torch.engine.generate import generate
+    from adversarial_spec_tpu_torch.models.transformer import map_params
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+    from adversarial_spec_tpu_torch.parallel.mesh import make_mesh
+    from adversarial_spec_tpu_torch.parallel.sharding import shard_params
+
+    on_cpu = map_params(lambda t: t.cpu(), base)
+    out = {}
+    for spec, paged_kernel in (({"tp": 2}, "paged_decode_attention_tp"),
+                               ({"dp": 2}, "paged_decode_attention_dp_tp"),
+                               ({"dp": 2, "tp": 2}, "paged_decode_attention_dp_tp")):
+        n = mesh_size(spec)
+        for paged in (False, True):
+            for mod in (da, pa):
+                mod.reset_launches()
+            toks = {}
+            for dev, p in (("cuda", base), ("cpu", on_cpu)):
+                mesh = make_mesh(spec, [dev] * n)
+                toks[dev] = generate(
+                    shard_params(mesh, p), cfg, prompts, max_new_tokens=48, eos_ids=[2],
+                    greedy=True, speculative=not paged, paged=paged, page_size=16, mesh=mesh,
+                ).tokens
+            label = f"{json.dumps(spec)} {'paged' if paged else 'dense'}"
+            if not bool((toks["cuda"] == toks["cpu"]).all()):
+                raise RuntimeError(f"tiny f32 on {label}: tokens differ between card and CPU")
+            launched = {**da.launches, **pa.launches, **da.mesh_launches, **pa.mesh_launches}
+            need = paged_kernel if paged else "decode_attention_mq"
+            if launched[need] < n:
+                raise RuntimeError(f"tiny f32 on {label}: {need} launched {launched[need]} "
+                                   f"times over {n} shards")
+            out[label] = {"identical_tokens": True, "shape": list(toks["cuda"].shape),
+                          "launches": {k: v for k, v in launched.items() if v}}
+    return out
+
+
+# -- the multi-device mesh: W1-W3 and phase mesh ---------------------------------
+
+# W1 at Llama-3-70B's decode on its {"tp": 8} mesh (one KV head and its
+# eight query heads a shard); W3 and W2 at Llama-3-8B's paged decode on
+# {"tp": 2} and {"dp": 2, "tp": 2} (generate(paged=True)'s 128-slot pages,
+# 33 a row for T_CACHE slots).
+MESH_HQ70, MESH_HKV70 = 64, 8
+MESH_PAGE, MESH_PAGES_ROW = 128, -(-T_CACHE // 128)
+
+
+def phase_mesh_kernels(torch, da, pa) -> tuple[dict, list]:
+    """W1, W2 and W3 on a virtual mesh (every shard on cuda:0) at the
+    shapes phase mesh gives them, each against its plain version (the
+    same per-shard split around B1's / B3's plain version) within the
+    bf16 tolerance: left pads, a single-slot and an empty window, and for
+    W2 a NaN-poisoned trash page in each dp slice and the global trash id
+    inside a window. Timed as B1/B3 are (all shards of one call, CUDA
+    graph replay, cold L2), beside the plain version, SDPA over the same
+    windows on the unsharded tensors and the bound: the sum of the shards'
+    bytes (each shard reads its heads' windows, its table and bounds)."""
+    from adversarial_spec_tpu_torch.engine.kvcache import slice_page_tables
+    from adversarial_spec_tpu_torch.parallel.mesh import DP, TP, make_mesh
+    from adversarial_spec_tpu_torch.parallel.sharding import gather, split
+
+    dev = torch.device("cuda")
+    gen = torch.Generator(device=dev)
+    gen.manual_seed(14)
+    results, checks = {}, []
+    elem = 2
+    bnd = B1_BOUNDS
+    bounds = torch.tensor(bnd, dtype=torch.int32, device=dev)
+    valid = sum(max(hi - lo, 0) for lo, hi in bnd)
+
+    def draw(shape):
+        return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    # ---- W1: 70B on {"tp": 8} ----
+    mesh = make_mesh({"tp": 8}, [dev] * 8)
+    kv_spec, q_spec = (DP, TP, None, None), (DP, TP, None)
+    q = draw((B, MESH_HQ70, D))
+    rot = [(draw((B, MESH_HKV70, T_CACHE, D)), draw((B, MESH_HKV70, T_CACHE, D)))
+           for _ in range(N_ROTATE)]
+    gq, gb = split(q, mesh, q_spec), split(bounds, mesh, (DP,))
+    grot = [(split(k, mesh, kv_spec), split(v, mesh, kv_spec)) for k, v in rot]
+    gkv = lambda i: grot[i % N_ROTATE]  # noqa: E731
+    got = gather(da.decode_attention_tp(gq, *gkv(0), gb, mesh), mesh, q_spec)
+    want = gather(da.decode_attention_tp_plain(gq, *gkv(0), gb, mesh), mesh, q_spec)
+    err = check_close(checks, "W1 bf16 tp=8 windows", got, want, BF16_TOL, empty_row=3)
+    for cap in (50.0,):
+        got = gather(da.decode_attention_tp(gq, *gkv(1), gb, mesh, attn_softcap=cap), mesh, q_spec)
+        want = gather(da.decode_attention_tp_plain(gq, *gkv(1), gb, mesh, attn_softcap=cap),
+                      mesh, q_spec)
+        check_close(checks, f"W1 bf16 tp=8 softcap={cap}", got, want, BF16_TOL, empty_row=3)
+    mask1 = torch.zeros((B, 1, 1, T_CACHE), dtype=torch.bool, device=dev)
+    for r, (lo, hi) in enumerate(bnd):
+        mask1[r, :, :, lo:hi] = True
+    tp = mesh.shape[TP]
+    results["decode_attention_tp"] = {
+        **timed(lambda i: da.decode_attention_tp(gq, *gkv(i), gb, mesh), 50, torch),
+        "plain_ms": cuda_ms(lambda i: da.decode_attention_tp_plain(gq, *gkv(i), gb, mesh),
+                            8, torch),
+        "library_ms": graph_ms(lambda i: sdpa(q[:, :, None], *rot[i % N_ROTATE], mask1),
+                               20, torch),
+        "bytes": window_bytes([[lo] for lo, _ in bnd], [[hi] for _, hi in bnd], T_CACHE,
+                              2 * MESH_HKV70 * D * elem)
+        + 2 * q.numel() * elem + tp * bounds.numel() * 4,
+        "ops": 4 * MESH_HQ70 * D * valid,
+        "max_abs_err": err,
+        "mesh": dict(mesh.shape),
+        "shard": {"rows": B, "q_heads": MESH_HQ70 // tp, "kv_heads": MESH_HKV70 // tp},
+    }
+    del rot, grot
+
+    # ---- W3 ({"tp": 2}) and W2 ({"dp": 2, "tp": 2}): 8B's paged decode ----
+    for name, spec, wrap, plain in (
+        ("paged_decode_attention_tp", {"tp": 2}, pa.paged_decode_attention_tp,
+         pa.paged_decode_attention_tp_plain),
+        ("paged_decode_attention_dp_tp", {"dp": 2, "tp": 2}, pa.paged_decode_attention_dp_tp,
+         pa.paged_decode_attention_dp_tp_plain),
+    ):
+        mesh = make_mesh(spec, [dev] * mesh_size(spec))
+        dp, tp = mesh.shape[DP], mesh.shape[TP]
+        _, table_np, lp = slice_page_tables(B, dp, MESH_PAGES_ROW)
+        table_np = table_np.copy()
+        table_np[0, 3] = 0  # the global trash id inside row 0's window
+        n_pages = dp * lp
+        table = torch.as_tensor(table_np, dtype=torch.int32, device=dev)
+        page_spec = (DP, TP, None, None) if dp > 1 else (None, TP, None, None)
+        row_spec = (DP,) if dp > 1 else ()
+        q_sp = (DP, TP, None) if dp > 1 else (None, TP, None)
+
+        def pool():
+            p = draw((n_pages, HKV, MESH_PAGE, D))
+            p[torch.arange(dp, device=dev) * lp] = float("nan")  # each slice's trash page
+            return p
+
+        rot = [(pool(), pool()) for _ in range(N_ROTATE)]
+        q = draw((B, HQ, D))
+        gq = split(q, mesh, q_sp)
+        gt, gb = split(table, mesh, row_spec), split(bounds, mesh, row_spec)
+        grot = [(split(k, mesh, page_spec), split(v, mesh, page_spec)) for k, v in rot]
+        gkv = lambda i: grot[i % N_ROTATE]  # noqa: E731
+        got = gather(wrap(gq, *gkv(0), gt, gb, mesh), mesh, q_sp)
+        want = gather(plain(gq, *gkv(0), gt, gb, mesh), mesh, q_sp)
+        err = check_close(checks, f"{'W2' if dp > 1 else 'W3'} bf16 {spec}", got, want,
+                          BF16_TOL, empty_row=3)
+
+        def dense(pages):  # untimed gather for the SDPA yardstick
+            g = pages[table.clamp(min=0).long()]  # [B, P, Hkv, page, D]
+            return g.transpose(1, 2).reshape(B, HKV, -1, D)
+
+        rot_dense = [(dense(k), dense(v)) for k, v in rot]
+        slots = MESH_PAGES_ROW * MESH_PAGE
+        mask = torch.zeros((B, 1, 1, slots), dtype=torch.bool, device=dev)
+        for r, (lo, hi) in enumerate(bnd):
+            mask[r, :, :, lo:hi] = True
+        mapped = torch.repeat_interleave(table > 0, MESH_PAGE, dim=1)[:, None, None, :]
+        mask &= mapped
+        read = sum(max(min(hi, slots) - lo, 0) for lo, hi in bnd)
+        results[name] = {
+            **timed(lambda i: wrap(gq, *gkv(i), gt, gb, mesh), 50, torch),
+            "plain_ms": cuda_ms(lambda i: plain(gq, *gkv(i), gt, gb, mesh), 8, torch),
+            "library_ms": graph_ms(
+                lambda i: sdpa(q[:, :, None], *rot_dense[i % N_ROTATE], mask), 20, torch
+            ),
+            "bytes": read * 2 * HKV * D * elem + 2 * q.numel() * elem
+            + tp * (table.numel() + bounds.numel()) * 4,
+            "ops": 4 * HQ * D * valid,
+            "max_abs_err": err,
+            "mesh": dict(mesh.shape),
+            "shard": {"rows": B // dp, "q_heads": HQ // tp, "kv_heads": HKV // tp,
+                      "pages": lp},
+        }
+        del rot, grot, rot_dense
+    finish_bounds(results)
+    torch.cuda.synchronize()
+    return results, checks
+
+
+def mesh_size(spec: dict) -> int:
+    n = 1
+    for v in spec.values():
+        n *= v
+    return n
+
+
+def mesh_round(torch, engine, reqs, sp, label: str, must_launch: tuple) -> dict:
+    """One chat() round on a mesh alias: every counter zeroed just before
+    and read just after; each name of ``must_launch`` must have launched
+    at least once a shard (the W counters count per shard)."""
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+    from adversarial_spec_tpu_torch.parallel import collectives
+
+    for mod in (da, pa):
+        mod.reset_launches()
+    collectives.reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t = time.monotonic()
+    comps = engine.chat(reqs, sp)
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    bad = [c.error for c in comps if not c.ok]
+    if bad:
+        raise RuntimeError(f"mesh {label}: chat failed: {bad}")
+    launched = {**da.launches, **pa.launches, **da.mesh_launches, **pa.mesh_launches}
+    lm = next(iter(engine._models.values()))
+    shards = lm.mesh.size
+    short = {k: launched[k] for k in must_launch if launched[k] < shards}
+    if short:
+        raise RuntimeError(f"mesh {label}: fewer launches than shards ({shards}): {short}")
+    decode_s = sum(c.usage.decode_time_s for c in comps)
+    out_tok = sum(c.usage.output_tokens for c in comps)
+    line = {
+        "round": label,
+        "mesh": dict(lm.mesh.shape),
+        "devices": sorted({str(d) for d in lm.mesh.devices.flat}),
+        "virtual": not lm.mesh.distinct,
+        "collectives": dict(collectives.counts),
+        "chat_wall_s": wall,
+        "prefill_s": sum(c.usage.prefill_time_s for c in comps),
+        "decode_s": decode_s,
+        "decode_tokens_per_s": out_tok / decode_s if decode_s > 0 else 0.0,
+        "output_tokens": [c.usage.output_tokens for c in comps],
+        "weight_bytes_per_chip": lm.bytes_per_chip,
+        "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+        "launches": {k: v for k, v in launched.items() if v},
+    }
+    emit({"phase": "mesh round", **line})
+    return line
+
+
+def held_first_call(torch, store: list, plain, name: str, checks: list) -> float:
+    """The first captured call of a mesh wrapper recomputed by its plain
+    version on the same inputs, within the bf16 tolerance."""
+    from adversarial_spec_tpu_torch.parallel.mesh import Mesh
+    from adversarial_spec_tpu_torch.parallel.sharding import gather
+
+    if not store:
+        raise RuntimeError(f"{name}: never called on the main path")
+    args, kwargs, out = store[0]
+    mesh = next(a for a in args if isinstance(a, Mesh))
+    spec = ("dp", "tp", None)
+    got = gather(out, mesh, spec)
+    want = gather(plain(*args, **kwargs), mesh, spec)
+    return check_close(checks, f"{name} first call on the main path", got, want, BF16_TOL)
+
+
+def phase_mesh(torch) -> dict:
+    """The multi-device mesh from the user's entry point, on a virtual
+    mesh (every shard on cuda:0; ``GpuEngine(devices=[cuda:0] * n)``):
+    (a) tpu://random-70b on its own {"tp": 8} mesh at full width with 8
+    of its 80 layers, dense, four opponents, a ~3 KB spec, 64 new tokens,
+    greedy — round 1 speculation on (B2 on every shard, W1 in its tail),
+    round 2 off (W1 every step); (b) random-8b at full width and depth:
+    dense on {"dp": 2} (the sharded program: B2 a shard, W1 in the
+    tail), paged on {"tp": 2}
+    (W3) and paged on {"dp": 2, "tp": 2} (W2). Each wrapper's first call
+    is recomputed by its plain version; (b)'s {"tp": 2} round's first
+    logits are held to a single-device run's on the same prompts; each
+    engine is dropped before the next and device memory must fall back.
+    Where the machine has two cards, (b)'s {"tp": 2} round runs through
+    ``critique`` over cuda:0 and cuda:1 (NCCL); with one, the line says
+    so."""
+    import gc
+
+    from adversarial_spec_tpu_torch.engine import gpu as gpu_mod
+    from adversarial_spec_tpu_torch.engine import registry
+    from adversarial_spec_tpu_torch.engine import spec as spec_mod
+    from adversarial_spec_tpu_torch.engine.generate import generate
+    from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
+    from adversarial_spec_tpu_torch.engine.loader import materialize_params
+    from adversarial_spec_tpu_torch.engine.types import ChatRequest, SamplingParams
+    from adversarial_spec_tpu_torch.models import transformer
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+
+    dev = torch.device("cuda")
+    report = {"phase": "mesh", "cards": torch.cuda.device_count(), "rounds": [], "checks": []}
+    checks = report["checks"]
+    doc = spec_document(3000, 14) + "\n\nCritique this spec."
+    sp = SamplingParams(max_new_tokens=64, greedy=True, seed=0)
+    base_mem = torch.cuda.memory_allocated()
+
+    def reqs(alias):
+        return [ChatRequest(f"tpu://{alias}", p, doc) for p in PERSONAS[:4]]
+
+    def dropped(engine, label):
+        """Drop the engine's models (the caller drops the engine)."""
+        engine._models.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() - base_mem
+        report.setdefault("memory_after_drop", {})[label] = left
+        if left > (256 << 20):
+            raise RuntimeError(f"mesh {label}: {left} bytes still allocated after the drop")
+
+    # (a) 70B on {"tp": 8}, 8 of its 80 layers.
+    with depth(8, ("llama", "70b")):
+        engine = GpuEngine(devices=[dev] * 8)
+        first: list = []
+        spec_mod.configure(enabled=True)
+        with capturing_first_call(transformer, "decode_attention_tp", first):
+            report["rounds"].append(mesh_round(
+                torch, engine, reqs("random-70b"), sp, "70b tp=8 speculation on",
+                ("decode_attention_mq",)))
+        spec_mod.configure(enabled=False)
+        try:
+            report["rounds"].append(mesh_round(
+                torch, engine, reqs("random-70b"), sp, "70b tp=8 speculation off",
+                ("decode_attention_tp",)))
+        finally:
+            spec_mod.configure(enabled=True)
+        report["w1_first_call_err"] = held_first_call(
+            torch, first, da.decode_attention_tp_plain, "W1", checks)
+        first.clear()
+        dropped(engine, "70b tp=8")
+
+    # (b) 8B at full width and depth.
+    specs = (
+        registry.ModelSpec(alias="mesh-dp2", family="llama", size="8b", mesh={"dp": 2}),
+        registry.ModelSpec(alias="mesh-tp2-paged", family="llama", size="8b",
+                           mesh={"tp": 2}, kv="paged"),
+        registry.ModelSpec(alias="mesh-dp2tp2-paged", family="llama", size="8b",
+                           mesh={"dp": 2, "tp": 2}, kv="paged"),
+    )
+    with temp_registry(*specs):
+        engine = GpuEngine(devices=[dev] * 2)
+        report["rounds"].append(mesh_round(
+            torch, engine, reqs("mesh-dp2"), sp, "8b dp=2 dense",
+            ("decode_attention_mq", "decode_attention_tp")))
+        dropped(engine, "8b dp=2")
+
+        engine = GpuEngine(devices=[dev] * 2)
+        first, calls = [], []
+        real = gpu_mod.generate
+
+        def recording(*args, **kwargs):
+            calls.append((args[2], {k: v for k, v in kwargs.items() if k != "mesh"}))
+            return real(*args, **kwargs)
+
+        gpu_mod.generate = recording
+        try:
+            with capturing_first_call(transformer, "paged_decode_attention_tp", first), \
+                    capturing_logits() as mesh_logits:
+                report["rounds"].append(mesh_round(
+                    torch, engine, reqs("mesh-tp2-paged"), sp, "8b tp=2 paged",
+                    ("paged_decode_attention_tp",)))
+        finally:
+            gpu_mod.generate = real
+        report["w3_first_call_err"] = held_first_call(
+            torch, first, pa.paged_decode_attention_tp_plain, "W3", checks)
+        first.clear()
+        dropped(engine, "8b tp=2 paged")
+        # The same prompts on one device: the first step's logits agree.
+        params, cfg = materialize_params("random", "llama", "8b", device="cuda")
+        prompts, kwargs = calls[0]
+        with capturing_logits() as single_logits:
+            generate(params, cfg, prompts, **kwargs)
+        del params
+        # The all-reduce sums bf16 partials in another order than one
+        # device's matmul: held to the bf16 tolerance of the largest logit.
+        got, want = mesh_logits[0], single_logits[0]
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        tol = {"rtol_of_max": BF16_TOL["rtol"], "atol": BF16_TOL["atol"]}
+        if not (bool(torch.isfinite(got).all()) and err <= BF16_TOL["rtol"] * scale + BF16_TOL["atol"]):
+            raise RuntimeError(f"8b tp=2 first-step logits {err} from one device's "
+                               f"(largest {scale})")
+        checks.append({"case": "8b tp=2 first-step logits vs one device",
+                       "max_abs_err": err, "max_abs_logit": scale, "tol": tol})
+        report["tp2_first_logits_err"] = err
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        engine = GpuEngine(devices=[dev] * 4)
+        first = []
+        with capturing_first_call(transformer, "paged_decode_attention_dp_tp", first):
+            report["rounds"].append(mesh_round(
+                torch, engine, reqs("mesh-dp2tp2-paged"), sp, "8b dp=2 tp=2 paged",
+                ("paged_decode_attention_dp_tp",)))
+        report["w2_first_call_err"] = held_first_call(
+            torch, first, pa.paged_decode_attention_dp_tp_plain, "W2", checks)
+        first.clear()
+        dropped(engine, "8b dp=2 tp=2 paged")
+
+    if torch.cuda.device_count() >= 2:
+        report["two_cards"] = mesh_two_cards(torch, doc)
+    else:
+        report["two_cards"] = ("not run: this machine has one card, so no mesh of "
+                               "distinct cards (NCCL collectives) can be built")
+    launched = {}
+    for r in report["rounds"]:
+        for k, n in r["launches"].items():
+            launched[k] = launched.get(k, 0) + n
+    report["launches"] = launched
+    return report
+
+
+@contextlib.contextmanager
+def capturing_logits():
+    """While the block runs, keep the first logits ``generate`` samples
+    from (the prefill's last position) of each call."""
+    from adversarial_spec_tpu_torch.engine import generate as gen_mod
+
+    real = gen_mod.sample_tokens
+    store: list = []
+
+    def wrapped(logits, *args, **kwargs):
+        # generate's own call is its prefill's; decode steps sample from
+        # helpers (_sample_step) or other modules.
+        if sys._getframe(1).f_code.co_name == "generate":
+            store.append(logits.float().clone())
+        return real(logits, *args, **kwargs)
+
+    gen_mod.sample_tokens = wrapped
+    try:
+        yield store
+    finally:
+        gen_mod.sample_tokens = real
+
+
+def mesh_two_cards(torch, doc: str) -> dict:
+    """(b)'s {"tp": 2} paged round through ``critique`` over cuda:0 and
+    cuda:1: the collectives must take the NCCL way."""
+    from adversarial_spec_tpu_torch.engine import dispatch
+    from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
+    from adversarial_spec_tpu_torch.parallel import collectives
+
+    collectives.reset_counts()
+    with cli_state():
+        dispatch.install_engine("tpu://mesh-tp2-paged",
+                                GpuEngine(devices=["cuda:0", "cuda:1"]))
+        code, out, err = run_cli(
+            ["registry", "add-model", "mesh-tp2-paged", "--family", "llama", "--size", "8b",
+             "--kv", "paged", "--tp", "2"])
+        if code:
+            raise RuntimeError(f"registry add-model failed: {err[-2000:]}")
+        code, out, err = run_cli(
+            ["critique", "--models", ",".join(["tpu://mesh-tp2-paged"] * 4),
+             "--greedy", "--max-new-tokens", "64", "--json"], doc)
+        if code:
+            raise RuntimeError(f"two-card critique failed: {err[-2000:]}")
+    if collectives.counts["nccl"] == 0:
+        raise RuntimeError(f"two-card round never took the NCCL way: {collectives.counts}")
+    return {"devices": ["cuda:0", "cuda:1"], "collectives": dict(collectives.counts),
+            "results": [r["output_tokens"] for r in json.loads(out)["results"]]}
 
 
 def main(argv: list[str]) -> int:
@@ -4193,9 +4681,9 @@ def main(argv: list[str]) -> int:
     only = []
     if "--only" in argv:
         only = argv[argv.index("--only") + 1].split(",")
-        unknown = set(only) - {"batcher", "pgen", "serve", "fleet", "agree"}
+        unknown = set(only) - {"batcher", "pgen", "serve", "fleet", "mesh", "agree"}
         if unknown:
-            return fail("--only takes batcher, pgen, serve, fleet and agree, "
+            return fail("--only takes batcher, pgen, serve, fleet, mesh and agree, "
                         f"not {sorted(unknown)}")
     profile = "--profile" in argv
     if not os.path.isdir(os.path.join(HERE, PKG)):
@@ -4264,7 +4752,8 @@ def main(argv: list[str]) -> int:
     if only:  # iteration on the named phases; no kernels or ok line
         for name in only:
             run(name, {"batcher": phase_batcher, "pgen": phase_pgen, "serve": phase_serve,
-                       "fleet": phase_fleet, "agree": phase_agree}[name], torch)
+                       "fleet": phase_fleet, "mesh": phase_mesh, "agree": phase_agree}[name],
+                torch)
         emit({"phase": "seconds", **seconds})
         print(smi_line, flush=True)
         return 0
@@ -4297,6 +4786,9 @@ def main(argv: list[str]) -> int:
     checks += phase_decode_edges(torch, da, pa)
     qres, qchecks, qcases, qsweeps = phase_quant_kernels(torch, qm, quant)
     kres.update(qres)
+    mres, mchecks = phase_mesh_kernels(torch, da, pa)
+    kres.update(mres)
+    checks += mchecks
     emit({"phase": "kernels", "checks": checks, "quant_checks": len(qchecks),
           "quant_worst": {name: r["max_abs_err"] for name, r in qres.items()}})
     for c in qcases:  # one short line per B5/B6 timing (all in chip_smoke.json)
@@ -4355,12 +4847,16 @@ def main(argv: list[str]) -> int:
         pgen = run("pgen", phase_pgen, torch)
         sv = run("serve", phase_serve, torch)
         fl = run("fleet", phase_fleet, torch)
-        for ph in (bt, pgen, sv, fl):
+        # The multi-device mesh (a virtual one on one card): W1-W3's
+        # launches, one a shard, are this phase's.
+        ms = run("mesh", phase_mesh, torch)
+        for ph in (bt, pgen, sv, fl, ms):
             for k, n in ph["launches"].items():
-                launches[k] = (launches[k] or 0) + n
+                if k in launches:
+                    launches[k] = (launches[k] or 0) + n
         ag = run("agree", phase_agree, torch)
         record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, cli=cl, hf=hf, pool=pl,
-                      batcher=bt, pgen=pgen, serve=sv, fleet=fl, agree=ag)
+                      batcher=bt, pgen=pgen, serve=sv, fleet=fl, mesh=ms, agree=ag)
     emit({"phase": "seconds", **seconds})
     record["phase_seconds"] = seconds
 

@@ -628,21 +628,21 @@ def test_tpu_critique_without_gpu_exits_2(monkeypatch, capsys):
 
 
 def test_unservable_alias_exits_2_before_the_round(monkeypatch, capsys):
-    """An alias the port cannot serve (a mesh) exits 2 with its "not yet
-    ported" message at validation, before any engine work — even with an
-    engine installed."""
+    """An alias the port cannot serve (an sp mesh) exits 2 with its "not
+    yet ported" message at validation, before any engine work — even with
+    an engine installed."""
     from adversarial_spec_tpu_torch.engine import dispatch, registry
     from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
 
     registry.save_registry_entry(
-        registry.ModelSpec(alias="meshy", mesh={"tp": 2})
+        registry.ModelSpec(alias="meshy", mesh={"tp": 2, "sp": 2})
     )
     dispatch.install_engine("tpu://meshy", GpuEngine(device="cpu"))
     code, out, err = sup.run_cli(
         port_cli, ["critique", "--models", "tpu://meshy"], monkeypatch, capsys, SPEC
     )
     assert code == 2
-    assert "not yet ported" in err and "multi-device mesh" in err
+    assert "not yet ported" in err and "sequence-parallel mesh" in err
     assert out == ""
 
 

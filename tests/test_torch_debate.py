@@ -180,15 +180,31 @@ def test_paged_session_matches_reference_and_hits_the_prefix_cache(
 
 
 def _refusal_specs():
+    """The specs still refused: an sp mesh axis, and a tp that does not
+    divide the model's KV heads (the tiny llama has 2). dp, tp and dp×tp
+    meshes are served (``test_mesh_specs_are_served``)."""
     return {
-        "mesh": registry.ModelSpec(alias="m", mesh={"tp": 2}),
+        "mesh": registry.ModelSpec(alias="m", mesh={"sp": 2}),
         # The paged corner with no room for a bucketed prompt is served
-        # (generate(paged=True)); on a mesh it is still refused.
+        # (generate(paged=True)), on a dp mesh too; with an sp axis it is
+        # still refused.
         "paged_budget": registry.ModelSpec(
-            alias="p", kv="paged", max_seq_len=130, mesh={"dp": 2}
+            alias="p", kv="paged", max_seq_len=130, mesh={"dp": 2, "sp": 2}
         ),
-        "mesh_dp_tp": registry.ModelSpec(alias="d", mesh={"dp": 2, "tp": 2}),
+        "mesh_dp_tp": registry.ModelSpec(alias="d", mesh={"dp": 2, "tp": 4}),
     }
+
+
+@pytest.mark.parametrize(
+    "mesh", [{"tp": 2}, {"dp": 2, "tp": 2}, {"dp": 2}, {"tp": 2, "dp": 1}],
+    ids=["tp2", "dp2tp2", "dp2", "tp2dp1"],
+)
+def test_mesh_specs_are_served(mesh):
+    """dp, tp and dp×tp meshes whose tp divides the KV heads are served:
+    ``unported_reason`` has no refusal for them, dense or paged."""
+    for kv in ("dense", "paged"):
+        spec = registry.ModelSpec(alias="m", mesh=mesh, kv=kv)
+        assert unported_reason(spec) is None
 
 
 @pytest.mark.parametrize("case", sorted(_refusal_specs()))
@@ -218,7 +234,7 @@ def test_hf_checkpoint_alias_is_not_refused():
 def test_paged_budget_corner_is_not_refused():
     """A one-device paged alias whose budget leaves no room for a
     bucketed prompt is served by the round-synchronous
-    ``generate(paged=True)``: ``unported_reason`` refuses only meshes."""
+    ``generate(paged=True)``: ``unported_reason`` has no refusal for it."""
     for kv_dtype in ("", "int8"):
         spec = registry.ModelSpec(
             alias="p", kv="paged", max_seq_len=130, kv_dtype=kv_dtype
@@ -227,7 +243,7 @@ def test_paged_budget_corner_is_not_refused():
 
 
 def test_refused_chat_is_a_counted_permanent_bug(tmp_path):
-    registry.save_registry_entry(registry.ModelSpec(alias="d", mesh={"tp": 2}))
+    registry.save_registry_entry(registry.ModelSpec(alias="d", mesh={"tp": 2, "sp": 2}))
     eng = GpuEngine(device="cpu")
     (c,) = eng.chat(
         [ChatRequest("tpu://d", "sys", "hi")],

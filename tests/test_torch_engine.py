@@ -53,7 +53,9 @@ def shared_registry(tmp_path, monkeypatch):
             alias="paged-tiny", family="llama", size="tiny", dtype="float32",
             mesh={"dp": 1}, kv="paged", max_seq_len=130,
         ),
-        registry.ModelSpec(alias="paged-mesh", kv="paged", mesh={"tp": 2}),
+        # A paged alias on a mesh the port does not serve yet (an sp
+        # axis; dp, tp and dp×tp meshes are served, tests/test_torch_parallel.py).
+        registry.ModelSpec(alias="paged-mesh", kv="paged", mesh={"tp": 2, "sp": 2}),
         # An HF checkpoint alias whose directory holds no weights: served
         # now, so both engines answer it with the same error.
         registry.ModelSpec(alias="paged-hf", kv="paged", checkpoint="/no/such/dir"),
