@@ -10,6 +10,8 @@ session one package started, the other resumes.
 
 A knob of a subsystem the port does not have yet exits 2 with "not yet
 ported" (``_unported_knobs``): ``--pipeline-depth 2`` and its env var.
+Every registry mesh alias (dp, tp, sp and their products) runs its round
+on ``GpuEngine``, as the reference's runs on ``TpuEngine``.
 The ``serve`` action runs the port's daemon (``serve/``), and the fleet
 (``--fleet*``, ``--scale-*``, their ``ADVSPEC_FLEET*`` env vars, the
 ``replica`` chaos seam; ``perf.fleet``) is the reference's, over
@@ -626,16 +628,14 @@ def validate_models_before_run(models: list[str]) -> list[str]:
     credential preflight; here it is provider-prefix + registry/checkpoint
     validation via each engine's ``validate``.
 
-    The port also asks ``engine/gpu.py`` ``unported_reason`` about each
-    ``tpu://`` alias, so an alias it cannot serve (an ``sp`` mesh axis,
-    or a tp that does not divide the model's KV heads)
-    exits 2 with its "not yet ported" message instead of running a
-    round of errors; reads the alias's ``tokenizer.json``, so one whose
-    components the port's reader does not implement exits 2 naming the
-    component; and a ``tpu://`` id with no GPU present exits 2 with the
-    port's "no CUDA device is available" message.
+    The port also reads each ``tpu://`` alias's ``tokenizer.json``, so
+    one whose components the port's reader does not implement exits 2
+    naming the component; and a ``tpu://`` id with no GPU present exits 2
+    with the port's "no CUDA device is available" message. Every mesh
+    alias runs its round, as in the reference (one whose tp does not
+    divide the model's KV heads answers each opponent with the
+    reference's ``ValueError``).
     """
-    from adversarial_spec_tpu_torch.engine.gpu import unported_reason
     from adversarial_spec_tpu_torch.engine.tokenizer import load_tokenizer
     from adversarial_spec_tpu_torch.engine.tokenizer_json import (
         UnsupportedTokenizer,
@@ -648,14 +648,6 @@ def validate_models_before_run(models: list[str]) -> list[str]:
             if reg is None:
                 reg = model_registry.load_registry()
             err = model_registry.validate_tpu_model(m, registry=reg)
-            if err is None:
-                spec = reg[model_registry.parse_tpu_model_id(m)]
-                reason = unported_reason(spec)
-                if reason is not None:
-                    err = (
-                        f"needs {reason}, which is not yet ported to the "
-                        "PyTorch/CUDA package"
-                    )
             if err is None:
                 try:
                     load_tokenizer(reg[model_registry.parse_tpu_model_id(m)].tokenizer)

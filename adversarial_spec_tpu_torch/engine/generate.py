@@ -21,15 +21,24 @@ shapes, because the speculative loop's fit test depends on them:
   size divides the bucket, and decode runs the continuous batcher's
   chunk (engine/scheduler.py ``_decode_chunk_impl``, kernel B3 on the
   GPU). Speculation does not apply to this path.
-- ``mesh``: the reference's dp, tp and dp×tp branches (``params`` are
-  ``MeshParams``, ``parallel/sharding.py``). Rows pad up to a multiple of
-  dp and unpad on return; the cache is born sharded; there is no shared
-  prefill. Dense decode runs the sharded ``forward`` (W1 for the S=1
-  step), paged decode lays the pool out per dp slice and runs the
-  sharded paged step (W3 on a tp-only mesh, W2 on any mesh with dp > 1),
-  and speculation runs the sharded program too: every mesh, dp-only
-  included, runs one program with the round's generator. The sp axis is
-  not ported.
+- ``mesh``: the reference's dp, tp, sp and mixed branches (``params``
+  are ``MeshParams``, ``parallel/sharding.py``). Rows pad up to a
+  multiple of dp and unpad on return; the cache is born sharded; there is
+  no shared prefill. With an sp axis whose size splits the padded length,
+  the prompt prefills through the ring (``parallel/sp.py``) and its
+  cache is resharded into the decode layout (``S`` slots when paged,
+  ``total_len`` otherwise; an int8 cache is quantized there); any other
+  length takes the chunked prefill on the mesh, as in the reference.
+  Decode leaves sp idle: the reference replicates it over the sp ranks,
+  the port runs it once per (dp, tp) shard on the sp-rank-0 devices
+  (the result is the same). Dense decode runs the sharded ``forward``
+  (W1 for the S=1 step), paged decode lays the pool out per dp slice and
+  runs the sharded paged step (W3 with dp = 1: tp-only, sp-only, sp×tp;
+  W2 with dp > 1), and speculation runs the sharded program too: every
+  mesh, dp-only included, runs one program with the round's generator.
+  A paged call whose tp does not divide the KV heads warns and goes on
+  dense, where the cache's placement raises the reference's
+  ``ValueError``.
 
 The host drives every step (PyTorch runs eagerly), so the early-exit
 checks read one flag per step.
@@ -66,6 +75,7 @@ from adversarial_spec_tpu_torch.models.transformer import (
     forward,
     init_cache,
 )
+from adversarial_spec_tpu_torch.parallel import sp as sp_mod
 from adversarial_spec_tpu_torch.parallel.mesh import DP, SP, TP, Mesh
 from adversarial_spec_tpu_torch.parallel.sharding import (
     MeshParams,
@@ -349,22 +359,6 @@ def _migrate_to_pages_mesh(
     return pool, torch.as_tensor(global_table, dtype=torch.int32, device=mesh.controller)
 
 
-def check_mesh(cfg: ModelConfig, mesh: Mesh) -> None:
-    """Raise for a mesh the port cannot serve yet: an sp axis (the ring
-    prefill), or a tp that does not divide the KV heads (the reference's
-    kernel-free GSPMD fallback)."""
-    if mesh.shape[SP] > 1:
-        raise NotImplementedError(
-            f"a sequence-parallel mesh {mesh.shape} is not yet ported to "
-            "the PyTorch/CUDA package"
-        )
-    if cfg.n_kv_heads % mesh.shape[TP]:
-        raise NotImplementedError(
-            f"tp={mesh.shape[TP]} not dividing the {cfg.n_kv_heads} KV heads "
-            "is not yet ported to the PyTorch/CUDA package"
-        )
-
-
 @dataclass
 class GenerateResult:
     tokens: np.ndarray  # [B, <=max_new] generated ids (0 past each row's end)
@@ -428,7 +422,6 @@ def generate(
     if on_mesh:
         if not isinstance(params, MeshParams):
             raise TypeError("generate(mesh=...) takes MeshParams (parallel/sharding.py)")
-        check_mesh(cfg, mesh)
         device = mesh.controller
         short = (-n_real) % mesh.shape[DP]
         prompt_ids = prompt_ids + [prompt_ids[-1]] * short
@@ -458,6 +451,15 @@ def generate(
         use_top_p=use_top_p,
     )
     deadline = time.monotonic() + timeout_s if timeout_s > 0 else None
+    if (paged and on_mesh and mesh.size != mesh.shape[DP]
+            and cfg.n_kv_heads % mesh.shape[TP]):
+        print(
+            f"warning: paged KV decode requires tp | n_kv_heads "
+            f"({mesh.shape[TP]} ∤ {cfg.n_kv_heads}); falling back "
+            f"to the dense cache on this mesh ({dict(mesh.shape)})",
+            file=sys.stderr,
+        )
+        paged = False
 
     # Shared prefix: identical rows prefill once and tile.
     # Off the mesh only: dp slices prefill their own rows.
@@ -491,34 +493,43 @@ def generate(
     prefill_pads = pad_lens[:1] if shared else pad_lens
 
     t0 = time.monotonic()
-    # Paged runs drop the dense cache after migrating the prompt KV, so it
-    # holds only the prompt slots.
-    dtype = (params.shard() if on_mesh else params)["embed"].dtype
-    cache = init_cache(
-        cfg,
-        1 if shared_until else prefill_tokens.shape[0],
-        S if paged else total_len,
-        device=device,
-        dtype=dtype,
-        kv_dtype=kv_dtype,
-        mesh=mesh if on_mesh else None,  # born sharded
-    )
-    chunk_len = min(S, PREFILL_CHUNK)
-    last_logits = None
-    for ci in range(0, S, chunk_len):
-        if shared_until and ci == shared_until:
-            cache = {k: v.repeat_interleave(B, dim=1) for k, v in cache.items()}
-        one_row = bool(shared_until) and ci < shared_until
-        last_logits = prefill_chunk(
-            params,
-            cfg,
-            (prefill_tokens[:1] if one_row else prefill_tokens)[
-                :, ci : ci + chunk_len
-            ],
-            prefill_pads[:1] if one_row else prefill_pads,
-            cache,
-            ci,
+    sp = mesh.shape[SP] if on_mesh else 1
+    if sp > 1 and S % sp == 0:
+        # The long-context path: the ring prefill, then its sequence-split
+        # cache into the decode layout (int8 KV quantizes there; paged
+        # runs migrate the prompt slots right below).
+        last_logits, cache = sp_mod.sp_prefill(params, cfg, prefill_tokens, prefill_pads, mesh)
+        cache = sp_mod.reshard_cache_for_decode(
+            cache, mesh, S if paged else total_len, kv_dtype=kv_dtype
         )
+    else:
+        # Paged runs drop the dense cache after migrating the prompt KV,
+        # so it holds only the prompt slots.
+        dtype = (params.shard() if on_mesh else params)["embed"].dtype
+        cache = init_cache(
+            cfg,
+            1 if shared_until else prefill_tokens.shape[0],
+            S if paged else total_len,
+            device=device,
+            dtype=dtype,
+            kv_dtype=kv_dtype,
+            mesh=mesh if on_mesh else None,  # born sharded
+        )
+        chunk_len = min(S, PREFILL_CHUNK)
+        for ci in range(0, S, chunk_len):
+            if shared_until and ci == shared_until:
+                cache = {k: v.repeat_interleave(B, dim=1) for k, v in cache.items()}
+            one_row = bool(shared_until) and ci < shared_until
+            last_logits = prefill_chunk(
+                params,
+                cfg,
+                (prefill_tokens[:1] if one_row else prefill_tokens)[
+                    :, ci : ci + chunk_len
+                ],
+                prefill_pads[:1] if one_row else prefill_pads,
+                cache,
+                ci,
+            )
     # The rows that reused the shared prefill count as saved prefill
     # tokens in ``perf.prefix_cache``, as the reference counts them.
     if shared_until:

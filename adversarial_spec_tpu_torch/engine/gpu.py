@@ -58,23 +58,25 @@ on their batcher.
 A spec's mesh is built over the engine's device list (``devices``,
 default every visible card, the counterpart of ``jax.devices()``; a
 device may repeat, a virtual mesh) by the reference's rules
-(``parallel/mesh.py``): ``{"tp": 2}`` on 8 devices is dp=4 × tp=2. A
-multi-device mesh places each leaf in its shards as it is read
-(``parallel/sharding.py``), counts one device's shard against the byte
-budget, demotes and promotes every shard (restoring the layout), and is
-served by ``generate(mesh=...)`` — a paged spec too, never the batcher,
-as the reference routes it. Specs the port cannot serve yet — an ``sp``
-mesh axis and a tp that does not divide the KV heads (both wait for the
-ring prefill and a kernel-free fallback) — get a "not yet ported" error;
-they are never served silently another way. A ``kv_dtype`` other than
-``""`` or ``"int8"`` is an error.
+(``parallel/mesh.py``): ``{"tp": 2}`` on 8 devices is dp=4 × tp=2, and
+``{"sp": 4}`` on 4 devices one sp group of four. A multi-device mesh
+places each leaf in its shards as it is read (``parallel/sharding.py``;
+weights are replicated over sp, one copy per physical device), counts
+one device's shard against the byte budget, demotes and promotes every
+shard (restoring the layout), and is served by ``generate(mesh=...)`` —
+a paged spec too, never the batcher, as the reference routes it: an sp
+axis prefills through the ring (``parallel/sp.py``). A tp that does not
+divide the model's KV heads fails as the reference's ``TpuEngine``
+fails it: the weights load, and the dense cache's placement raises a
+``ValueError`` ("implies that array axis 2 is partitioned ..."; a paged
+spec warns first and falls back to the dense cache), which every row of
+the group carries. A ``kv_dtype`` other than ``""`` or ``"int8"`` is an
+error.
 
 Every failure is classified as the reference's ``TpuEngine`` classifies
 it (``resilience.faults.classify``): the kind sets
 ``Completion.transient`` and is counted at the injected fault's own seam,
-else at ``generate``. The refusals' wording names no fault marker, so
-each one classifies as ``BUG``: a refusal is never retried, hedged, or
-counted as a TIMEOUT.
+else at ``generate``.
 """
 
 from __future__ import annotations
@@ -153,21 +155,6 @@ def fits_batcher(cfg: ModelConfig, max_new_tokens: int) -> bool:
     """True when a bucketed prompt still fits beside the budget — the
     reference's gate for serving a paged spec through the batcher."""
     return cfg.max_seq_len - max_new_tokens >= MIN_BUCKET
-
-
-def unported_reason(spec: ModelSpec) -> str | None:
-    """Why the port cannot serve ``spec`` yet, or None: a mesh with an
-    ``sp`` axis (the ring prefill), or a tp that does not divide the
-    model's KV heads. The wording avoids the fault markers of
-    resilience/faults.py: a refusal must classify as BUG."""
-    if int(spec.mesh.get("sp", 1)) > 1:
-        return f"a sequence-parallel mesh {spec.mesh}"
-    tp = int(spec.mesh.get("tp", 1))
-    if tp > 1:
-        cfg = get_config(spec.family, spec.size, max_seq_len=spec.max_seq_len)
-        if cfg.n_kv_heads % tp:
-            return f"tp={tp} over {cfg.n_kv_heads} KV heads (tp must divide them)"
-    return None
 
 
 def hbm_budget_bytes(device: torch.device | None = None) -> int:
@@ -917,17 +904,11 @@ class GpuEngine:
 
     def _refusal(self, alias: str, params: SamplingParams) -> Exception | None:
         """Why ``alias`` cannot be served this round, checked before any
-        weights load: an unknown alias, a KV dtype or spec the port does
-        not serve, or a ``tokenizer.json`` its reader refuses."""
+        weights load: an unknown alias, a KV dtype the port does not
+        serve, or a ``tokenizer.json`` its reader refuses."""
         try:
             spec = registry_mod.resolve_model_spec(f"tpu://{alias}")
             check_kv_dtype(spec.kv_dtype)
-            reason = unported_reason(spec)
-            if reason is not None:
-                raise NotImplementedError(
-                    f"tpu://{alias} needs {reason}, which is not yet "
-                    "ported to the PyTorch/CUDA package"
-                )
             load_tokenizer(spec.tokenizer)
         except Exception as e:
             return e

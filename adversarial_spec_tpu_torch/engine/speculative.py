@@ -13,7 +13,9 @@ finishes on ``rowwise_decode_steps`` (per-row slots, kernel B1).
 The reference runs each loop as one device program; here the loops run on
 the host and check their exit condition between iterations. State tensors
 (``out_buf``, the cache) are updated in place. On a mesh the same loops
-run over ``MeshParams`` and a sharded cache (``forward`` takes the mesh).
+run over ``MeshParams`` and a sharded cache (``forward`` takes the mesh):
+on an sp mesh that is the ring prefill's cache resharded into the decode
+layout, and each verify span runs B2 on every (dp, tp) shard.
 
 EOS contract (mirror of generate._sample_step): the EOS token itself is
 kept in the output; slots after it emit 0.

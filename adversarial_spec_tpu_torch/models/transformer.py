@@ -64,6 +64,7 @@ from adversarial_spec_tpu_torch.parallel.sharding import (
     MeshParams,
     Sharded,
     cache_sharding,
+    check_split,
     local,
     local_config,
     map_shards,
@@ -184,10 +185,16 @@ def init_cache(
     it dequantizes to 0.
 
     On a ``mesh`` the cache is born sharded (rows over dp, heads over tp):
-    a dict of ``Sharded``, each shard zeroed on its own device.
+    a dict of ``Sharded``, each shard zeroed on its own device. A tp that
+    does not divide the KV heads raises the reference's ``ValueError``
+    ("implies that array axis 2 is partitioned ...").
     """
     if mesh is not None:
         dp, tp = mesh.shape[DP], mesh.shape[TP]
+        check_split(
+            (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.head_dim),
+            cache_sharding(mesh), mesh,
+        )
         lcfg = local_config(cfg, tp)
         grid = [
             [init_cache(lcfg, batch // dp, max_seq, device=mesh.device(d, t),
@@ -222,14 +229,17 @@ def init_cache(
 _INV_127 = 1.0 / 127.0
 
 
-def _quantize_kv(x: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+def _quantize_kv(x: torch.Tensor, eager: bool = False) -> tuple[torch.Tensor, torch.Tensor]:
     """Per-(token, head) symmetric int8 over the feature axis, bit-identical
     to the reference's compiled quantization: f32 amax, ``max(amax, 1e-8)
     * f32(1/127)``, round half to even, clip to ±127. Returns (int8, f32
-    scale [..., 1])."""
+    scale [..., 1]). ``eager``: the scale is a true division by 127, as in
+    the one place the reference quantizes outside a compiled program (its
+    sequence-parallel cache's reshard to the decode layout)."""
     xf = x.to(torch.float32)
     amax = xf.abs().amax(dim=-1, keepdim=True)
-    scale = torch.clamp(amax, min=1e-8) * _INV_127
+    amax = torch.clamp(amax, min=1e-8)
+    scale = amax / 127.0 if eager else amax * _INV_127
     q = torch.clamp(torch.round(xf / scale), -127, 127).to(torch.int8)
     return q, scale
 
@@ -552,21 +562,30 @@ def _grid(mesh, f):
     return [[f(d, t) for t in range(mesh.shape[TP])] for d in range(mesh.shape[DP])]
 
 
+def _tp_groups(keys):
+    """Shard keys (``(d, t)``, or ``(d, t, s)`` in the sp prefill) grouped
+    by all but their tp rank ``t``, each group in tp order."""
+    groups: dict = {}
+    for k in sorted(keys):
+        groups.setdefault((k[0],) + tuple(k[2:]), []).append(k)
+    return list(groups.values())
+
+
 def _reduce_residual(mesh, x, partial, layers, layer_id, cfg, post_norm):
-    """All-reduce each dp slice's tp partials and add them to x (in the
+    """All-reduce each tp group's partials and add them to x (in the
     grids ``x`` and ``partial``, keyed by shard)."""
-    for d in range(mesh.shape[DP]):
-        tps = range(mesh.shape[TP])
-        summed = all_reduce([partial[d, t] for t in tps])
-        for t in tps:
-            with device_ctx(mesh.device(d, t)):
-                x[d, t] = _residual(x[d, t], summed[t], layers[d, t][layer_id], cfg, post_norm)
+    for group in _tp_groups(partial):
+        summed = all_reduce([partial[k] for k in group])
+        for k, total in zip(group, summed):
+            with device_ctx(mesh.device(*k)):
+                x[k] = _residual(x[k], total, layers[k][layer_id], cfg, post_norm)
 
 
-def _mesh_logits(params: MeshParams, cfg: ModelConfig, x, last_only: bool):
+def _mesh_logits(params: MeshParams, cfg: ModelConfig, x, last_only: bool, s: int | None = None):
     """The head on each shard, each dp slice's vocab shards gathered, the
     slices' rows concatenated on the controller. A tied head without its
-    transposed copy reads the replicated table: no gather."""
+    transposed copy reads the replicated table: no gather. ``s``: the
+    shards of sp rank ``s`` (``x`` keyed ``(d, t, s)``)."""
     mesh = params.mesh
     sharded_head = "lm_head" in params.shard() or "lm_head_t" in params.shard()
     rows = []
@@ -574,8 +593,9 @@ def _mesh_logits(params: MeshParams, cfg: ModelConfig, x, last_only: bool):
         tps = range(mesh.shape[TP]) if sharded_head else range(1)
         parts = []
         for t in tps:
-            with device_ctx(mesh.device(d, t)):
-                parts.append(_lm_head_logits(params.parts[d][t], cfg, x[d, t], last_only))
+            k = (d, t) if s is None else (d, t, s)
+            with device_ctx(mesh.device(*k)):
+                parts.append(_lm_head_logits(params.shard(*k), cfg, x[k], last_only))
         rows.append(all_gather(parts, dim=-1).to(mesh.controller))
     return torch.cat(rows, dim=0)
 
@@ -654,15 +674,16 @@ def _forward_mesh(
 
 def _mesh_block(mesh, lcfg, cfg, x, attn_out, layers, layer_id, r, S):
     """A layer's output projection, FFN and residuals on every shard, each
-    partial all-reduced over its dp slice's tp shards (``x`` updated)."""
+    partial all-reduced over its tp group (``x`` updated; shards keyed
+    ``(d, t)``, or ``(d, t, s)`` in the sp prefill)."""
     partial = {}
-    for (d, t), out in attn_out.items():
-        with device_ctx(mesh.device(d, t)):
-            partial[d, t] = _o_proj(out, layers[d, t][layer_id], lcfg, r, S)
+    for k, out in attn_out.items():
+        with device_ctx(mesh.device(*k)):
+            partial[k] = _o_proj(out, layers[k][layer_id], lcfg, r, S)
     _reduce_residual(mesh, x, partial, layers, layer_id, cfg, "post_attn_norm")
-    for d, t in attn_out:
-        with device_ctx(mesh.device(d, t)):
-            partial[d, t] = _ffn(x[d, t], layers[d, t][layer_id], lcfg)
+    for k in attn_out:
+        with device_ctx(mesh.device(*k)):
+            partial[k] = _ffn(x[k], layers[k][layer_id], lcfg)
     _reduce_residual(mesh, x, partial, layers, layer_id, cfg, "post_ffn_norm")
 
 

@@ -7,8 +7,9 @@ axis convention:
   across mesh slices;
 - ``tp`` — tensor parallel: attention heads and FFN columns
   (Megatron-style; the all-reduces are ``parallel/collectives.py``'s);
-- ``sp`` — sequence parallel (ring-attention prefill): not served by the
-  port yet, so every mesh the engine builds has ``sp == 1``.
+- ``sp`` — sequence parallel: the prompt's blocks over the ring
+  prefill (``parallel/sp.py``, ``parallel/ring.py``); decode leaves it
+  idle and runs on the sp-rank-0 devices.
 
 The reference runs a single controller: one Python process drives every
 device of the mesh and GSPMD inserts the collectives. The port keeps that
@@ -37,8 +38,8 @@ class Mesh:
     """A ``[dp, sp, tp]`` array of devices and its axis sizes.
 
     ``shape`` is the reference's ``mesh.shape`` dict and ``size`` the
-    device count; ``device(d, t)`` is shard ``(d, t)``'s device (the sp
-    index is always 0 on a mesh the port serves)."""
+    device count; ``device(d, t, s)`` is shard ``(d, s, t)``'s device
+    (sp rank ``s``, 0 by default: the decode program's devices)."""
 
     axis_names = (DP, SP, TP)
 
@@ -50,8 +51,8 @@ class Mesh:
         self.shape = {DP: dp, SP: sp, TP: tp}
         self.size = int(devices.size)
 
-    def device(self, d: int, t: int) -> torch.device:
-        return self.devices[d, 0, t]
+    def device(self, d: int, t: int, s: int = 0) -> torch.device:
+        return self.devices[d, s, t]
 
     @property
     def controller(self) -> torch.device:
@@ -147,7 +148,10 @@ def compat_shard_map(fn, mesh: Mesh, *grids):
 
     Each grid is a ``[dp][tp]`` nested list of shard-local values (see
     ``parallel/sharding.py``); ``fn(*locals)`` runs once per shard with
-    that shard's device current, and the results come back as a grid."""
+    that shard's device current, and the results come back as a grid.
+    The sp ranks are not mapped here: a ring hop needs every rank's block
+    at once, so the sp prefill (``parallel/sp.py``) steps its ranks
+    itself, and decode leaves sp idle."""
     dp, tp = mesh.shape[DP], mesh.shape[TP]
     out = []
     for d in range(dp):

@@ -7,18 +7,23 @@ rules:
   ``tp`` (each shard owns a slice of heads / FFN columns);
 - ``wo`` and ``w_down`` are row-sharded over ``tp``: their products are
   partial sums, all-reduced after the matmul (``parallel/collectives.py``);
-- the KV cache shards its rows over ``dp`` and its heads over ``tp``;
+- the KV cache shards its rows over ``dp`` and its heads over ``tp``; the
+  sequence-parallel prefill's cache also splits its sequence over ``sp``;
 - embeddings and norms are replicated; the head is column-sharded, so the
-  logits are vocab-sharded until the all-gather before sampling.
+  logits are vocab-sharded until the all-gather before sampling;
+- weights are replicated over ``sp``.
 
 Where the reference annotates one global array with a ``NamedSharding``
 and lets GSPMD partition the program, the port holds the shards
 themselves: a spec is a tuple naming, per dimension, the mesh axis it is
 split over (``DP``, ``TP`` or None; missing trailing entries are None),
 and ``split`` turns a tensor into a ``[dp][tp]`` grid of shard-local
-tensors, each on its shard's device. A leaf replicated over dp is one
-tensor per device: on a virtual mesh (a device repeated) the replicas
-are the same tensor.
+tensors, each on its shard's device (``device(d, t)``, sp rank 0: where
+decode runs). A spec naming ``SP`` gives each grid cell a list of its sp
+blocks instead, rank ``s``'s on ``device(d, t, s)``: a ``[dp][tp][sp]``
+grid. A leaf replicated over dp or sp is one tensor per device: on a
+virtual mesh (a device repeated) the replicas are the same tensor, so a
+virtual ``{"sp": 4}`` mesh holds one copy of the weights.
 
 The port's params keep per-layer dicts (no leading layer axis), so each
 rule here is the reference's with its layer axis dropped.
@@ -28,11 +33,11 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from dataclasses import dataclass
+from dataclasses import dataclass, field
 
 import torch
 
-from adversarial_spec_tpu_torch.parallel.mesh import DP, TP, Mesh
+from adversarial_spec_tpu_torch.parallel.mesh import DP, SP, TP, Mesh
 
 # Leaf name → spec over the port's per-layer shapes ([in, out] weights).
 _PARAM_RULES: dict[str, tuple] = {
@@ -84,13 +89,19 @@ def param_sharding_rules(path) -> tuple:
     return _PARAM_RULES[name]
 
 
-def cache_sharding(mesh: Mesh) -> tuple:
-    """KV cache ``[L, B, Hkv, T, D]``: rows over dp, heads over tp."""
-    return (None, DP, TP, None, None)
+def cache_sharding(mesh: Mesh, prefill: bool = False) -> tuple:
+    """KV cache ``[L, B, Hkv, T, D]``: rows over dp, heads over tp. The
+    sequence-parallel prefill's cache (``prefill``) also splits its
+    sequence over sp, as the reference's ``[L, B, Hkv(tp), S(sp), D]``
+    does (the reference replicates its rows over dp; the port's sp
+    prefill runs each dp slice's rows on its own sp×tp devices)."""
+    return (None, DP, TP, SP if prefill else None, None)
 
 
-def _index(shape, spec, mesh: Mesh, d: int, t: int) -> tuple:
-    """Shard ``(d, t)``'s slice of a tensor of ``shape`` under ``spec``."""
+def _index(shape, spec, mesh: Mesh, d: int, t: int, s: int = 0) -> tuple:
+    """Shard ``(d, s, t)``'s slice of a tensor of ``shape`` under ``spec``;
+    raises the reference's ``ValueError`` for an axis that does not split
+    evenly."""
     idx = []
     for ax, n in enumerate(shape):
         axis = spec[ax] if ax < len(spec) else None
@@ -99,31 +110,45 @@ def _index(shape, spec, mesh: Mesh, d: int, t: int) -> tuple:
             continue
         parts = mesh.shape[axis]
         if n % parts:
-            raise ValueError(f"dim {ax} of {tuple(shape)} does not split {parts} ways over {axis}")
-        i = d if axis == DP else t
+            raise ValueError(
+                f"sharding {tuple(spec)} over mesh {mesh.shape} implies that array "
+                f"axis {ax} is partitioned {parts} times, but the dimension size is "
+                f"{n} (full shape: {tuple(shape)})"
+            )
+        i = {DP: d, TP: t, SP: s}[axis]
         idx.append(slice(i * (n // parts), (i + 1) * (n // parts)))
     return tuple(idx)
 
 
-def split(x: torch.Tensor, mesh: Mesh, spec: tuple) -> list[list[torch.Tensor]]:
+def check_split(shape, spec: tuple, mesh: Mesh) -> None:
+    """Raise the reference's ``ValueError`` when a tensor of ``shape`` does
+    not split evenly under ``spec`` on ``mesh``."""
+    _index(shape, spec, mesh, 0, 0)
+
+
+def split(x: torch.Tensor, mesh: Mesh, spec: tuple) -> list[list]:
     """``x`` as a ``[dp][tp]`` grid of contiguous shard-local tensors, each
-    on its shard's device. Shards with the same slice on the same device
-    (dp replicas on a virtual mesh) are one tensor; every shard owns its
-    memory, so ``x`` can be freed."""
+    on its shard's device (``[dp][tp][sp]`` when ``spec`` names ``SP``).
+    Shards with the same slice on the same device (dp replicas on a
+    virtual mesh) are one tensor; every shard owns its memory, so ``x``
+    can be freed."""
     memo: dict = {}
-    grid = []
-    for d in range(mesh.shape[DP]):
-        row = []
-        for t in range(mesh.shape[TP]):
-            idx = _index(x.shape, spec, mesh, d, t)
-            dev = mesh.device(d, t)
-            key = (tuple((s.start, s.stop) for s in idx), str(dev))
-            if key not in memo:
-                part = x[idx]
-                memo[key] = torch.empty(part.shape, dtype=x.dtype, device=dev).copy_(part)
-            row.append(memo[key])
-        grid.append(row)
-    return grid
+
+    def part(d, t, s=0):
+        idx = _index(x.shape, spec, mesh, d, t, s)
+        dev = mesh.device(d, t, s)
+        key = (tuple((i.start, i.stop) for i in idx), str(dev))
+        if key not in memo:
+            p = x[idx]
+            memo[key] = torch.empty(p.shape, dtype=x.dtype, device=dev).copy_(p)
+        return memo[key]
+
+    sps = range(mesh.shape[SP])
+    return [
+        [[part(d, t, s) for s in sps] if SP in spec else part(d, t)
+         for t in range(mesh.shape[TP])]
+        for d in range(mesh.shape[DP])
+    ]
 
 
 def gather(grid, mesh: Mesh, spec: tuple, device: torch.device | None = None) -> torch.Tensor:
@@ -132,22 +157,30 @@ def gather(grid, mesh: Mesh, spec: tuple, device: torch.device | None = None) ->
     device = device if device is not None else mesh.controller
     dp_ax = spec.index(DP) if DP in spec else None
     tp_ax = spec.index(TP) if TP in spec else None
+    sp_ax = spec.index(SP) if SP in spec else None
+
+    def cell(c):
+        return torch.cat([b.to(device) for b in c], dim=sp_ax) if sp_ax is not None else c.to(device)
+
     rows = []
     for d in range(mesh.shape[DP] if dp_ax is not None else 1):
-        parts = [p.to(device) for p in grid[d]]
+        parts = [cell(c) for c in grid[d]]
         rows.append(torch.cat(parts, dim=tp_ax) if tp_ax is not None else parts[0])
     return torch.cat(rows, dim=dp_ax) if dp_ax is not None else rows[0]
 
 
 class Sharded:
     """One logical tensor laid out on a mesh: ``parts[d][t]`` on
-    ``mesh.device(d, t)``, split as ``spec`` says. ``shape`` is the global
-    shape, so code that only reads a cache's or pool's extents (``T``, the
-    page size) reads a ``Sharded`` as it reads a tensor."""
+    ``mesh.device(d, t)``, split as ``spec`` says (a spec naming ``SP``:
+    ``parts[d][t][s]`` on ``mesh.device(d, t, s)``). ``shape`` is the
+    global shape, so code that only reads a cache's or pool's extents
+    (``T``, the page size) reads a ``Sharded`` as it reads a tensor."""
 
-    def __init__(self, mesh: Mesh, spec: tuple, parts: list[list[torch.Tensor]]):
+    def __init__(self, mesh: Mesh, spec: tuple, parts: list[list]):
         self.mesh, self.spec, self.parts = mesh, spec, parts
-        shape = list(parts[0][0].shape)
+        first = parts[0][0][0] if SP in spec else parts[0][0]
+        self._first = first
+        shape = list(first.shape)
         for ax, axis in enumerate(spec):
             if axis is not None:
                 shape[ax] *= mesh.shape[axis]
@@ -155,7 +188,7 @@ class Sharded:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self.parts[0][0].dtype
+        return self._first.dtype
 
 
 def local(tree: dict, d: int, t: int) -> dict:
@@ -168,13 +201,34 @@ class MeshParams:
     """A model's params on a mesh: ``parts[d][t]`` is shard ``(d, t)``'s
     own params dict, in the single-device layout with its slice of every
     tp-sharded leaf (so each shard is a model of ``local_config``'s
-    widths whose row-parallel products are partial sums)."""
+    widths whose row-parallel products are partial sums), on the sp-rank-0
+    device ``mesh.device(d, t)``.
+
+    Weights are replicated over sp: ``shard(d, t, s)`` is ``parts[d][t]``
+    wherever ``device(d, t, s)`` is that device (every virtual mesh), else
+    its copy on ``device(d, t, s)``, made on first use (the sp prefill's)
+    and kept: one copy per physical device. A tree mapped by
+    ``map_shards`` (demotion, promotion) starts without copies."""
 
     mesh: Mesh
     parts: list[list[dict]]
+    _replicas: dict = field(default_factory=dict, repr=False, compare=False)
+    _copies: dict = field(default_factory=dict, repr=False, compare=False)
 
-    def shard(self, d: int = 0, t: int = 0) -> dict:
-        return self.parts[d][t]
+    def shard(self, d: int = 0, t: int = 0, s: int = 0) -> dict:
+        dev = self.mesh.device(d, t, s)
+        if dev == self.mesh.device(d, t):
+            return self.parts[d][t]
+        if (d, t, s) not in self._replicas:
+
+            def copy(x):
+                key = (id(x), str(dev))  # x lives in parts: its id stays unique
+                if key not in self._copies:
+                    self._copies[key] = x.to(dev)
+                return self._copies[key]
+
+            self._replicas[d, t, s] = _tree_map(copy, self.parts[d][t])
+        return self._replicas[d, t, s]
 
 
 def _tree_map(fn, node):
@@ -235,8 +289,9 @@ def per_chip_bytes(layout, mesh: Mesh) -> int:
         spec = param_sharding_rules(path)
         size = math.prod(shard_shape(shape, spec, mesh)) * itemsize
         held = {
-            (str(mesh.device(d, t)), d if DP in spec else 0, t if TP in spec else 0)
+            (str(mesh.device(d, t, s)), d if DP in spec else 0, t if TP in spec else 0)
             for d in range(mesh.shape[DP]) for t in range(mesh.shape[TP])
+            for s in range(mesh.shape[SP])
         }
         for dev, _, _ in held:
             per_dev[dev] = per_dev.get(dev, 0) + size

@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # every phase (needs one CUDA card)
     python3 chip_smoke.py --quick    # device, build and kernel phases only
     python3 chip_smoke.py --profile  # also profile one more chat call
-    python3 chip_smoke.py --only batcher,pgen,serve,fleet,mesh,agree  # device, build and
+    python3 chip_smoke.py --only batcher,pgen,serve,fleet,mesh,sp,agree  # device, build and
                                      # the named phases only (no kernels or ok line)
     python3 chip_smoke.py --qmm-only # device, build and B5/B6 only: their checks
                                      # and device times (chiprun_out/chip_smoke_qmm.json);
@@ -259,14 +259,33 @@ Phases, each printing one JSON line; any failure exits non-zero:
    lines carry the mesh, its devices and which collective ran. With two
    or more cards it also runs (b)'s tp=2 alias through ``critique``
    over cuda:0 and cuda:1 (NCCL); with one it says it did not;
-16. agree  — tiny f32 models decoded greedily on the card (kernels) and on
+16. sp     — the sequence-parallel axis from ``GpuEngine.chat`` on
+   registry aliases with an sp mesh axis, virtual meshes on the one card,
+   greedy, speculation at its default, 32 new tokens: (a) Llama-3.2-3B at
+   full width and depth on {"sp": 4}, dense, two opponents on a
+   ~16,000-token spec (BASELINE config 5's context); (b) random-8b on
+   {"sp": 2}, paged, int8 KV, four opponents, ~6,000 prompt tokens (W3 →
+   B3-i8); (c) random-70b at full width with 8 of 80 layers on {"sp": 2,
+   "tp": 8}, dense, one opponent, ~7,500 prompt tokens. The ring must
+   carry every prefill (calls and hops counted; hops = ``ring_hops``; the
+   chunked prefill must not run); the first-step logits are held to the
+   same prompts without sp (one device's chunked prefill; for (c)
+   {"tp": 8}) within the bf16 tolerance of the largest logit; the sp
+   replicas share one weight copy; B1, B2, B3-i8, W1 and W3 must launch;
+   each engine is dropped and device memory must fall back. ``sp round``
+   lines give wall, prefill and decode seconds, tok/s, peak memory,
+   weight bytes, launches and which way each collective ran;
+17. agree  — tiny f32 models decoded greedily on the card (kernels) and on
    the CPU (plain versions) give identical tokens: dense generate() with
    speculation on (B2, or B2-i8, must launch), generate(paged=True) (B3,
    or B3-i8), and the paged batcher with speculation on and off; full
    precision, the same weights quantized int8 (B5) and int4 (B6), and an
    int8 KV cache beside full-precision and int4 weights; and generate()
    on virtual {"tp": 2}, {"dp": 2} and {"dp": 2, "tp": 2} meshes, dense
-   and paged (B2, W3, W2 on dp=2 and on dp=2 x tp=2).
+   and paged (B2, W3, W2 on dp=2 and on dp=2 x tp=2), and on the sp
+   meshes {"sp": 2} dense with speculation, {"sp": 2, "tp": 2} dense,
+   {"dp": 2, "sp": 2} paged (W2) and {"sp": 2} paged with int8 KV (W3,
+   B3-i8), the ring carrying each prefill.
 
 Each phase's line carries its ``seconds``; a ``seconds`` line sums them
 up by phase. Then one ``kernels`` JSON line and, last, ``{"ok": true,
@@ -4227,40 +4246,62 @@ def agree_on_meshes(torch, base, cfg, prompts) -> dict:
     "tp": 2} meshes, every shard on the card and then every shard on the
     CPU: greedy tokens of generate(mesh=...) identical, dense (speculation
     on: B2 a shard) and paged (W3 on tp=2, W2 on dp=2 and on dp=2 × tp=2:
-    every mesh runs the one sharded program)."""
+    every mesh runs the one sharded program); and on the sp meshes
+    {"sp": 2} and {"sp": 2, "tp": 2} dense (B2), {"dp": 2, "sp": 2} paged
+    (W2) and {"sp": 2} paged with an int8 KV cache (W3, B3-i8), the ring
+    carrying each prefill."""
     from adversarial_spec_tpu_torch.engine.generate import generate
     from adversarial_spec_tpu_torch.models.transformer import map_params
     from adversarial_spec_tpu_torch.ops import decode_attention as da
     from adversarial_spec_tpu_torch.ops import paged_attention as pa
+    from adversarial_spec_tpu_torch.parallel import sp as sp_mod
     from adversarial_spec_tpu_torch.parallel.mesh import make_mesh
     from adversarial_spec_tpu_torch.parallel.sharding import shard_params
 
     on_cpu = map_params(lambda t: t.cpu(), base)
     out = {}
-    for spec, paged_kernel in (({"tp": 2}, "paged_decode_attention_tp"),
-                               ({"dp": 2}, "paged_decode_attention_dp_tp"),
-                               ({"dp": 2, "tp": 2}, "paged_decode_attention_dp_tp")):
+    cases = [(spec, paged, kernel, "") for spec, kernel in (
+        ({"tp": 2}, "paged_decode_attention_tp"),
+        ({"dp": 2}, "paged_decode_attention_dp_tp"),
+        ({"dp": 2, "tp": 2}, "paged_decode_attention_dp_tp"),
+    ) for paged in (False, True)] + [
+        # The sp meshes: the ring prefill, then the dp×tp decode.
+        ({"sp": 2}, False, None, ""),
+        ({"sp": 2, "tp": 2}, False, None, ""),
+        ({"dp": 2, "sp": 2}, True, "paged_decode_attention_dp_tp", ""),
+        ({"sp": 2}, True, "paged_decode_attention_tp", "int8"),
+    ]
+    for spec, paged, paged_kernel, kv_dtype in cases:
         n = mesh_size(spec)
-        for paged in (False, True):
-            for mod in (da, pa):
-                mod.reset_launches()
-            toks = {}
-            for dev, p in (("cuda", base), ("cpu", on_cpu)):
-                mesh = make_mesh(spec, [dev] * n)
-                toks[dev] = generate(
-                    shard_params(mesh, p), cfg, prompts, max_new_tokens=48, eos_ids=[2],
-                    greedy=True, speculative=not paged, paged=paged, page_size=16, mesh=mesh,
-                ).tokens
-            label = f"{json.dumps(spec)} {'paged' if paged else 'dense'}"
-            if not bool((toks["cuda"] == toks["cpu"]).all()):
-                raise RuntimeError(f"tiny f32 on {label}: tokens differ between card and CPU")
-            launched = {**da.launches, **pa.launches, **da.mesh_launches, **pa.mesh_launches}
-            need = paged_kernel if paged else "decode_attention_mq"
-            if launched[need] < n:
-                raise RuntimeError(f"tiny f32 on {label}: {need} launched {launched[need]} "
-                                   f"times over {n} shards")
-            out[label] = {"identical_tokens": True, "shape": list(toks["cuda"].shape),
-                          "launches": {k: v for k, v in launched.items() if v}}
+        for mod in (da, pa):
+            mod.reset_launches()
+        toks = {}
+        for dev, p in (("cuda", base), ("cpu", on_cpu)):
+            sp_mod.reset_counts()
+            mesh = make_mesh(spec, [dev] * n)
+            toks[dev] = generate(
+                shard_params(mesh, p), cfg, prompts, max_new_tokens=48, eos_ids=[2],
+                greedy=True, speculative=not paged, paged=paged, page_size=16, mesh=mesh,
+                kv_dtype=kv_dtype,
+            ).tokens
+            if "sp" in spec and sp_mod.counts["prefills"] != 1:
+                raise RuntimeError(f"tiny f32 on {spec}: the ring did not prefill on {dev}")
+        label = (f"{json.dumps(spec)} {'paged' if paged else 'dense'}"
+                 f"{' kv ' + kv_dtype if kv_dtype else ''}")
+        if not bool((toks["cuda"] == toks["cpu"]).all()):
+            raise RuntimeError(f"tiny f32 on {label}: tokens differ between card and CPU")
+        launched = {**da.launches, **pa.launches, **da.mesh_launches, **pa.mesh_launches}
+        # Decode runs on the sp-rank-0 shards: n / sp of them.
+        shards = n // spec.get("sp", 1)
+        need = [paged_kernel] if paged else ["decode_attention_mq"]
+        if kv_dtype:
+            need.append("paged_decode_attention_int8kv")
+        for k in need:
+            if launched[k] < shards:
+                raise RuntimeError(f"tiny f32 on {label}: {k} launched {launched[k]} "
+                                   f"times over {shards} shards")
+        out[label] = {"identical_tokens": True, "shape": list(toks["cuda"].shape),
+                      "launches": {k: v for k, v in launched.items() if v}}
     return out
 
 
@@ -4624,6 +4665,244 @@ def phase_mesh(torch) -> dict:
     return report
 
 
+def phase_sp(torch) -> dict:
+    """The sequence-parallel axis from the user's entry point:
+    ``GpuEngine.chat`` on registry aliases with an ``sp`` mesh axis, on
+    virtual meshes (``GpuEngine(devices=[cuda] * n)``: every shard on the
+    one card), greedy, speculation at its default, 32 new tokens: (a)
+    Llama-3.2-3B at full width and depth on {"sp": 4}, dense, two
+    opponents on a ~16,000-token spec (BASELINE config 5's context); (b)
+    random-8b on {"sp": 2}, kv="paged", kv_dtype="int8", four opponents
+    on ~6,000 prompt tokens (the int8 quantization at the reshard, W3 →
+    B3-i8); (c) random-70b at full width with 8 of its 80 layers on
+    {"sp": 2, "tp": 8} (16 shards; BASELINE config 5's TP=8 judge), dense,
+    one opponent on ~7,500 prompt tokens. Every prompt pads to a length
+    that splits sp ways, so the ring must run (its calls and hops
+    counted, the hops equal to ``ring_hops``) and the chunked prefill
+    must not. Each case's first-step logits are held to the same prompts
+    without sp (one device's chunked prefill for (a) and (b) — (b) with a
+    float cache, since the ring attends to full-precision K/V; (c)
+    against {"tp": 8}, phase mesh's program) within the bf16 tolerance of
+    the largest logit. Each line gives the wall, prefill and decode
+    seconds, decode tok/s, peak memory, the weight bytes the card holds
+    (the sp replicas share one copy), launches and which way each
+    collective ran; each engine is dropped and device memory must fall
+    back."""
+    import gc
+
+    from adversarial_spec_tpu_torch.engine import generate as gen_mod
+    from adversarial_spec_tpu_torch.engine import gpu as gpu_mod
+    from adversarial_spec_tpu_torch.engine import registry
+    from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
+    from adversarial_spec_tpu_torch.engine.loader import materialize_params
+    from adversarial_spec_tpu_torch.engine.types import ChatRequest, SamplingParams
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+    from adversarial_spec_tpu_torch.parallel import collectives, ring, sp as sp_mod
+    from adversarial_spec_tpu_torch.parallel.sharding import per_chip_param_bytes
+
+    dev = torch.device("cuda")
+    report = {"phase": "sp", "cases": [], "checks": []}
+    checks = report["checks"]
+    sampling = SamplingParams(max_new_tokens=32, greedy=True, seed=0)
+    base_mem = torch.cuda.memory_allocated()
+
+    def dropped(engine, label):
+        engine._models.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        left = torch.cuda.memory_allocated() - base_mem
+        report.setdefault("memory_after_drop", {})[label] = left
+        if left > (256 << 20):
+            raise RuntimeError(f"sp {label}: {left} bytes still allocated after the drop")
+
+    def first_logits_check(label, got, want):
+        err = (got - want).abs().max().item()
+        scale = want.abs().max().item()
+        ok = bool(torch.isfinite(got).all()) and err <= BF16_TOL["rtol"] * scale + BF16_TOL["atol"]
+        checks.append({"case": f"{label} first-step logits vs no sp", "max_abs_err": err,
+                       "max_abs_logit": scale, "share_of_largest": err / scale,
+                       "tol": {"rtol_of_max": BF16_TOL["rtol"], "atol": BF16_TOL["atol"]}})
+        if not ok:
+            raise RuntimeError(f"sp {label}: first-step logits {err} from the run without sp "
+                               f"(largest {scale})")
+        return err
+
+    def sp_round(engine, alias, reqs, label, must_launch):
+        """One chat() with every counter zeroed just before and read just
+        after; the ring must have run on every generate call."""
+        calls, chunks, results = [], [], []
+        real_gen, real_chunk = gpu_mod.generate, gen_mod.prefill_chunk
+
+        def recording(*args, **kwargs):
+            calls.append((args[2], {k: v for k, v in kwargs.items() if k != "mesh"}))
+            results.append(real_gen(*args, **kwargs))
+            return results[-1]
+
+        def chunk(*args, **kwargs):
+            chunks.append(1)
+            return real_chunk(*args, **kwargs)
+
+        # Device time of the ring, of the whole sp prefill and of the
+        # reshard: CUDA events around each call, read after the chat.
+        spans: dict = {"ring": [], "sp_prefill": [], "reshard": []}
+        reals = {"ring": "ring_attention_local", "sp_prefill": "sp_prefill",
+                 "reshard": "reshard_cache_for_decode"}
+
+        def timed(name, fn):
+            def run(*args, **kwargs):
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+                out = fn(*args, **kwargs)
+                end.record()
+                spans[name].append((start, end))
+                return out
+            return run
+
+        for mod in (da, pa):
+            mod.reset_launches()
+        for mod in (collectives, ring, sp_mod):
+            mod.reset_counts()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        gpu_mod.generate, gen_mod.prefill_chunk = recording, chunk
+        saved = {name: getattr(sp_mod, attr) for name, attr in reals.items()}
+        for name, attr in reals.items():
+            setattr(sp_mod, attr, timed(name, saved[name]))
+        try:
+            with capturing_logits() as logits:
+                t = time.monotonic()
+                comps = engine.chat(reqs, sampling)
+                torch.cuda.synchronize()
+                wall = time.monotonic() - t
+        finally:
+            gpu_mod.generate, gen_mod.prefill_chunk = real_gen, real_chunk
+            for name, attr in reals.items():
+                setattr(sp_mod, attr, saved[name])
+        device_s = {name: sum(a.elapsed_time(b) for a, b in ev) / 1e3
+                    for name, ev in spans.items()}
+        bad = [c.error for c in comps if not c.ok]
+        if bad:
+            raise RuntimeError(f"sp {label}: chat failed: {bad}")
+        lm = engine._models[alias]
+        mesh = lm.mesh
+        n_sp = mesh.shape["sp"]
+        S = gen_mod.bucket_length(max(len(p) for p in calls[0][0]))
+        want_hops = ring.counts["calls"] * ring.ring_hops(n_sp, S // n_sp, 0, True)
+        if (sp_mod.counts["prefills"] != len(calls) or chunks or not ring.counts["calls"]
+                or ring.counts["hops"] != want_hops or S % n_sp):
+            raise RuntimeError(f"sp {label}: the ring did not carry the prefill: "
+                               f"{sp_mod.counts} {ring.counts} chunked={len(chunks)} S={S}")
+        launched = {**da.launches, **pa.launches, **da.mesh_launches, **pa.mesh_launches}
+        missing = [k for k in must_launch if not launched[k]]
+        if missing:
+            raise RuntimeError(f"sp {label}: {missing} never launched: {launched}")
+        shared = all(lm.params.shard(d, t, s) is lm.params.parts[d][t]
+                     for d in range(mesh.shape["dp"]) for t in range(mesh.shape["tp"])
+                     for s in range(n_sp))
+        one_copy = gpu_mod.param_bytes(lm.params)
+        if not shared or per_chip_param_bytes(lm.params) != one_copy:
+            raise RuntimeError(f"sp {label}: the sp replicas do not share one weight copy")
+        decode_s = sum(r.decode_time_s for r in results)
+        out_tok = sum(int(r.n_generated.sum()) for r in results)
+        line = {
+            "case": label, "mesh": dict(mesh.shape), "rows": len(reqs),
+            "prompt_tokens": [len(p) for p in calls[0][0]], "padded_len": S,
+            "virtual": not mesh.distinct, "chat_wall_s": wall,
+            "prefill_s": sum(r.prefill_time_s for r in results),
+            "sp_prefill_device_s": device_s["sp_prefill"],
+            "ring_device_s": device_s["ring"],
+            "ring_share_of_sp_prefill": device_s["ring"] / device_s["sp_prefill"],
+            "reshard_device_s": device_s["reshard"],
+            "decode_s": sum(r.decode_time_s for r in results),
+            "decode_tokens_per_s": out_tok / decode_s if decode_s > 0 else 0.0,
+            "output_tokens": [c.usage.output_tokens for c in comps],
+            "sp_prefills": sp_mod.counts["prefills"], "ring_calls": ring.counts["calls"],
+            "ring_hops": ring.counts["hops"], "ring_hops_per_call": n_sp,
+            "collectives": dict(collectives.counts),
+            "weight_bytes_on_card": lm.bytes_per_chip, "weights_shared_over_sp": shared,
+            "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+            "launches": {k: v for k, v in launched.items() if v},
+        }
+        emit({"phase": "sp round", **line})
+        report["cases"].append(line)
+        return calls, logits
+
+    def single_device_logits(label, family, size, prompts, kwargs):
+        """The same prompts on one device (the chunked prefill): its
+        first-step logits; its prefill seconds go beside the case's."""
+        params, cfg = materialize_params("random", family, size, device="cuda")
+        with capturing_logits() as logits:
+            res = gen_mod.generate(params, cfg, prompts, **kwargs)
+        del params
+        gc.collect()
+        torch.cuda.empty_cache()
+        case = next(c for c in report["cases"] if c["case"] == label)
+        case["one_device_chunked_prefill_s"] = res.prefill_time_s
+        case["sp_over_one_device_prefill"] = case["prefill_s"] / res.prefill_time_s
+        return logits[0]
+
+    specs = (
+        registry.ModelSpec(alias="sp-3b", family="llama", size="3b", mesh={"sp": 4}),
+        registry.ModelSpec(alias="sp-8b-paged-kv8", family="llama", size="8b", mesh={"sp": 2},
+                           kv="paged", kv_dtype="int8"),
+        registry.ModelSpec(alias="sp-70b", family="llama", size="70b", mesh={"sp": 2, "tp": 8}),
+    )
+    with temp_registry(*specs):
+        # (a) Llama-3.2-3B, {"sp": 4}, ~16k tokens.
+        doc = spec_document(15600, 15) + "\n\nCritique this spec."
+        reqs = [ChatRequest("tpu://sp-3b", p, doc) for p in PERSONAS[:2]]
+        engine = GpuEngine(devices=[dev] * 4)
+        calls, logits = sp_round(engine, "sp-3b", reqs, "3b sp=4 dense",
+                                 ("decode_attention_mq", "decode_attention_tp"))
+        mesh_logits = logits[0]
+        dropped(engine, "3b sp=4")
+        report["first_logits_err_3b"] = first_logits_check(
+            "3b sp=4", mesh_logits,
+            single_device_logits("3b sp=4 dense", "llama", "3b", *calls[0]))
+
+        # (b) random-8b, {"sp": 2}, paged, int8 KV.
+        doc = spec_document(5800, 16) + "\n\nCritique this spec."
+        reqs = [ChatRequest("tpu://sp-8b-paged-kv8", p, doc) for p in PERSONAS[:4]]
+        engine = GpuEngine(devices=[dev] * 2)
+        calls, logits = sp_round(engine, "sp-8b-paged-kv8", reqs, "8b sp=2 paged int8 KV",
+                                 ("paged_decode_attention_tp", "paged_decode_attention_int8kv"))
+        mesh_logits = logits[0]
+        dropped(engine, "8b sp=2 paged int8")
+        prompts, kwargs = calls[0]
+        report["first_logits_err_8b"] = first_logits_check(
+            "8b sp=2 paged int8", mesh_logits,
+            single_device_logits("8b sp=2 paged int8 KV", "llama", "8b", prompts,
+                                 dict(kwargs, kv_dtype="")))
+
+        # (c) 70B at 8 of 80 layers, {"sp": 2, "tp": 8}, against {"tp": 8}.
+        with depth(8, ("llama", "70b")):
+            doc = spec_document(7300, 17) + "\n\nCritique this spec."
+            engine = GpuEngine(devices=[dev] * 16)
+            _, logits = sp_round(engine, "sp-70b", [ChatRequest("tpu://sp-70b", PERSONAS[0], doc)],
+                                 "70b sp=2 tp=8 dense", ("decode_attention_tp",))
+            mesh_logits = logits[0]
+            dropped(engine, "70b sp=2 tp=8")
+            engine = GpuEngine(devices=[dev] * 8)
+            with capturing_logits() as tp_logits:
+                (c,) = engine.chat([ChatRequest("tpu://random-70b", PERSONAS[0], doc)], sampling)
+            if not c.ok:
+                raise RuntimeError(f"sp 70b tp=8 reference round failed: {c.error}")
+            dropped(engine, "70b tp=8")
+            report["first_logits_err_70b"] = first_logits_check(
+                "70b sp=2 tp=8", mesh_logits, tp_logits[0])
+    launched: dict = {}
+    for r in report["cases"]:
+        for k, n in r["launches"].items():
+            launched[k] = launched.get(k, 0) + n
+    for k in ("decode_attention", "decode_attention_mq", "paged_decode_attention_int8kv",
+              "decode_attention_tp", "paged_decode_attention_tp"):
+        if not launched.get(k):
+            raise RuntimeError(f"sp: {k} never launched in the phase: {launched}")
+    report["launches"] = launched
+    return report
+
+
 @contextlib.contextmanager
 def capturing_logits():
     """While the block runs, keep the first logits ``generate`` samples
@@ -4681,9 +4960,9 @@ def main(argv: list[str]) -> int:
     only = []
     if "--only" in argv:
         only = argv[argv.index("--only") + 1].split(",")
-        unknown = set(only) - {"batcher", "pgen", "serve", "fleet", "mesh", "agree"}
+        unknown = set(only) - {"batcher", "pgen", "serve", "fleet", "mesh", "sp", "agree"}
         if unknown:
-            return fail("--only takes batcher, pgen, serve, fleet, mesh and agree, "
+            return fail("--only takes batcher, pgen, serve, fleet, mesh, sp and agree, "
                         f"not {sorted(unknown)}")
     profile = "--profile" in argv
     if not os.path.isdir(os.path.join(HERE, PKG)):
@@ -4752,7 +5031,8 @@ def main(argv: list[str]) -> int:
     if only:  # iteration on the named phases; no kernels or ok line
         for name in only:
             run(name, {"batcher": phase_batcher, "pgen": phase_pgen, "serve": phase_serve,
-                       "fleet": phase_fleet, "mesh": phase_mesh, "agree": phase_agree}[name],
+                       "fleet": phase_fleet, "mesh": phase_mesh, "sp": phase_sp,
+                       "agree": phase_agree}[name],
                 torch)
         emit({"phase": "seconds", **seconds})
         print(smi_line, flush=True)
@@ -4850,13 +5130,16 @@ def main(argv: list[str]) -> int:
         # The multi-device mesh (a virtual one on one card): W1-W3's
         # launches, one a shard, are this phase's.
         ms = run("mesh", phase_mesh, torch)
-        for ph in (bt, pgen, sv, fl, ms):
+        # The sequence-parallel axis (virtual meshes on one card): the
+        # ring prefill, then W1 / W3 (B3-i8) decode.
+        spp = run("sp", phase_sp, torch)
+        for ph in (bt, pgen, sv, fl, ms, spp):
             for k, n in ph["launches"].items():
                 if k in launches:
                     launches[k] = (launches[k] or 0) + n
         ag = run("agree", phase_agree, torch)
         record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, cli=cl, hf=hf, pool=pl,
-                      batcher=bt, pgen=pgen, serve=sv, fleet=fl, mesh=ms, agree=ag)
+                      batcher=bt, pgen=pgen, serve=sv, fleet=fl, mesh=ms, sp=spp, agree=ag)
     emit({"phase": "seconds", **seconds})
     record["phase_seconds"] = seconds
 

@@ -627,23 +627,50 @@ def test_tpu_critique_without_gpu_exits_2(monkeypatch, capsys):
     assert dispatch.cached_engines() == []
 
 
-def test_unservable_alias_exits_2_before_the_round(monkeypatch, capsys):
-    """An alias the port cannot serve (an sp mesh) exits 2 with its "not
-    yet ported" message at validation, before any engine work — even with
-    an engine installed."""
+def test_unservable_alias_exits_2_before_the_round(tmp_path, monkeypatch, capsys):
+    """The mesh aliases once refused at validation ("not yet ported", exit
+    2) run their round as the reference's CLI runs them. A {"tp": 2,
+    "sp": 2} alias (dp=2 × sp=2 × tp=2 over 8 devices) on the reference's
+    weights: ``critique --json`` equal to the reference CLI's. A tp that
+    does not divide the KV heads: the same exit code and ``--json``, each
+    opponent's error the reference's ``ValueError`` (JAX words its
+    sharding, the port its own: masked to the shared phrase)."""
+    import jax
+    import numpy as np
+
     from adversarial_spec_tpu_torch.engine import dispatch, registry
     from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
+    from adversarial_spec_tpu_torch.engine.loader import params_from_jax
+    from adversarial_spec_tpu_torch.parallel.sharding import shard_params
 
-    registry.save_registry_entry(
-        registry.ModelSpec(alias="meshy", mesh={"tp": 2, "sp": 2})
-    )
-    dispatch.install_engine("tpu://meshy", GpuEngine(device="cpu"))
-    code, out, err = sup.run_cli(
-        port_cli, ["critique", "--models", "tpu://meshy"], monkeypatch, capsys, SPEC
-    )
-    assert code == 2
-    assert "not yet ported" in err and "sequence-parallel mesh" in err
-    assert out == ""
+    phrase = "implies that array axis 2 is partitioned 4 times, but the dimension size is 2"
+    for spec in (
+        registry.ModelSpec(alias="meshy", dtype="float32", mesh={"tp": 2, "sp": 2}),
+        registry.ModelSpec(alias="tp4", mesh={"dp": 2, "tp": 4}),
+    ):
+        registry.save_registry_entry(spec, tmp_path / "registry.json")
+    lm = ref_dispatch.get_engine("tpu://meshy")._load("meshy")
+    port = GpuEngine(device="cpu", devices=["cpu"] * 8)
+    spec = registry.resolve_model_spec("tpu://meshy")
+    params = params_from_jax(jax.tree.map(np.asarray, lm.params), lm.cfg, "cpu", torch.float32)
+    port.install("meshy", shard_params(port.mesh_for(spec), params))
+    dispatch.install_engine("tpu://meshy", port)
+
+    def masked(doc, pkg):
+        for r in doc["results"]:
+            if r["error"] is not None:
+                assert r["error"].startswith("ValueError: ") and phrase in r["error"]
+                r["error"] = phrase
+        return sup.without_walls(sup.normalize_report(doc, pkg))
+
+    for models, n_ok in (("tpu://meshy,tpu://meshy", 2), ("tpu://tp4", 0)):
+        argv = ["critique", "--models", models, "--greedy", "--max-new-tokens", "12", "--json"]
+        (rc, rout, rerr), (pc, pout, perr) = sup.both_cli(argv, tmp_path, monkeypatch, capsys, SPEC)
+        assert pc == rc, (rerr, perr)
+        assert "not yet ported" not in perr
+        ref, got = json.loads(rout), json.loads(pout)
+        assert [r["error"] is None for r in got["results"]].count(True) == n_ok
+        assert masked(got, "port") == masked(ref, "ref")
 
 
 def test_default_models_pick_an_hf_alias_as_the_reference_does(tmp_path, monkeypatch):

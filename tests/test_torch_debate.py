@@ -12,10 +12,11 @@ entry over two rounds of one session, the second served from the prefix
 cache.
 
 A paged round with a per-request deadline is served as the reference
-serves it. Every "not yet ported" refusal of ``GpuEngine`` must classify
-as ``BUG``
-(never TIMEOUT, which would count against the model's breaker as a
-watchdog expiry and hedge the request), and ``GpuEngine.chat`` must set
+serves it. The specs once refused with "not yet ported" are served (sp
+meshes) or fail as the reference fails them (a tp that does not divide
+the KV heads: a ``ValueError`` that classifies as ``BUG``, never
+TIMEOUT, which would count against the model's breaker as a watchdog
+expiry and hedge the request), and ``GpuEngine.chat`` must set
 ``Completion.transient`` from the fault's class, as the reference does.
 """
 
@@ -35,7 +36,7 @@ from adversarial_spec_tpu.resilience.faults import (
 from adversarial_spec_tpu_torch import cli as port_cli
 from adversarial_spec_tpu_torch.engine import dispatch as port_dispatch
 from adversarial_spec_tpu_torch.engine import registry
-from adversarial_spec_tpu_torch.engine.gpu import GpuEngine, unported_reason
+from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
 from adversarial_spec_tpu_torch.engine.loader import params_from_jax
 from adversarial_spec_tpu_torch.engine.types import ChatRequest, SamplingParams
 from adversarial_spec_tpu_torch.resilience import faults
@@ -180,19 +181,32 @@ def test_paged_session_matches_reference_and_hits_the_prefix_cache(
 
 
 def _refusal_specs():
-    """The specs still refused: an sp mesh axis, and a tp that does not
-    divide the model's KV heads (the tiny llama has 2). dp, tp and dp×tp
-    meshes are served (``test_mesh_specs_are_served``)."""
+    """The specs once refused with "not yet ported": two sp meshes, served
+    now, and a tp that does not divide the tiny llama's 2 KV heads, which
+    fails as the reference's engine fails it."""
     return {
-        "mesh": registry.ModelSpec(alias="m", mesh={"sp": 2}),
-        # The paged corner with no room for a bucketed prompt is served
-        # (generate(paged=True)), on a dp mesh too; with an sp axis it is
-        # still refused.
+        "mesh": registry.ModelSpec(alias="m", dtype="float32", mesh={"sp": 2}),
+        # The paged corner with no room for a bucketed prompt, on a dp×sp
+        # mesh: the ring prefill, then generate(paged=True).
         "paged_budget": registry.ModelSpec(
-            alias="p", kv="paged", max_seq_len=130, mesh={"dp": 2, "sp": 2}
+            alias="p", dtype="float32", kv="paged", max_seq_len=130,
+            mesh={"dp": 2, "sp": 2},
         ),
         "mesh_dp_tp": registry.ModelSpec(alias="d", mesh={"dp": 2, "tp": 4}),
     }
+
+
+# What the reference's ValueError says when the dense cache's KV-head axis
+# does not split tp ways (JAX words the rest of it).
+PARTITIONED = "implies that array axis 2 is partitioned 4 times, but the dimension size is 2"
+
+
+def _not_refused(spec) -> bool:
+    """``GpuEngine.chat`` has no refusal for ``spec``: it is loaded and
+    served (``_refusal`` is what chat checks before any weights load)."""
+    registry.save_registry_entry(spec)
+    eng = GpuEngine(device="cpu")
+    return eng._refusal(spec.alias, SamplingParams(max_new_tokens=8)) is None
 
 
 @pytest.mark.parametrize(
@@ -200,59 +214,82 @@ def _refusal_specs():
     ids=["tp2", "dp2tp2", "dp2", "tp2dp1"],
 )
 def test_mesh_specs_are_served(mesh):
-    """dp, tp and dp×tp meshes whose tp divides the KV heads are served:
-    ``unported_reason`` has no refusal for them, dense or paged."""
+    """dp, tp and dp×tp meshes are served, dense or paged: ``GpuEngine``
+    refuses none of them."""
     for kv in ("dense", "paged"):
-        spec = registry.ModelSpec(alias="m", mesh=mesh, kv=kv)
-        assert unported_reason(spec) is None
+        assert _not_refused(registry.ModelSpec(alias="m", mesh=mesh, kv=kv))
 
 
 @pytest.mark.parametrize("case", sorted(_refusal_specs()))
 def test_every_refusal_classifies_as_bug(case):
-    """The refusal text as ``GpuEngine.chat`` words it classifies as BUG
-    under the port's and the reference's ``classify_message``."""
+    """The two sp specs are served on a virtual mesh of 8 CPU devices
+    (the ring prefill ran); the tp that does not divide the KV heads
+    loads, then fails every row with the reference's ``ValueError``,
+    which classifies as BUG (permanent) under the port's and the
+    reference's ``classify_message``."""
+    from adversarial_spec_tpu_torch.parallel import sp as port_sp
+
     spec = _refusal_specs()[case]
-    reason = unported_reason(spec)
-    assert reason is not None
-    msg = (
-        f"NotImplementedError: tpu://{spec.alias} needs {reason}, which is "
-        "not yet ported to the PyTorch/CUDA package"
+    registry.save_registry_entry(spec)
+    eng = GpuEngine(device="cpu", devices=["cpu"] * 8)
+    port_sp.reset_counts()
+    comps = eng.chat(
+        [ChatRequest(f"tpu://{spec.alias}", "sys", "hi")] * 2,
+        SamplingParams(max_new_tokens=4, greedy=True),
     )
-    assert faults.classify_message(msg) is FaultKind.BUG
-    assert ref_classify_message(msg) is RefFaultKind.BUG
-    assert not FaultKind.BUG.transient
+    if case != "mesh_dp_tp":
+        assert [c.error for c in comps] == [None, None]
+        assert [c.usage.output_tokens for c in comps] == [4, 4]
+        assert port_sp.counts["prefills"] == 1
+        return
+    assert port_sp.counts["prefills"] == 0
+    for c in comps:
+        assert not c.ok and c.error.startswith("ValueError: ") and PARTITIONED in c.error
+        assert "not yet ported" not in c.error
+        assert faults.classify_message(c.error) is FaultKind.BUG
+        assert ref_classify_message(c.error) is RefFaultKind.BUG
+        assert c.transient is False
 
 
 def test_hf_checkpoint_alias_is_not_refused():
     """An HF checkpoint alias is served (dense and paged, every weight
-    format): ``unported_reason`` has no refusal for it."""
+    format): ``GpuEngine`` has no refusal for it."""
     for extra in ({}, {"kv": "paged"}, {"quant": "int4", "kv": "paged"}, {"quant": "int8"}):
-        spec = registry.ModelSpec(alias="h", checkpoint="/some/hf/dir", **extra)
-        assert unported_reason(spec) is None
+        assert _not_refused(registry.ModelSpec(alias="h", checkpoint="/some/hf/dir", **extra))
 
 
 def test_paged_budget_corner_is_not_refused():
     """A one-device paged alias whose budget leaves no room for a
     bucketed prompt is served by the round-synchronous
-    ``generate(paged=True)``: ``unported_reason`` has no refusal for it."""
+    ``generate(paged=True)``: ``GpuEngine`` has no refusal for it."""
     for kv_dtype in ("", "int8"):
-        spec = registry.ModelSpec(
+        assert _not_refused(registry.ModelSpec(
             alias="p", kv="paged", max_seq_len=130, kv_dtype=kv_dtype
-        )
-        assert unported_reason(spec) is None
+        ))
 
 
-def test_refused_chat_is_a_counted_permanent_bug(tmp_path):
-    registry.save_registry_entry(registry.ModelSpec(alias="d", mesh={"tp": 2, "sp": 2}))
-    eng = GpuEngine(device="cpu")
-    (c,) = eng.chat(
-        [ChatRequest("tpu://d", "sys", "hi")],
-        SamplingParams(max_new_tokens=8, request_deadline_s=5.0),
-    )
-    assert not c.ok and "not yet ported" in c.error
-    assert c.transient is False
-    assert faults.classify_message(c.error) is FaultKind.BUG
-    assert faults.snapshot() == {"generate.bug": 1}
+def test_refused_chat_is_a_counted_permanent_bug():
+    """A tp that does not divide the KV heads fails in both engines alike:
+    every row the same ``ValueError`` (JAX words its sharding, the port
+    its own), permanent, counted once at ``generate`` as a BUG."""
+    from adversarial_spec_tpu.engine.types import ChatRequest as RefChatRequest
+    from adversarial_spec_tpu.engine.types import SamplingParams as RefParams
+    from adversarial_spec_tpu.resilience import faults as ref_faults
+
+    registry.save_registry_entry(registry.ModelSpec(alias="d", mesh={"dp": 2, "tp": 4}))
+    sp = dict(max_new_tokens=8, greedy=True)
+    ref_faults.reset()
+    ref = ref_dispatch.get_engine("tpu://d").chat([RefChatRequest("tpu://d", "sys", "hi")] * 2,
+                                                  RefParams(**sp))
+    eng = GpuEngine(device="cpu", devices=["cpu"] * 8)
+    got = eng.chat([ChatRequest("tpu://d", "sys", "hi")] * 2, SamplingParams(**sp))
+    for r, c in zip(ref, got):
+        assert not r.ok and not c.ok
+        assert r.error.split(":")[0] == c.error.split(":")[0] == "ValueError"
+        assert PARTITIONED in r.error and PARTITIONED in c.error
+        assert c.transient is r.transient is False
+    assert faults.classify_message(got[0].error) is FaultKind.BUG
+    assert faults.snapshot() == ref_faults.snapshot() == {"generate.bug": 1}
 
 
 def test_device_oom_is_transient_and_counted(monkeypatch):

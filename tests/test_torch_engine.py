@@ -23,6 +23,7 @@ from adversarial_spec_tpu_torch.engine import registry
 from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
 from adversarial_spec_tpu_torch.engine.loader import params_from_jax
 from adversarial_spec_tpu_torch.engine.types import ChatRequest, SamplingParams
+from adversarial_spec_tpu_torch.parallel.sharding import shard_params
 
 USERS = [
     ("You are a security reviewer.", "# Spec\nThe API MUST rate-limit. " * 6),
@@ -53,9 +54,10 @@ def shared_registry(tmp_path, monkeypatch):
             alias="paged-tiny", family="llama", size="tiny", dtype="float32",
             mesh={"dp": 1}, kv="paged", max_seq_len=130,
         ),
-        # A paged alias on a mesh the port does not serve yet (an sp
-        # axis; dp, tp and dp×tp meshes are served, tests/test_torch_parallel.py).
-        registry.ModelSpec(alias="paged-mesh", kv="paged", mesh={"tp": 2, "sp": 2}),
+        # A paged alias on an sp×tp mesh (dp=2 × sp=2 × tp=2 on 8
+        # devices): served by generate(paged=True) after the ring prefill.
+        registry.ModelSpec(alias="paged-mesh", dtype="float32", kv="paged",
+                           mesh={"tp": 2, "sp": 2}),
         # An HF checkpoint alias whose directory holds no weights: served
         # now, so both engines answer it with the same error.
         registry.ModelSpec(alias="paged-hf", kv="paged", checkpoint="/no/such/dir"),
@@ -142,23 +144,31 @@ def _chat_matches_reference(alias: str) -> GpuEngine:
 
 
 # Refused until the int8 KV cache (and, for paged-tiny, the
-# round-synchronous generate(paged=True)) was ported; served now.
-SERVED_NOW = ("int8-tiny", "paged-int8kv", "paged-tiny")
+# round-synchronous generate(paged=True); for paged-mesh, the sp axis) was
+# ported; served now.
+SERVED_NOW = ("int8-tiny", "paged-int8kv", "paged-tiny", "paged-mesh")
 
 
 @pytest.mark.parametrize(
     "alias", ["paged-tiny", "int8-tiny", "paged-int8kv", "paged-mesh", "paged-hf"]
 )
 def test_unported_specs_get_not_yet_ported_error(shared_registry, serving_defaults, alias):
-    """Each row of a spec the port cannot serve yet gets a "not yet
-    ported" error. The int8 KV cache's cases and the paged budget corner
-    (``SERVED_NOW``) are served instead, with the reference's text; the
-    corner builds no batcher. An HF checkpoint (``paged-hf``) is
-    served too: its directory holds no weights, so both engines answer
-    every row with an error of the same fault kind."""
+    """Every spec here was once refused with "not yet ported" and is
+    served now. The int8 KV cache's cases, the paged budget corner and a
+    paged alias on an sp×tp mesh (``SERVED_NOW``) with the reference's
+    text; the corner and the mesh build no batcher (the mesh prefills
+    through the ring). An HF checkpoint (``paged-hf``) whose directory
+    holds no weights: both engines answer every row with an error of the
+    same fault kind."""
     if alias in SERVED_NOW:
+        from adversarial_spec_tpu_torch.parallel import sp as port_sp
+
+        port_sp.reset_counts()
         port = _chat_matches_reference(alias)
-        if alias == "paged-tiny":
+        if alias == "paged-mesh":
+            assert port._models[alias].mesh.shape == {"dp": 2, "sp": 2, "tp": 2}
+            assert port_sp.counts["prefills"] >= 1
+        if alias in ("paged-tiny", "paged-mesh"):
             assert port._models[alias].batcher is None
             return
         cache = port._models[alias].batcher.pool if alias.startswith("paged") else None
@@ -179,16 +189,6 @@ def test_unported_specs_get_not_yet_ported_error(shared_registry, serving_defaul
         assert "not yet ported" not in got[0].error
         assert classify_message(got[0].error).value == ref_classify(ref[0].error).value
         assert [c.transient for c in got] == [c.transient for c in ref]
-        return
-    port = GpuEngine(device="cpu")
-    comps = port.chat(
-        [ChatRequest(f"tpu://{alias}", "s", "u")] * 2,
-        SamplingParams(max_new_tokens=4, greedy=True),
-    )
-    assert len(comps) == 2
-    for c in comps:
-        assert not c.ok and "not yet ported" in c.error
-        assert c.text == ""
 
 
 @pytest.mark.parametrize(
@@ -210,11 +210,20 @@ def test_int8kv_chat_text_matches_reference(shared_registry, serving_defaults, a
 
 
 def _bridged_engines(alias):
+    """The reference's engine with ``alias`` loaded, and a CPU GpuEngine
+    serving the same weights: on the same mesh over ``["cpu"] * 8`` for
+    a mesh alias (the reference's 8 virtual devices)."""
     ref_engine = TpuEngine()
     lm = ref_engine._load(alias)
     np_params = jax.tree.map(np.asarray, lm.params)
-    port = GpuEngine(device="cpu")
-    port.install(alias, params_from_jax(np_params, lm.cfg, "cpu", torch.float32))
+    params = params_from_jax(np_params, lm.cfg, "cpu", torch.float32)
+    spec = registry.resolve_model_spec(f"tpu://{alias}")
+    if any(int(n) > 1 for n in spec.mesh.values()):
+        port = GpuEngine(device="cpu", devices=["cpu"] * 8)
+        params = shard_params(port.mesh_for(spec), params)
+    else:
+        port = GpuEngine(device="cpu")
+    port.install(alias, params)
     return ref_engine, port
 
 

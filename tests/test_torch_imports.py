@@ -189,7 +189,12 @@ def test_package_imports_with_jax_blocked():
         )
     }
     assert fleet_path <= set(mods)
-    assert len(mods) >= 62
+    mesh_path = {
+        f"adversarial_spec_tpu_torch.parallel{m}"
+        for m in ("", ".mesh", ".sharding", ".collectives", ".ring", ".sp")
+    }
+    assert mesh_path <= set(mods)
+    assert len(mods) >= 64
 
 
 def test_mock_fleet_worker_imports_no_torch(tmp_path):

@@ -11,7 +11,9 @@ unpadded), paged on dp-only and dp×tp (W2's path, float and int8 pools;
 the reference's {"tp": 2} on 8 devices is dp=4 × tp=2) and tp-only (a
 dp=1 submesh: W3's path), speculation on dp-only, tp and dp×tp meshes,
 int8 weights and an int8 KV cache on tp=2, and the prefix-sharing switch
-on a tp=2 paged run. Every mesh runs the one sharded program, where the
+on a tp=2 paged run. A dp×sp×tp mesh gives the single-device tokens, and
+a tp that does not divide the KV heads the reference's warning and
+``ValueError`` (the sp axis in full: ``tests/test_torch_sp.py``). Every mesh runs the one sharded program, where the
 reference's dp-only mesh runs a per-device loop: greedy tokens agree.
 
 On the CPU the wrappers take their kernels' plain versions, so these pin
@@ -36,7 +38,7 @@ from adversarial_spec_tpu_torch.engine.loader import params_from_jax
 from adversarial_spec_tpu_torch.models.config import get_config
 from adversarial_spec_tpu_torch.parallel import collectives
 from adversarial_spec_tpu_torch.parallel.mesh import make_mesh
-from adversarial_spec_tpu_torch.parallel.sharding import MeshParams, shard_params
+from adversarial_spec_tpu_torch.parallel.sharding import shard_params
 
 CPU8 = ["cpu"] * 8
 P4 = [[1, 5, 9, 3], [2, 6], [8, 8, 8], [4]]
@@ -136,12 +138,32 @@ def test_mesh_generate_matches_reference_and_single_device(case):
     assert (collectives.counts["local"] > 0) == ("tp" in mesh_spec)
 
 
-def test_generate_refuses_what_is_not_ported():
-    """An sp axis, or a tp that does not divide the KV heads: "not yet
-    ported", before any work."""
-    _, _, pp, cfg = _models("")
-    for spec in ({"dp": 2, "sp": 2, "tp": 2}, {"tp": 4}):
-        mesh = make_mesh(spec, CPU8)
-        with pytest.raises(NotImplementedError, match="not yet ported"):
-            gen.generate(MeshParams(mesh, []), cfg, P4, mesh=mesh,
-                         max_new_tokens=4, eos_ids=[])
+def test_generate_refuses_what_is_not_ported(capsys):
+    """What was refused as "not yet ported" before the sp axis was ported:
+    a dp×sp×tp mesh is served (the ring prefill, then the single-device
+    tokens), and a tp that does not divide the KV heads fails as the
+    reference's generate fails it: a paged call warns that it falls back
+    to the dense cache, whose placement raises the same ValueError."""
+    jp, jcfg, pp, cfg = _models("")
+    kw = dict(max_new_tokens=4, eos_ids=[], greedy=True, speculative=False)
+    mesh = make_mesh({"dp": 2, "sp": 2, "tp": 2}, CPU8)
+    out = gen.generate(shard_params(mesh, pp), cfg, P4, mesh=mesh, **kw)
+    single = gen.generate(pp, cfg, P4, device="cpu", **kw)
+    np.testing.assert_array_equal(out.tokens, single.tokens)
+    errors = []
+    for run in ("ref", "port"):
+        with pytest.raises(ValueError, match="partitioned 4 times") as e:
+            if run == "ref":
+                jmesh = jax_make_mesh({"tp": 4})
+                with jmesh:
+                    jax_gen.generate(jax_shard_params(jmesh, jp), jcfg, P4, mesh=jmesh,
+                                     paged=True, **kw)
+            else:
+                mesh = make_mesh({"tp": 4}, CPU8)
+                gen.generate(shard_params(mesh, pp), cfg, P4, mesh=mesh, paged=True, **kw)
+        errors.append(str(e.value))
+        warn = capsys.readouterr().err
+        assert "paged KV decode requires tp | n_kv_heads (4 ∤ 2)" in warn
+        assert "falling back to the dense cache on this mesh ({'dp': 2, 'sp': 1, 'tp': 4})" in warn
+    phrase = "implies that array axis 2 is partitioned 4 times, but the dimension size is 2"
+    assert all(phrase in e for e in errors)

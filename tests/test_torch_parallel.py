@@ -275,7 +275,7 @@ def test_collectives_local_way_sums_and_gathers_in_rank_order():
     assert all(torch.equal(s, torch.full((2, 3), 10.0)) for s in summed)
     gathered = collectives.all_gather([torch.full((2, 1), float(i)) for i in range(3)])
     assert gathered.tolist() == [[0.0, 1.0, 2.0]] * 2
-    assert collectives.counts == {"nccl": 0, "local": 2}
+    assert collectives.counts == {"nccl": 0, "local": 2, "peer": 0}
     assert collectives.all_reduce(parts[:1]) == parts[:1]  # tp=1: no collective
     assert collectives.counts["local"] == 2
 
