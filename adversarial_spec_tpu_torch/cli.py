@@ -8,8 +8,6 @@ through ``GpuEngine`` on the GPU. Sessions, checkpoints, the round
 journal, profiles and the registry live at the reference's paths, so a
 session one package started, the other resumes.
 
-A knob of a subsystem the port does not have yet exits 2 with "not yet
-ported" (``_unported_knobs``): ``--pipeline-depth 2`` and its env var.
 Every registry mesh alias (dp, tp, sp and their products) runs its round
 on ``GpuEngine``, as the reference's runs on ``TpuEngine``.
 The ``serve`` action runs the port's daemon (``serve/``), and the fleet
@@ -19,10 +17,10 @@ replicas of the port's engines (``fleet/``). The KV tiers
 are the reference's (``--kv-tier``/``--no-kv-tier``, ``--kv-host-mb``,
 ``--kv-store-dir``, ``--kv-flush-blocks`` and their env vars;
 ``perf.kv_tier``), and so are
-``--no-interleave`` (the batcher's legacy loop) and the chaos seams
-``generate``, ``scheduler_chunk``, ``kv_alloc`` and ``kv_swap``. Of the
-subsystems the reference arms by default, ``perf.interleave`` shows
-pipeline depth 1. Weight residency is the
+``--no-interleave`` (the batcher's legacy loop), ``--pipeline-depth``
+and ``ADVSPEC_PIPELINE_DEPTH`` (the batcher's pipelined loop, depth 2 by
+default) and the chaos seams ``generate``, ``scheduler_chunk``,
+``kv_alloc`` and ``kv_swap``. Weight residency is the
 reference's: ``--weight-res``/``--no-weight-res``, ``--weight-host-mb``
 and their env vars arm ``GpuEngine``'s ledger (on, 2048 MiB of host by
 default), and ``perf.weights`` reports it. A ``tpu://`` id whose
@@ -786,7 +784,9 @@ def _configure_interleave(args: argparse.Namespace):
     the batcher itself persists on the engine across rounds."""
     from adversarial_spec_tpu_torch.engine import interleave
 
-    interleave.configure(enabled=args.interleave)
+    interleave.configure(
+        enabled=args.interleave, pipeline_depth=args.pipeline_depth
+    )
     interleave.reset_stats()
     return interleave
 
@@ -986,21 +986,6 @@ def _configure_obs(args: argparse.Namespace):
     )
     obs.reset_stats()
     return obs
-
-
-def _unported_knobs(args: argparse.Namespace) -> list[str]:
-    """The knobs of unported subsystems this invocation sets, by flag or
-    env var (``main`` exits 2 on any): a pipeline depth other than 1."""
-    from adversarial_spec_tpu_torch.engine import interleave
-
-    depth = (
-        interleave.env_pipeline_depth()
-        if args.pipeline_depth is None
-        else interleave.clamp_depth(args.pipeline_depth)
-    )
-    if depth != interleave.SERVED_PIPELINE_DEPTH:
-        return [f"pipeline depth {depth} (--pipeline-depth, ADVSPEC_PIPELINE_DEPTH)"]
-    return []
 
 
 def handle_serve(args: argparse.Namespace) -> int:
@@ -1729,15 +1714,6 @@ def main(argv: list[str] | None = None) -> int:
         info = handle_info_command(args)
         if info is not None:
             return info
-        if args.action in ("critique", "export-tasks", "serve"):
-            refused = _unported_knobs(args)
-            if refused:
-                for knob in refused:
-                    _err(
-                        f"error: {knob} is not yet ported to the "
-                        "PyTorch/CUDA package"
-                    )
-                return EXIT_VALIDATION
         if args.action == "critique":
             return run_critique(args)
         if args.action == "serve":

@@ -1064,7 +1064,10 @@ class GpuEngine:
             lm.spec.kv_dtype,
             prefix_mod.config().enabled,
             prefix_mod.config().max_pages,
+            # The batcher takes the drive loop and its depth at
+            # construction: flipping either between rounds rebuilds it.
             interleave_mod.config().enabled,
+            interleave_mod.config().pipeline_depth,
             # The tiers are built with the batcher: flipping --no-kv-tier,
             # the host budget or the store dir between rounds rebuilds it.
             kvtier_mod.config().enabled,

@@ -1,16 +1,17 @@
-"""Fused-step drive-loop config and telemetry (host side).
+"""Fused-step / pipelined-drive-loop config and telemetry (host side).
 
 Counterpart of ``adversarial_spec_tpu/engine/interleave.py``. The port's
 ``ContinuousBatcher`` (engine/scheduler.py) has two drive loops. The
-fused loop (``enabled=True``) runs the in-flight admission's prompt chunk
-and every resident row's decode (or verify) step back to back in each
-iteration (Sarathi-style piggybacked chunked prefill), one step deep —
-the reference's pipelined loop at depth 1. ``perf.interleave`` reports
-that depth under the reference's key ``pipeline_depth``. Depth 2 (CUDA
-streams and events; the CLI refuses it) is not ported. ``enabled=False``
-(env ``ADVSPEC_INTERLEAVE=0``) selects the reference's legacy serialized
-loop: one prompt-chunk dispatch, then one decode dispatch, each with its
-host sync.
+fused + pipelined loop (``enabled=True``) runs the in-flight admission's
+prompt chunk and every resident row's decode (or verify) step in each
+iteration (Sarathi-style piggybacked chunked prefill) and keeps up to
+``pipeline_depth`` steps in flight: each step's flags are copied to
+pinned host memory behind a CUDA event, and the host applies step N-1's
+flags while step N runs (``--pipeline-depth``, env
+``ADVSPEC_PIPELINE_DEPTH``; default 2, the double buffer; 1 = fused but
+synchronous). ``enabled=False`` (env ``ADVSPEC_INTERLEAVE=0``) selects the
+reference's legacy serialized loop: one prompt-chunk dispatch, then one
+decode dispatch, each with its host sync.
 
 The counters are the reference's:
 
@@ -34,11 +35,10 @@ from dataclasses import dataclass
 
 from adversarial_spec_tpu_torch.engine import procconfig
 
-
-# The reference keeps up to two device steps in flight; the port serves
-# depth 1 only (depth 2 is not ported).
+# The drive loop keeps at most this many device steps in flight. Depth 1
+# degenerates to "fused but synchronous" (fetch each step right after
+# dispatch); depth 2 is the double buffer.
 MAX_PIPELINE_DEPTH = 2
-SERVED_PIPELINE_DEPTH = 1
 
 
 @dataclass
@@ -46,6 +46,7 @@ class InterleaveConfig:
     """Process-wide knobs, set once per round (or by tests)."""
 
     enabled: bool = True
+    pipeline_depth: int = MAX_PIPELINE_DEPTH
 
 
 @dataclass
@@ -86,25 +87,26 @@ class InterleaveStats(procconfig.StatsBase):
         return out
 
 
+def _depth_from_env() -> int:
+    try:
+        d = int(os.environ.get("ADVSPEC_PIPELINE_DEPTH", MAX_PIPELINE_DEPTH))
+    except ValueError:
+        d = MAX_PIPELINE_DEPTH
+    return clamp_depth(d)
+
+
 def clamp_depth(depth) -> int:
-    """The reference's clamp of a requested depth to [1, 2]."""
+    """A requested depth clamped to [1, MAX_PIPELINE_DEPTH]."""
     return max(1, min(int(depth), MAX_PIPELINE_DEPTH))
 
 
-def env_pipeline_depth() -> int:
-    """The depth ``ADVSPEC_PIPELINE_DEPTH`` asks for, clamped as the
-    reference clamps it (unset: the depth the port serves)."""
-    try:
-        return clamp_depth(
-            os.environ.get("ADVSPEC_PIPELINE_DEPTH", SERVED_PIPELINE_DEPTH)
-        )
-    except ValueError:
-        return MAX_PIPELINE_DEPTH
-
-
 _state = procconfig.ProcState(
-    InterleaveConfig(enabled=os.environ.get("ADVSPEC_INTERLEAVE", "1") != "0"),
+    InterleaveConfig(
+        enabled=os.environ.get("ADVSPEC_INTERLEAVE", "1") != "0",
+        pipeline_depth=_depth_from_env(),
+    ),
     InterleaveStats(),
+    coerce={"pipeline_depth": clamp_depth},
 )
 stats = _state.stats
 
@@ -113,8 +115,10 @@ def config() -> InterleaveConfig:
     return _state.config
 
 
-def configure(enabled: bool | None = None) -> InterleaveConfig:
-    return _state.configure(enabled=enabled)
+def configure(
+    enabled: bool | None = None, pipeline_depth: int | None = None
+) -> InterleaveConfig:
+    return _state.configure(enabled=enabled, pipeline_depth=pipeline_depth)
 
 
 def reset_stats() -> None:
@@ -122,5 +126,5 @@ def reset_stats() -> None:
 
 
 def snapshot() -> dict:
-    """Stats + config + the served depth, the ``perf.interleave`` payload."""
-    return {**_state.snapshot(), "pipeline_depth": SERVED_PIPELINE_DEPTH}
+    """Stats + config, the ``perf.interleave`` payload."""
+    return _state.snapshot()

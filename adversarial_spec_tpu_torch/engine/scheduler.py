@@ -25,13 +25,24 @@ The reference's ``while_loop`` condition ``active.any()`` becomes one host
 read per decode step.
 
 Drive loops (engine/interleave.py holds the config and telemetry): the
-default loop (``_drive``) is the reference's pipelined loop at depth 1 —
-each step's flags (or the spec path's accept counts) are read right
-after it. ``interleave=False`` (CLI ``--no-interleave``,
+default loop (``_drive_pipelined``) is the reference's fused + pipelined
+loop, up to ``pipeline_depth`` steps in flight (default 2, the double
+buffer). Each decode step's flags are copied into pinned host memory with
+``non_blocking=True`` right after its dispatch, behind a CUDA event; the
+host applies them (``_fetch_entry``) as soon as the event has completed
+(``_entry_ready``), or waits on it when the depth bound forces the fetch.
+Fetches only DEACTIVATE, and only rows whose slot still has the ownership
+generation (``_slot_gen``) recorded at dispatch: a slot freed and
+re-admitted while a step was in flight bumps its generation. The
+speculative path runs one step deep (the host needs each step's accept
+counts before the next). ``interleave=False`` (CLI ``--no-interleave``,
 ``ADVSPEC_INTERLEAVE=0``) runs the reference's legacy serialized loop
 (``_drive_legacy``): one prompt-chunk dispatch, one decode dispatch and
 their host syncs per iteration. Every host read is counted in
-``interleave.stats.sync_points``.
+``interleave.stats.sync_points``. Each dispatch is reported to the retrace
+watch (``obs.retrace``) under the reference's program name and key; the
+port has no jit cache to probe, so the watch counts compiles by key
+novelty.
 
 Inactive-slot safety: physical page 0 is a reserved TRASH page no sequence
 owns. Allocator ids are shifted +1 and inactive rows (and rejected drafts)
@@ -65,15 +76,15 @@ admission whose prefix continues in a lower tier promotes those blocks
 into its pages instead of prefilling them. Demotion copies land in a
 reused pinned arena (``kvtier.DemotionArena``) with ``non_blocking=True``
 and a CUDA event; the lazy materializer waits on that event only.
-
-Not ported: depth-2 pipelining and the sharded decode chunk.
 """
 
 from __future__ import annotations
 
 import time
 import weakref
+from collections import deque
 from dataclasses import dataclass
+from typing import NamedTuple
 
 import numpy as np
 import torch
@@ -232,6 +243,21 @@ class SchedResult:
     # Echo of the request's causal-trace ids.
     trace_id: str = ""
     span_id: str = ""
+
+
+class _StepEntry(NamedTuple):
+    """One decode step in flight: host copies of its flags (and, while a
+    stream consumer is attached, its emitted counts and output buffer),
+    taken at dispatch, and the (slot, generation) pairs live then. On
+    CUDA the copies are ``non_blocking`` into pinned memory and ``done``
+    is the event recorded behind them; on the CPU they are done when
+    taken and ``done`` is None."""
+
+    done: object  # torch.cuda.Event | None
+    active: torch.Tensor
+    n_emitted: torch.Tensor | None
+    out_buf: torch.Tensor | None
+    live: tuple
 
 
 def _next_chunk_len(remaining: int) -> int:
@@ -552,7 +578,9 @@ class ContinuousBatcher:
     Every tensor lives on the params' device (the engine's).
     ``kv_dtype="int8"`` makes the pool and every admission's dense cache
     int8 with per-(token, head) f32 scales (the reference's int8 layout).
-    ``interleave`` (None = the process config) picks the drive loop.
+    ``interleave`` (None = the process config) picks the drive loop and
+    ``pipeline_depth`` (None = the process config, clamped to [1, 2]) the
+    steps the pipelined loop keeps in flight.
     """
 
     def __init__(
@@ -573,6 +601,7 @@ class ContinuousBatcher:
         chunk: int = 32,
         prefix_cache: bool | None = None,
         interleave: bool | None = None,
+        pipeline_depth: int | None = None,
         step_tokens: int = 0,
         speculative: bool | None = None,
         gamma: int | None = None,
@@ -588,6 +617,9 @@ class ContinuousBatcher:
         self.chunk = chunk
         cfg_il = interleave_mod.config()
         self.interleave = cfg_il.enabled if interleave is None else bool(interleave)
+        self.pipeline_depth = interleave_mod.clamp_depth(
+            cfg_il.pipeline_depth if pipeline_depth is None else pipeline_depth
+        )
         # Sarathi-style shared per-step token budget: a fused step's
         # prompt chunk shrinks so chunk_len + n_live·width stays under it.
         self.step_tokens = step_tokens or (ADMISSION_CHUNK + max_batch * chunk)
@@ -697,9 +729,15 @@ class ContinuousBatcher:
         self.active = torch.zeros((B,), dtype=torch.bool, device=dev)
         self.out_buf = torch.zeros((B, cap), **i64)
         # Host view of ``active``, updated at handoff, release, eviction
-        # and each step's flags read (the drive loops are one step deep,
-        # so a slot cannot change owners between a step and its read).
+        # and each fetched step's flags. The pipelined loop decides
+        # against this view instead of waiting on the step in flight: a
+        # stale True costs one step that exits at once. Fetches only
+        # DEACTIVATE, and only while the slot's ownership generation
+        # still matches the one recorded at dispatch — a slot freed and
+        # re-admitted while a step was in flight bumps it, so the old
+        # step's "this row finished" flag never truncates the newcomer.
         self._active_np = np.zeros((B,), bool)
+        self._slot_gen = [0] * B
         # Speculation state. ctx_buf is the DRAFT SOURCE: each row's real
         # (unpadded) prompt ids followed by everything it has emitted;
         # submit() guarantees prompt + budget fits max_seq_len. The host
@@ -741,6 +779,9 @@ class ContinuousBatcher:
         self.stalled_prefill_s = 0.0
         self.overlapped_prefill_s = 0.0
         self.decode_time_s = 0.0
+        # The pipelined loop's fetches: those that found their step's
+        # copies landed, and those the depth bound made wait on them.
+        self.fetch_counts = {"ready": 0, "depth_bound": 0}
 
     @property
     def prefill_time_s(self) -> float:
@@ -1170,6 +1211,7 @@ class ContinuousBatcher:
         interleave_mod.stats.record_step(fused=False, prefill_only=True)
         prefix_mod.stats.record_prefill(chunk_len, 0)
         if obs_mod.config().enabled:
+            obs_mod.retrace.observe("prefill_chunk", ("prefill", chunk_len, adm.S))
             obs_mod.hot.prefill_chunk.observe(elapsed)
             obs_mod.emit(
                 obs_mod.StepEvent(
@@ -1215,6 +1257,10 @@ class ContinuousBatcher:
                     cache,
                     adm.S_real - 1,
                 )
+                if obs_mod.config().enabled:
+                    # The chunked-prefill site's program: every dispatch
+                    # of it is observed.
+                    obs_mod.retrace.observe("prefill_chunk", ("prefill", 1, adm.S))
             # Scatter only the delta [matched, S_real): adopted prefix
             # pages are shared and never rewritten.
             scat = np.arange(adm.matched, adm.S_real)
@@ -1265,6 +1311,7 @@ class ContinuousBatcher:
         row_active = (req.max_new_tokens > 1) and not first_is_eos
         self.active[slot] = row_active
         self._active_np[slot] = row_active
+        self._slot_gen[slot] += 1  # new owner: expire in-flight flags
         if self.speculative:
             # Seed the draft source: the REAL (unpadded) prompt ids
             # followed by the first sampled token.
@@ -1623,8 +1670,10 @@ class ContinuousBatcher:
         """THE slot-release surgery, shared by completion, cancellation and
         fault eviction: drop the sequence's page references (pages shared
         with the prefix cache survive), clear ownership and streaming
-        state, deactivate the row and zero its page-table row. Returns
-        the pages actually freed."""
+        state, deactivate the row, zero its page-table row and bump the
+        ownership generation, so any in-flight flags, counts or
+        deliveries for the old owner expire. Returns the pages actually
+        freed."""
         free0 = self.allocator.free_pages
         self.allocator.free_sequence(self._slot_seq[slot])
         self._slot_req[slot] = None
@@ -1633,6 +1682,7 @@ class ContinuousBatcher:
         self._slot_streamed[slot] = 0
         self.active[slot] = False
         self._active_np[slot] = False
+        self._slot_gen[slot] += 1
         self.page_table[slot] = 0
         return self.allocator.free_pages - free0
 
@@ -1659,13 +1709,18 @@ class ContinuousBatcher:
             return True
 
     def _stream_entry(
-        self, emitted_np: np.ndarray, out_np: np.ndarray, live: list[int]
+        self, emitted_np: np.ndarray, out_np: np.ndarray, live_slots
     ) -> None:
-        """Stream one step's tokens to every live consumer and cancel the
-        rows whose consumers are done (rows evicted since dispatch have
-        no consumer and are skipped)."""
-        for slot in live:
-            if self._slot_req[slot] is None or self._slot_consumer[slot] is None:
+        """Stream one fetched step's tokens to every live consumer and
+        cancel the rows whose consumers are done. ``live_slots`` are
+        (slot, generation) pairs recorded at dispatch: a slot freed (and
+        maybe re-admitted) since then is skipped."""
+        for slot, gen in live_slots:
+            if (
+                gen != self._slot_gen[slot]
+                or self._slot_req[slot] is None
+                or self._slot_consumer[slot] is None
+            ):
                 continue
             n = int(emitted_np[slot])
             keep = self._deliver_stream(slot, n, out_np[slot])
@@ -1849,7 +1904,7 @@ class ContinuousBatcher:
         only (partial tokens + ``fault_kind``, one requeue first when
         transient) while co-resident rows keep decoding."""
         if self.interleave:
-            self._drive(timeout_s)
+            self._drive_pipelined(timeout_s)
         else:
             self._drive_legacy(timeout_s)
         if self.tiers is not None:
@@ -2018,6 +2073,11 @@ class ContinuousBatcher:
         adm.pos += chunk_len
         interleave_mod.stats.record_step(fused=True)
         prefix_mod.stats.record_prefill(chunk_len, 0)
+        if obs_mod.config().enabled:
+            obs_mod.retrace.observe(
+                "fused_prefill_decode_chunk",
+                ("fused", chunk_len, adm.S, self.B, self.cap, self.chunk),
+            )
 
     def _dispatch_decode(self) -> None:
         """One decode-only chunk."""
@@ -2031,6 +2091,11 @@ class ContinuousBatcher:
             self.params, self.cfg, *self._decode_args(), **self._decode_kw()
         )
         interleave_mod.stats.record_step(fused=False)
+        if obs_mod.config().enabled:
+            obs_mod.retrace.observe(
+                "scheduler_decode_chunk",
+                ("decode", self.B, self.cap, self.chunk, self.greedy),
+            )
 
     def _evict_spec_row(self, slot: int, exc: BaseException, seam: str) -> None:
         """A speculative step could not secure this row's next KV slot
@@ -2139,9 +2204,19 @@ class ContinuousBatcher:
             adm.pos += chunk_len
             interleave_mod.stats.record_step(fused=True)
             prefix_mod.stats.record_prefill(chunk_len, 0)
+            if obs_mod.config().enabled:
+                obs_mod.retrace.observe(
+                    "fused_prefill_spec_chunk",
+                    ("fused_spec", chunk_len, adm.S, self.gamma, self.B, self.cap),
+                )
         else:
             outs = _spec_chunk_impl(self.params, self.cfg, *args, **kw)
             interleave_mod.stats.record_step(fused=False)
+            if obs_mod.config().enabled:
+                obs_mod.retrace.observe(
+                    "scheduler_spec_chunk",
+                    ("spec", self.gamma, self.B, self.cap, self.greedy),
+                )
         (
             self.ctx_len,
             self.prev_tok,
@@ -2153,14 +2228,16 @@ class ContinuousBatcher:
         ) = outs
         return counts
 
-    def _apply_spec_counts(self, counts_np: np.ndarray, live: list[int]) -> None:
+    def _apply_spec_counts(self, counts_np: np.ndarray, live_slots) -> None:
         """Apply one spec step's per-row counts to the host state: advance
         the cur_len/active views, ROLL BACK draft pages past each row's
         accepted prefix (``PageAllocator.truncate``), record telemetry
         (``perf.spec``: one step per live row, as the reference counts).
-        Rows evicted since dispatch are skipped."""
-        for slot in live:
-            if self._slot_seq[slot] is None:
+        ``live_slots`` are (slot, generation) pairs recorded at dispatch:
+        rows whose owner changed since (evicted, or freed and
+        re-admitted) are skipped."""
+        for slot, gen in live_slots:
+            if gen != self._slot_gen[slot] or self._slot_seq[slot] is None:
                 continue
             n_allowed, n_acc = int(counts_np[0, slot]), int(counts_np[1, slot])
             n_emit = int(counts_np[2, slot])
@@ -2201,11 +2278,13 @@ class ContinuousBatcher:
     def _record_step_wall(
         self, dt: float, live: list[int], fused_share: float, adm, width: int,
         emitted: int, kind: str, sync_reason: str, chunk_len: int = 0,
+        depth: int = 1,
     ) -> None:
         """Attribute one step's wall: the riding admission's token share to
         its prefill (overlapped), the rest to decode, split evenly over
         the rows live at dispatch; the spec path's draft/verify split;
-        the step's flight-recorder event."""
+        the step's flight-recorder event (``depth``: the steps in flight
+        after this dispatch)."""
         dec_dt = dt
         if fused_share > 0.0:
             p = dt * fused_share
@@ -2238,46 +2317,81 @@ class ContinuousBatcher:
                     admission_slot=adm.slot if riding else -1,
                     prefill_tokens=chunk_len if riding else 0,
                     decode_chunk=width,
-                    pipeline_depth=1,
+                    pipeline_depth=depth,
                     sync_reason=sync_reason,
                     span_id=adm.req.span_id if riding else "",
                     trace_id=adm.req.trace_id if riding else "",
                 )
             )
 
-    def _read_step(self, spec_counts, live: list[int]) -> int:
-        """The step's host read: the spec path's accept counts, or the
-        decode flags; streams the step's tokens to live consumers.
-        Returns the tokens the step emitted (spec path; 0 otherwise)."""
-        interleave_mod.stats.record_sync()
-        if self.speculative:
-            # The host cannot size the next step's coverage or roll drafts
-            # back without the accept counts.
-            counts_np = spec_counts.cpu().numpy()
-            self._apply_spec_counts(counts_np, live)
-            emitted_np = self._cur_len_np - self._row_len_np
-            emitted = int(sum(int(counts_np[2, s]) for s in live))
-        else:
-            act = self.active.cpu().numpy()
-            for s in live:
-                if self._slot_req[s] is not None:
-                    self._active_np[s] = bool(act[s])
-            emitted_np = None
-            emitted = 0
-        if self._stream_armed(live):
-            if emitted_np is None:
-                emitted_np = self.n_emitted.cpu().numpy()
-            self._stream_entry(emitted_np, self.out_buf.cpu().numpy(), live)
-        return emitted
+    def _host_copy(self, t: torch.Tensor) -> torch.Tensor:
+        """A host copy of ``t`` as of now in stream order: on CUDA a
+        ``non_blocking`` copy into pinned memory (complete once an event
+        recorded after it has), on the CPU a clone. Later in-place writes
+        to ``t`` never reach it."""
+        if self.device.type != "cuda":
+            return t.clone()
+        host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        host.copy_(t, non_blocking=True)
+        return host
 
-    def _drive(self, timeout_s: float) -> None:
-        """Admit → one step (fused when an admission and live rows
-        coexist) → read the step's flags or counts → collect. The
-        reference's pipelined loop at depth 1; a fault at dispatch or at
-        the read evicts one slot (``_handle_decode_fault``)."""
+    def _step_entry(self, live: list[int], streaming: bool) -> _StepEntry:
+        """The in-flight record of the decode step just dispatched: its
+        flags (and, when a consumer streams, its emitted counts and an
+        out_buf snapshot) copied to the host at once, behind one event."""
+        active = self._host_copy(self.active)
+        n_emitted = self._host_copy(self.n_emitted) if streaming else None
+        out_buf = self._host_copy(self.out_buf) if streaming else None
+        done = None
+        if self.device.type == "cuda":
+            done = torch.cuda.Event()
+            done.record(torch.cuda.current_stream(self.device))
+        return _StepEntry(
+            done,
+            active,
+            n_emitted,
+            out_buf,
+            tuple((s, self._slot_gen[s]) for s in live),
+        )
+
+    @staticmethod
+    def _entry_ready(entry: _StepEntry) -> bool:
+        """True when a step's host copies have already landed — fetching
+        them is then free (no stall). On the CPU every copy is done when
+        taken."""
+        return entry.done is None or entry.done.query()
+
+    def _fetch_entry(self, entry: _StepEntry) -> None:
+        """Apply one completed step's flags to the trailing host view.
+        Fetches only DEACTIVATE, and only rows whose slot still belongs
+        to the request that was live at dispatch (generation match): a
+        slot freed and re-admitted mid-flight must not have the old
+        row's completion flag truncate its new owner. With streaming
+        armed, the step's emitted counts and out_buf snapshot ride the
+        same fetch. Waits on the entry's event first: a pinned buffer
+        read before its copy has landed holds garbage."""
+        if entry.done is not None:
+            entry.done.synchronize()
+        act = entry.active.numpy()
+        for s, gen in entry.live:
+            if gen == self._slot_gen[s] and not act[s]:
+                self._active_np[s] = False
+        if entry.n_emitted is None:
+            return
+        self._stream_entry(entry.n_emitted.numpy(), entry.out_buf.numpy(), entry.live)
+
+    def _drive_pipelined(self, timeout_s: float) -> None:
+        """Admit → dispatch (fused when an admission and live rows
+        coexist) → fetch the step before last → collect; the host's own
+        work (queue admission, radix lookups, page allocation,
+        collection) overlaps the step in flight. A fault at dispatch or
+        at a fetch evicts one slot (``_handle_decode_fault``)."""
         deadline = time.monotonic() + timeout_s if timeout_s > 0 else None
+        inflight: deque[_StepEntry] = deque()
         while self._has_work():
             if deadline is not None and time.monotonic() > deadline:
+                # The in-flight steps' flags are moot now.
+                inflight.clear()
                 self._expire_timeout()
                 break
             # Per-request watchdog: evict over-deadline work before
@@ -2289,9 +2403,14 @@ class ContinuousBatcher:
             t0 = time.monotonic()
             fused_share = 0.0
             dispatched = False
+            # Speculation: the host must learn each row's accepted length
+            # before it can dispatch the next step (draft pages roll back,
+            # coverage re-sizes), so the spec path runs one step deep with
+            # a counts read per iteration instead of the double buffer.
             spec = self.speculative
             width = (self.gamma + 1) if spec else self.chunk
             spec_counts = None
+            spec_slots: tuple = ()
             # Fuse only the LEADING prefill chunks: the FINAL chunk runs
             # standalone so the handoff happens before this iteration's
             # decode step and the newcomer joins it immediately.
@@ -2310,8 +2429,13 @@ class ContinuousBatcher:
                 alloc_len = self._prepare_spec_step(live)
             if ride:
                 try:
+                    # Fused dispatches run under the riding admission's
+                    # trace scope (its retrace observations included).
                     with obs_mod.trace_scope(adm.req.trace_id, adm.req.span_id):
                         if spec:
+                            spec_slots = tuple(
+                                (s, self._slot_gen[s]) for s in live
+                            )
                             spec_counts = self._dispatch_spec(
                                 alloc_len, adm, chunk_len
                             )
@@ -2322,11 +2446,14 @@ class ContinuousBatcher:
                     fused_share = chunk_len / (chunk_len + len(live) * width)
                     dispatched = True
                 except Exception as e:
-                    # Treated as decode-side surgery; the NEXT chunk runs
-                    # standalone so a fault that originates in the prefill
-                    # half aborts the admission there instead of evicting
-                    # another resident every iteration.
+                    # Treated as decode-side surgery (older in-flight
+                    # entries stay valid: they can only deactivate); the
+                    # NEXT chunk runs standalone so a fault that
+                    # originates in the prefill half aborts the admission
+                    # there instead of evicting another resident every
+                    # iteration.
                     adm.fuse_deferred = True
+                    spec_counts = None
                     self._handle_decode_fault(e)
             else:
                 if adm is not None:
@@ -2344,31 +2471,85 @@ class ContinuousBatcher:
                     live = [s for s in range(self.B) if self._active_np[s]]
                     if spec and live:
                         alloc_len = self._prepare_spec_step(live)
+                    # The standalone chunk's seconds are already in the
+                    # stalled-prefill bucket.
                     t0 = time.monotonic()
                 if live:
                     try:
                         if spec:
+                            spec_slots = tuple(
+                                (s, self._slot_gen[s]) for s in live
+                            )
                             spec_counts = self._dispatch_spec(alloc_len, None, 0)
                         else:
                             self._dispatch_decode()
                         dispatched = True
                     except Exception as e:
+                        spec_counts = None
                         self._handle_decode_fault(e)
-            if dispatched:
+            if dispatched and spec:
                 emitted = 0
-                try:
-                    emitted = self._read_step(spec_counts, live)
-                except Exception as e:
-                    # A device fault that surfaces at the read: the same
-                    # eviction surgery as at dispatch.
-                    self._handle_decode_fault(e)
+                if spec_counts is not None:
+                    counts_np = None
+                    try:
+                        # The spec path's one per-step sync: the host cannot
+                        # size the next step's coverage or roll drafts back
+                        # without the accept counts.
+                        counts_np = spec_counts.cpu().numpy()
+                    except Exception as e:
+                        # A device fault that surfaces at the read: the
+                        # same eviction surgery as at dispatch.
+                        self._handle_decode_fault(e)
+                    interleave_mod.stats.record_sync()
+                    obs_mod.record_sync("spec_counts")
+                    if counts_np is not None:
+                        self._apply_spec_counts(counts_np, spec_slots)
+                        emitted = int(
+                            sum(int(counts_np[2, s]) for s, _ in spec_slots)
+                        )
+                        if self._stream_armed(s for s, _ in spec_slots):
+                            # Stream delivery at the counts read: the step
+                            # is complete, so its out_buf is read as is.
+                            self._stream_entry(
+                                self._cur_len_np - self._row_len_np,
+                                self.out_buf.cpu().numpy(),
+                                spec_slots,
+                            )
                 self._record_step_wall(
                     time.monotonic() - t0, live, fused_share, adm, width,
-                    emitted,
-                    ("fused_spec" if fused_share else "spec") if spec
-                    else ("fused" if fused_share else "decode"),
-                    "spec_counts" if spec else "",
-                    chunk_len,
+                    emitted, "fused_spec" if fused_share else "spec",
+                    "spec_counts", chunk_len,
+                )
+            elif dispatched:
+                inflight.append(self._step_entry(live, self._stream_armed(live)))
+                depth = len(inflight)
+                step_sync = ""
+                try:
+                    # Retire completed steps adaptively: an entry whose
+                    # copies have landed applies now, so completions are
+                    # seen with no lag whenever the device keeps up. Only
+                    # the depth bound forces a blocking fetch — the double
+                    # buffer's one sanctioned blocking point.
+                    while inflight and (
+                        len(inflight) >= self.pipeline_depth
+                        or self._entry_ready(inflight[0])
+                    ):
+                        if self._entry_ready(inflight[0]):
+                            self.fetch_counts["ready"] += 1
+                        else:
+                            obs_mod.record_sync("depth_fetch")
+                            step_sync = "depth_fetch"
+                            self.fetch_counts["depth_bound"] += 1
+                        self._fetch_entry(inflight.popleft())
+                except Exception as e:
+                    # An async device fault surfaces at the fetch, one
+                    # step late: the same eviction surgery as at dispatch.
+                    inflight.clear()
+                    self._handle_decode_fault(e)
+                self._record_step_wall(
+                    time.monotonic() - t0, live, fused_share, adm, width, 0,
+                    "fused" if fused_share else "decode", step_sync,
+                    chunk_len, depth,
                 )
             self._collect(self._active_np)
 
@@ -2405,16 +2586,17 @@ class ContinuousBatcher:
                     width = self.gamma + 1
                     emitted = 0
                     if live:
+                        live_slots = tuple((s, self._slot_gen[s]) for s in live)
                         try:
                             counts = self._dispatch_spec(alloc_len, None, 0)
                             counts_np = counts.cpu().numpy()
-                            self._apply_spec_counts(counts_np, live)
+                            self._apply_spec_counts(counts_np, live_slots)
                             emitted = int(sum(int(counts_np[2, s]) for s in live))
                             if self._stream_armed(live):
                                 self._stream_entry(
                                     self._cur_len_np - self._row_len_np,
                                     self.out_buf.cpu().numpy(),
-                                    live,
+                                    live_slots,
                                 )
                         except Exception as e:
                             self._handle_decode_fault(e)
@@ -2446,7 +2628,7 @@ class ContinuousBatcher:
                         self._stream_entry(
                             self.n_emitted.cpu().numpy(),
                             self.out_buf.cpu().numpy(),
-                            live,
+                            tuple((s, self._slot_gen[s]) for s in live),
                         )
             self._collect()
         self._active_np[:] = self.active.cpu().numpy()

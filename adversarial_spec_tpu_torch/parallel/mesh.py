@@ -84,15 +84,16 @@ def default_devices() -> list[torch.device]:
 def maybe_initialize_distributed() -> None:
     """The reference brings up its multi-host runtime here when launched
     one process per host (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
-    ``JAX_PROCESS_ID``). The port's multi-host launch is not ported yet:
-    with any of those variables set this raises instead of running a
-    single-host mesh while the peers wait."""
+    ``JAX_PROCESS_ID``). The port has no multi-host launch (one process
+    drives every device of its mesh): with any of those variables set
+    this raises instead of running a single-host mesh while the peers
+    wait."""
     names = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")
     set_ = [n for n in names if os.environ.get(n)]
     if set_:
         raise NotImplementedError(
-            f"a multi-host launch ({', '.join(set_)} set) is not yet ported "
-            "to the PyTorch/CUDA package"
+            f"a multi-host launch ({', '.join(set_)} set) is not supported "
+            "by the PyTorch/CUDA package: one process drives every device"
         )
 
 

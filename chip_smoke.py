@@ -4,8 +4,9 @@
     python3 chip_smoke.py            # every phase (needs one CUDA card)
     python3 chip_smoke.py --quick    # device, build and kernel phases only
     python3 chip_smoke.py --profile  # also profile one more chat call
-    python3 chip_smoke.py --only batcher,pgen,serve,fleet,mesh,sp,agree  # device, build and
-                                     # the named phases only (no kernels or ok line)
+    python3 chip_smoke.py --only paged,cli,batcher,pgen,serve,fleet,mesh,sp,agree
+                                     # device, build and the named phases
+                                     # only (no kernels or ok line)
     python3 chip_smoke.py --qmm-only # device, build and B5/B6 only: their checks
                                      # and device times (chiprun_out/chip_smoke_qmm.json);
                                      # run from another checkout's root, it times that
@@ -96,10 +97,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
    random-8b with kv="paged" (the continuous batcher): twelve opponent
    requests through 8 slots, 128 new tokens, greedy; round 1 with
    speculation on, round 2 the same requests with it off, on the same
-   batcher. B3/B4 counters are zeroed before round 1 and read after
-   round 2; B4 must launch in round 1, B3 in round 2, and round 2 must
-   hit the prefix cache; with ``--profile``, a third round (speculation
-   on, warm cache) runs under torch.profiler;
+   batcher. Round 2 runs the pipelined drive loop at its default depth
+   2 and prints a ``paged depth`` line: perf.interleave's depth, the
+   fetches that found their step's copies landed against those the depth
+   bound made wait, and the round's wall beside the card's name and power
+   limit; rounds 3 and 4 (the first four requests, 32 new tokens,
+   speculation off, a rebuilt batcher each) run at depth 1 and depth 2
+   and must give the same texts. B3/B4 counters are zeroed before round 1 and read after round
+   4; B4 must launch in round 1, B3 in rounds 2-4, and round 2 must hit
+   the prefix cache; with ``--profile``, one more round (speculation on,
+   warm cache) runs under torch.profiler;
 6. quant   — weight-quantized serving on temporary registry entries:
    (a) random-8b with quant="int8" on the dense path (the slice's four
    requests), (b) random-8b with quant="int4" and kv="paged" (the paged
@@ -135,8 +142,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    counters are zeroed just before each round and read just after; each
    round prints one ``cli round`` line (the round wall from
    ``perf.spans.round``, decode tokens/s, per-model usage, launches, peak
-   device memory, all_agreed). The process-wide knobs the CLI sets are
-   restored after it;
+   device memory, all_agreed, perf.interleave's pipeline depth and
+   perf.obs.retrace's totals). Every round's ``--json`` must report
+   pipeline depth 2; each paged round's retrace watch must have observed
+   its dispatches with no unexpected recompile. The process-wide knobs
+   the CLI sets are restored after it;
 9. hf      — HF safetensors checkpoints from the user's entry point,
    at a cut depth (this phase and pool: Llama-3-8B at full width with 8
    of its 32 layers, HF_POOL_LAYERS; a load's correctness, the cache and
@@ -278,7 +288,9 @@ Phases, each printing one JSON line; any failure exits non-zero:
 17. agree  — tiny f32 models decoded greedily on the card (kernels) and on
    the CPU (plain versions) give identical tokens: dense generate() with
    speculation on (B2, or B2-i8, must launch), generate(paged=True) (B3,
-   or B3-i8), and the paged batcher with speculation on and off; full
+   or B3-i8), and the paged batcher with speculation on and off (off: at
+   pipeline depth 1 and 2 on the card, both equal to the CPU's, B3 or
+   B3-i8 launched at depth 2); full
    precision, the same weights quantized int8 (B5) and int4 (B6), and an
    int8 KV cache beside full-precision and int4 weights; and generate()
    on virtual {"tp": 2}, {"dp": 2} and {"dp": 2, "tp": 2} meshes, dense
@@ -308,6 +320,8 @@ import time
 
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "adversarial_spec_tpu_torch"
+# The phases ``--only`` runs (each ``phase_<name>(torch)``).
+ONLY_PHASES = ("paged", "cli", "batcher", "pgen", "serve", "fleet", "mesh", "sp", "agree")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per second
 B, HQ, HKV, D, S_SPAN = 4, 32, 8, 128, 9
@@ -343,6 +357,17 @@ def emit(obj: dict) -> None:
 def fail(msg: str) -> int:
     print(f"chip_smoke: FAIL: {msg}", file=sys.stderr, flush=True)
     return 1
+
+
+@functools.lru_cache(maxsize=None)
+def card() -> str:
+    """The card's name and power limit as ``nvidia-smi`` reports them:
+    every wall this script prints is labelled with it."""
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    ).stdout.strip().splitlines()
+    return smi[0] if smi else "not measured"
 
 
 def cuda_ms(fn, iters: int, torch) -> float:
@@ -1729,13 +1754,16 @@ def phase_paged(torch, profile: bool = False) -> dict:
             da.reset_launches()
             pa.reset_launches()
             texts = []
-            for label, on in (("round 1, speculation on", True), ("round 2, speculation off", False)):
+            def one_round(label, on, pdepth, params_, reqs=reqs):
                 spec_mod.configure(enabled=on)
+                il.configure(pipeline_depth=pdepth)
                 before = {**da.launches, **pa.launches}
+                b0 = served(engine).batcher
+                fetch0 = dict(b0.fetch_counts)
                 il.reset_stats()
                 torch.cuda.reset_peak_memory_stats()
                 t = time.monotonic()
-                comps = engine.chat(reqs, sp)
+                comps = engine.chat(reqs, params_)
                 torch.cuda.synchronize()
                 wall = time.monotonic() - t
                 bad = [c.error for c in comps if not c.ok]
@@ -1762,6 +1790,23 @@ def phase_paged(torch, profile: bool = False) -> dict:
                     "decode_steps": il.stats.decode_steps,
                     "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
                 })
+                if on:
+                    return
+                # The pipelined loop's fetches in this round: ready ones
+                # against those the depth bound made wait.
+                b1 = served(engine).batcher
+                if b1.pipeline_depth != pdepth:
+                    raise RuntimeError(f"{label}: the batcher runs depth "
+                                       f"{b1.pipeline_depth}, not {pdepth}")
+                base = fetch0 if b1 is b0 else {}  # a reused batcher counts on
+                fetched = {k: v - base.get(k, 0) for k, v in b1.fetch_counts.items()}
+                rounds[-1]["fetches"] = fetched
+                emit({"phase": "paged depth", "round": label,
+                      "pipeline_depth": il.snapshot()["pipeline_depth"],
+                      "fetches": fetched, "wall_s": wall, "card": card()})
+
+            one_round("round 1, speculation on", True, 2, sp)
+            one_round("round 2, speculation off", False, 2, sp)
             launched = {k: pa.launches[k] for k in ("paged_decode_attention",
                                                     "paged_decode_attention_mq")}
             prof = None
@@ -1772,15 +1817,27 @@ def phase_paged(torch, profile: bool = False) -> dict:
             pool_bytes = sum(t.numel() * t.element_size() for t in lm.batcher.pool.values())
             batcher = {"slots": lm.batcher.B, "capacity_tokens": lm.batcher.capacity_tokens,
                        "pool_bytes": pool_bytes}
+            # Depth 1 against depth 2 on equal footing and a short budget:
+            # a rebuilt (cold) batcher each (the depth, slots and budget
+            # key it), the first four requests, 32 new tokens.
+            short = SamplingParams(max_new_tokens=32, greedy=True, seed=0)
+            one_round("round 3, speculation off, depth 1", False, 1, short, reqs[:4])
+            one_round("round 4, speculation off, depth 2", False, 2, short, reqs[:4])
+            for k in launched:  # the profiled round's launches stay out
+                launched[k] += sum(r["launches"][k] for r in rounds[2:])
         finally:
             spec_mod.configure(enabled=True)
-    r1, r2 = rounds
+            il.configure(pipeline_depth=il.MAX_PIPELINE_DEPTH)
+    r1, r2, r3, r4 = rounds
     if r1["launches"]["paged_decode_attention_mq"] == 0:
         raise RuntimeError(f"B4 never launched with speculation on: {r1['launches']}")
-    if r2["launches"]["paged_decode_attention"] == 0:
-        raise RuntimeError(f"B3 never launched with speculation off: {r2['launches']}")
+    for r in (r2, r3, r4):
+        if r["launches"]["paged_decode_attention"] == 0:
+            raise RuntimeError(f"B3 never launched in {r['round']}: {r['launches']}")
     if r2["cached_tokens"] == 0:
         raise RuntimeError("round 2 found no prefix-cache hits on the reused batcher")
+    if texts[2] != texts[3]:
+        raise RuntimeError("depth 1 and depth 2 gave different texts")
     return {
         "phase": "paged",
         "model": "tpu://random-8b (kv=paged)",
@@ -1788,7 +1845,7 @@ def phase_paged(torch, profile: bool = False) -> dict:
         "load_and_warmup_s": load_s,
         "batcher": batcher,
         "rounds": rounds,
-        "rows_same_text_spec_on_off": sum(a == b for a, b in zip(*texts)),
+        "rows_same_text_spec_on_off": sum(a == b for a, b in zip(*texts[:2])),
         "launches": launched,
         **({"profile": prof} if prof else {}),
     }
@@ -2214,6 +2271,13 @@ def cli_round(torch, label: str, argv: list, stdin: str, must_launch: tuple,
         "per_model_sha1": {m: hashlib.sha1(json.dumps(t).encode()).hexdigest()
                            for m, t in per_model.items()},
         "weights": perf["weights"],
+        "pipeline_depth": perf["interleave"]["pipeline_depth"],
+        "retrace": {
+            "programs": sorted(perf["obs"]["retrace"]["programs"]),
+            "dispatches": sum(p["dispatches"]
+                              for p in perf["obs"]["retrace"]["programs"].values()),
+            "unexpected_recompiles": perf["obs"]["retrace"]["unexpected_recompiles"],
+        },
     }
 
 
@@ -2264,6 +2328,13 @@ def phase_cli(torch) -> dict:
                 raise RuntimeError(f"{part}: --resume ran round {r2['round_num']}")
             if part == "paged" and r2["prefix_cache"]["hits"] == 0:
                 raise RuntimeError("paged round 2 reported no prefix-cache hits")
+            for r in (r1, r2):
+                if r["pipeline_depth"] != 2:
+                    raise RuntimeError(f"{r['round']}: perf.interleave.pipeline_depth "
+                                       f"{r['pipeline_depth']}, not the default 2")
+                if part == "paged" and (not r["retrace"]["dispatches"]
+                                        or r["retrace"]["unexpected_recompiles"]):
+                    raise RuntimeError(f"{r['round']}: perf.obs.retrace {r['retrace']}")
             report[part] = {"opponents": n_opp, "load_and_warmup_s": load_s,
                             "rounds": [r1, r2]}
         dispatch.clear_engine_cache()
@@ -4204,23 +4275,40 @@ def phase_agree(torch) -> dict:
             raise RuntimeError(f"{name}: generate(paged=True) never launched {b3}")
         # The paged batcher (B3/B4 on the card, the gather path on the CPU):
         # 3 requests through 2 slots, prefix cache on, speculation on and off.
-        paged = {}
+        # Speculation off runs on the card at pipeline depth 2 (the
+        # default; B3 or B3-i8 must launch) and at depth 1.
+        paged, walls = {}, {}
         for spec in (True, False):
             toks = {}
-            for dev, p in (("cuda", params), ("cpu", on_cpu)):
+            runs = [("cuda", params, 2), ("cpu", on_cpu, 2)]
+            if not spec:
+                runs.insert(1, ("cuda depth 1", params, 1))
+            for dev, p, pdepth in runs:
                 b = ContinuousBatcher(
                     p, cfg, max_batch=2, page_size=16, capacity_tokens=2048,
                     max_new_cap=48, eos_ids=[2], speculative=spec, kv_dtype=kv_dtype,
+                    pipeline_depth=pdepth,
                 )
                 for i, pr in enumerate(prompts):
                     b.submit(SchedRequest(req_id=i, prompt_ids=pr, max_new_tokens=40))
+                before = pa.launches[b3]
+                t = time.monotonic()
                 toks[dev] = [r.tokens.tolist() for r in b.run_all()]
+                if dev != "cpu" and not spec:
+                    torch.cuda.synchronize()
+                    walls[f"spec_off_depth_{pdepth}_s"] = time.monotonic() - t
+                    walls[f"spec_off_depth_{pdepth}_fetches"] = b.fetch_counts
+                if dev == "cuda" and not spec and pa.launches[b3] == before:
+                    raise RuntimeError(f"{name}: the batcher at depth 2 never launched {b3}")
                 b.allocator.check_invariants()
-            paged["spec_on" if spec else "spec_off"] = toks["cuda"] == toks["cpu"]
-            if toks["cuda"] != toks["cpu"]:
+            for dev in toks:
+                if dev != "cpu":
+                    run_name = "spec_on" if spec else "spec_off" + dev[4:].replace(" ", "_")
+                    paged[run_name] = toks[dev] == toks["cpu"]
+            if any(t != toks["cpu"] for t in toks.values()):
                 raise RuntimeError(
                     f"{name} paged batcher tokens differ between card and CPU "
-                    f"(speculation {'on' if spec else 'off'})"
+                    f"(speculation {'on' if spec else 'off'}): {paged}"
                 )
         launched = {**da.launches, **pa.launches, **qm.launches}
         missing = [g for g in must_launch if not sum(launched[k] for k in g)]
@@ -4232,6 +4320,7 @@ def phase_agree(torch) -> dict:
                 raise RuntimeError(f"{name}: float-cache kernels ran on an int8 cache: {leaked}")
         entry = {"identical_tokens": same, "shape": list(out["cuda"].shape),
                  "paged_identical_tokens": paged, "pgen_identical_tokens": pgen_same,
+                 "paged_walls": {**walls, "card": card()},
                  "launches": {k: v for k, v in launched.items() if v}}
         if key:
             report[key] = entry
@@ -4960,10 +5049,9 @@ def main(argv: list[str]) -> int:
     only = []
     if "--only" in argv:
         only = argv[argv.index("--only") + 1].split(",")
-        unknown = set(only) - {"batcher", "pgen", "serve", "fleet", "mesh", "sp", "agree"}
+        unknown = set(only) - set(ONLY_PHASES)
         if unknown:
-            return fail("--only takes batcher, pgen, serve, fleet, mesh, sp and agree, "
-                        f"not {sorted(unknown)}")
+            return fail(f"--only takes {', '.join(ONLY_PHASES)}, not {sorted(unknown)}")
     profile = "--profile" in argv
     if not os.path.isdir(os.path.join(HERE, PKG)):
         return fail(f"{PKG}/ not found beside chip_smoke.py: run from a checkout")
@@ -4986,11 +5074,7 @@ def main(argv: list[str]) -> int:
     from adversarial_spec_tpu_torch.ops import quant_matmul as qm
 
     kind = torch.cuda.get_device_name(0)
-    smi = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, timeout=60,
-    ).stdout.strip().splitlines()
-    smi_line = smi[0] if smi else "not measured"
+    smi_line = card()
     emit({
         "phase": "device", "kind": kind, "count": torch.cuda.device_count(),
         "nvidia_smi": smi_line, "torch": torch.__version__,
@@ -5030,10 +5114,7 @@ def main(argv: list[str]) -> int:
 
     if only:  # iteration on the named phases; no kernels or ok line
         for name in only:
-            run(name, {"batcher": phase_batcher, "pgen": phase_pgen, "serve": phase_serve,
-                       "fleet": phase_fleet, "mesh": phase_mesh, "sp": phase_sp,
-                       "agree": phase_agree}[name],
-                torch)
+            run(name, globals()[f"phase_{name}"], torch)
         emit({"phase": "seconds", **seconds})
         print(smi_line, flush=True)
         return 0

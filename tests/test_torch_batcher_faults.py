@@ -77,7 +77,11 @@ SPEC = "# Cache Service\n\nA read-through cache with a write-behind queue."
 def _knobs(monkeypatch):
     """The knobs both batchers read at construction, pinned per test (the
     KV tiers off in both packages; they are tests/test_torch_kv_tier.py's)
-    and restored after; the injectors and fault counters reset."""
+    and restored after; the injectors and fault counters reset. One
+    intra-op thread: the tiny model's ops gain nothing from a team of
+    threads, which on a loaded host costs far more than it saves."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
     for cfg, fields in (
         (ref_kvtier.config(), ("enabled",)),
         (port_kvtier.config(), ("enabled",)),
@@ -86,7 +90,7 @@ def _knobs(monkeypatch):
         (ref_spec.config(), ("enabled", "gamma")),
         (port_spec.config(), ("enabled", "gamma")),
         (ref_interleave.config(), ("enabled", "pipeline_depth")),
-        (port_interleave.config(), ("enabled",)),
+        (port_interleave.config(), ("enabled", "pipeline_depth")),
         (ref_streaming.config(), ("enabled",)),
         (port_streaming.config(), ("enabled",)),
     ):
@@ -97,11 +101,12 @@ def _knobs(monkeypatch):
     ref_prefix.configure(enabled=True, max_pages=0)
     port_prefix.configure(enabled=True, max_pages=0)
     ref_interleave.configure(enabled=True, pipeline_depth=2)
-    port_interleave.configure(enabled=True)
+    port_interleave.configure(enabled=True, pipeline_depth=2)
     for _, injector, faults, _ in PKG.values():
         injector.install(None)
         faults.reset()
     yield
+    torch.set_num_threads(threads)
     for _, injector, faults, _ in PKG.values():
         injector.install(None)
         faults.reset()
@@ -505,11 +510,12 @@ def _port_state(tmp_path, monkeypatch):
     yield from sup.isolate_port(tmp_path, monkeypatch)
 
 
-def test_no_interleave_paged_critique_matches_reference(_port_state, llama, tmp_path,
-                                                        monkeypatch, capsys):
-    """Fault C.6: ``critique --no-interleave`` on a ``kv="paged"`` alias
-    exits 0 through the port's CLI (its batcher runs the legacy loop)
-    with the reference CLI's ``--json``, wall clocks aside."""
+@pytest.fixture
+def paged_f32(_port_state, tmp_path, monkeypatch):
+    """A ``kv="paged"`` f32 tiny alias served by both CLIs: the
+    reference's engine loads it, the port's ``GpuEngine(device="cpu")``
+    holds the same weights. Yields a runner: argv → each package's
+    ``--json`` report without its walls."""
     registry_path = tmp_path / "registry.json"
     for pkg in ("ref", "port"):
         sup.point_state(monkeypatch, pkg, tmp_path / pkg, registry_path)
@@ -526,20 +532,89 @@ def test_no_interleave_paged_critique_matches_reference(_port_state, llama, tmp_
         params_from_jax(jax.tree.map(np.asarray, lm.params), lm.cfg, "cpu", torch.float32),
     )
     port_dispatch.install_engine("tpu://paged-f32", port)
-    argv = ["critique", "--models", ",".join(["tpu://paged-f32"] * 3), "--greedy",
-            "--max-new-tokens", "24", "--no-interleave", "--json"]
-    docs = []
-    for pkg, cli_mod in (("ref", ref_cli), ("port", port_cli)):
-        sup.point_state(monkeypatch, pkg, tmp_path / pkg, registry_path)
-        code, out, err = sup.run_cli(cli_mod, argv, monkeypatch, capsys, SPEC)
-        assert code == 0, err
-        doc = sup.without_walls(sup.normalize_report(json.loads(out), pkg))
-        # The reference's retrace watch records its jit compiles as
-        # events; the port's watches none yet (ROADMAP A.12).
-        obs = doc["perf"].pop("obs")
-        assert obs["retrace"]["unexpected_recompiles"] == 0
-        docs.append(doc)
+
+    def run(extra, capsys):
+        argv = ["critique", "--models", ",".join(["tpu://paged-f32"] * 3), "--greedy",
+                "--max-new-tokens", "24", "--json", *extra]
+        docs = []
+        for pkg, cli_mod in (("ref", ref_cli), ("port", port_cli)):
+            sup.point_state(monkeypatch, pkg, tmp_path / pkg, registry_path)
+            code, out, err = sup.run_cli(cli_mod, argv, monkeypatch, capsys, SPEC)
+            assert code == 0, err
+            docs.append(sup.without_walls(sup.normalize_report(json.loads(out), pkg)))
+        return docs
+
+    yield port, run
+
+
+def _compiles_compared(docs) -> None:
+    """Prepare two reports' ``perf.obs`` for comparison. The reference
+    counts real jit compiles through its trace-cache probe, so a program
+    another test of this process already compiled counts none there;
+    the port has no jit cache and counts a compile for each new dispatch
+    key. Where a program's ``compiles`` differ (the port's must then be
+    its distinct keys, and more), that one field is dropped from both and
+    the port's extra compile events are taken off its recorder totals.
+    Programs, dispatches, distinct keys, unexpected recompiles (0 in
+    both), sync reasons and every other event count stay compared."""
+    ref, port = (d["perf"]["obs"] for d in docs)
+    assert set(port["retrace"]["programs"]) == set(ref["retrace"]["programs"])
+    assert ref["retrace"]["unexpected_recompiles"] == 0
+    assert port["retrace"]["unexpected_recompiles"] == 0
+    extra = 0
+    for name, p in port["retrace"]["programs"].items():
+        r = ref["retrace"]["programs"][name]
+        if r["compiles"] != p["compiles"]:
+            assert p["compiles"] == p["distinct_keys"] > r["compiles"], name
+            extra += p.pop("compiles") - r.pop("compiles")
+    if extra:
+        events = port["events_by_type"]
+        events["compile"] -= extra
+        if not events["compile"]:
+            del events["compile"]
+        port["recorder"]["recorded"] -= extra
+        port["recorder"]["buffered"] -= extra
+
+
+def test_no_interleave_paged_critique_matches_reference(paged_f32, capsys):
+    """Fault C.6: ``critique --no-interleave`` on a ``kv="paged"`` alias
+    exits 0 through the port's CLI (its batcher runs the legacy loop)
+    with the reference CLI's ``--json``, wall clocks aside, ``perf.obs``
+    (the retrace watch's report) included."""
+    port, run = paged_f32
+    docs = run(["--no-interleave"], capsys)
+    _compiles_compared(docs)
     assert docs[1] == docs[0]
     assert docs[1]["perf"]["interleave"]["enabled"] is False
     assert [r["error"] for r in docs[1]["results"]] == [None] * 3
     assert port._models["paged-f32"].batcher.interleave is False
+
+
+@pytest.mark.parametrize("spec", [True, False], ids=["spec", "nospec"])
+def test_paged_critique_retrace_matches_reference(paged_f32, monkeypatch, capsys, spec):
+    """A paged ``critique --json`` in the pipelined loop at depth 2: the
+    retrace watch reports the reference's programs, dispatches and
+    distinct keys, no unexpected recompile in either, and the same sync
+    reasons. The reference's entries are made to resolve before they are
+    checked, as the port's CPU copies always are: on the CPU its async
+    dispatch otherwise leaves a step unresolved at random, and the depth
+    bound then adds a dispatch. With speculation off the port's
+    ``perf.interleave.sync_points`` also counts the decode loop's
+    per-step host reads (engine/interleave.py), so that one field is
+    left out there."""
+    def resolved(entry):
+        entry[0].block_until_ready()
+        return True
+
+    monkeypatch.setattr(ref_sched.ContinuousBatcher, "_entry_ready", staticmethod(resolved))
+    port, run = paged_f32
+    docs = run(["--interleave", "--speculative" if spec else "--no-speculative"], capsys)
+    _compiles_compared(docs)
+    retrace = docs[1]["perf"]["obs"]["retrace"]["programs"]
+    used = {k for k, v in retrace.items() if v["dispatches"]}
+    assert used == {"prefill_chunk", "scheduler_spec_chunk" if spec else "scheduler_decode_chunk"}
+    if not spec:
+        for d in docs:
+            d["perf"]["interleave"].pop("sync_points")
+    assert docs[1] == docs[0]
+    assert port._models["paged-f32"].batcher.pipeline_depth == 2

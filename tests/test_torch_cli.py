@@ -11,9 +11,9 @@ round wall), and every file written (sessions, checkpoints, journals,
 profiles, ``--events-out``) must be equal.
 
 Beside them: a session the reference started resumes under the port;
-each knob of an unported subsystem exits 2 with "not yet ported" (the
-KV tiers' knobs and the batcher's chaos seams now run as the
-reference's do); a
+the knobs once refused as "not yet ported" (the fleet's, the KV tiers',
+the batcher's chaos seams, the weight-residency knobs and
+``--pipeline-depth``) run as the reference's do; a
 ``tpu://`` run with no GPU exits 2; and the port's CLI runs with jax
 blocked.
 """
@@ -353,10 +353,15 @@ def test_session_started_by_reference_resumes_under_port(
     assert sup.state_tree(port_root) == sup.state_tree(ref_root)
 
 
-REFUSED = {
+# Refused until the batcher's pipelined loop was ported; accepted now,
+# with the reference's exit code and report (``perf.interleave`` reports
+# the depth; ``serve`` cases: the daemon's debate results and drain
+# report).
+PIPELINE_DEPTH_KNOBS = {
     "pipeline_depth_2": (["critique", "--pipeline-depth", "2"], {}),
     "pipeline_depth_clamped": (["critique", "--pipeline-depth", "7"], {}),
     "pipeline_depth_env": (["critique"], {"ADVSPEC_PIPELINE_DEPTH": "2"}),
+    "serve_pipeline_depth_2": (["serve", "--pipeline-depth", "2"], {}),
 }
 
 # Refused until the fleet was ported; accepted now, with the reference's
@@ -498,13 +503,10 @@ def _serve_one_debate(cli_mod, argv, sock, monkeypatch, capsys):
     return box["code"], results, report["stats"]
 
 
-@pytest.mark.parametrize("name", sorted(FLEET_KNOBS))
-def test_fleet_knob_matches_reference(name, tmp_path, monkeypatch, capsys):
-    """The fleet's flags, env vars and chaos seam run as the reference's
-    do: the same exit code and ``--json`` report (``perf.fleet``
-    included) for ``critique`` and ``export-tasks``, and for ``serve``
-    the same debate results and drain counters."""
-    argv, env = FLEET_KNOBS[name]
+def _knob_runs(argv, env, tmp_path, monkeypatch, capsys) -> list:
+    """One knob's argv through both CLIs: (exit code, normalized
+    ``--json``) of a ``critique`` or ``export-tasks`` round, or (exit
+    code, results, drain counters) of a ``serve`` daemon's debate."""
     for k, v in env.items():
         monkeypatch.setenv(k, v)
     got = []
@@ -521,6 +523,16 @@ def test_fleet_knob_matches_reference(name, tmp_path, monkeypatch, capsys):
         )
         assert code == 0, err
         got.append((code, sup.normalize_stdout(out, pkg)))
+    return got
+
+
+@pytest.mark.parametrize("name", sorted(FLEET_KNOBS))
+def test_fleet_knob_matches_reference(name, tmp_path, monkeypatch, capsys):
+    """The fleet's flags, env vars and chaos seam run as the reference's
+    do: the same exit code and ``--json`` report (``perf.fleet``
+    included) for ``critique`` and ``export-tasks``, and for ``serve``
+    the same debate results and drain counters."""
+    got = _knob_runs(*FLEET_KNOBS[name], tmp_path, monkeypatch, capsys)
     assert got[1] == got[0]
     if name in ("fleet_replicas", "fleet_prefill", "fleet_env"):
         # These arm a routed fleet only with ``--fleet``/``ADVSPEC_FLEET``.
@@ -528,17 +540,22 @@ def test_fleet_knob_matches_reference(name, tmp_path, monkeypatch, capsys):
         assert fleet["enabled"] is (name == "fleet_env")
 
 
-@pytest.mark.parametrize("name", sorted(REFUSED))
-def test_unported_knob_exits_2(name, monkeypatch, capsys):
-    argv, env = REFUSED[name]
-    for k, v in env.items():
-        monkeypatch.setenv(k, v)
-    code, out, err = sup.run_cli(
-        port_cli, argv + ["--models", "mock://agree"], monkeypatch, capsys, SPEC
-    )
-    assert code == 2, err
-    assert "not yet ported" in err
-    assert out == ""
+@pytest.mark.parametrize("name", sorted(PIPELINE_DEPTH_KNOBS))
+def test_pipeline_depth_knob_matches_reference(name, tmp_path, monkeypatch, capsys):
+    """``--pipeline-depth`` (clamped to [1, 2]) and
+    ``ADVSPEC_PIPELINE_DEPTH`` run as the reference's do: the same exit
+    code and ``--json`` report, ``perf.interleave.pipeline_depth``
+    compared with no field excused, and for ``serve`` the same debate
+    results and drain counters."""
+    from adversarial_spec_tpu_torch.engine import interleave
+
+    got = _knob_runs(*PIPELINE_DEPTH_KNOBS[name], tmp_path, monkeypatch, capsys)
+    assert got[1] == got[0]
+    if name.startswith("serve"):
+        assert got[1][0] == 0
+    else:
+        assert got[1][1]["perf"]["interleave"]["pipeline_depth"] == 2
+    assert interleave.config().pipeline_depth == 2
 
 
 def _serve_flags(help_text: str) -> set[str]:
@@ -588,8 +605,8 @@ def test_serve_action_is_served(tmp_path, monkeypatch, capsys):
 
 
 def test_ported_chaos_seam_and_off_switches_pass(monkeypatch, capsys):
-    """The journal's ``crash`` seam is ported, depth 1 is what the port
-    does anyway, and the off switches of what it has (``--no-kv-tier``,
+    """The journal's ``crash`` seam is ported, ``--pipeline-depth 1``
+    selects the synchronous depth, and the off switches of what it has (``--no-kv-tier``,
     ``ADVSPEC_KV_TIER=0``, ``--no-fleet``, ``ADVSPEC_FLEET=0``,
     ``ADVSPEC_WEIGHT_RES=0``) turn them off."""
     monkeypatch.setenv("ADVSPEC_KV_TIER", "0")

@@ -282,7 +282,7 @@ def test_collectives_local_way_sums_and_gathers_in_rank_order():
 
 def test_multi_host_launch_is_refused(monkeypatch):
     monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="not yet ported"):
+    with pytest.raises(NotImplementedError, match="multi-host launch .* not supported"):
         port_mesh.maybe_initialize_distributed()
 
 

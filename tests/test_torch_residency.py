@@ -9,9 +9,9 @@ byte identity, the freeing where paging is off or the host budget is
 too small, resident-first group order, int4 weights paged quantized, no
 leak over many models, a swap fault that degrades only the admission
 waiting on it, a staged promotion that rides the current group's decode,
-and the ledger through the CLI's ``perf.weights``. The reference's
-recompile test has no counterpart: the port compiles nothing per model
-(CUDA graphs wait for ROADMAP A.12).
+and the ledger through the CLI's ``perf.weights``, and a re-promoted
+model served with no unexpected recompile in the retrace watch (the port
+compiles nothing: its watch counts new dispatch keys).
 """
 
 import gc
@@ -150,6 +150,30 @@ def test_demote_promote_byte_identical(monkeypatch):
     assert eng.ledger.is_host("random-mistral-tiny")
     eng.check_residency_invariants()
     assert weightres.stats.promotions >= 1
+
+
+def test_repromotion_zero_unexpected_recompiles(monkeypatch):
+    """The reference's demote → promote → serve check: a promoted paged
+    model serves through the same dispatch keys, so the retrace watch,
+    cleared before the round, sees its programs and no unexpected
+    recompile."""
+    _register("cont-tiny", kv="paged")
+    eng = GpuEngine(device="cpu")
+    base = eng.chat([_req("tpu://cont-tiny", "alpha beta")], PARAMS)
+    assert base[0].ok, base[0].error
+    # random-tiny is bf16 (half the f32 bytes): 1.2x leaves no room for
+    # even the half-size newcomer beside cont-tiny.
+    _budget(monkeypatch, _one(eng, "cont-tiny") * 1.2)
+    eng.chat([_req("tpu://random-tiny")], PARAMS)
+    assert eng.ledger.is_host("cont-tiny")
+    obs.retrace.clear()
+    again = eng.chat([_req("tpu://cont-tiny", "alpha beta")], PARAMS)
+    assert again[0].ok and again[0].text == base[0].text
+    snap = obs.retrace.snapshot()
+    assert snap["unexpected_recompiles"] == 0, snap
+    used = {k for k, v in snap["programs"].items() if v["dispatches"]}
+    assert "prefill_chunk" in used
+    assert used & {"scheduler_decode_chunk", "scheduler_spec_chunk"}
 
 
 def test_paging_off_frees_instead(monkeypatch):

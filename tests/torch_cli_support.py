@@ -48,11 +48,8 @@ WALL_CLOCK_FIELDS = ("perf.total_s", "perf.spans.*", "perf.span_tree.**.total_s"
 
 # Fields where the port reports a subsystem it does not have, or has
 # only in part: (path, the port's value). Removed from both reports after
-# the port's value is checked.
-KNOWN_DIFFERENCES = (
-    # Pipeline depth 2 is not ported; the reference's default is 2.
-    (("perf", "interleave", "pipeline_depth"), 1),
-)
+# the port's value is checked. None is left: every field is compared.
+KNOWN_DIFFERENCES = ()
 
 
 def point_state(
@@ -132,7 +129,9 @@ def reset_port_process() -> None:
     port_spec.reset_stats()
     port_streaming.configure(enabled=True, early_cancel=True)
     port_streaming.reset_stats()
-    port_interleave.configure(enabled=True)
+    port_interleave.configure(
+        enabled=True, pipeline_depth=port_interleave.MAX_PIPELINE_DEPTH
+    )
     port_interleave.reset_stats()
     port_obs.configure(
         enabled=True,
