@@ -10,11 +10,39 @@
 // The speculative verify (S > 1 query positions per row: B2, B4) is
 // verify_attention.cu. One body serves both, each over a float cache (K/V
 // in q's type) or an int8 cache (the reference's kv_dtype="int8": int8 K/V
-// with per-(token, head) f32 scales): four entries. Two template switches
-// pick the entry: the K/V element type (q's type or int8_t) and kPaged, the
+// with per-(token, head) f32 scales). Two template switches pick the
+// entry: the K/V element type (q's type or int8_t) and kPaged, the
 // slot-address policy. Each entry has its own launch counter on the Python
 // side (ops/decode_attention.py and ops/paged_attention.py, an `_int8kv`
 // counter for the int8 cache).
+//
+// The same body, with a shard axis (a third switch, kShards), also
+// replaces the reference's shard_map wrappers of those kernels:
+//   - advspec_decode_attention_sharded: pallas_decode.py:350
+//     decode_attention_tp (W1, B1 with the rows over dp and the KV heads
+//     over tp);
+//   - advspec_paged_decode_attention_sharded: pallas_paged.py:372
+//     paged_decode_attention_dp_tp (W2, B3 over per-dp-slice pools, the
+//     page ids rebased per slice) and pallas_paged.py:443
+//     paged_decode_attention_tp (W3, its dp = 1 case: a replicated table,
+//     base 0).
+// They serve every shard of a mesh that one card holds (all of them on a
+// virtual mesh; several whenever a mesh has more shards than cards) in one
+// launch. What bounds them is B1's bound: the K/V bytes of all the shards'
+// windows. One launch per shard, as the wrappers first ran, paid a ramp,
+// a drain and a combine for each shard's few MB (70B on tp=8: 16 small
+// kernels where one B1 launch of the same bytes takes 0.031 ms). Here the
+// shards' rows are stacked on the grid's z axis: grid (n_split, Hkv * n_chunks,
+// n_shards * B), a block finds its shard as blockIdx.z / B, and the
+// shard's pointers (q, K/V, scales, table, bounds) and page base come from
+// a table passed by value in the kernel's parameter (__grid_constant__, at
+// most kMaxShards a launch: no host-written device buffer, so the call
+// stays capturable). n_split is planned for the stacked rows, as for one
+// B1 launch of the same bytes, and the output, the partials and the
+// combine are one for the launch. W2's rebase is the kernel's: each shard
+// subtracts its base where it reads a table entry, before the <= 0 mask,
+// so the trash page and padding stay unmapped and no rebased table is
+// built on the host side.
 //
 // What bounds it: the bytes of K and V it reads. At the main paths' shapes
 // (Llama-3-8B: Hkv=8, g=4 query heads per KV head, D=128, bf16; thousands
@@ -106,32 +134,57 @@ constexpr int kE = 8;             // elements of a K/V row per lane
 constexpr int kBatch = 4;         // slots a lane group scores between softmax updates
 constexpr float kLog2e = 1.4426950408889634f;
 
-struct Args {
+// One shard's operands: what differs between the shards of a launch (a
+// single-device entry has one shard).
+struct Shard {
   const void* q;
-  long long q_sb, q_sh;
-  // Dense: k_sb is the batch-row stride. Paged: k_sb is the page stride.
   const void* k;
-  long long k_sb, k_sh, k_st;
   const void* v;
-  long long v_sb, v_sh, v_st;
   // int8 cache only (null for a float cache): per-(slot, head) f32 scales,
   // strides as k's (batch row or page, head, slot).
   const float* ks;
-  long long ks_sb, ks_sh, ks_st;
   const float* vs;
+  const int* table;   // paged only: [B, P] page ids
+  const int* bounds;  // [B, 2] (start, end)
+  int page_base;      // paged only: subtracted from every table entry read
+};
+
+// Strides and sizes, shared by every shard of a launch.
+struct Args {
+  long long q_sb, q_sh;
+  // Dense: k_sb is the batch-row stride. Paged: k_sb is the page stride.
+  long long k_sb, k_sh, k_st;
+  long long v_sb, v_sh, v_st;
+  long long ks_sb, ks_sh, ks_st;
   long long vs_sb, vs_sh, vs_st;
-  const int* table;  // paged only: [B, P] physical page ids
-  long long tb_sb;
-  const int* bounds;  // [B, 2] (start, end), row stride bd_sb
-  long long bd_sb;
+  long long tb_sb;  // the table's row stride
+  long long bd_sb;  // the bounds' row stride
+  // The shards' rows stacked: shard s's row b is output row s * B + b.
   void* out;
   long long o_sb, o_sh;
   float* ws;  // partials, n_split > 1 only
-  // n_chunks: blocks of kG query rows per KV head (ceil(g / kG)); page:
-  // slots per page (paged only).
-  int B, Hq, Hkv, T, D, page, n_split, n_chunks, vec16;
+  // B: rows of one shard; rows: of the launch (n_shards * B). n_chunks:
+  // blocks of kG query rows per KV head (ceil(g / kG)); page: slots per
+  // page (paged only).
+  int B, rows, Hq, Hkv, T, D, page, n_split, n_chunks, vec16;
   float scale, softcap;
 };
+
+// A kernel's one parameter: the shared Args and kShards shard tables,
+// passed by value (__grid_constant__), so a launch reads no host-written
+// device buffer and can be captured in a CUDA graph.
+template <int kShards>
+struct Launch {
+  Args a;
+  Shard sh[kShards];
+};
+
+// Shards per launch of the sharded entries; a larger group is cut into
+// launches of at most this many (ops/decode_attention.py reads this line
+// as MAX_SHARDS). The parameter stays inside the 4 KB a kernel's
+// parameters may take.
+constexpr int kMaxShards = 32;
+static_assert(sizeof(Launch<kMaxShards>) <= 4096, "the shard table must fit the kernel parameters");
 
 // Compile-time shape of an entry: head dim kD, K/V element type TK.
 template <int kD, typename TK>
@@ -243,12 +296,19 @@ __device__ __forceinline__ float softmax_exp(float x) {
   return exp2f(x);
 }
 
+// The page id of entry p of row b: the table's entry less the shard's page
+// base (a per-dp-slice pool's first global id), so the trash page (global
+// 0) and the padding (< 0) land <= 0 and stay unmapped.
+__device__ __forceinline__ int page_id(const Args& a, const Shard& s, int b, int p) {
+  return s.table[b * a.tb_sb + p] - s.page_base;
+}
+
 // Where slot t of row b lives: (row or page id, slot there); false when it
 // is outside [lo, hi) or in an unmapped page (then nothing is read). A tile
 // inside one page passes that page's id as tile_id.
 template <bool kPaged>
-__device__ __forceinline__ bool slot_home(const Args& a, int b, int t, int lo, int hi, int tile_id,
-                                          long long* row, int* slot) {
+__device__ __forceinline__ bool slot_home(const Args& a, const Shard& s, int b, int t, int lo,
+                                          int hi, int tile_id, long long* row, int* slot) {
   if (t < lo || t >= hi) return false;
   if (!kPaged) {
     *row = b;
@@ -256,7 +316,7 @@ __device__ __forceinline__ bool slot_home(const Args& a, int b, int t, int lo, i
     return true;
   }
   const int p = t / a.page;
-  const int id = tile_id != 0 ? tile_id : a.table[b * a.tb_sb + p];
+  const int id = tile_id != 0 ? tile_id : page_id(a, s, b, p);
   *row = id;
   *slot = t - p * a.page;
   return id > 0;
@@ -265,12 +325,12 @@ __device__ __forceinline__ bool slot_home(const Args& a, int b, int t, int lo, i
 // Start the copy of tile ti into one ring stage; returns whether this
 // thread staged any slot that is scored (in the window, in a mapped page).
 template <typename TK, bool kPaged, int kD>
-__device__ __forceinline__ bool issue_tile(const Args& a, int b, int h, int ti, int lo, int hi,
-                                           bool in_page, unsigned char* stage) {
+__device__ __forceinline__ bool issue_tile(const Args& a, const Shard& sh, int b, int h, int ti,
+                                           int lo, int hi, bool in_page, unsigned char* stage) {
   using S = Shape<kD, TK>;
   const int t0 = ti * S::kTile;
   // Block-uniform: every thread reads the same entry.
-  const int tile_id = kPaged && in_page ? a.table[b * a.tb_sb + t0 / a.page] : 0;
+  const int tile_id = kPaged && in_page ? page_id(a, sh, b, t0 / a.page) : 0;
   if (kPaged && in_page && tile_id <= 0) {
     // Trash page or padding: the whole tile is skipped, so nothing is
     // staged (not even zeros).
@@ -278,8 +338,8 @@ __device__ __forceinline__ bool issue_tile(const Args& a, int b, int h, int ti, 
   }
   unsigned char* kd = stage;
   unsigned char* vd = stage + S::kTile * S::kRow;
-  const TK* kb = static_cast<const TK*>(a.k) + h * a.k_sh;
-  const TK* vb = static_cast<const TK*>(a.v) + h * a.v_sh;
+  const TK* kb = static_cast<const TK*>(sh.k) + h * a.k_sh;
+  const TK* vb = static_cast<const TK*>(sh.v) + h * a.v_sh;
   bool any = false;
   if (a.vec16) {
 #pragma unroll
@@ -288,7 +348,7 @@ __device__ __forceinline__ bool issue_tile(const Args& a, int b, int h, int ti, 
       const int j = i / S::kChunks, c = i % S::kChunks;
       long long row = 0;
       int slot = 0;
-      const bool in = slot_home<kPaged>(a, b, t0 + j, lo, hi, tile_id, &row, &slot);
+      const bool in = slot_home<kPaged>(a, sh, b, t0 + j, lo, hi, tile_id, &row, &slot);
       const int e = c * (16 / (int)sizeof(TK));
       const TK* ks = kb + row * a.k_sb + (long long)slot * a.k_st + e;
       const TK* vs = vb + row * a.v_sb + (long long)slot * a.v_st + e;
@@ -301,7 +361,7 @@ __device__ __forceinline__ bool issue_tile(const Args& a, int b, int h, int ti, 
       const int j = i / kD, d = i % kD;
       long long row = 0;
       int slot = 0;
-      const bool in = slot_home<kPaged>(a, b, t0 + j, lo, hi, tile_id, &row, &slot);
+      const bool in = slot_home<kPaged>(a, sh, b, t0 + j, lo, hi, tile_id, &row, &slot);
       TK kx{}, vx{};
       if (in) {
         kx = kb[row * a.k_sb + (long long)slot * a.k_st + d];
@@ -318,23 +378,30 @@ __device__ __forceinline__ bool issue_tile(const Args& a, int b, int h, int ti, 
     for (int j = threadIdx.x; j < S::kTile; j += kThreads) {
       long long row = 0;
       int slot = 0;
-      const bool in = slot_home<kPaged>(a, b, t0 + j, lo, hi, tile_id, &row, &slot);
-      const float* ks = a.ks + row * a.ks_sb + h * a.ks_sh + (long long)slot * a.ks_st;
-      const float* vs = a.vs + row * a.vs_sb + h * a.vs_sh + (long long)slot * a.vs_st;
-      cp_async4(ksd + j, in ? ks : a.ks, in ? 4 : 0);
-      cp_async4(vsd + j, in ? vs : a.vs, in ? 4 : 0);
+      const bool in = slot_home<kPaged>(a, sh, b, t0 + j, lo, hi, tile_id, &row, &slot);
+      const float* ks = sh.ks + row * a.ks_sb + h * a.ks_sh + (long long)slot * a.ks_st;
+      const float* vs = sh.vs + row * a.vs_sb + h * a.vs_sh + (long long)slot * a.vs_st;
+      cp_async4(ksd + j, in ? ks : sh.ks, in ? 4 : 0);
+      cp_async4(vsd + j, in ? vs : sh.vs, in ? 4 : 0);
     }
   }
   return any;
 }
 
 // TQ is q's and out's type; TK the K/V element type (TQ, or int8_t for the
-// int8 cache); kPaged reads slots through the page table (B3).
-template <typename TQ, typename TK, bool kPaged, int kD>
-__global__ void __launch_bounds__(kThreads, kBlocksPerSm) decode_attn_kernel(Args a) {
+// int8 cache); kPaged reads slots through the page table (B3); kShards is 1
+// for the single-device entries and kMaxShards for the sharded ones, whose
+// block finds its shard as blockIdx.z / B.
+template <typename TQ, typename TK, bool kPaged, int kD, int kShards>
+__global__ void __launch_bounds__(kThreads, kBlocksPerSm)
+    decode_attn_kernel(const __grid_constant__ Launch<kShards> L) {
   using S = Shape<kD, TK>;
   constexpr int kL = S::kL, kTile = S::kTile, kB = S::kB, kN = kB * kG;
-  const int split = blockIdx.x, b = blockIdx.z;
+  const Args& a = L.a;
+  const int split = blockIdx.x, z = blockIdx.z;  // z: the row in the launch's stack
+  const int si = kShards == 1 ? 0 : z / a.B;
+  const int b = z - si * a.B;  // the row within its shard
+  const Shard& sh = L.sh[si];
   const int h = blockIdx.y / a.n_chunks, r0 = (blockIdx.y % a.n_chunks) * kG;
   const int g = a.Hq / a.Hkv;
   const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
@@ -344,7 +411,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) decode_attn_kernel(Arg
   extern __shared__ __align__(16) unsigned char smem[];
 
   // The row's window, clipped to the cache; this split's run of its tiles.
-  const int lo = max(a.bounds[b * a.bd_sb], 0), hi = min(a.bounds[b * a.bd_sb + 1], a.T);
+  const int lo = max(sh.bounds[b * a.bd_sb], 0), hi = min(sh.bounds[b * a.bd_sb + 1], a.T);
   int t_a, t_b;
   split_run(lo, hi, kTile, a.n_split, split, &t_a, &t_b);
   // A tile lies inside one page when the page is a multiple of the tile.
@@ -354,7 +421,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) decode_attn_kernel(Arg
   unsigned staged = 0;  // bit st: this thread staged a scored slot into stage st
 #pragma unroll
   for (int st = 0; st < kStages - 1; ++st) {
-    if (t_a + st < t_b && issue_tile<TK, kPaged, kD>(a, b, h, t_a + st, lo, hi, in_page,
+    if (t_a + st < t_b && issue_tile<TK, kPaged, kD>(a, sh, b, h, t_a + st, lo, hi, in_page,
                                                       smem + st * S::kStage))
       staged |= 1u << st;
     cp_async_commit();
@@ -364,7 +431,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) decode_attn_kernel(Arg
   // score_unit, f32.
   float q[kG][kE];
   const float q_scale = a.scale * score_unit<TQ>();
-  const TQ* qb = static_cast<const TQ*>(a.q) + b * a.q_sb;
+  const TQ* qb = static_cast<const TQ*>(sh.q) + b * a.q_sb;
 #pragma unroll
   for (int r = 0; r < kG; ++r) {
     const bool real = r0 + r < g;
@@ -392,7 +459,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) decode_attn_kernel(Arg
     {
       const int tn = ti + kStages - 1, sn = (ti - t_a + kStages - 1) % kStages;
       staged &= ~(1u << sn);
-      if (tn < t_b && issue_tile<TK, kPaged, kD>(a, b, h, tn, lo, hi, in_page,
+      if (tn < t_b && issue_tile<TK, kPaged, kD>(a, sh, b, h, tn, lo, hi, in_page,
                                                   smem + sn * S::kStage))
         staged |= 1u << sn;
       cp_async_commit();
@@ -437,7 +504,7 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) decode_attn_kernel(Arg
           long long row;
           int slot;
           const int t = t0 + (kb + k) * S::kGroups + grp;
-          if (!slot_home<kPaged>(a, b, t, lo, hi, in_page ? 1 : 0, &row, &slot)) {
+          if (!slot_home<kPaged>(a, sh, b, t, lo, hi, in_page ? 1 : 0, &row, &slot)) {
 #pragma unroll
             for (int r = 0; r < kG; ++r) s[k * kG + r] = -INFINITY;
           }
@@ -533,13 +600,13 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) decode_attn_kernel(Arg
     }
     const int row = r0 + r;
     if (a.n_split == 1) {
-      store_as(static_cast<TQ*>(a.out) + b * a.o_sb + (long long)(h * g + row) * a.o_sh + d,
+      store_as(static_cast<TQ*>(a.out) + z * a.o_sb + (long long)(h * g + row) * a.o_sh + d,
                o / fmaxf(den, 1e-30f));
     } else {
-      const long long pr = partial_row(split, a.B, a.Hkv, g, b, h, row);
+      const long long pr = partial_row(split, a.rows, a.Hkv, g, z, h, row);
       a.ws[pr * kD + d] = o;
       if (d == 0) {
-        const long long per = (long long)a.n_split * a.B * a.Hkv * g;
+        const long long per = (long long)a.n_split * a.rows * a.Hkv * g;
         a.ws[per * kD + pr] = mx / score_unit<TQ>();  // the combine's natural units
         a.ws[per * kD + per + pr] = den;
       }
@@ -549,11 +616,16 @@ __global__ void __launch_bounds__(kThreads, kBlocksPerSm) decode_attn_kernel(Arg
 
 // ---- host side --------------------------------------------------------------
 
-template <typename TQ, typename TK, bool kPaged, int kD>
-int launch(Args a, cudaStream_t stream) {
+template <typename TQ, typename TK, bool kPaged, int kD, int kShards>
+int launch(Launch<kShards>& L, int n_shards, cudaStream_t stream) {
   using S = Shape<kD, TK>;
-  a.vec16 = aligned16<TK>(a.k, a.k_sb, a.k_sh, a.k_st) && aligned16<TK>(a.v, a.v_sb, a.v_sh, a.v_st);
-  auto kernel = decode_attn_kernel<TQ, TK, kPaged, kD>;
+  Args& a = L.a;
+  a.vec16 = 1;
+  for (int i = 0; i < n_shards; ++i) {
+    a.vec16 &= aligned16<TK>(L.sh[i].k, a.k_sb, a.k_sh, a.k_st) &&
+               aligned16<TK>(L.sh[i].v, a.v_sb, a.v_sh, a.v_st);
+  }
+  auto kernel = decode_attn_kernel<TQ, TK, kPaged, kD, kShards>;
   // Above 48 KB a block must opt in, once per entry.
   static bool opted_in = false;
   if (!opted_in) {
@@ -561,59 +633,85 @@ int launch(Args a, cudaStream_t stream) {
     if (e != cudaSuccess) return (int)e;
     opted_in = true;
   }
-  kernel<<<dim3(a.n_split, a.Hkv * a.n_chunks, a.B), kThreads, S::kSmem, stream>>>(a);
+  kernel<<<dim3(a.n_split, a.Hkv * a.n_chunks, a.rows), kThreads, S::kSmem, stream>>>(L);
   const int rc = (int)cudaGetLastError();
   if (rc) return rc;
   const int g = a.Hq / a.Hkv;
-  const Partials p{a.ws, a.out, a.o_sb, 0, a.o_sh, a.B, a.Hkv, g, a.D, g, a.n_split};
+  const Partials p{a.ws, a.out, a.o_sb, 0, a.o_sh, a.rows, a.Hkv, g, a.D, g, a.n_split};
   return combine<TQ>(p, stream);
 }
 
-template <typename TQ, typename TK, bool kPaged>
-int by_head_dim(const Args& a, cudaStream_t s) {
-  switch (a.D) {
-    case 64: return launch<TQ, TK, kPaged, 64>(a, s);
-    case 128: return launch<TQ, TK, kPaged, 128>(a, s);
-    default: return launch<TQ, TK, kPaged, 256>(a, s);
+template <typename TQ, typename TK, bool kPaged, int kShards>
+int by_head_dim(Launch<kShards>& L, int n, cudaStream_t s) {
+  switch (L.a.D) {
+    case 64: return launch<TQ, TK, kPaged, 64>(L, n, s);
+    case 128: return launch<TQ, TK, kPaged, 128>(L, n, s);
+    default: return launch<TQ, TK, kPaged, 256>(L, n, s);
   }
 }
 
-template <bool kPaged>
-int dispatch(Args& a, int dtype, void* stream) {
+template <bool kPaged, int kShards>
+int dispatch(Launch<kShards>& L, int n_shards, int dtype, void* stream) {
+  Args& a = L.a;
   if (a.D != 64 && a.D != 128 && a.D != 256) return (int)cudaErrorInvalidValue;
   if (a.Hkv <= 0 || a.Hq % a.Hkv != 0 || a.B <= 0 || a.T <= 0 || a.n_split <= 0)
     return (int)cudaErrorInvalidValue;
+  if (n_shards < 1 || n_shards > kShards) return (int)cudaErrorInvalidValue;
   if (a.n_split > 1 && a.ws == nullptr) return (int)cudaErrorInvalidValue;
   if (kPaged && (a.page <= 0 || a.T % a.page != 0)) return (int)cudaErrorInvalidValue;
-  // Both scales or neither: a null ks is a float cache in q's type.
-  if ((a.ks == nullptr) != (a.vs == nullptr)) return (int)cudaErrorInvalidValue;
-  const bool quant = a.ks != nullptr;
+  // Both scales or neither, in every shard alike: a null ks is a float
+  // cache in q's type.
+  const bool quant = L.sh[0].ks != nullptr;
+  for (int i = 0; i < n_shards; ++i) {
+    if ((L.sh[i].ks != nullptr) != quant || (L.sh[i].vs != nullptr) != quant)
+      return (int)cudaErrorInvalidValue;
+  }
+  a.rows = n_shards * a.B;
   a.n_chunks = (a.Hq / a.Hkv + kG - 1) / kG;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0) {
-    return quant ? by_head_dim<float, int8_t, kPaged>(a, s) : by_head_dim<float, float, kPaged>(a, s);
+    return quant ? by_head_dim<float, int8_t, kPaged>(L, n_shards, s)
+                 : by_head_dim<float, float, kPaged>(L, n_shards, s);
   }
   if (dtype == 1) {
-    return quant ? by_head_dim<__nv_bfloat16, int8_t, kPaged>(a, s)
-                 : by_head_dim<__nv_bfloat16, __nv_bfloat16, kPaged>(a, s);
+    return quant ? by_head_dim<__nv_bfloat16, int8_t, kPaged>(L, n_shards, s)
+                 : by_head_dim<__nv_bfloat16, __nv_bfloat16, kPaged>(L, n_shards, s);
   }
   return (int)cudaErrorInvalidValue;
 }
 
-void set_common(Args& a, const void* q, long long q_sb, long long q_sh, const void* k,
-                long long k_sb, long long k_sh, long long k_st, const void* v, long long v_sb,
-                long long v_sh, long long v_st, const float* ks, long long ks_sb,
-                long long ks_sh, long long ks_st, const float* vs, long long vs_sb,
-                long long vs_sh, long long vs_st, const int* bounds, long long bd_sb, void* out,
-                long long o_sb, long long o_sh, float* ws, int n_split) {
-  a.q = q; a.q_sb = q_sb; a.q_sh = q_sh;
-  a.k = k; a.k_sb = k_sb; a.k_sh = k_sh; a.k_st = k_st;
-  a.v = v; a.v_sb = v_sb; a.v_sh = v_sh; a.v_st = v_st;
-  a.ks = ks; a.ks_sb = ks_sb; a.ks_sh = ks_sh; a.ks_st = ks_st;
-  a.vs = vs; a.vs_sb = vs_sb; a.vs_sh = vs_sh; a.vs_st = vs_st;
-  a.bounds = bounds; a.bd_sb = bd_sb;
+void set_strides(Args& a, long long q_sb, long long q_sh, long long k_sb, long long k_sh,
+                 long long k_st, long long v_sb, long long v_sh, long long v_st, long long ks_sb,
+                 long long ks_sh, long long ks_st, long long vs_sb, long long vs_sh,
+                 long long vs_st, long long bd_sb, void* out, long long o_sb, long long o_sh,
+                 float* ws, int n_split) {
+  a.q_sb = q_sb; a.q_sh = q_sh;
+  a.k_sb = k_sb; a.k_sh = k_sh; a.k_st = k_st;
+  a.v_sb = v_sb; a.v_sh = v_sh; a.v_st = v_st;
+  a.ks_sb = ks_sb; a.ks_sh = ks_sh; a.ks_st = ks_st;
+  a.vs_sb = vs_sb; a.vs_sh = vs_sh; a.vs_st = vs_st;
+  a.bd_sb = bd_sb;
   a.out = out; a.o_sb = o_sb; a.o_sh = o_sh;
   a.ws = ws; a.n_split = n_split;
+}
+
+// The sharded entries' shard table: kShardFields values a shard, in this
+// order (pointers as integers; null for a missing operand;
+// ops/decode_attention.py reads this line as SHARD_FIELDS).
+constexpr int kShardFields = 8;
+
+void set_shards(Shard* sh, const long long* fields, int n) {
+  for (int i = 0; i < n; ++i) {
+    const long long* f = fields + i * kShardFields;
+    sh[i].q = reinterpret_cast<const void*>(f[0]);
+    sh[i].k = reinterpret_cast<const void*>(f[1]);
+    sh[i].v = reinterpret_cast<const void*>(f[2]);
+    sh[i].ks = reinterpret_cast<const float*>(f[3]);
+    sh[i].vs = reinterpret_cast<const float*>(f[4]);
+    sh[i].table = reinterpret_cast<const int*>(f[5]);
+    sh[i].bounds = reinterpret_cast<const int*>(f[6]);
+    sh[i].page_base = (int)f[7];
+  }
 }
 
 }  // namespace
@@ -634,12 +732,13 @@ extern "C" int advspec_decode_attention(
     float* ws, int n_split,
     int B, int Hq, int Hkv, int T, int D, int dtype,
     float scale, float softcap, void* stream) {
-  Args a{};
-  set_common(a, q, q_sb, q_sh, k, k_sb, k_sh, k_st, v, v_sb, v_sh, v_st, ks, ks_sb, ks_sh, ks_st,
-             vs, vs_sb, vs_sh, vs_st, bounds, bd_sb, out, o_sb, o_sh, ws, n_split);
-  a.B = B; a.Hq = Hq; a.Hkv = Hkv; a.T = T; a.D = D;
-  a.scale = scale; a.softcap = softcap;
-  return dispatch<false>(a, dtype, stream);
+  Launch<1> L{};
+  set_strides(L.a, q_sb, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, ks_sb, ks_sh, ks_st, vs_sb,
+              vs_sh, vs_st, bd_sb, out, o_sb, o_sh, ws, n_split);
+  L.sh[0] = Shard{q, k, v, ks, vs, nullptr, bounds, 0};
+  L.a.B = B; L.a.Hq = Hq; L.a.Hkv = Hkv; L.a.T = T; L.a.D = D;
+  L.a.scale = scale; L.a.softcap = softcap;
+  return dispatch<false>(L, 1, dtype, stream);
 }
 
 // Paged entry (B3). k/v are a layer's [n_pages, Hkv, page, D] pool view:
@@ -658,12 +757,69 @@ extern "C" int advspec_paged_decode_attention(
     float* ws, int n_split,
     int B, int Hq, int Hkv, int P, int page, int D, int dtype,
     float scale, float softcap, void* stream) {
-  Args a{};
-  set_common(a, q, q_sb, q_sh, k, k_sp, k_sh, k_st, v, v_sp, v_sh, v_st, ks, ks_sp, ks_sh, ks_st,
-             vs, vs_sp, vs_sh, vs_st, bounds, bd_sb, out, o_sb, o_sh, ws, n_split);
-  a.table = table; a.tb_sb = tb_sb;
-  a.B = B; a.Hq = Hq; a.Hkv = Hkv; a.T = P * page; a.D = D;
-  a.page = page;
-  a.scale = scale; a.softcap = softcap;
-  return dispatch<true>(a, dtype, stream);
+  Launch<1> L{};
+  set_strides(L.a, q_sb, q_sh, k_sp, k_sh, k_st, v_sp, v_sh, v_st, ks_sp, ks_sh, ks_st, vs_sp,
+              vs_sh, vs_st, bd_sb, out, o_sb, o_sh, ws, n_split);
+  L.sh[0] = Shard{q, k, v, ks, vs, table, bounds, 0};
+  L.a.tb_sb = tb_sb;
+  L.a.B = B; L.a.Hq = Hq; L.a.Hkv = Hkv; L.a.T = P * page; L.a.D = D;
+  L.a.page = page;
+  L.a.scale = scale; L.a.softcap = softcap;
+  return dispatch<true>(L, 1, dtype, stream);
+}
+
+// Sharded entry (W1): B1 over the n_shards shards of a mesh that one card
+// holds, in one launch. shards: n_shards x kShardFields values (q, k, v,
+// ks, vs, table = 0, bounds, page base = 0), each shard's tensors with the
+// shared shapes and strides given. B is one shard's rows; out holds the
+// shards' rows stacked ([n_shards * B, Hq, D] at o_sb, o_sh), and ws
+// n_split * n_shards * B * Hkv * g * (D + 2) floats.
+extern "C" int advspec_decode_attention_sharded(
+    const long long* shards, int n_shards,
+    long long q_sb, long long q_sh,
+    long long k_sb, long long k_sh, long long k_st,
+    long long v_sb, long long v_sh, long long v_st,
+    long long ks_sb, long long ks_sh, long long ks_st,
+    long long vs_sb, long long vs_sh, long long vs_st,
+    long long bd_sb,
+    void* out, long long o_sb, long long o_sh,
+    float* ws, int n_split,
+    int B, int Hq, int Hkv, int T, int D, int dtype,
+    float scale, float softcap, void* stream) {
+  if (n_shards < 1 || n_shards > kMaxShards) return (int)cudaErrorInvalidValue;
+  Launch<kMaxShards> L{};
+  set_strides(L.a, q_sb, q_sh, k_sb, k_sh, k_st, v_sb, v_sh, v_st, ks_sb, ks_sh, ks_st, vs_sb,
+              vs_sh, vs_st, bd_sb, out, o_sb, o_sh, ws, n_split);
+  set_shards(L.sh, shards, n_shards);
+  L.a.B = B; L.a.Hq = Hq; L.a.Hkv = Hkv; L.a.T = T; L.a.D = D;
+  L.a.scale = scale; L.a.softcap = softcap;
+  return dispatch<false>(L, n_shards, dtype, stream);
+}
+
+// Sharded paged entry (W2, and W3 with every base 0): B3 over the shards
+// one card holds, in one launch. Each shard's table carries global page
+// ids; its page base (W2: d * Lp, the first global id of its dp slice's
+// pool) is subtracted where the kernel reads an entry.
+extern "C" int advspec_paged_decode_attention_sharded(
+    const long long* shards, int n_shards,
+    long long q_sb, long long q_sh,
+    long long k_sp, long long k_sh, long long k_st,
+    long long v_sp, long long v_sh, long long v_st,
+    long long ks_sp, long long ks_sh, long long ks_st,
+    long long vs_sp, long long vs_sh, long long vs_st,
+    long long tb_sb, long long bd_sb,
+    void* out, long long o_sb, long long o_sh,
+    float* ws, int n_split,
+    int B, int Hq, int Hkv, int P, int page, int D, int dtype,
+    float scale, float softcap, void* stream) {
+  if (n_shards < 1 || n_shards > kMaxShards) return (int)cudaErrorInvalidValue;
+  Launch<kMaxShards> L{};
+  set_strides(L.a, q_sb, q_sh, k_sp, k_sh, k_st, v_sp, v_sh, v_st, ks_sp, ks_sh, ks_st, vs_sp,
+              vs_sh, vs_st, bd_sb, out, o_sb, o_sh, ws, n_split);
+  set_shards(L.sh, shards, n_shards);
+  L.a.tb_sb = tb_sb;
+  L.a.B = B; L.a.Hq = Hq; L.a.Hkv = Hkv; L.a.T = P * page; L.a.D = D;
+  L.a.page = page;
+  L.a.scale = scale; L.a.softcap = softcap;
+  return dispatch<true>(L, n_shards, dtype, stream);
 }

@@ -9,8 +9,10 @@ Counterpart of ``adversarial_spec_tpu/ops/pallas_decode.py``:
   window. Replaces the Pallas ``_mq_attn_kernel``.
 - ``decode_attention_tp`` (W1): B1 on a dp×tp mesh, the reference's
   ``shard_map`` wrapper of the same name — rows split over dp, KV heads
-  over tp, one B1 launch per shard on its local tensors; counted per
-  shard in ``mesh_launches`` (and each launch in B1's count too).
+  over tp. Every shard that one device holds is served by one launch of
+  the sharded entry (``decode_attention_sharded``: B1's body with a shard
+  axis, at most ``MAX_SHARDS`` shards a launch); ``mesh_launches`` counts
+  those launches, ``mesh_shards`` the shards they served.
 
 Both take an int8 cache as the reference does (``kv_dtype="int8"``):
 ``k_scale``/``v_scale`` (both or neither) are the per-(token, head) f32
@@ -36,11 +38,12 @@ from __future__ import annotations
 import ctypes
 import functools
 import math
+import re
 
 import torch
 
 from adversarial_spec_tpu_torch.ops import _build, split_kv
-from adversarial_spec_tpu_torch.parallel.mesh import TP, compat_shard_map
+from adversarial_spec_tpu_torch.parallel.mesh import TP, group_map
 from adversarial_spec_tpu_torch.ops.flash_common import flash_update
 
 SOURCE = "decode_attention.cu"  # B1 (and B3)
@@ -63,12 +66,29 @@ launches = {
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 
 
-# W1's launches: one per shard it launches B1 on.
-mesh_launches = {"decode_attention_tp": 0}
+# W1's launches of the sharded entry (one a device group, or one a run of
+# ``MAX_SHARDS``) and the shards they served, by K/V type as B1's are.
+mesh_launches = {"decode_attention_tp": 0, "decode_attention_tp_int8kv": 0}
+mesh_shards = dict.fromkeys(mesh_launches, 0)
+
+
+def _source_constant(name: str) -> int:
+    text = (_build.CSRC / SOURCE).read_text()
+    return int(re.search(rf"constexpr int {name} = (\d+);", text).group(1))
+
+
+# Shards one launch of a sharded entry takes (the source's kMaxShards: its
+# shard table rides in the kernel's parameters, whose 4 KB it must fit);
+# a larger group is cut into launches of this many.
+MAX_SHARDS = _source_constant("kMaxShards")
+# A shard's entries in the sharded entries' table (kShardFields): q, k, v,
+# k scales, v scales, page table, bounds, page base (pointers as
+# integers, 0 = null).
+SHARD_FIELDS = _source_constant("kShardFields")
 
 
 def reset_launches() -> None:
-    for counts in (launches, mesh_launches):
+    for counts in (launches, mesh_launches, mesh_shards):
         for name in counts:
             counts[name] = 0
 
@@ -97,6 +117,24 @@ def _b2_entry():
         + [_P, _L, _L, _L]  # out
         + [_P, _I]  # split workspace, n_split
         + [_I] * 7
+        + [_F, _F, _P],
+    )
+
+
+def _strides_args():
+    return [_L, _L] + [_L, _L, _L] * 4  # q; k, v, k scales, v scales
+
+
+def _w1_entry():
+    return _build.entry(
+        SOURCE,
+        "advspec_decode_attention_sharded",
+        [ctypes.POINTER(_L), _I]  # shard table, shards
+        + _strides_args()
+        + [_L]  # bounds row stride
+        + [_P, _L, _L]  # out
+        + [_P, _I]  # split workspace, n_split
+        + [_I] * 6
         + [_F, _F, _P],
     )
 
@@ -451,25 +489,166 @@ def mq_args(
     return out, ws, span_calls(q, starts, ends, out, runs, middle, tail, ws, n_split)
 
 
+# -- the sharded entries: one launch for the shards one device holds ------------
+
+
+def check_table(page_table: torch.Tensor, B: int) -> None:
+    if page_table.dim() != 2 or page_table.shape[0] != B:
+        raise ValueError(f"page table shape {tuple(page_table.shape)} vs B={B}")
+    if page_table.stride(1) != 1:
+        raise ValueError("page table entries must be contiguous")
+
+
+def _uniform(name: str, tensors) -> torch.Tensor:
+    """The first of one operand's shard tensors, after checking that every
+    shard's has its device, dtype, shape and strides: a sharded launch
+    reads all of them with one set of strides."""
+    t0 = tensors[0]
+    key = lambda t: (t.device, t.dtype, tuple(t.shape), t.stride())  # noqa: E731
+    for i, t in enumerate(tensors):
+        if key(t) != key(t0):
+            raise ValueError(
+                f"shard {i}'s {name} (device, dtype, shape, strides {key(t)}) differs "
+                f"from shard 0's {key(t0)}: one sharded launch reads every shard "
+                "with one layout"
+            )
+    return t0
+
+
+def _ptr(t) -> int:
+    return 0 if t is None else t.data_ptr()
+
+
+def sharded_args(
+    qs, ks, vs, bounds, k_scales, v_scales, attn_softcap, scale, *,
+    tables=None, bases=None, cap: int = MAX_SHARDS,
+) -> list[tuple[torch.Tensor, torch.Tensor | None, list, int]]:
+    """The launches of a sharded entry for the shards one device holds:
+    W1's (``tables`` None) or W2/W3's (each shard's page table and page
+    base). For each run of at most ``cap`` shards: its output ``[n, B, Hq,
+    D]`` (shard i's rows are ``out[i]``), its partials workspace, the C
+    arguments (all but the stream; the shard table first) and ``n``.
+    ``n_split`` is B1's for the run's stacked ``n * B`` rows. Every shard
+    of a run must have the same shapes and strides; raises otherwise.
+    From shapes, strides and pointers alone: nothing here reads a device
+    tensor (bounds and tables included)."""
+    quant = k_scales is not None
+    paged = tables is not None
+    runs = []
+    for a in range(0, len(qs), cap):
+        sel = range(a, min(a + cap, len(qs)))
+        for i in sel:
+            extra = (tables[i],) if paged else ()
+            code = _check(
+                qs[i], ks[i], vs[i], *extra, bounds[i],
+                k_scale=k_scales[i] if quant else None,
+                v_scale=v_scales[i] if quant else None,
+            )
+        pick = lambda xs: [xs[i] for i in sel]  # noqa: E731
+        q, k, v = (_uniform(n, pick(x)) for n, x in (("q", qs), ("k", ks), ("v", vs)))
+        bnd = _uniform("bounds", pick(bounds))
+        ksc = _uniform("k_scale", pick(k_scales)) if quant else None
+        vsc = _uniform("v_scale", pick(v_scales)) if quant else None
+        B, Hq, D = q.shape
+        Hkv, g, n = k.shape[1], Hq // k.shape[1], len(sel)
+        if bnd.shape != (B, 2) or bnd.stride(1) != 1:
+            raise ValueError(f"bounds must be a contiguous ({B}, 2), got {tuple(bnd.shape)}")
+        if paged:
+            tab = _uniform("page table", pick(tables))
+            check_table(tab, B)
+            page = k.shape[2]
+            T = tab.shape[1] * page
+        else:
+            T = k.shape[2]
+        n_split = split_kv.decode_splits(n * B, Hkv, g, T, D, k.element_size())
+        ws = split_kv.workspace(n_split, n * B, Hkv, g, D, q.device)
+        out = torch.empty((n, B, Hq, D), dtype=q.dtype, device=q.device)
+        fields = [
+            (qs[i].data_ptr(), ks[i].data_ptr(), vs[i].data_ptr(),
+             _ptr(k_scales[i] if quant else None), _ptr(v_scales[i] if quant else None),
+             _ptr(tables[i] if paged else None), bounds[i].data_ptr(),
+             int(bases[i]) if paged else 0)
+            for i in sel
+        ]
+        flat = [x for f in fields for x in f]
+        scale_strides = [
+            x for sc in (ksc, vsc) for x in ((sc.stride(0), sc.stride(1), sc.stride(2))
+                                              if quant else (0, 0, 0))
+        ]
+        args = [
+            (ctypes.c_longlong * len(flat))(*flat), n,
+            q.stride(0), q.stride(1),
+            k.stride(0), k.stride(1), k.stride(2),
+            v.stride(0), v.stride(1), v.stride(2),
+            *scale_strides,
+            *((tab.stride(0),) if paged else ()),
+            bnd.stride(0),
+            out.data_ptr(), out.stride(1), out.stride(2),
+            None if ws is None else ws.data_ptr(), n_split,
+            B, Hq, Hkv, *((tab.shape[1], page) if paged else (T,)), D, code,
+            float(scale if scale is not None else 1.0 / math.sqrt(D)),
+            float(attn_softcap),
+        ]
+        runs.append((out, ws, args, n))
+    return runs
+
+
+def launch_sharded(entry, runs, name: str, device, counts) -> list[torch.Tensor]:
+    """Queue ``runs`` (``sharded_args``) through ``entry`` on ``device``'s
+    current stream; ``counts`` is the module's (``mesh_launches``,
+    ``mesh_shards``): each launch adds 1 to the first's ``name`` and its
+    shards to the second's. Returns each shard's output."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    outs = []
+    for out, ws, args, n in runs:
+        _raise_on(entry(*args, stream), name)
+        del ws  # the partials live until the launch is queued
+        counts[0][name] += 1
+        counts[1][name] += n
+        outs += list(out.unbind(0))
+    return outs
+
+
+def _none(xs, n):
+    return [None] * n if xs is None else xs
+
+
+def _plain_shards(qs, ks, vs, bounds, attn_softcap, scale, k_scales, v_scales):
+    """B1's plain version on each shard's own operands."""
+    n = len(qs)
+    return [
+        decode_attention_plain(q, k, v, b, attn_softcap=attn_softcap, scale=scale,
+                               k_scale=ksc, v_scale=vsc)
+        for q, k, v, b, ksc, vsc in zip(qs, ks, vs, bounds, _none(k_scales, n),
+                                         _none(v_scales, n))
+    ]
+
+
+def decode_attention_sharded(
+    qs, ks, vs, bounds, attn_softcap: float = 0.0, scale: float | None = None,
+    k_scales=None, v_scales=None,
+) -> list[torch.Tensor]:
+    """B1 over shards that one device holds: lists of each shard's ``q``
+    ``[B, Hq, D]``, K/V ``[B, Hkv, T, D]``, bounds ``[B, 2]`` (and int8
+    scales), every shard with the same shapes and strides. One launch of
+    the sharded entry for CUDA tensors (a launch per ``MAX_SHARDS``); B1's
+    plain version on each shard for CPU ones. Returns each shard's
+    ``[B, Hq, D]``."""
+    quant = scales_pair(k_scales, v_scales)
+    if not qs[0].is_cuda:
+        return _plain_shards(qs, ks, vs, bounds, attn_softcap, scale, k_scales, v_scales)
+    bounds = [b.contiguous() for b in bounds]
+    runs = sharded_args(qs, ks, vs, bounds, k_scales, v_scales, attn_softcap, scale)
+    name = "decode_attention_tp" + ("_int8kv" if quant else "")
+    return launch_sharded(_w1_entry(), runs, name, qs[0].device, (mesh_launches, mesh_shards))
+
+
 # -- W1: B1 on a mesh -----------------------------------------------------------
 
 
 def tp_decode_supported(n_kv_heads: int, mesh) -> bool:
     """True iff the mesh's tp degree keeps GQA groups shard-local."""
     return n_kv_heads % mesh.shape.get(TP, 1) == 0
-
-
-def _w1(kernel, counted: bool, q, k_cache, v_cache, bounds, mesh, attn_softcap,
-        scale, k_scale, v_scale):
-    def one(q_, k_, v_, b_, *s):
-        out = kernel(q_, k_, v_, b_, attn_softcap=attn_softcap, scale=scale,
-                     k_scale=s[0] if s else None, v_scale=s[1] if s else None)
-        if counted and q_.is_cuda:
-            mesh_launches["decode_attention_tp"] += 1
-        return out
-
-    scales = (k_scale, v_scale) if scales_pair(k_scale, v_scale) else ()
-    return compat_shard_map(one, mesh, q, k_cache, v_cache, bounds, *scales)
 
 
 def decode_attention_tp(
@@ -489,17 +668,30 @@ def decode_attention_tp(
     The reference's ``decode_attention_tp`` ``shard_map``s its Pallas
     kernel over a GSPMD mesh: the batch over ``dp``, the KV-head axis (and
     q's heads) over ``tp``. Here the operands already are the shards, and
-    each shard runs B1 on its own tensors with its device current. A GQA
-    group stays on its shard (callers gate on ``tp_decode_supported``),
-    so there is no cross-shard softmax and no collective in or around
-    the kernel."""
-    return _w1(decode_attention, True, q, k_cache, v_cache, bounds, mesh,
-               attn_softcap, scale, k_scale, v_scale)
+    the shards that one device holds run as one sharded B1 launch
+    (``decode_attention_sharded``) with that device current: every shard
+    of a virtual mesh in one launch, one launch a card on a mesh of
+    distinct cards. A GQA group stays on its shard (callers gate on
+    ``tp_decode_supported``), so there is no cross-shard softmax and no
+    collective in or around the kernel."""
+    return _w1(decode_attention_sharded, q, k_cache, v_cache, bounds, mesh, attn_softcap,
+               scale, k_scale, v_scale)
+
+
+def _w1(run, q, k_cache, v_cache, bounds, mesh, attn_softcap, scale, k_scale, v_scale):
+    """W1's body: ``run`` (the sharded entry, or the plain shards) on
+    each device group's shards."""
+    scales_pair(k_scale, v_scale)
+
+    def group(shards, qs, ks, vs, bs, kss, vss):
+        return run(qs, ks, vs, bs, attn_softcap, scale, kss, vss)
+
+    return group_map(group, mesh, q, k_cache, v_cache, bounds, k_scale, v_scale)
 
 
 def decode_attention_tp_plain(q, k_cache, v_cache, bounds, mesh,
                               attn_softcap: float = 0.0, scale=None,
                               k_scale=None, v_scale=None):
-    """Plain W1: the same per-shard split around B1's plain version."""
-    return _w1(decode_attention_plain, False, q, k_cache, v_cache, bounds,
-               mesh, attn_softcap, scale, k_scale, v_scale)
+    """Plain W1: B1's plain version on each shard's own operands."""
+    return _w1(_plain_shards, q, k_cache, v_cache, bounds, mesh, attn_softcap, scale,
+               k_scale, v_scale)

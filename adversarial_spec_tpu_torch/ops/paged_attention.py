@@ -11,8 +11,11 @@ Counterpart of ``adversarial_spec_tpu/ops/pallas_paged.py``:
   the Pallas ``_paged_mq_attn_kernel``.
 - ``paged_decode_attention_tp`` (W3) and ``paged_decode_attention_dp_tp``
   (W2): B3 on a mesh, the reference's ``shard_map`` wrappers of the same
-  names — one B3 launch per shard on its local pool, counted per shard in
-  ``mesh_launches`` (and each launch in B3's count too).
+  names. Every shard that one device holds is served by one launch of the
+  sharded entry (``paged_decode_attention_sharded``: B3's body with a
+  shard axis, each shard's page base subtracted where the kernel reads
+  its table); ``mesh_launches`` counts those launches, ``mesh_shards``
+  the shards they served.
 
 Both take an int8 pool as the reference does (``kv_dtype="int8"``):
 ``k_scale``/``v_scale`` (both or neither) are the f32 scale pages
@@ -43,6 +46,7 @@ takes the plain version: the wrapper launches the kernel or raises.
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -52,15 +56,20 @@ from adversarial_spec_tpu_torch.ops.decode_attention import (
     SOURCE,
     VERIFY_SOURCE,
     _check,
+    _none,
     _raise_on,
+    _strides_args,
+    check_table,
+    launch_sharded,
     scale_args,
     scales_pair,
+    sharded_args,
     span_calls,
     span_strides,
     verify_plan,
 )
 from adversarial_spec_tpu_torch.ops.flash_common import flash_update
-from adversarial_spec_tpu_torch.parallel.mesh import compat_shard_map
+from adversarial_spec_tpu_torch.parallel.mesh import group_map
 
 # Slots the plain versions gather per online-softmax update.
 _PLAIN_BLOCK = 512
@@ -78,15 +87,19 @@ launches = {
 _P, _L, _I, _F = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int, ctypes.c_float
 
 
-# W2's and W3's launches: one per shard they launch B3 on.
+# W2's and W3's launches of the sharded entry and the shards they served,
+# by K/V type as B3's are.
 mesh_launches = {
     "paged_decode_attention_tp": 0,
+    "paged_decode_attention_tp_int8kv": 0,
     "paged_decode_attention_dp_tp": 0,
+    "paged_decode_attention_dp_tp_int8kv": 0,
 }
+mesh_shards = dict.fromkeys(mesh_launches, 0)
 
 
 def reset_launches() -> None:
-    for counts in (launches, mesh_launches):
+    for counts in (launches, mesh_launches, mesh_shards):
         for name in counts:
             counts[name] = 0
 
@@ -99,6 +112,20 @@ def _b3_entry():
         + [_P, _L, _L, _L] * 4  # k, v pages, k, v scale pages
         + [_P, _L]  # table
         + [_P, _L]  # bounds
+        + [_P, _L, _L]  # out
+        + [_P, _I]  # split workspace, n_split
+        + [_I] * 7
+        + [_F, _F, _P],
+    )
+
+
+def _w2_entry():
+    return _build.entry(
+        SOURCE,
+        "advspec_paged_decode_attention_sharded",
+        [ctypes.POINTER(_L), _I]  # shard table, shards
+        + _strides_args()
+        + [_L, _L]  # table and bounds row strides
         + [_P, _L, _L]  # out
         + [_P, _I]  # split workspace, n_split
         + [_I] * 7
@@ -222,13 +249,6 @@ def paged_decode_attention_plain(
 # -- kernel wrappers ----------------------------------------------------------
 
 
-def _check_table(page_table: torch.Tensor, B: int) -> None:
-    if page_table.dim() != 2 or page_table.shape[0] != B:
-        raise ValueError(f"page table shape {tuple(page_table.shape)} vs B={B}")
-    if page_table.stride(1) != 1:
-        raise ValueError("page table entries must be contiguous")
-
-
 def _kernel_name(name: str, k_scale) -> str:
     return name + ("_int8kv" if k_scale is not None else "")
 
@@ -274,7 +294,7 @@ def decode_args(
     )
     B, Hq, D = q.shape
     Hkv, page = k_pages.shape[1], k_pages.shape[2]
-    _check_table(page_table, B)
+    check_table(page_table, B)
     if bounds.shape != (B, 2) or bounds.stride(1) != 1:
         raise ValueError(f"bounds must be a contiguous ({B}, 2), got {tuple(bounds.shape)}")
     P, g = page_table.shape[1], Hq // Hkv
@@ -342,7 +362,7 @@ def mq_args(
     )
     B, S, Hq, D = q.shape
     Hkv, page = k_pages.shape[1], k_pages.shape[2]
-    _check_table(page_table, B)
+    check_table(page_table, B)
     span_strides(starts, ends, B, S)
     P = page_table.shape[1]
     runs, n_split, ws = verify_plan(q, k_pages, P, page)
@@ -364,30 +384,63 @@ def mq_args(
 # -- W2 / W3: B3 on a mesh ------------------------------------------------------
 
 
-def _paged_mesh(kernel, name, rebase: bool, q, k_pages, v_pages, page_table,
-                bounds, mesh, attn_softcap, scale, k_scale, v_scale):
-    """Shared body of W2/W3 and their plain versions: ``kernel`` on each
-    shard's local operands. ``rebase``: the table holds global ids of a
-    per-dp-slice pool, shifted to the shard's slice here."""
+def page_bases(shards, k_pages, rebase: bool) -> list[int]:
+    """Each shard's page base: ``d·Lp`` (slice d's first global page id,
+    ``Lp`` its pool's pages) when the table holds global ids of a
+    per-dp-slice pool (W2), else 0 (W3's replicated table)."""
+    return [d * k.shape[0] if rebase else 0 for (d, _), k in zip(shards, k_pages)]
 
-    def one(q_, k_, v_, t_, b_, *s):
-        out = kernel(q_, k_, v_, t_, b_, attn_softcap=attn_softcap,
-                     scale=scale, k_scale=s[0] if s else None,
-                     v_scale=s[1] if s else None)
-        if name and q_.is_cuda:
-            mesh_launches[name] += 1
-        return out
 
-    if rebase:
-        # Slice d owns global pages [d·Lp, (d+1)·Lp): each shard's table
-        # goes to local ids. The trash page (global 0) and padding (< 0)
-        # land <= 0 and stay masked.
-        page_table = [
-            [tab - d * k_pages[d][t].shape[0] for t, tab in enumerate(row)]
-            for d, row in enumerate(page_table)
-        ]
-    scales = (k_scale, v_scale) if scales_pair(k_scale, v_scale) else ()
-    return compat_shard_map(one, mesh, q, k_pages, v_pages, page_table, bounds, *scales)
+def _plain_shards(qs, ks, vs, tables, bounds, bases, attn_softcap, scale, k_scales,
+                  v_scales):
+    """B3's plain version on each shard's own operands, each table rebased
+    on the host first (``tab - base``: the yardstick of the kernel's own
+    rebase; the trash page and padding land <= 0 and stay masked)."""
+    n = len(qs)
+    return [
+        paged_decode_attention_plain(q, k, v, tab - base if base else tab, b,
+                                     attn_softcap=attn_softcap, scale=scale,
+                                     k_scale=ksc, v_scale=vsc)
+        for q, k, v, tab, b, base, ksc, vsc in zip(qs, ks, vs, tables, bounds, bases,
+                                                    _none(k_scales, n), _none(v_scales, n))
+    ]
+
+
+def paged_decode_attention_sharded(
+    qs, ks, vs, tables, bounds, bases, attn_softcap: float = 0.0,
+    scale: float | None = None, k_scales=None, v_scales=None, *, counter: str,
+) -> list[torch.Tensor]:
+    """B3 over shards that one device holds: lists of each shard's ``q``
+    ``[B, Hq, D]``, pool ``[n_pages, Hkv, page, D]`` (and int8 scale
+    pages), table ``[B, P]``, bounds ``[B, 2]`` and page base, every shard
+    with the same shapes and strides. One launch of the sharded entry for
+    CUDA tensors (a launch per ``MAX_SHARDS``), counted under ``counter``
+    (the mesh wrapper's name); B3's plain version on each shard for CPU
+    ones. Returns each shard's ``[B, Hq, D]``."""
+    scales_pair(k_scales, v_scales)
+    if not qs[0].is_cuda:
+        return _plain_shards(qs, ks, vs, tables, bounds, bases, attn_softcap, scale,
+                             k_scales, v_scales)
+    bounds = [b.contiguous() for b in bounds]
+    runs = sharded_args(qs, ks, vs, bounds, k_scales, v_scales, attn_softcap, scale,
+                        tables=tables, bases=bases)
+    return launch_sharded(_w2_entry(), runs, _kernel_name(counter, k_scales), qs[0].device,
+                          (mesh_launches, mesh_shards))
+
+
+def _paged_mesh(run, rebase: bool, q, k_pages, v_pages, page_table, bounds, mesh,
+                attn_softcap, scale, k_scale, v_scale):
+    """Shared body of W2/W3 and their plain versions: ``run`` (the sharded
+    entry, or the plain shards) for each device group. ``rebase``: the
+    table holds global ids of a per-dp-slice pool, which each shard's page
+    base (``page_bases``) takes back to its slice."""
+    scales_pair(k_scale, v_scale)
+
+    def group(shards, qs, ks, vs, tabs, bs, kss, vss):
+        return run(qs, ks, vs, tabs, bs, page_bases(shards, ks, rebase), attn_softcap, scale,
+                   kss, vss)
+
+    return group_map(group, mesh, q, k_pages, v_pages, page_table, bounds, k_scale, v_scale)
 
 
 def paged_decode_attention_tp(
@@ -407,12 +460,15 @@ def paged_decode_attention_tp(
 
     The reference's ``paged_decode_attention_tp``: one global pool whose
     KV-head axis is split over ``tp``; the page table and the bounds are
-    replicated, so every shard reads the same pages, its own heads. Each
-    shard runs B3 on its local tensors; a GQA group stays on its shard, so
-    there is no collective in or around the kernel."""
-    return _paged_mesh(paged_decode_attention, "paged_decode_attention_tp", False,
-                       q, k_pages, v_pages, page_table, bounds, mesh,
-                       attn_softcap, scale, k_scale, v_scale)
+    replicated, so every shard reads the same pages, its own heads. The
+    shards one device holds run as one sharded B3 launch (page base 0); a
+    GQA group stays on its shard, so there is no collective in or around
+    the kernel."""
+    return _paged_mesh(
+        functools.partial(paged_decode_attention_sharded, counter="paged_decode_attention_tp"),
+        False, q, k_pages, v_pages, page_table, bounds, mesh, attn_softcap, scale, k_scale,
+        v_scale,
+    )
 
 
 def paged_decode_attention_dp_tp(
@@ -434,20 +490,22 @@ def paged_decode_attention_dp_tp(
     pool is laid out per dp slice — slice d owns global pages
     ``[d·Lp, (d+1)·Lp)``, its local page 0 is that slice's trash page, and
     every row's pages live in its own slice. The table carries global ids;
-    each shard subtracts its slice base, so the trash page and padding
-    land <= 0 and stay masked. One B3 launch per shard."""
-    return _paged_mesh(paged_decode_attention, "paged_decode_attention_dp_tp", True,
-                       q, k_pages, v_pages, page_table, bounds, mesh,
-                       attn_softcap, scale, k_scale, v_scale)
+    each shard's base ``d·Lp`` is subtracted where the kernel reads an
+    entry, so the trash page and padding land <= 0 and stay masked. The
+    shards one device holds run as one sharded B3 launch."""
+    return _paged_mesh(
+        functools.partial(paged_decode_attention_sharded, counter="paged_decode_attention_dp_tp"),
+        True, q, k_pages, v_pages, page_table, bounds, mesh, attn_softcap, scale, k_scale,
+        v_scale,
+    )
 
 
 def paged_decode_attention_tp_plain(q, k_pages, v_pages, page_table, bounds, mesh,
                                     attn_softcap: float = 0.0, scale=None,
                                     k_scale=None, v_scale=None):
-    """Plain W3: the same per-shard split around B3's plain version."""
-    return _paged_mesh(paged_decode_attention_plain, "", False, q, k_pages,
-                       v_pages, page_table, bounds, mesh, attn_softcap, scale,
-                       k_scale, v_scale)
+    """Plain W3: B3's plain version on each shard's own operands."""
+    return _paged_mesh(_plain_shards, False, q, k_pages, v_pages, page_table, bounds, mesh,
+                       attn_softcap, scale, k_scale, v_scale)
 
 
 def paged_decode_attention_dp_tp_plain(q, k_pages, v_pages, page_table, bounds,
@@ -455,6 +513,5 @@ def paged_decode_attention_dp_tp_plain(q, k_pages, v_pages, page_table, bounds,
                                        scale=None, k_scale=None, v_scale=None):
     """Plain W2: the same per-shard split (and rebase) around B3's plain
     version."""
-    return _paged_mesh(paged_decode_attention_plain, "", True, q, k_pages,
-                       v_pages, page_table, bounds, mesh, attn_softcap, scale,
-                       k_scale, v_scale)
+    return _paged_mesh(_plain_shards, True, q, k_pages, v_pages, page_table, bounds, mesh,
+                       attn_softcap, scale, k_scale, v_scale)

@@ -144,21 +144,34 @@ def device_ctx(device: torch.device):
     return contextlib.nullcontext()
 
 
-def compat_shard_map(fn, mesh: Mesh, *grids):
-    """The port's ``shard_map``: ``fn`` on each shard's local operands.
+def device_groups(mesh: Mesh) -> list[tuple[torch.device, list[tuple[int, int]]]]:
+    """The decode shards ``(d, t)`` (sp rank 0) each distinct device holds,
+    devices in order of first appearance and shards in grid order: one
+    group of every shard on a virtual mesh, one shard a group on a mesh
+    of distinct cards. The sharded kernels launch once for a group."""
+    groups: dict[torch.device, list[tuple[int, int]]] = {}
+    for d in range(mesh.shape[DP]):
+        for t in range(mesh.shape[TP]):
+            groups.setdefault(torch.device(mesh.device(d, t)), []).append((d, t))
+    return list(groups.items())
 
-    Each grid is a ``[dp][tp]`` nested list of shard-local values (see
-    ``parallel/sharding.py``); ``fn(*locals)`` runs once per shard with
-    that shard's device current, and the results come back as a grid.
-    The sp ranks are not mapped here: a ring hop needs every rank's block
-    at once, so the sp prefill (``parallel/sp.py``) steps its ranks
-    itself, and decode leaves sp idle."""
-    dp, tp = mesh.shape[DP], mesh.shape[TP]
-    out = []
-    for d in range(dp):
-        row = []
-        for t in range(tp):
-            with device_ctx(mesh.device(d, t)):
-                row.append(fn(*(g[d][t] for g in grids)))
-        out.append(row)
+
+def group_map(fn, mesh: Mesh, *grids):
+    """The port's ``shard_map``, by device group: ``fn(shards, *operands)``
+    runs once for each group of ``device_groups`` with that device
+    current, each operand the list of the group's shards' values (each
+    grid a ``[dp][tp]`` nested list of shard-local values, see
+    ``parallel/sharding.py``; None for a grid that is None), and its list
+    of per-shard results comes back as a ``[dp][tp]`` grid. The sharded
+    kernels' wrappers (W1-W3) launch once a group this way. The sp ranks
+    are not mapped here: a ring hop needs every rank's block at once, so
+    the sp prefill (``parallel/sp.py``) steps its ranks itself, and
+    decode leaves sp idle."""
+    out = [[None] * mesh.shape[TP] for _ in range(mesh.shape[DP])]
+    for dev, shards in device_groups(mesh):
+        with device_ctx(dev):
+            res = fn(shards, *(None if g is None else [g[d][t] for d, t in shards]
+                               for g in grids))
+        for (d, t), o in zip(shards, res):
+            out[d][t] = o
     return out

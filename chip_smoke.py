@@ -77,14 +77,16 @@ Phases, each printing one JSON line; any failure exits non-zero:
      and B4 at D = 256 over 128-slot pages (S = 9 and 33); B1 and B3, like
      B2 and B4, are also timed over a range of forced split counts;
    - the mesh wrappers on a virtual mesh (every shard on the one card) at
-     phase mesh's shapes: W1 (B1 a shard) at Llama-3-70B's tp=8 decode
-     (64 query heads over 8 KV heads: one KV head a shard, B=4, T=4224),
-     W3 and W2 (B3 a shard) at Llama-3-8B's paged decode on tp=2 and on
+     phase mesh's shapes, each one launch of a sharded entry (B1 / B3
+     with a shard axis) for all the shards: W1 at Llama-3-70B's tp=8
+     decode (64 query heads over 8 KV heads: one KV head a shard, B=4,
+     T=4224), W3 and W2 at Llama-3-8B's paged decode on tp=2 and on
      dp=2 × tp=2 (128-slot pages, 33 a row, each dp slice's trash page
      NaN-poisoned, the global trash id inside a window); each against its
-     plain version (the same split around B1's / B3's), timed as B1/B3
-     (all shards of one call), beside SDPA on the unsharded tensors and
-     the bound (the sum of the shards' bytes);
+     plain version (B1's / B3's on each shard), float and int8 K/V,
+     timed as B1/B3 (all shards of one call), beside SDPA on the
+     unsharded tensors and the bound (the sum of the shards' bytes), with
+     the launches one call made;
 4. slice   — the dense path: GpuEngine.chat on tpu://random-8b (Llama-3-8B
    at full width, bf16, random weights from seed 0) for four opponent
    requests, greedy, 128 new tokens, speculation on, then the same round
@@ -261,8 +263,11 @@ Phases, each printing one JSON line; any failure exits non-zero:
    off (W1 every step); (b) random-8b at full width and depth, dense on
    {"dp": 2} (the sharded program: B2 a shard, W1), paged on {"tp": 2} (W3) and on
    {"dp": 2, "tp": 2} (W2). Counters zeroed before each round; each
-   named kernel must launch at least once a shard; each wrapper's first
-   call is recomputed by its plain version (bf16 tolerance); the tp=2
+   named kernel must serve every shard at least once; each wrapper's
+   launches must be one a device group a layer a decode step (one a
+   layer on a virtual mesh; ``mesh round`` lines give them beside the
+   shards served); each wrapper's first call is recomputed by its plain
+   version (bf16 tolerance); the tp=2
    round's first-step logits are held to one device's on the same
    prompts (bf16 tolerance of the largest logit); each engine is dropped
    before the next and device memory must fall back. ``mesh round``
@@ -281,7 +286,8 @@ Phases, each printing one JSON line; any failure exits non-zero:
    chunked prefill must not run); the first-step logits are held to the
    same prompts without sp (one device's chunked prefill; for (c)
    {"tp": 8}) within the bf16 tolerance of the largest logit; the sp
-   replicas share one weight copy; B1, B2, B3-i8, W1 and W3 must launch;
+   replicas share one weight copy; B2, W1 and W3 on an int8 KV cache must
+   launch, and W1 / W3 once a device group a layer a decode step;
    each engine is dropped and device memory must fall back. ``sp round``
    lines give wall, prefill and decode seconds, tok/s, peak memory,
    weight bytes, launches and which way each collective ran;
@@ -341,11 +347,20 @@ KERNELS = {
     "paged_decode_attention_mq_int8kv": ("csrc/verify_attention.cu", "adversarial_spec_tpu/ops/pallas_paged.py:271"),
     "matmul_int8": ("csrc/quant_matmul.cu", "adversarial_spec_tpu/ops/pallas_quant.py:180"),
     "matmul_int4": ("csrc/quant_matmul.cu", "adversarial_spec_tpu/ops/pallas_quant.py:216"),
-    # The mesh wrappers: per-shard launches of B1 / B3 (csrc/decode_attention.cu).
-    "decode_attention_tp": ("ops/decode_attention.py", "adversarial_spec_tpu/ops/pallas_decode.py:350"),
-    "paged_decode_attention_tp": ("ops/paged_attention.py", "adversarial_spec_tpu/ops/pallas_paged.py:443"),
-    "paged_decode_attention_dp_tp": ("ops/paged_attention.py", "adversarial_spec_tpu/ops/pallas_paged.py:372"),
+    # The mesh wrappers: one launch of the sharded entries (B1 / B3 with a
+    # shard axis) for the shards a card holds.
+    "decode_attention_tp": ("csrc/decode_attention.cu", "adversarial_spec_tpu/ops/pallas_decode.py:350"),
+    "paged_decode_attention_tp": ("csrc/decode_attention.cu", "adversarial_spec_tpu/ops/pallas_paged.py:443"),
+    "paged_decode_attention_dp_tp": ("csrc/decode_attention.cu", "adversarial_spec_tpu/ops/pallas_paged.py:372"),
 }
+MESH_WRAPPERS = ("decode_attention_tp", "paged_decode_attention_tp", "paged_decode_attention_dp_tp")
+
+
+def kernel_row(name: str) -> str:
+    """The kernels line's row of a counter: a mesh wrapper's int8-KV
+    launches join its row (B1-B4's int8 entries have rows of their own)."""
+    base = name.removesuffix("_int8kv")
+    return base if base in MESH_WRAPPERS else name
 BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)  # one bf16 rounding of the output
 F32_TOL = dict(rtol=5e-5, atol=5e-5)  # summation order over 4224 slots
 
@@ -4379,16 +4394,13 @@ def agree_on_meshes(torch, base, cfg, prompts) -> dict:
                  f"{' kv ' + kv_dtype if kv_dtype else ''}")
         if not bool((toks["cuda"] == toks["cpu"]).all()):
             raise RuntimeError(f"tiny f32 on {label}: tokens differ between card and CPU")
-        launched = {**da.launches, **pa.launches, **da.mesh_launches, **pa.mesh_launches}
+        launched, served = mesh_counts(da, pa)
         # Decode runs on the sp-rank-0 shards: n / sp of them.
         shards = n // spec.get("sp", 1)
-        need = [paged_kernel] if paged else ["decode_attention_mq"]
-        if kv_dtype:
-            need.append("paged_decode_attention_int8kv")
-        for k in need:
-            if launched[k] < shards:
-                raise RuntimeError(f"tiny f32 on {label}: {k} launched {launched[k]} "
-                                   f"times over {shards} shards")
+        need = paged_kernel + ("_int8kv" if kv_dtype else "") if paged else "decode_attention_mq"
+        if served[need] < shards:
+            raise RuntimeError(f"tiny f32 on {label}: {need} served {served[need]} "
+                               f"shards, fewer than {shards}")
         out[label] = {"identical_tokens": True, "shape": list(toks["cuda"].shape),
                       "launches": {k: v for k, v in launched.items() if v}}
     return out
@@ -4406,15 +4418,20 @@ MESH_PAGE, MESH_PAGES_ROW = 128, -(-T_CACHE // 128)
 
 def phase_mesh_kernels(torch, da, pa) -> tuple[dict, list]:
     """W1, W2 and W3 on a virtual mesh (every shard on cuda:0) at the
-    shapes phase mesh gives them, each against its plain version (the
-    same per-shard split around B1's / B3's plain version) within the
-    bf16 tolerance: left pads, a single-slot and an empty window, and for
-    W2 a NaN-poisoned trash page in each dp slice and the global trash id
-    inside a window. Timed as B1/B3 are (all shards of one call, CUDA
-    graph replay, cold L2), beside the plain version, SDPA over the same
-    windows on the unsharded tensors and the bound: the sum of the shards'
-    bytes (each shard reads its heads' windows, its table and bounds)."""
+    shapes phase mesh gives them: one launch of the sharded entry for all
+    the shards, each held against its plain version (B1's / B3's plain
+    version on each shard's own operands) within the bf16 tolerance,
+    float and int8 K/V: left pads, a single-slot and an empty window, and
+    for W2 a NaN-poisoned trash page in each dp slice (int8: -128 beside
+    NaN scales) and the global trash id inside a window. Timed as B1/B3
+    are (all shards of one call, CUDA graph replay, cold L2), beside the
+    plain version, SDPA over the same windows on the unsharded tensors and
+    the bound: the sum of the shards' bytes (each shard reads its heads'
+    windows, its table and bounds); ``launches_per_call`` is the sharded
+    entry's launches in one call (``mesh_launches``), which must be 1,
+    ``shards_per_call`` the shards they served (``mesh_shards``)."""
     from adversarial_spec_tpu_torch.engine.kvcache import slice_page_tables
+    from adversarial_spec_tpu_torch.ops.kv_inputs import int8_kv
     from adversarial_spec_tpu_torch.parallel.mesh import DP, TP, make_mesh
     from adversarial_spec_tpu_torch.parallel.sharding import gather, split
 
@@ -4429,6 +4446,18 @@ def phase_mesh_kernels(torch, da, pa) -> tuple[dict, list]:
 
     def draw(shape):
         return torch.randn(shape, generator=gen, device=dev).to(torch.bfloat16)
+
+    def per_call(mod, name, call, mesh) -> dict:
+        """One eager call's launches of the sharded entry and the shards
+        they served: one launch for every shard of the virtual mesh."""
+        mod.reset_launches()
+        call()
+        got = {"launches_per_call": mod.mesh_launches[name],
+               "shards_per_call": mod.mesh_shards[name]}
+        if got != {"launches_per_call": 1, "shards_per_call": mesh.size}:
+            raise AssertionError(f"{name}: one call on {dict(mesh.shape)} made {got}, not one "
+                                 f"launch serving its {mesh.size} shards")
+        return got
 
     # ---- W1: 70B on {"tp": 8} ----
     mesh = make_mesh({"tp": 8}, [dev] * 8)
@@ -4447,6 +4476,14 @@ def phase_mesh_kernels(torch, da, pa) -> tuple[dict, list]:
         want = gather(da.decode_attention_tp_plain(gq, *gkv(1), gb, mesh, attn_softcap=cap),
                       mesh, q_spec)
         check_close(checks, f"W1 bf16 tp=8 softcap={cap}", got, want, BF16_TOL, empty_row=3)
+    (k8, ks8), (v8, vs8) = int8_kv(rot[2][0]), int8_kv(rot[2][1])
+    g8 = [split(x, mesh, kv_spec) for x in (k8, v8)]
+    gs8 = {n: split(x, mesh, kv_spec) for n, x in (("k_scale", ks8), ("v_scale", vs8))}
+    got = gather(da.decode_attention_tp(gq, *g8, gb, mesh, attn_softcap=30.0, **gs8), mesh, q_spec)
+    want = gather(da.decode_attention_tp_plain(gq, *g8, gb, mesh, attn_softcap=30.0, **gs8),
+                  mesh, q_spec)
+    check_close(checks, "W1 bf16 int8 KV tp=8 softcap=30", got, want, BF16_TOL, empty_row=3)
+    del k8, v8, ks8, vs8, g8, gs8
     mask1 = torch.zeros((B, 1, 1, T_CACHE), dtype=torch.bool, device=dev)
     for r, (lo, hi) in enumerate(bnd):
         mask1[r, :, :, lo:hi] = True
@@ -4464,6 +4501,14 @@ def phase_mesh_kernels(torch, da, pa) -> tuple[dict, list]:
         "max_abs_err": err,
         "mesh": dict(mesh.shape),
         "shard": {"rows": B, "q_heads": MESH_HQ70 // tp, "kv_heads": MESH_HKV70 // tp},
+        **per_call(da, "decode_attention_tp",
+                   lambda: da.decode_attention_tp(gq, *gkv(0), gb, mesh), mesh),
+        # B1 itself on the unsharded tensors (8 query heads a KV head, as
+        # each shard has), and W1 with its split count forced.
+        "b1_unsharded_ms": graph_ms(lambda i: da.decode_attention(q, *rot[i % N_ROTATE], bounds),
+                                    50, torch),
+        "split_sweep": split_sweep(torch, lambda i: da.decode_attention_tp(gq, *gkv(i), gb, mesh),
+                                   -(-T_CACHE // 32), (4, 6, 8, 9, 12, 16, 24)),
     }
     del rot, grot
 
@@ -4498,8 +4543,24 @@ def phase_mesh_kernels(torch, da, pa) -> tuple[dict, list]:
         gkv = lambda i: grot[i % N_ROTATE]  # noqa: E731
         got = gather(wrap(gq, *gkv(0), gt, gb, mesh), mesh, q_sp)
         want = gather(plain(gq, *gkv(0), gt, gb, mesh), mesh, q_sp)
-        err = check_close(checks, f"{'W2' if dp > 1 else 'W3'} bf16 {spec}", got, want,
-                          BF16_TOL, empty_row=3)
+        label = "W2" if dp > 1 else "W3"
+        err = check_close(checks, f"{label} bf16 {spec}", got, want, BF16_TOL, empty_row=3)
+
+        def int8_pool(p):  # the pool's int8 form, each slice's trash page poisoned
+            x8, sc = int8_kv(p.nan_to_num())
+            trash = torch.arange(dp, device=dev) * lp
+            x8[trash] = -128
+            sc[trash] = float("nan")
+            return x8, sc
+
+        (k8, ks8), (v8, vs8) = int8_pool(rot[1][0]), int8_pool(rot[1][1])
+        g8 = [split(x, mesh, page_spec) for x in (k8, v8)]
+        gs8 = {n: split(x, mesh, page_spec) for n, x in (("k_scale", ks8), ("v_scale", vs8))}
+        got = gather(wrap(gq, *g8, gt, gb, mesh, attn_softcap=30.0, **gs8), mesh, q_sp)
+        want = gather(plain(gq, *g8, gt, gb, mesh, attn_softcap=30.0, **gs8), mesh, q_sp)
+        check_close(checks, f"{label} bf16 int8 KV {spec} softcap=30", got, want, BF16_TOL,
+                    empty_row=3)
+        del k8, v8, ks8, vs8, g8, gs8
 
         def dense(pages):  # untimed gather for the SDPA yardstick
             g = pages[table.clamp(min=0).long()]  # [B, P, Hkv, page, D]
@@ -4526,6 +4587,7 @@ def phase_mesh_kernels(torch, da, pa) -> tuple[dict, list]:
             "mesh": dict(mesh.shape),
             "shard": {"rows": B // dp, "q_heads": HQ // tp, "kv_heads": HKV // tp,
                       "pages": lp},
+            **per_call(pa, name, lambda: wrap(gq, *gkv(0), gt, gb, mesh), mesh),
         }
         del rot, grot, rot_dense
     finish_bounds(results)
@@ -4540,10 +4602,60 @@ def mesh_size(spec: dict) -> int:
     return n
 
 
+def summed(rounds: list) -> tuple[dict, dict]:
+    """The rounds' ``launches`` and ``shards`` summed by name."""
+    out: tuple[dict, dict] = ({}, {})
+    for r in rounds:
+        for total, key in zip(out, ("launches", "shards")):
+            for k, n in r[key].items():
+                total[k] = total.get(k, 0) + n
+    return out
+
+
+def mesh_counts(da, pa) -> tuple[dict, dict]:
+    """The counters since the last reset: every entry's launches (B1-B4's
+    own, and the sharded entries' in ``mesh_launches``), and the shards
+    served (a sharded launch serves many, any other launch its one)."""
+    launched = {**da.launches, **pa.launches, **da.mesh_launches, **pa.mesh_launches}
+    served = {**da.launches, **pa.launches, **da.mesh_shards, **pa.mesh_shards}
+    return launched, served
+
+
+def mesh_steps(da, pa, mesh, n_layers: int, label: str) -> dict:
+    """Each mesh wrapper's (and K/V type's) S=1 decode calls since the
+    last reset and its sharded entry's launches a decode step. A call
+    serves every decode shard (the sp-rank-0 shards of ``device_groups``)
+    with one launch for each device group (a run of ``MAX_SHARDS`` at
+    most), and every decode step calls it once a layer: on a virtual mesh,
+    one launch a layer a step. Raises unless the counts are exactly so."""
+    from adversarial_spec_tpu_torch.parallel.mesh import device_groups
+
+    groups = [g for _, g in device_groups(mesh)]
+    shards = sum(len(g) for g in groups)
+    per_call = sum(-(-len(g) // da.MAX_SHARDS) for g in groups)
+    out = {}
+    for mod in (da, pa):
+        for name, served in mod.mesh_shards.items():
+            launched = mod.mesh_launches[name]
+            calls, rest = divmod(served, shards)
+            if rest or calls % n_layers or launched != calls * per_call:
+                raise RuntimeError(
+                    f"mesh {label}: {name} made {launched} launches serving {served} shards; "
+                    f"each call serves {shards} shards in {per_call} launches, once a layer "
+                    f"({n_layers}) a step")
+            if served:
+                out[name] = {"decode_steps": calls // n_layers, "launches": launched,
+                             "launches_per_decode_step": launched // (calls // n_layers),
+                             "shards_served": served}
+    return out
+
+
 def mesh_round(torch, engine, reqs, sp, label: str, must_launch: tuple) -> dict:
     """One chat() round on a mesh alias: every counter zeroed just before
-    and read just after; each name of ``must_launch`` must have launched
-    at least once a shard (the W counters count per shard)."""
+    and read just after; each name of ``must_launch`` must have served
+    every shard at least once (``mesh_counts``), and each wrapper's
+    launches must be one a device group a layer a decode step
+    (``mesh_steps``)."""
     from adversarial_spec_tpu_torch.ops import decode_attention as da
     from adversarial_spec_tpu_torch.ops import paged_attention as pa
     from adversarial_spec_tpu_torch.parallel import collectives
@@ -4560,12 +4672,13 @@ def mesh_round(torch, engine, reqs, sp, label: str, must_launch: tuple) -> dict:
     bad = [c.error for c in comps if not c.ok]
     if bad:
         raise RuntimeError(f"mesh {label}: chat failed: {bad}")
-    launched = {**da.launches, **pa.launches, **da.mesh_launches, **pa.mesh_launches}
+    launched, served = mesh_counts(da, pa)
     lm = next(iter(engine._models.values()))
     shards = lm.mesh.size
-    short = {k: launched[k] for k in must_launch if launched[k] < shards}
+    short = {k: served[k] for k in must_launch if served[k] < shards}
     if short:
-        raise RuntimeError(f"mesh {label}: fewer launches than shards ({shards}): {short}")
+        raise RuntimeError(f"mesh {label}: fewer shards served than shards ({shards}): {short}")
+    per_step = mesh_steps(da, pa, lm.mesh, lm.cfg.n_layers, label)
     decode_s = sum(c.usage.decode_time_s for c in comps)
     out_tok = sum(c.usage.output_tokens for c in comps)
     line = {
@@ -4582,6 +4695,8 @@ def mesh_round(torch, engine, reqs, sp, label: str, must_launch: tuple) -> dict:
         "weight_bytes_per_chip": lm.bytes_per_chip,
         "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
         "launches": {k: v for k, v in launched.items() if v},
+        "shards": {k: v for k, v in {**da.mesh_shards, **pa.mesh_shards}.items() if v},
+        "attention_per_decode_step": per_step,
     }
     emit({"phase": "mesh round", **line})
     return line
@@ -4746,11 +4861,7 @@ def phase_mesh(torch) -> dict:
     else:
         report["two_cards"] = ("not run: this machine has one card, so no mesh of "
                                "distinct cards (NCCL collectives) can be built")
-    launched = {}
-    for r in report["rounds"]:
-        for k, n in r["launches"].items():
-            launched[k] = launched.get(k, 0) + n
-    report["launches"] = launched
+    report["launches"], report["shards"] = summed(report["rounds"])
     return report
 
 
@@ -4882,10 +4993,11 @@ def phase_sp(torch) -> dict:
                 or ring.counts["hops"] != want_hops or S % n_sp):
             raise RuntimeError(f"sp {label}: the ring did not carry the prefill: "
                                f"{sp_mod.counts} {ring.counts} chunked={len(chunks)} S={S}")
-        launched = {**da.launches, **pa.launches, **da.mesh_launches, **pa.mesh_launches}
+        launched, _ = mesh_counts(da, pa)
         missing = [k for k in must_launch if not launched[k]]
         if missing:
             raise RuntimeError(f"sp {label}: {missing} never launched: {launched}")
+        per_step = mesh_steps(da, pa, mesh, lm.cfg.n_layers, f"sp {label}")
         shared = all(lm.params.shard(d, t, s) is lm.params.parts[d][t]
                      for d in range(mesh.shape["dp"]) for t in range(mesh.shape["tp"])
                      for s in range(n_sp))
@@ -4912,6 +5024,8 @@ def phase_sp(torch) -> dict:
             "weight_bytes_on_card": lm.bytes_per_chip, "weights_shared_over_sp": shared,
             "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
             "launches": {k: v for k, v in launched.items() if v},
+            "shards": {k: v for k, v in {**da.mesh_shards, **pa.mesh_shards}.items() if v},
+            "attention_per_decode_step": per_step,
         }
         emit({"phase": "sp round", **line})
         report["cases"].append(line)
@@ -4955,7 +5069,7 @@ def phase_sp(torch) -> dict:
         reqs = [ChatRequest("tpu://sp-8b-paged-kv8", p, doc) for p in PERSONAS[:4]]
         engine = GpuEngine(devices=[dev] * 2)
         calls, logits = sp_round(engine, "sp-8b-paged-kv8", reqs, "8b sp=2 paged int8 KV",
-                                 ("paged_decode_attention_tp", "paged_decode_attention_int8kv"))
+                                 ("paged_decode_attention_tp_int8kv",))
         mesh_logits = logits[0]
         dropped(engine, "8b sp=2 paged int8")
         prompts, kwargs = calls[0]
@@ -4980,15 +5094,10 @@ def phase_sp(torch) -> dict:
             dropped(engine, "70b tp=8")
             report["first_logits_err_70b"] = first_logits_check(
                 "70b sp=2 tp=8", mesh_logits, tp_logits[0])
-    launched: dict = {}
-    for r in report["cases"]:
-        for k, n in r["launches"].items():
-            launched[k] = launched.get(k, 0) + n
-    for k in ("decode_attention", "decode_attention_mq", "paged_decode_attention_int8kv",
-              "decode_attention_tp", "paged_decode_attention_tp"):
-        if not launched.get(k):
-            raise RuntimeError(f"sp: {k} never launched in the phase: {launched}")
-    report["launches"] = launched
+    report["launches"], report["shards"] = summed(report["cases"])
+    for k in ("decode_attention_mq", "decode_attention_tp", "paged_decode_attention_tp_int8kv"):
+        if not report["launches"].get(k):
+            raise RuntimeError(f"sp: {k} never launched in the phase: {report['launches']}")
     return report
 
 
@@ -5173,6 +5282,7 @@ def main(argv: list[str]) -> int:
               "quant_cases": qcases, "quant_sweeps": qsweeps}
 
     launches = {name: None for name in kres}
+    shards = dict.fromkeys(MESH_WRAPPERS)
     if not quick:
         sl = run("slice", phase_slice, torch, profile=profile)
         launches.update(sl["launches"])
@@ -5209,15 +5319,18 @@ def main(argv: list[str]) -> int:
         sv = run("serve", phase_serve, torch)
         fl = run("fleet", phase_fleet, torch)
         # The multi-device mesh (a virtual one on one card): W1-W3's
-        # launches, one a shard, are this phase's.
+        # launches (one a device group) and shards served are this phase's.
         ms = run("mesh", phase_mesh, torch)
         # The sequence-parallel axis (virtual meshes on one card): the
         # ring prefill, then W1 / W3 (B3-i8) decode.
         spp = run("sp", phase_sp, torch)
         for ph in (bt, pgen, sv, fl, ms, spp):
             for k, n in ph["launches"].items():
-                if k in launches:
-                    launches[k] = (launches[k] or 0) + n
+                if kernel_row(k) in launches:
+                    launches[kernel_row(k)] = (launches[kernel_row(k)] or 0) + n
+        for ph in (ms, spp):
+            for k, n in ph["shards"].items():
+                shards[kernel_row(k)] = (shards[kernel_row(k)] or 0) + n
         ag = run("agree", phase_agree, torch)
         record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, cli=cl, hf=hf, pool=pl,
                       batcher=bt, pgen=pgen, serve=sv, fleet=fl, mesh=ms, sp=spp, agree=ag)
@@ -5242,6 +5355,8 @@ def main(argv: list[str]) -> int:
             "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"],
             "library_ms": r["library_ms"],
+            **({"shards": shards[name], "launches_per_call": r["launches_per_call"],
+                "shards_per_call": r["shards_per_call"]} if name in shards else {}),
         })
     record["kernels_line"] = line
     record["seconds"] = time.monotonic() - t_start

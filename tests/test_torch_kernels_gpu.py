@@ -1,6 +1,7 @@
 """The port's CUDA kernels — decode attention (dense B1, paged B3), the
-split-KV verify attention (dense B2, paged B4) and the dequant-matmuls (B5
-int8, B6 int4) — against their plain versions.
+split-KV verify attention (dense B2, paged B4), the dequant-matmuls (B5
+int8, B6 int4) and the sharded decode entries behind the mesh wrappers
+(W1; W2 and W3) — against their plain versions.
 
 These need a CUDA card (a CUDA kernel has no CPU mode): each test is
 marked ``gpu`` and skips without one. The file imports no jax, so it runs
@@ -15,6 +16,7 @@ accumulating in f32 like the kernel). B5/B6: |got - want| <= rtol |want|
 accumulate in f32; TF32 is off for the plain version's product).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -24,6 +26,9 @@ from adversarial_spec_tpu_torch.ops import quant
 from adversarial_spec_tpu_torch.ops import quant_matmul as qm
 from adversarial_spec_tpu_torch.ops import split_kv
 from adversarial_spec_tpu_torch.ops.kv_inputs import int8_kv, kv_pair, poisoned_pages
+from adversarial_spec_tpu_torch.engine.kvcache import slice_page_tables
+from adversarial_spec_tpu_torch.parallel.mesh import DP, TP, make_mesh
+from adversarial_spec_tpu_torch.parallel.sharding import gather, split
 
 F32_TOL = dict(rtol=2e-5, atol=2e-5)
 BF16_TOL = dict(rtol=1.6e-2, atol=1e-5)
@@ -574,3 +579,188 @@ def test_cuda_verify_kernels_odd_pages_and_long_spans(cuda, dtype, kv):
     assert pa.launches["paged_decode_attention_mq" + suffix] == (
         4 + runs(33, 128, 64) + runs(9, 256, 128) + runs(33, 256, 128)
     )
+
+
+# -- the sharded entries (W1, W2 / W3) on virtual meshes ------------------------
+
+MESHES = [{"tp": 8}, {"dp": 2, "tp": 2}, {"dp": 4, "tp": 2}, {"tp": 2}, {"dp": 2}]
+# Per-row windows, cycled over the rows: full, left-padded, a single
+# slot, empty.
+WINDOWS = [(0, 300), (37, 290), (17, 18), (40, 40)]
+
+
+def _mesh(cuda, spec):
+    n = 1
+    for x in spec.values():
+        n *= x
+    return make_mesh(spec, [cuda] * n)
+
+
+def _w1_inputs(gen, cuda, mesh, kv, Hq=64, Hkv=8, D=128, T=300, rows_per_slice=4):
+    """W1's grids (q, k, v, bounds, scales) on ``mesh``: bf16 q, a layer's
+    strided slice of each shard's two-layer cache."""
+    dp = mesh.shape[DP]
+    B = rows_per_slice * dp
+    q = torch.randn((B, Hq, D), generator=gen, device=cuda).to(torch.bfloat16)
+    kf, vf = _cache(gen, cuda, torch.float32, B, Hkv, T, D)
+    k, v, sc = kv_pair(kf, vf, torch.bfloat16, kv)
+    bnd = torch.tensor([WINDOWS[r % len(WINDOWS)] for r in range(B)], dtype=torch.int32,
+                       device=cuda)
+    kv_spec = (DP, TP, None, None)
+    grids = [split(q, mesh, (DP, TP, None)), split(k, mesh, kv_spec), split(v, mesh, kv_spec),
+             split(bnd, mesh, (DP,))]
+    return grids, {n: split(x, mesh, kv_spec) for n, x in sc.items()}, bnd
+
+
+def _w2_inputs(gen, cuda, mesh, kv, Hq=32, Hkv=8, D=128, page=16, pages_row=6,
+               rows_per_slice=4):
+    """W2's (dp > 1) or W3's (dp = 1) grids on ``mesh``: a per-dp-slice
+    pool (slice d's global pages [d·Lp, (d+1)·Lp), its trash page NaN- or
+    -128-poisoned with NaN scales), global ids in the table; inside the
+    window of each slice's first row the global trash id 0 and the slice's
+    own trash page's id d·Lp, and -1 padding inside its second row's."""
+    dp = mesh.shape[DP]
+    B = rows_per_slice * dp
+    _, table_np, lp = slice_page_tables(B, dp, pages_row)
+    table_np = table_np.copy()
+    first = np.arange(dp) * rows_per_slice
+    table_np[first, 2] = 0
+    table_np[first, 3] = np.arange(dp) * lp
+    table_np[first + 1, -2:] = -1
+    shape = (2, dp * lp, Hkv, page, D)
+    kf = torch.randn(shape, generator=gen, device=cuda)[1]
+    vf = torch.randn(shape, generator=gen, device=cuda)[1]
+    kp, vp, sc = kv_pair(kf, vf, torch.bfloat16, kv)
+    trash = torch.arange(dp, device=cuda) * lp
+    kp[trash] = vp[trash] = -128 if kv == "int8" else float("nan")
+    for x in sc.values():
+        x[trash] = float("nan")
+    T = pages_row * page
+    bnd = torch.tensor([(min(lo, T), min(hi, T)) for lo, hi in
+                        (WINDOWS[r % len(WINDOWS)] for r in range(B))],
+                       dtype=torch.int32, device=cuda)
+    q = torch.randn((B, Hq, D), generator=gen, device=cuda).to(torch.bfloat16)
+    table = torch.as_tensor(table_np, dtype=torch.int32, device=cuda)
+    rows = (DP,) if dp > 1 else ()
+    page_spec = (DP if dp > 1 else None, TP, None, None)
+    grids = [split(q, mesh, (DP if dp > 1 else None, TP, None)), split(kp, mesh, page_spec),
+             split(vp, mesh, page_spec), split(table, mesh, rows), split(bnd, mesh, rows)]
+    return grids, {n: split(x, mesh, page_spec) for n, x in sc.items()}, bnd
+
+
+def _paged_wrappers(mesh):
+    if mesh.shape[DP] > 1:
+        return ("paged_decode_attention_dp_tp", pa.paged_decode_attention_dp_tp,
+                pa.paged_decode_attention_dp_tp_plain)
+    return ("paged_decode_attention_tp", pa.paged_decode_attention_tp,
+            pa.paged_decode_attention_tp_plain)
+
+
+def _held(got, want, mesh, bnd, q_spec=(DP, TP, None)):
+    g, w = gather(got, mesh, q_spec), gather(want, mesh, q_spec)
+    assert torch.isfinite(g).all()
+    torch.testing.assert_close(g.float(), w.float(), **BF16_TOL)
+    empty = (bnd[:, 0] >= bnd[:, 1]).nonzero().flatten().tolist()
+    assert empty and all((g[r] == 0).all() for r in empty)
+
+
+@pytest.mark.gpu
+@pytest.mark.parametrize("kv", ["float", "int8"])
+@pytest.mark.parametrize("spec", MESHES, ids=lambda s: "x".join(f"{k}{v}" for k, v in s.items()))
+def test_cuda_sharded_entries_match_plain_versions(cuda, spec, kv):
+    """W1 and W2 (W3 on a dp = 1 mesh) on a virtual mesh: every shard in
+    one launch of the sharded entry, held to the per-shard plain versions
+    within the bf16 tolerance: left pads, a single-slot window, an empty
+    one (exact zeros), softcap; NaN-poisoned trash pages, the global trash
+    id inside a window, -1 padding. Counted: 1 launch a call of the
+    sharded entry's K/V type, serving every shard; no launch of B1's or
+    B3's own entries."""
+    gen = torch.Generator(device=cuda).manual_seed(17)
+    mesh = _mesh(cuda, spec)
+    n = mesh.shape[DP] * mesh.shape[TP]
+    suffix = "_int8kv" if kv == "int8" else ""
+    grids, sc, bnd = _w1_inputs(gen, cuda, mesh, kv)
+    da.reset_launches()
+    got = da.decode_attention_tp(*grids, mesh, attn_softcap=30.0, **sc)
+    want = da.decode_attention_tp_plain(*grids, mesh, attn_softcap=30.0, **sc)
+    _held(got, want, mesh, bnd)
+    key = "decode_attention_tp" + suffix
+    assert da.mesh_launches == {**dict.fromkeys(da.mesh_launches, 0), key: 1}
+    assert da.mesh_shards == {**dict.fromkeys(da.mesh_shards, 0), key: n}
+    assert not any(da.launches.values())
+
+    name, wrap, plain = _paged_wrappers(mesh)
+    grids, sc, bnd = _w2_inputs(gen, cuda, mesh, kv)
+    q_spec = (DP if mesh.shape[DP] > 1 else None, TP, None)
+    pa.reset_launches()
+    for cap in (0.0, 30.0):
+        got = wrap(*grids, mesh, attn_softcap=cap, **sc)
+        _held(got, plain(*grids, mesh, attn_softcap=cap, **sc), mesh, bnd, q_spec)
+    key = name + suffix
+    assert pa.mesh_launches == {**dict.fromkeys(pa.mesh_launches, 0), key: 2}
+    assert pa.mesh_shards == {**dict.fromkeys(pa.mesh_shards, 0), key: 2 * n}
+    assert not any(pa.launches.values())
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_entries_cut_a_group_above_the_cap(cuda):
+    """40 shards ({"dp": 5, "tp": 8}) on one card: two launches (32 and 8
+    shards), held to the plain versions."""
+    assert da.MAX_SHARDS == 32
+    gen = torch.Generator(device=cuda).manual_seed(18)
+    mesh = _mesh(cuda, {"dp": 5, "tp": 8})
+    grids, sc, bnd = _w1_inputs(gen, cuda, mesh, "float", T=64)
+    da.reset_launches()
+    _held(da.decode_attention_tp(*grids, mesh), da.decode_attention_tp_plain(*grids, mesh),
+          mesh, bnd)
+    assert da.mesh_launches["decode_attention_tp"] == 2
+    assert da.mesh_shards["decode_attention_tp"] == 40
+    grids, sc, bnd = _w2_inputs(gen, cuda, mesh, "int8")
+    pa.reset_launches()
+    _held(pa.paged_decode_attention_dp_tp(*grids, mesh, **sc),
+          pa.paged_decode_attention_dp_tp_plain(*grids, mesh, **sc), mesh, bnd)
+    assert pa.mesh_launches["paged_decode_attention_dp_tp_int8kv"] == 2
+    assert pa.mesh_shards["paged_decode_attention_dp_tp_int8kv"] == 40
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_entries_replay_in_a_cuda_graph(cuda):
+    """W1 and W2 captured once in a CUDA graph, then replayed on new q
+    written into the captured inputs: the replay's outputs match the
+    plain versions on those inputs."""
+    gen = torch.Generator(device=cuda).manual_seed(19)
+    mesh = _mesh(cuda, {"dp": 2, "tp": 2})
+    w1, sc1, b1 = _w1_inputs(gen, cuda, mesh, "int8")
+    w2, sc2, b2 = _w2_inputs(gen, cuda, mesh, "float")
+    run = lambda: (da.decode_attention_tp(*w1, mesh, **sc1),  # noqa: E731
+                   pa.paged_decode_attention_dp_tp(*w2, mesh, **sc2))
+    run()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        out1, out2 = run()
+    for grid in (w1[0], w2[0]):
+        for row in grid:
+            for x in row:
+                x.copy_(torch.randn(x.shape, generator=gen, device=cuda).to(x.dtype))
+    graph.replay()
+    torch.cuda.synchronize()
+    _held(out1, da.decode_attention_tp_plain(*w1, mesh, **sc1), mesh, b1)
+    _held(out2, pa.paged_decode_attention_dp_tp_plain(*w2, mesh, **sc2), mesh, b2)
+
+
+@pytest.mark.gpu
+def test_cuda_sharded_entries_launch_once_a_card(cuda):
+    """A mesh of distinct cards (where the machine has two): one launch a
+    card, each on its own device."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA cards")
+    gen = torch.Generator(device=cuda).manual_seed(20)
+    devs = [torch.device("cuda", i) for i in range(2)]
+    mesh = make_mesh({"tp": 2}, devs)
+    grids, sc, bnd = _w1_inputs(gen, cuda, mesh, "float")
+    da.reset_launches()
+    got = da.decode_attention_tp(*grids, mesh)
+    assert [o.device for o in got[0]] == devs
+    _held(got, da.decode_attention_tp_plain(*grids, mesh), mesh, bnd)
+    assert da.mesh_launches["decode_attention_tp"] == 2
