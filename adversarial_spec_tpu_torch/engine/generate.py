@@ -39,6 +39,16 @@ shapes, because the speculative loop's fit test depends on them:
   A paged call whose tp does not divide the KV heads warns and goes on
   dense, where the cache's placement raises the reference's
   ``ValueError``.
+- a mesh across processes (one process per host, ``parallel/mesh.py``):
+  every process runs this same program over the shards it holds. The
+  logits reach every process (``models/transformer.py``
+  ``_mesh_logits``), so the round's state (tokens, ``finished``, the
+  per-row steps, the page table) is replicated and identical on each
+  process's controller, and every host read below reads a value equal
+  on every process: each takes the same branch, as the reference's rule
+  for its host control flow asks. The two reads that are not of that
+  state agree first: an unseeded call takes process 0's seed, and the
+  deadline fires when it has fired on any process.
 
 The host drives every step (PyTorch runs eagerly), so the early-exit
 checks read one flag per step.
@@ -76,6 +86,7 @@ from adversarial_spec_tpu_torch.models.transformer import (
     init_cache,
 )
 from adversarial_spec_tpu_torch.parallel import sp as sp_mod
+from adversarial_spec_tpu_torch.parallel.collectives import agree_any, agree_int
 from adversarial_spec_tpu_torch.parallel.mesh import DP, SP, TP, Mesh
 from adversarial_spec_tpu_torch.parallel.sharding import (
     MeshParams,
@@ -326,7 +337,9 @@ def _migrate_to_pages_mesh(
     each shard's pool part holding its slice's pages and its KV heads, the
     prompt KV scattered shard by shard from the sharded prefill cache.
     Returns (pool of ``Sharded``, page table of global ids on the
-    controller; the sharded step rebases them per slice)."""
+    controller; the sharded step rebases them per slice). Across
+    processes each process builds the pools of its own shards around the
+    same global table."""
     dp, tp = mesh.shape[DP], mesh.shape[TP]
     n_pages_per_row = -(-total_len // page_size)
     local_table, global_table, lp = slice_page_tables(B, dp, n_pages_per_row)
@@ -344,6 +357,9 @@ def _migrate_to_pages_mesh(
         page_ids = row_table[np.arange(r)[:, None], slots // page_size]
         row = []
         for t in range(tp):
+            if not mesh.is_local(d, t):
+                row.append(None)
+                continue
             part = init_page_pool(layout, device=mesh.device(d, t),
                                   dtype=cache["k"].dtype, kv_dtype=kv_dtype)
             c = local(cache, d, t)
@@ -355,7 +371,9 @@ def _migrate_to_pages_mesh(
             row.append(part)
         grid.append(row)
     spec = (None, DP, TP, None, None)
-    pool = {k: Sharded(mesh, spec, [[p[k] for p in row] for row in grid]) for k in grid[0][0]}
+    names = next(p for row in grid for p in row if p is not None)
+    pool = {k: Sharded(mesh, spec, [[None if p is None else p[k] for p in row] for row in grid])
+            for k in names}
     return pool, torch.as_tensor(global_table, dtype=torch.int32, device=mesh.controller)
 
 
@@ -437,6 +455,8 @@ def generate(
     if seed is None:
         # Fresh entropy per call: unseeded rounds must actually vary.
         seed = int.from_bytes(os.urandom(4), "little")
+        if on_mesh and mesh.multiprocess:
+            seed = agree_int(seed)
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     use_top_p = float(top_p) < 1.0
@@ -451,6 +471,14 @@ def generate(
         use_top_p=use_top_p,
     )
     deadline = time.monotonic() + timeout_s if timeout_s > 0 else None
+    agree = on_mesh and mesh.multiprocess
+
+    def past_deadline() -> bool:
+        if deadline is None:
+            return False
+        late = time.monotonic() >= deadline
+        return agree_any(late) if agree else late
+
     if (paged and on_mesh and mesh.size != mesh.shape[DP]
             and cfg.n_kv_heads % mesh.shape[TP]):
         print(
@@ -611,7 +639,7 @@ def generate(
         return int(torch.where(finished, max_new_tokens, steps_rows).min())
 
     while _steps_exit() < max_new_tokens and not bool(finished.all()):
-        if deadline is not None and time.monotonic() >= deadline:
+        if past_deadline():
             timed_out = True
             break
         spec_fits = use_spec and bool(
@@ -694,7 +722,7 @@ def generate(
             # Plain chunked decode owns the rest of the budget; the
             # deadline is checked before each chunk.
             while True:
-                if deadline is not None and time.monotonic() >= deadline:
+                if past_deadline():
                     if not (
                         step >= max_new_tokens or bool(finished.all())
                     ):

@@ -73,6 +73,14 @@ spec warns first and falls back to the dense cache), which every row of
 the group carries. A ``kv_dtype`` other than ``""`` or ``"int8"`` is an
 error.
 
+Launched one process per host (the reference's env contract,
+``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``, ``JAX_PROCESS_ID``),
+each load first brings up ``torch.distributed``
+(``mesh.maybe_initialize_distributed``), every spec's mesh spans every
+process's devices, each process materializes only its own shards, and
+every process serves the same ``chat`` calls in lockstep: each gets the
+whole round's text.
+
 Every failure is classified as the reference's ``TpuEngine`` classifies
 it (``resilience.faults.classify``): the kind sets
 ``Completion.transient`` and is counted at the injected fault's own seam,
@@ -632,7 +640,8 @@ class GpuEngine:
                 lambda h, dev: h.clone() if dev.type != "cuda"
                 else h.to(dev, non_blocking=True), host,
             )
-            for dev in {d for d in host.mesh.devices.flat if d.type == "cuda"}:
+            for dev in {host.mesh.device(*k) for k in host.mesh.local_shards()
+                        if host.mesh.device(*k).type == "cuda"}:
                 torch.cuda.current_stream(dev).synchronize()
             return params, None
         if self.device.type != "cuda":
@@ -677,7 +686,12 @@ class GpuEngine:
         """Queue a background load of ``alias`` (non-blocking). All the
         work (estimate, fit check, the load or promotion) runs on a
         daemon thread, so a prefetch wedged on a dead device cannot hang
-        the process at exit."""
+        the process at exit. Launched one process per host there is none:
+        a load may take part in a collective (the mesh's process groups),
+        and every process must take those in the same order as its round's
+        own, so each group's weights load on the serving thread."""
+        if mesh_mod.process_count() > 1:
+            return
         with self._lock:
             if alias in self._models or alias in self._inflight:
                 return
@@ -758,8 +772,12 @@ class GpuEngine:
         one-device mesh of ``self.device`` unless the caller gave
         ``devices``: every card visible by default must not turn each
         single-device alias into a dp replica set (and a paged one out of
-        its batcher)."""
-        if not self.devices_given and all(int(n) <= 1 for n in spec.mesh.values()):
+        its batcher). Launched one process per host, every spec resolves
+        over every process's devices, as the reference's
+        ``make_mesh(spec.mesh)`` over ``jax.devices()``: each process
+        contributes ``devices`` (default every visible card)."""
+        if (mesh_mod.process_count() == 1 and not self.devices_given
+                and all(int(n) <= 1 for n in spec.mesh.values())):
             return mesh_mod.make_mesh({}, [self.device])
         return mesh_mod.make_mesh(spec.mesh, self.devices)
 

@@ -58,7 +58,7 @@ from adversarial_spec_tpu_torch.ops.paged_attention import (
 )
 from adversarial_spec_tpu_torch.ops.quant import matmul
 from adversarial_spec_tpu_torch.ops.rope import apply_rope, rope_angles
-from adversarial_spec_tpu_torch.parallel.collectives import all_gather, all_reduce
+from adversarial_spec_tpu_torch.parallel.collectives import all_gather, all_reduce, exchange
 from adversarial_spec_tpu_torch.parallel.mesh import DP, TP, device_ctx
 from adversarial_spec_tpu_torch.parallel.sharding import (
     MeshParams,
@@ -185,7 +185,8 @@ def init_cache(
     it dequantizes to 0.
 
     On a ``mesh`` the cache is born sharded (rows over dp, heads over tp):
-    a dict of ``Sharded``, each shard zeroed on its own device. A tp that
+    a dict of ``Sharded``, each shard zeroed on its own device (this
+    process's shards only, on a mesh across processes). A tp that
     does not divide the KV heads raises the reference's ``ValueError``
     ("implies that array axis 2 is partitioned ...").
     """
@@ -198,12 +199,15 @@ def init_cache(
         lcfg = local_config(cfg, tp)
         grid = [
             [init_cache(lcfg, batch // dp, max_seq, device=mesh.device(d, t),
-                        dtype=dtype, kv_dtype=kv_dtype) for t in range(tp)]
+                        dtype=dtype, kv_dtype=kv_dtype) if mesh.is_local(d, t) else None
+             for t in range(tp)]
             for d in range(dp)
         ]
+        names = next(c for row in grid for c in row if c is not None)
         return {
-            k: Sharded(mesh, cache_sharding(mesh), [[c[k] for c in row] for row in grid])
-            for k in grid[0][0]
+            k: Sharded(mesh, cache_sharding(mesh),
+                       [[None if c is None else c[k] for c in row] for row in grid])
+            for k in names
         }
     shape = (cfg.n_layers, batch, cfg.n_kv_heads, max_seq, cfg.head_dim)
     if check_kv_dtype(kv_dtype):
@@ -554,12 +558,15 @@ class _MeshRows:
 
 
 def _shards(mesh):
-    return [(d, t) for d in range(mesh.shape[DP]) for t in range(mesh.shape[TP])]
+    """The decode shards this process holds (every shard on one process)."""
+    return mesh.local_shards()
 
 
 def _grid(mesh, f):
-    """``f(d, t)`` of every shard as a ``[dp][tp]`` grid (a wrapper's operand)."""
-    return [[f(d, t) for t in range(mesh.shape[TP])] for d in range(mesh.shape[DP])]
+    """``f(d, t)`` of every shard this process holds as a ``[dp][tp]`` grid
+    (a wrapper's operand; None where another process holds the shard)."""
+    return [[f(d, t) if mesh.is_local(d, t) else None for t in range(mesh.shape[TP])]
+            for d in range(mesh.shape[DP])]
 
 
 def _tp_groups(keys):
@@ -573,9 +580,12 @@ def _tp_groups(keys):
 
 def _reduce_residual(mesh, x, partial, layers, layer_id, cfg, post_norm):
     """All-reduce each tp group's partials and add them to x (in the
-    grids ``x`` and ``partial``, keyed by shard)."""
+    grids ``x`` and ``partial``, keyed by shard; a group that spans
+    processes takes the ``dist`` way)."""
     for group in _tp_groups(partial):
-        summed = all_reduce([partial[k] for k in group])
+        k = group[0]
+        span = mesh.tp_span(k[0], k[2] if len(k) > 2 else 0)
+        summed = all_reduce([partial[k] for k in group], span=span)
         for k, total in zip(group, summed):
             with device_ctx(mesh.device(*k)):
                 x[k] = _residual(x[k], total, layers[k][layer_id], cfg, post_norm)
@@ -585,19 +595,35 @@ def _mesh_logits(params: MeshParams, cfg: ModelConfig, x, last_only: bool, s: in
     """The head on each shard, each dp slice's vocab shards gathered, the
     slices' rows concatenated on the controller. A tied head without its
     transposed copy reads the replicated table: no gather. ``s``: the
-    shards of sp rank ``s`` (``x`` keyed ``(d, t, s)``)."""
+    shards of sp rank ``s`` (``x`` keyed ``(d, t, s)``).
+
+    Across processes every process computes the head on its own shards,
+    a tp group that spans processes gathers its vocab shards over them,
+    and each dp slice's rows go from the first process holding it to
+    every other (``collectives.exchange``): every process ends with all
+    the rows, so the round's state stays replicated."""
     mesh = params.mesh
+    sp_rank = 0 if s is None else s
     sharded_head = "lm_head" in params.shard() or "lm_head_t" in params.shard()
-    rows = []
+    rows = {}
     for d in range(mesh.shape[DP]):
-        tps = range(mesh.shape[TP]) if sharded_head else range(1)
+        tps = [t for t in range(mesh.shape[TP]) if mesh.is_local(d, t, sp_rank)]
+        if not tps:
+            continue
         parts = []
-        for t in tps:
+        for t in tps if sharded_head else tps[:1]:
             k = (d, t) if s is None else (d, t, s)
             with device_ctx(mesh.device(*k)):
                 parts.append(_lm_head_logits(params.shard(*k), cfg, x[k], last_only))
-        rows.append(all_gather(parts, dim=-1).to(mesh.controller))
-    return torch.cat(rows, dim=0)
+        span = mesh.tp_span(d, sp_rank) if sharded_head else None
+        rows[d] = all_gather(parts, dim=-1, span=span).to(mesh.controller)
+    if mesh.multiprocess and not mesh.rows_everywhere(sp_rank):
+        owners = [mesh.row_owner(d, sp_rank) for d in range(mesh.shape[DP])]
+        span = mesh.members(owners)
+        mine = [rows[d] for d in range(mesh.shape[DP]) if owners[d] == mesh.rank]
+        # Owners rise with d (the mesh is laid out by rank): rank order is d order.
+        rows = dict(enumerate(exchange(mine, span, like=next(iter(rows.values())))))
+    return torch.cat([rows[d] for d in range(mesh.shape[DP])], dim=0)
 
 
 def _forward_mesh(
@@ -849,7 +875,7 @@ def _forward_paged_mesh(
     lcfg = local_config(cfg, mesh.shape[TP])
     B, S = tokens.shape
     rows = _MeshRows(mesh, B)
-    k0 = pool["k"].parts[0][0]
+    k0 = pool["k"].first
     page_size, local_pages, on_gpu = k0.shape[3], k0.shape[1], k0.is_cuda
     shards = _shards(mesh)
     layers = {(d, t): params.parts[d][t]["layers"] for d, t in shards}
@@ -945,6 +971,8 @@ def leaves(params):
         seen = set()
         for row in params.parts:
             for part in row:
+                if part is None:  # another process's shard
+                    continue
                 for t in leaves(part):
                     if id(t) not in seen:
                         seen.add(id(t))

@@ -521,14 +521,16 @@ def _ptr(t) -> int:
 
 def sharded_args(
     qs, ks, vs, bounds, k_scales, v_scales, attn_softcap, scale, *,
-    tables=None, bases=None, cap: int = MAX_SHARDS,
+    tables=None, bases=None, cap: int = MAX_SHARDS, plan_shards: int | None = None,
 ) -> list[tuple[torch.Tensor, torch.Tensor | None, list, int]]:
     """The launches of a sharded entry for the shards one device holds:
     W1's (``tables`` None) or W2/W3's (each shard's page table and page
     base). For each run of at most ``cap`` shards: its output ``[n, B, Hq,
     D]`` (shard i's rows are ``out[i]``), its partials workspace, the C
     arguments (all but the stream; the shard table first) and ``n``.
-    ``n_split`` is B1's for the run's stacked ``n * B`` rows. Every shard
+    ``n_split`` is B1's for the run's stacked ``n * B`` rows, or for
+    ``plan_shards`` (at most ``cap``) where the card runs more shards than
+    these (another process's, launched beside them). Every shard
     of a run must have the same shapes and strides; raises otherwise.
     From shapes, strides and pointers alone: nothing here reads a device
     tensor (bounds and tables included)."""
@@ -560,7 +562,8 @@ def sharded_args(
             T = tab.shape[1] * page
         else:
             T = k.shape[2]
-        n_split = split_kv.decode_splits(n * B, Hkv, g, T, D, k.element_size())
+        planned = max(n, min(plan_shards, cap)) if plan_shards else n
+        n_split = split_kv.decode_splits(planned * B, Hkv, g, T, D, k.element_size())
         ws = split_kv.workspace(n_split, n * B, Hkv, g, D, q.device)
         out = torch.empty((n, B, Hq, D), dtype=q.dtype, device=q.device)
         fields = [
@@ -613,8 +616,10 @@ def _none(xs, n):
     return [None] * n if xs is None else xs
 
 
-def _plain_shards(qs, ks, vs, bounds, attn_softcap, scale, k_scales, v_scales):
-    """B1's plain version on each shard's own operands."""
+def _plain_shards(qs, ks, vs, bounds, attn_softcap, scale, k_scales, v_scales,
+                  plan_shards=None):
+    """B1's plain version on each shard's own operands (``plan_shards``
+    is the kernel's, unused here)."""
     n = len(qs)
     return [
         decode_attention_plain(q, k, v, b, attn_softcap=attn_softcap, scale=scale,
@@ -626,19 +631,20 @@ def _plain_shards(qs, ks, vs, bounds, attn_softcap, scale, k_scales, v_scales):
 
 def decode_attention_sharded(
     qs, ks, vs, bounds, attn_softcap: float = 0.0, scale: float | None = None,
-    k_scales=None, v_scales=None,
+    k_scales=None, v_scales=None, plan_shards: int | None = None,
 ) -> list[torch.Tensor]:
     """B1 over shards that one device holds: lists of each shard's ``q``
     ``[B, Hq, D]``, K/V ``[B, Hkv, T, D]``, bounds ``[B, 2]`` (and int8
     scales), every shard with the same shapes and strides. One launch of
     the sharded entry for CUDA tensors (a launch per ``MAX_SHARDS``); B1's
     plain version on each shard for CPU ones. Returns each shard's
-    ``[B, Hq, D]``."""
+    ``[B, Hq, D]``. ``plan_shards``: see ``sharded_args``."""
     quant = scales_pair(k_scales, v_scales)
     if not qs[0].is_cuda:
         return _plain_shards(qs, ks, vs, bounds, attn_softcap, scale, k_scales, v_scales)
     bounds = [b.contiguous() for b in bounds]
-    runs = sharded_args(qs, ks, vs, bounds, k_scales, v_scales, attn_softcap, scale)
+    runs = sharded_args(qs, ks, vs, bounds, k_scales, v_scales, attn_softcap, scale,
+                        plan_shards=plan_shards)
     name = "decode_attention_tp" + ("_int8kv" if quant else "")
     return launch_sharded(_w1_entry(), runs, name, qs[0].device, (mesh_launches, mesh_shards))
 
@@ -680,11 +686,13 @@ def decode_attention_tp(
 
 def _w1(run, q, k_cache, v_cache, bounds, mesh, attn_softcap, scale, k_scale, v_scale):
     """W1's body: ``run`` (the sharded entry, or the plain shards) on
-    each device group's shards."""
+    each device group's shards, its splits planned for every shard on the
+    group's card (``Mesh.card_shards``)."""
     scales_pair(k_scale, v_scale)
 
     def group(shards, qs, ks, vs, bs, kss, vss):
-        return run(qs, ks, vs, bs, attn_softcap, scale, kss, vss)
+        return run(qs, ks, vs, bs, attn_softcap, scale, kss, vss,
+                   plan_shards=mesh.card_shards(*shards[0]))
 
     return group_map(group, mesh, q, k_cache, v_cache, bounds, k_scale, v_scale)
 

@@ -392,10 +392,11 @@ def page_bases(shards, k_pages, rebase: bool) -> list[int]:
 
 
 def _plain_shards(qs, ks, vs, tables, bounds, bases, attn_softcap, scale, k_scales,
-                  v_scales):
+                  v_scales, plan_shards=None):
     """B3's plain version on each shard's own operands, each table rebased
     on the host first (``tab - base``: the yardstick of the kernel's own
-    rebase; the trash page and padding land <= 0 and stay masked)."""
+    rebase; the trash page and padding land <= 0 and stay masked;
+    ``plan_shards`` is the kernel's, unused here)."""
     n = len(qs)
     return [
         paged_decode_attention_plain(q, k, v, tab - base if base else tab, b,
@@ -408,7 +409,8 @@ def _plain_shards(qs, ks, vs, tables, bounds, bases, attn_softcap, scale, k_scal
 
 def paged_decode_attention_sharded(
     qs, ks, vs, tables, bounds, bases, attn_softcap: float = 0.0,
-    scale: float | None = None, k_scales=None, v_scales=None, *, counter: str,
+    scale: float | None = None, k_scales=None, v_scales=None, plan_shards: int | None = None,
+    *, counter: str,
 ) -> list[torch.Tensor]:
     """B3 over shards that one device holds: lists of each shard's ``q``
     ``[B, Hq, D]``, pool ``[n_pages, Hkv, page, D]`` (and int8 scale
@@ -416,14 +418,15 @@ def paged_decode_attention_sharded(
     with the same shapes and strides. One launch of the sharded entry for
     CUDA tensors (a launch per ``MAX_SHARDS``), counted under ``counter``
     (the mesh wrapper's name); B3's plain version on each shard for CPU
-    ones. Returns each shard's ``[B, Hq, D]``."""
+    ones. Returns each shard's ``[B, Hq, D]``. ``plan_shards``: see
+    ``decode_attention.sharded_args``."""
     scales_pair(k_scales, v_scales)
     if not qs[0].is_cuda:
         return _plain_shards(qs, ks, vs, tables, bounds, bases, attn_softcap, scale,
                              k_scales, v_scales)
     bounds = [b.contiguous() for b in bounds]
     runs = sharded_args(qs, ks, vs, bounds, k_scales, v_scales, attn_softcap, scale,
-                        tables=tables, bases=bases)
+                        tables=tables, bases=bases, plan_shards=plan_shards)
     return launch_sharded(_w2_entry(), runs, _kernel_name(counter, k_scales), qs[0].device,
                           (mesh_launches, mesh_shards))
 
@@ -433,12 +436,13 @@ def _paged_mesh(run, rebase: bool, q, k_pages, v_pages, page_table, bounds, mesh
     """Shared body of W2/W3 and their plain versions: ``run`` (the sharded
     entry, or the plain shards) for each device group. ``rebase``: the
     table holds global ids of a per-dp-slice pool, which each shard's page
-    base (``page_bases``) takes back to its slice."""
+    base (``page_bases``) takes back to its slice. Splits are planned for
+    every shard on the group's card (``Mesh.card_shards``)."""
     scales_pair(k_scale, v_scale)
 
     def group(shards, qs, ks, vs, tabs, bs, kss, vss):
         return run(qs, ks, vs, tabs, bs, page_bases(shards, ks, rebase), attn_softcap, scale,
-                   kss, vss)
+                   kss, vss, plan_shards=mesh.card_shards(*shards[0]))
 
     return group_map(group, mesh, q, k_pages, v_pages, page_table, bounds, k_scale, v_scale)
 

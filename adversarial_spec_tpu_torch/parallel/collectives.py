@@ -12,9 +12,10 @@ reference's third, the psum over sp of last-position logits zeroed off
 the last sp block, is that block's logits: the port computes the head
 on the last block only and takes them from there.
 
-Each takes one tensor per shard of the group, in tp order, and gives one
-back per shard, on that shard's device. Two ways run them, chosen by the
-mesh's devices and never by a failure:
+Each takes one tensor per shard of the group that this process holds,
+in tp order, and gives one back per shard, on that shard's device. Three
+ways run them, chosen by the mesh's devices and ranks and never by a
+failure:
 
 - ``nccl``: the shards sit on distinct cards, so NCCL's single-process
   multi-GPU entry points (``torch.cuda.nccl``) reduce or gather them in
@@ -23,7 +24,20 @@ mesh's devices and never by a failure:
   are summed in rank order on the first shard's device (or concatenated
   there) and the result is copied to every other device.
 
-Both are exact reductions of the same partials. A ring shift moves each
+- ``dist``: the group spans processes (a launch one process per host,
+  ``parallel/mesh.py``; the caller passes the group's ``Span``). The
+  parts are summed in rank order, the ``local`` way's order: each
+  process adds its parts to the running sum of the processes before it
+  and broadcasts the result to the group, the last process's sum being
+  the total; a gather exchanges every process's parts. Where two
+  members share a card, or the parts sit on the CPU, NCCL cannot join
+  them (it refuses two ranks on one device): they are staged through
+  host memory over gloo. Where every member's parts sit on cards of its
+  own, the CUDA tensors go over NCCL.
+
+All are exact reductions of the same partials, in the same order: a
+round across processes is bit-identical to the single-process virtual
+mesh's. A ring shift moves each
 block to the next rank's device: ``peer`` when the ranks sit on distinct
 cards (a device-to-device copy, ``Tensor.to(next, non_blocking=True)``,
 ordered by the stream), ``local`` when they share one (a virtual mesh or
@@ -34,8 +48,11 @@ call.
 from __future__ import annotations
 
 import torch
+import torch.distributed as dist
 
-counts = {"nccl": 0, "local": 0, "peer": 0}
+from adversarial_spec_tpu_torch.parallel.mesh import Span, process_count
+
+counts = {"nccl": 0, "local": 0, "peer": 0, "dist": 0}
 
 
 def reset_counts() -> None:
@@ -52,9 +69,12 @@ def _nccl(parts: list[torch.Tensor]) -> bool:
     return torch.cuda.nccl.is_available(parts)
 
 
-def all_reduce(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+def all_reduce(parts: list[torch.Tensor], span: Span | None = None) -> list[torch.Tensor]:
     """The sum of ``parts`` on each part's device. The parts are consumed:
-    on the ``nccl`` way they are reduced in place."""
+    on the ``nccl`` way they are reduced in place. ``span``: the group
+    spans processes (``Mesh.span``), ``parts`` are this process's."""
+    if span is not None:
+        return _dist_all_reduce(parts, span)
     if len(parts) == 1:
         return parts
     if _nccl(parts):
@@ -70,9 +90,13 @@ def all_reduce(parts: list[torch.Tensor]) -> list[torch.Tensor]:
     return [total if p.device == dev else total.to(p.device) for p in parts]
 
 
-def all_gather(parts: list[torch.Tensor], dim: int = -1) -> torch.Tensor:
+def all_gather(parts: list[torch.Tensor], dim: int = -1, span: Span | None = None) -> torch.Tensor:
     """``parts`` concatenated along ``dim``, on the first part's device
-    (the one shard that samples)."""
+    (the one shard that samples). ``span``: the group spans processes,
+    ``parts`` are this process's; every member gets the whole."""
+    if span is not None:
+        dim = dim % parts[0].dim()
+        return torch.cat(exchange(parts, span), dim=dim)
     if len(parts) == 1:
         return parts[0]
     dim = dim % parts[0].dim()
@@ -106,3 +130,83 @@ def ring_shift(parts: list[torch.Tensor]) -> list[torch.Tensor]:
     counts["peer"] += 1
     return [x if x.device == devs[i] else x.to(devs[i], non_blocking=True)
             for i, x in enumerate(out)]
+
+
+# -- the dist way ---------------------------------------------------------------
+
+
+def _broadcast(x: torch.Tensor | None, src: int, span: Span, like: torch.Tensor) -> torch.Tensor:
+    """Process ``src``'s ``x`` on every member, on ``like``'s device (a
+    receiver passes None and gets a tensor shaped as ``like``)."""
+    mine = dist.get_rank() == src
+    if span.nccl:
+        buf = x.contiguous() if mine else torch.empty_like(like)
+        dist.broadcast(buf, src, group=span.group)
+        return buf
+    host = (x.detach().to("cpu").contiguous() if mine
+            else torch.empty(like.shape, dtype=like.dtype))
+    # gloo moves bytes: every dtype (bf16 included) as uint8.
+    dist.broadcast(host.reshape(-1).view(torch.uint8), src, group=span.group)
+    return host.to(like.device)
+
+
+def _dist_all_reduce(parts: list[torch.Tensor], span: Span) -> list[torch.Tensor]:
+    """The ``dist`` all-reduce: the ``local`` way's left fold in rank
+    order, carried from process to process by one broadcast each."""
+    me = dist.get_rank()
+    dev = parts[0].device
+    total = None
+    for r in span.ranks:
+        if r == me:
+            for p in parts:
+                total = p if total is None else total + p.to(dev)
+            total = _broadcast(total, r, span, parts[0])
+        else:
+            total = _broadcast(None, r, span, parts[0])
+    counts["dist"] += 1
+    return [total if p.device == dev else total.to(p.device) for p in parts]
+
+
+def exchange(parts: list[torch.Tensor], span: Span, like: torch.Tensor | None = None) -> list[torch.Tensor]:
+    """Every member's parts, in rank order (each member's in its own
+    order), on the first part's (or ``like``'s) device: the ``dist``
+    all-gather. ``span.counts`` gives each member's number of parts;
+    every part has one shape and dtype (``like``'s, for a member that
+    holds none)."""
+    like = parts[0] if parts else like
+    dev = like.device
+    width = max(span.counts)
+    stack = torch.zeros((width,) + tuple(like.shape), dtype=like.dtype, device=dev)
+    for i, p in enumerate(parts):
+        stack[i].copy_(p)
+    if span.nccl:
+        bufs = [torch.empty_like(stack) for _ in span.ranks]
+        dist.all_gather(bufs, stack, group=span.group)
+    else:
+        host = stack.to("cpu")
+        bufs = [torch.empty_like(host) for _ in span.ranks]
+        dist.all_gather([b.reshape(-1).view(torch.uint8) for b in bufs],
+                        host.reshape(-1).view(torch.uint8), group=span.group)
+    counts["dist"] += 1
+    return [b[i].to(dev) for b, n in zip(bufs, span.counts) for i in range(n)]
+
+
+def agree_any(flag: bool) -> bool:
+    """True when ``flag`` is true on any process: a host decision that
+    reads a clock (a deadline) taken by every process alike. One process:
+    ``flag``."""
+    if process_count() == 1:
+        return flag
+    x = torch.tensor([int(flag)], dtype=torch.int32)
+    dist.all_reduce(x, op=dist.ReduceOp.MAX)
+    return bool(x.item())
+
+
+def agree_int(value: int, src: int = 0) -> int:
+    """Process ``src``'s ``value`` on every process (a seed drawn from
+    entropy). One process: ``value``."""
+    if process_count() == 1:
+        return value
+    x = torch.tensor([value], dtype=torch.int64)
+    dist.broadcast(x, src)
+    return int(x.item())

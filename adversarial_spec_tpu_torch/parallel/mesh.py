@@ -11,27 +11,55 @@ axis convention:
   prefill (``parallel/sp.py``, ``parallel/ring.py``); decode leaves it
   idle and runs on the sp-rank-0 devices.
 
-The reference runs a single controller: one Python process drives every
-device of the mesh and GSPMD inserts the collectives. The port keeps that
-model. A ``Mesh`` is a ``[dp, sp, tp]`` array of ``torch.device``s held
-by one process; a sharded tensor is one tensor per shard on its shard's
-device (``parallel/sharding.py``), and the collectives run between those
+A ``Mesh`` is a ``[dp, sp, tp]`` array of ``torch.device``s; a sharded
+tensor is one tensor per shard on its shard's device
+(``parallel/sharding.py``), and the collectives run between those
 tensors. A device may repeat: a *virtual mesh* (every shard on
 ``cuda:0``, or on the CPU in the tests) runs the same program as a mesh of
 distinct cards, the counterpart of the reference's
 ``--xla_force_host_platform_device_count``.
+
+One process drives the devices it holds. Launched one process per host
+(``maybe_initialize_distributed``: the reference's env contract, brought
+up through ``torch.distributed``), every process contributes its own
+devices, the lists are exchanged once and ordered by rank (the
+counterpart of ``jax.devices()`` spanning every process), and each
+process runs the same program over the shards it holds: the round's
+state is replicated on every process, each process computes its own
+shards, and a collective whose group spans processes takes the ``dist``
+way (``parallel/collectives.py``). The sp axis stays within a process.
 """
 
 from __future__ import annotations
 
 import contextlib
+import dataclasses
+import datetime
+import json
 import os
+import socket
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 DP, TP, SP = "dp", "tp", "sp"
 MeshAxes = (DP, TP, SP)
+
+# The reference's launch contract (one process per host). The names are
+# strings, so a launch script means the same to both packages.
+COORDINATOR = "JAX_COORDINATOR_ADDRESS"
+NUM_PROCESSES = "JAX_NUM_PROCESSES"
+PROCESS_ID = "JAX_PROCESS_ID"
+# Managed clusters whose launcher sets each process's rank and size: the
+# two of jax's cluster detectors that apply to GPU hosts.
+CLUSTERS = (
+    ("Slurm", "SLURM_PROCID", "SLURM_NTASKS"),
+    ("Open MPI", "OMPI_COMM_WORLD_RANK", "OMPI_COMM_WORLD_SIZE"),
+)
+# How long the rendezvous and every collective wait for a peer before
+# failing (a missing or dead peer fails the run instead of hanging it).
+DIST_TIMEOUT_S = float(os.environ.get("ADVSPEC_DIST_TIMEOUT_S", "300"))
 
 
 class Mesh:
@@ -39,40 +67,167 @@ class Mesh:
 
     ``shape`` is the reference's ``mesh.shape`` dict and ``size`` the
     device count; ``device(d, t, s)`` is shard ``(d, s, t)``'s device
-    (sp rank ``s``, 0 by default: the decode program's devices)."""
+    (sp rank ``s``, 0 by default: the decode program's devices).
+
+    ``ranks`` (same shape) is the process that holds each entry and
+    ``cards`` names each entry's physical device (host and card), so two
+    processes sharing a card are told from two cards; ``rank`` is this
+    process. A single-process mesh holds every entry."""
 
     axis_names = (DP, SP, TP)
 
-    def __init__(self, devices: np.ndarray):
+    def __init__(self, devices: np.ndarray, ranks: np.ndarray | None = None,
+                 cards: np.ndarray | None = None, rank: int = 0):
         if devices.ndim != 3:
             raise ValueError(f"mesh devices must be [dp, sp, tp], got {devices.shape}")
         self.devices = devices
         dp, sp, tp = devices.shape
         self.shape = {DP: dp, SP: sp, TP: tp}
         self.size = int(devices.size)
+        self.rank = rank
+        self.ranks = np.full(devices.shape, rank) if ranks is None else ranks
+        if cards is None:
+            cards = np.empty(devices.shape, dtype=object)
+            cards.flat[:] = [str(d) for d in devices.flat]
+        self.cards = cards
+        self.multiprocess = bool((self.ranks != rank).any())
+        if self.multiprocess:
+            self._check_processes()
 
     def device(self, d: int, t: int, s: int = 0) -> torch.device:
         return self.devices[d, s, t]
 
+    def is_local(self, d: int, t: int, s: int = 0) -> bool:
+        """True when this process holds shard ``(d, s, t)``."""
+        return int(self.ranks[d, s, t]) == self.rank
+
+    def local_shards(self) -> list[tuple[int, int]]:
+        """The decode shards ``(d, t)`` (sp rank 0) this process holds,
+        in grid order: every shard of a single-process mesh."""
+        return [(d, t) for d in range(self.shape[DP]) for t in range(self.shape[TP])
+                if self.is_local(d, t)]
+
     @property
     def controller(self) -> torch.device:
-        """Where the round's global state lives (tokens, sampling): the
-        first device, as the reference's host fetches land there."""
-        return self.devices[0, 0, 0]
+        """Where the round's global state lives (tokens, sampling): this
+        process's first decode device, as the reference's host fetches
+        land there. Every process holds its own replica of that state."""
+        d, t = self.local_shards()[0]
+        return self.device(d, t)
 
     @property
     def distinct(self) -> bool:
-        """True when no device repeats (a mesh of distinct cards)."""
-        return len(set(self.devices.flat)) == self.size
+        """True when no card repeats (a mesh of distinct cards)."""
+        return len(set(self.cards.flat)) == self.size
+
+    def card_shards(self, d: int, t: int) -> int:
+        """The decode shards, of every process, on shard ``(d, t)``'s card:
+        the sharded kernels plan their splits for all the work the card
+        runs (two processes sharing a card launch side by side)."""
+        return int((self.cards[:, 0, :] == self.cards[d, 0, t]).sum())
+
+    def span(self, keys) -> "Span | None":
+        """The processes that hold the shards ``keys`` (``(d, t)`` or
+        ``(d, t, s)``), for a collective among them; None when this
+        process holds them all (the single-process ways)."""
+        at = [(k[0], k[2] if len(k) > 2 else 0, k[1]) for k in keys]  # [dp, sp, tp]
+        ranks = [int(self.ranks[i]) for i in at]
+        if all(r == self.rank for r in ranks):
+            return None
+        members = tuple(sorted(set(ranks)))
+        holders: dict = {}
+        for i, r in zip(at, ranks):
+            holders.setdefault(self.cards[i], set()).add(r)
+        nccl = (all(self.devices[i].type == "cuda" for i in at)
+                and all(len(h) == 1 for h in holders.values()))
+        return Span(members, tuple(ranks.count(r) for r in members),
+                    process_group(members), nccl)
+
+    def tp_span(self, d: int, s: int = 0) -> "Span | None":
+        """``span`` of dp slice ``d``'s tp group at sp rank ``s``."""
+        return self.span([(d, t, s) for t in range(self.shape[TP])])
+
+    def row_owner(self, d: int, s: int = 0) -> int:
+        """The first process holding a shard of dp slice ``d`` (at sp rank
+        ``s``): the one that hands the slice's rows to the others."""
+        return int(self.ranks[d, s].min())
+
+    def rows_everywhere(self, s: int = 0) -> bool:
+        """True when every process holds a shard of every dp slice."""
+        members = set(self.ranks.flat)
+        return all(set(self.ranks[d, s].flat) == members for d in range(self.shape[DP]))
+
+    def members(self, owners=()) -> "Span":
+        """``span`` of every entry: all the mesh's processes, for an
+        exchange among them in which each sends the items it owns
+        (``owners``: each item's owning rank)."""
+        dp, sp, tp = self.devices.shape
+        span = self.span([(d, t, s) for d in range(dp) for t in range(tp) for s in range(sp)])
+        return dataclasses.replace(span, counts=tuple(list(owners).count(r) for r in span.ranks))
+
+    def _check_processes(self) -> None:
+        """Refuse what a mesh across processes cannot run: an sp group
+        split over processes (the ring's hop between processes is not
+        ported), and a process holding no decode shard (it would have no
+        device to hold the round on)."""
+        dp, sp, tp = self.devices.shape
+        for d in range(dp):
+            for t in range(tp):
+                owners = {int(r) for r in self.ranks[d, :, t]}
+                if len(owners) > 1:
+                    raise ValueError(
+                        f"mesh axis 'sp' spans processes {sorted(owners)} (mesh {self.shape}): "
+                        "the ring's hop between processes is not supported; keep each sp "
+                        "group within one process's devices"
+                    )
+        missing = sorted(set(range(process_count())) - {int(r) for r in self.ranks[:, 0].flat})
+        if missing:
+            raise ValueError(
+                f"mesh {self.shape} holds no device of process(es) {missing}: every "
+                "process of a multi-process launch runs the round on devices of its own"
+            )
+        # Every process makes the same groups in the same order.
+        for d in range(dp):
+            for s in range(sp):
+                self.tp_span(d, s)
+        self.members()
 
     def __repr__(self) -> str:
         devs = sorted({str(d) for d in self.devices.flat})
-        return f"Mesh({self.shape}, devices={devs})"
+        extra = f", processes={sorted({int(r) for r in self.ranks.flat})}" if self.multiprocess else ""
+        return f"Mesh({self.shape}, devices={devs}{extra})"
+
+
+@dataclasses.dataclass(frozen=True)
+class Span:
+    """A collective's processes: ``ranks`` in order, the parts each holds
+    (``counts``), their process group (None: the default group) and
+    whether the parts may go over NCCL (every part on a card that no
+    other member holds)."""
+
+    ranks: tuple
+    counts: tuple
+    group: object
+    nccl: bool
+
+
+_GROUPS: dict = {}
+
+
+def process_group(ranks: tuple):
+    """The process group of ``ranks`` (None for the whole world), made
+    once: every process asks for the same groups in the same order, as
+    ``torch.distributed.new_group`` needs."""
+    if ranks == tuple(range(process_count())):
+        return None
+    if ranks not in _GROUPS:
+        _GROUPS[ranks] = dist.new_group(list(ranks))
+    return _GROUPS[ranks]
 
 
 def default_devices() -> list[torch.device]:
-    """Every visible card, the counterpart of ``jax.devices()``; raises
-    when there is none (no silent CPU mesh)."""
+    """Every visible card, the counterpart of ``jax.devices()`` on one
+    process; raises when there is none (no silent CPU mesh)."""
     if not torch.cuda.is_available():
         raise RuntimeError(
             "no CUDA device is available; pass devices=[...] (e.g. "
@@ -81,20 +236,152 @@ def default_devices() -> list[torch.device]:
     return [torch.device("cuda", i) for i in range(torch.cuda.device_count())]
 
 
+def _initialized() -> bool:
+    return dist.is_available() and dist.is_initialized()
+
+
+def process_index() -> int:
+    """This process's rank (``jax.process_index()``): 0 unless launched
+    one process per host."""
+    return dist.get_rank() if _initialized() else 0
+
+
+def process_count() -> int:
+    """The number of processes (``jax.process_count()``)."""
+    return dist.get_world_size() if _initialized() else 1
+
+
 def maybe_initialize_distributed() -> None:
-    """The reference brings up its multi-host runtime here when launched
-    one process per host (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
-    ``JAX_PROCESS_ID``). The port has no multi-host launch (one process
-    drives every device of its mesh): with any of those variables set
-    this raises instead of running a single-host mesh while the peers
-    wait."""
-    names = ("JAX_COORDINATOR_ADDRESS", "JAX_NUM_PROCESSES", "JAX_PROCESS_ID")
-    set_ = [n for n in names if os.environ.get(n)]
-    if set_:
-        raise NotImplementedError(
-            f"a multi-host launch ({', '.join(set_)} set) is not supported "
-            "by the PyTorch/CUDA package: one process drives every device"
+    """Bring up the multi-process runtime when launched as one process per
+    host. Safe no-op otherwise.
+
+    Launch contract (one process per host), the reference's:
+
+        JAX_COORDINATOR_ADDRESS=host0:1234   # process 0's address
+        JAX_NUM_PROCESSES=N
+        JAX_PROCESS_ID=i                     # 0..N-1, unique per process
+
+    A coordinator with neither count nor id is a managed cluster's launch:
+    the rank and size come from Slurm's or Open MPI's variables. The
+    process group is gloo for CPU tensors, with NCCL registered for CUDA
+    tensors where the build has it; its ``timeout`` (``DIST_TIMEOUT_S``)
+    makes a missing peer fail the rendezvous instead of hanging it.
+    Idempotent."""
+    coordinator = os.environ.get(COORDINATOR)
+    if not coordinator:
+        if os.environ.get(NUM_PROCESSES) or os.environ.get(PROCESS_ID):
+            # Half a launch contract: this host would silently run
+            # single-process while its peers block at the rendezvous.
+            raise RuntimeError(
+                "multi-host launch: JAX_NUM_PROCESSES/JAX_PROCESS_ID are "
+                "set but JAX_COORDINATOR_ADDRESS is not; set all three"
+            )
+        return
+    if _initialized():
+        return
+    num = os.environ.get(NUM_PROCESSES)
+    pid = os.environ.get(PROCESS_ID)
+    if (num is None) != (pid is None):
+        missing = "JAX_PROCESS_ID" if pid is None else "JAX_NUM_PROCESSES"
+        raise RuntimeError(
+            f"multi-host launch: JAX_COORDINATOR_ADDRESS is set but "
+            f"{missing} is not; set both JAX_NUM_PROCESSES and "
+            f"JAX_PROCESS_ID (or neither, for managed clusters)"
         )
+    if num is not None:
+        try:
+            world, rank = int(num), int(pid)
+        except ValueError:
+            raise RuntimeError(
+                f"multi-host launch: JAX_NUM_PROCESSES={num!r} / "
+                f"JAX_PROCESS_ID={pid!r} must be integers"
+            ) from None
+    else:
+        rank, world = _managed_cluster()
+    backend = "gloo"
+    if torch.cuda.is_available() and dist.is_nccl_available():
+        backend = "cpu:gloo,cuda:nccl"
+    address = coordinator if "://" in coordinator else f"tcp://{coordinator}"
+    dist.init_process_group(
+        backend, init_method=address, rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=DIST_TIMEOUT_S),
+    )
+
+
+def _managed_cluster() -> tuple[int, int]:
+    """(rank, size) from the first managed cluster whose variables are
+    set; raises, naming what is missing, when none is."""
+    for name, rank_var, size_var in CLUSTERS:
+        rank, size = os.environ.get(rank_var), os.environ.get(size_var)
+        if rank is None and size is None:
+            continue
+        if rank is None or size is None:
+            raise RuntimeError(
+                f"multi-host launch: {name}'s {size_var if size is None else rank_var} "
+                f"is not set beside {rank_var if size is None else size_var}"
+            )
+        try:
+            return int(rank), int(size)
+        except ValueError:
+            raise RuntimeError(
+                f"multi-host launch: {rank_var}={rank!r} / {size_var}={size!r} must be "
+                "integers"
+            ) from None
+    names = "; ".join(f"{n}: {r}/{s}" for n, r, s in CLUSTERS)
+    raise RuntimeError(
+        "multi-host launch: JAX_COORDINATOR_ADDRESS is set but neither "
+        "JAX_NUM_PROCESSES/JAX_PROCESS_ID nor a managed cluster's rank and size "
+        f"({names}) are; set JAX_NUM_PROCESSES and JAX_PROCESS_ID"
+    )
+
+
+def card_id(device: torch.device) -> str:
+    """The physical device behind ``device``: its host, and for a card
+    its UUID (two processes on one card name the same card)."""
+    host = socket.gethostname()
+    if device.type != "cuda":
+        return f"{host}:{device.type}"
+    index = device.index if device.index is not None else torch.cuda.current_device()
+    uuid = getattr(torch.cuda.get_device_properties(index), "uuid", None)
+    return f"{host}:{uuid if uuid is not None else f'cuda:{index}'}"
+
+
+_GLOBAL: dict = {}
+
+
+def global_devices(local: list) -> tuple[list, list, list]:
+    """``(devices, ranks, cards)`` of every process's devices, ordered by
+    rank: the counterpart of ``jax.devices()``. Each process contributes
+    ``local``; the lists are exchanged once (a collective: every process
+    asks at the same point of the program). One process: ``local``."""
+    local = [torch.device(d) for d in local]
+    if process_count() == 1:
+        return local, [0] * len(local), [str(d) for d in local]
+    key = tuple(str(d) for d in local)
+    if key not in _GLOBAL:
+        mine = json.dumps([[str(d), card_id(d)] for d in local])
+        devices, ranks, cards = [], [], []
+        for r, text in enumerate(_all_gather_text(mine)):
+            for dev, card in json.loads(text):
+                devices.append(torch.device(dev))
+                ranks.append(r)
+                cards.append(card)
+        _GLOBAL[key] = (devices, ranks, cards)
+    return _GLOBAL[key]
+
+
+def _all_gather_text(text: str) -> list[str]:
+    """Every process's ``text``, by rank, over CPU tensors (gloo)."""
+    data = torch.frombuffer(bytearray(text.encode()), dtype=torch.uint8)
+    n = process_count()
+    sizes = [torch.zeros(1, dtype=torch.int64) for _ in range(n)]
+    dist.all_gather(sizes, torch.tensor([data.numel()], dtype=torch.int64))
+    width = int(max(s.item() for s in sizes))
+    buf = torch.zeros(width, dtype=torch.uint8)
+    buf[: data.numel()] = data
+    bufs = [torch.empty(width, dtype=torch.uint8) for _ in range(n)]
+    dist.all_gather(bufs, buf)
+    return [bytes(b[: int(s.item())].tolist()).decode() for b, s in zip(bufs, sizes)]
 
 
 def mesh_shape_from_spec(
@@ -127,13 +414,20 @@ def make_mesh(
 ) -> Mesh:
     """The {dp, tp, sp} mesh over ``devices`` (default: every visible
     card). tp varies fastest, as in the reference, so a tp group sits on
-    adjacent cards."""
-    devs = [torch.device(d) for d in (devices if devices is not None else default_devices())]
+    adjacent cards. Launched one process per host, ``devices`` are this
+    process's own and the mesh is built over every process's
+    (``global_devices``)."""
+    local = devices if devices is not None else default_devices()
+    devs, ranks, cards = global_devices(local)
     shape = mesh_shape_from_spec(mesh_spec, n_devices=len(devs))
     total = shape[DP] * shape[SP] * shape[TP]
-    arr = np.empty(total, dtype=object)
-    arr[:] = devs[:total]
-    return Mesh(arr.reshape(shape[DP], shape[SP], shape[TP]))
+    grid = (shape[DP], shape[SP], shape[TP])
+    arrays = []
+    for xs in (devs, ranks, cards):
+        arr = np.empty(total, dtype=object)
+        arr[:] = xs[:total]
+        arrays.append(arr.reshape(grid))
+    return Mesh(arrays[0], arrays[1].astype(int), arrays[2], rank=process_index())
 
 
 def device_ctx(device: torch.device):
@@ -145,14 +439,14 @@ def device_ctx(device: torch.device):
 
 
 def device_groups(mesh: Mesh) -> list[tuple[torch.device, list[tuple[int, int]]]]:
-    """The decode shards ``(d, t)`` (sp rank 0) each distinct device holds,
-    devices in order of first appearance and shards in grid order: one
-    group of every shard on a virtual mesh, one shard a group on a mesh
-    of distinct cards. The sharded kernels launch once for a group."""
+    """The decode shards ``(d, t)`` (sp rank 0) each distinct device of
+    this process holds, devices in order of first appearance and shards
+    in grid order: one group of every shard on a virtual mesh, one shard
+    a group on a mesh of distinct cards. The sharded kernels launch once
+    for a group."""
     groups: dict[torch.device, list[tuple[int, int]]] = {}
-    for d in range(mesh.shape[DP]):
-        for t in range(mesh.shape[TP]):
-            groups.setdefault(torch.device(mesh.device(d, t)), []).append((d, t))
+    for d, t in mesh.local_shards():
+        groups.setdefault(torch.device(mesh.device(d, t)), []).append((d, t))
     return list(groups.items())
 
 
@@ -162,11 +456,12 @@ def group_map(fn, mesh: Mesh, *grids):
     current, each operand the list of the group's shards' values (each
     grid a ``[dp][tp]`` nested list of shard-local values, see
     ``parallel/sharding.py``; None for a grid that is None), and its list
-    of per-shard results comes back as a ``[dp][tp]`` grid. The sharded
-    kernels' wrappers (W1-W3) launch once a group this way. The sp ranks
-    are not mapped here: a ring hop needs every rank's block at once, so
-    the sp prefill (``parallel/sp.py``) steps its ranks itself, and
-    decode leaves sp idle."""
+    of per-shard results comes back as a ``[dp][tp]`` grid (None where
+    another process holds the shard). The sharded kernels' wrappers
+    (W1-W3) launch once a group this way. The sp ranks are not mapped
+    here: a ring hop needs every rank's block at once, so the sp prefill
+    (``parallel/sp.py``) steps its ranks itself, and decode leaves sp
+    idle."""
     out = [[None] * mesh.shape[TP] for _ in range(mesh.shape[DP])]
     for dev, shards in device_groups(mesh):
         with device_ctx(dev):

@@ -23,7 +23,9 @@ decode runs). A spec naming ``SP`` gives each grid cell a list of its sp
 blocks instead, rank ``s``'s on ``device(d, t, s)``: a ``[dp][tp][sp]``
 grid. A leaf replicated over dp or sp is one tensor per device: on a
 virtual mesh (a device repeated) the replicas are the same tensor, so a
-virtual ``{"sp": 4}`` mesh holds one copy of the weights.
+virtual ``{"sp": 4}`` mesh holds one copy of the weights. On a mesh
+across processes (``parallel/mesh.py``) each process makes only the
+shards it holds: a cell another process holds is None.
 
 The port's params keep per-layer dicts (no leading layer axis), so each
 rule here is the reference's with its layer axis dropped.
@@ -37,6 +39,7 @@ from dataclasses import dataclass, field
 
 import torch
 
+from adversarial_spec_tpu_torch.parallel import collectives
 from adversarial_spec_tpu_torch.parallel.mesh import DP, SP, TP, Mesh
 
 # Leaf name → spec over the port's per-layer shapes ([in, out] weights).
@@ -128,13 +131,15 @@ def check_split(shape, spec: tuple, mesh: Mesh) -> None:
 
 def split(x: torch.Tensor, mesh: Mesh, spec: tuple) -> list[list]:
     """``x`` as a ``[dp][tp]`` grid of contiguous shard-local tensors, each
-    on its shard's device (``[dp][tp][sp]`` when ``spec`` names ``SP``).
-    Shards with the same slice on the same device (dp replicas on a
-    virtual mesh) are one tensor; every shard owns its memory, so ``x``
-    can be freed."""
+    on its shard's device (``[dp][tp][sp]`` when ``spec`` names ``SP``;
+    None where another process holds the shard). Shards with the same
+    slice on the same device (dp replicas on a virtual mesh) are one
+    tensor; every shard owns its memory, so ``x`` can be freed."""
     memo: dict = {}
 
     def part(d, t, s=0):
+        if not mesh.is_local(d, t, s):
+            return None
         idx = _index(x.shape, spec, mesh, d, t, s)
         dev = mesh.device(d, t, s)
         key = (tuple((i.start, i.stop) for i in idx), str(dev))
@@ -153,7 +158,9 @@ def split(x: torch.Tensor, mesh: Mesh, spec: tuple) -> list[list]:
 
 def gather(grid, mesh: Mesh, spec: tuple, device: torch.device | None = None) -> torch.Tensor:
     """Inverse of :func:`split`: the global tensor on ``device`` (default
-    the mesh's controller). Replicated axes take shard 0's copy."""
+    the mesh's controller). Replicated axes take shard 0's copy. On a mesh
+    across processes every process gets the whole (a collective: each
+    cell comes from the first process holding it)."""
     device = device if device is not None else mesh.controller
     dp_ax = spec.index(DP) if DP in spec else None
     tp_ax = spec.index(TP) if TP in spec else None
@@ -162,9 +169,32 @@ def gather(grid, mesh: Mesh, spec: tuple, device: torch.device | None = None) ->
     def cell(c):
         return torch.cat([b.to(device) for b in c], dim=sp_ax) if sp_ax is not None else c.to(device)
 
+    keys = [(d, t) for d in range(mesh.shape[DP] if dp_ax is not None else 1)
+            for t in range(mesh.shape[TP] if tp_ax is not None else 1)]
+    if mesh.multiprocess:
+        # A replicated axis takes the cell from any shard along it.
+        def owner(d, t):
+            ds = [d] if dp_ax is not None else range(mesh.shape[DP])
+            ts = [t] if tp_ax is not None else range(mesh.shape[TP])
+            return min(int(mesh.ranks[i, 0, j]) for i in ds for j in ts), ds, ts
+
+        mine = []
+        for d, t in keys:
+            rank, ds, ts = owner(d, t)
+            if rank == mesh.rank:
+                mine.append(next(cell(grid[i][j]) for i in ds for j in ts if grid[i][j] is not None))
+        owners = [owner(d, t)[0] for d, t in keys]
+        span = mesh.members(owners)
+        like = next(cell(c) for row in grid for c in row if c is not None)
+        # The exchange returns the cells by owner, each owner's in key order.
+        by_owner = sorted(range(len(keys)), key=lambda i: owners[i])
+        cells = dict(zip([keys[i] for i in by_owner],
+                         collectives.exchange(mine, span, like=like)))
+    else:
+        cells = {(d, t): cell(grid[d][t]) for d, t in keys}
     rows = []
     for d in range(mesh.shape[DP] if dp_ax is not None else 1):
-        parts = [cell(c) for c in grid[d]]
+        parts = [cells[k] for k in keys if k[0] == d]
         rows.append(torch.cat(parts, dim=tp_ax) if tp_ax is not None else parts[0])
     return torch.cat(rows, dim=dp_ax) if dp_ax is not None else rows[0]
 
@@ -174,12 +204,15 @@ class Sharded:
     ``mesh.device(d, t)``, split as ``spec`` says (a spec naming ``SP``:
     ``parts[d][t][s]`` on ``mesh.device(d, t, s)``). ``shape`` is the
     global shape, so code that only reads a cache's or pool's extents
-    (``T``, the page size) reads a ``Sharded`` as it reads a tensor."""
+    (``T``, the page size) reads a ``Sharded`` as it reads a tensor. A
+    part another process holds is None; ``first`` is this process's first
+    part."""
 
     def __init__(self, mesh: Mesh, spec: tuple, parts: list[list]):
         self.mesh, self.spec, self.parts = mesh, spec, parts
-        first = parts[0][0][0] if SP in spec else parts[0][0]
-        self._first = first
+        d, t = mesh.local_shards()[0]
+        first = parts[d][t][0] if SP in spec else parts[d][t]
+        self.first = first
         shape = list(first.shape)
         for ax, axis in enumerate(spec):
             if axis is not None:
@@ -188,7 +221,7 @@ class Sharded:
 
     @property
     def dtype(self) -> torch.dtype:
-        return self._first.dtype
+        return self.first.dtype
 
 
 def local(tree: dict, d: int, t: int) -> dict:
@@ -202,7 +235,8 @@ class MeshParams:
     own params dict, in the single-device layout with its slice of every
     tp-sharded leaf (so each shard is a model of ``local_config``'s
     widths whose row-parallel products are partial sums), on the sp-rank-0
-    device ``mesh.device(d, t)``.
+    device ``mesh.device(d, t)``; None where another process holds the
+    shard.
 
     Weights are replicated over sp: ``shard(d, t, s)`` is ``parts[d][t]``
     wherever ``device(d, t, s)`` is that device (every virtual mesh), else
@@ -215,7 +249,11 @@ class MeshParams:
     _replicas: dict = field(default_factory=dict, repr=False, compare=False)
     _copies: dict = field(default_factory=dict, repr=False, compare=False)
 
-    def shard(self, d: int = 0, t: int = 0, s: int = 0) -> dict:
+    def shard(self, d: int | None = None, t: int = 0, s: int = 0) -> dict:
+        """Shard ``(d, s, t)``'s params; with no ``d``, this process's
+        first shard's (any shard's leaves have the model's dtypes)."""
+        if d is None:
+            d, t = self.mesh.local_shards()[0]
         dev = self.mesh.device(d, t, s)
         if dev == self.mesh.device(d, t):
             return self.parts[d][t]
@@ -256,7 +294,8 @@ def map_shards(fn, params: MeshParams) -> MeshParams:
 
     mesh = params.mesh
     return MeshParams(mesh, [
-        [_tree_map(once(mesh.device(d, t)), p) for t, p in enumerate(row)]
+        [None if p is None else _tree_map(once(mesh.device(d, t)), p)
+         for t, p in enumerate(row)]
         for d, row in enumerate(params.parts)
     ])
 
@@ -265,13 +304,16 @@ def per_chip_param_bytes(params) -> int:
     """The most bytes the params hold on one physical device, each tensor
     a device holds counted once: on a mesh of distinct cards one shard
     (the reference's per-chip count), on a virtual mesh every distinct
-    shard on the shared device (dp replicas there are one tensor)."""
+    shard on the shared device (dp replicas there are one tensor); of
+    this process's shards only."""
     if not isinstance(params, MeshParams):
         return sum(x.numel() * x.element_size() for x in _leaves(params))
     seen: set = set()
     per_dev: dict = {}
     for d, row in enumerate(params.parts):
         for t, shard in enumerate(row):
+            if shard is None:
+                continue
             dev = str(params.mesh.device(d, t))
             for x in _leaves(shard):
                 if id(x) not in seen:
@@ -283,7 +325,7 @@ def per_chip_param_bytes(params) -> int:
 def per_chip_bytes(layout, mesh: Mesh) -> int:
     """``per_chip_param_bytes`` of params not made yet: ``layout`` yields
     each leaf's (path, shape, itemsize); each leaf counts its shard once
-    per distinct slice a device holds."""
+    per distinct slice a device of this process holds."""
     per_dev: dict = {}
     for path, shape, itemsize in layout:
         spec = param_sharding_rules(path)
@@ -291,7 +333,7 @@ def per_chip_bytes(layout, mesh: Mesh) -> int:
         held = {
             (str(mesh.device(d, t, s)), d if DP in spec else 0, t if TP in spec else 0)
             for d in range(mesh.shape[DP]) for t in range(mesh.shape[TP])
-            for s in range(mesh.shape[SP])
+            for s in range(mesh.shape[SP]) if mesh.is_local(d, t, s)
         }
         for dev, _, _ in held:
             per_dev[dev] = per_dev.get(dev, 0) + size
@@ -369,7 +411,8 @@ def shard_params(mesh: Mesh, params, consume: bool = False) -> MeshParams:
 
 
 def assemble(mesh: Mesh, tree) -> MeshParams:
-    """A tree whose leaves are ``[dp][tp]`` grids → per-shard trees."""
+    """A tree whose leaves are ``[dp][tp]`` grids → per-shard trees (None
+    for a shard another process holds)."""
 
     def pick(node, d, t):
         if isinstance(node, _Grid):
@@ -381,7 +424,7 @@ def assemble(mesh: Mesh, tree) -> MeshParams:
         return node
 
     parts = [
-        [pick(tree, d, t) for t in range(mesh.shape[TP])]
+        [pick(tree, d, t) if mesh.is_local(d, t) else None for t in range(mesh.shape[TP])]
         for d in range(mesh.shape[DP])
     ]
     return MeshParams(mesh, parts)

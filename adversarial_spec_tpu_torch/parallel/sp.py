@@ -101,7 +101,10 @@ def sp_prefill(
     counts["prefills"] += 1
     lcfg = local_config(cfg, tp)
     r, n = B // dp, S // sp
-    keys = [(d, t, s) for d in range(dp) for t in range(tp) for s in range(sp)]
+    # This process's shards: a mesh across processes keeps each sp group
+    # within one process (``Mesh``), so each ring runs here whole.
+    keys = [(d, t, s) for d in range(dp) for t in range(tp) for s in range(sp)
+            if mesh.is_local(d, t, s)]
     layers = {k: params.shard(*k)["layers"] for k in keys}
 
     # Per (dp slice, sp rank, device): the block's tokens, pads and RoPE
@@ -143,24 +146,24 @@ def sp_prefill(
                 caches[k][1][layer_id].copy_(vv.transpose(1, 2))
                 kv[k] = (kk.to(torch.float32), vv.to(torch.float32))
         out = {}
-        for d in range(dp):
-            for t in range(tp):
-                group = [(d, t, s) for s in range(sp)]
-                outs = ring_attention_local(
-                    [q[k] for k in group], [kv[k][0] for k in group],
-                    [kv[k][1] for k in group], sp, causal=True,
-                    kv_start=[block(*k)[0] for k in group],
-                    attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale,
-                    window=_layer_window(cfg, layer_id),
-                )
-                out.update(zip(group, outs))
+        for d, t in mesh.local_shards():
+            group = [(d, t, s) for s in range(sp)]
+            outs = ring_attention_local(
+                [q[k] for k in group], [kv[k][0] for k in group],
+                [kv[k][1] for k in group], sp, causal=True,
+                kv_start=[block(*k)[0] for k in group],
+                attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale,
+                window=_layer_window(cfg, layer_id),
+            )
+            out.update(zip(group, outs))
         del q, kv
         _mesh_block(mesh, lcfg, cfg, x, out, layers, layer_id, r, n)
     logits = _mesh_logits(params, cfg, x, True, s=sp - 1)[:, 0]
     spec = cache_sharding(mesh, prefill=True)
     cache = {
         name: Sharded(mesh, spec, [
-            [[caches[d, t, s][i] for s in range(sp)] for t in range(tp)] for d in range(dp)
+            [[caches[d, t, s][i] for s in range(sp)] if mesh.is_local(d, t) else None
+             for t in range(tp)] for d in range(dp)
         ])
         for i, name in enumerate(("k", "v"))
     }
@@ -192,13 +195,15 @@ def reshard_cache_for_decode(cache, mesh: Mesh, total_len: int, kv_dtype: str = 
             return torch.cat([full, pad], dim=3)
 
     grids = {
-        name: [[gathered(cache[name].parts[d][t], d, t) for t in range(tp)] for d in range(dp)]
+        name: [[gathered(cache[name].parts[d][t], d, t) if mesh.is_local(d, t) else None
+                for t in range(tp)] for d in range(dp)]
         for name in ("k", "v")
     }
     if kv_dtype == "int8":
         for name in ("k", "v"):
-            q = [[_quantize_kv(x, eager=True) for x in row] for row in grids[name]]
-            grids[name] = [[c[0] for c in row] for row in q]
-            grids[name + "s"] = [[c[1] for c in row] for row in q]
+            q = [[None if x is None else _quantize_kv(x, eager=True) for x in row]
+                 for row in grids[name]]
+            grids[name] = [[None if c is None else c[0] for c in row] for row in q]
+            grids[name + "s"] = [[None if c is None else c[1] for c in row] for row in q]
     spec = cache_sharding(mesh)
     return {name: Sharded(mesh, spec, grid) for name, grid in grids.items()}

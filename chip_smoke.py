@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # every phase (needs one CUDA card)
     python3 chip_smoke.py --quick    # device, build and kernel phases only
     python3 chip_smoke.py --profile  # also profile one more chat call
-    python3 chip_smoke.py --only paged,cli,batcher,pgen,serve,fleet,mesh,sp,agree
+    python3 chip_smoke.py --only paged,cli,batcher,pgen,serve,fleet,mesh,sp,multihost,agree
                                      # device, build and the named phases
                                      # only (no kernels or ok line)
     python3 chip_smoke.py --qmm-only # device, build and B5/B6 only: their checks
@@ -291,7 +291,24 @@ Phases, each printing one JSON line; any failure exits non-zero:
    each engine is dropped and device memory must fall back. ``sp round``
    lines give wall, prefill and decode seconds, tok/s, peak memory,
    weight bytes, launches and which way each collective ran;
-17. agree  — tiny f32 models decoded greedily on the card (kernels) and on
+17. multihost — the launch one process a host: two child processes of
+   this script (``--multihost-child``) on 127.0.0.1 with the reference's
+   env contract, both on cuda:0, so every collective between them takes
+   the ``dist`` way staged over gloo. Each serves phase mesh's rounds
+   over its half of each mesh through ``GpuEngine.chat``: 70B on {"tp":
+   8} (four shards a process) with speculation on (B2, W1 in the tail)
+   and off (W1), random-8b on {"dp": 2} (one shard a process) and on
+   {"dp": 2, "tp": 2} paged (W2). Each child holds its first W1, B2 and
+   W2 calls to their plain versions and needs the ``dist`` way in every
+   round; both children's ids must equal each other and phase mesh's
+   (the single-process virtual mesh; computed in this process under
+   ``--only multihost``). ``multihost round`` lines give each process's
+   wall, tok/s, ``dist`` count, peak device memory and weight bytes; the
+   children's launches join the kernels line. Where the machine has two
+   cards a second pair, a card each, serves phase mesh's {"tp": 2} paged
+   round with NCCL between the processes (W3), held to one process's run
+   over both cards; with one card the phase says it did not run;
+18. agree  — tiny f32 models decoded greedily on the card (kernels) and on
    the CPU (plain versions) give identical tokens: dense generate() with
    speculation on (B2, or B2-i8, must launch), generate(paged=True) (B3,
    or B3-i8), and the paged batcher with speculation on and off (off: at
@@ -327,7 +344,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "adversarial_spec_tpu_torch"
 # The phases ``--only`` runs (each ``phase_<name>(torch)``).
-ONLY_PHASES = ("paged", "cli", "batcher", "pgen", "serve", "fleet", "mesh", "sp", "agree")
+ONLY_PHASES = ("paged", "cli", "batcher", "pgen", "serve", "fleet", "mesh", "sp", "multihost",
+               "agree")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per second
 B, HQ, HKV, D, S_SPAN = 4, 32, 8, 128, 9
@@ -4650,12 +4668,17 @@ def mesh_steps(da, pa, mesh, n_layers: int, label: str) -> dict:
     return out
 
 
+# Each mesh round's generated ids (one list a generate call, each row's
+# ids), by round label: phase multihost holds its rounds to these.
+MESH_IDS: dict = {}
+
+
 def mesh_round(torch, engine, reqs, sp, label: str, must_launch: tuple) -> dict:
     """One chat() round on a mesh alias: every counter zeroed just before
     and read just after; each name of ``must_launch`` must have served
-    every shard at least once (``mesh_counts``), and each wrapper's
-    launches must be one a device group a layer a decode step
-    (``mesh_steps``)."""
+    every shard this process holds at least once (``mesh_counts``), and
+    each wrapper's launches must be one a device group a layer a decode
+    step (``mesh_steps``). The round's generated ids go to ``MESH_IDS``."""
     from adversarial_spec_tpu_torch.ops import decode_attention as da
     from adversarial_spec_tpu_torch.ops import paged_attention as pa
     from adversarial_spec_tpu_torch.parallel import collectives
@@ -4666,15 +4689,18 @@ def mesh_round(torch, engine, reqs, sp, label: str, must_launch: tuple) -> dict:
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     t = time.monotonic()
-    comps = engine.chat(reqs, sp)
+    ids: list = []
+    with recording_generate_ids(ids):
+        comps = engine.chat(reqs, sp)
     torch.cuda.synchronize()
     wall = time.monotonic() - t
+    MESH_IDS[label] = ids
     bad = [c.error for c in comps if not c.ok]
     if bad:
         raise RuntimeError(f"mesh {label}: chat failed: {bad}")
     launched, served = mesh_counts(da, pa)
     lm = next(iter(engine._models.values()))
-    shards = lm.mesh.size
+    shards = len(lm.mesh.local_shards())
     short = {k: served[k] for k in must_launch if served[k] < shards}
     if short:
         raise RuntimeError(f"mesh {label}: fewer shards served than shards ({shards}): {short}")
@@ -5151,8 +5177,290 @@ def mesh_two_cards(torch, doc: str) -> dict:
             "results": [r["output_tokens"] for r in json.loads(out)["results"]]}
 
 
+# Phase multihost's rounds: (label, alias, devices a round's mesh spans,
+# speculation, kernels each process must launch). The shared-card pair's
+# labels are phase mesh's, whose single-process virtual-mesh ids they are
+# held to; the pair on two cards runs phase mesh's paged tp=2 round.
+MULTIHOST_ROUNDS = (
+    ("70b tp=8 speculation on", "random-70b", 8, True, ("decode_attention_mq",)),
+    ("70b tp=8 speculation off", "random-70b", 8, False, ("decode_attention_tp",)),
+    ("8b dp=2 dense", "mesh-dp2", 2, True, ("decode_attention_mq", "decode_attention_tp")),
+    ("8b dp=2 tp=2 paged", "mesh-dp2tp2-paged", 4, True, ("paged_decode_attention_dp_tp",)),
+)
+MULTIHOST_NCCL_ROUNDS = (
+    ("8b tp=2 paged, a card a process", "mesh-tp2-paged", 2, True,
+     ("paged_decode_attention_tp",)),
+)
+# The wrappers (and B2) whose first call each pair's children hold to the
+# plain versions: W1, B2, W2 on the shared card; W3 on two cards.
+MULTIHOST_HOLD = ("decode_attention_tp", "decode_attention_mq", "paged_decode_attention_dp_tp")
+MULTIHOST_NCCL_HOLD = ("paged_decode_attention_tp",)
+MULTIHOST_SPECS = (  # the 8B rounds' registry entries (phase mesh's)
+    dict(alias="mesh-dp2", family="llama", size="8b", mesh={"dp": 2}),
+    dict(alias="mesh-tp2-paged", family="llama", size="8b", mesh={"tp": 2}, kv="paged"),
+    dict(alias="mesh-dp2tp2-paged", family="llama", size="8b", mesh={"dp": 2, "tp": 2},
+         kv="paged"),
+)
+
+
+def multihost_rounds(torch, rounds, devices, hold: tuple = ()) -> dict:
+    """Phase multihost's ``rounds`` through ``GpuEngine.chat`` (four
+    opponents, phase mesh's ~3 KB spec, 64 new tokens, greedy), each
+    engine over ``devices(n)`` for a round whose mesh spans ``n``
+    devices: the whole mesh in one process, or this process's part of
+    it. ``hold`` (a child of the launch): each round also needs the
+    ``dist`` way, and the first call of each of these wrappers (and B2)
+    is recomputed by its plain version (a wrapper's output gathered
+    across the processes: both run this at once)."""
+    import gc
+
+    from adversarial_spec_tpu_torch.engine import registry
+    from adversarial_spec_tpu_torch.engine import spec as spec_mod
+    from adversarial_spec_tpu_torch.engine.gpu import GpuEngine
+    from adversarial_spec_tpu_torch.engine.types import ChatRequest, SamplingParams
+    from adversarial_spec_tpu_torch.models import transformer
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+
+    doc = spec_document(3000, 14) + "\n\nCritique this spec."
+    sp = SamplingParams(max_new_tokens=64, greedy=True, seed=0)
+    out = {"rounds": [], "checks": [], "first_call_err": {}}
+    engines: dict = {}
+    plain = {"decode_attention_tp": ("W1", da.decode_attention_tp_plain),
+             "paged_decode_attention_tp": ("W3", pa.paged_decode_attention_tp_plain),
+             "paged_decode_attention_dp_tp": ("W2", pa.paged_decode_attention_dp_tp_plain),
+             "decode_attention_mq": ("B2", da.decode_attention_mq_plain)}
+    stores = {name: [] for name in hold}
+
+    def engine_for(alias, n):
+        if alias not in engines:
+            for e in engines.values():  # one model on the card at a time
+                e._models.clear()
+            engines.clear()
+            gc.collect()
+            torch.cuda.empty_cache()
+            engines[alias] = GpuEngine(devices=devices(n))
+        return engines[alias]
+
+    specs = [registry.ModelSpec(**kw) for kw in MULTIHOST_SPECS]
+    try:
+        with temp_registry(*specs), depth(8, ("llama", "70b")), contextlib.ExitStack() as stack:
+            for name, store in stores.items():
+                stack.enter_context(capturing_first_call(transformer, name, store))
+            for label, alias, n, spec_on, must in rounds:
+                spec_mod.configure(enabled=spec_on)
+                engine = engine_for(alias, n)
+                line = mesh_round(torch, engine, [
+                    ChatRequest(f"tpu://{alias}", p, doc) for p in PERSONAS[:4]], sp, label, must)
+                line["ids"] = MESH_IDS[label]
+                mesh = engine._models[alias].mesh
+                line["dist_way"] = ("nccl" if mesh.members().nccl else "gloo") \
+                    if mesh.multiprocess else None
+                if hold and line["collectives"]["dist"] <= 0:
+                    raise RuntimeError(f"multihost {label}: no collective took the dist way: "
+                                       f"{line['collectives']}")
+                out["rounds"].append(line)
+    finally:
+        spec_mod.configure(enabled=True)
+        for e in engines.values():
+            e._models.clear()
+        engines.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+    for name, store in stores.items():
+        short, fn = plain[name]
+        if name != "decode_attention_mq":
+            out["first_call_err"][short] = held_first_call(torch, store, fn, short,
+                                                           out["checks"])
+            continue
+        if not store:
+            raise RuntimeError("B2: never called on the main path")
+        args, kwargs, got = store[0]
+        out["first_call_err"][short] = check_close(
+            out["checks"], "B2 first call on the main path", got, fn(*args, **kwargs),
+            BF16_TOL)
+    return out
+
+
+def multihost_child(out_path: str, nccl: bool) -> int:
+    """One process of phase multihost's launch (``--multihost-child OUT``,
+    the env contract set by the parent): ``MULTIHOST_ROUNDS`` over this
+    process's half of each mesh on cuda:0, or with ``--nccl``
+    ``MULTIHOST_NCCL_ROUNDS`` on a card of its own (cuda:<rank>); results
+    to ``OUT``."""
+    import torch
+
+    sys.path.insert(0, HERE)
+    os.environ.setdefault("ADVSPEC_KERNEL_BUILD_DIR", os.path.join(HERE, "build", "kernels"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from adversarial_spec_tpu_torch.parallel import mesh as mesh_mod
+
+    t = time.monotonic()
+    mesh_mod.maybe_initialize_distributed()
+    rank, processes = mesh_mod.process_index(), mesh_mod.process_count()
+    if nccl:
+        torch.cuda.set_device(rank)
+        out = multihost_rounds(torch, MULTIHOST_NCCL_ROUNDS,
+                               lambda n: [torch.device("cuda", rank)] * (n // processes),
+                               MULTIHOST_NCCL_HOLD)
+    else:
+        out = multihost_rounds(torch, MULTIHOST_ROUNDS,
+                               lambda n: [torch.device("cuda")] * (n // processes), MULTIHOST_HOLD)
+    out.update(rank=rank, processes=processes, seconds=time.monotonic() - t)
+    with open(out_path, "w") as f:
+        json.dump(out, f)
+    torch.distributed.destroy_process_group()
+    return 0
+
+
+def launch_pair(rounds, want: dict, tag: str, way: str) -> dict:
+    """Two children of this script on 127.0.0.1 with the reference's env
+    contract (``tag`` names their files under chiprun_out/, ``--nccl``
+    when ``tag`` is "nccl"); fails unless both exit 0 within 600 s, both
+    give the same ids in every round, equal to ``want``'s, every round's
+    collectives across the processes took ``way``, and each process
+    launched each round's kernels. Returns the pair's report."""
+    import socket
+
+    out_dir = os.path.join(HERE, "chiprun_out")
+    os.makedirs(out_dir, exist_ok=True)
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    path = functools.partial(os.path.join, out_dir)
+    t = time.monotonic()
+    procs, logs = [], []
+    for rank in range(2):
+        env = dict(os.environ, PYTHONUNBUFFERED="1", ADVSPEC_DIST_TIMEOUT_S="300",
+                   JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", JAX_NUM_PROCESSES="2",
+                   JAX_PROCESS_ID=str(rank))
+        logs.append(open(path(f"multihost_{tag}_rank{rank}.log"), "w"))
+        procs.append(subprocess.Popen(
+            [sys.executable, os.path.abspath(__file__), "--multihost-child",
+             path(f"multihost_{tag}_rank{rank}.json"), *(["--nccl"] if tag == "nccl" else [])],
+            env=env, cwd=HERE, stdout=logs[-1], stderr=subprocess.STDOUT))
+    try:
+        deadline = time.monotonic() + 600
+        while any(p.poll() is None for p in procs):
+            if time.monotonic() > deadline:
+                raise RuntimeError(f"multihost {tag}: the children did not finish in 600 s")
+            if any(p.poll() not in (None, 0) for p in procs):
+                break  # one failed: its peer would wait out its timeout
+            time.sleep(1)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+            p.wait()
+        for log in logs:
+            log.close()
+    report = {"children_seconds": time.monotonic() - t, "checks": [], "rounds": [],
+              "launches": {}, "shards": {}}
+    for rank, p in enumerate(procs):
+        if p.returncode != 0:
+            with open(path(f"multihost_{tag}_rank{rank}.log")) as f:
+                tail = f.read()[-3000:]
+            raise RuntimeError(f"multihost {tag}: rank {rank} exited {p.returncode}:\n{tail}")
+    kids = []
+    for rank in range(2):
+        with open(path(f"multihost_{tag}_rank{rank}.json")) as f:
+            kids.append(json.load(f))
+    for i, (label, _alias, _n, _spec_on, must) in enumerate(rounds):
+        lines = [k["rounds"][i] for k in kids]
+        ids = [ln["ids"] for ln in lines]
+        if ids[0] != ids[1]:
+            raise RuntimeError(f"multihost {label}: the two processes' ids differ")
+        if ids[0] != want[label]:
+            raise RuntimeError(f"multihost {label}: ids differ from the single-process run's")
+        if any(ln["dist_way"] != way for ln in lines):
+            raise RuntimeError(f"multihost {label}: the dist way was "
+                               f"{[ln['dist_way'] for ln in lines]}, not {way}")
+        short = [k["rank"] for k, ln in zip(kids, lines) if any(not ln["launches"].get(m)
+                                                                for m in must)]
+        if short:
+            raise RuntimeError(f"multihost {label}: {must} not launched by rank(s) {short}")
+        report["checks"].append({"case": f"{label}: ids across ranks and vs one process",
+                                 "rows": sum(len(c) for c in ids[0]), "equal": True})
+        for ln in lines:
+            for key in ("launches", "shards"):
+                for k, n in ln[key].items():
+                    report[key][k] = report[key].get(k, 0) + n
+        report["rounds"].append({
+            "round": label, "mesh": lines[0]["mesh"], "dist_way": way,
+            "devices": [ln["devices"] for ln in lines],
+            "chat_wall_s": [ln["chat_wall_s"] for ln in lines],
+            "decode_tokens_per_s": [ln["decode_tokens_per_s"] for ln in lines],
+            "dist": [ln["collectives"]["dist"] for ln in lines],
+            "peak_memory_bytes": [ln["max_memory_allocated_bytes"] for ln in lines],
+            "weight_bytes_per_process": [ln["weight_bytes_per_chip"] for ln in lines],
+            "launches": [ln["launches"] for ln in lines],
+        })
+        emit({"phase": "multihost round", **report["rounds"][-1]})
+    for k in kids:
+        report["checks"] += k["checks"]
+    report["first_call_err"] = [k["first_call_err"] for k in kids]
+    report["child_seconds"] = [k["seconds"] for k in kids]
+    return report
+
+
+def phase_multihost(torch) -> dict:
+    """The launch one process a host from the user's entry point: two
+    child processes of this script on 127.0.0.1 with the reference's env
+    contract (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
+    ``JAX_PROCESS_ID``), both on cuda:0, so every collective between them
+    takes the ``dist`` way staged over gloo. Each runs ``GpuEngine.chat``
+    on phase mesh's rounds over its half of each mesh: (a)
+    tpu://random-70b on {"tp": 8} at full width with 8 of its 80 layers,
+    four shards a process, speculation on (B2, W1 in the tail) then off
+    (W1 every step); (b) random-8b at full width and depth on {"dp": 2},
+    one shard a process, speculation on; (c) random-8b on {"dp": 2,
+    "tp": 2} paged (W2). Each child holds its first W1, B2 and W2 calls
+    to their plain versions and needs the ``dist`` way in every round;
+    both children's ids must be identical, and equal to the
+    single-process virtual mesh's (phase mesh's rounds, or computed here
+    under ``--only``). Each child's peak device memory a round and its
+    seconds are recorded; their launches join the kernels line. Where the
+    machine has two cards, a second pair, a card each, serves phase
+    mesh's {"tp": 2} paged round with NCCL between the processes (W3 held
+    to its plain version), held to one process's run over both cards;
+    with one card the phase says it did not run. A child that fails, or a
+    peer that never comes, fails the phase."""
+    import gc
+
+    report = {"phase": "multihost", "processes": 2}
+    want = {label: MESH_IDS.get(label) for label, *_ in MULTIHOST_ROUNDS}
+    if any(v is None for v in want.values()):
+        t = time.monotonic()
+        ref = multihost_rounds(torch, MULTIHOST_ROUNDS, lambda n: [torch.device("cuda")] * n)
+        want = {r["round"]: r["ids"] for r in ref["rounds"]}
+        report["reference_seconds"] = time.monotonic() - t
+    gc.collect()
+    torch.cuda.empty_cache()
+    report.update(launch_pair(MULTIHOST_ROUNDS, want, "shared", "gloo"))
+    if torch.cuda.device_count() >= 2:
+        ref = multihost_rounds(torch, MULTIHOST_NCCL_ROUNDS,
+                               lambda n: [torch.device("cuda", i) for i in range(n)])
+        gc.collect()
+        torch.cuda.empty_cache()
+        pair = launch_pair(MULTIHOST_NCCL_ROUNDS,
+                           {r["round"]: r["ids"] for r in ref["rounds"]}, "nccl", "nccl")
+        for key in ("launches", "shards"):
+            for k, n in pair[key].items():
+                report[key][k] = report[key].get(k, 0) + n
+        report["nccl_across_processes"] = pair
+    else:
+        report["nccl_across_processes"] = (
+            "not run: this machine has one card, so the two processes share it, and NCCL "
+            "refuses two ranks on one device (the dist way stages through gloo)")
+    report["card"] = card()
+    return report
+
+
 def main(argv: list[str]) -> int:
     t_start = time.monotonic()
+    if "--multihost-child" in argv:
+        return multihost_child(argv[argv.index("--multihost-child") + 1], "--nccl" in argv)
     quick = "--quick" in argv
     qmm_only = "--qmm-only" in argv
     only = []
@@ -5324,16 +5632,20 @@ def main(argv: list[str]) -> int:
         # The sequence-parallel axis (virtual meshes on one card): the
         # ring prefill, then W1 / W3 (B3-i8) decode.
         spp = run("sp", phase_sp, torch)
-        for ph in (bt, pgen, sv, fl, ms, spp):
+        # The multi-process launch: two processes on the card, each
+        # serving its half of phase mesh's rounds (W1, B2, W2).
+        mh = run("multihost", phase_multihost, torch)
+        for ph in (bt, pgen, sv, fl, ms, spp, mh):
             for k, n in ph["launches"].items():
                 if kernel_row(k) in launches:
                     launches[kernel_row(k)] = (launches[kernel_row(k)] or 0) + n
-        for ph in (ms, spp):
+        for ph in (ms, spp, mh):
             for k, n in ph["shards"].items():
                 shards[kernel_row(k)] = (shards[kernel_row(k)] or 0) + n
         ag = run("agree", phase_agree, torch)
         record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, cli=cl, hf=hf, pool=pl,
-                      batcher=bt, pgen=pgen, serve=sv, fleet=fl, mesh=ms, sp=spp, agree=ag)
+                      batcher=bt, pgen=pgen, serve=sv, fleet=fl, mesh=ms, sp=spp,
+                      multihost=mh, agree=ag)
     emit({"phase": "seconds", **seconds})
     record["phase_seconds"] = seconds
 

@@ -143,7 +143,7 @@ def test_package_imports_with_jax_blocked():
         "sys.modules['adversarial_spec_tpu'] = None\n"
         f"for m in {mods!r}:\n"
         "    importlib.import_module(m)\n"
-        "print('ok', len(sys.modules))\n"
+        "print('ok', len(sys.modules), 'torch.distributed' in sys.modules)\n"
     )
     r = subprocess.run(
         [sys.executable, "-c", code], cwd=REPO, capture_output=True,
@@ -151,6 +151,8 @@ def test_package_imports_with_jax_blocked():
     )
     assert r.returncode == 0, r.stderr
     assert r.stdout.startswith("ok")
+    # The multi-process launch (parallel/mesh.py) imports torch.distributed.
+    assert r.stdout.split()[-1] == "True"
     paged_path = {
         f"adversarial_spec_tpu_torch.{m}"
         for m in (

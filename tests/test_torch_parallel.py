@@ -275,15 +275,9 @@ def test_collectives_local_way_sums_and_gathers_in_rank_order():
     assert all(torch.equal(s, torch.full((2, 3), 10.0)) for s in summed)
     gathered = collectives.all_gather([torch.full((2, 1), float(i)) for i in range(3)])
     assert gathered.tolist() == [[0.0, 1.0, 2.0]] * 2
-    assert collectives.counts == {"nccl": 0, "local": 2, "peer": 0}
+    assert collectives.counts == {"nccl": 0, "local": 2, "peer": 0, "dist": 0}
     assert collectives.all_reduce(parts[:1]) == parts[:1]  # tp=1: no collective
     assert collectives.counts["local"] == 2
-
-
-def test_multi_host_launch_is_refused(monkeypatch):
-    monkeypatch.setenv("JAX_COORDINATOR_ADDRESS", "localhost:1234")
-    with pytest.raises(NotImplementedError, match="multi-host launch .* not supported"):
-        port_mesh.maybe_initialize_distributed()
 
 
 # -- the engine and both CLIs on a tp=2 alias ---------------------------------

@@ -214,7 +214,7 @@ def test_ring_shift_counts_its_way():
     collectives.reset_counts()
     parts = [torch.full((2,), float(i)) for i in range(4)]
     assert [p[0].item() for p in collectives.ring_shift(parts)] == [3.0, 0.0, 1.0, 2.0]
-    assert collectives.counts == {"nccl": 0, "local": 1, "peer": 0}
+    assert collectives.counts == {"nccl": 0, "local": 1, "peer": 0, "dist": 0}
 
 
 # -- the sequence-parallel prefill -------------------------------------------

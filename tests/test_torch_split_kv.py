@@ -60,6 +60,17 @@ def _t(x):
     return torch.from_numpy(np.ascontiguousarray(x))
 
 
+@pytest.fixture(autouse=True)
+def _one_thread():
+    """One intra-op thread: the exact (``torch.equal``) cases compare two
+    f32 reductions whose summation order must not follow the threads a
+    loaded worker happens to get."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
+
+
 # -- the planner --------------------------------------------------------------
 
 
