@@ -22,11 +22,18 @@ breaker, and a model whose breaker is OPEN is degraded up front — zero
 engine calls, zero retry budget — until its cooldown elapses and a
 half-open probe re-admits it. Persistent failure costs one errored
 response per round instead of 3 retries x backoff.
+
+Launched one process per host (``cli critique`` on every host under the
+env contract), every process runs the round and its engine calls are
+collectives, so every process must take the same branches. The branches
+that read a clock (the round deadline, the breakers' cooldowns) decide
+through ``_agreed``: true when true on any process.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import sys
 import time
 from dataclasses import dataclass, field
 from pathlib import Path
@@ -56,6 +63,20 @@ RETRY_BASE_DELAY = 1.0
 # burnt a full deadline's worth of decode, so the second chance must
 # not double the round's worst-case wall.
 HEDGE_BUDGET_FACTOR = 0.5
+
+
+def _agreed(flag: bool) -> bool:
+    """A decision that reads a clock (a deadline passed, a breaker's
+    cooldown over), taken alike by every process of a launch one process
+    a host: true when it is true on any process
+    (``parallel/collectives.py`` ``agree_any``). One process: ``flag``.
+    A process that never imported torch has no process group, and mock
+    opponents import none."""
+    if "torch.distributed" not in sys.modules:
+        return flag
+    from adversarial_spec_tpu_torch.parallel.collectives import agree_any
+
+    return agree_any(flag)
 
 
 @dataclass
@@ -317,7 +338,7 @@ def run_round(
     for i, req in enumerate(requests):
         if results[i] is not None:
             continue  # served from the journal above
-        if not breakers.allow(req.model):
+        if not _agreed(breakers.allow(req.model)):
             remaining = breakers.cooldown_remaining(req.model)
             results[i] = ModelResponse(
                 model=req.model,
@@ -501,7 +522,7 @@ def run_round(
                         and classify_message(comp.error or "")
                         is FaultKind.TIMEOUT
                     ):
-                        if breakers.allow(requests[i].model):
+                        if _agreed(breakers.allow(requests[i].model)):
                             hedge_pending.append((i, comp, latency))
                         else:
                             _resolve(i, comp, latency)
@@ -513,7 +534,7 @@ def run_round(
                         not comp.ok
                         and comp.transient
                         and attempt < MAX_RETRIES - 1
-                        and breakers.allow(requests[i].model)
+                        and _agreed(breakers.allow(requests[i].model))
                     ):
                         still_pending.append(i)
                     else:
@@ -521,13 +542,13 @@ def run_round(
                 pending = still_pending
                 if not pending:
                     break
-                if deadline is not None and time.monotonic() >= deadline:
+                if deadline is not None and _agreed(time.monotonic() >= deadline):
                     break  # round budget exhausted: no further retries
                 cfg.sleep(RETRY_BASE_DELAY * (2**attempt))
             for i in pending:  # exhausted retries
                 _resolve(i, Completion(error="retries exhausted"), 0.0)
             if hedge_pending and (
-                deadline is not None and time.monotonic() >= deadline
+                deadline is not None and _agreed(time.monotonic() >= deadline)
             ):
                 # Round budget exhausted: keep the watchdog partials.
                 for i, orig, orig_lat in hedge_pending:

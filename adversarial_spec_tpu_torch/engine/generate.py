@@ -29,9 +29,11 @@ shapes, because the speculative loop's fit test depends on them:
   cache is resharded into the decode layout (``S`` slots when paged,
   ``total_len`` otherwise; an int8 cache is quantized there); any other
   length takes the chunked prefill on the mesh, as in the reference.
-  Decode leaves sp idle: the reference replicates it over the sp ranks,
-  the port runs it once per (dp, tp) shard on the sp-rank-0 devices
-  (the result is the same). Dense decode runs the sharded ``forward``
+  Decode is replicated over sp, as the reference's: each process runs
+  it once per (dp, tp) shard it holds at its decode rank (its lowest sp
+  rank: the sp-rank-0 devices on one process; across processes each
+  process that holds an sp block decodes on its own devices, and the
+  result is the same on every one). Dense decode runs the sharded ``forward``
   (W1 for the S=1 step), paged decode lays the pool out per dp slice and
   runs the sharded paged step (W3 with dp = 1: tp-only, sp-only, sp×tp;
   W2 with dp > 1), and speculation runs the sharded program too: every

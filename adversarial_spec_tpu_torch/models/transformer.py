@@ -584,7 +584,7 @@ def _reduce_residual(mesh, x, partial, layers, layer_id, cfg, post_norm):
     processes takes the ``dist`` way)."""
     for group in _tp_groups(partial):
         k = group[0]
-        span = mesh.tp_span(k[0], k[2] if len(k) > 2 else 0)
+        span = mesh.tp_span(k[0], k[2] if len(k) > 2 else None)
         summed = all_reduce([partial[k] for k in group], span=span)
         for k, total in zip(group, summed):
             with device_ctx(mesh.device(*k)):
@@ -597,13 +597,16 @@ def _mesh_logits(params: MeshParams, cfg: ModelConfig, x, last_only: bool, s: in
     transposed copy reads the replicated table: no gather. ``s``: the
     shards of sp rank ``s`` (``x`` keyed ``(d, t, s)``).
 
-    Across processes every process computes the head on its own shards,
-    a tp group that spans processes gathers its vocab shards over them,
-    and each dp slice's rows go from the first process holding it to
-    every other (``collectives.exchange``): every process ends with all
-    the rows, so the round's state stays replicated."""
+    Across processes every process computes the head on its own shards
+    (at its decode rank, or at ``s``), a tp group that spans processes
+    gathers its vocab shards over them, and each dp slice's rows go from
+    the first process holding it to every other that decodes where this
+    one does (``collectives.exchange``); the sp prefill's rows, from the
+    last sp rank, go to every process, including one that holds no shard
+    there. Every process ends with all the rows, so the round's state
+    stays replicated."""
     mesh = params.mesh
-    sp_rank = 0 if s is None else s
+    sp_rank = mesh.decode_rank if s is None else s
     sharded_head = "lm_head" in params.shard() or "lm_head_t" in params.shard()
     rows = {}
     for d in range(mesh.shape[DP]):
@@ -617,12 +620,16 @@ def _mesh_logits(params: MeshParams, cfg: ModelConfig, x, last_only: bool, s: in
                 parts.append(_lm_head_logits(params.shard(*k), cfg, x[k], last_only))
         span = mesh.tp_span(d, sp_rank) if sharded_head else None
         rows[d] = all_gather(parts, dim=-1, span=span).to(mesh.controller)
-    if mesh.multiprocess and not mesh.rows_everywhere(sp_rank):
+    everyone = s is not None
+    if mesh.multiprocess and not mesh.rows_everywhere(sp_rank, everyone):
         owners = [mesh.row_owner(d, sp_rank) for d in range(mesh.shape[DP])]
-        span = mesh.members(owners)
+        span = mesh.members(owners, everyone)
         mine = [rows[d] for d in range(mesh.shape[DP]) if owners[d] == mesh.rank]
+        x0 = next(iter(x.values()))
+        like = torch.empty((x0.shape[0], 1 if last_only else x0.shape[1], cfg.vocab_size),
+                           dtype=torch.float32, device=mesh.controller)
         # Owners rise with d (the mesh is laid out by rank): rank order is d order.
-        rows = dict(enumerate(exchange(mine, span, like=next(iter(rows.values())))))
+        rows = dict(enumerate(exchange(mine, span, like=like)))
     return torch.cat([rows[d] for d in range(mesh.shape[DP])], dim=0)
 
 

@@ -6,8 +6,8 @@ tensor is one tensor per shard on its shard's device, and
 ``collectives.py`` reduces, gathers and shifts between them. Launched one
 process per host (``mesh.maybe_initialize_distributed``), a mesh spans
 every process's devices and each process runs its own shards; an sp
-group stays within one process. The sp axis is the ring prefill
-(``parallel/sp.py``, ``parallel/ring.py``).
+group may span processes (the ring's hop is then a send/receive). The sp
+axis is the ring prefill (``parallel/sp.py``, ``parallel/ring.py``).
 """
 
 from adversarial_spec_tpu_torch.parallel.mesh import (

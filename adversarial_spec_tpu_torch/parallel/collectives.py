@@ -41,16 +41,21 @@ mesh's. A ring shift moves each
 block to the next rank's device: ``peer`` when the ranks sit on distinct
 cards (a device-to-device copy, ``Tensor.to(next, non_blocking=True)``,
 ordered by the stream), ``local`` when they share one (a virtual mesh or
-the CPU: a hand-off, no copy). ``counts`` says which way ran, one per
-call.
+the CPU: a hand-off, no copy), ``dist`` when the ring spans processes: a
+block whose next rank another process holds is sent there and one
+arrives from the previous rank's process, a send/receive pair posted at
+once (over NCCL between cards of their own, else staged through host
+memory over gloo). ``counts`` says which way ran, one per call.
 """
 
 from __future__ import annotations
 
+import datetime
+
 import torch
 import torch.distributed as dist
 
-from adversarial_spec_tpu_torch.parallel.mesh import Span, process_count
+from adversarial_spec_tpu_torch.parallel.mesh import DIST_TIMEOUT_S, Span, process_count
 
 counts = {"nccl": 0, "local": 0, "peer": 0, "dist": 0}
 
@@ -116,9 +121,15 @@ def all_gather(parts: list[torch.Tensor], dim: int = -1, span: Span | None = Non
     return torch.cat([p.to(dev) for p in parts], dim=dim)
 
 
-def ring_shift(parts: list[torch.Tensor]) -> list[torch.Tensor]:
+def ring_shift(parts: list[torch.Tensor], ranks: list[int] | None = None,
+               span: Span | None = None) -> list[torch.Tensor]:
     """The ring hop: rank ``i``'s block becomes rank ``i + 1``'s (mod the
-    ring's size), on that rank's device."""
+    ring's size), on that rank's device. ``parts`` are every rank's
+    blocks in rank order; with ``span`` (the ring spans processes,
+    ``Mesh.sp_span``) they are this process's, ``ranks`` their global sp
+    ranks."""
+    if span is not None:
+        return _dist_ring_shift(parts, ranks, span)
     n = len(parts)
     if n == 1:
         return parts
@@ -145,9 +156,51 @@ def _broadcast(x: torch.Tensor | None, src: int, span: Span, like: torch.Tensor)
         return buf
     host = (x.detach().to("cpu").contiguous() if mine
             else torch.empty(like.shape, dtype=like.dtype))
-    # gloo moves bytes: every dtype (bf16 included) as uint8.
-    dist.broadcast(host.reshape(-1).view(torch.uint8), src, group=span.group)
+    dist.broadcast(_wire(host, span), src, group=span.group)
     return host.to(like.device)
+
+
+def _wire(x: torch.Tensor, span: Span) -> torch.Tensor:
+    """What goes over the wire: the tensor itself over NCCL, its bytes
+    over gloo (every dtype, bf16 included, as uint8)."""
+    return x if span.nccl else x.reshape(-1).view(torch.uint8)
+
+
+def _dist_ring_shift(parts: list[torch.Tensor], ranks: list[int], span: Span) -> list[torch.Tensor]:
+    """The hop across processes. ``span.counts`` consecutive sp ranks sit
+    on each of ``span.ranks`` in turn (the mesh is laid out by process),
+    so a block whose next rank is held here is handed on, and every
+    other one goes to the next rank's process. The receives and sends
+    are posted together (``batch_isend_irecv``): no process waits on its
+    own send, and each waits at most ``DIST_TIMEOUT_S`` for a peer."""
+    n = sum(span.counts)
+    owner = [r for r, c in zip(span.ranks, span.counts) for _ in range(c)]
+    here = {i: j for j, i in enumerate(ranks)}
+    out: list = [None] * len(parts)
+    ops, landing = [], []
+    for j, i in enumerate(ranks):
+        prev = (i - 1) % n
+        if prev in here:
+            x = parts[here[prev]]
+            out[j] = x if x.device == parts[j].device else x.to(parts[j].device, non_blocking=True)
+            continue
+        buf = (torch.empty_like(parts[j]) if span.nccl
+               else torch.empty(parts[j].shape, dtype=parts[j].dtype))
+        ops.append(dist.P2POp(dist.irecv, _wire(buf, span), owner[prev], group=span.group, tag=i))
+        landing.append((j, buf))
+    for j, i in enumerate(ranks):
+        nxt = (i + 1) % n
+        if nxt not in here:
+            x = parts[j].contiguous() if span.nccl else parts[j].detach().to("cpu").contiguous()
+            ops.append(dist.P2POp(dist.isend, _wire(x, span), owner[nxt], group=span.group,
+                                  tag=nxt))
+    timeout = datetime.timedelta(seconds=DIST_TIMEOUT_S)
+    for req in dist.batch_isend_irecv(ops):
+        req.wait(timeout)
+    for j, buf in landing:
+        out[j] = buf if span.nccl else buf.to(parts[j].device)
+    counts["dist"] += 1
+    return out
 
 
 def _dist_all_reduce(parts: list[torch.Tensor], span: Span) -> list[torch.Tensor]:
@@ -185,8 +238,7 @@ def exchange(parts: list[torch.Tensor], span: Span, like: torch.Tensor | None = 
     else:
         host = stack.to("cpu")
         bufs = [torch.empty_like(host) for _ in span.ranks]
-        dist.all_gather([b.reshape(-1).view(torch.uint8) for b in bufs],
-                        host.reshape(-1).view(torch.uint8), group=span.group)
+        dist.all_gather([_wire(b, span) for b in bufs], _wire(host, span), group=span.group)
     counts["dist"] += 1
     return [b[i].to(dev) for b, n in zip(bufs, span.counts) for i in range(n)]
 

@@ -8,8 +8,9 @@ axis convention:
 - ``tp`` — tensor parallel: attention heads and FFN columns
   (Megatron-style; the all-reduces are ``parallel/collectives.py``'s);
 - ``sp`` — sequence parallel: the prompt's blocks over the ring
-  prefill (``parallel/sp.py``, ``parallel/ring.py``); decode leaves it
-  idle and runs on the sp-rank-0 devices.
+  prefill (``parallel/sp.py``, ``parallel/ring.py``); decode is
+  replicated over it, as the reference's, and each process runs it at
+  its *decode rank* (below).
 
 A ``Mesh`` is a ``[dp, sp, tp]`` array of ``torch.device``s; a sharded
 tensor is one tensor per shard on its shard's device
@@ -27,7 +28,17 @@ counterpart of ``jax.devices()`` spanning every process), and each
 process runs the same program over the shards it holds: the round's
 state is replicated on every process, each process computes its own
 shards, and a collective whose group spans processes takes the ``dist``
-way (``parallel/collectives.py``). The sp axis stays within a process.
+way (``parallel/collectives.py``).
+
+An sp group may span processes: the ring's hop between them is a
+send/receive (``collectives.ring_shift``). Decode is the same on every
+sp rank (the reference replicates its cache over sp), so each process
+decodes at its *decode rank*, the lowest sp rank it holds, on its own
+shards there: ``device(d, t)``, ``is_local``, ``local_shards`` and the
+decode collectives (``span``, ``tp_span``, ``members``, ``row_owner``,
+``rows_everywhere``) read that rank unless given another, and a decode
+collective spans only the processes that decode at the same rank. One
+process decodes at rank 0, on the sp-rank-0 devices.
 """
 
 from __future__ import annotations
@@ -67,12 +78,15 @@ class Mesh:
 
     ``shape`` is the reference's ``mesh.shape`` dict and ``size`` the
     device count; ``device(d, t, s)`` is shard ``(d, s, t)``'s device
-    (sp rank ``s``, 0 by default: the decode program's devices).
+    (sp rank ``s``; by default this process's decode rank: the decode
+    program's devices).
 
     ``ranks`` (same shape) is the process that holds each entry and
     ``cards`` names each entry's physical device (host and card), so two
     processes sharing a card are told from two cards; ``rank`` is this
-    process. A single-process mesh holds every entry."""
+    process. ``decode_ranks`` maps each process to its decode rank, the
+    lowest sp rank it holds, and ``decode_rank`` is this process's. A
+    single-process mesh holds every entry and decodes at sp rank 0."""
 
     axis_names = (DP, SP, TP)
 
@@ -90,20 +104,28 @@ class Mesh:
             cards = np.empty(devices.shape, dtype=object)
             cards.flat[:] = [str(d) for d in devices.flat]
         self.cards = cards
+        self.decode_ranks = {
+            int(r): min(s for s in range(sp) if (self.ranks[:, s, :] == r).any())
+            for r in sorted({int(r) for r in self.ranks.flat})
+        }
+        self.decode_rank = self.decode_ranks.get(rank, 0)
         self.multiprocess = bool((self.ranks != rank).any())
         if self.multiprocess:
             self._check_processes()
 
-    def device(self, d: int, t: int, s: int = 0) -> torch.device:
-        return self.devices[d, s, t]
+    def _sp(self, s: int | None) -> int:
+        return self.decode_rank if s is None else s
 
-    def is_local(self, d: int, t: int, s: int = 0) -> bool:
+    def device(self, d: int, t: int, s: int | None = None) -> torch.device:
+        return self.devices[d, self._sp(s), t]
+
+    def is_local(self, d: int, t: int, s: int | None = None) -> bool:
         """True when this process holds shard ``(d, s, t)``."""
-        return int(self.ranks[d, s, t]) == self.rank
+        return int(self.ranks[d, self._sp(s), t]) == self.rank
 
     def local_shards(self) -> list[tuple[int, int]]:
-        """The decode shards ``(d, t)`` (sp rank 0) this process holds,
-        in grid order: every shard of a single-process mesh."""
+        """The decode shards ``(d, t)`` (at the decode rank) this process
+        holds, in grid order: every shard of a single-process mesh."""
         return [(d, t) for d in range(self.shape[DP]) for t in range(self.shape[TP])
                 if self.is_local(d, t)]
 
@@ -121,16 +143,21 @@ class Mesh:
         return len(set(self.cards.flat)) == self.size
 
     def card_shards(self, d: int, t: int) -> int:
-        """The decode shards, of every process, on shard ``(d, t)``'s card:
-        the sharded kernels plan their splits for all the work the card
-        runs (two processes sharing a card launch side by side)."""
-        return int((self.cards[:, 0, :] == self.cards[d, 0, t]).sum())
+        """The decode shards at this process's decode rank, of every
+        process that decodes there, on shard ``(d, t)``'s card: the
+        sharded kernels plan their splits for all that work (two
+        processes sharing a card launch side by side). The processes that
+        decode at another sp rank run the same program, planned the same
+        way, so every replica decodes as one process's virtual mesh does,
+        bit for bit."""
+        s = self.decode_rank
+        return int((self.cards[:, s, :] == self.cards[d, s, t]).sum())
 
     def span(self, keys) -> "Span | None":
-        """The processes that hold the shards ``keys`` (``(d, t)`` or
-        ``(d, t, s)``), for a collective among them; None when this
-        process holds them all (the single-process ways)."""
-        at = [(k[0], k[2] if len(k) > 2 else 0, k[1]) for k in keys]  # [dp, sp, tp]
+        """The processes that hold the shards ``keys`` (``(d, t)`` at the
+        decode rank, or ``(d, t, s)``), for a collective among them; None
+        when this process holds them all (the single-process ways)."""
+        at = [(k[0], self._sp(k[2] if len(k) > 2 else None), k[1]) for k in keys]  # [dp, sp, tp]
         ranks = [int(self.ranks[i]) for i in at]
         if all(r == self.rank for r in ranks):
             return None
@@ -143,58 +170,94 @@ class Mesh:
         return Span(members, tuple(ranks.count(r) for r in members),
                     process_group(members), nccl)
 
-    def tp_span(self, d: int, s: int = 0) -> "Span | None":
+    def tp_span(self, d: int, s: int | None = None) -> "Span | None":
         """``span`` of dp slice ``d``'s tp group at sp rank ``s``."""
-        return self.span([(d, t, s) for t in range(self.shape[TP])])
+        return self.span([(d, t, self._sp(s)) for t in range(self.shape[TP])])
 
-    def row_owner(self, d: int, s: int = 0) -> int:
+    def sp_span(self, d: int, t: int) -> "Span | None":
+        """``span`` of shard ``(d, t)``'s sp group: the ring's processes,
+        each holding consecutive sp ranks in process order."""
+        return self.span([(d, t, s) for s in range(self.shape[SP])])
+
+    def row_owner(self, d: int, s: int | None = None) -> int:
         """The first process holding a shard of dp slice ``d`` (at sp rank
         ``s``): the one that hands the slice's rows to the others."""
-        return int(self.ranks[d, s].min())
+        return int(self.ranks[d, self._sp(s)].min())
 
-    def rows_everywhere(self, s: int = 0) -> bool:
-        """True when every process holds a shard of every dp slice."""
-        members = set(self.ranks.flat)
+    def rows_everywhere(self, s: int | None = None, everyone: bool = False) -> bool:
+        """True when every process that holds a shard at sp rank ``s``
+        (``everyone``: every process of the mesh) holds a shard of every
+        dp slice there."""
+        s = self._sp(s)
+        members = set((self.ranks if everyone else self.ranks[:, s]).flat)
         return all(set(self.ranks[d, s].flat) == members for d in range(self.shape[DP]))
 
-    def members(self, owners=()) -> "Span":
-        """``span`` of every entry: all the mesh's processes, for an
-        exchange among them in which each sends the items it owns
-        (``owners``: each item's owning rank)."""
+    def members(self, owners=(), everyone: bool = False, s: int | None = None) -> "Span | None":
+        """``span`` of every shard at sp rank ``s`` (the processes that
+        decode there), or with ``everyone`` of every entry (all the
+        mesh's processes), for an exchange among them in which each sends
+        the items it owns (``owners``: each item's owning rank); None when
+        this process is alone there."""
         dp, sp, tp = self.devices.shape
-        span = self.span([(d, t, s) for d in range(dp) for t in range(tp) for s in range(sp)])
+        sps = range(sp) if everyone else [self._sp(s)]
+        span = self.span([(d, t, x) for d in range(dp) for t in range(tp) for x in sps])
+        if span is None:
+            return None
         return dataclasses.replace(span, counts=tuple(list(owners).count(r) for r in span.ranks))
 
     def _check_processes(self) -> None:
-        """Refuse what a mesh across processes cannot run: an sp group
-        split over processes (the ring's hop between processes is not
-        ported), and a process holding no decode shard (it would have no
-        device to hold the round on)."""
+        """Refuse what a mesh across processes cannot run, naming the mesh
+        and the ranks: a process holding no device of the mesh (it would
+        have no device to hold the round on); a decode rank whose shards
+        are not all held by the processes that decode there (a process
+        decoding at a lower rank holds one of them); and a process holding
+        sp blocks of a ``(d, t)`` it does not decode (its weights and the
+        reshard's gather land on the decode rank's shards)."""
         dp, sp, tp = self.devices.shape
-        for d in range(dp):
-            for t in range(tp):
-                owners = {int(r) for r in self.ranks[d, :, t]}
-                if len(owners) > 1:
-                    raise ValueError(
-                        f"mesh axis 'sp' spans processes {sorted(owners)} (mesh {self.shape}): "
-                        "the ring's hop between processes is not supported; keep each sp "
-                        "group within one process's devices"
-                    )
-        missing = sorted(set(range(process_count())) - {int(r) for r in self.ranks[:, 0].flat})
+        missing = sorted(set(range(process_count())) - set(self.decode_ranks))
         if missing:
             raise ValueError(
                 f"mesh {self.shape} holds no device of process(es) {missing}: every "
                 "process of a multi-process launch runs the round on devices of its own"
             )
-        # Every process makes the same groups in the same order.
-        for d in range(dp):
-            for s in range(sp):
+        for s in sorted(set(self.decode_ranks.values())):
+            decoders = sorted(r for r, x in self.decode_ranks.items() if x == s)
+            strays = sorted({int(r) for r in self.ranks[:, s, :].flat} - set(decoders))
+            if strays:
+                held = int(np.isin(self.ranks[:, s, :], decoders).sum())
+                raise ValueError(
+                    f"mesh {self.shape} across processes: process(es) {decoders} decode at sp "
+                    f"rank {s} but hold {held} of its {dp * tp} (dp, tp) shards; process(es) "
+                    f"{strays} hold the rest and decode at sp rank(s) "
+                    f"{sorted({self.decode_ranks[r] for r in strays})}: every shard of a "
+                    "decode rank must be held by a process that decodes there"
+                )
+        for r, x in self.decode_ranks.items():
+            undecoded = sorted({(d, t) for d in range(dp) for t in range(tp) for s in range(sp)
+                                if self.ranks[d, s, t] == r and self.ranks[d, x, t] != r})
+            if undecoded:
+                raise ValueError(
+                    f"mesh {self.shape} across processes: process {r} holds sp blocks of the "
+                    f"(dp, tp) shard(s) {undecoded} but does not decode them at its decode rank "
+                    f"{x}: a process decodes every (dp, tp) shard whose sp blocks it holds"
+                )
+        # Every process makes the same groups in the same order: the tp
+        # groups at every sp rank, the sp groups (the ring, the reshard),
+        # the decode ranks' members and every process.
+        for s in range(sp):
+            for d in range(dp):
                 self.tp_span(d, s)
-        self.members()
+        for d in range(dp):
+            for t in range(tp):
+                self.sp_span(d, t)
+        for s in sorted(set(self.decode_ranks.values())):
+            self.members(s=s)
+        self.members(everyone=True)
 
     def __repr__(self) -> str:
         devs = sorted({str(d) for d in self.devices.flat})
-        extra = f", processes={sorted({int(r) for r in self.ranks.flat})}" if self.multiprocess else ""
+        extra = (f", processes={sorted(self.decode_ranks)}, decode_ranks={self.decode_ranks}"
+                 if self.multiprocess else "")
         return f"Mesh({self.shape}, devices={devs}{extra})"
 
 
@@ -439,8 +502,8 @@ def device_ctx(device: torch.device):
 
 
 def device_groups(mesh: Mesh) -> list[tuple[torch.device, list[tuple[int, int]]]]:
-    """The decode shards ``(d, t)`` (sp rank 0) each distinct device of
-    this process holds, devices in order of first appearance and shards
+    """The decode shards ``(d, t)`` (at the decode rank) each distinct
+    device of this process holds, devices in order of first appearance and shards
     in grid order: one group of every shard on a virtual mesh, one shard
     a group on a mesh of distinct cards. The sharded kernels launch once
     for a group."""
@@ -460,8 +523,8 @@ def group_map(fn, mesh: Mesh, *grids):
     another process holds the shard). The sharded kernels' wrappers
     (W1-W3) launch once a group this way. The sp ranks are not mapped
     here: a ring hop needs every rank's block at once, so the sp prefill
-    (``parallel/sp.py``) steps its ranks itself, and decode leaves sp
-    idle."""
+    (``parallel/sp.py``) steps its ranks itself, and decode is replicated
+    over sp (each process maps its shards at its decode rank)."""
     out = [[None] * mesh.shape[TP] for _ in range(mesh.shape[DP])]
     for dev, shards in device_groups(mesh):
         with device_ctx(dev):

@@ -12,9 +12,14 @@ key block it may attend to.
 The reference runs one SPMD program per device, so its ranks step the
 ring in lockstep inside ``shard_map``. The port's single controller
 drives one sp group at a time: ``ring_attention_local`` takes the group's
-blocks as lists in rank order and steps every rank through each hop. A
-key block wholly in a query block's future is skipped (the reference
-computes it masked; its contribution is exactly zero either way).
+blocks as lists in rank order and steps every rank through each hop.
+Across processes each process passes the blocks of the ranks it holds,
+with their global ranks and the group's ``Span``; a hop that leaves a
+process is a send/receive with the next one, and every process posts the
+same hops in the same order (the hop count and the skips below depend on
+the ranks and the window alone). A key block wholly in a query block's
+future is skipped (the reference computes it masked; its contribution is
+exactly zero either way).
 
 Causality is enforced at block granularity and, on the diagonal block,
 by the in-block triangular mask; a per-row ``kv_start`` masks left-pad
@@ -36,10 +41,11 @@ import math
 import torch
 
 from adversarial_spec_tpu_torch.parallel.collectives import ring_shift
-from adversarial_spec_tpu_torch.parallel.mesh import SP, Mesh, device_ctx
+from adversarial_spec_tpu_torch.parallel.mesh import SP, Mesh, Span, device_ctx
 
-# One ``ring_attention_local`` call per sp group, and the hops it ran.
-counts = {"calls": 0, "hops": 0}
+# One ``ring_attention_local`` call per sp group, the hops it ran, and
+# the shifts among them that crossed processes.
+counts = {"calls": 0, "hops": 0, "crossed": 0}
 
 # The most bytes one block's f32 scores may take: longer query blocks are
 # attended in runs of rows (rows are independent).
@@ -128,9 +134,13 @@ def ring_attention_local(
     attn_softcap: float = 0.0,
     scale: float | None = None,
     window: int = 0,  # sliding window in slots; 0 = global
+    ranks: list[int] | None = None,  # the blocks' global sp ranks (default all)
+    span: Span | None = None,  # the group's processes, when it spans several
 ) -> list[torch.Tensor]:
     """One sp group's ring: the blocks of every rank, in rank order, each
     on its rank's device; returns each rank's output block (q's dtype).
+    Across processes (``span``) the lists hold this process's ranks,
+    ``ranks`` naming them.
 
     Key slots below ``q_slot - window + 1`` are masked, and a windowed
     layer leaves the ring after ``ring_hops`` hops: the blocks left are
@@ -139,6 +149,7 @@ def ring_attention_local(
     scale = scale if scale is not None else 1.0 / math.sqrt(D)
     window = int(window)
     hops = ring_hops(sp, Sq, window, causal)
+    ranks = list(range(sp)) if ranks is None else list(ranks)
     states, consts = [], []
     for idx, qb in enumerate(qbs):
         dev = qb.device
@@ -152,11 +163,11 @@ def ring_attention_local(
             cols = torch.arange(Sq, device=dev)[None, :]
             consts.append((qb.to(torch.float32), rows, cols))
     for h in range(hops):
-        for idx in range(sp):
+        for j, idx in enumerate(ranks):
             src = (idx - h) % sp  # after h hops rank idx holds rank src's block
             if causal and src > idx:
                 continue  # wholly in the future: masked to nothing
-            q32, rows, cols = consts[idx]
+            q32, rows, cols = consts[j]
             with device_ctx(q32.device):
                 if not causal or src < idx:
                     mask = torch.ones((Sq, Sq), dtype=torch.bool, device=q32.device)
@@ -167,11 +178,12 @@ def ring_attention_local(
                     mask = mask & (key_slot > idx * Sq + rows - window)
                 mask = mask[None].expand(B, Sq, Sq)
                 if kv_start is not None:
-                    mask = mask & (key_slot[None] >= kv_start[idx][:, None, None])
-                states[idx] = _attend_rows(q32, kbs[idx], vbs[idx], mask, *states[idx],
-                                           scale, attn_softcap)
+                    mask = mask & (key_slot[None] >= kv_start[j][:, None, None])
+                states[j] = _attend_rows(q32, kbs[j], vbs[j], mask, *states[j],
+                                         scale, attn_softcap)
         if h + 1 < hops:
-            kbs, vbs = ring_shift(kbs), ring_shift(vbs)
+            kbs, vbs = ring_shift(kbs, ranks, span), ring_shift(vbs, ranks, span)
+            counts["crossed"] += span is not None
     counts["calls"] += 1
     counts["hops"] += hops
     outs = []

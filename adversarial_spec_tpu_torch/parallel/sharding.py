@@ -18,8 +18,8 @@ and lets GSPMD partition the program, the port holds the shards
 themselves: a spec is a tuple naming, per dimension, the mesh axis it is
 split over (``DP``, ``TP`` or None; missing trailing entries are None),
 and ``split`` turns a tensor into a ``[dp][tp]`` grid of shard-local
-tensors, each on its shard's device (``device(d, t)``, sp rank 0: where
-decode runs). A spec naming ``SP`` gives each grid cell a list of its sp
+tensors, each on its shard's device (``device(d, t)``, at the decode
+rank: where decode runs). A spec naming ``SP`` gives each grid cell a list of its sp
 blocks instead, rank ``s``'s on ``device(d, t, s)``: a ``[dp][tp][sp]``
 grid. A leaf replicated over dp or sp is one tensor per device: on a
 virtual mesh (a device repeated) the replicas are the same tensor, so a
@@ -101,7 +101,7 @@ def cache_sharding(mesh: Mesh, prefill: bool = False) -> tuple:
     return (None, DP, TP, SP if prefill else None, None)
 
 
-def _index(shape, spec, mesh: Mesh, d: int, t: int, s: int = 0) -> tuple:
+def _index(shape, spec, mesh: Mesh, d: int, t: int, s: int | None = None) -> tuple:
     """Shard ``(d, s, t)``'s slice of a tensor of ``shape`` under ``spec``;
     raises the reference's ``ValueError`` for an axis that does not split
     evenly."""
@@ -137,7 +137,7 @@ def split(x: torch.Tensor, mesh: Mesh, spec: tuple) -> list[list]:
     tensor; every shard owns its memory, so ``x`` can be freed."""
     memo: dict = {}
 
-    def part(d, t, s=0):
+    def part(d, t, s=None):
         if not mesh.is_local(d, t, s):
             return None
         idx = _index(x.shape, spec, mesh, d, t, s)
@@ -159,8 +159,9 @@ def split(x: torch.Tensor, mesh: Mesh, spec: tuple) -> list[list]:
 def gather(grid, mesh: Mesh, spec: tuple, device: torch.device | None = None) -> torch.Tensor:
     """Inverse of :func:`split`: the global tensor on ``device`` (default
     the mesh's controller). Replicated axes take shard 0's copy. On a mesh
-    across processes every process gets the whole (a collective: each
-    cell comes from the first process holding it)."""
+    across processes every process gets the whole (a collective among the
+    processes that decode where this one does: each cell comes from the
+    first of them holding it)."""
     device = device if device is not None else mesh.controller
     dp_ax = spec.index(DP) if DP in spec else None
     tp_ax = spec.index(TP) if TP in spec else None
@@ -171,20 +172,21 @@ def gather(grid, mesh: Mesh, spec: tuple, device: torch.device | None = None) ->
 
     keys = [(d, t) for d in range(mesh.shape[DP] if dp_ax is not None else 1)
             for t in range(mesh.shape[TP] if tp_ax is not None else 1)]
-    if mesh.multiprocess:
-        # A replicated axis takes the cell from any shard along it.
-        def owner(d, t):
-            ds = [d] if dp_ax is not None else range(mesh.shape[DP])
-            ts = [t] if tp_ax is not None else range(mesh.shape[TP])
-            return min(int(mesh.ranks[i, 0, j]) for i in ds for j in ts), ds, ts
 
+    # A replicated axis takes the cell from any shard along it.
+    def owner(d, t):
+        ds = [d] if dp_ax is not None else range(mesh.shape[DP])
+        ts = [t] if tp_ax is not None else range(mesh.shape[TP])
+        return min(int(mesh.ranks[i, mesh.decode_rank, j]) for i in ds for j in ts), ds, ts
+
+    owners = [owner(d, t)[0] for d, t in keys]
+    span = mesh.members(owners) if mesh.multiprocess else None
+    if span is not None:
         mine = []
         for d, t in keys:
             rank, ds, ts = owner(d, t)
             if rank == mesh.rank:
                 mine.append(next(cell(grid[i][j]) for i in ds for j in ts if grid[i][j] is not None))
-        owners = [owner(d, t)[0] for d, t in keys]
-        span = mesh.members(owners)
         like = next(cell(c) for row in grid for c in row if c is not None)
         # The exchange returns the cells by owner, each owner's in key order.
         by_owner = sorted(range(len(keys)), key=lambda i: owners[i])
@@ -211,7 +213,7 @@ class Sharded:
     def __init__(self, mesh: Mesh, spec: tuple, parts: list[list]):
         self.mesh, self.spec, self.parts = mesh, spec, parts
         d, t = mesh.local_shards()[0]
-        first = parts[d][t][0] if SP in spec else parts[d][t]
+        first = parts[d][t][mesh.decode_rank] if SP in spec else parts[d][t]
         self.first = first
         shape = list(first.shape)
         for ax, axis in enumerate(spec):
@@ -234,9 +236,9 @@ class MeshParams:
     """A model's params on a mesh: ``parts[d][t]`` is shard ``(d, t)``'s
     own params dict, in the single-device layout with its slice of every
     tp-sharded leaf (so each shard is a model of ``local_config``'s
-    widths whose row-parallel products are partial sums), on the sp-rank-0
-    device ``mesh.device(d, t)``; None where another process holds the
-    shard.
+    widths whose row-parallel products are partial sums), on the decode
+    rank's device ``mesh.device(d, t)``; None where another process holds
+    the shard there.
 
     Weights are replicated over sp: ``shard(d, t, s)`` is ``parts[d][t]``
     wherever ``device(d, t, s)`` is that device (every virtual mesh), else
@@ -249,9 +251,10 @@ class MeshParams:
     _replicas: dict = field(default_factory=dict, repr=False, compare=False)
     _copies: dict = field(default_factory=dict, repr=False, compare=False)
 
-    def shard(self, d: int | None = None, t: int = 0, s: int = 0) -> dict:
-        """Shard ``(d, s, t)``'s params; with no ``d``, this process's
-        first shard's (any shard's leaves have the model's dtypes)."""
+    def shard(self, d: int | None = None, t: int = 0, s: int | None = None) -> dict:
+        """Shard ``(d, s, t)``'s params (``s``: the decode rank unless
+        given); with no ``d``, this process's first shard's (any shard's
+        leaves have the model's dtypes)."""
         if d is None:
             d, t = self.mesh.local_shards()[0]
         dev = self.mesh.device(d, t, s)

@@ -23,7 +23,13 @@ rows the decode layout gives it), so a row's result is the same and a dp
 slice prefills only its rows. The cache comes back with its sequence
 split over sp (``cache_sharding(mesh, prefill=True)``), and
 ``reshard_cache_for_decode`` gathers it into the decode layout (rows over
-dp, heads over tp, sp idle).
+dp, heads over tp, replicated over sp).
+
+Across processes an sp group may span several: each process steps the
+``(dp, tp)`` groups it holds at any sp rank, in grid order (the same on
+every process), the ring's hops between processes are send/receive pairs,
+the last sp rank's logits reach every process, and the reshard gathers
+each group's blocks over its processes onto each one's decode rank.
 
 Sliding windows (Gemma-2's alternating layers included) are applied per
 layer inside the ring. Constraints, the reference's: the padded length
@@ -45,7 +51,7 @@ from adversarial_spec_tpu_torch.models.transformer import (
     rms_norm,
 )
 from adversarial_spec_tpu_torch.ops.rope import rope_angles
-from adversarial_spec_tpu_torch.parallel.collectives import all_gather
+from adversarial_spec_tpu_torch.parallel.collectives import all_gather, exchange
 from adversarial_spec_tpu_torch.parallel.mesh import DP, SP, TP, Mesh, device_ctx
 from adversarial_spec_tpu_torch.parallel.ring import ring_attention_local
 from adversarial_spec_tpu_torch.parallel.sharding import (
@@ -101,10 +107,11 @@ def sp_prefill(
     counts["prefills"] += 1
     lcfg = local_config(cfg, tp)
     r, n = B // dp, S // sp
-    # This process's shards: a mesh across processes keeps each sp group
-    # within one process (``Mesh``), so each ring runs here whole.
+    # This process's shards, and the (dp, tp) groups it holds a rank of:
+    # a group across processes rings through them all.
     keys = [(d, t, s) for d in range(dp) for t in range(tp) for s in range(sp)
             if mesh.is_local(d, t, s)]
+    groups = sorted({k[:2] for k in keys})
     layers = {k: params.shard(*k)["layers"] for k in keys}
 
     # Per (dp slice, sp rank, device): the block's tokens, pads and RoPE
@@ -146,14 +153,15 @@ def sp_prefill(
                 caches[k][1][layer_id].copy_(vv.transpose(1, 2))
                 kv[k] = (kk.to(torch.float32), vv.to(torch.float32))
         out = {}
-        for d, t in mesh.local_shards():
-            group = [(d, t, s) for s in range(sp)]
+        for d, t in groups:
+            group = [k for k in keys if k[:2] == (d, t)]
             outs = ring_attention_local(
                 [q[k] for k in group], [kv[k][0] for k in group],
                 [kv[k][1] for k in group], sp, causal=True,
                 kv_start=[block(*k)[0] for k in group],
                 attn_softcap=cfg.attn_softcap, scale=cfg.attn_scale,
                 window=_layer_window(cfg, layer_id),
+                ranks=[k[2] for k in group], span=mesh.sp_span(d, t),
             )
             out.update(zip(group, outs))
         del q, kv
@@ -162,8 +170,8 @@ def sp_prefill(
     spec = cache_sharding(mesh, prefill=True)
     cache = {
         name: Sharded(mesh, spec, [
-            [[caches[d, t, s][i] for s in range(sp)] if mesh.is_local(d, t) else None
-             for t in range(tp)] for d in range(dp)
+            [[caches[d, t, s][i] if (d, t, s) in caches else None for s in range(sp)]
+             if (d, t) in groups else None for t in range(tp)] for d in range(dp)
         ])
         for i, name in enumerate(("k", "v"))
     }
@@ -172,20 +180,27 @@ def sp_prefill(
 
 def reshard_cache_for_decode(cache, mesh: Mesh, total_len: int, kv_dtype: str = ""):
     """The sequence-split prefill cache → the decode layout: each (dp, tp)
-    shard's sp blocks gathered onto its sp-rank-0 device
-    (``collectives.all_gather``), padded with zeros to ``total_len``
-    slots; rows stay over dp and heads over tp.
+    shard's sp blocks gathered onto its decode-rank device
+    (``collectives.all_gather``; across processes ``collectives.exchange``
+    over the shard's sp group, every process holding a block taking
+    part), padded with zeros to ``total_len`` slots; rows stay over dp
+    and heads over tp.
 
     ``kv_dtype="int8"``: the gathered, padded cache is quantized into the
     int8 decode layout (``models/transformer.py`` ``_quantize_kv``), as the
     reference quantizes at this boundary: the ring ran on full-precision
     K/V. The reference runs this quantization eagerly, so its scale is a
     true division by 127 (``eager=True``), not the compiled product the
-    prefill's per-chunk quantization computes."""
+    prefill's per-chunk quantization computes. It runs a layer at a time
+    (each (token, head) quantizes alone), so its f32 temporaries are one
+    layer's, not the whole cache's."""
     counts["reshards"] += 1
     dp, tp = mesh.shape[DP], mesh.shape[TP]
 
     def gathered(blocks, d, t):
+        span = mesh.sp_span(d, t)
+        if span is not None:
+            blocks = exchange([b for b in blocks if b is not None], span)
         with device_ctx(mesh.device(d, t)):
             full = all_gather(blocks, dim=3)
             S = full.shape[3]
@@ -195,14 +210,20 @@ def reshard_cache_for_decode(cache, mesh: Mesh, total_len: int, kv_dtype: str = 
             return torch.cat([full, pad], dim=3)
 
     grids = {
-        name: [[gathered(cache[name].parts[d][t], d, t) if mesh.is_local(d, t) else None
-                for t in range(tp)] for d in range(dp)]
+        name: [[None if cells is None else gathered(cells, d, t)
+                for t, cells in enumerate(row)] for d, row in enumerate(cache[name].parts)]
         for name in ("k", "v")
     }
+    def quantized(x):
+        q = torch.empty(x.shape, dtype=torch.int8, device=x.device)
+        scale = torch.empty(x.shape[:-1] + (1,), dtype=torch.float32, device=x.device)
+        for layer in range(x.shape[0]):
+            q[layer], scale[layer] = _quantize_kv(x[layer], eager=True)
+        return q, scale
+
     if kv_dtype == "int8":
         for name in ("k", "v"):
-            q = [[None if x is None else _quantize_kv(x, eager=True) for x in row]
-                 for row in grids[name]]
+            q = [[None if x is None else quantized(x) for x in row] for row in grids[name]]
             grids[name] = [[None if c is None else c[0] for c in row] for row in q]
             grids[name + "s"] = [[None if c is None else c[1] for c in row] for row in q]
     spec = cache_sharding(mesh)

@@ -6,7 +6,9 @@
     python3 chip_smoke.py --profile  # also profile one more chat call
     python3 chip_smoke.py --only paged,cli,batcher,pgen,serve,fleet,mesh,sp,multihost,agree
                                      # device, build and the named phases
-                                     # only (no kernels or ok line)
+                                     # only (no kernels or ok line;
+                                     # multihost_nccl: the two-card pair
+                                     # alone)
     python3 chip_smoke.py --qmm-only # device, build and B5/B6 only: their checks
                                      # and device times (chiprun_out/chip_smoke_qmm.json);
                                      # run from another checkout's root, it times that
@@ -302,12 +304,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    W2 calls to their plain versions and needs the ``dist`` way in every
    round; both children's ids must equal each other and phase mesh's
    (the single-process virtual mesh; computed in this process under
-   ``--only multihost``). ``multihost round`` lines give each process's
-   wall, tok/s, ``dist`` count, peak device memory and weight bytes; the
-   children's launches join the kernels line. Where the machine has two
-   cards a second pair, a card each, serves phase mesh's {"tp": 2} paged
-   round with NCCL between the processes (W3), held to one process's run
-   over both cards; with one card the phase says it did not run;
+   ``--only multihost``). Then phase sp's cases over half of each mesh:
+   70B at 8 layers on {"sp": 2, "tp": 8}, random-8b on {"sp": 2} paged
+   with int8 KV, Llama-3.2-3B on {"sp": 4} at ~16k tokens (two sp ranks
+   a process); process 1 holds sp ranks >= 1 only and decodes there
+   (its first W1, W3-i8 and B2 calls held to the plain versions), the
+   ring's hops cross between the processes (counted, > 0), ids equal
+   across ranks and to phase sp's. Then a ``critique`` pair
+   (``--multihost-cli``: ``python -m adversarial_spec_tpu_torch.cli
+   critique`` on four tpu://random-8b opponents in each child, dp=2 over
+   them): rc 0, equal reports (walls and trace ids masked), ``dist`` > 0,
+   W1 and B2 launched. ``multihost round`` lines give each process's
+   wall, prefill seconds, tok/s, ring hops crossed, ``dist`` count, peak
+   device memory and weight bytes, a ``multihost cli`` line the pair's;
+   the children's launches join the kernels line. Where the machine has
+   two cards a second pair, a card each (also alone: ``--only
+   multihost_nccl``), serves phase mesh's {"tp": 2} paged round and
+   phase sp's {"sp": 2} paged int8 round with NCCL between the processes
+   (W3; the ring's hops over NCCL), held to one process's run over both
+   cards; with one card the phase says it did not run;
 18. agree  — tiny f32 models decoded greedily on the card (kernels) and on
    the CPU (plain versions) give identical tokens: dense generate() with
    speculation on (B2, or B2-i8, must launch), generate(paged=True) (B3,
@@ -345,7 +360,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "adversarial_spec_tpu_torch"
 # The phases ``--only`` runs (each ``phase_<name>(torch)``).
 ONLY_PHASES = ("paged", "cli", "batcher", "pgen", "serve", "fleet", "mesh", "sp", "multihost",
-               "agree")
+               "multihost_nccl", "agree")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per second
 B, HQ, HKV, D, S_SPAN = 4, 32, 8, 128, 9
@@ -4891,6 +4906,33 @@ def phase_mesh(torch) -> dict:
     return report
 
 
+# Phase sp's cases, which phase multihost serves again across processes:
+# (label, registry entry, devices its mesh spans, spec bytes and seed,
+# opponents, kernels that must launch); the 70B entry runs at 8 of its 80
+# layers. Greedy, speculation at its default, 32 new tokens.
+SP_CASES = (
+    ("3b sp=4 dense", dict(alias="sp-3b", family="llama", size="3b", mesh={"sp": 4}), 4,
+     15600, 15, 2, ("decode_attention_mq", "decode_attention_tp")),
+    ("8b sp=2 paged int8 KV", dict(alias="sp-8b-paged-kv8", family="llama", size="8b",
+                                   mesh={"sp": 2}, kv="paged", kv_dtype="int8"), 2,
+     5800, 16, 4, ("paged_decode_attention_tp_int8kv",)),
+    ("70b sp=2 tp=8 dense", dict(alias="sp-70b", family="llama", size="70b",
+                                 mesh={"sp": 2, "tp": 8}), 16,
+     7300, 17, 1, ("decode_attention_tp",)),
+)
+SP_MAX_NEW = 32
+
+
+def sp_requests(alias: str) -> list:
+    """Phase sp's requests of the case whose registry entry is ``alias``."""
+    from adversarial_spec_tpu_torch.engine.types import ChatRequest
+
+    _, entry, _, size, seed, opponents, _ = next(c for c in SP_CASES
+                                                 if c[1]["alias"] == alias)
+    doc = spec_document(size, seed) + "\n\nCritique this spec."
+    return [ChatRequest(f"tpu://{entry['alias']}", p, doc) for p in PERSONAS[:opponents]]
+
+
 def phase_sp(torch) -> dict:
     """The sequence-parallel axis from the user's entry point:
     ``GpuEngine.chat`` on registry aliases with an ``sp`` mesh axis, on
@@ -4913,7 +4955,8 @@ def phase_sp(torch) -> dict:
     seconds, decode tok/s, peak memory, the weight bytes the card holds
     (the sp replicas share one copy), launches and which way each
     collective ran; each engine is dropped and device memory must fall
-    back."""
+    back. Each case's generated ids go to ``MESH_IDS`` (phase multihost
+    holds its sp rounds to them)."""
     import gc
 
     from adversarial_spec_tpu_torch.engine import generate as gen_mod
@@ -4930,7 +4973,7 @@ def phase_sp(torch) -> dict:
     dev = torch.device("cuda")
     report = {"phase": "sp", "cases": [], "checks": []}
     checks = report["checks"]
-    sampling = SamplingParams(max_new_tokens=32, greedy=True, seed=0)
+    sampling = SamplingParams(max_new_tokens=SP_MAX_NEW, greedy=True, seed=0)
     base_mem = torch.cuda.memory_allocated()
 
     def dropped(engine, label):
@@ -5010,6 +5053,8 @@ def phase_sp(torch) -> dict:
         bad = [c.error for c in comps if not c.ok]
         if bad:
             raise RuntimeError(f"sp {label}: chat failed: {bad}")
+        MESH_IDS[label] = [[[int(i) for i in r.tokens[row, : r.n_generated[row]]]
+                            for row in range(len(r.n_generated))] for r in results]
         lm = engine._models[alias]
         mesh = lm.mesh
         n_sp = mesh.shape["sp"]
@@ -5071,52 +5116,42 @@ def phase_sp(torch) -> dict:
         case["sp_over_one_device_prefill"] = case["prefill_s"] / res.prefill_time_s
         return logits[0]
 
-    specs = (
-        registry.ModelSpec(alias="sp-3b", family="llama", size="3b", mesh={"sp": 4}),
-        registry.ModelSpec(alias="sp-8b-paged-kv8", family="llama", size="8b", mesh={"sp": 2},
-                           kv="paged", kv_dtype="int8"),
-        registry.ModelSpec(alias="sp-70b", family="llama", size="70b", mesh={"sp": 2, "tp": 8}),
-    )
-    with temp_registry(*specs):
+    (a, a_entry, a_n, *_, a_must), (b, b_entry, b_n, *_, b_must), \
+        (c, c_entry, c_n, *_, c_must) = SP_CASES
+    with temp_registry(*(registry.ModelSpec(**case[1]) for case in SP_CASES)):
         # (a) Llama-3.2-3B, {"sp": 4}, ~16k tokens.
-        doc = spec_document(15600, 15) + "\n\nCritique this spec."
-        reqs = [ChatRequest("tpu://sp-3b", p, doc) for p in PERSONAS[:2]]
-        engine = GpuEngine(devices=[dev] * 4)
-        calls, logits = sp_round(engine, "sp-3b", reqs, "3b sp=4 dense",
-                                 ("decode_attention_mq", "decode_attention_tp"))
+        engine = GpuEngine(devices=[dev] * a_n)
+        calls, logits = sp_round(engine, a_entry["alias"], sp_requests(a_entry["alias"]), a,
+                                 a_must)
         mesh_logits = logits[0]
         dropped(engine, "3b sp=4")
         report["first_logits_err_3b"] = first_logits_check(
-            "3b sp=4", mesh_logits,
-            single_device_logits("3b sp=4 dense", "llama", "3b", *calls[0]))
+            "3b sp=4", mesh_logits, single_device_logits(a, "llama", "3b", *calls[0]))
 
         # (b) random-8b, {"sp": 2}, paged, int8 KV.
-        doc = spec_document(5800, 16) + "\n\nCritique this spec."
-        reqs = [ChatRequest("tpu://sp-8b-paged-kv8", p, doc) for p in PERSONAS[:4]]
-        engine = GpuEngine(devices=[dev] * 2)
-        calls, logits = sp_round(engine, "sp-8b-paged-kv8", reqs, "8b sp=2 paged int8 KV",
-                                 ("paged_decode_attention_tp_int8kv",))
+        engine = GpuEngine(devices=[dev] * b_n)
+        calls, logits = sp_round(engine, b_entry["alias"], sp_requests(b_entry["alias"]), b,
+                                 b_must)
         mesh_logits = logits[0]
         dropped(engine, "8b sp=2 paged int8")
         prompts, kwargs = calls[0]
         report["first_logits_err_8b"] = first_logits_check(
             "8b sp=2 paged int8", mesh_logits,
-            single_device_logits("8b sp=2 paged int8 KV", "llama", "8b", prompts,
-                                 dict(kwargs, kv_dtype="")))
+            single_device_logits(b, "llama", "8b", prompts, dict(kwargs, kv_dtype="")))
 
         # (c) 70B at 8 of 80 layers, {"sp": 2, "tp": 8}, against {"tp": 8}.
         with depth(8, ("llama", "70b")):
-            doc = spec_document(7300, 17) + "\n\nCritique this spec."
-            engine = GpuEngine(devices=[dev] * 16)
-            _, logits = sp_round(engine, "sp-70b", [ChatRequest("tpu://sp-70b", PERSONAS[0], doc)],
-                                 "70b sp=2 tp=8 dense", ("decode_attention_tp",))
+            reqs = sp_requests(c_entry["alias"])
+            engine = GpuEngine(devices=[dev] * c_n)
+            _, logits = sp_round(engine, c_entry["alias"], reqs, c, c_must)
             mesh_logits = logits[0]
             dropped(engine, "70b sp=2 tp=8")
             engine = GpuEngine(devices=[dev] * 8)
             with capturing_logits() as tp_logits:
-                (c,) = engine.chat([ChatRequest("tpu://random-70b", PERSONAS[0], doc)], sampling)
-            if not c.ok:
-                raise RuntimeError(f"sp 70b tp=8 reference round failed: {c.error}")
+                (comp,) = engine.chat([ChatRequest("tpu://random-70b", reqs[0].system,
+                                                   reqs[0].user)], sampling)
+            if not comp.ok:
+                raise RuntimeError(f"sp 70b tp=8 reference round failed: {comp.error}")
             dropped(engine, "70b tp=8")
             report["first_logits_err_70b"] = first_logits_check(
                 "70b sp=2 tp=8", mesh_logits, tp_logits[0])
@@ -5187,14 +5222,30 @@ MULTIHOST_ROUNDS = (
     ("8b dp=2 dense", "mesh-dp2", 2, True, ("decode_attention_mq", "decode_attention_tp")),
     ("8b dp=2 tp=2 paged", "mesh-dp2tp2-paged", 4, True, ("paged_decode_attention_dp_tp",)),
 )
+# Phase sp's cases served again across the two processes, (c), (b), (a):
+# each process holds half of each mesh, so process 1 holds sp ranks >= 1
+# only and decodes there (W1, W3 on int8 KV, B2), and the ring's hops
+# cross between the processes (twice a hop on (a)'s {"sp": 4}).
+MULTIHOST_SP_ROUNDS = tuple((label, entry["alias"], n, True, must)
+                            for label, entry, n, *_, must in reversed(SP_CASES))
 MULTIHOST_NCCL_ROUNDS = (
     ("8b tp=2 paged, a card a process", "mesh-tp2-paged", 2, True,
      ("paged_decode_attention_tp",)),
 )
+MULTIHOST_NCCL_SP_ROUNDS = (
+    ("8b sp=2 paged int8 KV, a card a process", "sp-8b-paged-kv8", 2, True,
+     ("paged_decode_attention_tp_int8kv",)),
+)
 # The wrappers (and B2) whose first call each pair's children hold to the
-# plain versions: W1, B2, W2 on the shared card; W3 on two cards.
+# plain versions: W1, B2, W2 on the shared card (W1, W3 on int8 KV and B2
+# in the sp rounds); W3 on two cards.
 MULTIHOST_HOLD = ("decode_attention_tp", "decode_attention_mq", "paged_decode_attention_dp_tp")
+MULTIHOST_SP_HOLD = ("decode_attention_tp", "paged_decode_attention_tp", "decode_attention_mq")
 MULTIHOST_NCCL_HOLD = ("paged_decode_attention_tp",)
+# The CLI pair: ``critique`` launched on both processes; random-8b has no
+# mesh axis, so it runs dp=2 over them (W1, B2).
+MULTIHOST_CLI_ARGV = ("critique", "--models", ",".join(["tpu://random-8b"] * 4), "--greedy",
+                      "--max-new-tokens", "64", "--json")
 MULTIHOST_SPECS = (  # the 8B rounds' registry entries (phase mesh's)
     dict(alias="mesh-dp2", family="llama", size="8b", mesh={"dp": 2}),
     dict(alias="mesh-tp2-paged", family="llama", size="8b", mesh={"tp": 2}, kv="paged"),
@@ -5205,13 +5256,15 @@ MULTIHOST_SPECS = (  # the 8B rounds' registry entries (phase mesh's)
 
 def multihost_rounds(torch, rounds, devices, hold: tuple = ()) -> dict:
     """Phase multihost's ``rounds`` through ``GpuEngine.chat`` (four
-    opponents, phase mesh's ~3 KB spec, 64 new tokens, greedy), each
-    engine over ``devices(n)`` for a round whose mesh spans ``n``
-    devices: the whole mesh in one process, or this process's part of
-    it. ``hold`` (a child of the launch): each round also needs the
-    ``dist`` way, and the first call of each of these wrappers (and B2)
-    is recomputed by its plain version (a wrapper's output gathered
-    across the processes: both run this at once)."""
+    opponents, phase mesh's ~3 KB spec, 64 new tokens, greedy; an sp
+    round, phase sp's requests), each engine over ``devices(n)`` for a
+    round whose mesh spans ``n`` devices: the whole mesh in one process,
+    or this process's part of it. ``hold`` (a child of the launch): each
+    round also needs the ``dist`` way (an sp round, ring hops that
+    crossed processes too), and the first call of each of these wrappers
+    (and B2) is recomputed by its plain version (a wrapper's output
+    gathered across the processes that decode where this one does: each
+    runs this at once)."""
     import gc
 
     from adversarial_spec_tpu_torch.engine import registry
@@ -5221,9 +5274,11 @@ def multihost_rounds(torch, rounds, devices, hold: tuple = ()) -> dict:
     from adversarial_spec_tpu_torch.models import transformer
     from adversarial_spec_tpu_torch.ops import decode_attention as da
     from adversarial_spec_tpu_torch.ops import paged_attention as pa
+    from adversarial_spec_tpu_torch.parallel import ring
 
     doc = spec_document(3000, 14) + "\n\nCritique this spec."
     sp = SamplingParams(max_new_tokens=64, greedy=True, seed=0)
+    sp_aliases = {case[1]["alias"] for case in SP_CASES}
     out = {"rounds": [], "checks": [], "first_call_err": {}}
     engines: dict = {}
     plain = {"decode_attention_tp": ("W1", da.decode_attention_tp_plain),
@@ -5243,6 +5298,7 @@ def multihost_rounds(torch, rounds, devices, hold: tuple = ()) -> dict:
         return engines[alias]
 
     specs = [registry.ModelSpec(**kw) for kw in MULTIHOST_SPECS]
+    specs += [registry.ModelSpec(**case[1]) for case in SP_CASES]
     try:
         with temp_registry(*specs), depth(8, ("llama", "70b")), contextlib.ExitStack() as stack:
             for name, store in stores.items():
@@ -5250,15 +5306,24 @@ def multihost_rounds(torch, rounds, devices, hold: tuple = ()) -> dict:
             for label, alias, n, spec_on, must in rounds:
                 spec_mod.configure(enabled=spec_on)
                 engine = engine_for(alias, n)
-                line = mesh_round(torch, engine, [
-                    ChatRequest(f"tpu://{alias}", p, doc) for p in PERSONAS[:4]], sp, label, must)
+                on_sp = alias in sp_aliases
+                reqs = (sp_requests(alias) if on_sp
+                        else [ChatRequest(f"tpu://{alias}", p, doc) for p in PERSONAS[:4]])
+                ring.reset_counts()
+                line = mesh_round(torch, engine, reqs, SamplingParams(
+                    max_new_tokens=SP_MAX_NEW, greedy=True, seed=0) if on_sp else sp, label, must)
                 line["ids"] = MESH_IDS[label]
+                line["ring"] = dict(ring.counts)
                 mesh = engine._models[alias].mesh
-                line["dist_way"] = ("nccl" if mesh.members().nccl else "gloo") \
+                line["decode_rank"] = mesh.decode_rank
+                line["dist_way"] = ("nccl" if mesh.members(everyone=True).nccl else "gloo") \
                     if mesh.multiprocess else None
                 if hold and line["collectives"]["dist"] <= 0:
                     raise RuntimeError(f"multihost {label}: no collective took the dist way: "
                                        f"{line['collectives']}")
+                if hold and on_sp and ring.counts["crossed"] <= 0:
+                    raise RuntimeError(f"multihost {label}: no ring hop crossed processes: "
+                                       f"{line['ring']}")
                 out["rounds"].append(line)
     finally:
         spec_mod.configure(enabled=True)
@@ -5269,6 +5334,8 @@ def multihost_rounds(torch, rounds, devices, hold: tuple = ()) -> dict:
         torch.cuda.empty_cache()
     for name, store in stores.items():
         short, fn = plain[name]
+        if store and store[0][1].get("k_scale") is not None:
+            short += "-i8"
         if name != "decode_attention_mq":
             out["first_call_err"][short] = held_first_call(torch, store, fn, short,
                                                            out["checks"])
@@ -5282,12 +5349,27 @@ def multihost_rounds(torch, rounds, devices, hold: tuple = ()) -> dict:
     return out
 
 
+def multihost_groups(torch, groups, devices) -> dict:
+    """``multihost_rounds`` of each ``(rounds, hold)`` of ``groups`` in
+    turn (each group holds its own first calls), as one report."""
+    out = {"rounds": [], "checks": [], "first_call_err": {}}
+    for rounds, hold in groups:
+        part = multihost_rounds(torch, rounds, devices, hold)
+        out["rounds"] += part["rounds"]
+        out["checks"] += part["checks"]
+        sp = any(r[1] in {case[1]["alias"] for case in SP_CASES} for r in rounds)
+        out["first_call_err"].update({f"sp {k}" if sp else k: v
+                                      for k, v in part["first_call_err"].items()})
+    return out
+
+
 def multihost_child(out_path: str, nccl: bool) -> int:
     """One process of phase multihost's launch (``--multihost-child OUT``,
-    the env contract set by the parent): ``MULTIHOST_ROUNDS`` over this
-    process's half of each mesh on cuda:0, or with ``--nccl``
-    ``MULTIHOST_NCCL_ROUNDS`` on a card of its own (cuda:<rank>); results
-    to ``OUT``."""
+    the env contract set by the parent): ``MULTIHOST_ROUNDS`` and
+    ``MULTIHOST_SP_ROUNDS`` over this process's half of each mesh on
+    cuda:0, or with ``--nccl`` ``MULTIHOST_NCCL_ROUNDS`` and
+    ``MULTIHOST_NCCL_SP_ROUNDS`` on a card of its own (cuda:<rank>);
+    results to ``OUT``."""
     import torch
 
     sys.path.insert(0, HERE)
@@ -5301,12 +5383,13 @@ def multihost_child(out_path: str, nccl: bool) -> int:
     rank, processes = mesh_mod.process_index(), mesh_mod.process_count()
     if nccl:
         torch.cuda.set_device(rank)
-        out = multihost_rounds(torch, MULTIHOST_NCCL_ROUNDS,
-                               lambda n: [torch.device("cuda", rank)] * (n // processes),
-                               MULTIHOST_NCCL_HOLD)
+        out = multihost_groups(torch, [(MULTIHOST_NCCL_ROUNDS, MULTIHOST_NCCL_HOLD),
+                                       (MULTIHOST_NCCL_SP_ROUNDS, MULTIHOST_NCCL_HOLD)],
+                               lambda n: [torch.device("cuda", rank)] * (n // processes))
     else:
-        out = multihost_rounds(torch, MULTIHOST_ROUNDS,
-                               lambda n: [torch.device("cuda")] * (n // processes), MULTIHOST_HOLD)
+        out = multihost_groups(torch, [(MULTIHOST_ROUNDS, MULTIHOST_HOLD),
+                                       (MULTIHOST_SP_ROUNDS, MULTIHOST_SP_HOLD)],
+                               lambda n: [torch.device("cuda")] * (n // processes))
     out.update(rank=rank, processes=processes, seconds=time.monotonic() - t)
     with open(out_path, "w") as f:
         json.dump(out, f)
@@ -5314,13 +5397,14 @@ def multihost_child(out_path: str, nccl: bool) -> int:
     return 0
 
 
-def launch_pair(rounds, want: dict, tag: str, way: str) -> dict:
-    """Two children of this script on 127.0.0.1 with the reference's env
-    contract (``tag`` names their files under chiprun_out/, ``--nccl``
-    when ``tag`` is "nccl"); fails unless both exit 0 within 600 s, both
-    give the same ids in every round, equal to ``want``'s, every round's
-    collectives across the processes took ``way``, and each process
-    launched each round's kernels. Returns the pair's report."""
+def run_pair(tag: str, child: list, env_for=lambda rank: {}, cwd_for=lambda rank: HERE) -> list:
+    """Two children of this script (``child`` their arguments, the
+    output path appended; ``env_for(rank)`` added to the environment,
+    ``cwd_for(rank)`` the working directory) on 127.0.0.1 with the
+    reference's env contract,
+    their logs and results under chiprun_out/ as ``multihost_{tag}_rank*``;
+    fails unless both exit 0 within 600 s (one that fails ends its peer
+    at once). Returns both children's results, by rank."""
     import socket
 
     out_dir = os.path.join(HERE, "chiprun_out")
@@ -5329,17 +5413,17 @@ def launch_pair(rounds, want: dict, tag: str, way: str) -> dict:
         sock.bind(("127.0.0.1", 0))
         port = sock.getsockname()[1]
     path = functools.partial(os.path.join, out_dir)
-    t = time.monotonic()
     procs, logs = [], []
     for rank in range(2):
         env = dict(os.environ, PYTHONUNBUFFERED="1", ADVSPEC_DIST_TIMEOUT_S="300",
                    JAX_COORDINATOR_ADDRESS=f"127.0.0.1:{port}", JAX_NUM_PROCESSES="2",
-                   JAX_PROCESS_ID=str(rank))
+                   JAX_PROCESS_ID=str(rank), **env_for(rank))
         logs.append(open(path(f"multihost_{tag}_rank{rank}.log"), "w"))
         procs.append(subprocess.Popen(
-            [sys.executable, os.path.abspath(__file__), "--multihost-child",
-             path(f"multihost_{tag}_rank{rank}.json"), *(["--nccl"] if tag == "nccl" else [])],
-            env=env, cwd=HERE, stdout=logs[-1], stderr=subprocess.STDOUT))
+            [sys.executable, os.path.abspath(__file__), *child,
+             path(f"multihost_{tag}_rank{rank}.json")],
+            env=env, cwd=cwd_for(rank), stdout=logs[-1],
+            stderr=subprocess.STDOUT))
     try:
         deadline = time.monotonic() + 600
         while any(p.poll() is None for p in procs):
@@ -5355,8 +5439,6 @@ def launch_pair(rounds, want: dict, tag: str, way: str) -> dict:
             p.wait()
         for log in logs:
             log.close()
-    report = {"children_seconds": time.monotonic() - t, "checks": [], "rounds": [],
-              "launches": {}, "shards": {}}
     for rank, p in enumerate(procs):
         if p.returncode != 0:
             with open(path(f"multihost_{tag}_rank{rank}.log")) as f:
@@ -5366,6 +5448,19 @@ def launch_pair(rounds, want: dict, tag: str, way: str) -> dict:
     for rank in range(2):
         with open(path(f"multihost_{tag}_rank{rank}.json")) as f:
             kids.append(json.load(f))
+    return kids
+
+
+def launch_pair(rounds, want: dict, tag: str, way: str) -> dict:
+    """``run_pair`` of ``--multihost-child`` (``--nccl`` when ``tag`` is
+    "nccl"); fails unless both give the same ids in every round, equal
+    to ``want``'s, every round's collectives across the processes took
+    ``way``, and each process launched each round's kernels. Returns the
+    pair's report."""
+    t = time.monotonic()
+    kids = run_pair(tag, ["--multihost-child", *(["--nccl"] if tag == "nccl" else [])])
+    report = {"children_seconds": time.monotonic() - t, "checks": [], "rounds": [],
+              "launches": {}, "shards": {}}
     for i, (label, _alias, _n, _spec_on, must) in enumerate(rounds):
         lines = [k["rounds"][i] for k in kids]
         ids = [ln["ids"] for ln in lines]
@@ -5389,8 +5484,12 @@ def launch_pair(rounds, want: dict, tag: str, way: str) -> dict:
         report["rounds"].append({
             "round": label, "mesh": lines[0]["mesh"], "dist_way": way,
             "devices": [ln["devices"] for ln in lines],
+            "decode_rank": [ln["decode_rank"] for ln in lines],
             "chat_wall_s": [ln["chat_wall_s"] for ln in lines],
+            "prefill_s": [ln["prefill_s"] for ln in lines],
             "decode_tokens_per_s": [ln["decode_tokens_per_s"] for ln in lines],
+            "ring_hops": [ln["ring"]["hops"] for ln in lines],
+            "ring_hops_crossed": [ln["ring"]["crossed"] for ln in lines],
             "dist": [ln["collectives"]["dist"] for ln in lines],
             "peak_memory_bytes": [ln["max_memory_allocated_bytes"] for ln in lines],
             "weight_bytes_per_process": [ln["weight_bytes_per_chip"] for ln in lines],
@@ -5404,6 +5503,118 @@ def launch_pair(rounds, want: dict, tag: str, way: str) -> dict:
     return report
 
 
+def masked_report(doc):
+    """A ``critique --json`` report without what reads a clock: every
+    ``*_s``, ``*_ms`` and ``*_per_sec`` field, the span walls and the
+    trace and span ids."""
+    if isinstance(doc, dict):
+        return {k: masked_report(v) for k, v in doc.items()
+                if not (k.endswith(("_s", "_ms", "_per_sec"))
+                        or k in ("spans", "trace_id", "span_id"))}
+    if isinstance(doc, list):
+        return [masked_report(v) for v in doc]
+    return doc
+
+
+def multihost_cli_child(out_path: str) -> int:
+    """One process of phase multihost's CLI pair (``--multihost-cli OUT``,
+    the env contract set by the parent): ``python -m
+    adversarial_spec_tpu_torch.cli`` with ``MULTIHOST_CLI_ARGV`` run in
+    this process as ``-m`` runs it (``runpy``), phase mesh's ~3 KB spec
+    on its standard input; its exit code, standard output, collectives,
+    launches, wall and peak device memory to ``OUT``."""
+    import io
+    import runpy
+
+    import torch
+
+    sys.path.insert(0, HERE)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+    from adversarial_spec_tpu_torch.parallel import collectives
+    from adversarial_spec_tpu_torch.parallel import mesh as mesh_mod
+
+    argv, stdin = sys.argv, sys.stdin
+    sys.argv = ["adversarial_spec_tpu_torch.cli", *MULTIHOST_CLI_ARGV]
+    sys.stdin = io.StringIO(spec_document(3000, 14) + "\n\nCritique this spec.")
+    out = io.StringIO()
+    t = time.monotonic()
+    try:
+        with contextlib.redirect_stdout(out):
+            runpy.run_module("adversarial_spec_tpu_torch.cli", run_name="__main__",
+                             alter_sys=True)
+        code = 0
+    except SystemExit as e:
+        code = e.code if isinstance(e.code, int) else int(e.code is not None)
+    finally:
+        sys.argv, sys.stdin = argv, stdin
+    launched, served = mesh_counts(da, pa)
+    result = {"rc": code, "stdout": out.getvalue(), "wall_s": time.monotonic() - t,
+              "rank": mesh_mod.process_index(), "collectives": dict(collectives.counts),
+              "launches": {k: v for k, v in launched.items() if v},
+              "shards": {k: v for k, v in {**da.mesh_shards, **pa.mesh_shards}.items() if v},
+              "max_memory_allocated_bytes": torch.cuda.max_memory_allocated()}
+    with open(out_path, "w") as f:
+        json.dump(result, f)
+    if torch.distributed.is_initialized():
+        torch.distributed.destroy_process_group()
+    return 0
+
+
+def launch_cli_pair() -> dict:
+    """``run_pair`` of ``--multihost-cli``, each child with its own HOME,
+    sessions and working directory under build/: both must exit 0 with
+    equal ``--json`` reports (``masked_report``), every opponent
+    answered, the ``dist`` way taken, W1 and B2 launched by each."""
+    root = tempfile.mkdtemp(prefix="multihost-cli-", dir=os.path.join(HERE, "build"))
+    try:
+        homes = [os.path.join(root, f"rank{rank}") for rank in range(2)]
+        for home in homes:
+            os.makedirs(home)
+        t = time.monotonic()
+        kids = run_pair("cli", ["--multihost-cli"],
+                        lambda rank: {"HOME": homes[rank],
+                                      "ADVSPEC_SESSIONS_DIR": os.path.join(homes[rank], "sessions")},
+                        lambda rank: homes[rank])
+        seconds = time.monotonic() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    bad = [(k["rank"], k["rc"]) for k in kids if k["rc"] != 0]
+    if bad:
+        raise RuntimeError(f"multihost cli: critique exited non-zero on (rank, rc) {bad}")
+    docs = [json.loads(k["stdout"]) for k in kids]
+    masked = [masked_report(d) for d in docs]
+    if masked[0] != masked[1]:
+        raise RuntimeError("multihost cli: the two processes' reports differ")
+    errors = [r["error"] for d in docs for r in d["results"] if r["error"] is not None]
+    if errors:
+        raise RuntimeError(f"multihost cli: opponents failed: {errors}")
+    for k in kids:
+        if k["collectives"]["dist"] <= 0:
+            raise RuntimeError(f"multihost cli: rank {k['rank']} never took the dist way: "
+                               f"{k['collectives']}")
+        missing = [m for m in ("decode_attention_tp", "decode_attention_mq")
+                   if not k["launches"].get(m)]
+        if missing:
+            raise RuntimeError(f"multihost cli: rank {k['rank']} never launched {missing}")
+    line = {"argv": list(MULTIHOST_CLI_ARGV), "children_seconds": seconds,
+            "rc": [k["rc"] for k in kids], "reports_equal": True,
+            "wall_s": [k["wall_s"] for k in kids],
+            "output_tokens": [r["output_tokens"] for r in docs[0]["results"]],
+            "dist": [k["collectives"]["dist"] for k in kids],
+            "peak_memory_bytes": [k["max_memory_allocated_bytes"] for k in kids],
+            "launches": [k["launches"] for k in kids]}
+    emit({"phase": "multihost cli", **line})
+    line["launches"], line["shards"] = {}, {}
+    for k in kids:
+        for key in ("launches", "shards"):
+            for name, n in k[key].items():
+                line[key][name] = line[key].get(name, 0) + n
+    return line
+
+
 def phase_multihost(torch) -> dict:
     """The launch one process a host from the user's entry point: two
     child processes of this script on 127.0.0.1 with the reference's env
@@ -5415,36 +5626,50 @@ def phase_multihost(torch) -> dict:
     four shards a process, speculation on (B2, W1 in the tail) then off
     (W1 every step); (b) random-8b at full width and depth on {"dp": 2},
     one shard a process, speculation on; (c) random-8b on {"dp": 2,
-    "tp": 2} paged (W2). Each child holds its first W1, B2 and W2 calls
-    to their plain versions and needs the ``dist`` way in every round;
-    both children's ids must be identical, and equal to the
-    single-process virtual mesh's (phase mesh's rounds, or computed here
-    under ``--only``). Each child's peak device memory a round and its
-    seconds are recorded; their launches join the kernels line. Where the
-    machine has two cards, a second pair, a card each, serves phase
-    mesh's {"tp": 2} paged round with NCCL between the processes (W3 held
-    to its plain version), held to one process's run over both cards;
-    with one card the phase says it did not run. A child that fails, or a
-    peer that never comes, fails the phase."""
+    "tp": 2} paged (W2). Then phase sp's cases over half of each mesh
+    (``MULTIHOST_SP_ROUNDS``): 70B at 8 layers on {"sp": 2, "tp": 8},
+    random-8b on {"sp": 2} paged with int8 KV, Llama-3.2-3B on {"sp": 4}
+    at ~16k tokens; process 1 holds sp ranks >= 1 only and decodes
+    there, and the ring's hops cross between the processes. Each child
+    holds its first W1, B2 and W2 calls, and in the sp rounds its first
+    W1, W3 (int8 KV) and B2 calls, to their plain versions, and needs
+    the ``dist`` way in every round (and hops that crossed in every sp
+    round); both children's ids must be identical, and equal to the
+    single-process virtual mesh's (phase mesh's and phase sp's rounds,
+    or computed here under ``--only``). Each child's peak device memory a
+    round and its seconds are recorded; their launches join the kernels
+    line. Then the CLI pair (``launch_cli_pair``): ``critique`` on four
+    tpu://random-8b opponents launched on both processes (dp=2 over
+    them), equal reports. Where the machine has two cards, a second pair,
+    a card each, serves phase mesh's {"tp": 2} paged round and phase
+    sp's {"sp": 2} paged int8 round with NCCL between the processes (W3
+    held to its plain version), held to one process's run over both
+    cards; with one card the phase says it did not run. A child that
+    fails, or a peer that never comes, fails the phase."""
     import gc
 
     report = {"phase": "multihost", "processes": 2}
-    want = {label: MESH_IDS.get(label) for label, *_ in MULTIHOST_ROUNDS}
-    if any(v is None for v in want.values()):
-        t = time.monotonic()
-        ref = multihost_rounds(torch, MULTIHOST_ROUNDS, lambda n: [torch.device("cuda")] * n)
-        want = {r["round"]: r["ids"] for r in ref["rounds"]}
-        report["reference_seconds"] = time.monotonic() - t
+    cuda = lambda n: [torch.device("cuda")] * n  # noqa: E731
+    want: dict = {}
+    for rounds in (MULTIHOST_ROUNDS, MULTIHOST_SP_ROUNDS):
+        got = {label: MESH_IDS.get(label) for label, *_ in rounds}
+        if any(v is None for v in got.values()):
+            t = time.monotonic()
+            ref = multihost_rounds(torch, rounds, cuda)
+            got = {r["round"]: r["ids"] for r in ref["rounds"]}
+            report["reference_seconds"] = report.get("reference_seconds", 0.0) \
+                + time.monotonic() - t
+        want.update(got)
     gc.collect()
     torch.cuda.empty_cache()
-    report.update(launch_pair(MULTIHOST_ROUNDS, want, "shared", "gloo"))
+    report.update(launch_pair(MULTIHOST_ROUNDS + MULTIHOST_SP_ROUNDS, want, "shared", "gloo"))
+    cli = launch_cli_pair()
+    for key in ("launches", "shards"):
+        for k, n in cli.pop(key).items():
+            report[key][k] = report[key].get(k, 0) + n
+    report["cli_pair"] = cli
     if torch.cuda.device_count() >= 2:
-        ref = multihost_rounds(torch, MULTIHOST_NCCL_ROUNDS,
-                               lambda n: [torch.device("cuda", i) for i in range(n)])
-        gc.collect()
-        torch.cuda.empty_cache()
-        pair = launch_pair(MULTIHOST_NCCL_ROUNDS,
-                           {r["round"]: r["ids"] for r in ref["rounds"]}, "nccl", "nccl")
+        pair = phase_multihost_nccl(torch)
         for key in ("launches", "shards"):
             for k, n in pair[key].items():
                 report[key][k] = report[key].get(k, 0) + n
@@ -5457,10 +5682,32 @@ def phase_multihost(torch) -> dict:
     return report
 
 
+def phase_multihost_nccl(torch) -> dict:
+    """Phase multihost's pair on two cards, a card a process (run by
+    phase multihost where the machine has two cards; alone under
+    ``--only multihost_nccl``): phase mesh's {"tp": 2} paged round (W3)
+    and phase sp's {"sp": 2} paged int8 round (the ring's hops over
+    NCCL), held to one process's run over both cards."""
+    import gc
+
+    if torch.cuda.device_count() < 2:
+        raise RuntimeError("multihost_nccl needs two cards")
+    two = lambda n: [torch.device("cuda", i) for i in range(n)]  # noqa: E731
+    ref = multihost_groups(torch, [(MULTIHOST_NCCL_ROUNDS, ()),
+                                   (MULTIHOST_NCCL_SP_ROUNDS, ())], two)
+    gc.collect()
+    torch.cuda.empty_cache()
+    pair = launch_pair(MULTIHOST_NCCL_ROUNDS + MULTIHOST_NCCL_SP_ROUNDS,
+                       {r["round"]: r["ids"] for r in ref["rounds"]}, "nccl", "nccl")
+    return {"phase": "multihost_nccl", **pair, "card": card()}
+
+
 def main(argv: list[str]) -> int:
     t_start = time.monotonic()
     if "--multihost-child" in argv:
-        return multihost_child(argv[argv.index("--multihost-child") + 1], "--nccl" in argv)
+        return multihost_child(argv[-1], "--nccl" in argv)
+    if "--multihost-cli" in argv:
+        return multihost_cli_child(argv[-1])
     quick = "--quick" in argv
     qmm_only = "--qmm-only" in argv
     only = []
@@ -5633,7 +5880,8 @@ def main(argv: list[str]) -> int:
         # ring prefill, then W1 / W3 (B3-i8) decode.
         spp = run("sp", phase_sp, torch)
         # The multi-process launch: two processes on the card, each
-        # serving its half of phase mesh's rounds (W1, B2, W2).
+        # serving its half of phase mesh's rounds (W1, B2, W2) and of
+        # phase sp's (W1, W3 on int8 KV, B2), then a critique pair.
         mh = run("multihost", phase_multihost, torch)
         for ph in (bt, pgen, sv, fl, ms, spp, mh):
             for k, n in ph["launches"].items():
