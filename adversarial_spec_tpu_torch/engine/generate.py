@@ -52,8 +52,14 @@ shapes, because the speculative loop's fit test depends on them:
   state agree first: an unseeded call takes process 0's seed, and the
   deadline fires when it has fired on any process.
 
-The host drives every step (PyTorch runs eagerly), so the early-exit
-checks read one flag per step.
+Decode runs the reference's four chunk loops (``decode_chunk_steps``
+here, the speculative rounds and the rowwise tail in
+engine/speculative.py, the batcher's paged chunk in engine/scheduler.py)
+as masked steps over a carry on the device (``engine/device_loop.py``):
+nothing inside a chunk is read on the host, a copy of the exit flag is
+polled every ``device_loop.SUB_CHUNK`` steps, and the host reads the
+state between chunks, where the reference's host does. On one card each
+step replays a CUDA graph.
 """
 
 from __future__ import annotations
@@ -66,6 +72,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from adversarial_spec_tpu_torch.engine import device_loop
 from adversarial_spec_tpu_torch.engine import prefix_cache as prefix_mod
 from adversarial_spec_tpu_torch.engine import spec as spec_cfg_mod
 from adversarial_spec_tpu_torch.engine.kvcache import (
@@ -137,13 +144,15 @@ def pad_batch(
 
 
 def _sample_step(
-    logits, generator, finished, out_buf, step, eos_ids, *, greedy, top_k,
-    temperature, top_p, use_top_p=True,
+    logits, generator, finished, out_buf, step, eos_ids, *, greedy,
+    top_k, temperature, top_p, use_top_p=True, run=None,
 ):
     """Per-decode-step tail: sample, record EOS (the EOS token itself is
     kept; finished rows emit 0 thereafter), write output slot ``step``
-    (clamped to the buffer, as the reference's update clamps). Mirrored
-    by the emission logic of engine/speculative.py."""
+    (an int, or the loop's [] counter on the device; clamped to the
+    buffer, as the reference's update clamps) unless the step is past
+    its loop's exit (``run`` [] False). Mirrored by the emission logic of
+    engine/speculative.py."""
     nxt = sample_tokens(
         logits,
         generator,
@@ -153,9 +162,15 @@ def _sample_step(
         top_p=top_p,
         use_top_p=use_top_p,
     )
-    is_eos = torch.isin(nxt, eos_ids)
+    is_eos = (nxt[:, None] == eos_ids[None, :]).any(dim=-1)
     nxt = torch.where(finished, 0, nxt)
-    out_buf[:, min(step, out_buf.shape[1] - 1)] = nxt
+    # The clamped slot of every row, gathered and scattered by a [B, 1]
+    # index: no host read of a device counter.
+    step = torch.as_tensor(step, device=out_buf.device)
+    idx = torch.clamp(step, max=out_buf.shape[1] - 1).expand(out_buf.shape[0], 1)
+    if run is not None:
+        nxt = torch.where(run, nxt, out_buf.gather(1, idx)[:, 0])
+    out_buf.scatter_(1, idx, nxt[:, None])
     return nxt, finished | is_eos
 
 
@@ -203,7 +218,7 @@ def decode_chunk_steps(
     pad_lens: torch.Tensor,  # [B]
     finished: torch.Tensor,  # [B] bool
     out_buf: torch.Tensor,  # [B, max_new], written in place
-    start_step: int,
+    step: torch.Tensor,  # [] int64: decode step at chunk entry
     stop_at: int,
     eos_ids: torch.Tensor,
     generator: torch.Generator | None,
@@ -215,25 +230,40 @@ def decode_chunk_steps(
     greedy: bool,
     top_k: int,
     use_top_p: bool = True,
+    loop: device_loop.Loop | None = None,
 ):
-    """Up to ``chunk`` shared-slot single-token steps; stops early once
-    every row is finished. Returns (cur, finished, step)."""
-    T = cache["k"].shape[3]
+    """Up to ``chunk`` shared-slot single-token steps, the reference's
+    ``while_loop``: it leaves once every row is finished or the step
+    reaches ``min(start + chunk, stop_at, max_new)``. The carry (``cur``,
+    ``finished``, ``step``) lives in ``loop``'s buffers on the device, and
+    nothing inside the chunk reads it on the host (``engine/device_loop.py``).
+    Returns (cur, finished, step): ``loop``'s buffers, as the reference's
+    loop leaves them."""
+    B, T = cur.shape[0], cache["k"].shape[3]
+    max_new = out_buf.shape[1]
     dev = cur.device
-    slots = torch.arange(T, device=dev)[None, :]
-    kv_base = slots >= pad_lens[:, None]
-    bound = min(start_step + chunk, stop_at, out_buf.shape[1])
-    step = start_step
-    while step < bound and not bool(finished.all()):
+    if loop is None:
+        loop = device_loop.Loop(dev)
+    cur = loop.carry("cur", cur)
+    finished = loop.carry("finished", finished)
+    step = loop.carry("step", step)
+    bound = loop.carry("bound", torch.clamp(step + chunk, max=min(stop_at, max_new)))
+
+    def cond():
+        return (step < bound) & ~finished.all()
+
+    def body():
+        run = loop.begin()
         # ``cur`` is the token at out index step-1, i.e. sequence slot
         # prompt_len + step - 1.
-        cache_index = prompt_len + step - 1
-        positions = (cache_index - pad_lens)[:, None]
-        kv_valid = kv_base & (slots <= cache_index)
+        cache_index = (prompt_len + step - 1).expand(B)
+        slots = torch.arange(T, device=dev)[None, :]
+        kv_valid = (slots >= pad_lens[:, None]) & (slots <= cache_index[:, None])
         logits = forward(
-            params, cfg, cur[:, None], positions, cache, cache_index, kv_valid
+            params, cfg, cur[:, None], (cache_index - pad_lens)[:, None], cache,
+            cache_index, kv_valid, write_mask=run.expand(B),
         )
-        cur, finished = _sample_step(
+        nxt, now_finished = _sample_step(
             logits[:, 0],
             generator,
             finished,
@@ -245,8 +275,18 @@ def decode_chunk_steps(
             temperature=temperature,
             top_p=top_p,
             use_top_p=use_top_p,
+            run=run,
         )
-        step += 1
+        cur.copy_(torch.where(run, nxt, cur))
+        finished.copy_(torch.where(run, now_finished, finished))
+        step.add_(run.long())
+        loop.end(cond())
+
+    loop.end(cond())
+    key = ("decode_chunk_steps", B, T, prompt_len, str(cache["k"].dtype), "ks" in cache,
+           greedy, top_k, use_top_p, temperature, top_p,
+           device_loop.ptrs(cache["k"], out_buf, pad_lens, eos_ids))
+    loop.run(body, chunk, key, () if greedy else (generator,))
     return cur, finished, step
 
 
@@ -415,6 +455,7 @@ def generate(
     device: str | torch.device | None = None,
     kv_dtype: str = "",
     mesh: Mesh | None = None,
+    graph_pool=None,
 ) -> GenerateResult:
     """End-to-end batched generation on ``device`` (default ``cuda``;
     ``params`` must already live there).
@@ -436,6 +477,10 @@ def generate(
     ``mesh``: a multi-device mesh, with ``params`` the ``MeshParams``
     placed on it; the round's global state lives on the mesh's
     controller (``device`` is ignored).
+
+    On one card (and a virtual mesh on one card) the decode loops' steps
+    replay CUDA graphs (``engine/device_loop.py``) captured in the graph
+    memory pool ``graph_pool`` (None: a pool of this call's own).
     """
     n_real = len(prompt_ids)
     on_mesh = mesh is not None and mesh.size > 1
@@ -581,9 +626,22 @@ def generate(
     out_buf = torch.zeros((B, max_new), dtype=torch.int64, device=device)
     out_buf[:, 0] = first
     finished = torch.isin(first, eos)
-    cur = first
-    step = 1
+    cur = first.clone()
+    step = 1  # the host's copy, read between chunks
     timed_out = False
+    # The decode loops' carries and, on one card, their CUDA graphs: one
+    # set a call, since a graph holds this call's cache and buffers.
+    graphs = (
+        device_loop.Graphs(graph_pool)
+        if device_loop.graphable(device, mesh if on_mesh else None)
+        else None
+    )
+    loops: dict[str, device_loop.Loop] = {}
+
+    def loop(name: str) -> device_loop.Loop:
+        if name not in loops:
+            loops[name] = device_loop.Loop(device, graphs, program=name)
+        return loops[name]
 
     if paged:
         pool, page_table = (
@@ -661,9 +719,12 @@ def generate(
                 greedy=greedy,
                 top_k=top_k,
                 use_top_p=use_top_p,
+                loop=loop("speculative_decode_steps"),
             )
             desynced = True
-            step = int(steps_rows.max())
+            step, n_emitted, n_row_iters = torch.stack(
+                [steps_rows.max(), n_emitted, n_row_iters]
+            ).tolist()
             # Adaptive off-switch: each verification forward is γ+1 wide;
             # barely more than one emitted token per active row-iteration
             # means drafts aren't matching and plain decode is cheaper.
@@ -696,6 +757,7 @@ def generate(
                     greedy=greedy,
                     top_k=top_k,
                     use_top_p=use_top_p,
+                    loop=loop("rowwise_decode_steps"),
                 )
                 step = int(steps_rows.max())
                 if not use_spec and bool(
@@ -708,21 +770,24 @@ def generate(
                 _decode_chunk_impl,
             )
 
-            cur, paged_cur_len, paged_n_emitted, paged_active = (
-                _decode_chunk_impl(
-                    params, cfg, pool, page_table, cur, paged_cur_len,
-                    pad_lens, paged_n_emitted, paged_max_new, paged_active,
-                    out_buf, eos, gen, float(temperature), float(top_p),
-                    chunk=DECODE_CHUNK,
-                    record_syncs=False,
-                    **{k: sample_kw[k] for k in ("greedy", "top_k", "use_top_p")},
-                )
+            # The rows start together, so every active row has emitted
+            # ``step`` tokens: the reference's loop has left after
+            # ``max_new_tokens - step`` steps at the latest.
+            _decode_chunk_impl(
+                params, cfg, pool, page_table, cur, paged_cur_len,
+                pad_lens, paged_n_emitted, paged_max_new, paged_active,
+                out_buf, eos, gen, float(temperature), float(top_p),
+                chunk=min(DECODE_CHUNK, max_new_tokens - step),
+                loop=loop("_decode_chunk_impl"),
+                **{k: sample_kw[k] for k in ("greedy", "top_k", "use_top_p")},
             )
             step = int(paged_n_emitted.max())
             finished = ~paged_active
         else:
             # Plain chunked decode owns the rest of the budget; the
-            # deadline is checked before each chunk.
+            # deadline is checked before each chunk, and each chunk's end
+            # is one read of its step and its rows' finish.
+            step_t = torch.full((), step, dtype=torch.int64, device=device)
             while True:
                 if past_deadline():
                     if not (
@@ -730,15 +795,19 @@ def generate(
                     ):
                         timed_out = True
                     break
-                cur, finished, step = decode_chunk_steps(
+                cur, finished, step_t = decode_chunk_steps(
                     params, cfg, cache, cur, pad_lens, finished, out_buf,
-                    step, max_new_tokens, eos, gen,
+                    step_t, max_new_tokens, eos, gen,
                     float(temperature), float(top_p),
                     prompt_len=S,
-                    chunk=DECODE_CHUNK,
+                    chunk=min(DECODE_CHUNK, max_new_tokens - step),
+                    loop=loop("decode_chunk_steps"),
                     **{k: sample_kw[k] for k in ("greedy", "top_k", "use_top_p")},
                 )
-                if step >= max_new_tokens or bool(finished.all()):
+                step, all_done = torch.stack(
+                    [step_t, finished.all().long()]
+                ).tolist()
+                if step >= max_new_tokens or all_done:
                     break
             if steps_rows is not None:
                 # Synced again after a speculative phase + catch-up.

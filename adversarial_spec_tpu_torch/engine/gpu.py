@@ -103,6 +103,7 @@ import torch
 from adversarial_spec_tpu_torch import obs as obs_mod
 from adversarial_spec_tpu_torch.debate.usage import Usage
 from adversarial_spec_tpu_torch.engine import checkpoint as ckpt_mod
+from adversarial_spec_tpu_torch.engine import device_loop
 from adversarial_spec_tpu_torch.engine import interleave as interleave_mod
 from adversarial_spec_tpu_torch.engine import kvtier as kvtier_mod
 from adversarial_spec_tpu_torch.engine import prefix_cache as prefix_mod
@@ -293,6 +294,10 @@ class LoadedModel:
     # the key matches. Dropped with the weights on demotion.
     batcher: ContinuousBatcher | None = None
     batcher_key: tuple | None = None
+    # The memory pool of the model's captured decode steps (its batcher's
+    # and each generate() call's CUDA graphs): made at first use on a
+    # card, gone with the weights, so a promoted model captures anew.
+    graph_pool: object = None
 
 
 class GpuEngine:
@@ -507,6 +512,7 @@ class GpuEngine:
         lm = self._models.pop(alias)
         lm.batcher = None
         lm.batcher_key = None
+        lm.graph_pool = None  # the batcher's graphs went with it
         ev = threading.Event()
         self._demoting[alias] = ev
         return lm, ev
@@ -1005,6 +1011,7 @@ class GpuEngine:
             paged=lm.spec.kv == "paged",
             kv_dtype=lm.spec.kv_dtype,
             mesh=lm.mesh,
+            graph_pool=self._graph_pool(lm),
         )
         total_time = time.monotonic() - t0
 
@@ -1032,6 +1039,12 @@ class GpuEngine:
                 )
             )
         return completions
+
+    def _graph_pool(self, lm: LoadedModel):
+        """``lm``'s graph memory pool on a card (None elsewhere)."""
+        if lm.graph_pool is None and self.device.type == "cuda":
+            lm.graph_pool = device_loop.graph_pool()
+        return lm.graph_pool
 
     def _chat_continuous(
         self,
@@ -1191,6 +1204,7 @@ class GpuEngine:
                 top_p=params.top_p,
                 seed=seed,
                 kv_dtype=lm.spec.kv_dtype,
+                graph_pool=self._graph_pool(lm),
             )
             lm.batcher = batcher
             lm.batcher_key = batcher_key

@@ -58,7 +58,7 @@ class InterleaveStats(procconfig.StatsBase):
     fused_steps: int = 0  # dispatches carrying prefill AND decode
     decode_steps: int = 0  # decode-only dispatches
     prefill_steps: int = 0  # standalone (stalled) prefill chunks
-    sync_points: int = 0  # host syncs (per-step flags, handoff, counts)
+    sync_points: int = 0  # sanctioned host syncs (handoff/fault/timeout)
     stalled_prefill_s: float = 0.0
     overlapped_prefill_s: float = 0.0
 

@@ -21,13 +21,13 @@ def filtered_logits(
     top_p: float,
     use_top_p: bool = True,
 ) -> torch.Tensor:
-    """Logits after temperature, top-k and top-p filtering."""
-    neg_inf = torch.tensor(float("-inf"), device=logits.device)
+    """Logits after temperature, top-k and top-p filtering. Constants are
+    Python scalars: no host-to-device copy, so a decode step holding this
+    is captured whole in a CUDA graph."""
+    neg_inf = float("-inf")
     idx = torch.arange(logits.shape[-1], device=logits.device)
     onehot = torch.where(
-        idx == logits.argmax(dim=-1, keepdim=True),
-        torch.tensor(0.0, device=logits.device),
-        neg_inf,
+        idx == logits.argmax(dim=-1, keepdim=True), 0.0, neg_inf
     )
     if greedy or temperature <= 0.0:
         return onehot
@@ -53,11 +53,16 @@ def filtered_logits(
 def categorical(
     logits: torch.Tensor, generator: torch.Generator | None
 ) -> torch.Tensor:
-    """One draw per row from softmax(logits) [..., V] → [...] int64."""
+    """One draw per row from softmax(logits) [..., V] → [...] int64.
+
+    ``torch.multinomial``'s one-sample draw written out (the same
+    exponential race on the same generator, so the same draws): its
+    validity check reads the device, which would stall every step and
+    cannot be captured in a CUDA graph."""
     probs = torch.softmax(logits, dim=-1)
     flat = probs.reshape(-1, probs.shape[-1])
-    draw = torch.multinomial(flat, 1, generator=generator)
-    return draw.reshape(probs.shape[:-1])
+    q = torch.empty_like(flat).exponential_(1, generator=generator)
+    return torch.argmax(flat / q, dim=-1).reshape(probs.shape[:-1])
 
 
 def sample_tokens(

@@ -21,8 +21,12 @@ decode batch hot while sequences of different lengths join and leave it:
 PyTorch idiom: plain functions on tensors with an explicit device; the
 pool is a dict of tensors mutated IN PLACE where the reference donates
 buffers; an explicit, seeded ``torch.Generator`` replaces the PRNG key.
-The reference's ``while_loop`` condition ``active.any()`` becomes one host
-read per decode step.
+The reference's ``while_loop`` is a masked step over the batcher's own
+device buffers (``engine/device_loop.py``): no host read inside a chunk,
+and on one card each step replays a CUDA graph captured once per shape
+key. Every buffer a step reads (the page table, ``cur_tok``, ``cur_len``,
+``n_emitted``, ``active``, ``out_buf``, the pool) is updated in place,
+never rebound, so a graph always reads the live state.
 
 Drive loops (engine/interleave.py holds the config and telemetry): the
 default loop (``_drive_pipelined``) is the reference's fused + pipelined
@@ -38,11 +42,14 @@ speculative path runs one step deep (the host needs each step's accept
 counts before the next). ``interleave=False`` (CLI ``--no-interleave``,
 ``ADVSPEC_INTERLEAVE=0``) runs the reference's legacy serialized loop
 (``_drive_legacy``): one prompt-chunk dispatch, one decode dispatch and
-their host syncs per iteration. Every host read is counted in
-``interleave.stats.sync_points``. Each dispatch is reported to the retrace
-watch (``obs.retrace``) under the reference's program name and key; the
-port has no jit cache to probe, so the watch counts compiles by key
-novelty.
+their host syncs per iteration. The sanctioned host syncs (an
+admission's handoff, a fault or timeout decision, a slot's completion,
+the speculative step's counts) are counted in
+``interleave.stats.sync_points``, as the reference counts them. Each
+dispatch is reported to the retrace watch (``obs.retrace``) under the
+reference's program name and key; on a card the watch probes the
+batcher's graph captures (a capture is the port's jit compile), on the
+CPU it counts compiles by key novelty.
 
 Inactive-slot safety: physical page 0 is a reserved TRASH page no sequence
 owns. Allocator ids are shifted +1 and inactive rows (and rejected drafts)
@@ -90,6 +97,7 @@ import numpy as np
 import torch
 
 from adversarial_spec_tpu_torch import obs as obs_mod
+from adversarial_spec_tpu_torch.engine import device_loop
 from adversarial_spec_tpu_torch.engine import interleave as interleave_mod
 from adversarial_spec_tpu_torch.engine import kvtier as kvtier_mod
 from adversarial_spec_tpu_torch.engine import prefix_cache as prefix_mod
@@ -306,12 +314,12 @@ def _decode_chunk_impl(
     cfg: ModelConfig,
     pool: dict,  # written in place
     page_table: torch.Tensor,  # [B, Pmax] physical ids (0 = trash/unmapped)
-    cur_tok: torch.Tensor,  # [B]
-    cur_len: torch.Tensor,  # [B] prompt+emitted tokens so far
+    cur_tok: torch.Tensor,  # [B], updated in place
+    cur_len: torch.Tensor,  # [B] prompt+emitted tokens so far, in place
     pad_lens: torch.Tensor,  # [B]
-    n_emitted: torch.Tensor,  # [B]
+    n_emitted: torch.Tensor,  # [B], updated in place
     max_new: torch.Tensor,  # [B] per-row budget
-    active: torch.Tensor,  # [B] bool
+    active: torch.Tensor,  # [B] bool, updated in place
     out_buf: torch.Tensor,  # [B, cap], written in place
     eos_ids: torch.Tensor,
     generator: torch.Generator,
@@ -322,27 +330,28 @@ def _decode_chunk_impl(
     greedy: bool,
     top_k: int,
     use_top_p: bool = True,
-    record_syncs: bool = True,
+    loop: device_loop.Loop | None = None,
 ):
-    """Up to ``chunk`` decode steps over whatever rows are active; stops
-    early once no row is. THE paged decode loop: the fused step and the
-    round-synchronous ``generate(paged=True)`` run this same body, so the
-    write-page lookup, bounds and sampling glue exist once. Each step's
-    flag read counts as a drive-loop sync point unless ``record_syncs``
-    is False (``generate`` has no drive loop). On a mesh it runs over
-    ``MeshParams`` and a sharded pool (``forward_paged_decode`` takes the
-    mesh). Returns (cur, cur_len, n_emitted, active)."""
+    """Up to ``chunk`` decode steps over whatever rows are active, the
+    reference's ``while_loop``: it leaves once no row is. THE paged
+    decode loop: the fused step and the round-synchronous
+    ``generate(paged=True)`` run this same body, so the write-page
+    lookup, bounds and sampling glue exist once. The carry is the
+    caller's buffers, updated in place on the device; nothing inside the
+    chunk reads them on the host (``engine/device_loop.py``: ``loop``
+    holds the exit flag and, on one card, the step's CUDA graph). On a
+    mesh it runs over ``MeshParams`` and a sharded pool
+    (``forward_paged_decode`` takes the mesh). Returns (cur, cur_len,
+    n_emitted, active): the buffers passed in."""
     B = cur_tok.shape[0]
     page_size = pool["k"].shape[3]
     cap = out_buf.shape[1]
-    rows = torch.arange(B, device=cur_tok.device)
-    cur = cur_tok
-    for _ in range(chunk):
-        # The reference's while_loop condition: one host read per step.
-        if record_syncs:
-            interleave_mod.stats.record_sync()
-        if not bool(active.any()):
-            break
+    if loop is None:
+        loop = device_loop.Loop(cur_tok.device)
+
+    def body():
+        run = loop.begin()
+        rows = torch.arange(B, device=cur_tok.device)
         q_pos = cur_len - 1  # [B] logical slot of cur's KV
         write_page, write_off = decode_write_targets(
             page_table, q_pos, active, page_size
@@ -352,7 +361,7 @@ def _decode_chunk_impl(
         logits = forward_paged_decode(
             params,
             cfg,
-            cur[:, None],
+            cur_tok[:, None],
             positions,
             pool,
             page_table,
@@ -370,18 +379,27 @@ def _decode_chunk_impl(
             top_p=top_p,
             use_top_p=use_top_p,
         )
-        is_eos = torch.isin(nxt, eos_ids)
+        is_eos = (nxt[:, None] == eos_ids[None, :]).any(dim=-1)
         nxt = torch.where(active, nxt, 0)
         write_pos = torch.clamp(n_emitted, max=cap - 1)
         out_buf[rows, write_pos] = torch.where(
             active, nxt, out_buf[rows, write_pos]
         )
-        n_emitted = n_emitted + active.long()
-        cur_len = cur_len + active.long()
+        n_emitted.add_(active.long())
+        cur_len.add_(active.long())
         done = (is_eos | (n_emitted >= max_new)) & active
-        active = active & ~done
-        cur = nxt
-    return cur, cur_len, n_emitted, active
+        active.logical_and_(~done)
+        # Past the exit the reference's carry keeps its last step's token.
+        cur_tok.copy_(torch.where(run, nxt, cur_tok))
+        loop.end(active.any())
+
+    loop.end(active.any())
+    key = ("_decode_chunk_impl", B, cap, page_table.shape[1], page_size,
+           str(pool["k"].dtype), "ks" in pool, greedy, top_k, use_top_p, temperature, top_p,
+           device_loop.ptrs(pool["k"], page_table, cur_tok, cur_len, pad_lens, n_emitted,
+                            max_new, active, out_buf, eos_ids))
+    loop.run(body, chunk, key, () if greedy else (generator,))
+    return cur_tok, cur_len, n_emitted, active
 
 
 def fused_prefill_decode_chunk(
@@ -606,11 +624,17 @@ class ContinuousBatcher:
         speculative: bool | None = None,
         gamma: int | None = None,
         kv_dtype: str = "",
+        graph_pool=None,
     ):
         self.params = params
         self.cfg = cfg
         self.B = max_batch
         self.device = params["embed"].device
+        # The decode chunk's exit flag and, on a card, its captured steps
+        # (in the model's graph pool ``graph_pool``).
+        self._graph_pool = graph_pool
+        self._graphs = None
+        self._loop = device_loop.Loop(self.device)
         self._dtype = params["embed"].dtype
         self.page_size = page_size
         self.kv_dtype = kv_dtype
@@ -2049,52 +2073,60 @@ class ContinuousBatcher:
             self._top_p,
         )
 
-    def _decode_kw(self) -> dict:
+    def _decode_kw(self, program: str) -> dict:
+        """The decode chunk's static arguments and its loop, the step's
+        graphs named after the dispatching ``program``."""
+        self._loop.program = program
+        self._loop.graphs = None
+        if device_loop.graphable(self.device):
+            if self._graphs is None:
+                self._graphs = device_loop.Graphs(self._graph_pool)
+            self._loop.graphs = self._graphs
         return dict(
             chunk=self.chunk,
             greedy=self.greedy,
             top_k=self.top_k,
             use_top_p=self._use_top_p,
+            loop=self._loop,
         )
+
+    def _retrace_probe(self, program: str):
+        """The retrace watch's probe: the graph captures made under
+        ``program`` (None off a card: the watch counts key novelty)."""
+        return None if self._loop.graphs is None else self._graphs.probe(program)
 
     def _dispatch_fused(self, adm: _Admission, chunk_len: int) -> None:
         """ONE step advancing the admission's prompt chunk and all live
         rows' decode chunk."""
         injector.fire("scheduler_chunk")
-        adm.last_logits, (
-            self.cur_tok,
-            self.cur_len,
-            self.n_emitted,
-            self.active,
-        ) = fused_prefill_decode_chunk(
+        program = "fused_prefill_decode_chunk"
+        adm.last_logits, _ = fused_prefill_decode_chunk(
             self.params, self.cfg, adm, chunk_len, *self._decode_args(),
-            **self._decode_kw(),
+            **self._decode_kw(program),
         )
         adm.pos += chunk_len
         interleave_mod.stats.record_step(fused=True)
         prefix_mod.stats.record_prefill(chunk_len, 0)
         if obs_mod.config().enabled:
             obs_mod.retrace.observe(
-                "fused_prefill_decode_chunk",
+                program,
                 ("fused", chunk_len, adm.S, self.B, self.cap, self.chunk),
+                self._retrace_probe(program),
             )
 
     def _dispatch_decode(self) -> None:
         """One decode-only chunk."""
         injector.fire("scheduler_chunk")
-        (
-            self.cur_tok,
-            self.cur_len,
-            self.n_emitted,
-            self.active,
-        ) = _decode_chunk_impl(
-            self.params, self.cfg, *self._decode_args(), **self._decode_kw()
+        program = "scheduler_decode_chunk"
+        _decode_chunk_impl(
+            self.params, self.cfg, *self._decode_args(), **self._decode_kw(program)
         )
         interleave_mod.stats.record_step(fused=False)
         if obs_mod.config().enabled:
             obs_mod.retrace.observe(
-                "scheduler_decode_chunk",
+                program,
                 ("decode", self.B, self.cap, self.chunk, self.greedy),
+                self._retrace_probe(program),
             )
 
     def _evict_spec_row(self, slot: int, exc: BaseException, seam: str) -> None:
@@ -2162,7 +2194,7 @@ class ContinuousBatcher:
         for slot in live:
             t = self.allocator.table(self._slot_seq[slot])
             tables[slot, : len(t)] = np.asarray(t, np.int32) + 1
-        self.page_table = torch.as_tensor(tables, device=self.device)
+        self.page_table.copy_(torch.from_numpy(tables))
         return torch.as_tensor(alloc, device=self.device)
 
     def _dispatch_spec(
@@ -2217,15 +2249,13 @@ class ContinuousBatcher:
                     "scheduler_spec_chunk",
                     ("spec", self.gamma, self.B, self.cap, self.greedy),
                 )
-        (
-            self.ctx_len,
-            self.prev_tok,
-            self.cur_tok,
-            self.cur_len,
-            self.n_emitted,
-            self.active,
-            counts,
-        ) = outs
+        *state, counts = outs
+        for buf, value in zip(
+            (self.ctx_len, self.prev_tok, self.cur_tok, self.cur_len,
+             self.n_emitted, self.active),
+            state,
+        ):
+            buf.copy_(value)
         return counts
 
     def _apply_spec_counts(self, counts_np: np.ndarray, live_slots) -> None:

@@ -10,8 +10,10 @@ is bit-identical to plain decode and sampled output keeps its
 distribution. Rows accept different counts and desynchronize, so the tail
 finishes on ``rowwise_decode_steps`` (per-row slots, kernel B1).
 
-The reference runs each loop as one device program; here the loops run on
-the host and check their exit condition between iterations. State tensors
+The reference runs each loop as one device program; here each loop's
+carry lives on the device and its step is a masked body that changes
+nothing once the reference would have left (``engine/device_loop.py``:
+no host read inside a chunk, CUDA graphs on one card). State tensors
 (``out_buf``, the cache) are updated in place. On a mesh the same loops
 run over ``MeshParams`` and a sharded cache (``forward`` takes the mesh):
 on an sp mesh that is the ring prefill's cache resharded into the decode
@@ -25,6 +27,7 @@ from __future__ import annotations
 
 import torch
 
+from adversarial_spec_tpu_torch.engine import device_loop
 from adversarial_spec_tpu_torch.engine.sampling import (
     categorical,
     filtered_logits,
@@ -138,26 +141,42 @@ def speculative_decode_steps(
     greedy: bool = False,
     top_k: int = 0,
     use_top_p: bool = True,
+    loop: device_loop.Loop | None = None,
 ):
     """Up to ``iters`` speculative rounds over the rows that still fit a
-    full γ+1 span. Returns (prev, cur, finished, out_buf, steps, n_iters,
-    n_emitted_total, n_row_iters); the caller's adaptive off-switch reads
-    the emit rate n_emitted_total / n_row_iters."""
+    full γ+1 span, the reference's ``while_loop``: it leaves once no row
+    is active. The carry lives in ``loop``'s buffers on the device and is
+    not read on the host inside the chunk (``engine/device_loop.py``).
+    Returns (prev, cur, finished, out_buf, steps, n_iters,
+    n_emitted_total, n_row_iters), the last three [] int64 tensors; the
+    caller's adaptive off-switch reads the emit rate n_emitted_total /
+    n_row_iters."""
     B = prompt_tokens.shape[0]
     T = cache["k"].shape[3]
     max_new = out_buf.shape[1]
     dev = prompt_tokens.device
-    kv_base = torch.arange(T, device=dev)[None, :] >= pad_lens[:, None]
     span = gamma + 1
-    rows = torch.arange(B, device=dev)
-    j = torch.arange(span, device=dev)[None, :]
-    bound = min(stop_at, max_new)
-    prev, cur = prev_tokens, cur_tokens
-    n_emit_tot = n_row_iters = it = 0
-    while it < iters:
-        active = ~finished & (steps + span <= bound)
-        if not bool(active.any()):
-            break
+    if loop is None:
+        loop = device_loop.Loop(dev)
+    prev = loop.carry("prev", prev_tokens)
+    cur = loop.carry("cur", cur_tokens)
+    finished = loop.carry("finished", finished)
+    steps = loop.carry("steps", steps)
+    zero = torch.zeros((), dtype=torch.int64, device=dev)
+    it = loop.carry("it", zero)
+    n_emit_tot = loop.carry("n_emit_tot", zero)
+    n_row_iters = loop.carry("n_row_iters", zero)
+    bound = loop.carry("bound", torch.full((), min(stop_at, max_new), dtype=torch.int64, device=dev))
+
+    def active_rows():
+        return ~finished & (steps + span <= bound)
+
+    def body():
+        run = loop.begin()
+        rows = torch.arange(B, device=dev)
+        j = torch.arange(span, device=dev)[None, :]
+        kv_base = torch.arange(T, device=dev)[None, :] >= pad_lens[:, None]
+        active = active_rows() & run
         context = torch.cat([prompt_tokens, out_buf], dim=1)
         draft = _draft(context, prev, cur, prompt_len + steps, gamma)
 
@@ -166,7 +185,8 @@ def speculative_decode_steps(
         cache_index = prompt_len + steps - 1
         positions = cache_index[:, None] + j - pad_lens[:, None]
         logits = forward(
-            params, cfg, toks, positions, cache, cache_index, kv_base
+            params, cfg, toks, positions, cache, cache_index, kv_base,
+            write_mask=run.expand(B),
         )
         filt = filtered_logits(
             logits,
@@ -188,7 +208,7 @@ def speculative_decode_steps(
         emitted[rows, n_acc] = bonus
 
         # EOS + per-row emit counts (EOS kept, zeros after).
-        is_eos = torch.isin(emitted, eos_ids)
+        is_eos = (emitted[..., None] == eos_ids).any(dim=-1)
         eos_hits = is_eos & (j <= n_acc[:, None])
         any_eos = eos_hits.any(dim=1)
         first_eos = torch.argmax(eos_hits.to(torch.int32), dim=1)
@@ -203,18 +223,22 @@ def speculative_decode_steps(
             out_buf, torch.where(active[:, None], emitted, current), w_start
         )
 
-        finished = finished | (any_eos & active)
         last = emitted[rows, torch.clamp(n_emit - 1, min=0)]
         before = emitted[rows, torch.clamp(n_emit - 2, min=0)]
-        new_cur = torch.where(active, last, cur)
-        prev = torch.where(
-            active, torch.where(n_emit >= 2, before, cur), prev
-        )
-        cur = new_cur
-        steps = steps + n_emit
-        n_emit_tot += int(n_emit.sum())
-        n_row_iters += int(active.sum())
-        it += 1
+        finished.copy_(finished | (any_eos & active))
+        prev.copy_(torch.where(active, torch.where(n_emit >= 2, before, cur), prev))
+        cur.copy_(torch.where(active, last, cur))
+        steps.add_(n_emit)
+        n_emit_tot.add_(n_emit.sum())
+        n_row_iters.add_(active.sum())
+        it.add_(run.long())
+        loop.end(active_rows().any())
+
+    loop.end(active_rows().any())
+    key = ("speculative_decode_steps", B, T, prompt_len, gamma, str(cache["k"].dtype),
+           "ks" in cache, greedy, top_k, use_top_p, temperature, top_p,
+           device_loop.ptrs(cache["k"], out_buf, pad_lens, eos_ids, prompt_tokens))
+    loop.run(body, iters, key, () if greedy else (generator,))
     return prev, cur, finished, out_buf, steps, it, n_emit_tot, n_row_iters
 
 
@@ -238,25 +262,37 @@ def rowwise_decode_steps(
     greedy: bool,
     top_k: int,
     use_top_p: bool = True,
+    loop: device_loop.Loop | None = None,
 ):
     """Plain single-token decode with PER-ROW cache slots (the tail after
-    any speculative phase). Returns (cur, finished, out_buf, steps)."""
+    any speculative phase), the reference's ``while_loop``: up to
+    ``chunk`` steps, leaving once no row is active. The carry lives in
+    ``loop``'s buffers on the device. Returns (cur, finished, out_buf,
+    steps)."""
     B = cur_tokens.shape[0]
     T = cache["k"].shape[3]
     max_new = out_buf.shape[1]
     dev = cur_tokens.device
-    kv_base = torch.arange(T, device=dev)[None, :] >= pad_lens[:, None]
-    rows = torch.arange(B, device=dev)
-    bound = min(stop_at, max_new)
-    cur = cur_tokens
-    for _ in range(chunk):
-        active = ~finished & (steps < bound)
-        if not bool(active.any()):
-            break
+    if loop is None:
+        loop = device_loop.Loop(dev)
+    cur = loop.carry("cur", cur_tokens)
+    finished = loop.carry("finished", finished)
+    steps = loop.carry("steps", steps)
+    bound = loop.carry("bound", torch.full((), min(stop_at, max_new), dtype=torch.int64, device=dev))
+
+    def active_rows():
+        return ~finished & (steps < bound)
+
+    def body():
+        run = loop.begin()
+        rows = torch.arange(B, device=dev)
+        kv_base = torch.arange(T, device=dev)[None, :] >= pad_lens[:, None]
+        active = active_rows() & run
         cache_index = prompt_len + steps - 1
         positions = (cache_index - pad_lens)[:, None]
         logits = forward(
-            params, cfg, cur[:, None], positions, cache, cache_index, kv_base
+            params, cfg, cur[:, None], positions, cache, cache_index, kv_base,
+            write_mask=run.expand(B),
         )
         nxt = sample_tokens(
             logits[:, 0],
@@ -267,11 +303,18 @@ def rowwise_decode_steps(
             top_p=top_p,
             use_top_p=use_top_p,
         )
-        is_eos = torch.isin(nxt, eos_ids)
+        is_eos = (nxt[:, None] == eos_ids[None, :]).any(dim=-1)
         nxt = torch.where(finished, 0, nxt)
         idx = torch.clamp(steps, max=max_new - 1)
         out_buf[rows, idx] = torch.where(active, nxt, out_buf[rows, idx])
-        finished = finished | (is_eos & active)
-        steps = steps + active.to(steps.dtype)
-        cur = torch.where(active, nxt, cur)
+        finished.copy_(finished | (is_eos & active))
+        steps.add_(active.long())
+        cur.copy_(torch.where(active, nxt, cur))
+        loop.end(active_rows().any())
+
+    loop.end(active_rows().any())
+    key = ("rowwise_decode_steps", B, T, prompt_len, str(cache["k"].dtype), "ks" in cache,
+           greedy, top_k, use_top_p, temperature, top_p,
+           device_loop.ptrs(cache["k"], out_buf, pad_lens, eos_ids))
+    loop.run(body, chunk, key, () if greedy else (generator,))
     return cur, finished, out_buf, steps

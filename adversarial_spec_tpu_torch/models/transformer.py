@@ -366,7 +366,7 @@ def _layer_window_start(cfg: ModelConfig, layer_id: int, base_start, q_pos):
     return torch.maximum(base_start, q_pos - cfg.sliding_window + 1)
 
 
-def _write_kv(pairs, cache_index) -> None:
+def _write_kv(pairs, cache_index, keep=None) -> None:
     """Store each ``(buf, val)`` of ``pairs`` — a chunk's K, V (or an int8
     cache's scales) ``val [B, S, Hkv, D|1]`` into a layer's cache slice
     ``buf [B, Hkv, T, D|1]`` — in place.
@@ -375,7 +375,9 @@ def _write_kv(pairs, cache_index) -> None:
     ``dynamic_update_slice`` does: a span that would run past the end of
     the buffer lands shifted back so it fits (rows at their budget in the
     speculative verify rely on this). A vector ``cache_index`` ([B])
-    writes each row at its own slot: an advanced-index scatter.
+    writes each row at its own slot: an advanced-index scatter. ``keep``
+    ([B] bool, with a vector ``cache_index``): rows whose False leaves
+    their slots as they were (a decode loop's step past its exit).
     """
     buf0, val0 = pairs[0]
     S, T = val0.shape[1], buf0.shape[2]
@@ -389,7 +391,10 @@ def _write_kv(pairs, cache_index) -> None:
     rows = torch.arange(buf0.shape[0], device=buf0.device)[:, None]
     # Advanced indices at dims 0 and 2 put (B, S) first: [B, S, Hkv, D].
     for buf, val in pairs:
-        buf[rows, :, slots] = val.to(buf.dtype)
+        val = val.to(buf.dtype)
+        if keep is not None:
+            val = torch.where(keep[:, None, None, None], val, buf[rows, :, slots])
+        buf[rows, :, slots] = val
 
 
 def _embed(params: Params, cfg: ModelConfig, tokens: torch.Tensor) -> torch.Tensor:
@@ -430,19 +435,20 @@ def _dense_prep(cfg: ModelConfig, positions, cache_index, kv_valid, T: int, kern
     return prep
 
 
-def _store_kv(cache: Cache, layer_id: int, k, v, cache_index):
+def _store_kv(cache: Cache, layer_id: int, k, v, cache_index, keep=None):
     """Write a chunk's K/V into layer ``layer_id`` of ``cache`` (quantized
-    for an int8 cache); returns the layer's K, V and the kernels' scale
-    kwargs."""
+    for an int8 cache; ``keep``: see ``_write_kv``); returns the layer's
+    K, V and the kernels' scale kwargs."""
     k_l, v_l = cache["k"][layer_id], cache["v"][layer_id]
     if "ks" not in cache:
-        _write_kv(((k_l, k), (v_l, v)), cache_index)
+        _write_kv(((k_l, k), (v_l, v)), cache_index, keep)
         return k_l, v_l, {}
     ks_l, vs_l = cache["ks"][layer_id], cache["vs"][layer_id]
     kvq, kvs = _quantize_kv(torch.stack([k, v]))  # K and V in one pass
     _write_kv(
         ((k_l, kvq[0]), (v_l, kvq[1]), (ks_l, kvs[0]), (vs_l, kvs[1])),
         cache_index,
+        keep,
     )
     return k_l, v_l, dict(k_scale=ks_l, v_scale=vs_l)
 
@@ -491,9 +497,13 @@ def forward(
     *,
     use_kernels: bool = True,
     lm_head_last_only: bool = False,
+    write_mask: torch.Tensor | None = None,
 ) -> torch.Tensor:
     """One forward pass over a chunk (prefill: S=chunk, decode: S=1, the
     speculative verify: S=γ+1). Returns logits [B, S|1, vocab] (f32).
+
+    ``write_mask`` ([B] bool, with a ``[B]`` ``cache_index``): rows whose
+    False write no K/V (a decode loop's step past the reference's exit).
 
     ``use_kernels`` routes short spans through the decode-attention
     wrappers (the reference's ``use_pallas_decode``); False keeps every
@@ -511,6 +521,7 @@ def forward(
         return _forward_mesh(
             params, cfg, tokens, positions, cache, cache_index, kv_valid,
             use_kernels=use_kernels, lm_head_last_only=lm_head_last_only,
+            write_mask=write_mask,
         )
     B, S = tokens.shape
     if not isinstance(cache_index, torch.Tensor):
@@ -521,7 +532,7 @@ def forward(
     for layer_id, lp in enumerate(params["layers"]):
         h = rms_norm(x, lp["attn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one)
         q, k, v = _project_qkv(lp, cfg, h, B, S, prep["cos"], prep["sin"])
-        k_l, v_l, skw = _store_kv(cache, layer_id, k, v, cache_index)
+        k_l, v_l, skw = _store_kv(cache, layer_id, k, v, cache_index, write_mask)
         out = _dense_attention(cfg, layer_id, q, k_l, v_l, skw, prep, x.dtype)
         x = _attn_out_and_ffn(x, out, lp, cfg, B, S)
     return _lm_head_logits(params, cfg, x, lm_head_last_only)
@@ -635,7 +646,7 @@ def _mesh_logits(params: MeshParams, cfg: ModelConfig, x, last_only: bool, s: in
 
 def _forward_mesh(
     params: MeshParams, cfg, tokens, positions, cache, cache_index, kv_valid,
-    *, use_kernels: bool, lm_head_last_only: bool,
+    *, use_kernels: bool, lm_head_last_only: bool, write_mask=None,
 ):
     """``forward`` on a dp×tp mesh: the reference's GSPMD program, shard
     by shard.
@@ -680,7 +691,8 @@ def _forward_mesh(
                 lp, prep = layers[d, t][layer_id], preps[d, t]
                 h = rms_norm(x[d, t], lp["attn_norm"], cfg.rms_eps, cfg.norm_scale_plus_one)
                 q[d, t], k, v = _project_qkv(lp, lcfg, h, r, S, prep["cos"], prep["sin"])
-                kv[d, t] = _store_kv(caches[d, t], layer_id, k, v, prep["cache_index"])
+                kv[d, t] = _store_kv(caches[d, t], layer_id, k, v, prep["cache_index"],
+                                     rows("write_mask", write_mask, d, t))
         if kernels and S == 1:
             grid = functools.partial(_grid, mesh)
             skw = {}

@@ -4,9 +4,10 @@
     python3 chip_smoke.py            # every phase (needs one CUDA card)
     python3 chip_smoke.py --quick    # device, build and kernel phases only
     python3 chip_smoke.py --profile  # also profile one more chat call
-    python3 chip_smoke.py --only paged,cli,batcher,pgen,serve,fleet,mesh,sp,multihost,agree
+    python3 chip_smoke.py --only slice,paged,quant,kv8,cli,pool,batcher,pgen,serve,fleet,mesh,sp,multihost,agree
                                      # device, build and the named phases
                                      # only (no kernels or ok line;
+                                     # pool runs hf first;
                                      # multihost_nccl: the two-card pair
                                      # alone)
     python3 chip_smoke.py --qmm-only # device, build and B5/B6 only: their checks
@@ -337,6 +338,18 @@ Phases, each printing one JSON line; any failure exits non-zero:
    {"dp": 2, "sp": 2} paged (W2) and {"sp": 2} paged with int8 KV (W3,
    B3-i8), the ring carrying each prefill.
 
+The decode loops (``engine/device_loop.py``) replay CUDA graphs on the
+card. Every decode round of phases slice, paged, quant, kv8, cli, pool,
+pgen and mesh prints a ``graphs`` line: captures, replays, the sub-chunk
+size, chunks, steps run past the reference's exit, the graph pools'
+bytes and ms a decode step (decode seconds over steps launched), with
+the card's name and power limit. A round marked for it runs again on
+the eager body (``device_loop.eager()``: slice's two rounds, paged's
+round 2, quant (a), kv8 (a) and (b) round 2, cli dense round 1, pgen's
+paged round, mesh's 70B speculation-off and dp=2 × tp=2 rounds; pool's
+part (a) is eager throughout) and its generated ids must equal the
+graphs run's; the twin's launches are not counted.
+
 Each phase's line carries its ``seconds``; a ``seconds`` line sums them
 up by phase. Then one ``kernels`` JSON line and, last, ``{"ok": true,
 "device": ...}``.
@@ -359,7 +372,8 @@ import time
 HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "adversarial_spec_tpu_torch"
 # The phases ``--only`` runs (each ``phase_<name>(torch)``).
-ONLY_PHASES = ("paged", "cli", "batcher", "pgen", "serve", "fleet", "mesh", "sp", "multihost",
+ONLY_PHASES = ("slice", "paged", "quant", "kv8", "cli", "pool", "batcher", "pgen", "serve",
+               "fleet", "mesh", "sp", "multihost",
                "multihost_nccl", "agree")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per second
@@ -1692,10 +1706,12 @@ def phase_slice(torch, profile: bool = False) -> dict:
 
     torch.cuda.reset_peak_memory_stats()
     da.reset_launches()
+    rec_on: dict = {}
     t = time.monotonic()
-    comps = engine.chat(reqs, sp)
-    torch.cuda.synchronize()
+    with decode_record(torch, rec_on):
+        comps = engine.chat(reqs, sp)
     wall = time.monotonic() - t
+    rec_on["decode_s"] = sum(c.usage.decode_time_s for c in comps)
     floats = ("decode_attention", "decode_attention_mq")
     calls = [{"call": "main", "speculative": True, **dict(da.launches)}]
     launched = {k: da.launches[k] for k in floats}
@@ -1712,14 +1728,16 @@ def phase_slice(torch, profile: bool = False) -> dict:
     # The same round with speculation off (the user's ADVSPEC_SPECULATIVE=0,
     # or the adaptive off-switch): every decode step is B1, at full width.
     spec_mod.configure(enabled=False)
+    rec_off: dict = {}
     try:
         da.reset_launches()
         t = time.monotonic()
-        off = engine.chat(reqs, sp)
-        torch.cuda.synchronize()
+        with decode_record(torch, rec_off):
+            off = engine.chat(reqs, sp)
         wall_off = time.monotonic() - t
     finally:
         spec_mod.configure(enabled=True)
+    rec_off["decode_s"] = sum(c.usage.decode_time_s for c in off)
     bad = [c.error for c in off if not c.ok]
     if bad or any(c.usage.output_tokens != 128 for c in off):
         raise RuntimeError(f"speculation-off chat failed: {bad or [c.usage for c in off]}")
@@ -1737,9 +1755,20 @@ def phase_slice(torch, profile: bool = False) -> dict:
     launched["decode_attention"] += da.launches["decode_attention"]
     if min(launched.values()) == 0:
         raise RuntimeError(f"a kernel of the path never launched: {calls}")
+
+    def again(on):
+        spec_mod.configure(enabled=on)
+        try:
+            return sum(c.usage.decode_time_s for c in engine.chat(reqs, sp))
+        finally:
+            spec_mod.configure(enabled=True)
+
+    graphs = [eager_twin(torch, "slice, speculation on", rec_on, lambda: again(True)),
+              eager_twin(torch, "slice, speculation off", rec_off, lambda: again(False))]
     prof = profile_chat(torch, engine, reqs, sp) if profile else None
     return {
         "phase": "slice",
+        "graphs": graphs,
         "model": "tpu://random-8b",
         "requests": len(reqs),
         "input_tokens": [c.usage.input_tokens for c in comps],
@@ -1802,7 +1831,7 @@ def phase_paged(torch, profile: bool = False) -> dict:
             da.reset_launches()
             pa.reset_launches()
             texts = []
-            def one_round(label, on, pdepth, params_, reqs=reqs):
+            def one_round(label, on, pdepth, params_, reqs=reqs, record=None):
                 spec_mod.configure(enabled=on)
                 il.configure(pipeline_depth=pdepth)
                 before = {**da.launches, **pa.launches}
@@ -1811,8 +1840,8 @@ def phase_paged(torch, profile: bool = False) -> dict:
                 il.reset_stats()
                 torch.cuda.reset_peak_memory_stats()
                 t = time.monotonic()
-                comps = engine.chat(reqs, params_)
-                torch.cuda.synchronize()
+                with decode_record(torch, {} if record is None else record):
+                    comps = engine.chat(reqs, params_)
                 wall = time.monotonic() - t
                 bad = [c.error for c in comps if not c.ok]
                 if bad:
@@ -1821,6 +1850,8 @@ def phase_paged(torch, profile: bool = False) -> dict:
                     raise RuntimeError(f"{label}: a row emitted nothing")
                 after = {**da.launches, **pa.launches}
                 decode_s = sum(c.usage.decode_time_s for c in comps)
+                if record is not None:
+                    record["decode_s"] = decode_s
                 out_tok = sum(c.usage.output_tokens for c in comps)
                 texts.append([c.text for c in comps])
                 rounds.append({
@@ -1854,13 +1885,23 @@ def phase_paged(torch, profile: bool = False) -> dict:
                       "fetches": fetched, "wall_s": wall, "card": card()})
 
             one_round("round 1, speculation on", True, 2, sp)
-            one_round("round 2, speculation off", False, 2, sp)
+            rec: dict = {}
+            one_round("round 2, speculation off", False, 2, sp, record=rec)
+            # The same round (warm prefix cache, depth 2) on the eager body.
+            graphs = eager_twin(
+                torch, "paged, round 2", rec,
+                lambda: sum(c.usage.decode_time_s for c in engine.chat(reqs, sp)),
+            )
             launched = {k: pa.launches[k] for k in ("paged_decode_attention",
                                                     "paged_decode_attention_mq")}
             prof = None
             if profile:
                 spec_mod.configure(enabled=True)
-                prof = profile_chat(torch, engine, reqs, sp, "chip_profile_paged.txt")
+                prof = {"speculation_on": profile_chat(torch, engine, reqs, sp,
+                                                       "chip_profile_paged.txt")}
+                spec_mod.configure(enabled=False)  # the batcher's decode chunk
+                prof["speculation_off"] = profile_chat(
+                    torch, engine, reqs, sp, "chip_profile_paged_off.txt")
             lm = served(engine)
             pool_bytes = sum(t.numel() * t.element_size() for t in lm.batcher.pool.values())
             batcher = {"slots": lm.batcher.B, "capacity_tokens": lm.batcher.capacity_tokens,
@@ -1888,6 +1929,7 @@ def phase_paged(torch, profile: bool = False) -> dict:
         raise RuntimeError("depth 1 and depth 2 gave different texts")
     return {
         "phase": "paged",
+        "graphs": graphs,
         "model": "tpu://random-8b (kv=paged)",
         "requests": len(reqs),
         "load_and_warmup_s": load_s,
@@ -1947,12 +1989,22 @@ def serve_quantized(torch, spec, reqs, must_launch, profile=False) -> dict:
         il.reset_stats()
         for mod in (da, pa, qm):
             mod.reset_launches()
+        rec: dict = {}
         t = time.monotonic()
-        comps = engine.chat(reqs, sp)
-        torch.cuda.synchronize()
+        with decode_record(torch, rec):
+            comps = engine.chat(reqs, sp)
         wall = time.monotonic() - t
         launched = {**da.launches, **pa.launches, **qm.launches}
         peak = torch.cuda.max_memory_allocated()
+        rec["decode_s"] = sum(c.usage.decode_time_s for c in comps)
+        label = f"quant={spec.quant} kv={spec.kv}"
+        # The batcher's speculative step is one step a dispatch (as the
+        # reference's): its round has no decode loop to replay.
+        graphs = (
+            eager_twin(torch, label, rec,
+                       lambda: sum(c.usage.decode_time_s for c in engine.chat(reqs, sp)))
+            if spec.kv != "paged" else {"of": label, **{k: v for k, v in rec.items() if k != "ids"}}
+        )
         prof = (
             profile_chat(torch, engine, reqs, sp, f"chip_profile_quant_{spec.quant}.txt")
             if profile else None
@@ -1984,6 +2036,7 @@ def serve_quantized(torch, spec, reqs, must_launch, profile=False) -> dict:
         "max_memory_allocated_bytes": peak,
         "host_syncs": il.stats.sync_points,
         "launches": launched,
+        "graphs": graphs,
         **({"profile": prof} if prof else {}),
     }
 
@@ -2070,20 +2123,22 @@ def phase_kv8(torch, profile: bool = False) -> dict:
             raise RuntimeError(f"warm-up chat failed: {warm[0].error}")
         return engine, time.monotonic() - t
 
-    def chat(engine, reqs, label, full_rows=True):
+    def chat(engine, reqs, label, full_rows=True, record=None):
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()
         for mod in (da, pa, qm):
             mod.reset_launches()
         il.reset_stats()
         t = time.monotonic()
-        comps = engine.chat(reqs, sp)
-        torch.cuda.synchronize()
+        with decode_record(torch, {} if record is None else record):
+            comps = engine.chat(reqs, sp)
         wall = time.monotonic() - t
         launched = {**da.launches, **pa.launches, **qm.launches}
         bad = [c.error for c in comps if not c.ok]
         if bad:
             raise RuntimeError(f"{label}: chat failed: {bad}")
+        if record is not None:
+            record["decode_s"] = sum(c.usage.decode_time_s for c in comps)
         out = [c.usage.output_tokens for c in comps]
         if (full_rows and any(n != 128 for n in out)) or min(out) < 1:
             raise RuntimeError(f"{label}: rows stopped early: {out}")
@@ -2110,9 +2165,13 @@ def phase_kv8(torch, profile: bool = False) -> dict:
     spec_mod.configure(enabled=True)
     with temp_registry(ModelSpec(alias="random-8b", family="llama", size="8b", kv_dtype="int8")):
         engine, load_s = load(reqs)
-        made = []
+        made, rec = [], {}
         with recording_dense_caches(made):
-            _, main = chat(engine, reqs, "kv8 dense")
+            _, main = chat(engine, reqs, "kv8 dense", record=rec)
+        graphs = [eager_twin(
+            torch, "kv8 dense", rec,
+            lambda: sum(c.usage.decode_time_s for c in engine.chat(reqs, sp)),
+        )]
         calls = [main]
         launched = dict(main["launches"])
         # The same round with speculation off: every decode step is B1-i8.
@@ -2156,13 +2215,19 @@ def phase_kv8(torch, profile: bool = False) -> dict:
         engine, load_s = load(reqs)
         rounds, launched = [], {}
         try:
+            rec = {}
             for label, on in (("round 1, speculation on", True),
                               ("round 2, speculation off", False)):
                 spec_mod.configure(enabled=on)
-                _, r = chat(engine, reqs, f"kv8 paged {label}", full_rows=False)
+                _, r = chat(engine, reqs, f"kv8 paged {label}", full_rows=False,
+                            record=None if on else rec)
                 rounds.append({"round": label, **r})
                 for k, v in r["launches"].items():
                     launched[k] = launched.get(k, 0) + v
+            graphs.append(eager_twin(
+                torch, "kv8 paged, round 2", rec,
+                lambda: sum(c.usage.decode_time_s for c in engine.chat(reqs, sp)),
+            ))
             prof = None
             if profile:
                 spec_mod.configure(enabled=True)
@@ -2198,6 +2263,7 @@ def phase_kv8(torch, profile: bool = False) -> dict:
     if r2["cached_tokens"] == 0:
         raise RuntimeError("kv8 paged round 2 found no prefix-cache hits on int8 pages")
     report["paged_int4"] = paged
+    report["graphs"] = graphs
     return report
 
 
@@ -2263,8 +2329,15 @@ def run_cli(argv: list, stdin: str = "") -> tuple[int, str, str]:
     return code, out.getvalue(), err.getvalue()
 
 
+def cli_decode_s(doc: dict) -> float:
+    """A ``critique --json`` round's decode seconds (its tokens over its
+    decode rate)."""
+    rate = doc["perf"]["decode_tokens_per_sec"]
+    return sum(r["output_tokens"] for r in doc["results"]) / rate if rate else 0.0
+
+
 def cli_round(torch, label: str, argv: list, stdin: str, must_launch: tuple,
-              doc_out: dict | None = None) -> dict:
+              doc_out: dict | None = None, record: dict | None = None) -> dict:
     """One ``critique`` round through the CLI: B1-B4's and B5/B6's counters
     zeroed just before it and read just after; every kernel of
     ``must_launch`` must have launched. Returns the round's line: its wall
@@ -2281,13 +2354,15 @@ def cli_round(torch, label: str, argv: list, stdin: str, must_launch: tuple,
     torch.cuda.reset_peak_memory_stats()
     for mod in (da, pa, qm):
         mod.reset_launches()
-    code, out, err = run_cli(argv, stdin)
-    torch.cuda.synchronize()
+    with decode_record(torch, {} if record is None else record):
+        code, out, err = run_cli(argv, stdin)
     launched = {k: v for k, v in {**da.launches, **pa.launches, **qm.launches}.items()
                 if k in FLOAT_ATTENTION or k in must_launch}
     if code != 0:
         raise RuntimeError(f"{label}: cli exited {code}: {err[-2000:]}")
     doc = json.loads(out)
+    if record is not None:
+        record["decode_s"] = cli_decode_s(doc)
     if doc_out is not None:
         doc_out["doc"] = doc
     bad = [r["error"] for r in doc["results"] if r["error"]]
@@ -2364,14 +2439,29 @@ def phase_cli(torch) -> dict:
                 raise RuntimeError(f"{part}: warm-up round exited {code}: {err[-2000:]}")
             load_s = time.monotonic() - t
             session = f"smoke-{part}"
+            recs = [{}, {}]
             r1 = cli_round(torch, f"{part} round 1, speculation on",
                            ["critique", "--models", models, "--session", session, *common],
-                           spec, (b_round1,))
+                           spec, (b_round1,), record=recs[0])
             emit({"phase": "cli round", "part": part, **r1})
+            if part == "dense":
+                # Round 1 again in a session of its own (the same prompts)
+                # on the eager body; the paged round's twin is phase paged's.
+                def again():
+                    code, out, err = run_cli(["critique", "--models", models, "--session",
+                                              f"{session}-eager", *common], spec)
+                    if code != 0:
+                        raise RuntimeError(f"{part}: eager round exited {code}: {err[-2000:]}")
+                    return cli_decode_s(json.loads(out))
+
+                report.setdefault("graphs", []).append(
+                    eager_twin(torch, f"cli {part} round 1", recs[0], again))
             r2 = cli_round(torch, f"{part} round 2, speculation off",
                            ["critique", "--resume", session, "--no-speculative", *common],
-                           "", (b_round2,))
+                           "", (b_round2,), record=recs[1])
             emit({"phase": "cli round", "part": part, **r2})
+            report.setdefault("graphs", []).append(
+                graphs_line(f"cli {part} round 2", recs[1]))
             if r2["round_num"] != 2:
                 raise RuntimeError(f"{part}: --resume ran round {r2['round_num']}")
             if part == "paged" and r2["prefix_cache"]["hits"] == 0:
@@ -2752,9 +2842,12 @@ def phase_pool(torch, ckpt: str) -> dict:
     four stay resident: rounds 2 and 3 must load nothing. (b) A fresh engine
     under ``ADVSPEC_HBM_BUDGET_BYTES`` = pool-a + pool-b + half of pool-c
     (two of the four fit) and ``--weight-host-mb 48000``: the rounds must
-    demote, promote and consume a prefetch. Every alias's greedy text and
-    generated ids must be identical between (a) and (b) (random weights
-    pick many ids outside a ~3000-token vocabulary, which decode drops).
+    demote, promote and consume a prefetch. (a) runs the decode loops'
+    eager bodies, (b) their CUDA graphs (a promoted model captures anew).
+    Every alias's greedy text and generated ids must be identical between
+    (a) and (b) (random weights pick many ids outside a ~3000-token
+    vocabulary, which decode drops); each (b) round prints a ``graphs``
+    line beside its (a) round.
     Each round prints a ``cli round`` line with its
     residency counters, the swaps the ledger committed (bytes, seconds),
     the prefetch hits and the encode seconds per prompt."""
@@ -2785,6 +2878,9 @@ def phase_pool(torch, ckpt: str) -> dict:
             sizes = {a: estimate_param_bytes(registry.resolve_model_spec(f"tpu://{a}"))
                      for a in POOL}
             report["weight_bytes"] = sizes
+            from adversarial_spec_tpu_torch.engine import device_loop
+
+            recs: dict = {}
             for part in ("a", "b"):
                 if part == "b":
                     budget = sizes["pool-a"] + sizes["pool-b"] + sizes["pool-c"] // 2
@@ -2808,8 +2904,13 @@ def phase_pool(torch, ckpt: str) -> dict:
                 ):
                     encodes, decodes = [], {}
                     n_swaps, hits = len(committed), engine.prefetch_hits
-                    with recording_tokenizers(encodes, decodes):
-                        r = cli_round(torch, f"pool ({part}) {label}", argv, stdin, must)
+                    rec = recs.setdefault((part, label), {})
+                    with recording_tokenizers(encodes, decodes), \
+                            (device_loop.eager() if part == "a" else contextlib.nullcontext()):
+                        r = cli_round(torch, f"pool ({part}) {label}", argv, stdin, must,
+                                      record=rec)
+                    if part == "b":
+                        r["graphs"] = graphs_line(f"pool {label}", rec, recs["a", label])
                     swaps = committed[n_swaps:]
                     ids = {a: decodes[os.path.join(tok_root, t, "tokenizer.json")]
                            for a, (t, _) in POOL.items()}
@@ -2844,6 +2945,9 @@ def phase_pool(torch, ckpt: str) -> dict:
             raise RuntimeError("pool (b) consumed no prefetch")
         if texts["a"] != texts["b"]:
             raise RuntimeError("pool: greedy text or ids differ between (a) and (b)")
+        for r in report["b"]:
+            if r["weights"]["promotions"] and not r["graphs"]["captures"]:
+                raise RuntimeError(f"pool (b) {r['round']}: promoted models captured nothing")
     finally:
         if prev_budget is None:
             os.environ.pop("ADVSPEC_HBM_BUDGET_BYTES", None)
@@ -3550,6 +3654,80 @@ def recording_generate_ids(calls: list):
         gpu.generate = real
 
 
+@contextlib.contextmanager
+def decode_record(torch, out: dict, eager: bool = False):
+    """While the block runs, the decode loops' counters (``device_loop``:
+    captures, replays, eager steps, chunks, steps past the reference's
+    exit, the graph pools' bytes) and the ids of every ``generate`` call
+    and batcher drain of ``GpuEngine``, into ``out``; with ``eager`` the
+    loops run their eager bodies on the card."""
+    from adversarial_spec_tpu_torch.engine import device_loop
+
+    calls: list = []
+    device_loop.reset_stats()
+    with (device_loop.eager() if eager else contextlib.nullcontext()), \
+            recording_ids(calls), recording_generate_ids(calls):
+        yield
+    torch.cuda.synchronize()
+    out.update(device_loop.snapshot(), ids=calls)
+
+
+def eager_twin(torch, label: str, graphs: dict, call) -> dict:
+    """``call()`` (the round ``graphs`` recorded; it returns the round's
+    decode seconds) once more with the decode loops' eager bodies on the
+    card: the ids must equal the graphs run's, which must have replayed
+    graphs. The twin is a comparison, not the main path: its launches are
+    taken back out of the counters. Emits and returns the ``graphs`` line
+    (ms a decode step of each, captures, replays, steps past the exit,
+    graph pool bytes, the card)."""
+    from adversarial_spec_tpu_torch.engine import device_loop
+
+    saved = [dict(c) for c in device_loop.counters()]
+    eager: dict = {}
+    with decode_record(torch, eager, eager=True):
+        eager["decode_s"] = call()
+    for counts, was in zip(device_loop.counters(), saved):
+        counts.update(was)
+    line = graphs_line(label, graphs, eager)
+    if not line["ids_equal"]:
+        raise RuntimeError(f"{label}: the graphs' ids differ from the eager body's: {line}")
+    return line
+
+
+def same_ids(a: list, b: list) -> bool:
+    """The same calls' ids, in any order (a pool serves its resident
+    models first)."""
+    return sorted(map(json.dumps, a)) == sorted(map(json.dumps, b))
+
+
+def graphs_line(label: str, graphs: dict, eager: dict | None = None) -> dict:
+    """The ``graphs`` line of a round recorded by ``decode_record`` (and of
+    its eager twin): the graphs must have replayed, the twin captured and
+    replayed nothing."""
+    steps = graphs["replays"] + graphs["eager_steps"]
+    line = {
+        "phase": "graphs", "of": label, "captures": graphs["captures"],
+        "replays": graphs["replays"], "sub_chunk": graphs["sub_chunk"],
+        "chunks": graphs["chunks"], "steps": steps,
+        "past_exit_steps": graphs["past_exit_steps"], "pool_bytes": graphs["pool_bytes"],
+        "ms_per_step": 1e3 * graphs["decode_s"] / steps if steps else None,
+    }
+    if eager is not None:
+        line.update(
+            eager_steps=eager["eager_steps"], eager_past_exit_steps=eager["past_exit_steps"],
+            eager_ms_per_step=(1e3 * eager["decode_s"] / eager["eager_steps"]
+                               if eager["eager_steps"] else None),
+            ids_equal=same_ids(graphs["ids"], eager["ids"]),
+        )
+    line["card"] = card()
+    emit(line)
+    if graphs["replays"] == 0:
+        raise RuntimeError(f"{label}: no decode step replayed a graph: {line}")
+    if eager is not None and (eager["captures"] or eager["replays"]):
+        raise RuntimeError(f"{label}: the eager twin ran graphs: {line}")
+    return line
+
+
 def phase_pgen(torch) -> dict:
     """The round-synchronous ``generate(paged=True)``: a temporary
     registry entry random-8b with kv="paged" and max_seq_len=256, four
@@ -3593,13 +3771,13 @@ def phase_pgen(torch) -> dict:
             first: list = []
             calls: list = []
             box: dict = {}
+            rec: dict = {}
+            argv = ["critique", "--models", models, "--greedy", "--max-new-tokens",
+                    str(PGEN_NEW_TOKENS), "--json", *extra]
             with capturing_first_call(transformer, "paged_decode_attention", first), \
                     recording_generate_ids(calls):
-                line = cli_round(
-                    torch, f"pgen {part}",
-                    ["critique", "--models", models, "--greedy", "--max-new-tokens",
-                     str(PGEN_NEW_TOKENS), "--json", *extra],
-                    spec, (must,), doc_out=box)
+                line = cli_round(torch, f"pgen {part}", argv, spec, (must,), doc_out=box,
+                                 record=rec)
             launched = {k: v for k, v in {**da.launches, **pa.launches, **qm.launches}.items()
                         if v}
             stray = {k: v for k, v in launched.items() if k != must}
@@ -3607,6 +3785,17 @@ def phase_pgen(torch) -> dict:
                 raise RuntimeError(f"pgen {part}: kernels other than {must} launched: {stray}")
             if engine._models["random-8b"].batcher is not None:
                 raise RuntimeError(f"pgen {part}: the engine built a batcher")
+            if part == "paged":
+                # The same round on the eager body.
+                def again():
+                    code, out, err = run_cli(argv, spec)
+                    if code != 0:
+                        raise RuntimeError(f"pgen eager round exited {code}: {err[-2000:]}")
+                    return cli_decode_s(json.loads(out))
+
+                line["graphs"] = eager_twin(torch, f"pgen {part}", rec, again)
+            else:
+                line["graphs"] = graphs_line(f"pgen {part}", rec)
             del engine  # the next part's round must not find these weights resident
             if len(calls) != 1:
                 raise RuntimeError(f"pgen {part}: {len(calls)} generate() calls, expected 1")
@@ -4375,7 +4564,38 @@ def phase_agree(torch) -> dict:
         else:
             report.update(entry)
     report["mesh"] = agree_on_meshes(torch, base, cfg, prompts)
+    report["graph_draws"] = graph_draws(torch)
     return report
+
+
+def graph_draws(torch) -> dict:
+    """A sampled step replayed as a CUDA graph draws anew at every replay:
+    16 steps of ``device_loop`` each write one uniform draw from a
+    non-default generator (registered with the graph), and all 16 must
+    differ; a second run from the same seed gives the same 16."""
+    from adversarial_spec_tpu_torch.engine import device_loop
+
+    runs = []
+    for _ in range(2):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(0)
+        out = torch.zeros(16, device="cuda")
+        i = torch.zeros((), dtype=torch.int64, device="cuda")
+        loop = device_loop.Loop(torch.device("cuda"), device_loop.Graphs())
+
+        def step():
+            out.scatter_(0, i.reshape(1), torch.rand(1, device="cuda", generator=gen))
+            i.add_(1)
+            loop.end(i < 16)
+
+        loop.end(i < 16)
+        device_loop.reset_stats()
+        loop.run(step, 16, ("graph_draws",), (gen,))
+        runs.append(out.tolist())
+        replays = device_loop.snapshot()["replays"]
+    if len(set(runs[0])) != 16 or runs[0] != runs[1] or replays != 15:
+        raise RuntimeError(f"sampled graph replays drew {runs} ({replays} replays)")
+    return {"distinct_draws": 16, "replays": replays, "same_seed_same_draws": True}
 
 
 def agree_on_meshes(torch, base, cfg, prompts) -> dict:
@@ -4688,12 +4908,15 @@ def mesh_steps(da, pa, mesh, n_layers: int, label: str) -> dict:
 MESH_IDS: dict = {}
 
 
-def mesh_round(torch, engine, reqs, sp, label: str, must_launch: tuple) -> dict:
+def mesh_round(torch, engine, reqs, sp, label: str, must_launch: tuple,
+               graphs: str = "") -> dict:
     """One chat() round on a mesh alias: every counter zeroed just before
     and read just after; each name of ``must_launch`` must have served
     every shard this process holds at least once (``mesh_counts``), and
     each wrapper's launches must be one a device group a layer a decode
-    step (``mesh_steps``). The round's generated ids go to ``MESH_IDS``."""
+    step (``mesh_steps``). The round's generated ids go to ``MESH_IDS``.
+    ``graphs``: "line" prints the round's ``graphs`` line, "twin" also
+    runs it on the eager body (``eager_twin``)."""
     from adversarial_spec_tpu_torch.ops import decode_attention as da
     from adversarial_spec_tpu_torch.ops import paged_attention as pa
     from adversarial_spec_tpu_torch.parallel import collectives
@@ -4705,9 +4928,9 @@ def mesh_round(torch, engine, reqs, sp, label: str, must_launch: tuple) -> dict:
     torch.cuda.reset_peak_memory_stats()
     t = time.monotonic()
     ids: list = []
-    with recording_generate_ids(ids):
+    rec: dict = {}
+    with recording_generate_ids(ids), decode_record(torch, rec):
         comps = engine.chat(reqs, sp)
-    torch.cuda.synchronize()
     wall = time.monotonic() - t
     MESH_IDS[label] = ids
     bad = [c.error for c in comps if not c.ok]
@@ -4740,6 +4963,13 @@ def mesh_round(torch, engine, reqs, sp, label: str, must_launch: tuple) -> dict:
         "attention_per_decode_step": per_step,
     }
     emit({"phase": "mesh round", **line})
+    rec["decode_s"] = decode_s
+    if graphs == "twin":
+        line["graphs"] = eager_twin(
+            torch, f"mesh {label}", rec,
+            lambda: sum(c.usage.decode_time_s for c in engine.chat(reqs, sp)))
+    elif graphs == "line":
+        line["graphs"] = graphs_line(f"mesh {label}", rec)
     return line
 
 
@@ -4816,12 +5046,12 @@ def phase_mesh(torch) -> dict:
         with capturing_first_call(transformer, "decode_attention_tp", first):
             report["rounds"].append(mesh_round(
                 torch, engine, reqs("random-70b"), sp, "70b tp=8 speculation on",
-                ("decode_attention_mq",)))
+                ("decode_attention_mq",), graphs="line"))
         spec_mod.configure(enabled=False)
         try:
             report["rounds"].append(mesh_round(
                 torch, engine, reqs("random-70b"), sp, "70b tp=8 speculation off",
-                ("decode_attention_tp",)))
+                ("decode_attention_tp",), graphs="twin"))
         finally:
             spec_mod.configure(enabled=True)
         report["w1_first_call_err"] = held_first_call(
@@ -4841,7 +5071,7 @@ def phase_mesh(torch) -> dict:
         engine = GpuEngine(devices=[dev] * 2)
         report["rounds"].append(mesh_round(
             torch, engine, reqs("mesh-dp2"), sp, "8b dp=2 dense",
-            ("decode_attention_mq", "decode_attention_tp")))
+            ("decode_attention_mq", "decode_attention_tp"), graphs="line"))
         dropped(engine, "8b dp=2")
 
         engine = GpuEngine(devices=[dev] * 2)
@@ -4858,7 +5088,7 @@ def phase_mesh(torch) -> dict:
                     capturing_logits() as mesh_logits:
                 report["rounds"].append(mesh_round(
                     torch, engine, reqs("mesh-tp2-paged"), sp, "8b tp=2 paged",
-                    ("paged_decode_attention_tp",)))
+                    ("paged_decode_attention_tp",), graphs="line"))
         finally:
             gpu_mod.generate = real
         report["w3_first_call_err"] = held_first_call(
@@ -4891,7 +5121,7 @@ def phase_mesh(torch) -> dict:
         with capturing_first_call(transformer, "paged_decode_attention_dp_tp", first):
             report["rounds"].append(mesh_round(
                 torch, engine, reqs("mesh-dp2tp2-paged"), sp, "8b dp=2 tp=2 paged",
-                ("paged_decode_attention_dp_tp",)))
+                ("paged_decode_attention_dp_tp",), graphs="twin"))
         report["w2_first_call_err"] = held_first_call(
             torch, first, pa.paged_decode_attention_dp_tp_plain, "W2", checks)
         first.clear()
@@ -5778,7 +6008,17 @@ def main(argv: list[str]) -> int:
 
     if only:  # iteration on the named phases; no kernels or ok line
         for name in only:
-            run(name, globals()[f"phase_{name}"], torch)
+            if name == "pool":  # phase hf writes the checkpoint phase pool serves
+                ckpt = tempfile.mkdtemp(prefix="hf-8b-", dir=os.path.join(HERE, "build"))
+                try:
+                    with depth(HF_POOL_LAYERS):
+                        run("hf", phase_hf, torch, ckpt)
+                        run("pool", phase_pool, torch, ckpt)
+                finally:
+                    shutil.rmtree(ckpt, ignore_errors=True)
+                continue
+            kw = {"profile": profile} if name in ("slice", "paged", "quant", "kv8") else {}
+            run(name, globals()[f"phase_{name}"], torch, **kw)
         emit({"phase": "seconds", **seconds})
         print(smi_line, flush=True)
         return 0
