@@ -4,7 +4,7 @@
     python3 chip_smoke.py            # every phase (needs one CUDA card)
     python3 chip_smoke.py --quick    # device, build and kernel phases only
     python3 chip_smoke.py --profile  # also profile one more chat call
-    python3 chip_smoke.py --only slice,paged,quant,kv8,cli,pool,batcher,pgen,serve,fleet,mesh,sp,multihost,agree
+    python3 chip_smoke.py --only slice,paged,quant,kv8,cli,pool,batcher,pgen,serve,fleet,chaos,replay,mesh,sp,multihost,agree
                                      # device, build and the named phases
                                      # only (no kernels or ok line;
                                      # pool runs hf first;
@@ -257,7 +257,30 @@ Phases, each printing one JSON line; any failure exits non-zero:
    rehydrating blocks and its ``check`` clean. ``fleet round``, ``fleet
    scale`` and ``fleet failover`` lines; (a)'s and (c)'s B3/B4 launches
    join the kernels line;
-15. mesh   — the multi-device mesh from ``GpuEngine.chat`` on virtual
+15. chaos  — the port's chaos runner on the card
+   (``tools/chaos_run_torch.py``): its weight-swap drill,
+   ``run_weight_swap(device="cuda:0")``: tpu://random-tiny and
+   tpu://random-mistral-tiny through ``GpuEngine`` under a budget of 1.5x
+   the first model's weight bytes (every round swaps), a fault injected
+   mid-promotion, speculation off (B1, each step a CUDA graph replay):
+   the drill's failures empty (the faulted admission alone degrades, the
+   ledger clean, the autodump reconstructs the swap, the retry promotes
+   to byte-identical text), B1 launched and its first call held to the
+   plain version; a ``chaos weight-swap`` line with the payload, the
+   graphs the retry captured and its promotion's seconds;
+16. replay — the port's load harness on the card
+   (``tools/load_replay_torch.py``): ``replay_once`` against an
+   in-process port daemon serving two tpu://random-8b opponents
+   (``--kv paged``, the Llama-3 tokenizer fixture), the seeded trace of
+   16 debates (mean inter-arrival 2 s; 96 new tokens interactive, 384
+   batch) replayed open-loop at 1x and 4x with speculation on (B4) and
+   at 4x with it off (B3), one weight load across the runs: no accepted
+   debate lost, every one completed, the daemon's ``check`` ok, B4 and
+   B3 launched and their first calls held to the plain versions. One
+   ``replay`` line a run (the harness's metrics, its SLO breaches,
+   output tokens/s, launches, peak memory, the card); B1's (chaos), B3's
+   and B4's launches join the kernels line;
+17. mesh   — the multi-device mesh from ``GpuEngine.chat`` on virtual
    meshes (``GpuEngine(devices=[cuda] * n)``: every shard on the one
    card), four opponents, a ~3 KB spec, 64 new tokens, greedy: (a)
    tpu://random-70b on its own {"tp": 8} mesh at full width (Llama-3-70B:
@@ -277,7 +300,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    lines carry the mesh, its devices and which collective ran. With two
    or more cards it also runs (b)'s tp=2 alias through ``critique``
    over cuda:0 and cuda:1 (NCCL); with one it says it did not;
-16. sp     — the sequence-parallel axis from ``GpuEngine.chat`` on
+18. sp     — the sequence-parallel axis from ``GpuEngine.chat`` on
    registry aliases with an sp mesh axis, virtual meshes on the one card,
    greedy, speculation at its default, 32 new tokens: (a) Llama-3.2-3B at
    full width and depth on {"sp": 4}, dense, two opponents on a
@@ -294,24 +317,25 @@ Phases, each printing one JSON line; any failure exits non-zero:
    each engine is dropped and device memory must fall back. ``sp round``
    lines give wall, prefill and decode seconds, tok/s, peak memory,
    weight bytes, launches and which way each collective ran;
-17. multihost — the launch one process a host: two child processes of
+19. multihost — the launch one process a host: two child processes of
    this script (``--multihost-child``) on 127.0.0.1 with the reference's
    env contract, both on cuda:0, so every collective between them takes
-   the ``dist`` way staged over gloo. Each serves phase mesh's rounds
-   over its half of each mesh through ``GpuEngine.chat``: 70B on {"tp":
-   8} (four shards a process) with speculation on (B2, W1 in the tail)
-   and off (W1), random-8b on {"dp": 2} (one shard a process) and on
-   {"dp": 2, "tp": 2} paged (W2). Each child holds its first W1, B2 and
-   W2 calls to their plain versions and needs the ``dist`` way in every
-   round; both children's ids must equal each other and phase mesh's
-   (the single-process virtual mesh; computed in this process under
-   ``--only multihost``). Then phase sp's cases over half of each mesh:
-   70B at 8 layers on {"sp": 2, "tp": 8}, random-8b on {"sp": 2} paged
+   the ``dist`` way staged over gloo. Every model runs at full width with
+   its first ``MULTIHOST_LAYERS`` = 2 layers (the cut). Each serves phase
+   mesh's rounds over its half of each mesh through ``GpuEngine.chat``:
+   70B on {"tp": 8} (four shards a process) with speculation on (B2, W1
+   in the tail) and off (W1), random-8b on {"dp": 2} (one shard a
+   process) and on {"dp": 2, "tp": 2} paged (W2). Each child holds its
+   first W1, B2 and W2 calls to their plain versions and needs the
+   ``dist`` way in every round; both children's ids must equal each
+   other and the single-process virtual mesh's at the same depth
+   (computed in this process first). Then phase sp's cases over half of
+   each mesh: 70B on {"sp": 2, "tp": 8}, random-8b on {"sp": 2} paged
    with int8 KV, Llama-3.2-3B on {"sp": 4} at ~16k tokens (two sp ranks
    a process); process 1 holds sp ranks >= 1 only and decodes there
    (its first W1, W3-i8 and B2 calls held to the plain versions), the
    ring's hops cross between the processes (counted, > 0), ids equal
-   across ranks and to phase sp's. Then a ``critique`` pair
+   across ranks and to one process's. Then a ``critique`` pair
    (``--multihost-cli``: ``python -m adversarial_spec_tpu_torch.cli
    critique`` on four tpu://random-8b opponents in each child, dp=2 over
    them): rc 0, equal reports (walls and trace ids masked), ``dist`` > 0,
@@ -324,7 +348,7 @@ Phases, each printing one JSON line; any failure exits non-zero:
    phase sp's {"sp": 2} paged int8 round with NCCL between the processes
    (W3; the ring's hops over NCCL), held to one process's run over both
    cards; with one card the phase says it did not run;
-18. agree  — tiny f32 models decoded greedily on the card (kernels) and on
+20. agree  — tiny f32 models decoded greedily on the card (kernels) and on
    the CPU (plain versions) give identical tokens: dense generate() with
    speculation on (B2, or B2-i8, must launch), generate(paged=True) (B3,
    or B3-i8), and the paged batcher with speculation on and off (off: at
@@ -373,7 +397,7 @@ HERE = os.path.dirname(os.path.abspath(__file__))
 PKG = "adversarial_spec_tpu_torch"
 # The phases ``--only`` runs (each ``phase_<name>(torch)``).
 ONLY_PHASES = ("slice", "paged", "quant", "kv8", "cli", "pool", "batcher", "pgen", "serve",
-               "fleet", "mesh", "sp", "multihost",
+               "fleet", "chaos", "replay", "mesh", "sp", "multihost",
                "multihost_nccl", "agree")
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 PEAK_OPS = {"bfloat16": 989e12, "float32": 67e12}  # dense, per second
@@ -4439,6 +4463,206 @@ def phase_fleet(torch) -> dict:
     return report
 
 
+def phase_chaos(torch) -> dict:
+    """The port's weight-swap fault drill on the card:
+    ``tools/chaos_run_torch.py``'s ``run_weight_swap(device="cuda:0")``
+    (two tiny models, tpu://random-tiny and tpu://random-mistral-tiny,
+    under a device-memory budget of 1.5x the first model's weight bytes,
+    so every round swaps; a fault injected at the ``weight_swap`` seam;
+    speculation off, so decode runs B1, each step a CUDA graph replay).
+    Its failures must be empty, B1 must launch (counters zeroed just
+    before the drill and read just after) and B1's first call is
+    recomputed by its plain version on the card (bf16 tolerance). One
+    ``chaos weight-swap`` line: the drill's payload (victim, swap faults,
+    promotions, the retry byte-identical, the autodump's event kinds,
+    the graphs the retry captured and its promotion's seconds), launches
+    and the card."""
+    from adversarial_spec_tpu_torch.models import transformer
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+    from adversarial_spec_tpu_torch.ops import quant_matmul as qm
+    from tools import chaos_run_torch
+
+    checks: list = []
+    first: list = []
+    for mod in (da, pa, qm):
+        mod.reset_launches()
+    t = time.monotonic()
+    with capturing_first_call(transformer, "decode_attention", first):
+        failures, payload = chaos_run_torch.run_weight_swap(verbose=False, device="cuda:0")
+    torch.cuda.synchronize()
+    wall = time.monotonic() - t
+    launched = {k: v for k, v in {**da.launches, **pa.launches, **qm.launches}.items() if v}
+    line = {"phase": "chaos weight-swap", "failures": failures, **payload,
+            "wall_s": wall, "launches": launched, "card": card()}
+    if first:
+        (args, kwargs, got) = first[0]
+        line["b1_first_call_max_abs_err"] = check_close(
+            checks, f"chaos first B1 call {list(args[0].shape)}", got,
+            da.decode_attention_plain(*args, **kwargs), BF16_TOL)
+    emit(line)
+    if failures:
+        raise RuntimeError(f"chaos weight-swap: {failures}")
+    if not launched.get("decode_attention"):
+        raise RuntimeError(f"chaos weight-swap: B1 never launched: {launched}")
+    if not first:
+        raise RuntimeError("chaos weight-swap: B1's first call was not captured")
+    torch.cuda.empty_cache()
+    return {"phase": "chaos", "weight_swap": line, "checks": checks,
+            "launches": {"decode_attention": launched["decode_attention"]}}
+
+
+# Phase replay: the port's open-loop load harness against its daemon.
+REPLAY_TRACE = dict(seed=0, requests=16, mean_interarrival_s=2.0)
+# (label, rate multiplier, speculation): the trace at 1x and 4x as the
+# daemon serves by default (speculation on: every batcher step verifies a
+# span, B4), then at 4x with speculation off (S=1 steps, B3).
+REPLAY_RUNS = (("1x", 1.0, True), ("4x", 4.0, True), ("4x speculation off", 4.0, False))
+# A debate's results are collected after the whole schedule has fired: a
+# deadline sized to the trace (16 debates of 96 or 384 new tokens on one
+# host-bound batcher), not the harness's 120 s default, so a slow tail
+# does not read as loss.
+REPLAY_COLLECT_TIMEOUT_S = 900.0
+
+
+@contextlib.contextmanager
+def recording_replay(box: dict):
+    """While the block runs, the port client's ``collect`` keeps each
+    debate's last event in ``box["results"]``, and its ``drain`` asks the
+    daemon's ``check`` op first (every debate of the run resolved by
+    then) into ``box["check"]``."""
+    from adversarial_spec_tpu_torch.serve.client import ServeClient
+
+    real_collect, real_drain = ServeClient.collect, ServeClient.drain
+
+    def collect(self, req_id, *args, **kwargs):
+        evs = real_collect(self, req_id, *args, **kwargs)
+        box.setdefault("results", []).append(evs[-1])
+        return evs
+
+    def drain(self, *args, **kwargs):
+        box["check"] = self.check()
+        return real_drain(self, *args, **kwargs)
+
+    ServeClient.collect, ServeClient.drain = collect, drain
+    try:
+        yield
+    finally:
+        ServeClient.collect, ServeClient.drain = real_collect, real_drain
+
+
+def phase_replay(torch) -> dict:
+    """The port's trace-replay load harness on the card:
+    ``tools/load_replay_torch.py``'s ``replay_once`` against an
+    in-process port daemon serving ``models=`` two tpu://random-8b
+    opponents (Llama-3-8B at full width, bf16, random weights from seed
+    0) on a ``registry add-model --kv paged`` entry that reads
+    tests/torch_tokenizers/llama3/tokenizer.json, the trace
+    ``SynthSpec(seed=0, requests=16, mean_interarrival_s=2.0)`` (its
+    tiers' budgets: 96 new tokens interactive, 384 batch; sampled, as the
+    harness submits), replayed open-loop at 1x and 4x with speculation on
+    (the default serving path: B4) and at 4x with it off (B3). The
+    weights load once, before the first run, and stay in the port's
+    dispatch cache across the runs. Each run prints a ``replay`` line:
+    the harness's metrics (offered, accepted, completed, shed, lost,
+    debates/s, TTFT and round p50/p95/p99, schedule lateness, pressure),
+    ``slo_breaches`` against the default SLOSpec (reported, not gated),
+    output tokens and their rate over the run's wall, launches, weight
+    loads, peak device memory and the card. Gates: no accepted debate
+    lost and every one completed, the daemon's ``check`` ok, B4 launched
+    in each speculative run and B3 in the other, their first calls held
+    to the plain versions (bf16 tolerance), one weight load in all."""
+    from adversarial_spec_tpu_torch.engine import dispatch, spec, weightres
+    from adversarial_spec_tpu_torch.models import transformer
+    from adversarial_spec_tpu_torch.ops import decode_attention as da
+    from adversarial_spec_tpu_torch.ops import paged_attention as pa
+    from adversarial_spec_tpu_torch.ops import quant_matmul as qm
+    from tools import load_replay_torch as lr
+
+    model = "tpu://random-8b"
+    pool = (model, model)
+    tok_dir = os.path.join(HERE, "tests", "torch_tokenizers", "llama3")
+    reqs = lr.synthesize(lr.SynthSpec(**REPLAY_TRACE))
+    report: dict = {"phase": "replay", "model": f"{model} (kv=paged, llama3 tokenizer)",
+                    "models": list(pool), "trace": REPLAY_TRACE, "runs": []}
+    checks: list = []
+    b3, b4 = "paged_decode_attention", "paged_decode_attention_mq"
+    launched_all = {b3: 0, b4: 0}
+    with cli_state():
+        code, _, err = run_cli(["registry", "add-model", "random-8b", "--family", "llama",
+                                "--size", "8b", "--kv", "paged", "--tokenizer", tok_dir])
+        if code != 0:
+            raise RuntimeError(f"registry add-model failed: {err}")
+        weightres.reset_stats()
+        t = time.monotonic()
+        dispatch.get_engine(model)._load("random-8b")
+        torch.cuda.synchronize()
+        report["load_s"] = time.monotonic() - t
+        for label, rate, speculative in REPLAY_RUNS:
+            spec.configure(enabled=speculative)
+            must = b4 if speculative else b3
+            first: list = []
+            box: dict = {}
+            for mod in (da, pa, qm):
+                mod.reset_launches()
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            with capturing_first_call(transformer, must, first), recording_replay(box):
+                res = lr.replay_once(reqs, rate, models=pool,
+                                     collect_timeout_s=REPLAY_COLLECT_TIMEOUT_S)
+            torch.cuda.synchronize()
+            m = res.metrics
+            launched = {k: v for k, v in {**da.launches, **pa.launches, **qm.launches}.items()
+                        if v}
+            done = [r for r in box.get("results", []) if r.get("event") == "result"]
+            out_tokens = sum(x.get("output_tokens", 0) for r in done for x in r["results"])
+            line = {
+                "phase": "replay", "run": label, "speculative": speculative, **m,
+                "slo_breaches": lr.slo_breaches(m, lr.SLOSpec()),
+                "output_tokens": out_tokens,
+                "output_tokens_per_s": out_tokens / m["wall_s"] if m["wall_s"] else None,
+                "check": box.get("check"), "launches": launched,
+                "weight_loads": weightres.snapshot()["loads"],
+                "max_memory_allocated_bytes": torch.cuda.max_memory_allocated(),
+                "card": card(),
+            }
+            if first:
+                (args, kwargs, got) = first[0]
+                plain = (pa.paged_decode_attention_mq_plain if speculative
+                         else pa.paged_decode_attention_plain)
+                line[f"{must}_first_call_max_abs_err"] = check_close(
+                    checks, f"replay {label} first {must} call {list(args[0].shape)}", got,
+                    plain(*args, **kwargs), BF16_TOL)
+                del args, kwargs, got
+            first.clear()
+            emit(line)
+            report["runs"].append(line)
+            bad = []
+            if m["lost"] or m["completed"] != m["accepted"]:
+                bad.append(f"{m['lost']} lost, {m['completed']} of {m['accepted']} completed")
+            chk = box.get("check") or {}
+            if not chk.get("ok") or chk.get("checked") != 1:
+                bad.append(f"check: {chk}")
+            if not launched.get(must):
+                bad.append(f"{must} never launched: {launched}")
+            if f"{must}_first_call_max_abs_err" not in line:
+                bad.append(f"{must}'s first call was not captured")
+            if bad:
+                raise RuntimeError(f"replay {label}: " + "; ".join(bad))
+            for k in launched_all:
+                launched_all[k] += launched.get(k, 0)
+        weights = weightres.snapshot()
+        report["weights"] = {k: weights[k] for k in ("loads", "load_s", "demotions",
+                                                    "promotions")}
+        if weights["loads"] != 1:
+            raise RuntimeError(f"replay: {weights['loads']} weight loads, expected 1")
+    torch.cuda.empty_cache()
+    report["checks"] = checks
+    report["launches"] = launched_all
+    report["card"] = card()
+    return report
+
+
 def phase_agree(torch) -> dict:
     """Tiny f32 llama, full precision and quantized int8 and int4 from the
     same weights, and with an int8 KV cache beside full-precision and int4
@@ -5185,8 +5409,7 @@ def phase_sp(torch) -> dict:
     seconds, decode tok/s, peak memory, the weight bytes the card holds
     (the sp replicas share one copy), launches and which way each
     collective ran; each engine is dropped and device memory must fall
-    back. Each case's generated ids go to ``MESH_IDS`` (phase multihost
-    holds its sp rounds to them)."""
+    back. Each case's generated ids go to ``MESH_IDS``."""
     import gc
 
     from adversarial_spec_tpu_torch.engine import generate as gen_mod
@@ -5476,12 +5699,28 @@ MULTIHOST_NCCL_HOLD = ("paged_decode_attention_tp",)
 # mesh axis, so it runs dp=2 over them (W1, B2).
 MULTIHOST_CLI_ARGV = ("critique", "--models", ",".join(["tpu://random-8b"] * 4), "--greedy",
                       "--max-new-tokens", "64", "--json")
+# Phase multihost serves every model at this depth (full width, the first
+# layers only): the launch, the dist way, the ring's hops across processes
+# and ids equal across them do not need the rest, and the script's time
+# limit does not give it to them.
+MULTIHOST_LAYERS = 2
+MULTIHOST_MODELS = (("llama", "70b"), ("llama", "8b"), ("llama", "3b"))
 MULTIHOST_SPECS = (  # the 8B rounds' registry entries (phase mesh's)
     dict(alias="mesh-dp2", family="llama", size="8b", mesh={"dp": 2}),
     dict(alias="mesh-tp2-paged", family="llama", size="8b", mesh={"tp": 2}, kv="paged"),
     dict(alias="mesh-dp2tp2-paged", family="llama", size="8b", mesh={"dp": 2, "tp": 2},
          kv="paged"),
 )
+
+
+@contextlib.contextmanager
+def multihost_depth():
+    """While the block runs, every model of phase multihost keeps its full
+    width and only its first ``MULTIHOST_LAYERS`` layers."""
+    with contextlib.ExitStack() as stack:
+        for key in MULTIHOST_MODELS:
+            stack.enter_context(depth(MULTIHOST_LAYERS, key))
+        yield
 
 
 def multihost_rounds(torch, rounds, devices, hold: tuple = ()) -> dict:
@@ -5530,7 +5769,7 @@ def multihost_rounds(torch, rounds, devices, hold: tuple = ()) -> dict:
     specs = [registry.ModelSpec(**kw) for kw in MULTIHOST_SPECS]
     specs += [registry.ModelSpec(**case[1]) for case in SP_CASES]
     try:
-        with temp_registry(*specs), depth(8, ("llama", "70b")), contextlib.ExitStack() as stack:
+        with temp_registry(*specs), multihost_depth(), contextlib.ExitStack() as stack:
             for name, store in stores.items():
                 stack.enter_context(capturing_first_call(transformer, name, store))
             for label, alias, n, spec_on, must in rounds:
@@ -5772,7 +6011,7 @@ def multihost_cli_child(out_path: str) -> int:
     out = io.StringIO()
     t = time.monotonic()
     try:
-        with contextlib.redirect_stdout(out):
+        with contextlib.redirect_stdout(out), multihost_depth():
             runpy.run_module("adversarial_spec_tpu_torch.cli", run_name="__main__",
                              alter_sys=True)
         code = 0
@@ -5850,14 +6089,15 @@ def phase_multihost(torch) -> dict:
     child processes of this script on 127.0.0.1 with the reference's env
     contract (``JAX_COORDINATOR_ADDRESS``, ``JAX_NUM_PROCESSES``,
     ``JAX_PROCESS_ID``), both on cuda:0, so every collective between them
-    takes the ``dist`` way staged over gloo. Each runs ``GpuEngine.chat``
-    on phase mesh's rounds over its half of each mesh: (a)
-    tpu://random-70b on {"tp": 8} at full width with 8 of its 80 layers,
-    four shards a process, speculation on (B2, W1 in the tail) then off
-    (W1 every step); (b) random-8b at full width and depth on {"dp": 2},
-    one shard a process, speculation on; (c) random-8b on {"dp": 2,
-    "tp": 2} paged (W2). Then phase sp's cases over half of each mesh
-    (``MULTIHOST_SP_ROUNDS``): 70B at 8 layers on {"sp": 2, "tp": 8},
+    takes the ``dist`` way staged over gloo. Every model runs at full
+    width with its first ``MULTIHOST_LAYERS`` layers (``multihost_depth``).
+    Each runs ``GpuEngine.chat`` on phase mesh's rounds over its half of
+    each mesh: (a) tpu://random-70b on {"tp": 8}, four shards a process,
+    speculation on (B2, W1 in the tail) then off (W1 every step); (b)
+    random-8b on {"dp": 2}, one shard a process, speculation on; (c)
+    random-8b on {"dp": 2, "tp": 2} paged (W2). Then phase sp's cases
+    over half of each mesh (``MULTIHOST_SP_ROUNDS``): 70B on {"sp": 2,
+    "tp": 8},
     random-8b on {"sp": 2} paged with int8 KV, Llama-3.2-3B on {"sp": 4}
     at ~16k tokens; process 1 holds sp ranks >= 1 only and decodes
     there, and the ring's hops cross between the processes. Each child
@@ -5865,8 +6105,8 @@ def phase_multihost(torch) -> dict:
     W1, W3 (int8 KV) and B2 calls, to their plain versions, and needs
     the ``dist`` way in every round (and hops that crossed in every sp
     round); both children's ids must be identical, and equal to the
-    single-process virtual mesh's (phase mesh's and phase sp's rounds,
-    or computed here under ``--only``). Each child's peak device memory a
+    single-process virtual mesh's at the same depth (computed here
+    first). Each child's peak device memory a
     round and its seconds are recorded; their launches join the kernels
     line. Then the CLI pair (``launch_cli_pair``): ``critique`` on four
     tpu://random-8b opponents launched on both processes (dp=2 over
@@ -5881,15 +6121,12 @@ def phase_multihost(torch) -> dict:
     report = {"phase": "multihost", "processes": 2}
     cuda = lambda n: [torch.device("cuda")] * n  # noqa: E731
     want: dict = {}
+    t = time.monotonic()
     for rounds in (MULTIHOST_ROUNDS, MULTIHOST_SP_ROUNDS):
-        got = {label: MESH_IDS.get(label) for label, *_ in rounds}
-        if any(v is None for v in got.values()):
-            t = time.monotonic()
-            ref = multihost_rounds(torch, rounds, cuda)
-            got = {r["round"]: r["ids"] for r in ref["rounds"]}
-            report["reference_seconds"] = report.get("reference_seconds", 0.0) \
-                + time.monotonic() - t
-        want.update(got)
+        ref = multihost_rounds(torch, rounds, cuda)
+        want.update({r["round"]: r["ids"] for r in ref["rounds"]})
+    report["reference_seconds"] = time.monotonic() - t
+    report["layers"] = MULTIHOST_LAYERS
     gc.collect()
     torch.cuda.empty_cache()
     report.update(launch_pair(MULTIHOST_ROUNDS + MULTIHOST_SP_ROUNDS, want, "shared", "gloo"))
@@ -6113,6 +6350,10 @@ def main(argv: list[str]) -> int:
         pgen = run("pgen", phase_pgen, torch)
         sv = run("serve", phase_serve, torch)
         fl = run("fleet", phase_fleet, torch)
+        # The port's chaos runner (the weight-swap drill: B1) and load
+        # harness (an open-loop replay against the daemon: B4, B3).
+        ch = run("chaos", phase_chaos, torch)
+        rp = run("replay", phase_replay, torch)
         # The multi-device mesh (a virtual one on one card): W1-W3's
         # launches (one a device group) and shards served are this phase's.
         ms = run("mesh", phase_mesh, torch)
@@ -6123,7 +6364,7 @@ def main(argv: list[str]) -> int:
         # serving its half of phase mesh's rounds (W1, B2, W2) and of
         # phase sp's (W1, W3 on int8 KV, B2), then a critique pair.
         mh = run("multihost", phase_multihost, torch)
-        for ph in (bt, pgen, sv, fl, ms, spp, mh):
+        for ph in (bt, pgen, sv, fl, ch, rp, ms, spp, mh):
             for k, n in ph["launches"].items():
                 if kernel_row(k) in launches:
                     launches[kernel_row(k)] = (launches[kernel_row(k)] or 0) + n
@@ -6132,7 +6373,8 @@ def main(argv: list[str]) -> int:
                 shards[kernel_row(k)] = (shards[kernel_row(k)] or 0) + n
         ag = run("agree", phase_agree, torch)
         record.update(slice=sl, paged=pg, quant=qt, kv8=kv8, cli=cl, hf=hf, pool=pl,
-                      batcher=bt, pgen=pgen, serve=sv, fleet=fl, mesh=ms, sp=spp,
+                      batcher=bt, pgen=pgen, serve=sv, fleet=fl, chaos=ch, replay=rp,
+                      mesh=ms, sp=spp,
                       multihost=mh, agree=ag)
     emit({"phase": "seconds", **seconds})
     record["phase_seconds"] = seconds

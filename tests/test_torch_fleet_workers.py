@@ -3,9 +3,8 @@ reference's fleet chaos drills (``tests/test_fleet.py``'s worker and
 ``chaos`` classes), on ``python -m adversarial_spec_tpu_torch.fleet.worker``
 replicas serving the port's mock engine.
 
-The drills are the port's own copies of ``tools/chaos_run.py
---replica-kill`` / ``--handoff-kill`` (``tests/torch_fleet_support.py``),
-with the reference's asserts. Then one scripted worker-fleet round runs
+The drills are the port's chaos runner's (``tools/chaos_run_torch.py
+--replica-kill`` / ``--handoff-kill``), with the reference's asserts. Then one scripted worker-fleet round runs
 through both packages' fleets, and a worker serving ``tpu://`` on a
 machine without a GPU answers with the port's "no CUDA device" error.
 """
@@ -76,14 +75,14 @@ class TestWorkerTransport:
 @pytest.mark.chaos
 class TestReplicaKillChaos:
     """The tier-1 fleet chaos smoke: the FULL drill from
-    the replica-kill drill (tests/torch_fleet_support.py) — two worker replicas sharing one
+    the replica-kill drill (tools/chaos_run_torch.py) — two worker replicas sharing one
     KV store, the serving replica SIGKILLed after its 2nd completion,
     round completed on the survivor with byte-identical transcripts,
     zero duplicated opponent attempts, store rehydration, and clean
     survivor invariants."""
 
     def test_replica_kill_recovery_contract(self):
-        from tests.torch_fleet_support import run_replica_kill
+        from tools.chaos_run_torch import run_replica_kill
 
         failures, payload = run_replica_kill(verbose=False)
         assert failures == []
@@ -99,14 +98,14 @@ class TestReplicaKillChaos:
 @pytest.mark.chaos
 class TestHandoffKillChaos:
     """The tier-1 disagg chaos smoke: the FULL drill from
-    the handoff-kill drill (tests/torch_fleet_support.py) — a 1 prefill + 1 decode worker
+    the handoff-kill drill (tools/chaos_run_torch.py) — a 1 prefill + 1 decode worker
     fleet, the prefill replica SIGKILLed (a) after its publications
     are durable (handoff must still adopt) and (b) mid-publication
     (handoff must degrade to local prefill), byte-identical
     transcripts and zero duplicated completions throughout."""
 
     def test_handoff_kill_contract(self):
-        from tests.torch_fleet_support import run_handoff_kill
+        from tools.chaos_run_torch import run_handoff_kill
 
         failures, payload = run_handoff_kill(verbose=False)
         assert failures == []

@@ -52,9 +52,14 @@ ABSENT_ON_CARD = {
 }
 
 
+# The port's tools beside the reference's: its chaos runner and load
+# harness import the port, never the JAX package.
+PORT_TOOLS = [REPO / "tools" / "chaos_run_torch.py", REPO / "tools" / "load_replay_torch.py"]
+
+
 @pytest.mark.parametrize(
     "path",
-    sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py", *PORT_TOOLS],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_jax_or_reference_imports(path):
@@ -64,7 +69,7 @@ def test_no_jax_or_reference_imports(path):
 
 @pytest.mark.parametrize(
     "path",
-    sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py"],
+    sorted(PKG_DIR.rglob("*.py")) + [REPO / "chip_smoke.py", *PORT_TOOLS],
     ids=lambda p: str(p.relative_to(REPO)),
 )
 def test_no_imports_the_card_machine_lacks(path):
@@ -197,6 +202,32 @@ def test_package_imports_with_jax_blocked():
     }
     assert mesh_path <= set(mods)
     assert len(mods) >= 64
+
+
+def test_port_tools_import_with_jax_blocked():
+    """``tools/chaos_run_torch.py`` and ``tools/load_replay_torch.py``
+    import (the load harness runs its smallest replay) in a process where
+    jax and the reference package fail to import."""
+    code = (
+        "import sys\n"
+        "sys.modules['jax'] = None\n"
+        "sys.modules['adversarial_spec_tpu'] = None\n"
+        "from tools import chaos_run_torch, load_replay_torch as lr\n"
+        "reqs = lr.synthesize(lr.SynthSpec(seed=0, requests=2))\n"
+        "m = lr.replay_once(reqs, 4.0, poll_pressure=False).metrics\n"
+        "assert m['completed'] == 2 and m['lost'] == 0, m\n"
+        "assert callable(chaos_run_torch.run_weight_swap)\n"
+        "print('ok', sorted(k for k in sys.modules if k.startswith('adversarial_spec_tpu')\n"
+        "                   and not k.startswith('adversarial_spec_tpu_torch')))\n"
+    )
+    r = subprocess.run(
+        [sys.executable, "-c", code], cwd=REPO, capture_output=True,
+        text=True, timeout=120,
+    )
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.split()[0] == "ok"
+    # Only the blocked placeholder: nothing of the reference loaded.
+    assert r.stdout.split("ok", 1)[1].strip() == "['adversarial_spec_tpu']"
 
 
 def test_mock_fleet_worker_imports_no_torch(tmp_path):
